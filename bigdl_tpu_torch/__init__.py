@@ -2,13 +2,16 @@
 
 The JAX package ``bigdl_tpu`` stays the reference; this package mirrors its
 layout (``nn``, ``kernels``, ``models/transformerlm``, ``serving``,
-``utils``) and never imports it or JAX. Every Pallas kernel on a ported
+``optim``, ``dataset``, ``utils``) and never imports it or JAX. Every Pallas kernel on a ported
 path is a hand-written CUDA kernel here (``kernels/csrc``), built at first
 use. Entry points run on the GPU unless the caller passes ``device="cpu"``.
 
 Ported so far: the serving path of the TransformerLM (continuous-batching
 ``serving.ServingEngine`` over the KV-cached decode) and its full-sequence
-forward, with the LayerNorm and flash-attention forward kernels.
+forward, with the LayerNorm and flash-attention forward kernels; and its
+training step (``optim.LocalOptimizer`` with SGD or Adam over the
+``dataset`` host path), with the two flash-attention backward kernels.
+All four Pallas kernels of the JAX package have a CUDA counterpart.
 """
 
 __version__ = "0.1.0"

@@ -4,6 +4,8 @@
 | --- | --- | --- |
 | ``layer_norm_fwd`` | ``bigdl_tpu/kernels/layernorm.py:31`` | ``csrc/layernorm.cu`` |
 | ``flash_attention_fwd`` | ``bigdl_tpu/kernels/flash_attention.py:54`` | ``csrc/flash_attention.cu`` |
+| ``flash_attention_bwd_dq`` | ``bigdl_tpu/kernels/flash_attention.py:132`` | ``csrc/flash_attention_bwd.cu`` |
+| ``flash_attention_bwd_dkv`` | ``bigdl_tpu/kernels/flash_attention.py:199`` | ``csrc/flash_attention_bwd.cu`` |
 
 :func:`launch_counts` reads how often each kernel was launched since the
 last :func:`reset_launch_counts`, which is how a run shows that its path
@@ -13,14 +15,18 @@ went through the kernels.
 from bigdl_tpu_torch.kernels import flash_attention as _flash
 from bigdl_tpu_torch.kernels import layernorm as _layernorm
 from bigdl_tpu_torch.kernels.flash_attention import (
-    flash_attention, flash_attention_cuda, flash_attention_fwd,
-    flash_attention_reference,
+    FlashAttention, flash_attention, flash_attention_bwd,
+    flash_attention_bwd_cuda, flash_attention_bwd_dkv_cuda,
+    flash_attention_bwd_dq_cuda, flash_attention_bwd_reference,
+    flash_attention_cuda, flash_attention_fwd, flash_attention_reference,
 )
 from bigdl_tpu_torch.kernels.layernorm import (
-    fused_layer_norm, layer_norm_cuda, layer_norm_reference,
+    LayerNormFunction, fused_layer_norm, layer_norm_backward,
+    layer_norm_cuda, layer_norm_reference,
 )
 
-_COUNTERS = (_layernorm.launches, _flash.launches)
+_COUNTERS = (_layernorm.launches, _flash.launches, _flash.bwd_dq_launches,
+             _flash.bwd_dkv_launches)
 
 
 def launch_counts() -> dict:
@@ -34,7 +40,11 @@ def reset_launch_counts() -> None:
 
 
 __all__ = [
-    "flash_attention", "flash_attention_cuda", "flash_attention_fwd",
-    "flash_attention_reference", "fused_layer_norm", "launch_counts",
-    "layer_norm_cuda", "layer_norm_reference", "reset_launch_counts",
+    "FlashAttention", "LayerNormFunction", "flash_attention",
+    "flash_attention_bwd", "flash_attention_bwd_cuda",
+    "flash_attention_bwd_dkv_cuda", "flash_attention_bwd_dq_cuda",
+    "flash_attention_bwd_reference", "flash_attention_cuda",
+    "flash_attention_fwd", "flash_attention_reference", "fused_layer_norm",
+    "launch_counts", "layer_norm_backward", "layer_norm_cuda",
+    "layer_norm_reference", "reset_launch_counts",
 ]

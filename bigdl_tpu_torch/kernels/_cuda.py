@@ -26,7 +26,8 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("layernorm.cu", "flash_attention.cu", "runtime.cu")
+SOURCES = ("layernorm.cu", "flash_attention.cu", "flash_attention_bwd.cu",
+           "runtime.cu")
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = ("-O3", "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17",
               "-Xcompiler", "-fPIC")
@@ -73,6 +74,10 @@ class KernelLibrary:
         lib.bigdl_layer_norm_fwd.restype = i
         lib.bigdl_flash_attn_fwd.argtypes = [p, p, p, p, p, ll, i, i, i, i, p]
         lib.bigdl_flash_attn_fwd.restype = i
+        lib.bigdl_flash_attn_bwd_dq.argtypes = [p] * 7 + [ll, i, i, i, i, p]
+        lib.bigdl_flash_attn_bwd_dq.restype = i
+        lib.bigdl_flash_attn_bwd_dkv.argtypes = [p] * 8 + [ll, i, i, i, i, p]
+        lib.bigdl_flash_attn_bwd_dkv.restype = i
         lib.bigdl_cuda_error_string.argtypes = [i]
         lib.bigdl_cuda_error_string.restype = ctypes.c_char_p
         self.lib = lib

@@ -1,13 +1,15 @@
-"""Fused LayerNorm forward: the CUDA kernel, its plain version, and the
-dispatcher the ``LayerNorm`` layer calls.
+"""Fused LayerNorm: the CUDA forward kernel, its plain version, the
+closed-form backward, and the ``autograd.Function`` the ``LayerNorm``
+layer calls.
 
 Counterpart of ``bigdl_tpu/kernels/layernorm.py``. The kernel
 (``csrc/layernorm.cu``) replaces the Pallas ``_pallas_layer_norm``: one
 read and one write of each row, statistics in fp32. :func:`fused_layer_norm`
 launches it for CUDA tensors and raises if it cannot; the plain version
-runs only for CPU tensors. The kernel is forward-only in this slice: the
-backward (in JAX, the recompute-form VJP ``_fln_bwd``) comes with the
-training step.
+runs only for CPU tensors. The backward has no kernel in either package:
+JAX's ``_fln_bwd`` is the recompute-form VJP of the plain formula in jnp,
+and :func:`layer_norm_backward` is its counterpart in torch ops, recomputing
+the statistics from the saved input.
 """
 
 from __future__ import annotations
@@ -54,11 +56,6 @@ def layer_norm_cuda(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     if not (x.is_contiguous() and gamma.is_contiguous()
             and beta.is_contiguous()):
         raise ValueError("layer_norm_cuda needs contiguous tensors")
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (x, gamma, beta)):
-        raise NotImplementedError(
-            "the LayerNorm kernel is forward-only; run inference under "
-            "torch.no_grad() (the backward comes with the training step)")
     out = torch.empty_like(x)
     lib = _cuda.library().lib
     with torch.cuda.device(x.device):
@@ -70,13 +67,62 @@ def layer_norm_cuda(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     return out
 
 
-def fused_layer_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
-                     eps: float = 1e-5) -> torch.Tensor:
-    """LayerNorm over the last axis: the CUDA kernel for CUDA tensors, the
-    plain version for CPU tensors."""
+def layer_norm_forward(x: torch.Tensor, gamma: torch.Tensor,
+                       beta: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm over the last axis without autograd: the CUDA kernel for
+    CUDA tensors, the plain version for CPU tensors."""
     if x.device.type == "cpu":
         return layer_norm_reference(x, gamma, beta, eps)
     h = x.shape[-1]
     out = layer_norm_cuda(x.reshape(-1, h).contiguous(), gamma.contiguous(),
                           beta.contiguous(), eps)
     return out.reshape(x.shape)
+
+
+def layer_norm_backward(x: torch.Tensor, gamma: torch.Tensor, eps: float,
+                        g: torch.Tensor
+                        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Gradients ``(dx, dgamma, dbeta)`` of LayerNorm over the last axis for
+    the output gradient ``g``, in fp32 torch ops from the saved input:
+    with ``xhat = (x - mean)·inv`` and ``gx = g·gamma``,
+    ``dx = inv·(gx - mean(gx) - xhat·mean(gx·xhat))``,
+    ``dgamma = Σ g·xhat``, ``dbeta = Σ g`` over the leading axes.
+    The counterpart of JAX ``_fln_bwd``; it runs as plain torch on every
+    device (no kernel in either package)."""
+    x32, g32 = x.float(), g.float()
+    mean = x32.mean(dim=-1, keepdim=True)
+    var = (x32 - mean).square().mean(dim=-1, keepdim=True)
+    inv = torch.rsqrt(var + eps)
+    xhat = (x32 - mean) * inv
+    gx = g32 * gamma.float()
+    dx = inv * (gx - gx.mean(dim=-1, keepdim=True)
+                - xhat * (gx * xhat).mean(dim=-1, keepdim=True))
+    lead = tuple(range(x.dim() - 1))
+    dgamma = (g32 * xhat).sum(dim=lead)
+    dbeta = g32.sum(dim=lead)
+    return dx.to(x.dtype), dgamma.to(gamma.dtype), dbeta.to(gamma.dtype)
+
+
+class LayerNormFunction(torch.autograd.Function):
+    """The kernel forward (plain version on the CPU) with
+    :func:`layer_norm_backward`; saves only x and gamma."""
+
+    @staticmethod
+    def forward(ctx, x, gamma, beta, eps: float):
+        ctx.save_for_backward(x, gamma)
+        ctx.eps = eps
+        return layer_norm_forward(x, gamma, beta, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, gamma = ctx.saved_tensors
+        dx, dgamma, dbeta = layer_norm_backward(x, gamma, ctx.eps, g)
+        return dx, dgamma, dbeta, None
+
+
+def fused_layer_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+                     eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm over the last axis, differentiable through
+    :class:`LayerNormFunction`: the CUDA kernel for CUDA tensors, the plain
+    version for CPU tensors."""
+    return LayerNormFunction.apply(x, gamma, beta, eps)

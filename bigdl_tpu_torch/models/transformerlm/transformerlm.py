@@ -5,7 +5,8 @@ Counterpart of ``bigdl_tpu/models/transformerlm/transformerlm.py`` for
 embedding, learned position embedding, pre-LN blocks
 (``x + MHA(LN(x))``; ``x + MLP(LN(x))``, each residual the
 ``ConcatTable(Identity, branch) >> CAddTable`` idiom), a final LayerNorm
-and a ``TimeDistributed`` Linear + LogSoftMax head. Built from the same
+and a ``TimeDistributed`` Linear + LogSoftMax head; :func:`lm_criterion`
+is its training loss. Built from the same
 layers in the same order as the JAX model, so its parameter paths equal
 the JAX ``get_params()`` paths.
 """
@@ -99,3 +100,14 @@ def TransformerLM(vocab_size: int, embed_dim: int = 256, num_heads: int = 4,
               .set_name("decoder"))
     model.add(nn.TimeDistributed(nn.LogSoftMax()))
     return model.to(dev)
+
+
+def lm_criterion(fused_head: bool = False) -> nn.TimeDistributedCriterion:
+    """The training criterion of :func:`TransformerLM`: per-position NLL of
+    the log-probs, averaged over batch and time."""
+    if fused_head:
+        raise NotImplementedError(
+            "fused_head (FusedLMHead + ChunkedSoftmaxCrossEntropy) is not "
+            "ported yet: ROADMAP Queue A.2")
+    return nn.TimeDistributedCriterion(nn.ClassNLLCriterion(),
+                                       size_average=True)

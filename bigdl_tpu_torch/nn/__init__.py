@@ -8,6 +8,10 @@ from bigdl_tpu_torch.nn.attention import MultiHeadAttention
 from bigdl_tpu_torch.nn.containers import (
     CAddTable, ConcatTable, Identity, Sequential,
 )
+from bigdl_tpu_torch.nn.criterion import (
+    AbstractCriterion, ClassNLLCriterion, CrossEntropyCriterion,
+    TimeDistributedCriterion,
+)
 from bigdl_tpu_torch.nn.embedding import LookupTable
 from bigdl_tpu_torch.nn.incremental import (
     assign_cache_slot, greedy_generate, install_decode_cache,
@@ -21,10 +25,12 @@ from bigdl_tpu_torch.nn.normalization import LayerNorm
 from bigdl_tpu_torch.nn.recurrent import TimeDistributed
 
 __all__ = [
-    "AbstractModule", "CAddTable", "ConcatTable", "Container", "GELU",
+    "AbstractCriterion", "AbstractModule", "CAddTable", "ClassNLLCriterion",
+    "ConcatTable", "Container", "CrossEntropyCriterion", "GELU",
     "Identity", "InitializationMethod", "LayerNorm", "Linear",
     "LogSoftMax", "LookupTable", "MultiHeadAttention", "RandomNormal",
     "RandomUniform", "Sequential", "TensorModule", "TimeDistributed",
-    "Xavier", "assign_cache_slot", "greedy_generate",
+    "TimeDistributedCriterion", "Xavier", "assign_cache_slot",
+    "greedy_generate",
     "install_decode_cache", "reset_decode_slot",
 ]

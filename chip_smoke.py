@@ -8,22 +8,32 @@ an NVIDIA H100 and the CUDA toolkit. It builds the port's CUDA kernels from
 1. prints the card (``nvidia-smi`` name and power limit) and the versions;
 2. prints the build time;
 3. holds each kernel against its plain PyTorch version on the card
-   (LayerNorm at (8·1024, 512) fp32/bf16; flash attention at (2, 8, T, 64)
-   with T in {1024, 1000}, causal and not, fp32/bf16), and times the
-   kernel, the plain version and the one PyTorch call that computes the
-   same function (a yardstick only; the port never calls it);
+   (LayerNorm at (8·1024, 512) fp32/bf16; the flash forward and the two
+   flash backward kernels at (2, 8, T, 64) with T in {1024, 1000}, causal
+   and not, fp32/bf16, and at the training step's (16·8, 512, 64) causal
+   fp32), and times the kernel, the plain version and the one PyTorch call
+   that computes the same function (a yardstick only; the port never calls
+   it);
 4. runs the full-sequence forward of the served model,
    ``TransformerLM(32000, 512, 8, 6, 1024)`` with seeded random weights, on
-   a (2, 512) batch through both kernels, against the same weights on the
-   CPU with the plain LayerNorm and ``attention_impl="full"``;
+   a (2, 512) batch through both forward kernels, against the same weights
+   on the CPU with the plain LayerNorm and ``attention_impl="full"``;
 5. serves 16 requests (prompt lengths 17..700, 32 new tokens each) from 4
    client threads through ``ServingEngine(lm, max_len=1024, slots=8)`` and
    holds every request's tokens against the port's solo
    ``greedy_generate``, then times one decode step of the slot grid on the
    card and on the host;
-6. checks that phases 4 and 5 (the main path) launched both kernels, and
-   prints the kernel table as one JSON line, the card line, and the result
-   line ``{"ok": true, "device": {...}}`` last.
+6. trains the repo's training configuration,
+   ``TransformerLM(32000, 512, 8, 6, max_len=512)`` with ``lm_criterion()``:
+   the loss and every parameter's gradient of one (2, 512) step against the
+   same weights on the CPU (``attention_impl="full"``), then 8 steps of
+   ``LocalOptimizer`` with ``SGD(0.01, momentum=0.9, dampening=0)`` at
+   batch 16 × 512 on ``synthetic_ptb`` windows, every loss finite, with the
+   step time and tokens/s;
+7. checks that the serving path (phases 4 and 5) launched both forward
+   kernels and the training path (the 8 steps) all four, and prints the
+   kernel table as one JSON line, the card line, and the result line
+   ``{"ok": true, "device": {...}}`` last.
 
 Any failed check exits non-zero without the result line, as does a machine
 without CUDA or a directory without the package.
@@ -44,6 +54,8 @@ import torch
 
 SEED = 1234
 VOCAB, EMBED, HEADS, LAYERS, MAX_LEN = 32000, 512, 8, 6, 1024
+TRAIN_LEN, TRAIN_BATCH, TRAIN_STEPS = 512, 16, 8   # benchmark.py:55,164
+DEVICE = "cuda"
 SLOTS, N_REQUESTS, N_CLIENTS, NEW_TOKENS = 8, 16, 4, 32
 PROMPT_LO, PROMPT_HI = 17, 700
 NEAR_TIE = 1e-4          # top-2 log-prob gap under which a token may differ
@@ -164,6 +176,9 @@ def check_flash(kernels, card):
                                       (torch.bfloat16, 2e-2, 0.0)):
                 cases.append(((2, HEADS, t, 64), causal, dtype, atol, rtol))
     cases.append(((2, HEADS, 512, 64), True, torch.float32, 2e-4, 2e-4))
+    # the training step's shape
+    cases.append(((TRAIN_BATCH, HEADS, TRAIN_LEN, 64), True, torch.float32,
+                  2e-4, 2e-4))
     rows = []
     for (b, h, t, d), causal, dtype, atol, rtol in cases:
         q, k, v = (torch.randn(b * h, t, d, generator=g, device=dev)
@@ -199,6 +214,91 @@ def check_flash(kernels, card):
                          dtype=str(dtype)[6:], err=err, ms=k_ms,
                          plain_ms=p_ms, library_ms=l_ms,
                          bound_ms=b_ms, bound_by=b_by))
+    return rows
+
+
+def sdpa_backend(q4, k4, v4, causal) -> str:
+    """The backend ``scaled_dot_product_attention`` picks for these
+    operands (PyTorch's own dispatch query), or "unknown"."""
+    try:
+        from torch.nn.attention import SDPBackend
+        idx = torch._fused_sdp_choice(q4, k4, v4, None, 0.0, causal)
+        return SDPBackend(idx).name
+    except Exception as e:  # noqa: BLE001 — a label only
+        return f"unknown ({type(e).__name__})"
+
+
+def check_flash_bwd(kernels, card):
+    """dq and dk/dv kernels against the plain backward. Tolerance: fp32
+    atol 2e-4·(max|want| + 1), rtol 2e-4 (sums over T keys or queries in
+    another order); bf16 2e-2·(max|want| + 1), rtol 2e-2 (a few ulps of the
+    bf16 result)."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED + 3)
+    cases = [((2, HEADS, t, 64), causal, dtype)
+             for t in (1024, 1000) for causal in (True, False)
+             for dtype in (torch.float32, torch.bfloat16)]
+    cases.append(((TRAIN_BATCH, HEADS, TRAIN_LEN, 64), True, torch.float32))
+    rows = []
+    for (b, h, t, d), causal, dtype in cases:
+        q, k, v, do = (torch.randn(b * h, t, d, generator=g, device=dev)
+                       .to(dtype) for _ in range(4))
+        o, lse = kernels.flash_attention_cuda(q, k, v, causal)
+        delta = (do.float() * o.float()).sum(-1)
+        dq = kernels.flash_attention_bwd_dq_cuda(q, k, v, do, lse, delta,
+                                                 causal)
+        dk, dv = kernels.flash_attention_bwd_dkv_cuda(q, k, v, do, lse,
+                                                      delta, causal)
+        want = kernels.flash_attention_bwd_reference(q, k, v, o, lse, do,
+                                                     causal)
+        torch.cuda.synchronize()
+        errs, ok = [], True
+        tol = 2e-4 if dtype == torch.float32 else 2e-2
+        for got, ref in zip((dq, dk, dv), want):
+            scale = float(ref.float().abs().max()) + 1.0
+            errs.append(max_err(got, ref))
+            ok = ok and within(got, ref, tol * scale, tol)
+        dq_ms, _ = time_ms(lambda: kernels.flash_attention_bwd_dq_cuda(
+            q, k, v, do, lse, delta, causal))
+        dkv_ms, _ = time_ms(lambda: kernels.flash_attention_bwd_dkv_cuda(
+            q, k, v, do, lse, delta, causal))
+        p_ms, _ = time_ms(lambda: kernels.flash_attention_bwd_reference(
+            q, k, v, o, lse, do, causal))
+        # library yardstick: backward of scaled_dot_product_attention on
+        # the same inputs, (forward + backward) - forward
+        q4, k4, v4 = (x.view(b, h, t, d).detach().requires_grad_()
+                      for x in (q, k, v))
+        do4 = do.view(b, h, t, d)
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        fb_ms, _ = time_ms(lambda: torch.autograd.grad(
+            sdpa(q4, k4, v4, is_causal=causal), (q4, k4, v4), do4))
+        with torch.no_grad():
+            f_ms, _ = time_ms(lambda: sdpa(q4, k4, v4, is_causal=causal))
+        l_ms = fb_ms - f_ms
+        backend = sdpa_backend(q4, k4, v4, causal)
+        pairs = b * h * (t * (t + 1) // 2 if causal else t * t)
+        item = q.element_size()
+        read = 4 * b * h * t * d * item + 2 * b * h * t * 4
+        name = str(dtype).split(".")[-1]
+        dq_b = bound_ms(read + b * h * t * d * item, 6.0 * d * pairs, name)
+        dkv_b = bound_ms(read + 2 * b * h * t * d * item, 8.0 * d * pairs,
+                         name)
+        log(f"  flash bwd ({b}, {h}, {t}, {d}) causal={causal} {name}: "
+            f"max|err| dq {errs[0]:.3e} dk {errs[1]:.3e} dv {errs[2]:.3e} "
+            f"(tol {tol}·(max|want|+1), rtol {tol}) "
+            f"{'ok' if ok else 'FAIL'}; dq {dq_ms:.4f} ms (bound "
+            f"{dq_b[0]:.4f}), dkv {dkv_ms:.4f} ms (bound {dkv_b[0]:.4f}), "
+            f"plain dq+dk+dv {p_ms:.4f} ms, sdpa backward {l_ms:.4f} ms "
+            f"({backend}) [{card}]")
+        if not ok:
+            raise CheckFailed(f"flash bwd ({b},{h},{t},{d}) causal={causal} "
+                              f"{dtype} disagrees with its plain version: "
+                              f"max|err| {errs}")
+        rows.append(dict(shape=[b, h, t, d], causal=causal, dtype=name,
+                         err_dq=errs[0], err_dkv=max(errs[1:]), dq_ms=dq_ms,
+                         dkv_ms=dkv_ms, plain_ms=p_ms, library_ms=l_ms,
+                         library_backend=backend, dq_bound=dq_b,
+                         dkv_bound=dkv_b))
     return rows
 
 
@@ -321,6 +421,144 @@ def check_served_tokens(lm, greedy_generate, prompts, results):
                               "full-sequence forward's argmax")
 
 
+# ---------------------------------------------------------------- phase 6
+def build_train_lm(TransformerLM, attention_impl, device):
+    return TransformerLM(VOCAB, EMBED, HEADS, LAYERS, TRAIN_LEN,
+                         attention_impl=attention_impl,
+                         generator=torch.Generator().manual_seed(SEED + 4),
+                         device=device)
+
+
+def check_train_step(TransformerLM, lm_criterion):
+    """Loss and every parameter's gradient of one (2, 512) step on the card
+    (all four kernels) against the same weights on the CPU with the plain
+    LayerNorm and ``attention_impl="full"``. Tolerances: loss relative 1e-4;
+    per parameter ``|g - g_ref| / |g_ref|`` (Frobenius norms) <= 1e-3."""
+    rng = np.random.default_rng(SEED + 4)
+    ids = torch.from_numpy(rng.integers(0, VOCAB, (2, TRAIN_LEN + 1)))
+    x, y = ids[:, :-1], ids[:, 1:]
+    crit = lm_criterion()
+    runs = []
+    for device, impl in ((DEVICE, "auto"), ("cpu", "full")):
+        lm = build_train_lm(TransformerLM, impl, device)
+        names, params = zip(*lm.named_parameters())
+        loss = crit(lm(x.to(device)), y.to(device))
+        grads = torch.autograd.grad(loss, params)
+        runs.append((loss.item(), {n: g.detach().cpu()
+                                   for n, g in zip(names, grads)}))
+        del lm, loss, grads
+    (loss, grads), (loss_ref, grads_ref) = runs
+    rel_loss = abs(loss - loss_ref) / abs(loss_ref)
+    rel = {n: float((grads[n] - g).norm() / g.norm().clamp(min=1e-30))
+           for n, g in grads_ref.items()}
+    worst = max(rel, key=rel.get)
+    log(f"  one (2, {TRAIN_LEN}) step: loss {loss:.6f} vs CPU plain "
+        f"{loss_ref:.6f} (relative {rel_loss:.2e}, limit 1e-4); gradients "
+        f"of {len(rel)} parameters, worst relative error {rel[worst]:.2e} "
+        f"({worst}, limit 1e-3)")
+    if rel_loss > 1e-4 or rel[worst] > 1e-3:
+        raise CheckFailed(f"training step disagrees with the CPU plain "
+                          f"model: loss {rel_loss:.3e}, {worst} "
+                          f"{rel[worst]:.3e}")
+
+
+def profile_step(opt, batch, card):
+    """Device time of one more training step by kernel name, from
+    ``torch.profiler`` (reported only: the measurement, not a check)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    inp, target = (torch.as_tensor(a).to(DEVICE)
+                   for a in (batch.input, batch.target))
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            opt.train_step(inp, target)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA]
+
+        def dev_ms(e):
+            us = getattr(e, "self_device_time_total", None)
+            if us is None:
+                us = e.self_cuda_time_total
+            return us / 1e3
+
+        busy = sum(dev_ms(e) for e in events)
+        top = sorted(events, key=dev_ms, reverse=True)[:12]
+    except Exception as e:  # noqa: BLE001 — an observation, not a check
+        log(f"  profiler: no device times ({type(e).__name__}: {e})")
+        return None
+    log(f"  profiled step: {wall_ms:.2f} ms wall, device busy {busy:.2f} ms "
+        f"({busy / wall_ms:.1%}) over {len(events)} kernel names [{card}]")
+    for e in top:
+        log(f"    {dev_ms(e):9.3f} ms  x{e.count:<4d} {e.key[:90]}")
+    return {"wall_ms": wall_ms, "busy_ms": busy,
+            "top": [[e.key[:90], dev_ms(e), e.count] for e in top]}
+
+
+def train(TransformerLM, lm_criterion, kernels, card):
+    """8 LocalOptimizer steps at batch 16 x 512 on synthetic_ptb windows;
+    returns the launch counts of those steps and the step times."""
+    from bigdl_tpu_torch.dataset import (
+        DataSet, Sample, SampleToMiniBatch, ptb_windows, synthetic_ptb,
+    )
+    from bigdl_tpu_torch.optim import SGD, LocalOptimizer, Trigger
+    from bigdl_tpu_torch.utils.random_generator import RandomGenerator
+
+    RandomGenerator.set_seed(SEED)
+    ids = synthetic_ptb(TRAIN_BATCH * TRAIN_STEPS * TRAIN_LEN + 1,
+                        vocab_size=VOCAB)
+    xs, ys = ptb_windows(ids, TRAIN_LEN)
+    data = (DataSet.array(Sample(x, y) for x, y in zip(xs, ys))
+            >> SampleToMiniBatch(TRAIN_BATCH))
+    lm = build_train_lm(TransformerLM, "auto", DEVICE)
+    opt = (LocalOptimizer(lm, data, lm_criterion(), device=DEVICE)
+           .set_optim_method(SGD(learningrate=0.01, momentum=0.9,
+                                 dampening=0.0))
+           .set_end_when(Trigger.max_iteration(TRAIN_STEPS)))
+    losses, marks = [], []
+    step = opt.train_step
+
+    def recorded_step(inp, target):
+        loss = step(inp, target)
+        losses.append(loss)
+        marks.append(time.perf_counter())
+        return loss
+
+    opt.train_step = recorded_step
+    torch.cuda.synchronize()
+    # the training path: counted from here ...
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    opt.optimize()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()     # ... to here
+    opt.train_step = step
+    if len(losses) != TRAIN_STEPS or not all(np.isfinite(losses)):
+        raise CheckFailed(f"training gave losses {losses}")
+    step_ms = float(statistics.median(np.diff(marks))) * 1e3
+    tokens = TRAIN_BATCH * TRAIN_LEN
+    log(f"  {TRAIN_STEPS} steps at ({TRAIN_BATCH}, {TRAIN_LEN}): losses "
+        f"{[round(v, 4) for v in losses]}; first step "
+        f"{(marks[0] - t0) * 1e3:.1f} ms, median step after it "
+        f"{step_ms:.2f} ms, {tokens / step_ms * 1e3:.0f} tokens/s; "
+        f"{wall:.2f} s in all [{card}]")
+    log(f"  launches on the training path: {counts} "
+        f"({ {k: v / TRAIN_STEPS for k, v in counts.items()} } a step)")
+    for name, n in counts.items():
+        if n == 0:
+            raise CheckFailed(f"the training path never launched {name}")
+    prof = profile_step(opt, next(iter(data.data(train=True))), card)
+    return counts, dict(losses=losses, step_ms=step_ms,
+                        tokens_per_s=tokens / step_ms * 1e3,
+                        first_step_ms=(marks[0] - t0) * 1e3, profile=prof)
+
+
 # -------------------------------------------------------------------- main
 def main() -> int:
     if not torch.cuda.is_available():
@@ -331,7 +569,9 @@ def main() -> int:
         import bigdl_tpu_torch
         from bigdl_tpu_torch import kernels
         from bigdl_tpu_torch.kernels import _cuda
-        from bigdl_tpu_torch.models.transformerlm import TransformerLM
+        from bigdl_tpu_torch.models.transformerlm import (
+            TransformerLM, lm_criterion,
+        )
         from bigdl_tpu_torch.nn import greedy_generate, install_decode_cache
         from bigdl_tpu_torch.serving import ServingEngine
     except ImportError as e:
@@ -359,13 +599,14 @@ def main() -> int:
     log("phase 3: kernels against their plain versions")
     ln_rows = check_layer_norm(kernels, card)
     fa_rows = check_flash(kernels, card)
+    bwd_rows = check_flash_bwd(kernels, card)
 
     log("phase 4: full-sequence forward, full width")
     lm = build_lm(TransformerLM, "auto", "cuda")
     n_params = sum(p.numel() for p in lm.parameters())
     log(f"  TransformerLM({VOCAB}, {EMBED}, {HEADS}, {LAYERS}, {MAX_LEN}): "
         f"{n_params} parameters")
-    # the main path is phases 4 and 5: counted from here ...
+    # the serving path is phases 4 and 5: counted from here ...
     kernels.reset_launch_counts()
     full_forward(lm, TransformerLM)
     fwd_counts = kernels.launch_counts()
@@ -384,30 +625,82 @@ def main() -> int:
     log(f"  engine stats: {stats}")
     log(f"  launches: full forward {fwd_counts}, serving "
         f"{ {k: launches[k] - fwd_counts[k] for k in launches} }")
-    for name, n in launches.items():
-        if n == 0:
-            raise CheckFailed(f"the main path never launched {name}")
+    for name in ("layer_norm_fwd", "flash_attention_fwd"):
+        if launches[name] == 0:
+            raise CheckFailed(f"the serving path never launched {name}")
     check_served_tokens(lm, greedy_generate, prompts, results)
     log("  served tokens match solo greedy_generate")
     decode_step_ms(lm, install_decode_cache, card)
 
-    ln, fa = ln_rows[-1], fa_rows[-1]     # the main path's shapes
+    del lm
+    torch.cuda.empty_cache()
+
+    log("phase 6: training")
+    check_train_step(TransformerLM, lm_criterion)
+    train_counts, run = train(TransformerLM, lm_criterion, kernels, card)
+    ln_t, fa_t, bwd = ln_rows[0], fa_rows[-1], bwd_rows[-1]
+    per_step = {k: v / TRAIN_STEPS for k, v in train_counts.items()}
+    kernel_ms = (per_step["layer_norm_fwd"] * ln_t["ms"]
+                 + per_step["flash_attention_fwd"] * fa_t["ms"]
+                 + per_step["flash_attention_bwd_dq"] * bwd["dq_ms"]
+                 + per_step["flash_attention_bwd_dkv"] * bwd["dkv_ms"])
+    log(f"  the four kernels: {kernel_ms:.3f} ms a step at their phase-3 "
+        f"times, {kernel_ms / run['step_ms']:.1%} of the median step "
+        f"[{card}]")
+
+    # each kernel's row: its own slice's path (serving for the forward
+    # kernels, training for the backward ones) and shapes; both paths'
+    # launches under "paths"
+    ln, fa = ln_rows[-1], fa_rows[-2]     # the serving path's shapes
+    paths = {k: {"serving": launches[k], "training": train_counts[k]}
+             for k in launches}
+    src = "bigdl_tpu_torch/kernels/csrc/"
     table = {"kernels": [
         {"name": "layer_norm_fwd", "route": "cuda",
-         "source": "bigdl_tpu_torch/kernels/csrc/layernorm.cu",
+         "source": src + "layernorm.cu",
          "replaces": "bigdl_tpu/kernels/layernorm.py:31",
          "launches": launches["layer_norm_fwd"], "shape": ln["shape"],
          "dtype": ln["dtype"], "max_abs_err": ln["err"], "ms": ln["ms"],
          "plain_ms": ln["plain_ms"], "bound_ms": ln["bound_ms"],
-         "bound_by": ln["bound_by"], "library_ms": ln["library_ms"]},
+         "bound_by": ln["bound_by"], "library_ms": ln["library_ms"],
+         "paths": paths["layer_norm_fwd"],
+         "training_shape": ln_t["shape"], "training_ms": ln_t["ms"]},
         {"name": "flash_attention_fwd", "route": "cuda",
-         "source": "bigdl_tpu_torch/kernels/csrc/flash_attention.cu",
+         "source": src + "flash_attention.cu",
          "replaces": "bigdl_tpu/kernels/flash_attention.py:54",
          "launches": launches["flash_attention_fwd"], "shape": fa["shape"],
          "dtype": fa["dtype"], "max_abs_err": fa["err"], "ms": fa["ms"],
          "plain_ms": fa["plain_ms"], "bound_ms": fa["bound_ms"],
-         "bound_by": fa["bound_by"], "library_ms": fa["library_ms"]},
-    ]}
+         "bound_by": fa["bound_by"], "library_ms": fa["library_ms"],
+         "paths": paths["flash_attention_fwd"],
+         "training_shape": fa_t["shape"], "training_ms": fa_t["ms"]},
+        {"name": "flash_attention_bwd_dq", "route": "cuda",
+         "source": src + "flash_attention_bwd.cu",
+         "replaces": "bigdl_tpu/kernels/flash_attention.py:132",
+         "launches": train_counts["flash_attention_bwd_dq"],
+         "shape": bwd["shape"], "dtype": bwd["dtype"],
+         "max_abs_err": bwd["err_dq"], "ms": bwd["dq_ms"],
+         "plain_ms": bwd["plain_ms"], "bound_ms": bwd["dq_bound"][0],
+         "bound_by": bwd["dq_bound"][1], "library_ms": bwd["library_ms"],
+         "plain_and_library_cover": "dq+dk+dv",
+         "library_backend": bwd["library_backend"],
+         "paths": paths["flash_attention_bwd_dq"]},
+        {"name": "flash_attention_bwd_dkv", "route": "cuda",
+         "source": src + "flash_attention_bwd.cu",
+         "replaces": "bigdl_tpu/kernels/flash_attention.py:199",
+         "launches": train_counts["flash_attention_bwd_dkv"],
+         "shape": bwd["shape"], "dtype": bwd["dtype"],
+         "max_abs_err": bwd["err_dkv"], "ms": bwd["dkv_ms"],
+         "plain_ms": bwd["plain_ms"], "bound_ms": bwd["dkv_bound"][0],
+         "bound_by": bwd["dkv_bound"][1], "library_ms": bwd["library_ms"],
+         "plain_and_library_cover": "dq+dk+dv",
+         "library_backend": bwd["library_backend"],
+         "paths": paths["flash_attention_bwd_dkv"]},
+    ], "training": {"step_ms": run["step_ms"],
+                    "tokens_per_s": run["tokens_per_s"],
+                    "kernel_ms_per_step": kernel_ms,
+                    "profile": {k: (run["profile"] or {}).get(k)
+                                for k in ("busy_ms", "wall_ms")}}}
     print(json.dumps(table), flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"ok": True, "device": {

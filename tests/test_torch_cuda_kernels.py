@@ -81,6 +81,65 @@ def test_flash_large_scores_stay_finite(cuda):
     _close(lse, lse_ref, 2e-3, 2e-5)
 
 
+def _flash_bwd_inputs(g, bh, t, d, causal, dtype, q_mul=1.0):
+    q, k, v, do = (torch.randn(bh, t, d, generator=g, device="cuda")
+                   for _ in range(4))
+    q = q_mul * q
+    q, k, v, do = (x.to(dtype) for x in (q, k, v, do))
+    o, lse = kernels.flash_attention_reference(q, k, v, causal)
+    return q, k, v, o, lse, do
+
+
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("t", [1, 7, 64, 65, 200])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_bwd_matches_plain(cuda, d, t, causal, dtype):
+    g = torch.Generator(device=cuda).manual_seed(d * 1000 + t + 7)
+    args = _flash_bwd_inputs(g, 3, t, d, causal, dtype)
+    before = kernels.launch_counts()
+    got = kernels.flash_attention_bwd_cuda(*args, causal)
+    after = kernels.launch_counts()
+    assert after["flash_attention_bwd_dq"] == \
+        before["flash_attention_bwd_dq"] + 1
+    assert after["flash_attention_bwd_dkv"] == \
+        before["flash_attention_bwd_dkv"] + 1
+    want = kernels.flash_attention_bwd_reference(*args, causal)
+    # fp32: sums over T keys in another order; bf16: a few ulps of the
+    # bf16 result at the gradients' scale
+    for x, w in zip(got, want):
+        assert x.dtype == dtype and x.shape == args[0].shape
+        scale = float(w.float().abs().max()) + 1.0
+        if dtype == torch.float32:
+            _close(x, w, 2e-4 * scale, 2e-4)
+        else:
+            _close(x, w, 2e-2 * scale, 2e-2)
+
+
+def test_flash_bwd_large_scores_stay_finite(cuda):
+    g = torch.Generator(device=cuda).manual_seed(8)
+    args = _flash_bwd_inputs(g, 2, 130, 64, True, torch.float32, q_mul=30.0)
+    got = kernels.flash_attention_bwd_cuda(*args, True)
+    want = kernels.flash_attention_bwd_reference(*args, True)
+    for x, w in zip(got, want):
+        assert torch.isfinite(x).all()
+        # scores near 1e3 carry ~1e-4 relative error into p in fp32
+        _close(x, w, 2e-3 * (float(w.abs().max()) + 1.0), 2e-3)
+
+
+def test_flash_autograd_matches_plain_autograd(cuda):
+    g = torch.Generator(device=cuda).manual_seed(9)
+    q, k, v = (torch.randn(2, 4, 100, 64, generator=g, device=cuda)
+               .requires_grad_() for _ in range(3))
+    w = torch.randn(2, 4, 100, 64, generator=g, device=cuda)
+    got = torch.autograd.grad((kernels.flash_attention(q, k, v, True) * w)
+                              .sum(), (q, k, v))
+    ref = kernels.flash_attention_reference(q, k, v, True)[0]
+    want = torch.autograd.grad((ref * w).sum(), (q, k, v))
+    for x, y in zip(got, want):
+        _close(x, y, 2e-4, 2e-4)
+
+
 def test_dispatchers_launch_the_kernels(cuda):
     g = torch.Generator(device=cuda).manual_seed(3)
     x = torch.randn(2, 5, 64, generator=g, device=cuda)
@@ -92,6 +151,19 @@ def test_dispatchers_launch_the_kernels(cuda):
     after = kernels.launch_counts()
     assert after["layer_norm_fwd"] == before["layer_norm_fwd"] + 1
     assert after["flash_attention_fwd"] == before["flash_attention_fwd"] + 1
+    assert after["flash_attention_bwd_dq"] == before["flash_attention_bwd_dq"]
+    # a backward pass launches the LN forward, the flash forward and both
+    # flash backward kernels once each
+    xg = x.clone().requires_grad_()
+    gamma = torch.ones(64, device=cuda, requires_grad=True)
+    h = kernels.fused_layer_norm(xg, gamma, torch.zeros(64, device=cuda))
+    kernels.flash_attention(h[:, None], h[:, None], h[:, None], True) \
+        .sum().backward()
+    assert xg.grad is not None and gamma.grad is not None
+    end = kernels.launch_counts()
+    for name in ("layer_norm_fwd", "flash_attention_fwd",
+                 "flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
+        assert end[name] == after[name] + 1, name
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
@@ -109,8 +181,11 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     q = torch.randn(2, 8, 64, device=cuda)
     with pytest.raises(ValueError):
         kernels.flash_attention_cuda(q, q[:, :4], q[:, :4])
-    with pytest.raises(NotImplementedError):
-        kernels.flash_attention_cuda(q.requires_grad_(), q, q)
+    lse = torch.zeros(2, 8, device=cuda)
+    with pytest.raises(ValueError):
+        kernels.flash_attention_bwd_cuda(q, q, q, q, lse[:, :4], q)
+    with pytest.raises(ValueError):
+        kernels.flash_attention_bwd_cuda(q, q, q, q, lse, q.bfloat16())
 
 
 def test_small_model_and_engine_on_the_card(cuda):
@@ -142,3 +217,41 @@ def test_small_model_and_engine_on_the_card(cuda):
     for p, r in zip(prompts, results):
         solo = greedy_generate(lm, p[None], 6)[0].cpu().numpy()
         np.testing.assert_array_equal(r.tokens, solo)
+
+
+def test_small_model_trains_on_the_card(cuda):
+    """Two LocalOptimizer steps of a small TransformerLM on the card (all
+    four kernels) equal the same steps on the CPU (plain versions)."""
+    import numpy as np
+
+    from bigdl_tpu_torch.dataset import DataSet
+    from bigdl_tpu_torch.models.transformerlm import (
+        TransformerLM, lm_criterion,
+    )
+    from bigdl_tpu_torch.optim import SGD, LocalOptimizer
+
+    r = np.random.default_rng(1)
+    batches = [(torch.from_numpy(r.integers(0, 64, (2, 40))),
+                torch.from_numpy(r.integers(0, 64, (2, 40))))
+               for _ in range(2)]
+    runs = []
+    before = kernels.launch_counts()
+    for device in ("cuda", "cpu"):
+        lm = TransformerLM(64, 128, 4, 2, 64, device=device,
+                           generator=torch.Generator().manual_seed(0))
+        opt = (LocalOptimizer(lm, DataSet.array([]), lm_criterion(),
+                              device=device)
+               .set_optim_method(SGD(learningrate=0.1, momentum=0.9)))
+        losses = [opt.train_step(x.to(device), y.to(device))
+                  for x, y in batches]
+        runs.append((losses, [p.detach().cpu() for p in lm.parameters()]))
+    after = kernels.launch_counts()
+    # 2 steps: 5 LNs, 2 attention layers (forward and backward) a step
+    assert after["layer_norm_fwd"] == before["layer_norm_fwd"] + 10
+    for name in ("flash_attention_fwd", "flash_attention_bwd_dq",
+                 "flash_attention_bwd_dkv"):
+        assert after[name] == before[name] + 4, name
+    (losses, params), (ref_losses, ref_params) = runs
+    np.testing.assert_allclose(losses, ref_losses, rtol=1e-5)
+    for p, q in zip(params, ref_params):
+        _close(p, q, 1e-4, 1e-4)

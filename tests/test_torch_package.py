@@ -10,7 +10,10 @@ import pytest
 import torch
 
 from bigdl_tpu_torch import nn as tnn
-from bigdl_tpu_torch.models.transformerlm import TransformerLM
+from bigdl_tpu_torch.dataset import DataSet
+from bigdl_tpu_torch.models.transformerlm import TransformerLM, lm_criterion
+from bigdl_tpu_torch.models.transformerlm import train as train_main
+from bigdl_tpu_torch.optim import LocalOptimizer
 from bigdl_tpu_torch.serving import ServingEngine
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -33,7 +36,7 @@ def test_importing_every_module_leaves_jax_out():
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
     count, bad = r.stdout.split(" ", 1)
-    assert int(count) >= 20
+    assert int(count) >= 34
     assert bad.strip() == "[]", bad
 
 
@@ -48,3 +51,8 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         tnn.greedy_generate(lm, np.zeros((1, 2), np.int32), 2)
     assert tnn.greedy_generate(lm, np.zeros((1, 2), np.int32), 2,
                                device="cpu").shape == (1, 4)
+    opt = LocalOptimizer(lm, DataSet.array([]), lm_criterion())
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        opt.optimize()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train_main.main(["--max-iteration", "1"])
