@@ -19,6 +19,7 @@ from bigdl_tpu_torch.kernels.flash_attention import (
     flash_attention_bwd_cuda, flash_attention_bwd_dkv_cuda,
     flash_attention_bwd_dq_cuda, flash_attention_bwd_reference,
     flash_attention_cuda, flash_attention_fwd, flash_attention_reference,
+    forward_launch_plan,
 )
 from bigdl_tpu_torch.kernels.layernorm import (
     LayerNormFunction, fused_layer_norm, layer_norm_backward,
@@ -44,7 +45,8 @@ __all__ = [
     "flash_attention_bwd", "flash_attention_bwd_cuda",
     "flash_attention_bwd_dkv_cuda", "flash_attention_bwd_dq_cuda",
     "flash_attention_bwd_reference", "flash_attention_cuda",
-    "flash_attention_fwd", "flash_attention_reference", "fused_layer_norm",
+    "flash_attention_fwd", "flash_attention_reference", "forward_launch_plan",
+    "fused_layer_norm",
     "launch_counts", "layer_norm_backward", "layer_norm_cuda",
     "layer_norm_reference", "reset_launch_counts",
 ]

@@ -28,11 +28,14 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("layernorm.cu", "flash_attention.cu", "flash_attention_bwd.cu",
            "runtime.cu")
-HEADERS = ("common.cuh",)
+HEADERS = ("common.cuh", "hopper.cuh")
+# -Xptxas -v: ptxas reports each kernel's registers, spills and static
+# shared memory; the report is kept beside the library (BUILD_LOG)
 NVCC_FLAGS = ("-O3", "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "torch_ext"
 LIB_NAME = "libbigdl_tpu_torch_kernels.so"
+BUILD_LOG = "build.log"
 
 _lock = threading.Lock()
 _library = None
@@ -61,12 +64,15 @@ class LaunchCounter:
 
 
 class KernelLibrary:
-    """The loaded shared library and how long this process spent building
-    it (0.0 when an earlier build of the same sources was reused)."""
+    """The loaded shared library, how long this process spent building it
+    (0.0 when an earlier build of the same sources was reused) and the
+    compiler's report of that build (``ptxas -v`` per kernel)."""
 
     def __init__(self, path: Path, build_seconds: float):
         self.path = path
         self.build_seconds = build_seconds
+        log = path.parent / BUILD_LOG
+        self.build_log = log.read_text() if log.is_file() else ""
         lib = ctypes.CDLL(str(path))
         p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
             ctypes.c_float
@@ -74,6 +80,9 @@ class KernelLibrary:
         lib.bigdl_layer_norm_fwd.restype = i
         lib.bigdl_flash_attn_fwd.argtypes = [p, p, p, p, p, ll, i, i, i, i, p]
         lib.bigdl_flash_attn_fwd.restype = i
+        lib.bigdl_flash_attn_fwd_plan.argtypes = \
+            [ll, i, i, i] + [ctypes.POINTER(i)] * 3
+        lib.bigdl_flash_attn_fwd_plan.restype = i
         lib.bigdl_flash_attn_bwd_dq.argtypes = [p] * 7 + [ll, i, i, i, i, p]
         lib.bigdl_flash_attn_bwd_dq.restype = i
         lib.bigdl_flash_attn_bwd_dkv.argtypes = [p] * 8 + [ll, i, i, i, i, p]
@@ -122,9 +131,10 @@ def _build(nvcc: str, out_dir: Path) -> Path:
             procs.append((name, obj, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                 text=True)))
-        errors = []
+        errors, report = [], []
         for name, _, proc in procs:
             out, err = proc.communicate()
+            report.append(f"--- {name}\n{out}{err}")
             if proc.returncode != 0:
                 errors.append(f"--- {name} (exit {proc.returncode})\n"
                               f"{out}{err}")
@@ -138,6 +148,8 @@ def _build(nvcc: str, out_dir: Path) -> Path:
         if link.returncode != 0:
             raise RuntimeError(f"nvcc link failed:\n{link.stdout}"
                                f"{link.stderr}")
+        (tmp / BUILD_LOG).write_text("\n".join(report))
+        os.replace(tmp / BUILD_LOG, out_dir / BUILD_LOG)
         final = out_dir / LIB_NAME
         os.replace(lib_tmp, final)
         return final

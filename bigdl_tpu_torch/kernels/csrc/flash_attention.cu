@@ -1,171 +1,536 @@
-// Flash-attention forward for sm_90a.
+// Flash-attention forward for sm_90a: wgmma on the tensor cores, fed by a
+// TMA ring of K/V tiles.
 //
 // Replaces the Pallas kernel bigdl_tpu/kernels/flash_attention.py:54
 // (_pallas_flash_call): streaming-softmax attention over (B*H, T, d) with
-// the running max m, sum l and accumulator acc in fp32, scale 1/sqrt(d),
-// causal tiles above the diagonal skipped, and the per-row logsumexp
-// L = m + log(l) written beside O for the backward pass.
+// the running max m, sum l and accumulator O in fp32, scale 1/sqrt(d),
+// causal tiles above the diagonal skipped, denom = max(l, 1e-37), and the
+// per-row logsumexp lse = m + log(denom) (natural log, fp32) written beside
+// O for the backward kernels.
 //
-// Bound: operations (4·d flops per live (query, key) pair against 3·d
-// elements read per key), so a tensor-core version is the later fast path.
-// This one is the plain FMA form. Design:
-//  - one CTA per (b·h, 64-row query tile); the TPU's sequential k grid axis
-//    becomes a loop inside the CTA, so m, l and acc live in registers;
-//  - one thread owns one query row (two threads per row at d = 128, which
-//    add their half dot products with one shuffle), keeps its scaled q row
-//    and its accumulator in registers, and reads each key and value row of
-//    the tile from shared memory as float4 broadcasts, one load per 4 FMAs;
-//  - K/V tiles of 32 rows are staged in shared memory as fp32 whatever the
-//    input dtype;
-//  - any T: rows and keys past T are masked (keys to -inf, rows not
-//    written) instead of requiring T to divide into tiles, so the port has
-//    no O(T^2) fallback;
-//  - scores are kept in log2 units (q is pre-scaled by log2(e)/sqrt(d)) so
-//    each exponential is one exp2f.
+// Bound. bf16 at the main path's shapes is bound by bytes (q, k, v, o, lse
+// once each; 4·d flops per live (query, key) pair at 989 TFLOP/s are
+// less). fp32 runs three TF32 products for each product (below), so its
+// bound is operations: 3 · 4·d flops per pair at 495 TFLOP/s.
+//
+// Design:
+//  - One CTA per (b·h, query tile); tiles are issued last first so causal
+//    tails (the most key tiles) start early. A CTA is NWG consumer
+//    warpgroups (64 query rows each) plus one producer warp.
+//  - The producer warp's lane 0 loads Q once, then streams K/V tiles with
+//    TMA (cp.async.bulk.tensor, 3-D maps over (d, T, b·h)) into a ring of
+//    kStages stages. Each stage has a full mbarrier (TMA transaction bytes)
+//    and an empty one (one arrival per consumer thread).
+//  - S = Q·Kᵀ and O += P·V are wgmma with fp32 accumulators in registers;
+//    the online softmax runs on the S fragment in registers, in log2 units
+//    (scores pre-scaled by log2(e)/sqrt(d), one exp2f per score).
+//  - bf16: Q, K from shared memory K-major (128- or 64-byte swizzle, as TMA
+//    wrote them); V is the B operand MN-major (transpose bit), no copy. P
+//    is rounded to bf16 and fed from registers: the S accumulator fragment
+//    is already the A fragment of the second product. JAX multiplies p·v
+//    in fp32; rounding P to bf16 is this port's choice (held to the bf16
+//    tolerance, 2e-2, by tests/test_torch_flash_numerics.py).
+//  - fp32: 3xTF32. Every operand x is split into big = x with its low 13
+//    mantissa bits cleared and small = tf32(x - big); each product is
+//    a_big·b_big + a_big·b_small + a_small·b_big (~2^-21 relative).
+//    One-pass TF32 misses the fp32 tolerance when scores reach ~1e3.
+//    tf32 wgmma takes only K-major shared-memory operands, so the
+//    consumers convert each raw K/V stage into a working set: K big and
+//    small (K-major, 128-byte swizzle) and Vᵀ big and small (keys
+//    contiguous). The tf32 A-register fragment holds columns (t, t+4) of
+//    each 8-wide k-step where the accumulator holds (2t, 2t+1), so Vᵀ's
+//    keys are stored permuted inside each group of 8 (logical p holds key
+//    2p, or 2(p-4)+1 for p >= 4): P·V is a sum over keys, and the same
+//    permutation on both sides leaves it unchanged. Q is split in place
+//    once. P is split in registers.
+//  - Causal: key tiles wholly above the CTA's last row are never loaded; a
+//    warpgroup skips tiles above its own rows. Only the diagonal tile and
+//    the ragged last tile run the masked softmax (keys >= T and keys above
+//    the diagonal to -inf by index: TMA zero-fills keys past T, and a zero
+//    key scores 0, not -inf). Rows >= T are computed but not stored.
+//  - Tile sizes: bf16 64 keys a tile, fp32 32. NWG is 2 when two-warpgroup
+//    CTAs still give at least one CTA per SM (b·h · ceil(T / 128) >= SMs)
+//    and T > 64, else 1: so the serving shape (16, 512, 64) runs 128
+//    one-warpgroup CTAs and the training shape (128, 512, 64) 512
+//    two-warpgroup CTAs. fp32 at d = 128 always takes NWG = 1 (two would
+//    need more than 227 KB of shared memory).
+//  - Tensor maps are encoded on the host for every call (the pointers
+//    change) through cudaGetDriverEntryPoint, so no -lcuda, and passed as
+//    __grid_constant__ parameters. The kernel allocates nothing.
 #include <math.h>
 
+#include <cuda.h>
+#include <cudaTypedefs.h>
+
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int kBlockQ = 64;  // query rows per CTA
-constexpr int kBlockK = 32;  // key rows per shared-memory tile
+using namespace bigdl::sm90;
+
 constexpr float kLn2 = 0.6931471805599453f;
 
-template <int D>
-struct Layout {
-  static constexpr int kCols = D > 64 ? 64 : D;  // columns one thread owns
-  static constexpr int kThreadsPerRow = D / kCols;
-  static constexpr int kThreads = kBlockQ * kThreadsPerRow;
+template <typename T, int D, int NWG>
+struct Cfg {
+  static constexpr bool kF32 = sizeof(T) == 4;
+  static constexpr int kBN = kF32 ? 32 : 64;        // keys per tile
+  static constexpr int kBM = 64 * NWG;              // query rows per CTA
+  static constexpr int kConsumers = 128 * NWG;
+  static constexpr int kThreads = kConsumers + 32;  // + the producer warp
+  static constexpr int kStages = 2;
+  // K-major shared tiles are D / kCB column blocks of rows of kRB bytes
+  static constexpr int kCB = kF32 ? 32 : (D < 64 ? D : 64);
+  static constexpr int kRB = kCB * (int)sizeof(T);  // 128, or 64 (bf16 d 32)
+  static constexpr int kKSteps = kRB / 32;          // wgmma k-steps a row
+  static constexpr int kQBytes = kBM * D * (int)sizeof(T);
+  static constexpr int kTile = kBN * D * (int)sizeof(T);  // one K or V tile
+  // shared memory, from a 1024-byte aligned base; every region is a
+  // multiple of 1024 bytes
+  static constexpr int kQ = 0;                    // Q (fp32: its big part)
+  static constexpr int kQs = kQ + kQBytes;        // fp32: Q's small part
+  static constexpr int kRing = kQs + (kF32 ? kQBytes : 0);
+  static constexpr int kWork = kRing + kStages * 2 * kTile;  // fp32 only
+  static constexpr int kBars = kWork + (kF32 ? 4 * kTile : 0);
+  static constexpr int kAlloc = kBars + (2 * kStages + 1) * 8 + 1024;
+  static_assert(kAlloc <= 232448, "over the 227 KB a block may use");
 };
 
-template <typename T, int D, bool CAUSAL>
-__global__ void __launch_bounds__(Layout<D>::kThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o,
-                 float* __restrict__ lse, int t, float scale_log2) {
-  constexpr int DP = Layout<D>::kCols;
-  constexpr int TPR = Layout<D>::kThreadsPerRow;
-  constexpr int THREADS = Layout<D>::kThreads;
-  __shared__ __align__(16) float ks[kBlockK][D];
-  __shared__ __align__(16) float vs[kBlockK][D];
+// Row max and sum over the four lanes that share a row.
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// Online softmax of one S tile in place (S becomes P), rescaling the
+// running state and O. `row` is this thread's first row (the second is
+// row + 8), `key` the first key of its first column pair.
+template <bool MASK, int NS, int NO>
+__device__ __forceinline__ void softmax_tile(float (&s)[NS], float (&o)[NO],
+                                             float (&m)[2], float (&l)[2],
+                                             float scale_log2, int row,
+                                             int key, int t, int causal) {
+  float mx[2] = {m[0], m[1]};
+#pragma unroll
+  for (int i = 0; i < NS; ++i) {
+    float x = s[i] * scale_log2;
+    if constexpr (MASK) {
+      const int kj = key + 8 * (i / 4) + (i & 1);
+      const int qi = row + 8 * ((i >> 1) & 1);
+      if (kj >= t || (causal && kj > qi)) x = -INFINITY;
+    }
+    s[i] = x;
+    mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], x);
+  }
+  float alpha[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    mx[h] = quad_max(mx[h]);  // finite: key 0 is live in the first tile
+    alpha[h] = exp2f(m[h] - mx[h]);  // 0 while m is still -inf
+    m[h] = mx[h];
+  }
+#pragma unroll
+  for (int i = 0; i < NS; ++i) {
+    s[i] = exp2f(s[i] - mx[(i >> 1) & 1]);  // masked keys give exactly 0
+    sum[(i >> 1) & 1] += s[i];
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) l[h] = l[h] * alpha[h] + sum[h];
+#pragma unroll
+  for (int i = 0; i < NO; ++i) o[i] *= alpha[(i >> 1) & 1];
+}
+
+// bf16: S = Q·Kᵀ, softmax, O += bf16(P)·V for one key tile.
+template <typename C, bool MASK, int D>
+__device__ __forceinline__ void tile_bf16(float (&o)[D / 2], float (&m)[2],
+                                          float (&l)[2], uint32_t q_addr,
+                                          uint32_t k_addr, uint32_t v_addr,
+                                          float scale_log2, int row, int key,
+                                          int t, int causal) {
+  float s[C::kBN / 2];
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint32_t blk = kk / C::kKSteps, step = (kk % C::kKSteps) * 32;
+    const uint64_t da = smem_desc(q_addr + blk * C::kBM * C::kRB + step, 16,
+                                  8 * C::kRB, C::kRB);
+    const uint64_t db = smem_desc(k_addr + blk * C::kBN * C::kRB + step, 16,
+                                  8 * C::kRB, C::kRB);
+    wgmma_ss_bf16(s, da, db, kk > 0);
+  }
+  wgmma_commit();
+  wgmma_wait_all();
+  fence_regs(s);
+
+  softmax_tile<MASK>(s, o, m, l, scale_log2, row, key, t, causal);
+
+  uint32_t p[C::kBN / 4];
+#pragma unroll
+  for (int i = 0; i < C::kBN / 4; ++i) p[i] = pack_bf16(s[2 * i], s[2 * i + 1]);
+  fence_regs(o);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < C::kBN / 16; ++kk) {
+    const uint32_t a[4] = {p[4 * kk], p[4 * kk + 1], p[4 * kk + 2],
+                           p[4 * kk + 3]};
+    const uint64_t db = smem_desc(v_addr + kk * 16 * C::kRB,
+                                  C::kBN * C::kRB, 8 * C::kRB, C::kRB);
+    wgmma_rs_bf16(o, a, db, 1);
+  }
+  wgmma_commit();
+  wgmma_wait_all();
+  fence_regs(o);
+}
+
+// fp32 (3xTF32): the same on the split operands of the working set.
+template <typename C, bool MASK, int D>
+__device__ __forceinline__ void tile_f32(float (&o)[D / 2], float (&m)[2],
+                                         float (&l)[2], uint32_t qb_addr,
+                                         uint32_t qs_addr, uint32_t work,
+                                         float scale_log2, int row, int key,
+                                         int t, int causal) {
+  const uint32_t kb = work, ks = work + C::kTile;
+  const uint32_t vtb = work + 2 * C::kTile, vts = work + 3 * C::kTile;
+  float s[C::kBN / 2];
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < D / 8; ++kk) {
+    const uint32_t blk = kk / C::kKSteps, step = (kk % C::kKSteps) * 32;
+    const uint32_t oa = blk * C::kBM * C::kRB + step;
+    const uint32_t ob = blk * C::kBN * C::kRB + step;
+    wgmma_ss_tf32(s, smem_desc(qs_addr + oa, 16, 8 * C::kRB, C::kRB),
+                  smem_desc(kb + ob, 16, 8 * C::kRB, C::kRB), kk > 0);
+    wgmma_ss_tf32(s, smem_desc(qb_addr + oa, 16, 8 * C::kRB, C::kRB),
+                  smem_desc(ks + ob, 16, 8 * C::kRB, C::kRB), 1);
+    wgmma_ss_tf32(s, smem_desc(qb_addr + oa, 16, 8 * C::kRB, C::kRB),
+                  smem_desc(kb + ob, 16, 8 * C::kRB, C::kRB), 1);
+  }
+  wgmma_commit();
+  wgmma_wait_all();
+  fence_regs(s);
+
+  softmax_tile<MASK>(s, o, m, l, scale_log2, row, key, t, causal);
+
+  uint32_t pb[C::kBN / 2], ps[C::kBN / 2];
+#pragma unroll
+  for (int i = 0; i < C::kBN / 2; ++i) split_tf32(s[i], pb[i], ps[i]);
+  fence_regs(o);
+  wgmma_fence();
+#pragma unroll
+  for (int j = 0; j < C::kBN / 8; ++j) {
+    // A fragment (g, t), (g+8, t), (g, t+4), (g+8, t+4) of k-step j from
+    // accumulator columns 2t, 2t+1: see the key permutation of Vᵀ
+    const uint32_t ab[4] = {pb[4 * j], pb[4 * j + 2], pb[4 * j + 1],
+                            pb[4 * j + 3]};
+    const uint32_t as[4] = {ps[4 * j], ps[4 * j + 2], ps[4 * j + 1],
+                            ps[4 * j + 3]};
+    const uint64_t db = smem_desc(vtb + j * 32, 16, 8 * C::kRB, C::kRB);
+    wgmma_rs_tf32(o, as, db, 1);
+    wgmma_rs_tf32(o, ab, smem_desc(vts + j * 32, 16, 8 * C::kRB, C::kRB), 1);
+    wgmma_rs_tf32(o, ab, db, 1);
+  }
+  wgmma_commit();
+  wgmma_wait_all();
+  fence_regs(o);
+}
+
+__device__ __forceinline__ void store_split(unsigned char* big,
+                                            unsigned char* small, float4 x) {
+  uint4 b, s;
+  split_tf32(x.x, b.x, s.x);
+  split_tf32(x.y, b.y, s.y);
+  split_tf32(x.z, b.z, s.z);
+  split_tf32(x.w, b.w, s.w);
+  *reinterpret_cast<uint4*>(big) = b;
+  *reinterpret_cast<uint4*>(small) = s;
+}
+
+// fp32: raw K/V stage (row-major [kBN][D], as TMA wrote it, unswizzled) ->
+// the working set. All consumer threads share the work.
+template <typename C, int D>
+__device__ __forceinline__ void convert_stage(const float* kr, const float* vr,
+                                              unsigned char* work, int tid) {
+  unsigned char* kb = work;
+  unsigned char* ks = work + C::kTile;
+  unsigned char* vtb = work + 2 * C::kTile;
+  unsigned char* vts = work + 3 * C::kTile;
+  // K: [key][d] -> D/32 K-major blocks of [kBN keys][128 B], 128-byte
+  // swizzle (16-byte chunk c of row r at c ^ (r % 8))
+  for (int i = tid; i < C::kBN * D / 4; i += C::kConsumers) {
+    const int key = i / (D / 4), c4 = i % (D / 4);
+    const int off = (c4 / 8) * C::kBN * 128 + key * 128 +
+                    (((c4 % 8) ^ (key & 7)) * 16);
+    store_split(kb + off, ks + off, reinterpret_cast<const float4*>(kr)[i]);
+  }
+  // V: [key][d] -> Vᵀ [d rows][32 keys] K-major, 128-byte swizzle, keys
+  // permuted in groups of 8: logical chunk c holds keys 8(c/2) + (c&1) +
+  // {0, 2, 4, 6}
+  for (int i = tid; i < D * 8; i += C::kConsumers) {
+    const int n = i % D, c = i / D;
+    const int k0 = 8 * (c / 2) + (c & 1);
+    const float4 x = make_float4(vr[k0 * D + n], vr[(k0 + 2) * D + n],
+                                 vr[(k0 + 4) * D + n], vr[(k0 + 6) * D + n]);
+    const int off = n * 128 + ((c ^ (n & 7)) * 16);
+    store_split(vtb + off, vts + off, x);
+  }
+}
+
+template <typename T, int D, int NWG>
+__global__ void __launch_bounds__(Cfg<T, D, NWG>::kThreads, 1)
+flash_fwd_kernel(const __grid_constant__ CUtensorMap qmap,
+                 const __grid_constant__ CUtensorMap kmap,
+                 const __grid_constant__ CUtensorMap vmap,
+                 T* __restrict__ o, float* __restrict__ lse, int t,
+                 int causal, float scale_log2) {
+  using C = Cfg<T, D, NWG>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem =
+      smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + C::kBars);
+  uint64_t* empty = full + C::kStages;
+  uint64_t* q_full = empty + C::kStages;
 
   const int bh = blockIdx.x;
   // last query tiles first: under causal masking they stream the most key
   // tiles, so starting them early shortens the tail of the grid
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBlockQ;
-  const int qi = q0 + threadIdx.x / TPR;
-  const int col0 = (threadIdx.x % TPR) * DP;
-  const bool valid = qi < t;
-  const size_t base = (size_t)bh * t * D;
+  const int m0 = (gridDim.y - 1 - blockIdx.y) * C::kBM;
+  const int k_end = causal ? min(t, m0 + C::kBM) : t;
+  const int n_tiles = (k_end + C::kBN - 1) / C::kBN;
+  const int warp = threadIdx.x / 32;
 
-  float qr[DP];
-  float acc[DP];
-#pragma unroll
-  for (int c = 0; c < DP; c += 4) {
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (valid) x = bigdl::load4(q + base + (size_t)qi * D + col0 + c);
-    qr[c] = x.x * scale_log2;
-    qr[c + 1] = x.y * scale_log2;
-    qr[c + 2] = x.z * scale_log2;
-    qr[c + 3] = x.w * scale_log2;
-    acc[c] = acc[c + 1] = acc[c + 2] = acc[c + 3] = 0.f;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < C::kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], C::kConsumers);
+    }
+    mbar_init(q_full, 1);
+    mbar_init_fence();
   }
-  float m = -INFINITY;  // running max of the scores, log2 units
-  float l = 0.f;        // running sum of exp2(score - m)
+  __syncthreads();
 
-  const int k_end = CAUSAL ? min(t, q0 + kBlockQ) : t;
-  for (int k0 = 0; k0 < k_end; k0 += kBlockK) {
-    __syncthreads();  // every thread is done with the previous tile
-    for (int i = threadIdx.x; i < kBlockK * (D / 4); i += THREADS) {
-      const int r = i / (D / 4);
-      const int c = (i % (D / 4)) * 4;
-      float4 kv = make_float4(0.f, 0.f, 0.f, 0.f);
-      float4 vv = kv;
-      if (k0 + r < t) {
-        kv = bigdl::load4(k + base + (size_t)(k0 + r) * D + c);
-        vv = bigdl::load4(v + base + (size_t)(k0 + r) * D + c);
-      }
-      *reinterpret_cast<float4*>(&ks[r][c]) = kv;
-      *reinterpret_cast<float4*>(&vs[r][c]) = vv;
-    }
-    __syncthreads();
-
-    float s[kBlockK];
-    float mt = m;
-#pragma unroll
-    for (int j = 0; j < kBlockK; ++j) {
-      float a = 0.f;
-#pragma unroll
-      for (int c = 0; c < DP; c += 4) {
-        const float4 kk = *reinterpret_cast<const float4*>(&ks[j][col0 + c]);
-        a = fmaf(qr[c], kk.x, a);
-        a = fmaf(qr[c + 1], kk.y, a);
-        a = fmaf(qr[c + 2], kk.z, a);
-        a = fmaf(qr[c + 3], kk.w, a);
-      }
-      if (TPR > 1) a += __shfl_xor_sync(0xffffffffu, a, 1);
-      const int kj = k0 + j;
-      const bool live = kj < t && (!CAUSAL || kj <= qi);
-      s[j] = live ? a : -INFINITY;
-      mt = fmaxf(mt, s[j]);
-    }
-    if (mt == -INFINITY) continue;  // no live key for this row yet
-
-    const float alpha = exp2f(m - mt);  // 0 while m is still -inf
-    float ps = 0.f;
-#pragma unroll
-    for (int j = 0; j < kBlockK; ++j) {
-      s[j] = exp2f(s[j] - mt);  // masked keys give exactly 0
-      ps += s[j];
-    }
-    l = l * alpha + ps;
-#pragma unroll
-    for (int c = 0; c < DP; ++c) acc[c] *= alpha;
-#pragma unroll
-    for (int j = 0; j < kBlockK; ++j) {
-#pragma unroll
-      for (int c = 0; c < DP; c += 4) {
-        const float4 vv = *reinterpret_cast<const float4*>(&vs[j][col0 + c]);
-        acc[c] = fmaf(s[j], vv.x, acc[c]);
-        acc[c + 1] = fmaf(s[j], vv.y, acc[c + 1]);
-        acc[c + 2] = fmaf(s[j], vv.z, acc[c + 2]);
-        acc[c + 3] = fmaf(s[j], vv.w, acc[c + 3]);
+  if (warp == 4 * NWG) {  // ---------------------------- producer warp
+    if (threadIdx.x % 32 != 0) return;
+    mbar_arrive_expect_tx(q_full, C::kQBytes);
+    for (int cb = 0; cb < D / C::kCB; ++cb)
+      tma_load_3d(smem + C::kQ + cb * C::kBM * C::kRB, &qmap, q_full,
+                  cb * C::kCB, m0, bh);
+    for (int i = 0; i < n_tiles; ++i) {
+      const int s = i % C::kStages;
+      mbar_wait(&empty[s], ((i / C::kStages) & 1) ^ 1);
+      mbar_arrive_expect_tx(&full[s], 2 * C::kTile);
+      unsigned char* kt = smem + C::kRing + s * 2 * C::kTile;
+      if constexpr (C::kF32) {  // raw tiles, one box each
+        tma_load_3d(kt, &kmap, &full[s], 0, i * C::kBN, bh);
+        tma_load_3d(kt + C::kTile, &vmap, &full[s], 0, i * C::kBN, bh);
+      } else {
+        for (int cb = 0; cb < D / C::kCB; ++cb) {
+          tma_load_3d(kt + cb * C::kBN * C::kRB, &kmap, &full[s],
+                      cb * C::kCB, i * C::kBN, bh);
+          tma_load_3d(kt + C::kTile + cb * C::kBN * C::kRB, &vmap, &full[s],
+                      cb * C::kCB, i * C::kBN, bh);
+        }
       }
     }
-    m = mt;
+    return;
   }
 
-  if (!valid) return;
-  const float denom = fmaxf(l, 1e-37f);
-  const float inv = 1.f / denom;
+  // ------------------------------------------------ consumer warpgroups
+  const int tid = threadIdx.x;
+  const int wg = warp / 4, lane = tid % 32;
+  const int r0 = m0 + 64 * wg;  // this warpgroup's first row
+  const int row = r0 + 16 * (warp % 4) + lane / 4;  // and row + 8
+  const int col = 2 * (lane % 4);
+  float acc[D / 2];
 #pragma unroll
-  for (int c = 0; c < DP; c += 4) {
-    bigdl::store4(o + base + (size_t)qi * D + col0 + c,
-                  make_float4(acc[c] * inv, acc[c + 1] * inv,
-                              acc[c + 2] * inv, acc[c + 3] * inv));
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+
+  const uint32_t q_addr = smem_addr(smem + C::kQ) + 64 * wg * C::kRB;
+  const uint32_t qs_addr = smem_addr(smem + C::kQs) + 64 * wg * C::kRB;
+  mbar_wait(q_full, 0);
+  if constexpr (C::kF32) {  // split Q: big in place, small beside it
+    for (int i = tid; i < C::kQBytes / 16; i += C::kConsumers)
+      store_split(smem + C::kQ + 16 * i, smem + C::kQs + 16 * i,
+                  reinterpret_cast<const float4*>(smem + C::kQ)[i]);
+    fence_proxy_async();
+    named_barrier(1, C::kConsumers);
   }
-  if (col0 == 0) lse[(size_t)bh * t + qi] = m * kLn2 + logf(denom);
+
+  for (int i = 0; i < n_tiles; ++i) {
+    const int s = i % C::kStages;
+    mbar_wait(&full[s], (i / C::kStages) & 1);
+    unsigned char* kt = smem + C::kRing + s * 2 * C::kTile;
+    if constexpr (C::kF32) {
+      convert_stage<C, D>(reinterpret_cast<const float*>(kt),
+                          reinterpret_cast<const float*>(kt + C::kTile),
+                          smem + C::kWork, tid);
+      fence_proxy_async();
+      mbar_arrive(&empty[s]);  // the raw stage may be refilled now
+      named_barrier(1, C::kConsumers);
+    }
+    const int n0 = i * C::kBN;
+    if (!causal || n0 <= r0 + 63) {  // else wholly above this warpgroup
+      const bool masked =
+          n0 + C::kBN > t || (causal && n0 + C::kBN - 1 > r0);
+      const int key = n0 + col;
+      if constexpr (C::kF32) {
+        const uint32_t work = smem_addr(smem + C::kWork);
+        if (masked)
+          tile_f32<C, true, D>(acc, m, l, q_addr, qs_addr, work, scale_log2,
+                               row, key, t, causal);
+        else
+          tile_f32<C, false, D>(acc, m, l, q_addr, qs_addr, work, scale_log2,
+                                row, key, t, causal);
+      } else {
+        const uint32_t k_addr = smem_addr(kt);
+        const uint32_t v_addr = k_addr + C::kTile;
+        if (masked)
+          tile_bf16<C, true, D>(acc, m, l, q_addr, k_addr, v_addr,
+                                scale_log2, row, key, t, causal);
+        else
+          tile_bf16<C, false, D>(acc, m, l, q_addr, k_addr, v_addr,
+                                 scale_log2, row, key, t, causal);
+      }
+    }
+    if constexpr (C::kF32)
+      named_barrier(1, C::kConsumers);  // the working set is free again
+    else
+      mbar_arrive(&empty[s]);
+  }
+
+  // -------------------------------------------------------- epilogue
+  const size_t base = (size_t)bh * t;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int qi = row + 8 * h;
+    const float denom = fmaxf(quad_sum(l[h]), 1e-37f);
+    if (qi >= t) continue;
+    const float inv = 1.f / denom;
+    T* out = o + (base + qi) * D + col;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      const float a = acc[4 * j + 2 * h] * inv;
+      const float b = acc[4 * j + 2 * h + 1] * inv;
+      if constexpr (C::kF32)
+        *reinterpret_cast<float2*>(out + 8 * j) = make_float2(a, b);
+      else
+        *reinterpret_cast<uint32_t*>(out + 8 * j) = pack_bf16(a, b);
+    }
+    if (lane % 4 == 0) lse[base + qi] = m[h] * kLn2 + logf(denom);
+  }
 }
 
-template <typename T, int D, bool CAUSAL>
+// ------------------------------------------------------------------ host
+PFN_cuTensorMapEncodeTiled_v12000 encode_fn() {
+  static PFN_cuTensorMapEncodeTiled_v12000 fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult status;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &status);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &status);
+#endif
+    if (err != cudaSuccess || status != cudaDriverEntryPointSuccess)
+      p = nullptr;
+    return reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(p);
+  }();
+  return fn;
+}
+
+// A 3-D map over (d, T, b·h) with a (box0, box1, 1) box: TMA zero-fills
+// past T inside each head, never reading the next head's rows.
+bool make_map(CUtensorMap* map, const void* ptr, bool f32, long long bh,
+              int t, int d, int box0, int box1, int swizzle) {
+  const auto encode = encode_fn();
+  if (encode == nullptr) return false;
+  const cuuint64_t es = f32 ? 4 : 2;
+  cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)t, (cuuint64_t)bh};
+  cuuint64_t strides[2] = {d * es, (cuuint64_t)t * d * es};
+  cuuint32_t box[3] = {(cuuint32_t)box0, (cuuint32_t)box1, 1};
+  cuuint32_t elem[3] = {1, 1, 1};
+  const CUtensorMapSwizzle sw = swizzle == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                : swizzle == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                                : CU_TENSOR_MAP_SWIZZLE_NONE;
+  return encode(map,
+                f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                    : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                3, const_cast<void*>(ptr), dims, strides, box, elem,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, sw,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <typename T, int D, int NWG>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   void* lse, long long bh, int t, cudaStream_t stream) {
+                   void* lse, long long bh, int t, int causal,
+                   cudaStream_t stream) {
+  using C = Cfg<T, D, NWG>;
+  CUtensorMap qm, km, vm;
+  // Q: K-major swizzled blocks (fp32: split in place by the consumers);
+  // K/V: the same for bf16, raw rows for fp32 (the consumers convert)
+  const int sw = C::kRB;
+  bool ok = make_map(&qm, q, C::kF32, bh, t, D, C::kCB, C::kBM, sw);
+  if constexpr (C::kF32)
+    ok = ok && make_map(&km, k, true, bh, t, D, D, C::kBN, 0) &&
+         make_map(&vm, v, true, bh, t, D, D, C::kBN, 0);
+  else
+    ok = ok && make_map(&km, k, false, bh, t, D, C::kCB, C::kBN, sw) &&
+         make_map(&vm, v, false, bh, t, D, C::kCB, C::kBN, sw);
+  if (!ok) return cudaErrorInvalidValue;
+  auto kernel = flash_fwd_kernel<T, D, NWG>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kAlloc);
+  if (err != cudaSuccess) return err;
   const float scale_log2 = (float)(1.4426950408889634 / sqrt((double)D));
-  const dim3 grid((unsigned)bh, (unsigned)((t + kBlockQ - 1) / kBlockQ));
-  flash_fwd_kernel<T, D, CAUSAL><<<grid, Layout<D>::kThreads, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), static_cast<float*>(lse),
-      t, scale_log2);
+  const dim3 grid((unsigned)bh, (unsigned)((t + C::kBM - 1) / C::kBM));
+  kernel<<<grid, C::kThreads, C::kAlloc, stream>>>(
+      qm, km, vm, static_cast<T*>(o), static_cast<float*>(lse), t, causal,
+      scale_log2);
   return cudaGetLastError();
 }
 
+// Two consumer warpgroups a CTA when that still gives every SM a CTA and
+// their shared memory fits.
+int consumer_warpgroups(bool f32, int d, long long bh, int t) {
+  if (f32 && d == 128) return 1;
+  int dev = 0, sms = 132;
+  if (cudaGetDevice(&dev) == cudaSuccess)
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  return t > 64 && bh * ((t + 127) / 128) >= sms ? 2 : 1;
+}
+
 template <typename T, int D>
-cudaError_t launch_mask(const void* q, const void* k, const void* v, void* o,
-                        void* lse, long long bh, int t, int causal,
-                        cudaStream_t stream) {
-  return causal ? launch<T, D, true>(q, k, v, o, lse, bh, t, stream)
-                : launch<T, D, false>(q, k, v, o, lse, bh, t, stream);
+cudaError_t launch_wg(const void* q, const void* k, const void* v, void* o,
+                      void* lse, long long bh, int t, int causal,
+                      cudaStream_t stream) {
+  constexpr bool kF32 = sizeof(T) == 4;
+  if (consumer_warpgroups(kF32, D, bh, t) == 2)
+    return launch<T, D, kF32 && D == 128 ? 1 : 2>(q, k, v, o, lse, bh, t,
+                                                  causal, stream);
+  return launch<T, D, 1>(q, k, v, o, lse, bh, t, causal, stream);
+}
+
+template <typename T, int D>
+void plan(int nwg, int* threads, int* smem) {
+  constexpr int kTwo = sizeof(T) == 4 && D == 128 ? 1 : 2;
+  *threads = nwg == 2 ? Cfg<T, D, kTwo>::kThreads : Cfg<T, D, 1>::kThreads;
+  *smem = nwg == 2 ? Cfg<T, D, kTwo>::kAlloc : Cfg<T, D, 1>::kAlloc;
+}
+
+template <typename T>
+cudaError_t plan_dim(int d, int nwg, int* threads, int* smem) {
+  switch (d) {
+    case 32: plan<T, 32>(nwg, threads, smem); return cudaSuccess;
+    case 64: plan<T, 64>(nwg, threads, smem); return cudaSuccess;
+    case 128: plan<T, 128>(nwg, threads, smem); return cudaSuccess;
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 template <typename T>
@@ -173,9 +538,9 @@ cudaError_t launch_dim(const void* q, const void* k, const void* v, void* o,
                        void* lse, long long bh, int t, int d, int causal,
                        cudaStream_t stream) {
   switch (d) {
-    case 32: return launch_mask<T, 32>(q, k, v, o, lse, bh, t, causal, stream);
-    case 64: return launch_mask<T, 64>(q, k, v, o, lse, bh, t, causal, stream);
-    case 128: return launch_mask<T, 128>(q, k, v, o, lse, bh, t, causal, stream);
+    case 32: return launch_wg<T, 32>(q, k, v, o, lse, bh, t, causal, stream);
+    case 64: return launch_wg<T, 64>(q, k, v, o, lse, bh, t, causal, stream);
+    case 128: return launch_wg<T, 128>(q, k, v, o, lse, bh, t, causal, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -189,7 +554,7 @@ extern "C" int bigdl_flash_attn_fwd(const void* q, const void* k, const void* v,
                                     int d, int causal, int dtype,
                                     void* stream) {
   if (bh <= 0 || t <= 0) return 0;
-  if (bh > 0x7fffffffLL || (t + kBlockQ - 1) / kBlockQ > 65535)
+  if (bh > 0x7fffffffLL || (t + 63) / 64 > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == bigdl::kFloat32)
@@ -197,4 +562,17 @@ extern "C" int bigdl_flash_attn_fwd(const void* q, const void* k, const void* v,
   if (dtype == bigdl::kBFloat16)
     return (int)launch_dim<__nv_bfloat16>(q, k, v, o, lse, bh, t, d, causal, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// The launch bigdl_flash_attn_fwd makes for these operands: consumer
+// warpgroups a CTA, threads a CTA and dynamic shared memory bytes a CTA.
+extern "C" int bigdl_flash_attn_fwd_plan(long long bh, int t, int d,
+                                         int dtype, int* nwg, int* threads,
+                                         int* smem) {
+  const bool f32 = dtype == bigdl::kFloat32;
+  if ((!f32 && dtype != bigdl::kBFloat16) || bh <= 0 || t <= 0)
+    return (int)cudaErrorInvalidValue;
+  *nwg = consumer_warpgroups(f32, d, bh, t);
+  return (int)(f32 ? plan_dim<float>(d, *nwg, threads, smem)
+                   : plan_dim<__nv_bfloat16>(d, *nwg, threads, smem));
 }

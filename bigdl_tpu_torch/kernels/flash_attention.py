@@ -6,7 +6,8 @@ Counterpart of ``bigdl_tpu/kernels/flash_attention.py``. Three kernels:
 - ``csrc/flash_attention.cu`` replaces the Pallas ``_pallas_flash_call``:
   streaming softmax over key tiles, scale ``1/sqrt(d)``, causal tile skip,
   output O in the input dtype and the per-row logsumexp ``lse`` in fp32,
-  which the backward reuses;
+  which the backward reuses. Both products run with ``wgmma`` on the
+  tensor cores (fp32 as 3xTF32), fed by a TMA ring of K/V tiles;
 - ``csrc/flash_attention_bwd.cu`` replaces ``_pallas_flash_bwd_dq`` and
   ``_pallas_flash_bwd_dkv``: the probabilities are recomputed from
   ``(q, k, lse)``, and ``D = rowsum(dO∘O)`` is computed beforehand with
@@ -20,6 +21,7 @@ they cannot; the plain versions run only for CPU tensors.
 
 from __future__ import annotations
 
+import ctypes
 import math
 
 import torch
@@ -119,6 +121,19 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _cuda.check(code, "flash_attention_fwd")
     launches.add()
     return out, lse
+
+
+def forward_launch_plan(bh: int, t: int, d: int, dtype: torch.dtype) -> dict:
+    """The launch the forward kernel makes for (bh, T, d) operands of
+    ``dtype`` on the current device: consumer warpgroups (64 query rows
+    each) a CTA, threads a CTA and dynamic shared memory bytes a CTA."""
+    nwg, threads, smem = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    code = _cuda.library().lib.bigdl_flash_attn_fwd_plan(
+        bh, t, d, _DTYPE_CODES[dtype], ctypes.byref(nwg),
+        ctypes.byref(threads), ctypes.byref(smem))
+    _cuda.check(code, "flash_attention_fwd plan")
+    return {"warpgroups": nwg.value, "threads": threads.value,
+            "smem_bytes": smem.value}
 
 
 def _check_stats(fn: str, q: torch.Tensor, *stats: torch.Tensor) -> None:

@@ -6,14 +6,20 @@ an NVIDIA H100 and the CUDA toolkit. It builds the port's CUDA kernels from
 ``bigdl_tpu_torch/kernels/csrc``, then:
 
 1. prints the card (``nvidia-smi`` name and power limit) and the versions;
-2. prints the build time;
+2. prints the build time and, for every instance of the flash forward
+   kernel, its registers and spills (``ptxas -v``), threads, dynamic shared
+   memory and the count of ``HGMMA`` (tensor-core) and ``UTMALDG`` (TMA)
+   instructions in its SASS (``cuobjdump -sass``); a zero count fails;
 3. holds each kernel against its plain PyTorch version on the card
    (LayerNorm at (8·1024, 512) fp32/bf16; the flash forward and the two
    flash backward kernels at (2, 8, T, 64) with T in {1024, 1000}, causal
-   and not, fp32/bf16, and at the training step's (16·8, 512, 64) causal
-   fp32), and times the kernel, the plain version and the one PyTorch call
-   that computes the same function (a yardstick only; the port never calls
-   it);
+   and not, fp32/bf16, and the forward also at the main paths' causal
+   (2·8, 512, 64) and (16·8, 512, 64) in fp32 and bf16, the backward at
+   the training step's (16·8, 512, 64) causal fp32), and times the kernel,
+   the plain version and the one PyTorch call that computes the same
+   function (a yardstick only; the port never calls it). fp32 forward rows
+   carry two bounds: FMA (fp32 at 67 TFLOP/s) and 3xTF32 (the kernel's
+   three TF32 products at 495 TFLOP/s);
 4. runs the full-sequence forward of the served model,
    ``TransformerLM(32000, 512, 8, 6, 1024)`` with seeded random weights, on
    a (2, 512) batch through both forward kernels, against the same weights
@@ -42,6 +48,7 @@ without CUDA or a directory without the package.
 from __future__ import annotations
 
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -61,6 +68,7 @@ PROMPT_LO, PROMPT_HI = 17, 700
 NEAR_TIE = 1e-4          # top-2 log-prob gap under which a token may differ
 HBM_BYTES_PER_S = 3.35e12                       # H100 SXM data sheet
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}   # fp32 non-tensor, bf16
+TF32_FLOPS = 495e12                             # tensor cores, dense
 SM_CLOCK_HZ = 1.98e9                            # H100 SXM boost clock
 
 
@@ -80,6 +88,81 @@ def card_line() -> str:
     if out.returncode != 0:
         raise CheckFailed(f"nvidia-smi failed: {out.stderr.strip()}")
     return out.stdout.strip().splitlines()[0]
+
+
+# ---------------------------------------------------------------- phase 2
+FWD_KERNEL = "flash_fwd_kernel"
+
+
+def _fwd_instance(mangled: str) -> tuple:
+    """(dtype, d, warpgroups) of a mangled flash_fwd_kernel<T, D, NWG>."""
+    m = re.search(r"flash_fwd_kernelI(f|13__nv_bfloat16)Li(\d+)ELi(\d+)E",
+                  mangled)
+    if m is None:
+        raise CheckFailed(f"unexpected forward kernel name {mangled}")
+    return ("float32" if m.group(1) == "f" else "bfloat16", int(m.group(2)),
+            int(m.group(3)))
+
+
+def _sections(lines, start):
+    """(name, line) for each line inside a section of a flash_fwd_kernel
+    instance; `start` finds a section's name in its first line."""
+    current = None
+    for line in lines:
+        m = re.search(start, line)
+        if m:
+            current = m.group(1) if FWD_KERNEL in m.group(1) else None
+        elif current is not None:
+            yield current, line
+
+
+def report_forward_build(lib, kernels, nvcc):
+    """Registers and spills (ptxas -v), dynamic shared memory and the SASS
+    counts of tensor-core (HGMMA) and TMA (UTMALDG) instructions of every
+    flash_fwd_kernel instance. Fails if an instance has none of either."""
+    info = {}
+    for name, line in _sections(lib.build_log.splitlines(),
+                                r"Compiling entry function '(\S+)'"):
+        row = info.setdefault(_fwd_instance(name), {})
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            row["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            row["registers"] = int(m.group(1))
+    if not info:
+        raise CheckFailed("the build log holds no ptxas report of "
+                          f"{FWD_KERNEL}: was the library built with "
+                          "-Xptxas -v?")
+    out = subprocess.run([str(Path(nvcc).parent / "cuobjdump"), "-sass",
+                          str(lib.path)], capture_output=True, text=True,
+                         timeout=300)
+    if out.returncode != 0:
+        raise CheckFailed(f"cuobjdump failed: {out.stderr.strip()[:500]}")
+    for name, line in _sections(out.stdout.splitlines(),
+                                r"Function : (\S+)"):
+        row = info.setdefault(_fwd_instance(name), {})
+        for op in ("HGMMA", "UTMALDG"):
+            row[op] = row.get(op, 0) + (op in line)
+    for dtype in (torch.float32, torch.bfloat16):   # 1, then 2 warpgroups
+        for d in (32, 64, 128):
+            for bh in (1, 1 << 16):
+                plan = kernels.forward_launch_plan(bh, 1024, d, dtype)
+                key = (str(dtype)[6:], d, plan["warpgroups"])
+                info.setdefault(key, {})["smem_bytes"] = plan["smem_bytes"]
+                info[key]["threads"] = plan["threads"]
+    for key in sorted(info):
+        row = info[key]
+        log(f"  {FWD_KERNEL} {key[0]} d={key[1]} warpgroups={key[2]}: "
+            f"{row.get('registers')} registers, {row.get('spill_bytes')} "
+            f"spill bytes, {row.get('threads')} threads, "
+            f"{row.get('smem_bytes')} B dynamic shared; SASS "
+            f"{row.get('HGMMA', 0)} HGMMA, {row.get('UTMALDG', 0)} UTMALDG")
+        if not row.get("HGMMA") or not row.get("UTMALDG"):
+            raise CheckFailed(f"{FWD_KERNEL} {key} has no HGMMA or no "
+                              f"UTMALDG instruction in its SASS")
+    return info
 
 
 # ----------------------------------------------------------------- timing
@@ -175,10 +258,10 @@ def check_flash(kernels, card):
             for dtype, atol, rtol in ((torch.float32, 2e-4, 2e-4),
                                       (torch.bfloat16, 2e-2, 0.0)):
                 cases.append(((2, HEADS, t, 64), causal, dtype, atol, rtol))
-    cases.append(((2, HEADS, 512, 64), True, torch.float32, 2e-4, 2e-4))
-    # the training step's shape
-    cases.append(((TRAIN_BATCH, HEADS, TRAIN_LEN, 64), True, torch.float32,
-                  2e-4, 2e-4))
+    # the main paths' shapes: serving's full forward and the training step
+    for shape in ((2, HEADS, 512, 64), (TRAIN_BATCH, HEADS, TRAIN_LEN, 64)):
+        cases.append((shape, True, torch.float32, 2e-4, 2e-4))
+        cases.append((shape, True, torch.bfloat16, 2e-2, 0.0))
     rows = []
     for (b, h, t, d), causal, dtype, atol, rtol in cases:
         q, k, v = (torch.randn(b * h, t, d, generator=g, device=dev)
@@ -199,13 +282,23 @@ def check_flash(kernels, card):
                 q4, k4, v4, is_causal=causal))
         pairs = b * h * (t * (t + 1) // 2 if causal else t * t)
         item = q.element_size()
-        b_ms, b_by = bound_ms(4 * b * h * t * d * item + b * h * t * 4,
-                              4.0 * d * pairs, str(dtype).split(".")[-1])
+        moved = 4 * b * h * t * d * item + b * h * t * 4
+        b_ms, b_by = bound_ms(moved, 4.0 * d * pairs,
+                              str(dtype).split(".")[-1])
+        plan = kernels.forward_launch_plan(b * h, t, d, dtype)
+        bounds = f"bound {b_ms:.4f} ms ({b_by})"
+        tf32_ms = None
+        if dtype == torch.float32:   # the kernel's 3xTF32 work
+            tf32_ms = max(moved / HBM_BYTES_PER_S,
+                          3 * 4.0 * d * pairs / TF32_FLOPS) * 1e3
+            bounds = (f"bounds {b_ms:.4f} ms (FMA, {b_by}), "
+                      f"{tf32_ms:.4f} ms (3xTF32)")
         log(f"  flash ({b}, {h}, {t}, {d}) causal={causal} {str(dtype)[6:]}:"
             f" max|err| {err:.3e} (atol {atol}, rtol {rtol}) "
             f"{'ok' if ok else 'FAIL'}; kernel {k_ms:.4f} ms, plain "
-            f"{p_ms:.4f} ms, sdpa {l_ms:.4f} ms, bound "
-            f"{b_ms:.4f} ms [{card}]")
+            f"{p_ms:.4f} ms, sdpa {l_ms:.4f} ms, {bounds}; "
+            f"{plan['warpgroups']} consumer warpgroup(s), "
+            f"{plan['smem_bytes']} B shared [{card}]")
         if not ok:
             raise CheckFailed(f"flash ({b},{h},{t},{d}) causal={causal} "
                               f"{dtype} disagrees with its plain version: "
@@ -213,8 +306,14 @@ def check_flash(kernels, card):
         rows.append(dict(shape=[b, h, t, d], causal=causal,
                          dtype=str(dtype)[6:], err=err, ms=k_ms,
                          plain_ms=p_ms, library_ms=l_ms,
-                         bound_ms=b_ms, bound_by=b_by))
+                         bound_ms=b_ms, bound_by=b_by,
+                         bound_3xtf32_ms=tf32_ms, plan=plan))
     return rows
+
+
+def find_row(rows, shape, dtype):
+    return next(r for r in rows if r["shape"] == list(shape)
+                and r["dtype"] == dtype and r.get("causal", True))
 
 
 def sdpa_backend(q4, k4, v4, causal) -> str:
@@ -595,6 +694,7 @@ def main() -> int:
     log("phase 2: build")
     lib = _cuda.library()
     log(f"  built {lib.path} in {lib.build_seconds:.1f} s")
+    fwd_build = report_forward_build(lib, kernels, _cuda.find_nvcc())
 
     log("phase 3: kernels against their plain versions")
     ln_rows = check_layer_norm(kernels, card)
@@ -638,7 +738,10 @@ def main() -> int:
     log("phase 6: training")
     check_train_step(TransformerLM, lm_criterion)
     train_counts, run = train(TransformerLM, lm_criterion, kernels, card)
-    ln_t, fa_t, bwd = ln_rows[0], fa_rows[-1], bwd_rows[-1]
+    train_shape, serve_shape = (TRAIN_BATCH, HEADS, TRAIN_LEN, 64), \
+        (2, HEADS, 512, 64)
+    ln_t, bwd = ln_rows[0], bwd_rows[-1]
+    fa_t = find_row(fa_rows, train_shape, "float32")
     per_step = {k: v / TRAIN_STEPS for k, v in train_counts.items()}
     kernel_ms = (per_step["layer_norm_fwd"] * ln_t["ms"]
                  + per_step["flash_attention_fwd"] * fa_t["ms"]
@@ -651,7 +754,17 @@ def main() -> int:
     # each kernel's row: its own slice's path (serving for the forward
     # kernels, training for the backward ones) and shapes; both paths'
     # launches under "paths"
-    ln, fa = ln_rows[-1], fa_rows[-2]     # the serving path's shapes
+    ln, fa = ln_rows[-1], find_row(fa_rows, serve_shape, "float32")
+    fwd_key = ("float32", 64, fa["plan"]["warpgroups"])
+    design = dict(fa["plan"], **{k: fwd_build[fwd_key].get(k) for k in (
+        "registers", "spill_bytes", "HGMMA", "UTMALDG")}, summary=(
+        "wgmma (bf16 on the tensor cores; fp32 as 3xTF32) fed by a 2-stage "
+        "TMA ring of K/V tiles from one producer warp; 64 query rows a "
+        "consumer warpgroup"))
+    bf16 = {name: {k: find_row(fa_rows, shape, "bfloat16")[k] for k in (
+        "ms", "bound_ms", "library_ms", "err")}
+        for name, shape in (("serving", serve_shape),
+                            ("training", train_shape))}
     paths = {k: {"serving": launches[k], "training": train_counts[k]}
              for k in launches}
     src = "bigdl_tpu_torch/kernels/csrc/"
@@ -673,7 +786,12 @@ def main() -> int:
          "plain_ms": fa["plain_ms"], "bound_ms": fa["bound_ms"],
          "bound_by": fa["bound_by"], "library_ms": fa["library_ms"],
          "paths": paths["flash_attention_fwd"],
-         "training_shape": fa_t["shape"], "training_ms": fa_t["ms"]},
+         "training_shape": fa_t["shape"], "training_ms": fa_t["ms"],
+         "bound_3xtf32_ms": fa["bound_3xtf32_ms"],
+         "training_bound_ms": fa_t["bound_ms"],
+         "training_bound_3xtf32_ms": fa_t["bound_3xtf32_ms"],
+         "training_library_ms": fa_t["library_ms"],
+         "bf16": bf16, "design": design},
         {"name": "flash_attention_bwd_dq", "route": "cuda",
          "source": src + "flash_attention_bwd.cu",
          "replaces": "bigdl_tpu/kernels/flash_attention.py:132",

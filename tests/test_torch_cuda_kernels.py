@@ -8,8 +8,9 @@ it runs on a GPU machine without JAX:
         tests/test_torch_cuda_kernels.py
 
 Tolerances: fp32 outputs within 2e-4 (LayerNorm 1e-5) of the plain
-version, whose sums run in another order; bf16 outputs within 2e-2, a few
-bf16 ulps at unit scale.
+version, whose sums run in another order (the flash forward's fp32 route
+is 3xTF32 on the tensor cores, ~2^-21 relative a product); bf16 outputs
+within 2e-2, a few bf16 ulps at unit scale.
 """
 
 import pytest
@@ -79,6 +80,57 @@ def test_flash_large_scores_stay_finite(cuda):
     assert torch.isfinite(o).all() and torch.isfinite(lse).all()
     _close(o, o_ref, 2e-4, 2e-4)
     _close(lse, lse_ref, 2e-3, 2e-5)
+
+
+def test_flash_large_scores_bf16(cuda):
+    g = torch.Generator(device=cuda).manual_seed(7)
+    q, k = (30 * torch.randn(2, 130, 64, generator=g, device=cuda)
+            for _ in range(2))
+    v = torch.randn(2, 130, 64, generator=g, device=cuda)
+    q, k, v = (x.bfloat16() for x in (q, k, v))
+    o, lse = kernels.flash_attention_cuda(q, k, v, True)
+    o_ref, lse_ref = kernels.flash_attention_reference(q, k, v, True)
+    assert torch.isfinite(o.float()).all() and torch.isfinite(lse).all()
+    _close(o, o_ref, 2e-2, 0.0)
+    _close(lse, lse_ref, 2e-3, 2e-5)
+
+
+def _flash_case(seed, bh, t, d, causal, dtype):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v = (torch.randn(bh, t, d, generator=g, device="cuda").to(dtype)
+               for _ in range(3))
+    o, lse = kernels.flash_attention_cuda(q, k, v, causal)
+    o_ref, lse_ref = kernels.flash_attention_reference(q, k, v, causal)
+    tol = (2e-4, 2e-4) if dtype == torch.float32 else (2e-2, 0.0)
+    _close(o, o_ref, *tol)
+    _close(lse, lse_ref, *tol)
+
+
+@pytest.mark.parametrize("t", [63, 127, 129, 1000])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_ragged_t_across_heads(cuda, t, causal, dtype):
+    """T off the key tiles (64 bf16, 32 fp32) and the query tiles: a tail
+    tile that read the next head's rows would show in heads 0-2."""
+    _flash_case(t, 4, t, 64, causal, dtype)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_head_dim_128_long(cuda, causal, dtype):
+    _flash_case(128, 3, 1024, 128, causal, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_two_warpgroup_ragged_causal(cuda, dtype):
+    """Enough heads for 128-row, two-warpgroup CTAs, and T = 300 not a
+    multiple of 128: the last CTA's second warpgroup holds only rows past
+    T, and its first warpgroup the causal tail."""
+    from bigdl_tpu_torch.kernels.flash_attention import forward_launch_plan
+
+    plan = forward_launch_plan(140, 300, 64, dtype)
+    assert plan["warpgroups"] == 2 and plan["threads"] == 288
+    _flash_case(300, 140, 300, 64, True, dtype)
 
 
 def _flash_bwd_inputs(g, bh, t, d, causal, dtype, q_mul=1.0):
