@@ -15,7 +15,7 @@ went through the kernels.
 from bigdl_tpu_torch.kernels import flash_attention as _flash
 from bigdl_tpu_torch.kernels import layernorm as _layernorm
 from bigdl_tpu_torch.kernels.flash_attention import (
-    FlashAttention, flash_attention, flash_attention_bwd,
+    FlashAttention, backward_launch_plan, flash_attention, flash_attention_bwd,
     flash_attention_bwd_cuda, flash_attention_bwd_dkv_cuda,
     flash_attention_bwd_dq_cuda, flash_attention_bwd_reference,
     flash_attention_cuda, flash_attention_fwd, flash_attention_reference,
@@ -41,7 +41,8 @@ def reset_launch_counts() -> None:
 
 
 __all__ = [
-    "FlashAttention", "LayerNormFunction", "flash_attention",
+    "FlashAttention", "LayerNormFunction", "backward_launch_plan",
+    "flash_attention",
     "flash_attention_bwd", "flash_attention_bwd_cuda",
     "flash_attention_bwd_dkv_cuda", "flash_attention_bwd_dq_cuda",
     "flash_attention_bwd_reference", "flash_attention_cuda",

@@ -28,7 +28,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("layernorm.cu", "flash_attention.cu", "flash_attention_bwd.cu",
            "runtime.cu")
-HEADERS = ("common.cuh", "hopper.cuh")
+HEADERS = ("common.cuh", "hopper.cuh", "tma.cuh")
 # -Xptxas -v: ptxas reports each kernel's registers, spills and static
 # shared memory; the report is kept beside the library (BUILD_LOG)
 NVCC_FLAGS = ("-O3", "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -87,6 +87,9 @@ class KernelLibrary:
         lib.bigdl_flash_attn_bwd_dq.restype = i
         lib.bigdl_flash_attn_bwd_dkv.argtypes = [p] * 8 + [ll, i, i, i, i, p]
         lib.bigdl_flash_attn_bwd_dkv.restype = i
+        lib.bigdl_flash_attn_bwd_plan.argtypes = \
+            [ll, i, i, i, i] + [ctypes.POINTER(i)] * 3
+        lib.bigdl_flash_attn_bwd_plan.restype = i
         lib.bigdl_cuda_error_string.argtypes = [i]
         lib.bigdl_cuda_error_string.restype = ctypes.c_char_p
         self.lib = lib

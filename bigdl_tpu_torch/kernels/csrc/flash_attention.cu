@@ -41,8 +41,9 @@
 //    each 8-wide k-step where the accumulator holds (2t, 2t+1), so Vᵀ's
 //    keys are stored permuted inside each group of 8 (logical p holds key
 //    2p, or 2(p-4)+1 for p >= 4): P·V is a sum over keys, and the same
-//    permutation on both sides leaves it unchanged. Q is split in place
-//    once. P is split in registers.
+//    permutation on both sides leaves it unchanged (hopper.cuh
+//    split_kmajor, split_transposed). Q is split in place once. P is split
+//    in registers.
 //  - Causal: key tiles wholly above the CTA's last row are never loaded; a
 //    warpgroup skips tiles above its own rows. Only the diagonal tile and
 //    the ragged last tile run the masked softmax (keys >= T and keys above
@@ -55,15 +56,13 @@
 //    two-warpgroup CTAs. fp32 at d = 128 always takes NWG = 1 (two would
 //    need more than 227 KB of shared memory).
 //  - Tensor maps are encoded on the host for every call (the pointers
-//    change) through cudaGetDriverEntryPoint, so no -lcuda, and passed as
-//    __grid_constant__ parameters. The kernel allocates nothing.
+//    change) through cudaGetDriverEntryPoint, so no -lcuda (tma.cuh), and
+//    passed as __grid_constant__ parameters. The kernel allocates nothing.
 #include <math.h>
-
-#include <cuda.h>
-#include <cudaTypedefs.h>
 
 #include "common.cuh"
 #include "hopper.cuh"
+#include "tma.cuh"
 
 namespace {
 
@@ -238,47 +237,6 @@ __device__ __forceinline__ void tile_f32(float (&o)[D / 2], float (&m)[2],
   fence_regs(o);
 }
 
-__device__ __forceinline__ void store_split(unsigned char* big,
-                                            unsigned char* small, float4 x) {
-  uint4 b, s;
-  split_tf32(x.x, b.x, s.x);
-  split_tf32(x.y, b.y, s.y);
-  split_tf32(x.z, b.z, s.z);
-  split_tf32(x.w, b.w, s.w);
-  *reinterpret_cast<uint4*>(big) = b;
-  *reinterpret_cast<uint4*>(small) = s;
-}
-
-// fp32: raw K/V stage (row-major [kBN][D], as TMA wrote it, unswizzled) ->
-// the working set. All consumer threads share the work.
-template <typename C, int D>
-__device__ __forceinline__ void convert_stage(const float* kr, const float* vr,
-                                              unsigned char* work, int tid) {
-  unsigned char* kb = work;
-  unsigned char* ks = work + C::kTile;
-  unsigned char* vtb = work + 2 * C::kTile;
-  unsigned char* vts = work + 3 * C::kTile;
-  // K: [key][d] -> D/32 K-major blocks of [kBN keys][128 B], 128-byte
-  // swizzle (16-byte chunk c of row r at c ^ (r % 8))
-  for (int i = tid; i < C::kBN * D / 4; i += C::kConsumers) {
-    const int key = i / (D / 4), c4 = i % (D / 4);
-    const int off = (c4 / 8) * C::kBN * 128 + key * 128 +
-                    (((c4 % 8) ^ (key & 7)) * 16);
-    store_split(kb + off, ks + off, reinterpret_cast<const float4*>(kr)[i]);
-  }
-  // V: [key][d] -> Vᵀ [d rows][32 keys] K-major, 128-byte swizzle, keys
-  // permuted in groups of 8: logical chunk c holds keys 8(c/2) + (c&1) +
-  // {0, 2, 4, 6}
-  for (int i = tid; i < D * 8; i += C::kConsumers) {
-    const int n = i % D, c = i / D;
-    const int k0 = 8 * (c / 2) + (c & 1);
-    const float4 x = make_float4(vr[k0 * D + n], vr[(k0 + 2) * D + n],
-                                 vr[(k0 + 4) * D + n], vr[(k0 + 6) * D + n]);
-    const int off = n * 128 + ((c ^ (n & 7)) * 16);
-    store_split(vtb + off, vts + off, x);
-  }
-}
-
 template <typename T, int D, int NWG>
 __global__ void __launch_bounds__(Cfg<T, D, NWG>::kThreads, 1)
 flash_fwd_kernel(const __grid_constant__ CUtensorMap qmap,
@@ -353,9 +311,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap qmap,
   const uint32_t qs_addr = smem_addr(smem + C::kQs) + 64 * wg * C::kRB;
   mbar_wait(q_full, 0);
   if constexpr (C::kF32) {  // split Q: big in place, small beside it
-    for (int i = tid; i < C::kQBytes / 16; i += C::kConsumers)
-      store_split(smem + C::kQ + 16 * i, smem + C::kQs + 16 * i,
-                  reinterpret_cast<const float4*>(smem + C::kQ)[i]);
+    split_in_place(smem + C::kQ, C::kQBytes, tid, C::kConsumers);
     fence_proxy_async();
     named_barrier(1, C::kConsumers);
   }
@@ -365,9 +321,13 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap qmap,
     mbar_wait(&full[s], (i / C::kStages) & 1);
     unsigned char* kt = smem + C::kRing + s * 2 * C::kTile;
     if constexpr (C::kF32) {
-      convert_stage<C, D>(reinterpret_cast<const float*>(kt),
-                          reinterpret_cast<const float*>(kt + C::kTile),
-                          smem + C::kWork, tid);
+      // the working set: K big and small (K-major), Vᵀ big and small
+      unsigned char* work = smem + C::kWork;
+      split_kmajor<C::kBN, D>(reinterpret_cast<const float*>(kt), work, tid,
+                              C::kConsumers);
+      split_transposed<C::kBN, D>(
+          reinterpret_cast<const float*>(kt + C::kTile), work + 2 * C::kTile,
+          tid, C::kConsumers);
       fence_proxy_async();
       mbar_arrive(&empty[s]);  // the raw stage may be refilled now
       named_barrier(1, C::kConsumers);
@@ -425,47 +385,6 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap qmap,
 }
 
 // ------------------------------------------------------------------ host
-PFN_cuTensorMapEncodeTiled_v12000 encode_fn() {
-  static PFN_cuTensorMapEncodeTiled_v12000 fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult status;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &status);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &status);
-#endif
-    if (err != cudaSuccess || status != cudaDriverEntryPointSuccess)
-      p = nullptr;
-    return reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(p);
-  }();
-  return fn;
-}
-
-// A 3-D map over (d, T, b·h) with a (box0, box1, 1) box: TMA zero-fills
-// past T inside each head, never reading the next head's rows.
-bool make_map(CUtensorMap* map, const void* ptr, bool f32, long long bh,
-              int t, int d, int box0, int box1, int swizzle) {
-  const auto encode = encode_fn();
-  if (encode == nullptr) return false;
-  const cuuint64_t es = f32 ? 4 : 2;
-  cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)t, (cuuint64_t)bh};
-  cuuint64_t strides[2] = {d * es, (cuuint64_t)t * d * es};
-  cuuint32_t box[3] = {(cuuint32_t)box0, (cuuint32_t)box1, 1};
-  cuuint32_t elem[3] = {1, 1, 1};
-  const CUtensorMapSwizzle sw = swizzle == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
-                                : swizzle == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
-                                                : CU_TENSOR_MAP_SWIZZLE_NONE;
-  return encode(map,
-                f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
-                    : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
-                3, const_cast<void*>(ptr), dims, strides, box, elem,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, sw,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <typename T, int D, int NWG>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    void* lse, long long bh, int t, int causal,
@@ -498,11 +417,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
 // Two consumer warpgroups a CTA when that still gives every SM a CTA and
 // their shared memory fits.
 int consumer_warpgroups(bool f32, int d, long long bh, int t) {
-  if (f32 && d == 128) return 1;
-  int dev = 0, sms = 132;
-  if (cudaGetDevice(&dev) == cudaSuccess)
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  return t > 64 && bh * ((t + 127) / 128) >= sms ? 2 : 1;
+  return f32 && d == 128 ? 1 : bigdl::sm90::consumer_warpgroups(bh, t);
 }
 
 template <typename T, int D>

@@ -1,6 +1,7 @@
 // PTX building blocks of the port's Hopper (sm_90a) kernels: shared-memory
-// mbarriers, TMA tile loads, named barriers, the 3xTF32 split and the
-// warpgroup matrix multiply (wgmma) with its shared-memory descriptors.
+// mbarriers, TMA tile loads, named barriers, the 3xTF32 split and the fp32
+// tile layouts it feeds, and the warpgroup matrix multiply (wgmma) with its
+// shared-memory descriptors.
 //
 // Raw PTX rather than CuTe, so a source that includes this header builds in
 // seconds. Every helper is a thin wrapper of one instruction or a fixed
@@ -103,6 +104,84 @@ __device__ __forceinline__ void split_tf32(float x, uint32_t& big,
   asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(small) : "f"(rest));
 }
 
+// Byte offset of 16-byte chunk `c` of row `r` in a tile of `row_bytes`
+// (128 or 64) rows under the swizzle of that width, as TMA writes and
+// wgmma reads it: the chunk index XOR address bits 7-9 (128) or 7-8 (64).
+__device__ __forceinline__ int swizzled(int r, int c, int row_bytes) {
+  return r * row_bytes +
+         16 * (row_bytes == 128 ? c ^ (r & 7) : c ^ ((r >> 1) & 3));
+}
+
+__device__ __forceinline__ void store_split(unsigned char* big,
+                                            unsigned char* small, float4 x) {
+  uint4 b, s;
+  split_tf32(x.x, b.x, s.x);
+  split_tf32(x.y, b.y, s.y);
+  split_tf32(x.z, b.z, s.z);
+  split_tf32(x.w, b.w, s.w);
+  *reinterpret_cast<uint4*>(big) = b;
+  *reinterpret_cast<uint4*>(small) = s;
+}
+
+// The fp32 operand tiles of the flash kernels, split for 3xTF32 by
+// `threads` threads from `tid` (tf32 wgmma reads only K-major shared
+// memory). In place: the big part over the tile, the small part the
+// tile's `bytes` after it (any layout: positions are kept).
+__device__ __forceinline__ void split_in_place(unsigned char* p, int bytes,
+                                               int tid, int threads) {
+  for (int i = tid; i < bytes / 16; i += threads)
+    store_split(p + 16 * i, p + bytes + 16 * i,
+                *reinterpret_cast<const float4*>(p + 16 * i));
+}
+
+// TILES raw row-major [ROWS][D] tiles, consecutive from `raw` (as TMA
+// writes them, unswizzled) -> a big and a small K-major tile each: D/32
+// column blocks of [ROWS][128 B], 128-byte swizzle (the B operand of a
+// product that contracts over D). Big k at dst + 2k·B, small k at
+// dst + (2k+1)·B, B = ROWS·D·4 bytes; the tiles share each iteration.
+template <int ROWS, int D, int TILES = 1>
+__device__ __forceinline__ void split_kmajor(const float* raw,
+                                             unsigned char* dst, int tid,
+                                             int threads) {
+  constexpr int B = ROWS * D * 4;
+  for (int i = tid; i < ROWS * D / 4; i += threads) {
+    const int r = i / (D / 4), c4 = i % (D / 4);
+    const int off = (c4 / 8) * ROWS * 128 + swizzled(r, c4 % 8, 128);
+#pragma unroll
+    for (int k = 0; k < TILES; ++k)
+      store_split(dst + 2 * k * B + off, dst + (2 * k + 1) * B + off,
+                  reinterpret_cast<const float4*>(raw + k * ROWS * D)[i]);
+  }
+}
+
+// The same tiles -> big and small transposed tiles [D rows][ROWS], rows of
+// ROWS·4 bytes (128 or 64) under that swizzle, placed as split_kmajor
+// places its tiles: the B operand of a product that contracts over the
+// ROWS index. The tf32 A-register fragment holds columns (t, t+4) of each
+// 8-wide k-step where the accumulator it comes from holds (2t, 2t+1), so
+// the ROWS index is stored permuted inside each group of 8: logical p
+// holds row 2p, or 2(p-4)+1 for p >= 4 (chunk c of a row holds rows
+// 8(c/2) + (c&1) + {0, 2, 4, 6}). The same permutation on both sides of a
+// sum over that index leaves it unchanged.
+template <int ROWS, int D, int TILES = 1>
+__device__ __forceinline__ void split_transposed(const float* raw,
+                                                 unsigned char* dst, int tid,
+                                                 int threads) {
+  constexpr int B = ROWS * D * 4;
+  for (int i = tid; i < D * (ROWS / 4); i += threads) {
+    const int n = i % D, c = i / D;
+    const int k0 = 8 * (c / 2) + (c & 1);
+    const int off = swizzled(n, c, ROWS * 4);
+#pragma unroll
+    for (int k = 0; k < TILES; ++k) {
+      const float* x = raw + k * ROWS * D;
+      store_split(dst + 2 * k * B + off, dst + (2 * k + 1) * B + off,
+                  make_float4(x[k0 * D + n], x[(k0 + 2) * D + n],
+                              x[(k0 + 4) * D + n], x[(k0 + 6) * D + n]));
+    }
+  }
+}
+
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   uint32_t r;
   asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(r) : "f"(hi), "f"(lo));
@@ -147,11 +226,12 @@ __device__ __forceinline__ void fence_regs(float (&r)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
 }
 
-// The wgmma forms the flash forward uses. Accumulator fragment of
+// The wgmma forms the flash kernels use. Accumulator fragment of
 // m64nN (f32), for warp w of the warpgroup and lane l, g = l / 4,
 // t = l % 4: d[4j + e] holds row 16w + g + 8·(e / 2), column
 // 8j + 2t + (e % 2). `scale_d` 0 overwrites d, 1 accumulates into it.
-// bf16, S = Q·Kᵀ: A and B K-major in shared memory (trans-b 0), N = 64.
+// bf16, S = Q·Kᵀ: A and B K-major in shared memory (trans-b 0), N = 64
+// or 32.
 __device__ __forceinline__ void wgmma_ss_bf16(float (&d)[32], uint64_t da, uint64_t db,
                                                int scale_d) {
   asm volatile(
@@ -162,6 +242,17 @@ __device__ __forceinline__ void wgmma_ss_bf16(float (&d)[32], uint64_t da, uint6
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_ss_bf16(float (&d)[16], uint64_t da, uint64_t db,
+                                               int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
@@ -208,7 +299,18 @@ __device__ __forceinline__ void wgmma_rs_bf16(float (&d)[64], const uint32_t (&a
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
 }
 
-// tf32, S = Q·Kᵀ: both K-major in shared memory (tf32 has no transpose), N = 32.
+// tf32, S = Q·Kᵀ: both K-major in shared memory (tf32 has no transpose),
+// N = 16 or 32.
+__device__ __forceinline__ void wgmma_ss_tf32(float (&d)[8], uint64_t da, uint64_t db,
+                                               int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
 __device__ __forceinline__ void wgmma_ss_tf32(float (&d)[16], uint64_t da, uint64_t db,
                                                int scale_d) {
   asm volatile(

@@ -11,7 +11,10 @@ Counterpart of ``bigdl_tpu/kernels/flash_attention.py``. Three kernels:
 - ``csrc/flash_attention_bwd.cu`` replaces ``_pallas_flash_bwd_dq`` and
   ``_pallas_flash_bwd_dkv``: the probabilities are recomputed from
   ``(q, k, lse)``, and ``D = rowsum(dO∘O)`` is computed beforehand with
-  torch ops, as ``_flash_bwd`` does with jnp.
+  torch ops, as ``_flash_bwd`` does with jnp. All four products of each
+  tile run with ``wgmma`` (fp32 as 3xTF32), fed by a TMA ring of the
+  streamed tiles; every output is owned by one CTA, so the result is
+  deterministic.
 
 Any T is handled by masking the ragged last tile; there is no O(T^2)
 fallback. The dispatchers launch the kernels for CUDA tensors and raise if
@@ -123,17 +126,31 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out, lse
 
 
+def _launch_plan(entry: str, *args) -> dict:
+    nwg, threads, smem = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    code = getattr(_cuda.library().lib, entry)(
+        *args, ctypes.byref(nwg), ctypes.byref(threads), ctypes.byref(smem))
+    _cuda.check(code, entry)
+    return {"warpgroups": nwg.value, "threads": threads.value,
+            "smem_bytes": smem.value}
+
+
 def forward_launch_plan(bh: int, t: int, d: int, dtype: torch.dtype) -> dict:
     """The launch the forward kernel makes for (bh, T, d) operands of
     ``dtype`` on the current device: consumer warpgroups (64 query rows
     each) a CTA, threads a CTA and dynamic shared memory bytes a CTA."""
-    nwg, threads, smem = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
-    code = _cuda.library().lib.bigdl_flash_attn_fwd_plan(
-        bh, t, d, _DTYPE_CODES[dtype], ctypes.byref(nwg),
-        ctypes.byref(threads), ctypes.byref(smem))
-    _cuda.check(code, "flash_attention_fwd plan")
-    return {"warpgroups": nwg.value, "threads": threads.value,
-            "smem_bytes": smem.value}
+    return _launch_plan("bigdl_flash_attn_fwd_plan", bh, t, d,
+                        _DTYPE_CODES[dtype])
+
+
+def backward_launch_plan(bh: int, t: int, d: int, dtype: torch.dtype,
+                         dkv: bool) -> dict:
+    """The launch the dq (``dkv=False``) or dk/dv kernel makes for
+    (bh, T, d) operands of ``dtype`` on the current device, as
+    :func:`forward_launch_plan` reports it (64 resident rows a
+    warpgroup)."""
+    return _launch_plan("bigdl_flash_attn_bwd_plan", bh, t, d,
+                        _DTYPE_CODES[dtype], int(bool(dkv)))
 
 
 def _check_stats(fn: str, q: torch.Tensor, *stats: torch.Tensor) -> None:

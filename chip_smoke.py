@@ -6,20 +6,21 @@ an NVIDIA H100 and the CUDA toolkit. It builds the port's CUDA kernels from
 ``bigdl_tpu_torch/kernels/csrc``, then:
 
 1. prints the card (``nvidia-smi`` name and power limit) and the versions;
-2. prints the build time and, for every instance of the flash forward
-   kernel, its registers and spills (``ptxas -v``), threads, dynamic shared
-   memory and the count of ``HGMMA`` (tensor-core) and ``UTMALDG`` (TMA)
-   instructions in its SASS (``cuobjdump -sass``); a zero count fails;
+2. prints the build time and, for every instance of the three flash
+   kernels (forward, dq, dk/dv), its registers and spills (``ptxas -v``),
+   threads, dynamic shared memory and the count of ``HGMMA`` (tensor-core)
+   and ``UTMALDG`` (TMA) instructions in its SASS (``cuobjdump -sass``); a
+   zero count or a spill fails;
 3. holds each kernel against its plain PyTorch version on the card
    (LayerNorm at (8·1024, 512) fp32/bf16; the flash forward and the two
    flash backward kernels at (2, 8, T, 64) with T in {1024, 1000}, causal
    and not, fp32/bf16, and the forward also at the main paths' causal
    (2·8, 512, 64) and (16·8, 512, 64) in fp32 and bf16, the backward at
-   the training step's (16·8, 512, 64) causal fp32), and times the kernel,
-   the plain version and the one PyTorch call that computes the same
-   function (a yardstick only; the port never calls it). fp32 forward rows
-   carry two bounds: FMA (fp32 at 67 TFLOP/s) and 3xTF32 (the kernel's
-   three TF32 products at 495 TFLOP/s);
+   the training step's (16·8, 512, 64) causal in fp32 and bf16), and times
+   the kernel, the plain version and the one PyTorch call that computes
+   the same function (a yardstick only; the port never calls it). fp32
+   flash rows carry two bounds: FMA (fp32 at 67 TFLOP/s) and 3xTF32 (the
+   kernels' three TF32 products at 495 TFLOP/s);
 4. runs the full-sequence forward of the served model,
    ``TransformerLM(32000, 512, 8, 6, 1024)`` with seeded random weights, on
    a (2, 512) batch through both forward kernels, against the same weights
@@ -91,39 +92,42 @@ def card_line() -> str:
 
 
 # ---------------------------------------------------------------- phase 2
-FWD_KERNEL = "flash_fwd_kernel"
+FLASH_KERNELS = ("flash_fwd_kernel", "flash_bwd_dq_kernel",
+                 "flash_bwd_dkv_kernel")
 
 
-def _fwd_instance(mangled: str) -> tuple:
-    """(dtype, d, warpgroups) of a mangled flash_fwd_kernel<T, D, NWG>."""
-    m = re.search(r"flash_fwd_kernelI(f|13__nv_bfloat16)Li(\d+)ELi(\d+)E",
-                  mangled)
+def _instance(mangled: str) -> tuple:
+    """(kernel, dtype, d, warpgroups) of a mangled flash kernel<T, D, NWG>."""
+    m = re.search(r"(flash_(?:fwd|bwd_dq|bwd_dkv)_kernel)I(f|13__nv_bfloat16)"
+                  r"Li(\d+)ELi(\d+)E", mangled)
     if m is None:
-        raise CheckFailed(f"unexpected forward kernel name {mangled}")
-    return ("float32" if m.group(1) == "f" else "bfloat16", int(m.group(2)),
-            int(m.group(3)))
+        raise CheckFailed(f"unexpected flash kernel name {mangled}")
+    return (m.group(1), "float32" if m.group(2) == "f" else "bfloat16",
+            int(m.group(3)), int(m.group(4)))
 
 
 def _sections(lines, start):
-    """(name, line) for each line inside a section of a flash_fwd_kernel
+    """(name, line) for each line inside a section of a flash kernel
     instance; `start` finds a section's name in its first line."""
     current = None
     for line in lines:
         m = re.search(start, line)
         if m:
-            current = m.group(1) if FWD_KERNEL in m.group(1) else None
+            current = m.group(1) if re.search(
+                "|".join(FLASH_KERNELS), m.group(1)) else None
         elif current is not None:
             yield current, line
 
 
-def report_forward_build(lib, kernels, nvcc):
-    """Registers and spills (ptxas -v), dynamic shared memory and the SASS
-    counts of tensor-core (HGMMA) and TMA (UTMALDG) instructions of every
-    flash_fwd_kernel instance. Fails if an instance has none of either."""
+def report_flash_build(lib, kernels, nvcc):
+    """Registers and spills (ptxas -v), threads, dynamic shared memory and
+    the SASS counts of tensor-core (HGMMA) and TMA (UTMALDG) instructions
+    of every instance of the three flash kernels. Fails if an instance
+    spills or has none of either instruction."""
     info = {}
     for name, line in _sections(lib.build_log.splitlines(),
                                 r"Compiling entry function '(\S+)'"):
-        row = info.setdefault(_fwd_instance(name), {})
+        row = info.setdefault(_instance(name), {})
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)
         if m:
@@ -132,9 +136,8 @@ def report_forward_build(lib, kernels, nvcc):
         if m:
             row["registers"] = int(m.group(1))
     if not info:
-        raise CheckFailed("the build log holds no ptxas report of "
-                          f"{FWD_KERNEL}: was the library built with "
-                          "-Xptxas -v?")
+        raise CheckFailed("the build log holds no ptxas report of the flash "
+                          "kernels: was the library built with -Xptxas -v?")
     out = subprocess.run([str(Path(nvcc).parent / "cuobjdump"), "-sass",
                           str(lib.path)], capture_output=True, text=True,
                          timeout=300)
@@ -142,26 +145,35 @@ def report_forward_build(lib, kernels, nvcc):
         raise CheckFailed(f"cuobjdump failed: {out.stderr.strip()[:500]}")
     for name, line in _sections(out.stdout.splitlines(),
                                 r"Function : (\S+)"):
-        row = info.setdefault(_fwd_instance(name), {})
+        row = info.setdefault(_instance(name), {})
         for op in ("HGMMA", "UTMALDG"):
             row[op] = row.get(op, 0) + (op in line)
-    for dtype in (torch.float32, torch.bfloat16):   # 1, then 2 warpgroups
-        for d in (32, 64, 128):
-            for bh in (1, 1 << 16):
-                plan = kernels.forward_launch_plan(bh, 1024, d, dtype)
-                key = (str(dtype)[6:], d, plan["warpgroups"])
-                info.setdefault(key, {})["smem_bytes"] = plan["smem_bytes"]
-                info[key]["threads"] = plan["threads"]
+    plans = {"flash_fwd_kernel": kernels.forward_launch_plan,
+             "flash_bwd_dq_kernel": lambda *a: kernels.backward_launch_plan(
+                 *a, dkv=False),
+             "flash_bwd_dkv_kernel": lambda *a: kernels.backward_launch_plan(
+                 *a, dkv=True)}
+    for kernel, plan_fn in plans.items():
+        for dtype in (torch.float32, torch.bfloat16):   # 1, then 2 WGs
+            for d in (32, 64, 128):
+                for bh in (1, 1 << 16):
+                    plan = plan_fn(bh, 1024, d, dtype)
+                    key = (kernel, str(dtype)[6:], d, plan["warpgroups"])
+                    info.setdefault(key, {})["smem_bytes"] = \
+                        plan["smem_bytes"]
+                    info[key]["threads"] = plan["threads"]
     for key in sorted(info):
         row = info[key]
-        log(f"  {FWD_KERNEL} {key[0]} d={key[1]} warpgroups={key[2]}: "
+        log(f"  {key[0]} {key[1]} d={key[2]} warpgroups={key[3]}: "
             f"{row.get('registers')} registers, {row.get('spill_bytes')} "
             f"spill bytes, {row.get('threads')} threads, "
             f"{row.get('smem_bytes')} B dynamic shared; SASS "
             f"{row.get('HGMMA', 0)} HGMMA, {row.get('UTMALDG', 0)} UTMALDG")
         if not row.get("HGMMA") or not row.get("UTMALDG"):
-            raise CheckFailed(f"{FWD_KERNEL} {key} has no HGMMA or no "
-                              f"UTMALDG instruction in its SASS")
+            raise CheckFailed(f"{key} has no HGMMA or no UTMALDG instruction "
+                              f"in its SASS")
+        if row.get("spill_bytes") != 0:
+            raise CheckFailed(f"{key} spills {row.get('spill_bytes')} bytes")
     return info
 
 
@@ -337,6 +349,8 @@ def check_flash_bwd(kernels, card):
     cases = [((2, HEADS, t, 64), causal, dtype)
              for t in (1024, 1000) for causal in (True, False)
              for dtype in (torch.float32, torch.bfloat16)]
+    # the training step's shape, in both dtypes; the fp32 one last
+    cases.append(((TRAIN_BATCH, HEADS, TRAIN_LEN, 64), True, torch.bfloat16))
     cases.append(((TRAIN_BATCH, HEADS, TRAIN_LEN, 64), True, torch.float32))
     rows = []
     for (b, h, t, d), causal, dtype in cases:
@@ -379,16 +393,29 @@ def check_flash_bwd(kernels, card):
         item = q.element_size()
         read = 4 * b * h * t * d * item + 2 * b * h * t * 4
         name = str(dtype).split(".")[-1]
-        dq_b = bound_ms(read + b * h * t * d * item, 6.0 * d * pairs, name)
-        dkv_b = bound_ms(read + 2 * b * h * t * d * item, 8.0 * d * pairs,
-                         name)
+        dq_moved = read + b * h * t * d * item
+        dkv_moved = read + 2 * b * h * t * d * item
+        dq_b = bound_ms(dq_moved, 6.0 * d * pairs, name)
+        dkv_b = bound_ms(dkv_moved, 8.0 * d * pairs, name)
+        tf32 = [None, None]
+        bounds = (f"bounds dq {dq_b[0]:.4f}, dkv {dkv_b[0]:.4f} ms "
+                  f"({dq_b[1]})")
+        if dtype == torch.float32:   # the kernels' 3xTF32 work
+            tf32 = [max(moved / HBM_BYTES_PER_S,
+                        3 * f * d * pairs / TF32_FLOPS) * 1e3
+                    for moved, f in ((dq_moved, 6.0), (dkv_moved, 8.0))]
+            bounds = (f"bounds FMA dq {dq_b[0]:.4f}, dkv {dkv_b[0]:.4f} ms; "
+                      f"3xTF32 dq {tf32[0]:.4f}, dkv {tf32[1]:.4f} ms")
+        plans = [kernels.backward_launch_plan(b * h, t, d, dtype, dkv)
+                 for dkv in (False, True)]
         log(f"  flash bwd ({b}, {h}, {t}, {d}) causal={causal} {name}: "
             f"max|err| dq {errs[0]:.3e} dk {errs[1]:.3e} dv {errs[2]:.3e} "
             f"(tol {tol}·(max|want|+1), rtol {tol}) "
-            f"{'ok' if ok else 'FAIL'}; dq {dq_ms:.4f} ms (bound "
-            f"{dq_b[0]:.4f}), dkv {dkv_ms:.4f} ms (bound {dkv_b[0]:.4f}), "
-            f"plain dq+dk+dv {p_ms:.4f} ms, sdpa backward {l_ms:.4f} ms "
-            f"({backend}) [{card}]")
+            f"{'ok' if ok else 'FAIL'}; dq {dq_ms:.4f} ms, dkv "
+            f"{dkv_ms:.4f} ms, {bounds}; plain dq+dk+dv {p_ms:.4f} ms, "
+            f"sdpa backward {l_ms:.4f} ms ({backend}); consumer warpgroups "
+            f"dq {plans[0]['warpgroups']}, dkv {plans[1]['warpgroups']} "
+            f"[{card}]")
         if not ok:
             raise CheckFailed(f"flash bwd ({b},{h},{t},{d}) causal={causal} "
                               f"{dtype} disagrees with its plain version: "
@@ -397,7 +424,8 @@ def check_flash_bwd(kernels, card):
                          err_dq=errs[0], err_dkv=max(errs[1:]), dq_ms=dq_ms,
                          dkv_ms=dkv_ms, plain_ms=p_ms, library_ms=l_ms,
                          library_backend=backend, dq_bound=dq_b,
-                         dkv_bound=dkv_b))
+                         dkv_bound=dkv_b, dq_bound_3xtf32_ms=tf32[0],
+                         dkv_bound_3xtf32_ms=tf32[1], plans=plans))
     return rows
 
 
@@ -694,7 +722,7 @@ def main() -> int:
     log("phase 2: build")
     lib = _cuda.library()
     log(f"  built {lib.path} in {lib.build_seconds:.1f} s")
-    fwd_build = report_forward_build(lib, kernels, _cuda.find_nvcc())
+    build = report_flash_build(lib, kernels, _cuda.find_nvcc())
 
     log("phase 3: kernels against their plain versions")
     ln_rows = check_layer_norm(kernels, card)
@@ -755,9 +783,14 @@ def main() -> int:
     # kernels, training for the backward ones) and shapes; both paths'
     # launches under "paths"
     ln, fa = ln_rows[-1], find_row(fa_rows, serve_shape, "float32")
-    fwd_key = ("float32", 64, fa["plan"]["warpgroups"])
-    design = dict(fa["plan"], **{k: fwd_build[fwd_key].get(k) for k in (
-        "registers", "spill_bytes", "HGMMA", "UTMALDG")}, summary=(
+
+    def design_of(kernel, plan, summary):   # the fp32 d = 64 instance's
+        key = (kernel, "float32", 64, plan["warpgroups"])
+        return dict(plan, **{k: build[key].get(k) for k in (
+            "registers", "spill_bytes", "HGMMA", "UTMALDG")},
+            summary=summary)
+
+    design = design_of("flash_fwd_kernel", fa["plan"], (
         "wgmma (bf16 on the tensor cores; fp32 as 3xTF32) fed by a 2-stage "
         "TMA ring of K/V tiles from one producer warp; 64 query rows a "
         "consumer warpgroup"))
@@ -765,6 +798,26 @@ def main() -> int:
         "ms", "bound_ms", "library_ms", "err")}
         for name, shape in (("serving", serve_shape),
                             ("training", train_shape))}
+    # the backward rows: the training shape in fp32, with both bounds, and
+    # bf16 at (2·8, 1024, 64) causal and at the training shape
+    bwd_summary = ("all products on wgmma (bf16 on the tensor cores, P and "
+                   "dS rounded to bf16 and fed from registers; fp32 as "
+                   "3xTF32 with K-major and transposed working sets) fed "
+                   "by a 2-stage TMA ring of the streamed tiles from one "
+                   "producer warp; 64 resident rows a consumer warpgroup; "
+                   "one CTA owns each output tile: no atomics")
+
+    def bwd_bf16_row(shape):
+        r = find_row(bwd_rows, shape, "bfloat16")
+        return {"shape": list(shape), "dq_ms": r["dq_ms"],
+                "dkv_ms": r["dkv_ms"], "dq_bound_ms": r["dq_bound"][0],
+                "dkv_bound_ms": r["dkv_bound"][0], "bound_by":
+                r["dq_bound"][1], "max_abs_err_dq": r["err_dq"],
+                "max_abs_err_dkv": r["err_dkv"],
+                "library_ms": r["library_ms"]}
+
+    bwd_bf16 = {"long": bwd_bf16_row((2, HEADS, 1024, 64)),
+                "training": bwd_bf16_row(train_shape)}
     paths = {k: {"serving": launches[k], "training": train_counts[k]}
              for k in launches}
     src = "bigdl_tpu_torch/kernels/csrc/"
@@ -802,7 +855,10 @@ def main() -> int:
          "bound_by": bwd["dq_bound"][1], "library_ms": bwd["library_ms"],
          "plain_and_library_cover": "dq+dk+dv",
          "library_backend": bwd["library_backend"],
-         "paths": paths["flash_attention_bwd_dq"]},
+         "paths": paths["flash_attention_bwd_dq"],
+         "bound_3xtf32_ms": bwd["dq_bound_3xtf32_ms"], "bf16": bwd_bf16,
+         "design": design_of("flash_bwd_dq_kernel", bwd["plans"][0],
+                             bwd_summary)},
         {"name": "flash_attention_bwd_dkv", "route": "cuda",
          "source": src + "flash_attention_bwd.cu",
          "replaces": "bigdl_tpu/kernels/flash_attention.py:199",
@@ -813,7 +869,10 @@ def main() -> int:
          "bound_by": bwd["dkv_bound"][1], "library_ms": bwd["library_ms"],
          "plain_and_library_cover": "dq+dk+dv",
          "library_backend": bwd["library_backend"],
-         "paths": paths["flash_attention_bwd_dkv"]},
+         "paths": paths["flash_attention_bwd_dkv"],
+         "bound_3xtf32_ms": bwd["dkv_bound_3xtf32_ms"], "bf16": bwd_bf16,
+         "design": design_of("flash_bwd_dkv_kernel", bwd["plans"][1],
+                             bwd_summary)},
     ], "training": {"step_ms": run["step_ms"],
                     "tokens_per_s": run["tokens_per_s"],
                     "kernel_ms_per_step": kernel_ms,

@@ -179,6 +179,63 @@ def test_flash_bwd_large_scores_stay_finite(cuda):
         _close(x, w, 2e-3 * (float(w.abs().max()) + 1.0), 2e-3)
 
 
+def _flash_bwd_case(seed, bh, t, d, causal, dtype, q_mul=1.0, tol=None):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    args = _flash_bwd_inputs(g, bh, t, d, causal, dtype, q_mul)
+    got = kernels.flash_attention_bwd_cuda(*args, causal)
+    want = kernels.flash_attention_bwd_reference(*args, causal)
+    if tol is None:
+        tol = 2e-4 if dtype == torch.float32 else 2e-2
+    for x, w in zip(got, want):
+        assert torch.isfinite(x.float()).all()
+        _close(x, w, tol * (float(w.float().abs().max()) + 1.0), tol)
+
+
+@pytest.mark.parametrize("t", [63, 127, 129, 1000])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_bwd_ragged_t_across_heads(cuda, t, causal, dtype):
+    """T off the streamed tiles (16-64 rows) and the resident ones (64 or
+    128): a tail tile that read the next head's rows, or a query past T
+    that kept a non-zero p, would show in heads 0-2."""
+    _flash_bwd_case(t + 11, 4, t, 64, causal, dtype)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_bwd_head_dim_128_long(cuda, causal, dtype):
+    _flash_bwd_case(129, 3, 1024, 128, causal, dtype)
+
+
+def test_flash_bwd_large_scores_bf16(cuda):
+    """Scores near 1e3 in bf16: p from the saved lse stays in [0, 1]."""
+    _flash_bwd_case(8, 2, 130, 64, True, torch.bfloat16, q_mul=30.0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_bwd_two_warpgroup_ragged_causal(cuda, dtype):
+    """Enough heads for 128-row, two-warpgroup CTAs in both kernels, and
+    T = 300 not a multiple of 128: the last CTA's second warpgroup holds
+    only rows past T."""
+    for dkv in (False, True):
+        plan = kernels.backward_launch_plan(140, 300, 64, dtype, dkv)
+        assert plan["warpgroups"] == 2 and plan["threads"] == 288
+    _flash_bwd_case(300, 140, 300, 64, True, dtype)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_bwd_is_deterministic(cuda, causal, dtype):
+    """Every output tile is owned by one CTA and summed in a fixed order:
+    two calls on the same inputs agree bit for bit."""
+    g = torch.Generator(device="cuda").manual_seed(21)
+    args = _flash_bwd_inputs(g, 140, 300, 64, causal, dtype)
+    first = kernels.flash_attention_bwd_cuda(*args, causal)
+    second = kernels.flash_attention_bwd_cuda(*args, causal)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
 def test_flash_autograd_matches_plain_autograd(cuda):
     g = torch.Generator(device=cuda).manual_seed(9)
     q, k, v = (torch.randn(2, 4, 100, 64, generator=g, device=cuda)
