@@ -3,6 +3,7 @@
 | kernel | replaces (Pallas) | source |
 | --- | --- | --- |
 | ``layer_norm_fwd`` | ``bigdl_tpu/kernels/layernorm.py:31`` | ``csrc/layernorm.cu`` |
+| ``layer_norm_bwd`` | ``bigdl_tpu/kernels/layernorm.py:99`` (``_fln_bwd``, plain jnp) | ``csrc/layernorm.cu`` |
 | ``flash_attention_fwd`` | ``bigdl_tpu/kernels/flash_attention.py:54`` | ``csrc/flash_attention.cu`` |
 | ``flash_attention_bwd_dq`` | ``bigdl_tpu/kernels/flash_attention.py:132`` | ``csrc/flash_attention_bwd.cu`` |
 | ``flash_attention_bwd_dkv`` | ``bigdl_tpu/kernels/flash_attention.py:199`` | ``csrc/flash_attention_bwd.cu`` |
@@ -23,11 +24,11 @@ from bigdl_tpu_torch.kernels.flash_attention import (
 )
 from bigdl_tpu_torch.kernels.layernorm import (
     LayerNormFunction, fused_layer_norm, layer_norm_backward,
-    layer_norm_cuda, layer_norm_reference,
+    layer_norm_bwd_cuda, layer_norm_cuda, layer_norm_reference,
 )
 
-_COUNTERS = (_layernorm.launches, _flash.launches, _flash.bwd_dq_launches,
-             _flash.bwd_dkv_launches)
+_COUNTERS = (_layernorm.launches, _layernorm.bwd_launches, _flash.launches,
+             _flash.bwd_dq_launches, _flash.bwd_dkv_launches)
 
 
 def launch_counts() -> dict:
@@ -48,6 +49,6 @@ __all__ = [
     "flash_attention_bwd_reference", "flash_attention_cuda",
     "flash_attention_fwd", "flash_attention_reference", "forward_launch_plan",
     "fused_layer_norm",
-    "launch_counts", "layer_norm_backward", "layer_norm_cuda",
-    "layer_norm_reference", "reset_launch_counts",
+    "launch_counts", "layer_norm_backward", "layer_norm_bwd_cuda",
+    "layer_norm_cuda", "layer_norm_reference", "reset_launch_counts",
 ]

@@ -78,6 +78,9 @@ class KernelLibrary:
             ctypes.c_float
         lib.bigdl_layer_norm_fwd.argtypes = [p, p, p, p, ll, i, f, i, p]
         lib.bigdl_layer_norm_fwd.restype = i
+        lib.bigdl_layer_norm_bwd.argtypes = \
+            [p] * 6 + [ll, i, f, i, ctypes.POINTER(i), p]
+        lib.bigdl_layer_norm_bwd.restype = i
         lib.bigdl_flash_attn_fwd.argtypes = [p, p, p, p, p, ll, i, i, i, i, p]
         lib.bigdl_flash_attn_fwd.restype = i
         lib.bigdl_flash_attn_fwd_plan.argtypes = \
@@ -92,6 +95,8 @@ class KernelLibrary:
         lib.bigdl_flash_attn_bwd_plan.restype = i
         lib.bigdl_cuda_error_string.argtypes = [i]
         lib.bigdl_cuda_error_string.restype = ctypes.c_char_p
+        lib.bigdl_empty_launch.argtypes = [p]
+        lib.bigdl_empty_launch.restype = i
         self.lib = lib
 
 

@@ -32,37 +32,4 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);  // round to nearest even, as torch's .to()
 }
 
-// Four consecutive elements as fp32. `p` must be 16-byte aligned for
-// float and 8-byte aligned for bf16 (the wrappers check the base pointer,
-// and every offset used is a multiple of four elements).
-template <typename T>
-__device__ __forceinline__ float4 load4(const T* p);
-template <>
-__device__ __forceinline__ float4 load4<float>(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-template <>
-__device__ __forceinline__ float4 load4<__nv_bfloat16>(const __nv_bfloat16* p) {
-  const uint2 raw = *reinterpret_cast<const uint2*>(p);
-  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
-  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
-  return make_float4(a.x, a.y, b.x, b.y);
-}
-
-template <typename T>
-__device__ __forceinline__ void store4(T* p, float4 v);
-template <>
-__device__ __forceinline__ void store4<float>(float* p, float4 v) {
-  *reinterpret_cast<float4*>(p) = v;
-}
-template <>
-__device__ __forceinline__ void store4<__nv_bfloat16>(__nv_bfloat16* p, float4 v) {
-  const __nv_bfloat162 a = __floats2bfloat162_rn(v.x, v.y);
-  const __nv_bfloat162 b = __floats2bfloat162_rn(v.z, v.w);
-  uint2 raw;
-  raw.x = *reinterpret_cast<const unsigned int*>(&a);
-  raw.y = *reinterpret_cast<const unsigned int*>(&b);
-  *reinterpret_cast<uint2*>(p) = raw;
-}
-
 }  // namespace bigdl

@@ -1,24 +1,37 @@
-"""Fused LayerNorm: the CUDA forward kernel, its plain version, the
-closed-form backward, and the ``autograd.Function`` the ``LayerNorm``
-layer calls.
+"""Fused LayerNorm: the CUDA forward and backward kernels, their plain
+versions, and the ``autograd.Function`` the ``LayerNorm`` layer calls.
 
-Counterpart of ``bigdl_tpu/kernels/layernorm.py``. The kernel
-(``csrc/layernorm.cu``) replaces the Pallas ``_pallas_layer_norm``: one
-read and one write of each row, statistics in fp32. :func:`fused_layer_norm`
-launches it for CUDA tensors and raises if it cannot; the plain version
-runs only for CPU tensors. The backward has no kernel in either package:
-JAX's ``_fln_bwd`` is the recompute-form VJP of the plain formula in jnp,
-and :func:`layer_norm_backward` is its counterpart in torch ops, recomputing
-the statistics from the saved input.
+Counterpart of ``bigdl_tpu/kernels/layernorm.py``. Both kernels live in
+``csrc/layernorm.cu``. The forward replaces the Pallas
+``_pallas_layer_norm``: one read and one write of each row, statistics in
+fp32. JAX's backward, ``_fln_bwd``, is the recompute-form VJP of the plain
+formula in jnp, which XLA fuses on the TPU; the port's is the backward
+kernel, which recomputes the statistics from the saved input as JAX does
+and sums dgamma and dbeta in a fixed order (no float atomics).
+:func:`fused_layer_norm` launches the kernels for CUDA tensors and raises if
+it cannot; the plain versions (:func:`layer_norm_reference`,
+:func:`layer_norm_backward`) run only for CPU tensors.
 """
 
 from __future__ import annotations
+
+import ctypes
+import functools
+import math
+from typing import NamedTuple
 
 import torch
 
 from bigdl_tpu_torch.kernels import _cuda
 
 launches = _cuda.LaunchCounter("layer_norm_fwd")
+bwd_launches = _cuda.LaunchCounter("layer_norm_bwd")
+
+# The backward kernel's shapes in csrc/layernorm.cu (kBwdWarps, kWarpMaxH,
+# kLoopThreads, kReduceWarps), which checks every plan it is given against
+# them
+BWD_WARPS, WARP_MAX_H, LOOP_THREADS, REDUCE_WARPS = 8, 1024, 1024, 8
+BWD_CTAS_PER_SM = 2
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -67,6 +80,96 @@ def layer_norm_cuda(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     return out
 
 
+class BwdPlan(NamedTuple):
+    """How the backward kernel spreads its rows over the card; the order of
+    the dgamma and dbeta sums follows from it and from nothing else."""
+    ctas: int           # CTAs striding over the rows, one partial row each
+    rows_per_cta: int   # rows a CTA holds at once: its warps, or 1
+    threads: int        # threads holding one row: a warp, or LOOP_THREADS
+    vec: int            # elements a chunk: 1, or 16 bytes' worth
+    chunks: int         # chunks a thread holds; 0 on the loop path
+    reduce_warps: int   # column sum: warp k adds partial rows k, k + this, ...
+
+
+def layer_norm_bwd_plan(n: int, h: int, vec: int, sms: int) -> BwdPlan:
+    """The backward kernel's plan for ``n`` rows of ``h`` with chunks of
+    ``vec`` elements, on a card of ``sms`` SMs. Rows of h <= WARP_MAX_H
+    take one warp each, BWD_WARPS a CTA, every lane holding the fewest
+    chunks the kernel is built for that cover the row; wider rows take one
+    CTA of LOOP_THREADS each and scalar loads. About BWD_CTAS_PER_SM CTAs
+    an SM, fewer when there are fewer rows. The CUDA wrapper launches this
+    plan, and the CPU emulation of the kernel's sums reads it."""
+    if h > WARP_MAX_H:
+        rows, threads, vec, chunks = 1, LOOP_THREADS, 1, 0
+    else:
+        rows, threads = BWD_WARPS, 32
+        per_lane = math.ceil(h // vec / 32)
+        if vec == 1:
+            chunks = 2 if per_lane <= 2 else 8 if per_lane <= 8 else 32
+        else:
+            chunks = 1
+            while chunks < per_lane:
+                chunks *= 2
+    ctas = max(1, min(math.ceil(n / rows), BWD_CTAS_PER_SM * sms))
+    return BwdPlan(ctas, rows, threads, vec, chunks, REDUCE_WARPS)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def layer_norm_bwd_cuda(x: torch.Tensor, gamma: torch.Tensor,
+                        g: torch.Tensor, eps: float = 1e-5
+                        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Launch the backward kernel: ``(dx, dgamma, dbeta)`` of LayerNorm for
+    ``x`` (N, H), fp32 or bf16, contiguous, the output gradient ``g`` of the
+    same shape and dtype, and fp32 ``gamma`` (H,), all on one device. dx
+    comes out in x's dtype, dgamma and dbeta in fp32; two calls on the same
+    inputs agree bit for bit."""
+    if x.dim() != 2:
+        raise ValueError(f"layer_norm_bwd_cuda takes (N, H), got "
+                         f"{tuple(x.shape)}")
+    if x.dtype not in _DTYPE_CODES:
+        raise ValueError(f"layer_norm_bwd_cuda takes float32 or bfloat16, "
+                         f"got {x.dtype}")
+    if g.dtype != x.dtype or g.shape != x.shape or g.device != x.device:
+        raise ValueError(f"g must be {x.dtype} of shape {tuple(x.shape)} on "
+                         f"{x.device}, got {g.dtype} {tuple(g.shape)} on "
+                         f"{g.device}")
+    n, h = x.shape
+    if gamma.dtype != torch.float32 or tuple(gamma.shape) != (h,) \
+            or gamma.device != x.device:
+        raise ValueError(f"gamma must be float32 of shape ({h},) on "
+                         f"{x.device}, got {gamma.dtype} "
+                         f"{tuple(gamma.shape)} on {gamma.device}")
+    if not (x.is_contiguous() and g.is_contiguous()
+            and gamma.is_contiguous()):
+        raise ValueError("layer_norm_bwd_cuda needs contiguous tensors")
+    if not x.is_cuda:
+        raise ValueError(f"layer_norm_bwd_cuda needs a CUDA tensor, got "
+                         f"{x.device}")
+    dx = torch.empty_like(x)
+    wide = 16 // x.element_size()
+    aligned = h % wide == 0 and all(t.data_ptr() % 16 == 0
+                                    for t in (x, g, gamma, dx))
+    plan = layer_norm_bwd_plan(n, h, wide if aligned else 1,
+                               _sm_count(x.device.index))
+    dgb = torch.empty(2, h, dtype=torch.float32, device=x.device)
+    workspace = torch.empty(plan.ctas, 2 * h, dtype=torch.float32,
+                            device=x.device)
+    lib = _cuda.library().lib
+    with torch.cuda.device(x.device):
+        code = lib.bigdl_layer_norm_bwd(
+            x.data_ptr(), g.data_ptr(), gamma.data_ptr(), dx.data_ptr(),
+            dgb.data_ptr(), workspace.data_ptr(), n, h, float(eps),
+            _DTYPE_CODES[x.dtype], (ctypes.c_int * len(plan))(*plan),
+            _cuda.stream_handle(x))
+    _cuda.check(code, "layer_norm_bwd")
+    bwd_launches.add()
+    return dx, dgb[0], dgb[1]
+
+
 def layer_norm_forward(x: torch.Tensor, gamma: torch.Tensor,
                        beta: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     """LayerNorm over the last axis without autograd: the CUDA kernel for
@@ -87,8 +190,8 @@ def layer_norm_backward(x: torch.Tensor, gamma: torch.Tensor, eps: float,
     with ``xhat = (x - mean)·inv`` and ``gx = g·gamma``,
     ``dx = inv·(gx - mean(gx) - xhat·mean(gx·xhat))``,
     ``dgamma = Σ g·xhat``, ``dbeta = Σ g`` over the leading axes.
-    The counterpart of JAX ``_fln_bwd``; it runs as plain torch on every
-    device (no kernel in either package)."""
+    The plain version of the backward kernel and the counterpart of JAX
+    ``_fln_bwd``; the dispatcher runs it only for CPU tensors."""
     x32, g32 = x.float(), g.float()
     mean = x32.mean(dim=-1, keepdim=True)
     var = (x32 - mean).square().mean(dim=-1, keepdim=True)
@@ -103,9 +206,23 @@ def layer_norm_backward(x: torch.Tensor, gamma: torch.Tensor, eps: float,
     return dx.to(x.dtype), dgamma.to(gamma.dtype), dbeta.to(gamma.dtype)
 
 
+def layer_norm_grad(x: torch.Tensor, gamma: torch.Tensor, eps: float,
+                    g: torch.Tensor
+                    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """LayerNorm's backward without autograd: the CUDA kernel for CUDA
+    tensors, :func:`layer_norm_backward` for CPU tensors."""
+    if x.device.type == "cpu":
+        return layer_norm_backward(x, gamma, eps, g)
+    h = x.shape[-1]
+    dx, dgamma, dbeta = layer_norm_bwd_cuda(
+        x.reshape(-1, h).contiguous(), gamma.contiguous(),
+        g.reshape(-1, h).contiguous(), eps)
+    return dx.reshape(x.shape), dgamma, dbeta
+
+
 class LayerNormFunction(torch.autograd.Function):
-    """The kernel forward (plain version on the CPU) with
-    :func:`layer_norm_backward`; saves only x and gamma."""
+    """The kernel forward and backward (plain versions on the CPU); saves
+    only x and gamma."""
 
     @staticmethod
     def forward(ctx, x, gamma, beta, eps: float):
@@ -116,7 +233,7 @@ class LayerNormFunction(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         x, gamma = ctx.saved_tensors
-        dx, dgamma, dbeta = layer_norm_backward(x, gamma, ctx.eps, g)
+        dx, dgamma, dbeta = layer_norm_grad(x, gamma, ctx.eps, g)
         return dx, dgamma, dbeta, None
 
 

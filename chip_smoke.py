@@ -11,9 +11,14 @@ an NVIDIA H100 and the CUDA toolkit. It builds the port's CUDA kernels from
    threads, dynamic shared memory and the count of ``HGMMA`` (tensor-core)
    and ``UTMALDG`` (TMA) instructions in its SASS (``cuobjdump -sass``); a
    zero count or a spill fails;
-3. holds each kernel against its plain PyTorch version on the card
-   (LayerNorm at (8·1024, 512) fp32/bf16; the flash forward and the two
-   flash backward kernels at (2, 8, T, 64) with T in {1024, 1000}, causal
+3. times an empty kernel launched through the C interface (the launch
+   floor), then holds each kernel against its plain PyTorch version on the
+   card (the LayerNorm forward at every main-path shape: (8, 512),
+   (700, 512), (2·512, 512), (16·512, 512) fp32 and bf16, (1024, 256); the
+   LayerNorm backward at (16·512, 512) fp32 and bf16 and (2·512, 512),
+   with dgamma and dbeta bitwise equal across two calls; the flash forward
+   and the two flash backward kernels at (2, 8, T, 64) with T in
+   {1024, 1000}, causal
    and not, fp32/bf16, and the forward also at the main paths' causal
    (2·8, 512, 64) and (16·8, 512, 64) in fp32 and bf16, the backward at
    the training step's (16·8, 512, 64) causal in fp32 and bf16), and times
@@ -38,9 +43,10 @@ an NVIDIA H100 and the CUDA toolkit. It builds the port's CUDA kernels from
    batch 16 × 512 on ``synthetic_ptb`` windows, every loss finite, with the
    step time and tokens/s;
 7. checks that the serving path (phases 4 and 5) launched both forward
-   kernels and the training path (the 8 steps) all four, and prints the
-   kernel table as one JSON line, the card line, and the result line
-   ``{"ok": true, "device": {...}}`` last.
+   kernels and the training path (the 8 steps) all five, the LayerNorm
+   backward once for each LayerNorm forward and the plain backward never,
+   and prints the kernel table as one JSON line, the card line, and the
+   result line ``{"ok": true, "device": {...}}`` last.
 
 Any failed check exits non-zero without the result line, as does a machine
 without CUDA or a directory without the package.
@@ -48,7 +54,9 @@ without CUDA or a directory without the package.
 
 from __future__ import annotations
 
+import itertools
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -71,6 +79,7 @@ HBM_BYTES_PER_S = 3.35e12                       # H100 SXM data sheet
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}   # fp32 non-tensor, bf16
 TF32_FLOPS = 495e12                             # tensor cores, dense
 SM_CLOCK_HZ = 1.98e9                            # H100 SXM boost clock
+L2_BYTES = 50e6                                 # H100 SXM L2 cache
 
 
 class CheckFailed(Exception):
@@ -177,6 +186,53 @@ def report_flash_build(lib, kernels, nvcc):
     return info
 
 
+LN_INSTANCE = re.compile(r"(ln_(?:fwd|bwd)_(?:warp|loop)|ln_bwd_reduce)"
+                         r"(?:I(f|13__nv_bfloat16)(?:Li(\d+)ELi(\d+)E)?)?")
+# the instances the main paths run: H = 512 in 128-bit chunks
+LN_MAIN_PATH = {("ln_fwd_warp", "float32", 4, 4),
+                ("ln_bwd_warp", "float32", 4, 4), ("ln_bwd_reduce", None,
+                                                   None, None)}
+
+
+def report_layer_norm_build(lib):
+    """Registers and spills (ptxas -v) of every LayerNorm instance
+    (kernel, dtype, values a chunk, chunks a thread). Fails if an instance
+    of the main paths spills."""
+    info = {}
+    current = None
+    for line in lib.build_log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            k = LN_INSTANCE.search(m.group(1))
+            current = None if k is None else (
+                k.group(1), {"f": "float32", None: None}.get(
+                    k.group(2), "bfloat16"),
+                int(k.group(3)) if k.group(3) else None,
+                int(k.group(4)) if k.group(4) else None)
+            continue
+        if current is None:
+            continue
+        row = info.setdefault(current, {})
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            row["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            row["registers"] = int(m.group(1))
+    if not info:
+        raise CheckFailed("the build log holds no ptxas report of the "
+                          "LayerNorm kernels")
+    for key in sorted(info, key=str):
+        log(f"  {key[0]} {key[1]} vec={key[2]} chunks={key[3]}: "
+            f"{info[key].get('registers')} registers, "
+            f"{info[key].get('spill_bytes')} spill bytes")
+    for key in LN_MAIN_PATH:
+        if info.get(key, {}).get("spill_bytes") != 0:
+            raise CheckFailed(f"{key} spills or is missing: {info.get(key)}")
+    return info
+
+
 # ----------------------------------------------------------------- timing
 def time_ms(fn, reps: int = 20, trials: int = 5) -> tuple[float, float]:
     """(device ms, host ms) of one call of ``fn``. Device: the median over
@@ -206,6 +262,29 @@ def time_ms(fn, reps: int = 20, trials: int = 5) -> tuple[float, float]:
     return statistics.median(times), enqueue_s * 1e3 / reps
 
 
+def rotating(fn, sets: int):
+    """A call of ``fn(k)`` for k = 0, 1, ..., sets - 1, 0, 1, ... that keeps
+    each result until its slot comes round again: the inputs rotate through
+    ``sets`` buffers and the outputs through sets + 1. The ring is filled
+    once here, so no call in a timing loop allocates new device memory."""
+    ring = [fn(k) for k in range(sets)]
+    step = itertools.count()
+
+    def call():
+        k = next(step) % sets
+        ring[k] = fn(k)
+    return call
+
+
+def rotation(bytes_per_call: float) -> int:
+    """Sets of buffers a timing loop rotates through so that one pass over
+    them moves 4x the L2: each call then reads its inputs from, and writes
+    its outputs to, device memory, as the bytes bound assumes. At most 256:
+    a decode tick's (8, 512) then stays in L2, as on the serving path, where
+    the op before it has just written its input."""
+    return min(256, max(2, math.ceil(4 * L2_BYTES / bytes_per_call)))
+
+
 def bound_ms(bytes_moved: float, flops: float, dtype_name: str):
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
@@ -222,15 +301,34 @@ def within(got, want, atol, rtol) -> bool:
 
 
 # ------------------------------------------------------- phase 3: kernels
-def check_layer_norm(kernels, card):
+def launch_floor_ms(lib) -> float:
+    """Device time of an empty kernel launched through the C interface, as
+    the kernels are: the floor under any of their times."""
+    stream = torch.cuda.current_stream().cuda_stream
+    ms, _ = time_ms(lambda: lib.bigdl_empty_launch(stream), 50)
+    return ms
+
+
+def check_layer_norm(kernels, card, floor_ms):
+    """The forward at every shape the main paths give it: a decode tick
+    (8, 512), the longest prefill (700, 512), the full forward (2·512, 512),
+    training (16·512, 512) in fp32 and bf16, and the flagship width
+    (1024, 256). The kernel, its plain version and ``F.layer_norm`` are
+    timed over rotating inputs and outputs 4x the L2 (``rotation``)."""
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(SEED)
-    cases = [((8 * 1024, EMBED), torch.float32, 1e-5, 1e-5),
-             ((8 * 1024, EMBED), torch.bfloat16, 2e-2, 0.0),
-             ((2 * 512, EMBED), torch.float32, 1e-5, 1e-5)]   # main path
+    cases = [((SLOTS, EMBED), torch.float32, 1e-5, 1e-5),
+             ((PROMPT_HI, EMBED), torch.float32, 1e-5, 1e-5),
+             ((2 * 512, EMBED), torch.float32, 1e-5, 1e-5),
+             ((TRAIN_BATCH * TRAIN_LEN, EMBED), torch.float32, 1e-5, 1e-5),
+             ((TRAIN_BATCH * TRAIN_LEN, EMBED), torch.bfloat16, 2e-2, 0.0),
+             ((1024, 256), torch.float32, 1e-5, 1e-5)]
     rows = []
     for (n, h), dtype, atol, rtol in cases:
-        x = torch.randn(n, h, generator=g, device=dev).to(dtype)
+        item = torch.finfo(dtype).bits // 8
+        sets = rotation(2 * n * h * item)
+        xs = torch.randn(sets, n, h, generator=g, device=dev).to(dtype)
+        x = xs[0]
         gamma = 1 + 0.1 * torch.randn(h, generator=g, device=dev)
         beta = 0.1 * torch.randn(h, generator=g, device=dev)
         got = kernels.layer_norm_cuda(x, gamma, beta, 1e-5)
@@ -238,26 +336,107 @@ def check_layer_norm(kernels, card):
         torch.cuda.synchronize()
         err = max_err(got, want)
         ok = within(got, want, atol, rtol)
-        k_ms, _ = time_ms(
-            lambda: kernels.layer_norm_cuda(x, gamma, beta, 1e-5), 50)
-        p_ms, _ = time_ms(
-            lambda: kernels.layer_norm_reference(x, gamma, beta, 1e-5), 50)
+        k_ms, _ = time_ms(rotating(
+            lambda k: kernels.layer_norm_cuda(xs[k], gamma, beta, 1e-5),
+            sets), 50)
+        p_ms, _ = time_ms(rotating(
+            lambda k: kernels.layer_norm_reference(xs[k], gamma, beta, 1e-5),
+            sets), 50)
         g_lib, b_lib = gamma.to(dtype), beta.to(dtype)
-        l_ms, _ = time_ms(lambda: torch.nn.functional.layer_norm(
-            x, (h,), g_lib, b_lib, 1e-5), 50)
-        item = x.element_size()
+        l_ms, _ = time_ms(rotating(lambda k: torch.nn.functional.layer_norm(
+            xs[k], (h,), g_lib, b_lib, 1e-5), sets), 50)
+        ys = torch.empty_like(xs)
+        c_ms, _ = time_ms(rotating(lambda k: ys[k].copy_(xs[k]), sets), 50)
+        del ys
         b_ms, b_by = bound_ms(2 * n * h * item + 2 * h * 4, 8.0 * n * h,
                               str(dtype).split(".")[-1])
         log(f"  layer_norm ({n}, {h}) {str(dtype)[6:]}: max|err| {err:.3e} "
             f"(atol {atol}, rtol {rtol}) {'ok' if ok else 'FAIL'}; kernel "
-            f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, "
-            f"F.layer_norm {l_ms:.4f} ms, bound {b_ms:.4f} ms [{card}]")
+            f"{k_ms:.5f} ms, plain {p_ms:.5f} ms, F.layer_norm {l_ms:.5f} "
+            f"ms, bound {b_ms:.5f} ms ({b_by}, {b_ms / k_ms:.0%} of it), "
+            f"copy of x {c_ms:.5f} ms, launch floor {floor_ms:.5f} ms; "
+            f"{sets} rotating sets [{card}]")
         if not ok:
             raise CheckFailed(f"layer_norm ({n}, {h}) {dtype} disagrees with "
                               f"its plain version: max|err| {err}")
         rows.append(dict(shape=[n, h], dtype=str(dtype)[6:], err=err,
                          ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
-                         bound_ms=b_ms, bound_by=b_by))
+                         bound_ms=b_ms, bound_by=b_by, copy_ms=c_ms))
+    return rows
+
+
+def check_layer_norm_bwd(kernels, card):
+    """The backward kernel against ``layer_norm_backward`` at the training
+    path's shapes: the 8-step run's (16·512, 512) in fp32 and bf16 and the
+    one-step check's (2·512, 512). dx within rtol 1e-4 / atol 1e-5 (fp32)
+    or 2e-2 (bf16); dgamma and dbeta, fp32 sums over all N rows taken in
+    another order than the plain version's, within rtol 1e-4 and atol
+    1e-5·(max|want| + 1), and equal bit for bit across two calls. Library
+    yardstick: the backward of ``F.layer_norm``, (forward + backward) -
+    forward under autograd. All three are timed over rotating inputs and
+    outputs 4x the L2 (``rotation``)."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED + 5)
+    cases = [((TRAIN_BATCH * TRAIN_LEN, EMBED), torch.bfloat16),
+             ((2 * TRAIN_LEN, EMBED), torch.float32),
+             ((TRAIN_BATCH * TRAIN_LEN, EMBED), torch.float32)]
+    rows = []
+    for (n, h), dtype in cases:
+        item = torch.finfo(dtype).bits // 8
+        sets = rotation(3 * n * h * item)
+        xs = torch.randn(sets, n, h, generator=g, device=dev).to(dtype)
+        dys = torch.randn(sets, n, h, generator=g, device=dev).to(dtype)
+        x, dy = xs[0], dys[0]
+        gamma = 1 + 0.1 * torch.randn(h, generator=g, device=dev)
+        got = kernels.layer_norm_bwd_cuda(x, gamma, dy, 1e-5)
+        again = kernels.layer_norm_bwd_cuda(x, gamma, dy, 1e-5)
+        want = kernels.layer_norm_backward(x, gamma, 1e-5, dy)
+        torch.cuda.synchronize()
+        errs = [max_err(a, b) for a, b in zip(got, want)]
+        dx_tol = (1e-5, 1e-4) if dtype == torch.float32 else (2e-2, 0.0)
+        sum_atol = [1e-5 * (float(b.abs().max()) + 1) for b in want[1:]]
+        ok = (within(got[0], want[0], *dx_tol)
+              and all(within(a, b, t, 1e-4)
+                      for a, b, t in zip(got[1:], want[1:], sum_atol)))
+        bitwise = all(torch.equal(a, b) for a, b in zip(got, again))
+        k_ms, _ = time_ms(rotating(
+            lambda k: kernels.layer_norm_bwd_cuda(xs[k], gamma, dys[k], 1e-5),
+            sets), 50)
+        p_ms, _ = time_ms(rotating(
+            lambda k: kernels.layer_norm_backward(xs[k], gamma, 1e-5, dys[k]),
+            sets), 20)
+        xr = [t.detach().requires_grad_() for t in xs.unbind(0)]
+        gr, br = (t.to(dtype).requires_grad_()
+                  for t in (gamma, torch.zeros_like(gamma)))
+        ln = torch.nn.functional.layer_norm
+        fb_ms, _ = time_ms(rotating(lambda k: torch.autograd.grad(
+            ln(xr[k], (h,), gr, br, 1e-5), (xr[k], gr, br), dys[k]),
+            sets), 50)
+        with torch.no_grad():
+            f_ms, _ = time_ms(rotating(
+                lambda k: ln(xr[k], (h,), gr, br, 1e-5), sets), 50)
+        l_ms = fb_ms - f_ms
+        name = str(dtype).split(".")[-1]
+        b_ms, b_by = bound_ms(3 * n * h * item + 3 * h * 4, 12.0 * n * h,
+                              name)
+        log(f"  layer_norm bwd ({n}, {h}) {name}: max|err| dx {errs[0]:.3e} "
+            f"dgamma {errs[1]:.3e} dbeta {errs[2]:.3e} (dx atol "
+            f"{dx_tol[0]}, rtol {dx_tol[1]}; dgamma, dbeta atol "
+            f"{sum_atol[0]:.2e}, {sum_atol[1]:.2e}, rtol 1e-4) "
+            f"{'ok' if ok else 'FAIL'}; two calls bitwise "
+            f"{'equal' if bitwise else 'DIFFER'}; kernel {k_ms:.5f} ms, plain "
+            f"{p_ms:.5f} ms, F.layer_norm backward {l_ms:.5f} ms, bound "
+            f"{b_ms:.5f} ms ({b_by}, {b_ms / k_ms:.0%} of it); {sets} "
+            f"rotating sets [{card}]")
+        if not ok:
+            raise CheckFailed(f"layer_norm bwd ({n}, {h}) {dtype} disagrees "
+                              f"with its plain version: max|err| {errs}")
+        if not bitwise:
+            raise CheckFailed(f"layer_norm bwd ({n}, {h}) {dtype}: two calls "
+                              f"differ")
+        rows.append(dict(shape=[n, h], dtype=name, err=max(errs), ms=k_ms,
+                         plain_ms=p_ms, library_ms=l_ms, bound_ms=b_ms,
+                         bound_by=b_by))
     return rows
 
 
@@ -657,15 +836,27 @@ def train(TransformerLM, lm_criterion, kernels, card):
         return loss
 
     opt.train_step = recorded_step
+    # the plain LayerNorm backward must not run on the card
+    from bigdl_tpu_torch.kernels import layernorm as ln_module
+    plain_bwd, plain_calls = ln_module.layer_norm_backward, []
+
+    def counted_plain_bwd(*args):
+        plain_calls.append(1)
+        return plain_bwd(*args)
+
+    ln_module.layer_norm_backward = counted_plain_bwd
     torch.cuda.synchronize()
-    # the training path: counted from here ...
-    kernels.reset_launch_counts()
-    t0 = time.perf_counter()
-    opt.optimize()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    counts = kernels.launch_counts()     # ... to here
-    opt.train_step = step
+    try:
+        # the training path: counted from here ...
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        opt.optimize()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = kernels.launch_counts()     # ... to here
+    finally:
+        opt.train_step = step
+        ln_module.layer_norm_backward = plain_bwd
     if len(losses) != TRAIN_STEPS or not all(np.isfinite(losses)):
         raise CheckFailed(f"training gave losses {losses}")
     step_ms = float(statistics.median(np.diff(marks))) * 1e3
@@ -680,6 +871,14 @@ def train(TransformerLM, lm_criterion, kernels, card):
     for name, n in counts.items():
         if n == 0:
             raise CheckFailed(f"the training path never launched {name}")
+    ln_per_run = (2 * LAYERS + 1) * TRAIN_STEPS   # two a block, one final
+    if (counts["layer_norm_fwd"] != ln_per_run
+            or counts["layer_norm_bwd"] != ln_per_run or plain_calls):
+        raise CheckFailed(f"the training path launched layer_norm_fwd "
+                          f"{counts['layer_norm_fwd']} and layer_norm_bwd "
+                          f"{counts['layer_norm_bwd']} times (expected "
+                          f"{ln_per_run} each) and ran the plain backward "
+                          f"{len(plain_calls)} times")
     prof = profile_step(opt, next(iter(data.data(train=True))), card)
     return counts, dict(losses=losses, step_ms=step_ms,
                         tokens_per_s=tokens / step_ms * 1e3,
@@ -723,9 +922,14 @@ def main() -> int:
     lib = _cuda.library()
     log(f"  built {lib.path} in {lib.build_seconds:.1f} s")
     build = report_flash_build(lib, kernels, _cuda.find_nvcc())
+    ln_build = report_layer_norm_build(lib)
 
     log("phase 3: kernels against their plain versions")
-    ln_rows = check_layer_norm(kernels, card)
+    floor_ms = launch_floor_ms(lib.lib)
+    log(f"  launch floor: an empty kernel through the C interface "
+        f"{floor_ms:.5f} ms [{card}]")
+    ln_rows = check_layer_norm(kernels, card, floor_ms)
+    lnb_rows = check_layer_norm_bwd(kernels, card)
     fa_rows = check_flash(kernels, card)
     bwd_rows = check_flash_bwd(kernels, card)
 
@@ -768,21 +972,25 @@ def main() -> int:
     train_counts, run = train(TransformerLM, lm_criterion, kernels, card)
     train_shape, serve_shape = (TRAIN_BATCH, HEADS, TRAIN_LEN, 64), \
         (2, HEADS, 512, 64)
-    ln_t, bwd = ln_rows[0], bwd_rows[-1]
+    ln_t = find_row(ln_rows, (TRAIN_BATCH * TRAIN_LEN, EMBED), "float32")
+    lnb, bwd = lnb_rows[-1], bwd_rows[-1]
     fa_t = find_row(fa_rows, train_shape, "float32")
     per_step = {k: v / TRAIN_STEPS for k, v in train_counts.items()}
     kernel_ms = (per_step["layer_norm_fwd"] * ln_t["ms"]
+                 + per_step["layer_norm_bwd"] * lnb["ms"]
                  + per_step["flash_attention_fwd"] * fa_t["ms"]
                  + per_step["flash_attention_bwd_dq"] * bwd["dq_ms"]
                  + per_step["flash_attention_bwd_dkv"] * bwd["dkv_ms"])
-    log(f"  the four kernels: {kernel_ms:.3f} ms a step at their phase-3 "
+    log(f"  the five kernels: {kernel_ms:.3f} ms a step at their phase-3 "
         f"times, {kernel_ms / run['step_ms']:.1%} of the median step "
         f"[{card}]")
 
     # each kernel's row: its own slice's path (serving for the forward
     # kernels, training for the backward ones) and shapes; both paths'
     # launches under "paths"
-    ln, fa = ln_rows[-1], find_row(fa_rows, serve_shape, "float32")
+    ln = find_row(ln_rows, (2 * 512, EMBED), "float32")
+    ln_dec = find_row(ln_rows, (SLOTS, EMBED), "float32")
+    fa = find_row(fa_rows, serve_shape, "float32")
 
     def design_of(kernel, plan, summary):   # the fp32 d = 64 instance's
         key = (kernel, "float32", 64, plan["warpgroups"])
@@ -830,7 +1038,34 @@ def main() -> int:
          "plain_ms": ln["plain_ms"], "bound_ms": ln["bound_ms"],
          "bound_by": ln["bound_by"], "library_ms": ln["library_ms"],
          "paths": paths["layer_norm_fwd"],
-         "training_shape": ln_t["shape"], "training_ms": ln_t["ms"]},
+         "training_shape": ln_t["shape"], "training_ms": ln_t["ms"],
+         "training_bound_ms": ln_t["bound_ms"],
+         "training_library_ms": ln_t["library_ms"],
+         "training_copy_ms": ln_t["copy_ms"],
+         "decode_shape": ln_dec["shape"], "decode_ms": ln_dec["ms"],
+         "decode_library_ms": ln_dec["library_ms"],
+         "launch_floor_ms": floor_ms,
+         "design": "one warp per row (4 rows a CTA), the row in registers, "
+                   "128-bit loads and stores, statistics by warp shuffles",
+         "registers": ln_build[("ln_fwd_warp", "float32", 4, 4)].get(
+             "registers")},
+        {"name": "layer_norm_bwd", "route": "cuda",
+         "source": src + "layernorm.cu",
+         "replaces": "bigdl_tpu/kernels/layernorm.py:99 (_fln_bwd, plain "
+                     "jnp)",
+         "launches": train_counts["layer_norm_bwd"], "shape": lnb["shape"],
+         "dtype": lnb["dtype"], "max_abs_err": lnb["err"], "ms": lnb["ms"],
+         "plain_ms": lnb["plain_ms"], "bound_ms": lnb["bound_ms"],
+         "bound_by": lnb["bound_by"], "library_ms": lnb["library_ms"],
+         "paths": paths["layer_norm_bwd"],
+         "bf16": {k: find_row(lnb_rows, lnb["shape"], "bfloat16")[k]
+                  for k in ("ms", "bound_ms", "library_ms", "err")},
+         "design": "one warp per row (8 warps a CTA, ~2 CTAs an SM striding "
+                   "over rows), the row in registers; dgamma/dbeta partials "
+                   "per CTA summed by a second kernel in a fixed order, no "
+                   "float atomics",
+         "registers": ln_build[("ln_bwd_warp", "float32", 4, 4)].get(
+             "registers")},
         {"name": "flash_attention_fwd", "route": "cuda",
          "source": src + "flash_attention.cu",
          "replaces": "bigdl_tpu/kernels/flash_attention.py:54",

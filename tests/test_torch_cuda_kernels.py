@@ -7,10 +7,11 @@ it runs on a GPU machine without JAX:
     python -m pytest --noconftest -p no:cacheprovider -m gpu \
         tests/test_torch_cuda_kernels.py
 
-Tolerances: fp32 outputs within 2e-4 (LayerNorm 1e-5) of the plain
-version, whose sums run in another order (the flash forward's fp32 route
-is 3xTF32 on the tensor cores, ~2^-21 relative a product); bf16 outputs
-within 2e-2, a few bf16 ulps at unit scale.
+Tolerances: fp32 outputs within 2e-4 (LayerNorm 1e-5; the LayerNorm
+backward's dgamma and dbeta, sums over all rows, 1e-5 of their largest
+entry) of the plain version, whose sums run in another order (the flash
+kernels' fp32 route is 3xTF32 on the tensor cores, ~2^-21 relative a
+product); bf16 outputs within 2e-2, a few bf16 ulps at unit scale.
 """
 
 import pytest
@@ -49,6 +50,138 @@ def test_layer_norm_matches_plain(cuda, n, h, dtype):
         _close(got, want, 1e-5, 1e-5)
     else:
         _close(got, want, 2e-2, 0.0)
+
+
+def _ln_bwd_inputs(g, n, h, dtype, device="cuda"):
+    x = (3 * torch.randn(n, h, generator=g, device=device) + 1).to(dtype)
+    dy = torch.randn(n, h, generator=g, device=device).to(dtype)
+    gamma = 1 + 0.1 * torch.randn(h, generator=g, device=device)
+    return x, gamma, dy
+
+
+def _close_ln_bwd(got, want, dtype):
+    """dx within rtol 1e-4 / atol 1e-5 (fp32) or 2e-2 (bf16, a few ulps of
+    the bf16 result); dgamma and dbeta are fp32 sums over all N rows, taken
+    in another order than the plain version's, so their atol scales with
+    their largest entry: 1e-5·(max|want| + 1), rtol 1e-4."""
+    dx, dgamma, dbeta = got
+    assert dx.dtype == dtype and dx.shape == want[0].shape
+    assert dgamma.dtype == dbeta.dtype == torch.float32
+    if dtype == torch.float32:
+        _close(dx, want[0], 1e-5, 1e-4)
+    else:
+        _close(dx, want[0], 2e-2, 0.0)
+    for x, w in zip((dgamma, dbeta), want[1:]):
+        _close(x, w, 1e-5 * (float(w.abs().max()) + 1.0), 1e-4)
+
+
+@pytest.mark.parametrize("n,h", [(1, 512), (7, 31), (300, 512), (33, 1000),
+                                 (4, 4096), (2, 1), (8192, 512)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_layer_norm_bwd_matches_plain(cuda, n, h, dtype):
+    g = torch.Generator(device=cuda).manual_seed(n * 1000 + h + 5)
+    x, gamma, dy = _ln_bwd_inputs(g, n, h, dtype)
+    before = kernels.launch_counts()["layer_norm_bwd"]
+    got = kernels.layer_norm_bwd_cuda(x, gamma, dy, 1e-5)
+    assert kernels.launch_counts()["layer_norm_bwd"] == before + 1
+    want = kernels.layer_norm_backward(x, gamma, 1e-5, dy)
+    _close_ln_bwd(got, want, dtype)
+
+
+@pytest.mark.parametrize("n,h", [(3, 8193), (2, 12288)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_layer_norm_rows_wider_than_the_registers(cuda, n, h, dtype):
+    """H far beyond the warp path's 1024: the kernels loop over the row in
+    global memory, one CTA of 1024 threads a row."""
+    g = torch.Generator(device=cuda).manual_seed(h)
+    x, gamma, dy = _ln_bwd_inputs(g, n, h, dtype)
+    beta = 0.1 * torch.randn(h, generator=g, device=cuda)
+    got = kernels.layer_norm_cuda(x, gamma, beta, 1e-5)
+    want = kernels.layer_norm_reference(x, gamma, beta, 1e-5)
+    _close(got, want, *((1e-5, 1e-5) if dtype == torch.float32
+                        else (2e-2, 0.0)))
+    _close_ln_bwd(kernels.layer_norm_bwd_cuda(x, gamma, dy, 1e-5),
+                  kernels.layer_norm_backward(x, gamma, 1e-5, dy), dtype)
+
+
+@pytest.mark.parametrize("h", [512, 4096])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_layer_norm_unaligned_rows(cuda, h, dtype):
+    """Rows that start off a 16-byte boundary take the scalar loads."""
+    g = torch.Generator(device=cuda).manual_seed(h + 1)
+    n = 5
+    flat_x, flat_dy = (torch.randn(n * h + 1, generator=g, device=cuda)
+                       .to(dtype) for _ in range(2))
+    x, dy = flat_x[1:].view(n, h), flat_dy[1:].view(n, h)
+    gamma = 1 + 0.1 * torch.randn(h, generator=g, device=cuda)
+    beta = 0.1 * torch.randn(h, generator=g, device=cuda)
+    tol = (1e-5, 1e-5) if dtype == torch.float32 else (2e-2, 0.0)
+    _close(kernels.layer_norm_cuda(x, gamma, beta, 1e-5),
+           kernels.layer_norm_reference(x, gamma, beta, 1e-5), *tol)
+    _close_ln_bwd(kernels.layer_norm_bwd_cuda(x, gamma, dy, 1e-5),
+                  kernels.layer_norm_backward(x, gamma, 1e-5, dy), dtype)
+
+
+@pytest.mark.parametrize("n,h", [(8192, 512), (300, 1000), (40, 4096)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_layer_norm_bwd_is_deterministic(cuda, n, h, dtype):
+    """dgamma and dbeta are summed in a fixed order, without float atomics:
+    two calls agree bit for bit."""
+    g = torch.Generator(device=cuda).manual_seed(n + h)
+    args = _ln_bwd_inputs(g, n, h, dtype)
+    first = kernels.layer_norm_bwd_cuda(*args, 1e-5)
+    second = kernels.layer_norm_bwd_cuda(*args, 1e-5)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def test_layer_norm_bwd_refuses_a_plan_it_cannot_run(cuda):
+    """The backward launches the plan ``layer_norm_bwd_plan`` gives it and
+    returns an error for one its kernels were not built for."""
+    import ctypes
+
+    from bigdl_tpu_torch.kernels import _cuda
+    from bigdl_tpu_torch.kernels.layernorm import layer_norm_bwd_plan
+
+    n, h = 64, 512
+    x, gamma, dy = _ln_bwd_inputs(torch.Generator(device=cuda).manual_seed(5),
+                                  n, h, torch.float32)
+    dx = torch.empty_like(x)
+    dgb = torch.empty(2, h, device=cuda)
+    ws = torch.empty(1024, 2 * h, device=cuda)
+    lib = _cuda.library().lib
+    good = layer_norm_bwd_plan(n, h, 4, 132)
+
+    def launch(plan):
+        code = lib.bigdl_layer_norm_bwd(
+            x.data_ptr(), dy.data_ptr(), gamma.data_ptr(), dx.data_ptr(),
+            dgb.data_ptr(), ws.data_ptr(), n, h, 1e-5, 0,
+            (ctypes.c_int * len(plan))(*plan), _cuda.stream_handle(x))
+        torch.cuda.synchronize()
+        return code
+
+    assert launch(good) == 0
+    for bad in (good._replace(chunks=3), good._replace(chunks=2),
+                good._replace(rows_per_cta=4), good._replace(vec=2),
+                good._replace(ctas=0), good._replace(chunks=0),
+                good._replace(threads=64), good._replace(reduce_warps=4)):
+        assert launch(bad) != 0, bad
+
+
+def test_layer_norm_autograd_launches_the_backward_kernel(cuda):
+    g = torch.Generator(device=cuda).manual_seed(11)
+    x = torch.randn(2, 9, 512, generator=g, device=cuda).requires_grad_()
+    gamma = (1 + 0.1 * torch.randn(512, generator=g, device=cuda)) \
+        .requires_grad_()
+    beta = torch.zeros(512, device=cuda, requires_grad=True)
+    w = torch.randn(2, 9, 512, generator=g, device=cuda)
+    before = kernels.launch_counts()
+    (kernels.fused_layer_norm(x, gamma, beta) * w).sum().backward()
+    after = kernels.launch_counts()
+    assert after["layer_norm_fwd"] == before["layer_norm_fwd"] + 1
+    assert after["layer_norm_bwd"] == before["layer_norm_bwd"] + 1
+    want = kernels.layer_norm_backward(x.detach(), gamma.detach(), 1e-5, w)
+    _close_ln_bwd((x.grad, gamma.grad, beta.grad), want, torch.float32)
 
 
 @pytest.mark.parametrize("d", [32, 64, 128])
@@ -261,8 +394,8 @@ def test_dispatchers_launch_the_kernels(cuda):
     assert after["layer_norm_fwd"] == before["layer_norm_fwd"] + 1
     assert after["flash_attention_fwd"] == before["flash_attention_fwd"] + 1
     assert after["flash_attention_bwd_dq"] == before["flash_attention_bwd_dq"]
-    # a backward pass launches the LN forward, the flash forward and both
-    # flash backward kernels once each
+    # a backward pass launches the LN forward and backward, the flash
+    # forward and both flash backward kernels once each
     xg = x.clone().requires_grad_()
     gamma = torch.ones(64, device=cuda, requires_grad=True)
     h = kernels.fused_layer_norm(xg, gamma, torch.zeros(64, device=cuda))
@@ -270,7 +403,7 @@ def test_dispatchers_launch_the_kernels(cuda):
         .sum().backward()
     assert xg.grad is not None and gamma.grad is not None
     end = kernels.launch_counts()
-    for name in ("layer_norm_fwd", "flash_attention_fwd",
+    for name in ("layer_norm_fwd", "layer_norm_bwd", "flash_attention_fwd",
                  "flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
         assert end[name] == after[name] + 1, name
 
@@ -284,6 +417,14 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
         kernels.layer_norm_cuda(x.t(), g[:4], b[:4])
     with pytest.raises(ValueError):
         kernels.layer_norm_cuda(x, g.double(), b)
+    with pytest.raises(ValueError):
+        kernels.layer_norm_bwd_cuda(x.half(), g, x.half())
+    with pytest.raises(ValueError):
+        kernels.layer_norm_bwd_cuda(x, g, x.bfloat16())
+    with pytest.raises(ValueError):
+        kernels.layer_norm_bwd_cuda(x, g[:4], x)
+    with pytest.raises(ValueError):
+        kernels.layer_norm_bwd_cuda(x.t(), g[:4], x.t())
     q = torch.randn(2, 8, 48, device=cuda)
     with pytest.raises(ValueError):
         kernels.flash_attention_cuda(q, q, q)
@@ -357,6 +498,7 @@ def test_small_model_trains_on_the_card(cuda):
     after = kernels.launch_counts()
     # 2 steps: 5 LNs, 2 attention layers (forward and backward) a step
     assert after["layer_norm_fwd"] == before["layer_norm_fwd"] + 10
+    assert after["layer_norm_bwd"] == before["layer_norm_bwd"] + 10
     for name in ("flash_attention_fwd", "flash_attention_bwd_dq",
                  "flash_attention_bwd_dkv"):
         assert after[name] == before[name] + 4, name

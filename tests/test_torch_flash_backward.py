@@ -146,7 +146,9 @@ def test_cpu_backward_counts_no_launch():
     kernels.flash_attention(x, x, x, True).sum().backward()
     kernels.fused_layer_norm(x, torch.ones(32, requires_grad=True),
                              torch.zeros(32)).sum().backward()
+    assert x.grad is not None
     assert kernels.launch_counts() == before
+    assert "layer_norm_bwd" in before
 
 
 def test_backward_cuda_wrappers_refuse_cpu_tensors():
