@@ -10,7 +10,8 @@
 
 :func:`launch_counts` reads how often each kernel was launched since the
 last :func:`reset_launch_counts`, which is how a run shows that its path
-went through the kernels.
+went through the kernels; :func:`launch_counts_by_dtype` splits the counts
+by the launches' dtypes.
 """
 
 from bigdl_tpu_torch.kernels import flash_attention as _flash
@@ -36,6 +37,12 @@ def launch_counts() -> dict:
     return {c.name: c.count for c in _COUNTERS}
 
 
+def launch_counts_by_dtype() -> dict:
+    """``{kernel name: {dtypes: launches}}`` since the last reset: the
+    operands' dtype for the flash kernels, ``"x/gamma"`` for LayerNorm."""
+    return {c.name: c.by_dtype for c in _COUNTERS}
+
+
 def reset_launch_counts() -> None:
     for c in _COUNTERS:
         c.reset()
@@ -49,6 +56,7 @@ __all__ = [
     "flash_attention_bwd_reference", "flash_attention_cuda",
     "flash_attention_fwd", "flash_attention_reference", "forward_launch_plan",
     "fused_layer_norm",
-    "launch_counts", "layer_norm_backward", "layer_norm_bwd_cuda",
+    "launch_counts", "launch_counts_by_dtype", "layer_norm_backward",
+    "layer_norm_bwd_cuda",
     "layer_norm_cuda", "layer_norm_reference", "reset_launch_counts",
 ]

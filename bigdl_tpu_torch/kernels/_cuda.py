@@ -43,24 +43,32 @@ _library = None
 
 class LaunchCounter:
     """Launches of one kernel, counted by its wrapper right after each
-    successful launch and nowhere else."""
+    successful launch and nowhere else, in all and by the launch's dtypes."""
 
     def __init__(self, name: str):
         self.name = name
         self._count = 0
+        self._by_dtype: dict = {}
         self._lock = threading.Lock()
 
-    def add(self) -> None:
+    def add(self, dtype: str) -> None:
         with self._lock:
             self._count += 1
+            self._by_dtype[dtype] = self._by_dtype.get(dtype, 0) + 1
 
     @property
     def count(self) -> int:
         return self._count
 
+    @property
+    def by_dtype(self) -> dict:
+        with self._lock:
+            return dict(self._by_dtype)
+
     def reset(self) -> None:
         with self._lock:
             self._count = 0
+            self._by_dtype = {}
 
 
 class KernelLibrary:
@@ -76,10 +84,10 @@ class KernelLibrary:
         lib = ctypes.CDLL(str(path))
         p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
             ctypes.c_float
-        lib.bigdl_layer_norm_fwd.argtypes = [p, p, p, p, ll, i, f, i, p]
+        lib.bigdl_layer_norm_fwd.argtypes = [p, p, p, p, ll, i, f, i, i, p]
         lib.bigdl_layer_norm_fwd.restype = i
         lib.bigdl_layer_norm_bwd.argtypes = \
-            [p] * 6 + [ll, i, f, i, ctypes.POINTER(i), p]
+            [p] * 6 + [ll, i, f, i, i, ctypes.POINTER(i), p]
         lib.bigdl_layer_norm_bwd.restype = i
         lib.bigdl_flash_attn_fwd.argtypes = [p, p, p, p, p, ll, i, i, i, i, p]
         lib.bigdl_flash_attn_fwd.restype = i

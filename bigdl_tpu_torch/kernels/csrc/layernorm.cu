@@ -10,7 +10,14 @@
 // gradient g and gamma it recomputes mean and inv, and with
 // xhat = (x - mean)·inv and gx = g·gamma writes
 //   dx = inv·(gx - mean(gx) - xhat·mean(gx·xhat)),
-//   dgamma = Σ_rows g·xhat, dbeta = Σ_rows g   (fp32).
+//   dgamma = Σ_rows g·xhat, dbeta = Σ_rows g,
+// summed in fp32 and rounded once, at the end, to gamma's dtype.
+//
+// gamma and beta are fp32 or in the dtype of x (bf16 under the mixed
+// precision policy, which casts every floating parameter to the compute
+// dtype, as JAX does). Each lane converts them to fp32 on load, as the
+// Pallas kernel promotes its bf16 g_ref, so the arithmetic is fp32 either
+// way; the kernels are templates on x's type T and the parameters' type P.
 //
 // Bound: bytes. Each element takes a handful of flops, far below the card's
 // fp32 ridge, so the kernels read every input once and write every output
@@ -190,10 +197,10 @@ __device__ __forceinline__ void warp_row_stats(const float (&v)[NV][VEC],
 
 // ------------------------------------------------------------- forward
 // One warp per row, kFwdWarps rows a CTA; lane l holds chunks l + 32·j.
-template <typename T, int VEC, int NV>
+template <typename T, typename P, int VEC, int NV>
 __global__ void __launch_bounds__(kFwdWarps * 32)
-ln_fwd_warp(const T* __restrict__ x, const float* __restrict__ gamma,
-            const float* __restrict__ beta, T* __restrict__ out, long long n,
+ln_fwd_warp(const T* __restrict__ x, const P* __restrict__ gamma,
+            const P* __restrict__ beta, T* __restrict__ out, long long n,
             int h, float eps) {
   const int lane = threadIdx.x & 31;
   const long long row = (long long)blockIdx.x * kFwdWarps + (threadIdx.x >> 5);
@@ -206,8 +213,8 @@ ln_fwd_warp(const T* __restrict__ x, const float* __restrict__ gamma,
   for (int j = 0; j < NV; ++j) load_chunk<T, VEC>(xr, lane + 32 * j, chunks, v[j]);
 #pragma unroll
   for (int j = 0; j < NV; ++j) {
-    load_chunk<float, VEC>(gamma, lane + 32 * j, chunks, gam[j]);
-    load_chunk<float, VEC>(beta, lane + 32 * j, chunks, bet[j]);
+    load_chunk<P, VEC>(gamma, lane + 32 * j, chunks, gam[j]);
+    load_chunk<P, VEC>(beta, lane + 32 * j, chunks, bet[j]);
   }
   float mean, inv;
   warp_row_stats<VEC, NV>(v, lane, chunks, h, eps, mean, inv);
@@ -225,10 +232,10 @@ ln_fwd_warp(const T* __restrict__ x, const float* __restrict__ gamma,
 
 // Rows wider than the warp path: one CTA per row, three passes over the
 // row in global memory (the later two hit L1/L2).
-template <typename T>
+template <typename T, typename P>
 __global__ void __launch_bounds__(kLoopThreads)
-ln_fwd_loop(const T* __restrict__ x, const float* __restrict__ gamma,
-            const float* __restrict__ beta, T* __restrict__ out, int h,
+ln_fwd_loop(const T* __restrict__ x, const P* __restrict__ gamma,
+            const P* __restrict__ beta, T* __restrict__ out, int h,
             float eps) {
   __shared__ float red[2][32];
   const size_t row = blockIdx.x;
@@ -244,18 +251,19 @@ ln_fwd_loop(const T* __restrict__ x, const float* __restrict__ gamma,
   }
   const float inv = rsqrtf(block_sum(ss, red) / h + eps);
   for (int c = threadIdx.x; c < h; c += blockDim.x)
-    yr[c] = bigdl::from_f32<T>((bigdl::to_f32(xr[c]) - mean) * inv * gamma[c]
-                               + beta[c]);
+    yr[c] = bigdl::from_f32<T>((bigdl::to_f32(xr[c]) - mean) * inv *
+                                   bigdl::to_f32(gamma[c]) +
+                               bigdl::to_f32(beta[c]));
 }
 
 // ------------------------------------------------------------ backward
 // One warp per row, kBwdWarps warps a CTA, the CTA's warps striding over
 // rows (warp w of CTA b takes rows b·kBwdWarps + w, then every
 // gridDim.x·kBwdWarps). Partials: ws row b = [Σ g·xhat (h), Σ g (h)].
-template <typename T, int VEC, int NV>
+template <typename T, typename P, int VEC, int NV>
 __global__ void __launch_bounds__(kBwdWarps * 32)
 ln_bwd_warp(const T* __restrict__ x, const T* __restrict__ g,
-            const float* __restrict__ gamma, T* __restrict__ dx,
+            const P* __restrict__ gamma, T* __restrict__ dx,
             float* __restrict__ ws, long long n, int h, float eps) {
   __shared__ float red[kBwdWarps][kWarpMaxH];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -263,7 +271,7 @@ ln_bwd_warp(const T* __restrict__ x, const T* __restrict__ g,
   float gam[NV][VEC], adg[NV][VEC], adb[NV][VEC];
 #pragma unroll
   for (int j = 0; j < NV; ++j) {
-    load_chunk<float, VEC>(gamma, lane + 32 * j, chunks, gam[j]);
+    load_chunk<P, VEC>(gamma, lane + 32 * j, chunks, gam[j]);
 #pragma unroll
     for (int e = 0; e < VEC; ++e) adg[j][e] = adb[j][e] = 0.f;
   }
@@ -333,10 +341,10 @@ ln_bwd_warp(const T* __restrict__ x, const T* __restrict__ g,
 // Rows wider than the warp path: one CTA per row, CTA b taking rows b,
 // b + gridDim.x, ...; four passes over the row in global memory; the CTA's
 // workspace row is its own accumulator.
-template <typename T>
+template <typename T, typename P>
 __global__ void __launch_bounds__(kLoopThreads)
 ln_bwd_loop(const T* __restrict__ x, const T* __restrict__ g,
-            const float* __restrict__ gamma, T* __restrict__ dx,
+            const P* __restrict__ gamma, T* __restrict__ dx,
             float* __restrict__ ws, long long n, int h, float eps) {
   __shared__ float red[2][32];
   float* w = ws + (size_t)blockIdx.x * 2 * h;
@@ -356,7 +364,7 @@ ln_bwd_loop(const T* __restrict__ x, const T* __restrict__ g,
     float a = 0.f, b = 0.f;
     for (int c = threadIdx.x; c < h; c += blockDim.x) {
       const float xh = (bigdl::to_f32(xr[c]) - mean) * inv;
-      const float gx = bigdl::to_f32(gr[c]) * gamma[c];
+      const float gx = bigdl::to_f32(gr[c]) * bigdl::to_f32(gamma[c]);
       a += gx;
       b += gx * xh;
     }
@@ -366,7 +374,8 @@ ln_bwd_loop(const T* __restrict__ x, const T* __restrict__ g,
     for (int c = threadIdx.x; c < h; c += blockDim.x) {
       const float gv = bigdl::to_f32(gr[c]);
       const float xh = (bigdl::to_f32(xr[c]) - mean) * inv;
-      dxr[c] = bigdl::from_f32<T>(inv * (gv * gamma[c] - ma - xh * mb));
+      dxr[c] = bigdl::from_f32<T>(
+          inv * (gv * bigdl::to_f32(gamma[c]) - ma - xh * mb));
       w[c] += gv * xh;
       w[h + c] += gv;
     }
@@ -375,9 +384,11 @@ ln_bwd_loop(const T* __restrict__ x, const T* __restrict__ g,
 
 // out[col] = Σ_b ws[b][col] over the `ctas` partial rows, in a fixed order:
 // warp k sums rows k, k + kReduceWarps, ..., then warp 0 adds the warps'
-// sums in warp order. One CTA per 32 columns.
+// sums in warp order and rounds the fp32 total once to P. One CTA per 32
+// columns.
+template <typename P>
 __global__ void __launch_bounds__(kReduceWarps * 32)
-ln_bwd_reduce(const float* __restrict__ ws, float* __restrict__ out, int ctas,
+ln_bwd_reduce(const float* __restrict__ ws, P* __restrict__ out, int ctas,
               int cols) {
   __shared__ float part[kReduceWarps][32];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -391,7 +402,7 @@ ln_bwd_reduce(const float* __restrict__ ws, float* __restrict__ out, int ctas,
     float t = part[0][lane];
 #pragma unroll
     for (int k = 1; k < kReduceWarps; ++k) t += part[k][lane];
-    out[col] = t;
+    out[col] = bigdl::from_f32<P>(t);
   }
 }
 
@@ -426,12 +437,12 @@ bool dispatch_warp(int vec, int nv, Go go) {
 // The forward's row layout: 128-bit chunks when h is a multiple of the
 // chunk and every pointer is 16-byte aligned, and the fewest instantiated
 // chunks a lane that cover the row.
-template <typename T>
-bool launch_fwd(const T* x, const float* gamma, const float* beta, T* out,
+template <typename T, typename P>
+bool launch_fwd(const T* x, const P* gamma, const P* beta, T* out,
                 long long n, int h, float eps, cudaStream_t s) {
   if (h > kWarpMaxH) {
-    ln_fwd_loop<T><<<(unsigned)n, kLoopThreads, 0, s>>>(x, gamma, beta, out,
-                                                        h, eps);
+    ln_fwd_loop<T, P><<<(unsigned)n, kLoopThreads, 0, s>>>(x, gamma, beta,
+                                                           out, h, eps);
     return true;
   }
   constexpr int V = 16 / sizeof(T);
@@ -447,7 +458,7 @@ bool launch_fwd(const T* x, const float* gamma, const float* beta, T* out,
   }
   const dim3 grid((unsigned)((n + kFwdWarps - 1) / kFwdWarps));
   return dispatch_warp<T>(vec, nv, [&](auto vc, auto c) {
-    ln_fwd_warp<T, decltype(vc)::value, decltype(c)::value>
+    ln_fwd_warp<T, P, decltype(vc)::value, decltype(c)::value>
         <<<grid, kFwdWarps * 32, 0, s>>>(x, gamma, beta, out, n, h, eps);
   });
 }
@@ -456,10 +467,10 @@ bool launch_fwd(const T* x, const float* gamma, const float* beta, T* out,
 enum { kPlanCtas, kPlanRowsPerCta, kPlanThreads, kPlanVec, kPlanChunks,
        kPlanReduceWarps };
 
-template <typename T>
-bool launch_bwd(const T* x, const T* g, const float* gamma, T* dx,
-                float* dgb, float* ws, long long n, int h, float eps,
-                const int* plan, cudaStream_t s) {
+template <typename T, typename P>
+bool launch_bwd(const T* x, const T* g, const P* gamma, T* dx, P* dgb,
+                float* ws, long long n, int h, float eps, const int* plan,
+                cudaStream_t s) {
   const int ctas = plan[kPlanCtas], vec = plan[kPlanVec];
   const int nv = plan[kPlanChunks];
   if (ctas <= 0 || plan[kPlanReduceWarps] != kReduceWarps) return false;
@@ -468,8 +479,8 @@ bool launch_bwd(const T* x, const T* g, const float* gamma, T* dx,
     if (plan[kPlanRowsPerCta] != 1 || plan[kPlanThreads] != kLoopThreads ||
         vec != 1)
       return false;
-    ln_bwd_loop<T><<<grid, kLoopThreads, 0, s>>>(x, g, gamma, dx, ws, n, h,
-                                                 eps);
+    ln_bwd_loop<T, P><<<grid, kLoopThreads, 0, s>>>(x, g, gamma, dx, ws, n,
+                                                    h, eps);
   } else {
     if (plan[kPlanRowsPerCta] != kBwdWarps || plan[kPlanThreads] != 32 ||
         h > kWarpMaxH || vec <= 0 || h > 32 * nv * vec)
@@ -478,46 +489,60 @@ bool launch_bwd(const T* x, const T* g, const float* gamma, T* dx,
                     !aligned16(gamma) || !aligned16(dx)))
       return false;
     const bool ok = dispatch_warp<T>(vec, nv, [&](auto vc, auto c) {
-      ln_bwd_warp<T, decltype(vc)::value, decltype(c)::value>
+      ln_bwd_warp<T, P, decltype(vc)::value, decltype(c)::value>
           <<<grid, kBwdWarps * 32, 0, s>>>(x, g, gamma, dx, ws, n, h, eps);
     });
     if (!ok) return false;
   }
   if (cudaPeekAtLastError() != cudaSuccess) return true;  // reported below
   const int cols = 2 * h;
-  ln_bwd_reduce<<<(cols + 31) / 32, kReduceWarps * 32, 0, s>>>(ws, dgb, ctas,
-                                                               cols);
+  ln_bwd_reduce<P><<<(cols + 31) / 32, kReduceWarps * 32, 0, s>>>(
+      ws, dgb, ctas, cols);
   return true;
+}
+
+// Calls go(T*, P*) with the element types of x (`dtype`) and of gamma and
+// beta (`param_dtype`): fp32, or the dtype of x. False for any other pair.
+template <typename Go>
+bool with_types(int dtype, int param_dtype, Go go) {
+  using bf = __nv_bfloat16;
+  if (dtype == bigdl::kFloat32 && param_dtype == bigdl::kFloat32)
+    return go((float*)nullptr, (float*)nullptr);
+  if (dtype == bigdl::kBFloat16 && param_dtype == bigdl::kFloat32)
+    return go((bf*)nullptr, (float*)nullptr);
+  if (dtype == bigdl::kBFloat16 && param_dtype == bigdl::kBFloat16)
+    return go((bf*)nullptr, (bf*)nullptr);
+  return false;
 }
 
 }  // namespace
 
-// x, out: (n, h) contiguous in `dtype`; gamma, beta: (h,) float32.
-// Returns the cudaError_t of the launch (0 on success).
+// x, out: (n, h) contiguous in `dtype`; gamma, beta: (h,) contiguous in
+// `param_dtype`, which is float32 or `dtype`. Returns the cudaError_t of the
+// launch (0 on success).
 extern "C" int bigdl_layer_norm_fwd(const void* x, const void* gamma,
                                     const void* beta, void* out, long long n,
-                                    int h, float eps, int dtype, void* stream) {
+                                    int h, float eps, int dtype,
+                                    int param_dtype, void* stream) {
   if (n <= 0) return 0;
   if (h <= 0 || n > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* g = static_cast<const float*>(gamma);
-  const float* b = static_cast<const float*>(beta);
-  bool ok = false;
-  if (dtype == bigdl::kFloat32) {
-    ok = launch_fwd<float>(static_cast<const float*>(x), g, b,
-                           static_cast<float*>(out), n, h, eps, s);
-  } else if (dtype == bigdl::kBFloat16) {
-    ok = launch_fwd<__nv_bfloat16>(static_cast<const __nv_bfloat16*>(x), g, b,
-                                   static_cast<__nv_bfloat16*>(out), n, h, eps,
-                                   s);
-  }
+  const bool ok = with_types(dtype, param_dtype, [&](auto* t, auto* p) {
+    using T = std::remove_pointer_t<decltype(t)>;
+    using P = std::remove_pointer_t<decltype(p)>;
+    return launch_fwd<T, P>(static_cast<const T*>(x),
+                            static_cast<const P*>(gamma),
+                            static_cast<const P*>(beta), static_cast<T*>(out),
+                            n, h, eps, s);
+  });
   if (!ok) return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }
 
-// x, g, dx: (n, h) contiguous in `dtype`; gamma: (h,) float32;
-// dgamma_dbeta: (2, h) float32, written as [dgamma; dbeta]; workspace:
-// (ctas, 2·h) float32 scratch. `plan` holds six ints: CTAs (striding over
+// x, g, dx: (n, h) contiguous in `dtype`; gamma: (h,) in `param_dtype`
+// (float32 or `dtype`); dgamma_dbeta: (2, h) in `param_dtype`, written as
+// [dgamma; dbeta], summed in fp32 and rounded once; workspace: (ctas, 2·h)
+// float32 scratch. `plan` holds six ints: CTAs (striding over
 // the rows, one partial row each), rows a CTA holds at once (8 warps on the
 // warp path, 1 on the loop path), threads a row (32, or 1024 on the loop
 // path), elements a chunk (1, or 16 bytes' worth when h and the pointers
@@ -530,23 +555,19 @@ extern "C" int bigdl_layer_norm_bwd(const void* x, const void* g,
                                     const void* gamma, void* dx,
                                     void* dgamma_dbeta, void* workspace,
                                     long long n, int h, float eps, int dtype,
-                                    const int* plan, void* stream) {
+                                    int param_dtype, const int* plan,
+                                    void* stream) {
   if (h <= 0 || n < 0 || plan == nullptr) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* gm = static_cast<const float*>(gamma);
-  float* dgb = static_cast<float*>(dgamma_dbeta);
   float* ws = static_cast<float*>(workspace);
-  bool ok = false;
-  if (dtype == bigdl::kFloat32) {
-    ok = launch_bwd<float>(static_cast<const float*>(x),
-                           static_cast<const float*>(g), gm,
-                           static_cast<float*>(dx), dgb, ws, n, h, eps, plan,
-                           s);
-  } else if (dtype == bigdl::kBFloat16) {
-    using bf = __nv_bfloat16;
-    ok = launch_bwd<bf>(static_cast<const bf*>(x), static_cast<const bf*>(g),
-                        gm, static_cast<bf*>(dx), dgb, ws, n, h, eps, plan, s);
-  }
+  const bool ok = with_types(dtype, param_dtype, [&](auto* t, auto* p) {
+    using T = std::remove_pointer_t<decltype(t)>;
+    using P = std::remove_pointer_t<decltype(p)>;
+    return launch_bwd<T, P>(static_cast<const T*>(x), static_cast<const T*>(g),
+                            static_cast<const P*>(gamma), static_cast<T*>(dx),
+                            static_cast<P*>(dgamma_dbeta), ws, n, h, eps, plan,
+                            s);
+  });
   if (!ok) return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }

@@ -122,7 +122,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             lse.data_ptr(), bh, t, d, int(bool(causal)),
             _DTYPE_CODES[q.dtype], _cuda.stream_handle(q))
     _cuda.check(code, "flash_attention_fwd")
-    launches.add()
+    launches.add(str(q.dtype)[6:])
     return out, lse
 
 
@@ -180,7 +180,7 @@ def flash_attention_bwd_dq_cuda(q: torch.Tensor, k: torch.Tensor,
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), bh, t, d,
             int(bool(causal)), _DTYPE_CODES[q.dtype], _cuda.stream_handle(q))
     _cuda.check(code, "flash_attention_bwd_dq")
-    bwd_dq_launches.add()
+    bwd_dq_launches.add(str(q.dtype)[6:])
     return dq
 
 
@@ -203,7 +203,7 @@ def flash_attention_bwd_dkv_cuda(q: torch.Tensor, k: torch.Tensor,
             bh, t, d, int(bool(causal)), _DTYPE_CODES[q.dtype],
             _cuda.stream_handle(q))
     _cuda.check(code, "flash_attention_bwd_dkv")
-    bwd_dkv_launches.add()
+    bwd_dkv_launches.add(str(q.dtype)[6:])
     return dk, dv
 
 

@@ -10,7 +10,10 @@ kernel, which recomputes the statistics from the saved input as JAX does
 and sums dgamma and dbeta in a fixed order (no float atomics).
 :func:`fused_layer_norm` launches the kernels for CUDA tensors and raises if
 it cannot; the plain versions (:func:`layer_norm_reference`,
-:func:`layer_norm_backward`) run only for CPU tensors.
+:func:`layer_norm_backward`) run only for CPU tensors. gamma and beta are
+fp32, or bf16 with a bf16 x, as the mixed-precision step casts them (JAX
+casts every floating parameter); the arithmetic is fp32 either way, and
+dgamma and dbeta come out in gamma's dtype.
 """
 
 from __future__ import annotations
@@ -36,6 +39,11 @@ BWD_CTAS_PER_SM = 2
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
+def _dtype_key(x: torch.Tensor, gamma: torch.Tensor) -> str:
+    """A launch's dtypes as its counter records them: "x/gamma"."""
+    return f"{str(x.dtype)[6:]}/{str(gamma.dtype)[6:]}"
+
+
 def layer_norm_reference(x: torch.Tensor, gamma: torch.Tensor,
                          beta: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     """Plain PyTorch LayerNorm over the last axis with the kernel's
@@ -48,10 +56,25 @@ def layer_norm_reference(x: torch.Tensor, gamma: torch.Tensor,
     return ((x32 - mean) * inv * gamma.float() + beta.float()).to(x.dtype)
 
 
+def _check_params(fn: str, x: torch.Tensor, *params) -> None:
+    """gamma (and beta) must be (H,) on x's device, fp32 or in x's dtype,
+    one dtype for both."""
+    h = x.shape[-1]
+    allowed = {torch.float32, x.dtype}
+    for name, p in zip(("gamma", "beta"), params):
+        if p.dtype not in allowed or p.dtype != params[0].dtype \
+                or tuple(p.shape) != (h,) or p.device != x.device:
+            raise ValueError(
+                f"{fn}: {name} must be float32 or {x.dtype} (as gamma) of "
+                f"shape ({h},) on {x.device}, got {p.dtype} "
+                f"{tuple(p.shape)} on {p.device}")
+
+
 def layer_norm_cuda(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
                     eps: float = 1e-5) -> torch.Tensor:
     """Launch the kernel on ``x`` (N, H), fp32 or bf16, contiguous, with
-    fp32 ``gamma``/``beta`` of shape (H,) on the same device."""
+    ``gamma``/``beta`` of shape (H,) on the same device, both fp32 or both in
+    x's dtype (the mixed-precision step casts them to bf16 with x)."""
     if not x.is_cuda:
         raise ValueError(f"layer_norm_cuda needs a CUDA tensor, got {x.device}")
     if x.dim() != 2:
@@ -60,12 +83,7 @@ def layer_norm_cuda(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
         raise ValueError(f"layer_norm_cuda takes float32 or bfloat16, "
                          f"got {x.dtype}")
     n, h = x.shape
-    for name, p in (("gamma", gamma), ("beta", beta)):
-        if p.dtype != torch.float32 or tuple(p.shape) != (h,) \
-                or p.device != x.device:
-            raise ValueError(f"{name} must be float32 of shape ({h},) on "
-                             f"{x.device}, got {p.dtype} {tuple(p.shape)} "
-                             f"on {p.device}")
+    _check_params("layer_norm_cuda", x, gamma, beta)
     if not (x.is_contiguous() and gamma.is_contiguous()
             and beta.is_contiguous()):
         raise ValueError("layer_norm_cuda needs contiguous tensors")
@@ -74,9 +92,10 @@ def layer_norm_cuda(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     with torch.cuda.device(x.device):
         code = lib.bigdl_layer_norm_fwd(
             x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), out.data_ptr(),
-            n, h, float(eps), _DTYPE_CODES[x.dtype], _cuda.stream_handle(x))
+            n, h, float(eps), _DTYPE_CODES[x.dtype],
+            _DTYPE_CODES[gamma.dtype], _cuda.stream_handle(x))
     _cuda.check(code, "layer_norm_fwd")
-    launches.add()
+    launches.add(_dtype_key(x, gamma))
     return out
 
 
@@ -124,9 +143,10 @@ def layer_norm_bwd_cuda(x: torch.Tensor, gamma: torch.Tensor,
                         ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Launch the backward kernel: ``(dx, dgamma, dbeta)`` of LayerNorm for
     ``x`` (N, H), fp32 or bf16, contiguous, the output gradient ``g`` of the
-    same shape and dtype, and fp32 ``gamma`` (H,), all on one device. dx
-    comes out in x's dtype, dgamma and dbeta in fp32; two calls on the same
-    inputs agree bit for bit."""
+    same shape and dtype, and ``gamma`` (H,), fp32 or in x's dtype, all on
+    one device. dx comes out in x's dtype; dgamma and dbeta are summed in
+    fp32 and rounded once to gamma's dtype, as JAX's cast transpose rounds
+    them; two calls on the same inputs agree bit for bit."""
     if x.dim() != 2:
         raise ValueError(f"layer_norm_bwd_cuda takes (N, H), got "
                          f"{tuple(x.shape)}")
@@ -138,11 +158,7 @@ def layer_norm_bwd_cuda(x: torch.Tensor, gamma: torch.Tensor,
                          f"{x.device}, got {g.dtype} {tuple(g.shape)} on "
                          f"{g.device}")
     n, h = x.shape
-    if gamma.dtype != torch.float32 or tuple(gamma.shape) != (h,) \
-            or gamma.device != x.device:
-        raise ValueError(f"gamma must be float32 of shape ({h},) on "
-                         f"{x.device}, got {gamma.dtype} "
-                         f"{tuple(gamma.shape)} on {gamma.device}")
+    _check_params("layer_norm_bwd_cuda", x, gamma)
     if not (x.is_contiguous() and g.is_contiguous()
             and gamma.is_contiguous()):
         raise ValueError("layer_norm_bwd_cuda needs contiguous tensors")
@@ -155,7 +171,7 @@ def layer_norm_bwd_cuda(x: torch.Tensor, gamma: torch.Tensor,
                                     for t in (x, g, gamma, dx))
     plan = layer_norm_bwd_plan(n, h, wide if aligned else 1,
                                _sm_count(x.device.index))
-    dgb = torch.empty(2, h, dtype=torch.float32, device=x.device)
+    dgb = torch.empty(2, h, dtype=gamma.dtype, device=x.device)
     workspace = torch.empty(plan.ctas, 2 * h, dtype=torch.float32,
                             device=x.device)
     lib = _cuda.library().lib
@@ -163,10 +179,10 @@ def layer_norm_bwd_cuda(x: torch.Tensor, gamma: torch.Tensor,
         code = lib.bigdl_layer_norm_bwd(
             x.data_ptr(), g.data_ptr(), gamma.data_ptr(), dx.data_ptr(),
             dgb.data_ptr(), workspace.data_ptr(), n, h, float(eps),
-            _DTYPE_CODES[x.dtype], (ctypes.c_int * len(plan))(*plan),
-            _cuda.stream_handle(x))
+            _DTYPE_CODES[x.dtype], _DTYPE_CODES[gamma.dtype],
+            (ctypes.c_int * len(plan))(*plan), _cuda.stream_handle(x))
     _cuda.check(code, "layer_norm_bwd")
-    bwd_launches.add()
+    bwd_launches.add(_dtype_key(x, gamma))
     return dx, dgb[0], dgb[1]
 
 

@@ -4,7 +4,8 @@ Counterpart of ``bigdl_tpu/models/transformerlm/train.py``: builds
 ``TransformerLM``, slices ``synthetic_ptb`` into windows of ``--seq-len``
 tokens, and trains with ``Adam`` through ``LocalOptimizer`` for
 ``--max-iteration`` steps, then prints the final loss. Runs on the card
-unless ``--device cpu``::
+unless ``--device cpu``; ``BIGDL_COMPUTE_DTYPE=bf16`` trains in bf16 mixed
+precision (``utils/engine.py``)::
 
     python -m bigdl_tpu_torch.models.transformerlm.train -b 16 --seq-len 512
 """
@@ -29,7 +30,6 @@ UNPORTED_FLAGS = {
     "--norm": "Queue A.2 (RMSNorm)",
     "--mlp": "Queue A.2 (swiglu MLP)",
     "--fused-head": "Queue A.2 (FusedLMHead)",
-    "--remat": "Queue A.1 (remat, left out of the training slice)",
     "--distributed": "Queue A.6 (DistriOptimizer)",
     "--generate": "Queue A.2 (SequenceBeamSearch)",
     "--beam": "Queue A.2 (SequenceBeamSearch)",
@@ -48,6 +48,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--max-iteration", type=int, default=8)
     p.add_argument("--learning-rate", type=float, default=3e-4)
     p.add_argument("--synthetic-tokens", type=int, default=200_000)
+    p.add_argument("--remat", action="store_true",
+                   help="recompute each block's activations in the backward")
     p.add_argument("--device", default="cuda",
                    help="where to train: cuda (default) or cpu")
     return p
@@ -80,6 +82,7 @@ def main(argv=None) -> float:
     RandomGenerator.set_seed(0)
     model = TransformerLM(args.vocab_size, args.embed_dim, args.num_heads,
                           args.num_layers, max_len=args.seq_len,
+                          remat=args.remat,
                           generator=torch.Generator().manual_seed(0),
                           device=args.device)
     ids = synthetic_ptb(args.synthetic_tokens, vocab_size=args.vocab_size)

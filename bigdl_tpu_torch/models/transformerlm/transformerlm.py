@@ -77,13 +77,17 @@ def TransformerBlock(embed_dim: int, num_heads: int, mlp_ratio: int = 4,
 def TransformerLM(vocab_size: int, embed_dim: int = 256, num_heads: int = 4,
                   num_layers: int = 4, max_len: int = 1024,
                   mlp_ratio: int = 4, attention_impl: str = "auto", *,
+                  remat: bool = False,
                   generator: Optional[torch.Generator] = None,
                   device=None) -> nn.Sequential:
     """Token ids (N, T) → per-position log-probs (N, T, vocab).
 
-    Weights are drawn on the CPU from ``generator`` (PyTorch's default
-    generator when None), so a seed gives the same model on every device,
-    and the model is then moved to ``device`` (default ``"cuda"``)."""
+    ``remat=True`` wraps every block in :class:`~bigdl_tpu_torch.nn.Remat`
+    (its activations recomputed in the backward), as JAX does, which adds
+    a ``"0"`` level to the block's parameter paths. Weights are drawn on the
+    CPU from ``generator`` (PyTorch's default generator when None), so a
+    seed gives the same model on every device, and the model is then moved
+    to ``device`` (default ``"cuda"``)."""
     dev = resolve_device(device)
     model = (nn.Sequential()
              .add(nn.LookupTable(vocab_size, embed_dim, generator=generator)
@@ -91,9 +95,11 @@ def TransformerLM(vocab_size: int, embed_dim: int = 256, num_heads: int = 4,
              .add(PositionEmbedding(max_len, embed_dim, generator=generator)
                   .set_name("pos")))
     for i in range(num_layers):
-        model.add(TransformerBlock(embed_dim, num_heads, mlp_ratio,
-                                   attention_impl, generator=generator)
-                  .set_name(f"block{i + 1}"))
+        block = TransformerBlock(embed_dim, num_heads, mlp_ratio,
+                                 attention_impl, generator=generator)
+        if remat:
+            block = nn.Remat(block)
+        model.add(block.set_name(f"block{i + 1}"))
     model.add(nn.LayerNorm(embed_dim).set_name("final_norm"))
     model.add(nn.TimeDistributed(nn.Linear(embed_dim, vocab_size,
                                            generator=generator))

@@ -6,7 +6,7 @@ from bigdl_tpu_torch.nn.abstractnn import (
 from bigdl_tpu_torch.nn.activation import GELU, LogSoftMax
 from bigdl_tpu_torch.nn.attention import MultiHeadAttention
 from bigdl_tpu_torch.nn.containers import (
-    CAddTable, ConcatTable, Identity, Sequential,
+    CAddTable, ConcatTable, Identity, Remat, Sequential,
 )
 from bigdl_tpu_torch.nn.criterion import (
     AbstractCriterion, ClassNLLCriterion, CrossEntropyCriterion,
@@ -22,6 +22,7 @@ from bigdl_tpu_torch.nn.initialization import (
 )
 from bigdl_tpu_torch.nn.linear import Linear
 from bigdl_tpu_torch.nn.normalization import LayerNorm
+from bigdl_tpu_torch.nn.precision import cast_floating
 from bigdl_tpu_torch.nn.recurrent import TimeDistributed
 
 __all__ = [
@@ -29,8 +30,8 @@ __all__ = [
     "ConcatTable", "Container", "CrossEntropyCriterion", "GELU",
     "Identity", "InitializationMethod", "LayerNorm", "Linear",
     "LogSoftMax", "LookupTable", "MultiHeadAttention", "RandomNormal",
-    "RandomUniform", "Sequential", "TensorModule", "TimeDistributed",
+    "RandomUniform", "Remat", "Sequential", "TensorModule", "TimeDistributed",
     "TimeDistributedCriterion", "Xavier", "assign_cache_slot",
-    "greedy_generate",
+    "cast_floating", "greedy_generate",
     "install_decode_cache", "reset_decode_slot",
 ]

@@ -15,6 +15,14 @@ Containers register their children under ``"0"``, ``"1"``, ... so
 ``named_parameters()`` paths equal the JAX ``get_params()`` tree paths
 (``set_name`` changes the display name only, as in JAX), which is what
 ``bigdl_tpu_torch.convert.load_jax_params`` relies on.
+
+The training knobs of JAX's module are here too, and act in the trainer's
+step (``optim/optimizer.py``): per-layer gradient multipliers
+(``set_scale_w``/``set_scale_b``, read through :meth:`grad_scales`),
+``freeze``/``unfreeze`` (a frozen parameter gets no gradient and no
+optimizer slots), and the weight regularizers a layer was built with
+(:meth:`regularizer_penalty`, added to the loss). On a container each call
+reaches the whole subtree, as in JAX.
 """
 
 from __future__ import annotations
@@ -28,6 +36,10 @@ Activity = Any  # a tensor or a Table
 
 class AbstractModule(torch.nn.Module):
     """Base class of all layers and containers."""
+
+    scale_w: float = 1.0
+    scale_b: float = 1.0
+    _frozen: bool = False
 
     def __init__(self) -> None:
         super().__init__()
@@ -48,6 +60,75 @@ class AbstractModule(torch.nn.Module):
         """Switch to eval mode (Torch/BigDL parity)."""
         self.eval()
         return self
+
+    # per-layer gradient multipliers (reference setScaleW/setScaleB), set
+    # on the whole subtree
+    def set_scale_w(self, scale: float) -> "AbstractModule":
+        self.scale_w = float(scale)
+        for m in self.children():
+            m.set_scale_w(scale)
+        return self
+
+    def set_scale_b(self, scale: float) -> "AbstractModule":
+        self.scale_b = float(scale)
+        for m in self.children():
+            m.set_scale_b(scale)
+        return self
+
+    def grad_scales(self) -> dict:
+        """``{parameter path: gradient multiplier}``, keyed and ordered as
+        ``named_parameters()``: bias-like parameters get ``scale_b``, the
+        others ``scale_w``, and a frozen module's parameters 0."""
+        out = {k: 0.0 if self._frozen else
+               (self.scale_b if "bias" in k else self.scale_w)
+               for k, _ in self.named_parameters(recurse=False)}
+        for name, m in self.named_children():
+            out.update({f"{name}.{k}": v for k, v in m.grad_scales().items()})
+        return out
+
+    def freeze(self) -> "AbstractModule":
+        """Exclude this subtree's parameters from training: the step
+        computes no gradient for them and the optimizer keeps no slots."""
+        self._frozen = True
+        for m in self.children():
+            m.freeze()
+        return self
+
+    def unfreeze(self) -> "AbstractModule":
+        self._frozen = False
+        for m in self.children():
+            m.unfreeze()
+        return self
+
+    def is_frozen(self) -> bool:
+        return self._frozen
+
+    def has_regularizers(self) -> bool:
+        return any(getattr(m, "w_regularizer", None) is not None
+                   or getattr(m, "b_regularizer", None) is not None
+                   for m in self.modules())
+
+    def regularizer_penalty(self, params: Optional[dict] = None):
+        """fp32 scalar: the sum of every attached regularizer's penalty
+        (``optim/regularizer.py``) over its layer's parameters, bias-like
+        ones under ``b_regularizer`` and the others under ``w_regularizer``.
+        ``params`` maps parameter paths (as ``named_parameters()``) to the
+        tensors to penalize (the step's cast parameters); None means the
+        module's own."""
+        total = torch.zeros((), dtype=torch.float32)
+        for prefix, m in self.named_modules():
+            w_reg = getattr(m, "w_regularizer", None)
+            b_reg = getattr(m, "b_regularizer", None)
+            if w_reg is None and b_reg is None:
+                continue
+            for k, p in m.named_parameters(recurse=False):
+                reg = b_reg if "bias" in k else w_reg
+                if reg is None:
+                    continue
+                if params is not None:
+                    p = params[f"{prefix}.{k}" if prefix else k]
+                total = total.to(p.device) + reg.penalty(p)
+        return total
 
 
 class TensorModule(AbstractModule):

@@ -1,10 +1,14 @@
-"""Composition containers: Sequential, ConcatTable, CAddTable, Identity.
+"""Composition containers: Sequential, ConcatTable, CAddTable, Identity,
+Remat.
 
 Counterpart of ``bigdl_tpu/nn/containers.py``. The residual join of the
 transformer blocks is ``ConcatTable(Identity, branch) >> CAddTable``.
 """
 
 from __future__ import annotations
+
+import torch.utils.checkpoint
+from torch.func import functional_call
 
 from bigdl_tpu_torch.nn.abstractnn import AbstractModule, Container, child_state
 from bigdl_tpu_torch.utils.table import T, Table
@@ -51,3 +55,35 @@ class CAddTable(AbstractModule):
 class Identity(AbstractModule):
     def run(self, input, state=None):
         return input, state
+
+
+class Remat(Container):
+    """Rematerialisation: runs its one child under non-reentrant
+    ``torch.utils.checkpoint`` (JAX: ``jax.checkpoint``), so the child's
+    activations are recomputed in the backward instead of kept. The
+    recomputation re-runs the same ops, the kernels included (their launch
+    counts grow accordingly), on the parameter tensors the forward used:
+    under the trainer's ``functional_call`` those are the step's cast or
+    detached ones, which are no longer in place when the backward runs.
+    Without autograd, or with a decode state, the child runs plainly."""
+
+    def __init__(self, module: AbstractModule = None):
+        super().__init__(*([module] if module is not None else []))
+
+    def add(self, module: AbstractModule) -> "Remat":
+        if self._modules:
+            raise ValueError("Remat wraps exactly one module")
+        return super().add(module)
+
+    def run(self, input, state=None):
+        if not self._modules:
+            raise RuntimeError("Remat has no child module: add() one first")
+        m = self[0]
+        if state is not None or not torch.is_grad_enabled():
+            out, s = m.run(input, child_state(state, "0"))
+            return out, (None if state is None or s is None else {"0": s})
+        params = dict(m.named_parameters())     # the tensors in effect now
+        out = torch.utils.checkpoint.checkpoint(
+            lambda x: functional_call(m, params, (x,)), input,
+            use_reentrant=False)
+        return out, None

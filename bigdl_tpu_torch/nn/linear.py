@@ -3,6 +3,8 @@
 Counterpart of ``bigdl_tpu/nn/linear.py``: weight (out, in), optional bias,
 Torch default init U(-1/sqrt(fan_in), +), ``x @ W.T + b``. Takes 1-D or
 2-D input; ``TimeDistributed`` folds time into the batch first.
+``w_regularizer``/``b_regularizer`` (``optim/regularizer.py``) add their
+penalty to the training loss.
 """
 
 from __future__ import annotations
@@ -21,10 +23,13 @@ class Linear(TensorModule):
                  with_bias: bool = True,
                  w_init: Optional[InitializationMethod] = None,
                  b_init: Optional[InitializationMethod] = None,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 w_regularizer=None, b_regularizer=None):
         super().__init__()
         self.input_size = input_size
         self.output_size = output_size
+        self.w_regularizer = w_regularizer
+        self.b_regularizer = b_regularizer
         w_init = w_init or RandomUniform()
         b_init = b_init or RandomUniform()
         self.weight = torch.nn.Parameter(w_init.init(

@@ -4,10 +4,27 @@ Counterpart of the core of ``bigdl_tpu/optim/optimizer.py``
 (``_make_step_fn`` and ``_optimize_impl``). One step runs the model and the
 criterion forward, differentiates with autograd (the flash-attention and
 LayerNorm ``autograd.Function``s carry the kernels' backward), averages
-microbatch gradients under gradient accumulation, clips, and lets the
-``OptimMethod`` update the parameters in place. The loop shuffles the
-dataset at every epoch start and stops on ``end_when``, evaluated at the
-top of each iteration with the 1-based ``state["neval"]``.
+microbatch gradients under gradient accumulation, scales them per
+parameter (``grad_scales``), clips, and lets the ``OptimMethod`` update the
+parameters in place. The loop shuffles the dataset at every epoch start
+and stops on ``end_when``, evaluated at the top of each iteration with the
+1-based ``state["neval"]``.
+
+The step follows JAX's options:
+
+- mixed precision: when ``Engine.compute_dtype()`` is not fp32, the fp32
+  master parameters and the floating inputs are cast to it inside the
+  step, the model runs on the cast parameters
+  (``torch.func.functional_call``), and its output is cast to fp32 before
+  the criterion; the casts' backward returns fp32 gradients;
+- frozen parameters (``module.freeze()``) enter the forward detached, so no
+  gradient is computed for them, and get no optimizer slots;
+- attached regularizers add their penalty to the loss;
+- ``set_remat("dots"|"full")`` runs the loss under non-reentrant
+  ``torch.utils.checkpoint`` ("dots" keeps the matrix products' outputs);
+- ``set_flat_update`` runs an elementwise method over flat buffers
+  (``kernels/fused_update.py``);
+- ``set_optim_methods`` routes named submodules to their own methods.
 
 ``state["loss"]`` is the loss of the last step, computed before its
 update. The JAX trainer fetches losses in batches to keep its device
@@ -16,26 +33,33 @@ enqueued, so the card is never left waiting on the read, and a non-finite
 loss raises :class:`NonFiniteLossError` at the step that produced it.
 
 Not ported yet (ROADMAP Queue A.1): checkpointing, validation, summaries,
-fused multi-step windows, remat, freeze and ``grad_scales``, sparse
-embeddings, mixed precision, profiling and preemption.
+fused multi-step windows, sparse embeddings, profiling and preemption.
 """
 
 from __future__ import annotations
 
+import functools
 import logging
 import math
+import os
 import sys
 import time
 from typing import Optional
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
+from torch.func import functional_call
 
 from bigdl_tpu_torch.dataset.dataset import AbstractDataSet
 from bigdl_tpu_torch.nn.criterion import AbstractCriterion
-from bigdl_tpu_torch.optim.optim_method import SGD, OptimMethod
+from bigdl_tpu_torch.nn.precision import cast_floating
+from bigdl_tpu_torch.optim.optim_method import (
+    SGD, CompositeOptimMethod, OptimMethod,
+)
 from bigdl_tpu_torch.optim.trigger import Trigger
 from bigdl_tpu_torch.utils.device import require_on
+from bigdl_tpu_torch.utils.engine import Engine
 
 logger = logging.getLogger(__name__)
 
@@ -53,6 +77,27 @@ def _map(fn, x):
     if isinstance(x, (tuple, list)):
         return type(x)(fn(a) for a in x)
     return fn(x)
+
+
+REMAT_MODES = ("none", "dots", "full")
+# what remat "dots" keeps: the matrix products' outputs (JAX's
+# checkpoint_dots); everything else is recomputed in the backward
+_SAVED_BY_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+                  torch.ops.aten.bmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    from torch.utils.checkpoint import CheckpointPolicy
+    return (CheckpointPolicy.MUST_SAVE if op in _SAVED_BY_DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat_mode(mode: str) -> str:
+    mode = str(mode).strip().lower()
+    if mode not in REMAT_MODES:
+        raise ValueError(f"remat mode must be one of {REMAT_MODES}, got "
+                         f"{mode!r}")
+    return mode
 
 
 class Optimizer:
@@ -76,14 +121,68 @@ class Optimizer:
         self.grad_clip_const: Optional[tuple[float, float]] = None
         self.grad_clip_norm: Optional[float] = None
         self.grad_accum: int = 1
+        # rematerialization of the loss (set_remat / BIGDL_REMAT)
+        self.remat: str = _remat_mode(os.environ.get("BIGDL_REMAT", "none"))
+        # flat-buffer update (set_flat_update / BIGDL_FLAT_UPDATE)
+        self.flat_update: bool = os.environ.get("BIGDL_FLAT_UPDATE",
+                                                "0") == "1"
         self.state: dict = {"epoch": 1, "neval": 1, "epoch_finished": False}
         # optimizer slots, kept across optimize() calls: a second call
-        # continues the run, as in JAX
+        # continues the run, as in JAX; with the method that made them and
+        # the trainable mask they were trimmed to
         self._ostate: Optional[dict] = None
+        self._method: Optional[OptimMethod] = None
+        self._ostate_mask = None
 
     # fluent config (reference API shape) ----------------------------------
     def set_optim_method(self, method: OptimMethod) -> "Optimizer":
         self.optim_method = method
+        self._ostate = None
+        return self
+
+    def set_optim_methods(self, methods: dict) -> "Optimizer":
+        """Per-submodule optimizers (reference ``setOptimMethods``):
+        ``methods`` maps module names (``set_name``) to OptimMethods; each
+        named module's parameters update with its own method, the rest with
+        the current ``set_optim_method`` default. A name that occurs more
+        than once routes every occurrence."""
+        prefixes: dict = {}
+
+        def walk(m, path):
+            if getattr(m, "name", None) in methods:
+                prefixes.setdefault(m.name, []).append(path)
+            for idx, child in m.named_children():
+                walk(child, path + (idx,))
+
+        walk(self.model, ())
+        missing = set(methods) - set(prefixes)
+        if missing:
+            raise ValueError(f"set_optim_methods: module names not found in "
+                             f"the model: {sorted(missing)}")
+        groups = [(name, path, method) for name, method in methods.items()
+                  for path in prefixes[name]]
+        default = self.optim_method
+        if isinstance(default, CompositeOptimMethod):
+            # a repeated call: new names override, the rest carry over
+            groups = [g for g in default.groups if g[0] not in methods] \
+                + groups
+            default = default.default
+        return self.set_optim_method(CompositeOptimMethod(groups, default))
+
+    def set_remat(self, mode: str) -> "Optimizer":
+        """Rematerialization of the loss (model and criterion) in the
+        backward, by non-reentrant ``torch.utils.checkpoint``: "none" keeps
+        every activation, "dots" keeps the matrix products' outputs and
+        recomputes the rest, "full" recomputes the whole forward."""
+        self.remat = _remat_mode(mode)
+        return self
+
+    def set_flat_update(self, enabled: bool = True) -> "Optimizer":
+        """Run an elementwise method over one flat buffer per parameter
+        dtype (``kernels/fused_update.py``), bit for bit the per-leaf
+        update. Methods that need the leaves (``layer_lr_mults``, LARS,
+        L-BFGS, composite) keep the per-leaf path."""
+        self.flat_update = bool(enabled)
         self._ostate = None
         return self
 
@@ -128,15 +227,63 @@ class Optimizer:
             grads = [g * scale for g in grads]
         return grads
 
-    def _value_and_grad(self, params: list, inp, target):
-        loss = self.criterion.apply(self.model(inp), target)
+    def _effective_method(self) -> OptimMethod:
+        """The method the step runs: the configured one, wrapped for the
+        flat update when that is on and the method allows it."""
+        method = self.optim_method
+        if self.flat_update:
+            from bigdl_tpu_torch.kernels.fused_update import (
+                FlatParamUpdate, flat_supported,
+            )
+            if flat_supported(method):
+                return FlatParamUpdate(method)
+            logger.warning("flat update: %r has no elementwise flat form; "
+                           "keeping the per-leaf update", method)
+        return method
+
+    def _loss(self, frozen: frozenset, inp, target):
+        """The loss of one (micro)batch, the function that remat
+        checkpoints: the model under the precision policy, with frozen
+        parameters detached, the criterion in fp32, and the regularizers'
+        penalty on the parameters the model ran with."""
+        model = self.model
+        dtype = Engine.compute_dtype()
+        mixed = dtype != torch.float32
+        params = None
+        if mixed or frozen:
+            params = {n: p.detach() if n in frozen else p
+                      for n, p in model.named_parameters()}
+            if mixed:
+                params = cast_floating(params, dtype)
+                inp = cast_floating(inp, dtype)
+            out = functional_call(model, params, (inp,))
+            if mixed:
+                out = cast_floating(out, torch.float32)
+        else:
+            out = model(inp)
+        loss = self.criterion.apply(out, target)
+        if model.has_regularizers():
+            loss = loss + model.regularizer_penalty(params)
+        return loss
+
+    def _value_and_grad(self, params: list, inp, target, frozen=frozenset()):
+        loss_fn = functools.partial(self._loss, frozen)
+        if self.remat == "none":
+            loss = loss_fn(inp, target)
+        else:
+            ctx = (functools.partial(
+                torch.utils.checkpoint.create_selective_checkpoint_contexts,
+                _save_dots) if self.remat == "dots"
+                else torch.utils.checkpoint.noop_context_fn)
+            loss = torch.utils.checkpoint.checkpoint(
+                loss_fn, inp, target, use_reentrant=False, context_fn=ctx)
         grads = torch.autograd.grad(loss, params)
         return loss.detach(), list(grads)
 
-    def _loss_and_grads(self, params: list, inp, target):
+    def _loss_and_grads(self, params: list, inp, target, frozen=frozenset()):
         accum = self.grad_accum
         if accum == 1:
-            return self._value_and_grad(params, inp, target)
+            return self._value_and_grad(params, inp, target, frozen)
 
         def micro(a, i):
             if a.shape[0] % accum:
@@ -149,7 +296,7 @@ class Optimizer:
         for i in range(accum):
             l, g = self._value_and_grad(
                 params, _map(lambda a: micro(a, i), inp),
-                _map(lambda a: micro(a, i), target))
+                _map(lambda a: micro(a, i), target), frozen)
             if gsum is None:
                 lsum, gsum = l, g
             else:
@@ -168,16 +315,30 @@ class Optimizer:
 
     def train_step(self, inp, target) -> float:
         """One optimizer step on a batch already on the model's device, at
-        iteration ``state["neval"]``: forward, backward, clip, update.
-        Sets ``state["loss"]`` (the loss before the update), advances
-        ``neval`` and returns the loss."""
-        params = list(self.model.parameters())
-        if self._ostate is None:
-            self._ostate = self.optim_method.init_state(params)
+        iteration ``state["neval"]``: forward, backward, scale, clip,
+        update. Sets ``state["loss"]`` (the loss before the update),
+        advances ``neval`` and returns the loss."""
+        named = dict(self.model.named_parameters())
+        scales = self.model.grad_scales()
+        trainable = [scales[n] != 0.0 for n in named]
+        mask = None if all(trainable) else trainable
+        if self._ostate is None or mask != self._ostate_mask:
+            if self._ostate is not None:
+                logger.warning("the frozen parameters changed: optimizer "
+                               "slots start again")
+            self._method = self._effective_method()
+            self._ostate = self._method.init_state_trimmed(named, mask)
+            self._ostate_mask = mask
+        frozen = frozenset(n for n, t in zip(named, trainable) if not t)
+        train = [n for n in named if n not in frozen]
         it = self.state["neval"]
-        loss, grads = self._loss_and_grads(params, inp, target)
-        grads = self._clip_grads(grads)
-        self.optim_method.update(params, grads, self._ostate, it - 1)
+        loss, grads = self._loss_and_grads([named[n] for n in train], inp,
+                                           target, frozen)
+        grads = [g if scales[n] == 1.0 else g * scales[n]
+                 for n, g in zip(train, grads)]
+        grads = dict(zip(train, self._clip_grads(grads)))
+        self._method.update_trimmed(named, {n: grads.get(n) for n in named},
+                                    self._ostate, it - 1, mask)
         val = float(loss)
         if not math.isfinite(val):
             raise NonFiniteLossError(

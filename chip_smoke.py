@@ -14,9 +14,11 @@ an NVIDIA H100 and the CUDA toolkit. It builds the port's CUDA kernels from
 3. times an empty kernel launched through the C interface (the launch
    floor), then holds each kernel against its plain PyTorch version on the
    card (the LayerNorm forward at every main-path shape: (8, 512),
-   (700, 512), (2·512, 512), (16·512, 512) fp32 and bf16, (1024, 256); the
-   LayerNorm backward at (16·512, 512) fp32 and bf16 and (2·512, 512),
-   with dgamma and dbeta bitwise equal across two calls; the flash forward
+   (700, 512), (2·512, 512), (16·512, 512) fp32 and bf16, (1024, 256), and
+   the bf16 step's (16·512, 512) and (2·512, 512) with bf16 gamma and
+   beta; the LayerNorm backward at (16·512, 512) fp32, bf16 and bf16 with
+   bf16 gamma, (2·512, 512) fp32 and bf16 with bf16 gamma, with dgamma and
+   dbeta bitwise equal across two calls; the flash forward
    and the two flash backward kernels at (2, 8, T, 64) with T in
    {1024, 1000}, causal
    and not, fp32/bf16, and the forward also at the main paths' causal
@@ -41,12 +43,23 @@ an NVIDIA H100 and the CUDA toolkit. It builds the port's CUDA kernels from
    same weights on the CPU (``attention_impl="full"``), then 8 steps of
    ``LocalOptimizer`` with ``SGD(0.01, momentum=0.9, dampening=0)`` at
    batch 16 × 512 on ``synthetic_ptb`` windows, every loss finite, with the
-   step time and tokens/s;
+   step time and tokens/s and one profiled step (device time by kernel
+   name, the GEMMs' share, the device's busy share); then the same under
+   the bf16 mixed-precision policy (``Engine.init(compute_dtype=
+   torch.bfloat16)``, the JAX training leg's default): one (2, 512) step's
+   loss and master gradients against the port's plain bf16 step on the
+   CPU, 8 timed steps and a profiled one, with the bf16 step time and
+   tokens/s beside the fp32 ones, then 8 bf16 steps with the flat update
+   and 8 with every block under ``Remat`` (their step times; remat's
+   losses within 1e-4 relative of the plain run's);
 7. checks that the serving path (phases 4 and 5) launched both forward
-   kernels and the training path (the 8 steps) all five, the LayerNorm
-   backward once for each LayerNorm forward and the plain backward never,
-   and prints the kernel table as one JSON line, the card line, and the
-   result line ``{"ok": true, "device": {...}}`` last.
+   kernels and each training run (the 8 steps, fp32 and bf16) all five,
+   every launch in the run's dtype (bf16 operands and bf16 gamma and beta
+   under the bf16 policy), the LayerNorm backward once for each LayerNorm
+   (the forward kernels once a step without remat, twice in each block
+   with it) and the plain backward never, and prints the kernel table as
+   one JSON line (each kernel's row with its bf16 training instance), the
+   card line, and the result line ``{"ok": true, "device": {...}}`` last.
 
 Any failed check exits non-zero without the result line, as does a machine
 without CUDA or a directory without the package.
@@ -186,29 +199,47 @@ def report_flash_build(lib, kernels, nvcc):
     return info
 
 
+# ln_*<T, P, VEC, NV> and ln_bwd_reduce<P>: T is x's type, P gamma's
 LN_INSTANCE = re.compile(r"(ln_(?:fwd|bwd)_(?:warp|loop)|ln_bwd_reduce)"
-                         r"(?:I(f|13__nv_bfloat16)(?:Li(\d+)ELi(\d+)E)?)?")
-# the instances the main paths run: H = 512 in 128-bit chunks
-LN_MAIN_PATH = {("ln_fwd_warp", "float32", 4, 4),
-                ("ln_bwd_warp", "float32", 4, 4), ("ln_bwd_reduce", None,
-                                                   None, None)}
+                         r"I((?:f|13__nv_bfloat16|S\d*_)+)"
+                         r"(?:Li(\d+)ELi(\d+)E)?E")
+LN_TYPE = re.compile(r"f|13__nv_bfloat16|S\d*_")
+# the instances the main paths run, (kernel, x, gamma, vec, chunks): H = 512
+# in 128-bit chunks, fp32 throughout or bf16 x with bf16 gamma (the bf16
+# training step)
+LN_MAIN_PATH = {("ln_fwd_warp", "float32", "float32", 4, 4),
+                ("ln_bwd_warp", "float32", "float32", 4, 4),
+                ("ln_bwd_reduce", None, "float32", None, None),
+                ("ln_fwd_warp", "bfloat16", "bfloat16", 8, 2),
+                ("ln_bwd_warp", "bfloat16", "bfloat16", 8, 2),
+                ("ln_bwd_reduce", None, "bfloat16", None, None)}
+
+
+def _ln_key(mangled: str):
+    """(kernel, x dtype, gamma dtype, vec, chunks) of a LayerNorm instance,
+    or None for another kernel. A substitution (S_) repeats bf16, the only
+    class type among the arguments."""
+    k = LN_INSTANCE.search(mangled)
+    if k is None:
+        return None
+    types = ["float32" if t == "f" else "bfloat16"
+             for t in LN_TYPE.findall(k.group(2))]
+    x = None if k.group(1) == "ln_bwd_reduce" else types[0]
+    return (k.group(1), x, types[-1],
+            int(k.group(3)) if k.group(3) else None,
+            int(k.group(4)) if k.group(4) else None)
 
 
 def report_layer_norm_build(lib):
     """Registers and spills (ptxas -v) of every LayerNorm instance
-    (kernel, dtype, values a chunk, chunks a thread). Fails if an instance
-    of the main paths spills."""
+    (kernel, x dtype, gamma dtype, values a chunk, chunks a thread). Fails
+    if an instance of the main paths spills."""
     info = {}
     current = None
     for line in lib.build_log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            k = LN_INSTANCE.search(m.group(1))
-            current = None if k is None else (
-                k.group(1), {"f": "float32", None: None}.get(
-                    k.group(2), "bfloat16"),
-                int(k.group(3)) if k.group(3) else None,
-                int(k.group(4)) if k.group(4) else None)
+            current = _ln_key(m.group(1))
             continue
         if current is None:
             continue
@@ -224,7 +255,8 @@ def report_layer_norm_build(lib):
         raise CheckFailed("the build log holds no ptxas report of the "
                           "LayerNorm kernels")
     for key in sorted(info, key=str):
-        log(f"  {key[0]} {key[1]} vec={key[2]} chunks={key[3]}: "
+        log(f"  {key[0]} x={key[1]} gamma={key[2]} vec={key[3]} "
+            f"chunks={key[4]}: "
             f"{info[key].get('registers')} registers, "
             f"{info[key].get('spill_bytes')} spill bytes")
     for key in LN_MAIN_PATH:
@@ -313,24 +345,29 @@ def check_layer_norm(kernels, card, floor_ms):
     """The forward at every shape the main paths give it: a decode tick
     (8, 512), the longest prefill (700, 512), the full forward (2·512, 512),
     training (16·512, 512) in fp32 and bf16, and the flagship width
-    (1024, 256). The kernel, its plain version and ``F.layer_norm`` are
-    timed over rotating inputs and outputs 4x the L2 (``rotation``)."""
+    (1024, 256), with fp32 gamma and beta; and the bf16 training step's
+    (16·512, 512) and (2·512, 512) with bf16 gamma and beta. The kernel,
+    its plain version and ``F.layer_norm`` are timed over rotating inputs
+    and outputs 4x the L2 (``rotation``)."""
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(SEED)
-    cases = [((SLOTS, EMBED), torch.float32, 1e-5, 1e-5),
-             ((PROMPT_HI, EMBED), torch.float32, 1e-5, 1e-5),
-             ((2 * 512, EMBED), torch.float32, 1e-5, 1e-5),
-             ((TRAIN_BATCH * TRAIN_LEN, EMBED), torch.float32, 1e-5, 1e-5),
-             ((TRAIN_BATCH * TRAIN_LEN, EMBED), torch.bfloat16, 2e-2, 0.0),
-             ((1024, 256), torch.float32, 1e-5, 1e-5)]
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = [((SLOTS, EMBED), f32, f32, 1e-5, 1e-5),
+             ((PROMPT_HI, EMBED), f32, f32, 1e-5, 1e-5),
+             ((2 * 512, EMBED), f32, f32, 1e-5, 1e-5),
+             ((TRAIN_BATCH * TRAIN_LEN, EMBED), f32, f32, 1e-5, 1e-5),
+             ((TRAIN_BATCH * TRAIN_LEN, EMBED), bf16, f32, 2e-2, 0.0),
+             ((1024, 256), f32, f32, 1e-5, 1e-5),
+             ((TRAIN_BATCH * TRAIN_LEN, EMBED), bf16, bf16, 2e-2, 0.0),
+             ((2 * TRAIN_LEN, EMBED), bf16, bf16, 2e-2, 0.0)]
     rows = []
-    for (n, h), dtype, atol, rtol in cases:
+    for (n, h), dtype, pdtype, atol, rtol in cases:
         item = torch.finfo(dtype).bits // 8
         sets = rotation(2 * n * h * item)
         xs = torch.randn(sets, n, h, generator=g, device=dev).to(dtype)
         x = xs[0]
-        gamma = 1 + 0.1 * torch.randn(h, generator=g, device=dev)
-        beta = 0.1 * torch.randn(h, generator=g, device=dev)
+        gamma = (1 + 0.1 * torch.randn(h, generator=g, device=dev)).to(pdtype)
+        beta = (0.1 * torch.randn(h, generator=g, device=dev)).to(pdtype)
         got = kernels.layer_norm_cuda(x, gamma, beta, 1e-5)
         want = kernels.layer_norm_reference(x, gamma, beta, 1e-5)
         torch.cuda.synchronize()
@@ -348,9 +385,11 @@ def check_layer_norm(kernels, card, floor_ms):
         ys = torch.empty_like(xs)
         c_ms, _ = time_ms(rotating(lambda k: ys[k].copy_(xs[k]), sets), 50)
         del ys
-        b_ms, b_by = bound_ms(2 * n * h * item + 2 * h * 4, 8.0 * n * h,
+        p_item = torch.finfo(pdtype).bits // 8
+        b_ms, b_by = bound_ms(2 * n * h * item + 2 * h * p_item, 8.0 * n * h,
                               str(dtype).split(".")[-1])
-        log(f"  layer_norm ({n}, {h}) {str(dtype)[6:]}: max|err| {err:.3e} "
+        log(f"  layer_norm ({n}, {h}) {str(dtype)[6:]}, gamma "
+            f"{str(pdtype)[6:]}: max|err| {err:.3e} "
             f"(atol {atol}, rtol {rtol}) {'ok' if ok else 'FAIL'}; kernel "
             f"{k_ms:.5f} ms, plain {p_ms:.5f} ms, F.layer_norm {l_ms:.5f} "
             f"ms, bound {b_ms:.5f} ms ({b_by}, {b_ms / k_ms:.0%} of it), "
@@ -359,44 +398,54 @@ def check_layer_norm(kernels, card, floor_ms):
         if not ok:
             raise CheckFailed(f"layer_norm ({n}, {h}) {dtype} disagrees with "
                               f"its plain version: max|err| {err}")
-        rows.append(dict(shape=[n, h], dtype=str(dtype)[6:], err=err,
-                         ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
-                         bound_ms=b_ms, bound_by=b_by, copy_ms=c_ms))
+        rows.append(dict(shape=[n, h], dtype=str(dtype)[6:],
+                         params=str(pdtype)[6:], err=err, ms=k_ms,
+                         plain_ms=p_ms, library_ms=l_ms, bound_ms=b_ms,
+                         bound_by=b_by, copy_ms=c_ms))
     return rows
 
 
 def check_layer_norm_bwd(kernels, card):
     """The backward kernel against ``layer_norm_backward`` at the training
-    path's shapes: the 8-step run's (16·512, 512) in fp32 and bf16 and the
-    one-step check's (2·512, 512). dx within rtol 1e-4 / atol 1e-5 (fp32)
-    or 2e-2 (bf16); dgamma and dbeta, fp32 sums over all N rows taken in
-    another order than the plain version's, within rtol 1e-4 and atol
-    1e-5·(max|want| + 1), and equal bit for bit across two calls. Library
-    yardstick: the backward of ``F.layer_norm``, (forward + backward) -
-    forward under autograd. All three are timed over rotating inputs and
-    outputs 4x the L2 (``rotation``)."""
+    paths' shapes: the 8-step runs' (16·512, 512) in fp32, bf16 with fp32
+    gamma and bf16 with bf16 gamma (the bf16 step), and the one-step
+    checks' (2·512, 512) in fp32 and in bf16 with bf16 gamma. dx within
+    rtol 1e-4 / atol 1e-5 (fp32) or 2e-2 (bf16); dgamma and dbeta, fp32
+    sums over all N rows taken in another order than the plain version's,
+    within rtol 1e-4 and atol 1e-5·(max|want| + 1), or, rounded to bf16
+    gamma's dtype, within rtol 2^-7 (one bf16 ulp), and equal bit for bit
+    across two calls. Library yardstick: the backward of ``F.layer_norm``,
+    (forward + backward) - forward under autograd. All three are timed over
+    rotating inputs and outputs 4x the L2 (``rotation``)."""
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(SEED + 5)
-    cases = [((TRAIN_BATCH * TRAIN_LEN, EMBED), torch.bfloat16),
-             ((2 * TRAIN_LEN, EMBED), torch.float32),
-             ((TRAIN_BATCH * TRAIN_LEN, EMBED), torch.float32)]
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = [((TRAIN_BATCH * TRAIN_LEN, EMBED), bf16, f32),
+             ((TRAIN_BATCH * TRAIN_LEN, EMBED), bf16, bf16),
+             ((2 * TRAIN_LEN, EMBED), bf16, bf16),
+             ((2 * TRAIN_LEN, EMBED), f32, f32),
+             ((TRAIN_BATCH * TRAIN_LEN, EMBED), f32, f32)]
     rows = []
-    for (n, h), dtype in cases:
+    for (n, h), dtype, pdtype in cases:
         item = torch.finfo(dtype).bits // 8
+        p_item = torch.finfo(pdtype).bits // 8
         sets = rotation(3 * n * h * item)
         xs = torch.randn(sets, n, h, generator=g, device=dev).to(dtype)
         dys = torch.randn(sets, n, h, generator=g, device=dev).to(dtype)
         x, dy = xs[0], dys[0]
-        gamma = 1 + 0.1 * torch.randn(h, generator=g, device=dev)
+        gamma = (1 + 0.1 * torch.randn(h, generator=g, device=dev)).to(pdtype)
         got = kernels.layer_norm_bwd_cuda(x, gamma, dy, 1e-5)
         again = kernels.layer_norm_bwd_cuda(x, gamma, dy, 1e-5)
         want = kernels.layer_norm_backward(x, gamma, 1e-5, dy)
         torch.cuda.synchronize()
         errs = [max_err(a, b) for a, b in zip(got, want)]
         dx_tol = (1e-5, 1e-4) if dtype == torch.float32 else (2e-2, 0.0)
-        sum_atol = [1e-5 * (float(b.abs().max()) + 1) for b in want[1:]]
+        sum_atol = [1e-5 * (float(b.float().abs().max()) + 1)
+                    for b in want[1:]]
+        sum_rtol = 1e-4 if pdtype == torch.float32 else 2 ** -7
         ok = (within(got[0], want[0], *dx_tol)
-              and all(within(a, b, t, 1e-4)
+              and all(a.dtype == pdtype for a in got[1:])
+              and all(within(a, b, t, sum_rtol)
                       for a, b, t in zip(got[1:], want[1:], sum_atol)))
         bitwise = all(torch.equal(a, b) for a, b in zip(got, again))
         k_ms, _ = time_ms(rotating(
@@ -406,7 +455,7 @@ def check_layer_norm_bwd(kernels, card):
             lambda k: kernels.layer_norm_backward(xs[k], gamma, 1e-5, dys[k]),
             sets), 20)
         xr = [t.detach().requires_grad_() for t in xs.unbind(0)]
-        gr, br = (t.to(dtype).requires_grad_()
+        gr, br = (t.detach().to(dtype).requires_grad_()
                   for t in (gamma, torch.zeros_like(gamma)))
         ln = torch.nn.functional.layer_norm
         fb_ms, _ = time_ms(rotating(lambda k: torch.autograd.grad(
@@ -417,12 +466,13 @@ def check_layer_norm_bwd(kernels, card):
                 lambda k: ln(xr[k], (h,), gr, br, 1e-5), sets), 50)
         l_ms = fb_ms - f_ms
         name = str(dtype).split(".")[-1]
-        b_ms, b_by = bound_ms(3 * n * h * item + 3 * h * 4, 12.0 * n * h,
-                              name)
-        log(f"  layer_norm bwd ({n}, {h}) {name}: max|err| dx {errs[0]:.3e} "
+        b_ms, b_by = bound_ms(3 * n * h * item + 3 * h * p_item,
+                              12.0 * n * h, name)
+        log(f"  layer_norm bwd ({n}, {h}) {name}, gamma {str(pdtype)[6:]}: "
+            f"max|err| dx {errs[0]:.3e} "
             f"dgamma {errs[1]:.3e} dbeta {errs[2]:.3e} (dx atol "
             f"{dx_tol[0]}, rtol {dx_tol[1]}; dgamma, dbeta atol "
-            f"{sum_atol[0]:.2e}, {sum_atol[1]:.2e}, rtol 1e-4) "
+            f"{sum_atol[0]:.2e}, {sum_atol[1]:.2e}, rtol {sum_rtol:.2e}) "
             f"{'ok' if ok else 'FAIL'}; two calls bitwise "
             f"{'equal' if bitwise else 'DIFFER'}; kernel {k_ms:.5f} ms, plain "
             f"{p_ms:.5f} ms, F.layer_norm backward {l_ms:.5f} ms, bound "
@@ -434,9 +484,9 @@ def check_layer_norm_bwd(kernels, card):
         if not bitwise:
             raise CheckFailed(f"layer_norm bwd ({n}, {h}) {dtype}: two calls "
                               f"differ")
-        rows.append(dict(shape=[n, h], dtype=name, err=max(errs), ms=k_ms,
-                         plain_ms=p_ms, library_ms=l_ms, bound_ms=b_ms,
-                         bound_by=b_by))
+        rows.append(dict(shape=[n, h], dtype=name, params=str(pdtype)[6:],
+                         err=max(errs), ms=k_ms, plain_ms=p_ms,
+                         library_ms=l_ms, bound_ms=b_ms, bound_by=b_by))
     return rows
 
 
@@ -502,9 +552,12 @@ def check_flash(kernels, card):
     return rows
 
 
-def find_row(rows, shape, dtype):
+def find_row(rows, shape, dtype, params="float32"):
+    """The causal row of ``shape`` and ``dtype`` (LayerNorm rows: with
+    gamma in ``params``)."""
     return next(r for r in rows if r["shape"] == list(shape)
-                and r["dtype"] == dtype and r.get("causal", True))
+                and r["dtype"] == dtype and r.get("causal", True)
+                and r.get("params", "float32") == params)
 
 
 def sdpa_backend(q4, k4, v4, causal) -> str:
@@ -728,9 +781,9 @@ def check_served_tokens(lm, greedy_generate, prompts, results):
 
 
 # ---------------------------------------------------------------- phase 6
-def build_train_lm(TransformerLM, attention_impl, device):
+def build_train_lm(TransformerLM, attention_impl, device, remat=False):
     return TransformerLM(VOCAB, EMBED, HEADS, LAYERS, TRAIN_LEN,
-                         attention_impl=attention_impl,
+                         attention_impl=attention_impl, remat=remat,
                          generator=torch.Generator().manual_seed(SEED + 4),
                          device=device)
 
@@ -766,6 +819,68 @@ def check_train_step(TransformerLM, lm_criterion):
         raise CheckFailed(f"training step disagrees with the CPU plain "
                           f"model: loss {rel_loss:.3e}, {worst} "
                           f"{rel[worst]:.3e}")
+    return loss_ref, grads_ref
+
+
+def rel_errors(grads, grads_ref) -> dict:
+    return {n: float((grads[n] - g).norm() / g.norm().clamp(min=1e-30))
+            for n, g in grads_ref.items()}
+
+
+def check_train_step_bf16(TransformerLM, lm_criterion, fp32_ref):
+    """The bf16 mixed-precision step (``Engine.init(compute_dtype=
+    torch.bfloat16)``): the loss and every master gradient of one (2, 512)
+    step on the card (all five kernels in bf16, bf16 gamma and beta)
+    against the port's plain bf16 step on the CPU with the same weights
+    (the same casts; plain LayerNorm, ``attention_impl="full"``), both
+    through ``LocalOptimizer``'s loss-and-gradient path. Tolerances, sized
+    for bf16 (8 significant bits, 2^-9 relative rounding, compounded over
+    6 blocks and a 32000-way head): loss relative 1e-2; per parameter
+    ``|g - g_ref| / |g_ref|`` (Frobenius) <= 5e-2. The CPU bf16 step's own
+    distance from the fp32 step is printed beside them (not a check)."""
+    from bigdl_tpu_torch.dataset import DataSet
+    from bigdl_tpu_torch.optim import LocalOptimizer
+
+    rng = np.random.default_rng(SEED + 4)
+    ids = torch.from_numpy(rng.integers(0, VOCAB, (2, TRAIN_LEN + 1)))
+    x, y = ids[:, :-1], ids[:, 1:]
+    runs = []
+    for device, impl in ((DEVICE, "auto"), ("cpu", "full")):
+        lm = build_train_lm(TransformerLM, impl, device)
+        opt = LocalOptimizer(lm, DataSet.array([]), lm_criterion(),
+                             device=device)
+        names, params = zip(*lm.named_parameters())
+        loss, grads = opt._loss_and_grads(list(params), x.to(device),
+                                          y.to(device))
+        if any(g.dtype != torch.float32 for g in grads):
+            raise CheckFailed("the bf16 step's master gradients are not fp32")
+        runs.append((loss.item(), {n: g.detach().cpu()
+                                   for n, g in zip(names, grads)}))
+        del lm, opt, loss, grads
+    (loss, grads), (loss_ref, grads_ref) = runs
+    rel_loss = abs(loss - loss_ref) / abs(loss_ref)
+    rel = rel_errors(grads, grads_ref)
+    worst = max(rel, key=rel.get)
+    policy = rel_errors(grads_ref, fp32_ref[1])
+    p_worst = max(policy, key=policy.get)
+    log(f"  one (2, {TRAIN_LEN}) bf16 step: loss {loss:.6f} vs CPU plain "
+        f"bf16 {loss_ref:.6f} (relative {rel_loss:.2e}, limit 1e-2); "
+        f"gradients of {len(rel)} parameters, worst relative error "
+        f"{rel[worst]:.2e} ({worst}, limit 5e-2); CPU bf16 against CPU "
+        f"fp32: loss {abs(loss_ref - fp32_ref[0]) / abs(fp32_ref[0]):.2e}, "
+        f"worst gradient {policy[p_worst]:.2e} ({p_worst})")
+    if rel_loss > 1e-2 or rel[worst] > 5e-2:
+        raise CheckFailed(f"bf16 training step disagrees with the CPU plain "
+                          f"bf16 step: loss {rel_loss:.3e}, {worst} "
+                          f"{rel[worst]:.3e}")
+    return {"rel_loss": rel_loss, "worst_grad_rel": rel[worst]}
+
+
+# kernel kinds of a profiled step, by words in the kernel's name (first
+# match wins): the port's five kernels, the library's matrix products, the
+# rest (elementwise and reduction glue, softmax, copies)
+KERNEL_KINDS = (("ported kernels", ("ln_fwd", "ln_bwd", "flash_")),
+                ("gemm", ("gemm", "nvjet", "xmma", "cutlass", "cublas")))
 
 
 def profile_step(opt, batch, card):
@@ -794,21 +909,41 @@ def profile_step(opt, batch, card):
             return us / 1e3
 
         busy = sum(dev_ms(e) for e in events)
-        top = sorted(events, key=dev_ms, reverse=True)[:12]
+        top = sorted(events, key=dev_ms, reverse=True)[:15]
+        host = sorted((e for e in prof.key_averages()
+                       if e.device_type == DeviceType.CPU),
+                      key=lambda e: e.self_cpu_time_total, reverse=True)[:8]
     except Exception as e:  # noqa: BLE001 — an observation, not a check
         log(f"  profiler: no device times ({type(e).__name__}: {e})")
         return None
+    shares = {}
+    for e in events:
+        name = e.key.lower()
+        kind = next((k for k, words in KERNEL_KINDS if any(
+            w in name for w in words)), "other")
+        shares[kind] = shares.get(kind, 0.0) + dev_ms(e)
     log(f"  profiled step: {wall_ms:.2f} ms wall, device busy {busy:.2f} ms "
-        f"({busy / wall_ms:.1%}) over {len(events)} kernel names [{card}]")
+        f"({busy / wall_ms:.1%}) over {len(events)} kernel names; by kind "
+        f"{ {k: round(v, 3) for k, v in shares.items()} } ms [{card}]")
     for e in top:
         log(f"    {dev_ms(e):9.3f} ms  x{e.count:<4d} {e.key[:90]}")
-    return {"wall_ms": wall_ms, "busy_ms": busy,
+    log("  host ops by self time (under the profiler, which adds to each):")
+    for e in host:
+        log(f"    {e.self_cpu_time_total / 1e3:9.3f} ms  x{e.count:<5d} "
+            f"{e.key[:80]}")
+    return {"wall_ms": wall_ms, "busy_ms": busy, "by_kind_ms": shares,
             "top": [[e.key[:90], dev_ms(e), e.count] for e in top]}
 
 
-def train(TransformerLM, lm_criterion, kernels, card):
-    """8 LocalOptimizer steps at batch 16 x 512 on synthetic_ptb windows;
-    returns the launch counts of those steps and the step times."""
+def train(TransformerLM, lm_criterion, kernels, card, bf16=False,
+          flat=False, remat=False, profile=True):
+    """8 LocalOptimizer steps at batch 16 x 512 on synthetic_ptb windows, in
+    fp32 or (``bf16``) under the bf16 mixed-precision policy, with the
+    per-leaf update or (``flat``) the flat update, and (``remat``) with
+    every block under ``Remat`` (``TransformerLM(remat=True)``, the training
+    main's ``--remat``); returns the launch counts of those steps (in all,
+    and by dtype) and the step times, and with ``profile`` one more step's
+    device time by kernel."""
     from bigdl_tpu_torch.dataset import (
         DataSet, Sample, SampleToMiniBatch, ptb_windows, synthetic_ptb,
     )
@@ -821,11 +956,12 @@ def train(TransformerLM, lm_criterion, kernels, card):
     xs, ys = ptb_windows(ids, TRAIN_LEN)
     data = (DataSet.array(Sample(x, y) for x, y in zip(xs, ys))
             >> SampleToMiniBatch(TRAIN_BATCH))
-    lm = build_train_lm(TransformerLM, "auto", DEVICE)
+    lm = build_train_lm(TransformerLM, "auto", DEVICE, remat=remat)
     opt = (LocalOptimizer(lm, data, lm_criterion(), device=DEVICE)
            .set_optim_method(SGD(learningrate=0.01, momentum=0.9,
                                  dampening=0.0))
-           .set_end_when(Trigger.max_iteration(TRAIN_STEPS)))
+           .set_end_when(Trigger.max_iteration(TRAIN_STEPS))
+           .set_flat_update(flat))
     losses, marks = [], []
     step = opt.train_step
 
@@ -854,35 +990,57 @@ def train(TransformerLM, lm_criterion, kernels, card):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = kernels.launch_counts()     # ... to here
+        by_dtype = kernels.launch_counts_by_dtype()
     finally:
         opt.train_step = step
         ln_module.layer_norm_backward = plain_bwd
+    what = ("bf16 steps" if bf16 else "steps") + \
+        (" with the flat update" if flat else "") + \
+        (" with remat" if remat else "")
     if len(losses) != TRAIN_STEPS or not all(np.isfinite(losses)):
         raise CheckFailed(f"training gave losses {losses}")
     step_ms = float(statistics.median(np.diff(marks))) * 1e3
     tokens = TRAIN_BATCH * TRAIN_LEN
-    log(f"  {TRAIN_STEPS} steps at ({TRAIN_BATCH}, {TRAIN_LEN}): losses "
+    log(f"  {TRAIN_STEPS} {what} at ({TRAIN_BATCH}, {TRAIN_LEN}): losses "
         f"{[round(v, 4) for v in losses]}; first step "
         f"{(marks[0] - t0) * 1e3:.1f} ms, median step after it "
         f"{step_ms:.2f} ms, {tokens / step_ms * 1e3:.0f} tokens/s; "
         f"{wall:.2f} s in all [{card}]")
-    log(f"  launches on the training path: {counts} "
+    log(f"  launches on the training path ({what}): {by_dtype} "
         f"({ {k: v / TRAIN_STEPS for k, v in counts.items()} } a step)")
     for name, n in counts.items():
         if n == 0:
             raise CheckFailed(f"the training path never launched {name}")
-    ln_per_run = (2 * LAYERS + 1) * TRAIN_STEPS   # two a block, one final
-    if (counts["layer_norm_fwd"] != ln_per_run
-            or counts["layer_norm_bwd"] != ln_per_run or plain_calls):
-        raise CheckFailed(f"the training path launched layer_norm_fwd "
-                          f"{counts['layer_norm_fwd']} and layer_norm_bwd "
-                          f"{counts['layer_norm_bwd']} times (expected "
-                          f"{ln_per_run} each) and ran the plain backward "
-                          f"{len(plain_calls)} times")
-    prof = profile_step(opt, next(iter(data.data(train=True))), card)
+    # LN: two a block, one final; under remat a block's forward kernels
+    # run again when its backward recomputes it
+    runs = 2 if remat else 1
+    ln_per_run = (2 * LAYERS + 1) * TRAIN_STEPS
+    ln_fwd = (2 * LAYERS * runs + 1) * TRAIN_STEPS
+    flash_fwd = LAYERS * runs * TRAIN_STEPS
+    if (counts["layer_norm_fwd"] != ln_fwd
+            or counts["layer_norm_bwd"] != ln_per_run
+            or counts["flash_attention_fwd"] != flash_fwd or plain_calls):
+        raise CheckFailed(f"the training path ({what}) launched "
+                          f"layer_norm_fwd {counts['layer_norm_fwd']}, "
+                          f"layer_norm_bwd {counts['layer_norm_bwd']} and "
+                          f"flash_attention_fwd "
+                          f"{counts['flash_attention_fwd']} times (expected "
+                          f"{ln_fwd}, {ln_per_run} and {flash_fwd}) and ran "
+                          f"the plain backward {len(plain_calls)} times")
+    # every launch in the run's dtypes: bf16 operands (and, for LayerNorm,
+    # bf16 gamma and beta) under the bf16 policy, fp32 otherwise
+    want = "bfloat16" if bf16 else "float32"
+    for name, split in by_dtype.items():
+        key = f"{want}/{want}" if name.startswith("layer_norm") else want
+        if split != {key: counts[name]}:
+            raise CheckFailed(f"the training path ({what}) launched {name} "
+                              f"as {split}, not all as {key}")
+    prof = (profile_step(opt, next(iter(data.data(train=True))), card)
+            if profile else None)
     return counts, dict(losses=losses, step_ms=step_ms,
                         tokens_per_s=tokens / step_ms * 1e3,
-                        first_step_ms=(marks[0] - t0) * 1e3, profile=prof)
+                        first_step_ms=(marks[0] - t0) * 1e3, profile=prof,
+                        by_dtype=by_dtype)
 
 
 # -------------------------------------------------------------------- main
@@ -900,6 +1058,7 @@ def main() -> int:
         )
         from bigdl_tpu_torch.nn import greedy_generate, install_decode_cache
         from bigdl_tpu_torch.serving import ServingEngine
+        from bigdl_tpu_torch.utils.engine import Engine
     except ImportError as e:
         print(f"chip_smoke: the bigdl_tpu_torch package is missing: {e}",
               file=sys.stderr)
@@ -968,22 +1127,68 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     log("phase 6: training")
-    check_train_step(TransformerLM, lm_criterion)
+    fp32_ref = check_train_step(TransformerLM, lm_criterion)
     train_counts, run = train(TransformerLM, lm_criterion, kernels, card)
     train_shape, serve_shape = (TRAIN_BATCH, HEADS, TRAIN_LEN, 64), \
         (2, HEADS, 512, 64)
-    ln_t = find_row(ln_rows, (TRAIN_BATCH * TRAIN_LEN, EMBED), "float32")
-    lnb, bwd = lnb_rows[-1], bwd_rows[-1]
-    fa_t = find_row(fa_rows, train_shape, "float32")
-    per_step = {k: v / TRAIN_STEPS for k, v in train_counts.items()}
-    kernel_ms = (per_step["layer_norm_fwd"] * ln_t["ms"]
-                 + per_step["layer_norm_bwd"] * lnb["ms"]
-                 + per_step["flash_attention_fwd"] * fa_t["ms"]
-                 + per_step["flash_attention_bwd_dq"] * bwd["dq_ms"]
-                 + per_step["flash_attention_bwd_dkv"] * bwd["dkv_ms"])
+    ln_shape = (TRAIN_BATCH * TRAIN_LEN, EMBED)
+
+    def kernel_rows(dtype):
+        """The phase-3 rows of the five kernels at the training step's
+        shapes (LayerNorm with gamma in the step's dtype)."""
+        return (find_row(ln_rows, ln_shape, dtype, dtype),
+                find_row(lnb_rows, ln_shape, dtype, dtype),
+                find_row(fa_rows, train_shape, dtype),
+                find_row(bwd_rows, train_shape, dtype))
+
+    def kernel_ms_a_step(counts, rows):
+        per_step = {k: v / TRAIN_STEPS for k, v in counts.items()}
+        ln_r, lnb_r, fa_r, bwd_r = rows
+        return (per_step["layer_norm_fwd"] * ln_r["ms"]
+                + per_step["layer_norm_bwd"] * lnb_r["ms"]
+                + per_step["flash_attention_fwd"] * fa_r["ms"]
+                + per_step["flash_attention_bwd_dq"] * bwd_r["dq_ms"]
+                + per_step["flash_attention_bwd_dkv"] * bwd_r["dkv_ms"])
+
+    ln_t, lnb, fa_t, bwd = kernel_rows("float32")
+    kernel_ms = kernel_ms_a_step(train_counts, (ln_t, lnb, fa_t, bwd))
     log(f"  the five kernels: {kernel_ms:.3f} ms a step at their phase-3 "
         f"times, {kernel_ms / run['step_ms']:.1%} of the median step "
         f"[{card}]")
+
+    # the same training under the bf16 mixed-precision policy
+    Engine.init(compute_dtype=torch.bfloat16)
+    try:
+        bf16_check = check_train_step_bf16(TransformerLM, lm_criterion,
+                                           fp32_ref)
+        del fp32_ref
+        counts16, run16 = train(TransformerLM, lm_criterion, kernels, card,
+                                bf16=True)
+        # the same with the flat update (off by default, as in JAX) and with
+        # remat: their step times and launches, beside the plain run's
+        _, run16_flat = train(TransformerLM, lm_criterion, kernels, card,
+                              bf16=True, flat=True, profile=False)
+        remat16, run16_remat = train(TransformerLM, lm_criterion, kernels,
+                                     card, bf16=True, remat=True,
+                                     profile=False)
+    finally:
+        Engine.reset()
+    # remat re-runs the same forward: the same losses within 1e-4 relative
+    remat_rel = max(abs(a - b) / abs(b) for a, b in
+                    zip(run16_remat["losses"], run16["losses"]))
+    if remat_rel > 1e-4:
+        raise CheckFailed(f"bf16 training with remat departs from the run "
+                          f"without it: losses {remat_rel:.3e} relative")
+    rows16 = kernel_rows("bfloat16")
+    kernel_ms16 = kernel_ms_a_step(counts16, rows16)
+    log(f"  bf16 against fp32: median step {run16['step_ms']:.2f} ms against "
+        f"{run['step_ms']:.2f} ms ({run['step_ms'] / run16['step_ms']:.2f}x), "
+        f"{run16['tokens_per_s']:.0f} against {run['tokens_per_s']:.0f} "
+        f"tokens/s; the five kernels in bf16 {kernel_ms16:.3f} ms a step at "
+        f"their phase-3 times, {kernel_ms16 / run16['step_ms']:.1%} of the "
+        f"bf16 step; with the flat update {run16_flat['step_ms']:.2f} ms, "
+        f"with remat {run16_remat['step_ms']:.2f} ms (losses within "
+        f"{remat_rel:.1e} relative of the run without) [{card}]")
 
     # each kernel's row: its own slice's path (serving for the forward
     # kernels, training for the backward ones) and shapes; both paths'
@@ -1026,8 +1231,34 @@ def main() -> int:
 
     bwd_bf16 = {"long": bwd_bf16_row((2, HEADS, 1024, 64)),
                 "training": bwd_bf16_row(train_shape)}
-    paths = {k: {"serving": launches[k], "training": train_counts[k]}
-             for k in launches}
+    paths = {k: {"serving": launches[k], "training": train_counts[k],
+                 "training_bf16": counts16[k]} for k in launches}
+
+    def bf16_training(name):
+        """The kernel's bf16 training instance: its phase-3 row at the
+        training shape and its launches in the 8 bf16 steps."""
+        ln_r, lnb_r, fa_r, bwd_r = rows16
+        row = {"layer_norm_fwd": ln_r, "layer_norm_bwd": lnb_r,
+               "flash_attention_fwd": fa_r}.get(name, bwd_r)
+        out = {"shape": row["shape"], "dtype": row["dtype"],
+               "launches": counts16[name],
+               "launches_by_dtype": run16["by_dtype"][name],
+               "plain_ms": row["plain_ms"], "library_ms": row["library_ms"]}
+        if name.startswith("layer_norm"):
+            out.update(params=row["params"], max_abs_err=row["err"],
+                       ms=row["ms"], bound_ms=row["bound_ms"],
+                       bound_by=row["bound_by"])
+        elif name == "flash_attention_fwd":
+            out.update(max_abs_err=row["err"], ms=row["ms"],
+                       bound_ms=row["bound_ms"], bound_by=row["bound_by"])
+        else:
+            part = "dq" if name.endswith("dq") else "dkv"
+            out.update(max_abs_err=row[f"err_{part}"], ms=row[f"{part}_ms"],
+                       bound_ms=row[f"{part}_bound"][0],
+                       bound_by=row[f"{part}_bound"][1],
+                       plain_and_library_cover="dq+dk+dv")
+        return out
+
     src = "bigdl_tpu_torch/kernels/csrc/"
     table = {"kernels": [
         {"name": "layer_norm_fwd", "route": "cuda",
@@ -1047,8 +1278,11 @@ def main() -> int:
          "launch_floor_ms": floor_ms,
          "design": "one warp per row (4 rows a CTA), the row in registers, "
                    "128-bit loads and stores, statistics by warp shuffles",
-         "registers": ln_build[("ln_fwd_warp", "float32", 4, 4)].get(
-             "registers")},
+         "registers": ln_build[("ln_fwd_warp", "float32", "float32", 4,
+                                 4)].get("registers"),
+         "bf16_training": dict(bf16_training("layer_norm_fwd"), registers=(
+             ln_build[("ln_fwd_warp", "bfloat16", "bfloat16", 8, 2)]
+             .get("registers")))},
         {"name": "layer_norm_bwd", "route": "cuda",
          "source": src + "layernorm.cu",
          "replaces": "bigdl_tpu/kernels/layernorm.py:99 (_fln_bwd, plain "
@@ -1060,12 +1294,15 @@ def main() -> int:
          "paths": paths["layer_norm_bwd"],
          "bf16": {k: find_row(lnb_rows, lnb["shape"], "bfloat16")[k]
                   for k in ("ms", "bound_ms", "library_ms", "err")},
+         "bf16_training": dict(bf16_training("layer_norm_bwd"), registers=(
+             ln_build[("ln_bwd_warp", "bfloat16", "bfloat16", 8, 2)]
+             .get("registers"))),
          "design": "one warp per row (8 warps a CTA, ~2 CTAs an SM striding "
                    "over rows), the row in registers; dgamma/dbeta partials "
                    "per CTA summed by a second kernel in a fixed order, no "
                    "float atomics",
-         "registers": ln_build[("ln_bwd_warp", "float32", 4, 4)].get(
-             "registers")},
+         "registers": ln_build[("ln_bwd_warp", "float32", "float32", 4,
+                                 4)].get("registers")},
         {"name": "flash_attention_fwd", "route": "cuda",
          "source": src + "flash_attention.cu",
          "replaces": "bigdl_tpu/kernels/flash_attention.py:54",
@@ -1079,7 +1316,8 @@ def main() -> int:
          "training_bound_ms": fa_t["bound_ms"],
          "training_bound_3xtf32_ms": fa_t["bound_3xtf32_ms"],
          "training_library_ms": fa_t["library_ms"],
-         "bf16": bf16, "design": design},
+         "bf16": bf16, "design": design,
+         "bf16_training": bf16_training("flash_attention_fwd")},
         {"name": "flash_attention_bwd_dq", "route": "cuda",
          "source": src + "flash_attention_bwd.cu",
          "replaces": "bigdl_tpu/kernels/flash_attention.py:132",
@@ -1092,6 +1330,7 @@ def main() -> int:
          "library_backend": bwd["library_backend"],
          "paths": paths["flash_attention_bwd_dq"],
          "bound_3xtf32_ms": bwd["dq_bound_3xtf32_ms"], "bf16": bwd_bf16,
+         "bf16_training": bf16_training("flash_attention_bwd_dq"),
          "design": design_of("flash_bwd_dq_kernel", bwd["plans"][0],
                              bwd_summary)},
         {"name": "flash_attention_bwd_dkv", "route": "cuda",
@@ -1106,13 +1345,23 @@ def main() -> int:
          "library_backend": bwd["library_backend"],
          "paths": paths["flash_attention_bwd_dkv"],
          "bound_3xtf32_ms": bwd["dkv_bound_3xtf32_ms"], "bf16": bwd_bf16,
+         "bf16_training": bf16_training("flash_attention_bwd_dkv"),
          "design": design_of("flash_bwd_dkv_kernel", bwd["plans"][1],
                              bwd_summary)},
     ], "training": {"step_ms": run["step_ms"],
                     "tokens_per_s": run["tokens_per_s"],
                     "kernel_ms_per_step": kernel_ms,
                     "profile": {k: (run["profile"] or {}).get(k)
-                                for k in ("busy_ms", "wall_ms")}}}
+                                for k in ("busy_ms", "wall_ms")},
+                    "bf16": {"step_ms": run16["step_ms"],
+                             "tokens_per_s": run16["tokens_per_s"],
+                             "kernel_ms_per_step": kernel_ms16,
+                             "one_step_check": bf16_check,
+                             "flat_update_step_ms": run16_flat["step_ms"],
+                             "remat_step_ms": run16_remat["step_ms"],
+                             "remat_launches": remat16,
+                             "profile": {k: (run16["profile"] or {}).get(k)
+                                         for k in ("busy_ms", "wall_ms")}}}}
     print(json.dumps(table), flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"ok": True, "device": {

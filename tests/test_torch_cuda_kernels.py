@@ -135,6 +135,79 @@ def test_layer_norm_bwd_is_deterministic(cuda, n, h, dtype):
         assert torch.equal(a, b)
 
 
+def _bf16_params(g, h, device="cuda"):
+    gamma = (1 + 0.1 * torch.randn(h, generator=g, device=device)).bfloat16()
+    beta = (0.1 * torch.randn(h, generator=g, device=device)).bfloat16()
+    return gamma, beta
+
+
+@pytest.mark.parametrize("n,h", [(1, 512), (7, 31), (300, 512), (33, 1000),
+                                 (4, 4096), (2048, 512), (8192, 512)])
+def test_layer_norm_bf16_params_match_plain(cuda, n, h):
+    """bf16 x with bf16 gamma and beta, as the mixed-precision step gives
+    them: the forward within 2e-2 of the plain version; the backward's dx
+    within 2e-2 and dgamma, dbeta in bf16, fp32 sums rounded once, within
+    one bf16 ulp (rtol 2^-7) of the plain sums rounded the same way."""
+    g = torch.Generator(device=cuda).manual_seed(n * 1000 + h + 7)
+    x, _, dy = _ln_bwd_inputs(g, n, h, torch.bfloat16)
+    gamma, beta = _bf16_params(g, h)
+    before = kernels.launch_counts_by_dtype()
+    got = kernels.layer_norm_cuda(x, gamma, beta, 1e-5)
+    assert got.dtype == torch.bfloat16
+    _close(got, kernels.layer_norm_reference(x, gamma, beta, 1e-5), 2e-2, 0.0)
+    dx, dgamma, dbeta = kernels.layer_norm_bwd_cuda(x, gamma, dy, 1e-5)
+    after = kernels.launch_counts_by_dtype()
+    for name in ("layer_norm_fwd", "layer_norm_bwd"):
+        key = "bfloat16/bfloat16"
+        assert after[name].get(key, 0) == before[name].get(key, 0) + 1
+    want = kernels.layer_norm_backward(x, gamma, 1e-5, dy)
+    assert dgamma.dtype == dbeta.dtype == torch.bfloat16
+    assert want[1].dtype == torch.bfloat16
+    _close(dx, want[0], 2e-2, 0.0)
+    for a, w in zip((dgamma, dbeta), want[1:]):
+        _close(a, w, 1e-5 * (float(w.float().abs().max()) + 1.0), 2 ** -7)
+
+
+@pytest.mark.parametrize("n,h", [(8192, 512), (300, 1000), (3, 8193)])
+def test_layer_norm_bwd_bf16_params_is_deterministic(cuda, n, h):
+    g = torch.Generator(device=cuda).manual_seed(n + h + 3)
+    x, _, dy = _ln_bwd_inputs(g, n, h, torch.bfloat16)
+    gamma, _ = _bf16_params(g, h)
+    first = kernels.layer_norm_bwd_cuda(x, gamma, dy, 1e-5)
+    second = kernels.layer_norm_bwd_cuda(x, gamma, dy, 1e-5)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def test_layer_norm_bf16_params_unaligned_rows(cuda):
+    g = torch.Generator(device=cuda).manual_seed(77)
+    n, h = 5, 512
+    flat_x, flat_dy = (torch.randn(n * h + 1, generator=g, device=cuda)
+                       .bfloat16() for _ in range(2))
+    x, dy = flat_x[1:].view(n, h), flat_dy[1:].view(n, h)
+    gamma, beta = _bf16_params(g, h)
+    _close(kernels.layer_norm_cuda(x, gamma, beta, 1e-5),
+           kernels.layer_norm_reference(x, gamma, beta, 1e-5), 2e-2, 0.0)
+    got = kernels.layer_norm_bwd_cuda(x, gamma, dy, 1e-5)
+    want = kernels.layer_norm_backward(x, gamma, 1e-5, dy)
+    _close(got[0], want[0], 2e-2, 0.0)
+    for a, w in zip(got[1:], want[1:]):
+        _close(a, w, 1e-5 * (float(w.float().abs().max()) + 1.0), 2 ** -7)
+
+
+def test_layer_norm_refuses_params_in_another_dtype(cuda):
+    """gamma and beta are fp32 or in x's dtype, one dtype for both."""
+    x = torch.randn(4, 64, device=cuda)
+    gb, bb = torch.ones(64, device=cuda).bfloat16(), \
+        torch.zeros(64, device=cuda).bfloat16()
+    with pytest.raises(ValueError, match="gamma must be"):
+        kernels.layer_norm_cuda(x, gb, bb)
+    with pytest.raises(ValueError, match="gamma must be"):
+        kernels.layer_norm_bwd_cuda(x, gb, x)
+    with pytest.raises(ValueError, match="beta must be"):
+        kernels.layer_norm_cuda(x.bfloat16(), gb, bb.float())
+
+
 def test_layer_norm_bwd_refuses_a_plan_it_cannot_run(cuda):
     """The backward launches the plan ``layer_norm_bwd_plan`` gives it and
     returns an error for one its kernels were not built for."""
@@ -155,7 +228,7 @@ def test_layer_norm_bwd_refuses_a_plan_it_cannot_run(cuda):
     def launch(plan):
         code = lib.bigdl_layer_norm_bwd(
             x.data_ptr(), dy.data_ptr(), gamma.data_ptr(), dx.data_ptr(),
-            dgb.data_ptr(), ws.data_ptr(), n, h, 1e-5, 0,
+            dgb.data_ptr(), ws.data_ptr(), n, h, 1e-5, 0, 0,
             (ctypes.c_int * len(plan))(*plan), _cuda.stream_handle(x))
         torch.cuda.synchronize()
         return code
@@ -506,3 +579,100 @@ def test_small_model_trains_on_the_card(cuda):
     np.testing.assert_allclose(losses, ref_losses, rtol=1e-5)
     for p, q in zip(params, ref_params):
         _close(p, q, 1e-4, 1e-4)
+
+
+def _small_lm_run(device, configure, steps=2, remat=False):
+    import numpy as np
+
+    from bigdl_tpu_torch.dataset import DataSet
+    from bigdl_tpu_torch.models.transformerlm import (
+        TransformerLM, lm_criterion,
+    )
+    from bigdl_tpu_torch.optim import LocalOptimizer
+
+    r = np.random.default_rng(1)
+    batches = [(torch.from_numpy(r.integers(0, 64, (2, 40))),
+                torch.from_numpy(r.integers(0, 64, (2, 40))))
+               for _ in range(steps)]
+    lm = TransformerLM(64, 128, 4, 2, 64, device=device, remat=remat,
+                       generator=torch.Generator().manual_seed(0))
+    opt = configure(LocalOptimizer(lm, DataSet.array([]), lm_criterion(),
+                                   device=device))
+    losses = [opt.train_step(x.to(device), y.to(device)) for x, y in batches]
+    return losses, [p.detach().cpu() for p in lm.parameters()]
+
+
+def test_small_model_trains_in_bf16_on_the_card(cuda):
+    """Two bf16 mixed-precision steps (``Engine.init(compute_dtype=
+    torch.bfloat16)``) on the card launch all five kernels in bf16, with
+    bf16 gamma and beta in both LayerNorm kernels, keep fp32 masters, and
+    agree with the same steps on the CPU (plain versions, bf16 casts)
+    within rtol 2e-2 in loss and atol 2e-2 in parameters."""
+    import numpy as np
+
+    from bigdl_tpu_torch.optim import SGD
+    from bigdl_tpu_torch.utils.engine import Engine
+
+    def configure(opt):
+        return opt.set_optim_method(SGD(learningrate=0.1, momentum=0.9))
+
+    Engine.init(compute_dtype=torch.bfloat16)
+    try:
+        kernels.reset_launch_counts()
+        losses, params = _small_lm_run("cuda", configure)
+        counts = kernels.launch_counts_by_dtype()
+        ref_losses, ref_params = _small_lm_run("cpu", configure)
+    finally:
+        Engine.reset()
+    assert counts["layer_norm_fwd"] == {"bfloat16/bfloat16": 10}
+    assert counts["layer_norm_bwd"] == {"bfloat16/bfloat16": 10}
+    for name in ("flash_attention_fwd", "flash_attention_bwd_dq",
+                 "flash_attention_bwd_dkv"):
+        assert counts[name] == {"bfloat16": 4}, name
+    assert all(p.dtype == torch.float32 for p in params)
+    np.testing.assert_allclose(losses, ref_losses, rtol=2e-2)
+    for p, q in zip(params, ref_params):
+        _close(p, q, 2e-2, 0.0)
+
+
+@pytest.mark.parametrize("mode", ["dots", "full"])
+def test_remat_on_the_card_recomputes_through_the_kernels(cuda, mode):
+    """``set_remat`` on the card: the forward kernels run again in the
+    backward (LayerNorm and flash forward twice a step) and the step's
+    result equals the step without remat within 1e-5."""
+    import numpy as np
+
+    from bigdl_tpu_torch.optim import SGD
+
+    def configure(remat):
+        return lambda opt: opt.set_optim_method(
+            SGD(learningrate=0.1)).set_remat(remat)
+
+    want_losses, want = _small_lm_run("cuda", configure("none"))
+    before = kernels.launch_counts()
+    losses, got = _small_lm_run("cuda", configure(mode))
+    after = kernels.launch_counts()
+    assert after["layer_norm_fwd"] - before["layer_norm_fwd"] == 20
+    assert after["layer_norm_bwd"] - before["layer_norm_bwd"] == 10
+    assert after["flash_attention_fwd"] - before["flash_attention_fwd"] == 8
+    np.testing.assert_allclose(losses, want_losses, rtol=1e-5)
+    for p, q in zip(got, want):
+        _close(p, q, 1e-5, 1e-5)
+
+
+@pytest.mark.parametrize("method", ["sgd", "adam"])
+def test_flat_update_on_the_card_is_bitwise_the_per_leaf_update(cuda,
+                                                                 method):
+    from bigdl_tpu_torch.optim import SGD, Adam
+
+    def configure(flat):
+        make = {"sgd": lambda: SGD(learningrate=0.1, momentum=0.9,
+                                   weightdecay=0.01),
+                "adam": lambda: Adam(learningrate=0.01)}[method]
+        return lambda opt: opt.set_optim_method(make()).set_flat_update(flat)
+
+    want_losses, want = _small_lm_run("cuda", configure(False), steps=3)
+    losses, got = _small_lm_run("cuda", configure(True), steps=3)
+    assert losses == want_losses
+    for p, q in zip(got, want):
+        assert torch.equal(p, q)

@@ -35,6 +35,16 @@ the bf16-rounded inputs: dx, rounded to bf16 by the kernel, within atol
 2e-2 (a few bf16 ulps at unit scale), dgamma and dbeta (fp32) within
 rtol 1e-4 / atol 1e-5. It is also held to the port's plain
 ``layer_norm_backward`` (fp32 statistics, dx rounded to bf16) at atol 2e-2.
+
+With bf16 gamma and beta (the mixed-precision step casts them with x) the
+kernels convert them to fp32 on load, as the Pallas kernel promotes its
+bf16 ``g_ref``, and round dgamma and dbeta once to bf16 at the end. The
+port's plain forward is held to JAX's Pallas forward in interpret mode on
+the same bf16 operands at atol 2e-2 (a bf16 ulp at unit scale is 2^-8);
+the emulated backward to JAX's fp32 backward on the bf16-rounded operands,
+rounded to bf16 (dx atol 2e-2, dgamma and dbeta within rtol 2^-7, one bf16
+ulp), and to JAX's own bf16 VJP, which sums in bf16, within
+2e-2·(max|want| + 1).
 """
 
 import jax
@@ -208,6 +218,66 @@ def test_emulated_backward_bf16_matches_plain(n, h):
     want = kernels.layer_norm_backward(xb, tg, EPS, gb)
     for a, e in zip(got, want):
         torch.testing.assert_close(a.float(), e.float(), atol=2e-2, rtol=0.0)
+
+
+def _bf16_params_case(n, h):
+    x, gamma, beta, ct = _inputs(n, h, n * h + 1)
+    return [torch.from_numpy(a).bfloat16() for a in (x, gamma, beta, ct)]
+
+
+def _jnp_bf16(t: torch.Tensor):
+    return jnp.asarray(t.float().numpy()).astype(jnp.bfloat16)
+
+
+@pytest.mark.parametrize("n,h", SHAPES)
+def test_forward_bf16_params_matches_jax(n, h):
+    xb, gb, bb, _ = _bf16_params_case(n, h)
+    want = jax_fused_layer_norm(*map(_jnp_bf16, (xb, gb, bb)), EPS, True)
+    got = kernels.layer_norm_reference(xb, gb, bb, EPS)
+    assert got.dtype == torch.bfloat16 and want.dtype == jnp.bfloat16
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), rtol=0.0,
+                               atol=2e-2)
+
+
+@pytest.mark.parametrize("n,h", SHAPES)
+def test_emulated_backward_bf16_params_matches_jax(n, h):
+    xb, gb, bb, cb = _bf16_params_case(n, h)
+    plan = layer_norm_bwd_plan(n, h, 8 if h % 8 == 0 else 1, H100_SMS)
+    dx, dgamma, dbeta = emulate_backward(xb, gb, cb, plan)
+    got = [dx, dgamma.to(gb.dtype), dbeta.to(gb.dtype)]
+    assert got[0].dtype == torch.bfloat16
+    want = _jax_backward(*(t.float().numpy() for t in (xb, gb, bb, cb)))
+    np.testing.assert_allclose(got[0].float().numpy(), want[0], rtol=0.0,
+                               atol=2e-2, err_msg="dx")
+    for name, a, e in zip(("dgamma", "dbeta"), got[1:], want[1:]):
+        e = torch.from_numpy(e.copy()).bfloat16().float().numpy()
+        np.testing.assert_allclose(a.float().numpy(), e, rtol=2 ** -7,
+                                   atol=1e-6, err_msg=name)
+    _, vjp = jax.vjp(lambda a, b, c: jax_fused_layer_norm(a, b, c, EPS, True),
+                     *map(_jnp_bf16, (xb, gb, bb)))
+    for name, a, e in zip(("dx", "dgamma", "dbeta"), got,
+                          vjp(_jnp_bf16(cb))):
+        e = np.asarray(e, np.float32)
+        np.testing.assert_allclose(a.float().numpy(), e, rtol=0.0,
+                                   atol=2e-2 * (np.abs(e).max() + 1),
+                                   err_msg=f"{name} vs JAX's bf16 VJP")
+
+
+@pytest.mark.parametrize("n,h", SHAPES)
+def test_plain_backward_rounds_bf16_params_as_the_kernel(n, h):
+    """The plain backward returns dgamma and dbeta in gamma's dtype, the
+    fp32 sums rounded once, as the kernel does."""
+    xb, gb, _, cb = _bf16_params_case(n, h)
+    dx, dgamma, dbeta = kernels.layer_norm_backward(xb, gb, EPS, cb)
+    assert dx.dtype == dgamma.dtype == dbeta.dtype == torch.bfloat16
+    plan = layer_norm_bwd_plan(n, h, 8 if h % 8 == 0 else 1, H100_SMS)
+    want = emulate_backward(xb, gb, cb, plan)
+    torch.testing.assert_close(dx.float(), want[0].float(), atol=2e-2,
+                               rtol=0.0)
+    for a, e in zip((dgamma, dbeta), want[1:]):
+        torch.testing.assert_close(a.float(), e.to(gb.dtype).float(),
+                                   rtol=2 ** -7, atol=1e-6)
 
 
 def test_plan_matches_the_kernel_paths():

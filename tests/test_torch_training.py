@@ -154,10 +154,33 @@ def test_optim_method_updates_match_jax(case):
 
 
 def test_unported_method_options_name_their_roadmap_item():
-    with pytest.raises(NotImplementedError, match="Queue A.1"):
-        toptim.SGD(learningrate_schedule=object())
-    with pytest.raises(NotImplementedError, match="Queue A.1"):
-        toptim.SGD(layer_lr_mults={"decoder": 0.1})
+    """SGD's learningrate_schedule and layer_lr_mults, which raised until
+    ROADMAP Queue A.1.4 was ported, now step as JAX's do (3 updates within
+    1e-6); nesterov without dampening 0 still raises."""
+    r = np.random.default_rng(11)
+    params = [r.normal(size=s).astype(np.float32) for s in ((3, 4), (5,))]
+    grads = [[r.normal(size=p.shape).astype(np.float32) for p in params]
+             for _ in range(3)]
+    for kw in (dict(learningrate_schedule="step"),
+               dict(layer_lr_mults={"['1']": 0.1})):
+        jkw = {k: (joptim.Step(1, 0.5) if v == "step" else v)
+               for k, v in kw.items()}
+        tkw = {k: (toptim.Step(1, 0.5) if v == "step" else v)
+               for k, v in kw.items()}
+        jm = joptim.SGD(learningrate=0.1, momentum=0.9, **jkw)
+        tm = toptim.SGD(learningrate=0.1, momentum=0.9, **tkw)
+        jp = {str(i): jnp.asarray(p) for i, p in enumerate(params)}
+        js = jm.init_state(jp)
+        tp = [torch.from_numpy(p.copy()) for p in params]
+        ts = tm.init_state(tp)
+        for step, gs in enumerate(grads):
+            jp, js = jm.update(jp, {str(i): jnp.asarray(g)
+                                    for i, g in enumerate(gs)}, js,
+                               jnp.asarray(step, jnp.int32))
+            tm.update(tp, [torch.from_numpy(g) for g in gs], ts, step)
+        for i, p in enumerate(tp):
+            np.testing.assert_allclose(p.numpy(), np.asarray(jp[str(i)]),
+                                       atol=1e-6, err_msg=str(kw))
     with pytest.raises(ValueError):
         toptim.SGD(momentum=0.9, nesterov=True)
 
