@@ -16,6 +16,7 @@ module of the port and never build.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -39,11 +40,21 @@ BUILD_LOG = "build.log"
 
 _lock = threading.Lock()
 _library = None
+# launches counted while a stream is captured into a CUDA graph, by the
+# capturing stream's handle (utils/programs.py registers them)
+_captures: dict = {}
+_captures_lock = threading.Lock()
 
 
 class LaunchCounter:
     """Launches of one kernel, counted by its wrapper right after each
-    successful launch and nowhere else, in all and by the launch's dtypes."""
+    successful launch and nowhere else, in all and by the launch's dtypes.
+
+    A launch onto a stream that is being captured into a CUDA graph runs
+    nothing yet: it is recorded for that capture instead (see
+    :func:`recording_launches`), and the program adds the record again at
+    every replay (:func:`replay_launches`), so the counts stay those of the
+    kernels that ran."""
 
     def __init__(self, name: str):
         self.name = name
@@ -51,10 +62,18 @@ class LaunchCounter:
         self._by_dtype: dict = {}
         self._lock = threading.Lock()
 
-    def add(self, dtype: str) -> None:
+    def add(self, dtype: str, stream: int = None, n: int = 1) -> None:
+        """Count ``n`` launches of ``dtype``; ``stream`` is the raw handle
+        of the stream they went to."""
+        if _captures:
+            with _captures_lock:
+                record = _captures.get(stream)
+                if record is not None:
+                    record[(self, dtype)] = record.get((self, dtype), 0) + n
+                    return
         with self._lock:
-            self._count += 1
-            self._by_dtype[dtype] = self._by_dtype.get(dtype, 0) + 1
+            self._count += n
+            self._by_dtype[dtype] = self._by_dtype.get(dtype, 0) + n
 
     @property
     def count(self) -> int:
@@ -69,6 +88,30 @@ class LaunchCounter:
         with self._lock:
             self._count = 0
             self._by_dtype = {}
+
+
+@contextlib.contextmanager
+def recording_launches(stream: int):
+    """While inside, launches counted on the stream of raw handle
+    ``stream`` go into the yielded ``{(counter, dtype): launches}`` record
+    instead of the counters. The launches of an autograd backward, which
+    come from the engine's own thread, land on the same stream."""
+    record: dict = {}
+    with _captures_lock:
+        if stream in _captures:
+            raise RuntimeError(f"stream {stream:#x} is already recording")
+        _captures[stream] = record
+    try:
+        yield record
+    finally:
+        with _captures_lock:
+            del _captures[stream]
+
+
+def replay_launches(record: dict) -> None:
+    """Count the launches of ``record`` again: one replay of its graph."""
+    for (counter, dtype), n in record.items():
+        counter.add(dtype, n=n)
 
 
 class KernelLibrary:

@@ -9,6 +9,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <atomic>
+
 namespace bigdl {
 
 constexpr int kFloat32 = 0;
@@ -30,6 +32,25 @@ __device__ __forceinline__ float from_f32<float>(float v) { return v; }
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);  // round to nearest even, as torch's .to()
+}
+
+// Let Kernel use `bytes` of dynamic shared memory on the current device,
+// once per kernel instance and device: the attribute persists, so later
+// launches, those recorded into a CUDA graph among them, make no call.
+// Devices 0..63.
+template <auto Kernel>
+cudaError_t allow_dynamic_smem(int bytes) {
+  static std::atomic<unsigned long long> done{0};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev > 63) return cudaErrorInvalidDevice;
+  const unsigned long long bit = 1ull << dev;
+  if (done.load(std::memory_order_acquire) & bit) return cudaSuccess;
+  err = cudaFuncSetAttribute(Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             bytes);
+  if (err == cudaSuccess) done.fetch_or(bit, std::memory_order_acq_rel);
+  return err;
 }
 
 }  // namespace bigdl

@@ -403,8 +403,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
          make_map(&vm, v, false, bh, t, D, C::kCB, C::kBN, sw);
   if (!ok) return cudaErrorInvalidValue;
   auto kernel = flash_fwd_kernel<T, D, NWG>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kAlloc);
+  cudaError_t err =
+      bigdl::allow_dynamic_smem<flash_fwd_kernel<T, D, NWG>>(C::kAlloc);
   if (err != cudaSuccess) return err;
   const float scale_log2 = (float)(1.4426950408889634 / sqrt((double)D));
   const dim3 grid((unsigned)bh, (unsigned)((t + C::kBM - 1) / C::kBM));

@@ -535,16 +535,16 @@ cudaError_t launch(const Args& a, int causal) {
   cudaError_t err;
   if constexpr (DKV) {
     auto kernel = flash_bwd_dkv_kernel<T, D, NWG>;
-    err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kAlloc);
+    err = bigdl::allow_dynamic_smem<flash_bwd_dkv_kernel<T, D, NWG>>(
+        C::kAlloc);
     if (err != cudaSuccess) return err;
     kernel<<<grid, C::kThreads, C::kAlloc, a.stream>>>(
         rm0, rm1, xm0, xm1, lse, delta, static_cast<T*>(a.out0),
         static_cast<T*>(a.out1), a.t, causal, scale_log2, scale);
   } else {
     auto kernel = flash_bwd_dq_kernel<T, D, NWG>;
-    err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kAlloc);
+    err = bigdl::allow_dynamic_smem<flash_bwd_dq_kernel<T, D, NWG>>(
+        C::kAlloc);
     if (err != cudaSuccess) return err;
     kernel<<<grid, C::kThreads, C::kAlloc, a.stream>>>(
         rm0, rm1, xm0, xm1, lse, delta, static_cast<T*>(a.out0), a.t, causal,

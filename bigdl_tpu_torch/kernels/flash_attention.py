@@ -116,13 +116,14 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty_like(q)
     lse = torch.empty((bh, t), dtype=torch.float32, device=q.device)
     lib = _cuda.library().lib
+    stream = _cuda.stream_handle(q)
     with torch.cuda.device(q.device):
         code = lib.bigdl_flash_attn_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             lse.data_ptr(), bh, t, d, int(bool(causal)),
-            _DTYPE_CODES[q.dtype], _cuda.stream_handle(q))
+            _DTYPE_CODES[q.dtype], stream)
     _cuda.check(code, "flash_attention_fwd")
-    launches.add(str(q.dtype)[6:])
+    launches.add(str(q.dtype)[6:], stream)
     return out, lse
 
 
@@ -174,13 +175,14 @@ def flash_attention_bwd_dq_cuda(q: torch.Tensor, k: torch.Tensor,
     bh, t, d = q.shape
     dq = torch.empty_like(q)
     lib = _cuda.library().lib
+    stream = _cuda.stream_handle(q)
     with torch.cuda.device(q.device):
         code = lib.bigdl_flash_attn_bwd_dq(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), bh, t, d,
-            int(bool(causal)), _DTYPE_CODES[q.dtype], _cuda.stream_handle(q))
+            int(bool(causal)), _DTYPE_CODES[q.dtype], stream)
     _cuda.check(code, "flash_attention_bwd_dq")
-    bwd_dq_launches.add(str(q.dtype)[6:])
+    bwd_dq_launches.add(str(q.dtype)[6:], stream)
     return dq
 
 
@@ -196,14 +198,14 @@ def flash_attention_bwd_dkv_cuda(q: torch.Tensor, k: torch.Tensor,
     bh, t, d = q.shape
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     lib = _cuda.library().lib
+    stream = _cuda.stream_handle(q)
     with torch.cuda.device(q.device):
         code = lib.bigdl_flash_attn_bwd_dkv(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            bh, t, d, int(bool(causal)), _DTYPE_CODES[q.dtype],
-            _cuda.stream_handle(q))
+            bh, t, d, int(bool(causal)), _DTYPE_CODES[q.dtype], stream)
     _cuda.check(code, "flash_attention_bwd_dkv")
-    bwd_dkv_launches.add(str(q.dtype)[6:])
+    bwd_dkv_launches.add(str(q.dtype)[6:], stream)
     return dk, dv
 
 

@@ -71,7 +71,10 @@ class FlatParamUpdate(OptimMethod):
                 flats.append(buf)
         return {"flat": flats, "slots": self.inner.init_state(flats)}
 
-    def update(self, params, grads, state, step):
+    def hyper(self, step, state):
+        return self.inner.hyper(step, state["slots"])
+
+    def update_with(self, params, grads, state, h):
         ps, gs = leaves(params), leaves(grads)
         groups = list(_groups(ps).values())
         flats = state["flat"]
@@ -89,7 +92,7 @@ class FlatParamUpdate(OptimMethod):
                         "optimizer state")
                 ptr += ps[i].numel() * item
             gflat.append(torch.cat([gs[i].reshape(-1) for i in idx]))
-        self.inner.update(flats, gflat, state["slots"], step)
+        self.inner.update_with(flats, gflat, state["slots"], h)
 
     def get_learning_rate(self, step: int) -> float:
         return self.inner.get_learning_rate(step)

@@ -89,13 +89,14 @@ def layer_norm_cuda(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
         raise ValueError("layer_norm_cuda needs contiguous tensors")
     out = torch.empty_like(x)
     lib = _cuda.library().lib
+    stream = _cuda.stream_handle(x)
     with torch.cuda.device(x.device):
         code = lib.bigdl_layer_norm_fwd(
             x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), out.data_ptr(),
             n, h, float(eps), _DTYPE_CODES[x.dtype],
-            _DTYPE_CODES[gamma.dtype], _cuda.stream_handle(x))
+            _DTYPE_CODES[gamma.dtype], stream)
     _cuda.check(code, "layer_norm_fwd")
-    launches.add(_dtype_key(x, gamma))
+    launches.add(_dtype_key(x, gamma), stream)
     return out
 
 
@@ -175,14 +176,15 @@ def layer_norm_bwd_cuda(x: torch.Tensor, gamma: torch.Tensor,
     workspace = torch.empty(plan.ctas, 2 * h, dtype=torch.float32,
                             device=x.device)
     lib = _cuda.library().lib
+    stream = _cuda.stream_handle(x)
     with torch.cuda.device(x.device):
         code = lib.bigdl_layer_norm_bwd(
             x.data_ptr(), g.data_ptr(), gamma.data_ptr(), dx.data_ptr(),
             dgb.data_ptr(), workspace.data_ptr(), n, h, float(eps),
             _DTYPE_CODES[x.dtype], _DTYPE_CODES[gamma.dtype],
-            (ctypes.c_int * len(plan))(*plan), _cuda.stream_handle(x))
+            (ctypes.c_int * len(plan))(*plan), stream)
     _cuda.check(code, "layer_norm_bwd")
-    bwd_launches.add(_dtype_key(x, gamma))
+    bwd_launches.add(_dtype_key(x, gamma), stream)
     return dx, dgb[0], dgb[1]
 
 

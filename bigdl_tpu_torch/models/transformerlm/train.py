@@ -5,7 +5,9 @@ Counterpart of ``bigdl_tpu/models/transformerlm/train.py``: builds
 tokens, and trains with ``Adam`` through ``LocalOptimizer`` for
 ``--max-iteration`` steps, then prints the final loss. Runs on the card
 unless ``--device cpu``; ``BIGDL_COMPUTE_DTYPE=bf16`` trains in bf16 mixed
-precision (``utils/engine.py``)::
+precision (``utils/engine.py``), and ``BIGDL_FUSE_STEPS=K`` runs K steps a
+window (``LocalOptimizer.set_fuse_steps``, read by the optimizer, as in
+JAX)::
 
     python -m bigdl_tpu_torch.models.transformerlm.train -b 16 --seq-len 512
 """

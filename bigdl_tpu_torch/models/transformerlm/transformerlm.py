@@ -40,10 +40,12 @@ class PositionEmbedding(TensorModule):
             # cached decode: the next t positions of every row, each at its
             # own depth. An idle serving row's index may run past the table;
             # it is clamped (JAX fills NaN there) and its output is unused.
+            # The index advances in place, as the attention's positions do.
             idx = state["pos_idx"]
             pp = idx[:, None] + torch.arange(t, device=idx.device)[None, :]
             pp = pp.clamp(max=self.max_len - 1)
-            return input + self.pos[pp], {"pos_idx": idx + t}
+            out = input + self.pos[pp]
+            return out, {"pos_idx": idx.add_(t)}
         if t > self.max_len:
             raise ValueError(f"sequence length {t} > max_len {self.max_len}")
         return input + self.pos[None, :t], state

@@ -15,7 +15,7 @@ from bigdl_tpu_torch.nn.criterion import (
 from bigdl_tpu_torch.nn.embedding import LookupTable
 from bigdl_tpu_torch.nn.incremental import (
     assign_cache_slot, greedy_generate, install_decode_cache,
-    reset_decode_slot,
+    reset_decode_slot, zero_decode_cache,
 )
 from bigdl_tpu_torch.nn.initialization import (
     InitializationMethod, RandomNormal, RandomUniform, Xavier,
@@ -33,5 +33,5 @@ __all__ = [
     "RandomUniform", "Remat", "Sequential", "TensorModule", "TimeDistributed",
     "TimeDistributedCriterion", "Xavier", "assign_cache_slot",
     "cast_floating", "greedy_generate",
-    "install_decode_cache", "reset_decode_slot",
+    "install_decode_cache", "reset_decode_slot", "zero_decode_cache",
 ]

@@ -115,7 +115,7 @@ class AbstractModule(torch.nn.Module):
         ``params`` maps parameter paths (as ``named_parameters()``) to the
         tensors to penalize (the step's cast parameters); None means the
         module's own."""
-        total = torch.zeros((), dtype=torch.float32)
+        total = None      # made on the parameters' device: no host copy
         for prefix, m in self.named_modules():
             w_reg = getattr(m, "w_regularizer", None)
             b_reg = getattr(m, "b_regularizer", None)
@@ -127,8 +127,12 @@ class AbstractModule(torch.nn.Module):
                     continue
                 if params is not None:
                     p = params[f"{prefix}.{k}" if prefix else k]
-                total = total.to(p.device) + reg.penalty(p)
-        return total
+                if total is None:
+                    total = torch.zeros((), dtype=torch.float32,
+                                        device=p.device)
+                total = total + reg.penalty(p)
+        return torch.zeros((), dtype=torch.float32) if total is None \
+            else total
 
 
 class TensorModule(AbstractModule):

@@ -11,9 +11,10 @@ with two paths:
 - the KV-cached step (``state`` from ``install_decode_cache``) appends the
   new keys and values at every row's own position and attends through
   ``full_attention`` with a position mask, as JAX ``_decode_step`` does
-  for per-slot caches. It writes into the passed cache tensors in place
-  (copying a whole cache grid per token would dominate decode) and returns
-  them with the advanced positions.
+  for per-slot caches. It writes into the passed cache tensors and
+  advances the positions in place (copying a whole cache grid per token
+  would dominate decode, and a captured decode program replays over the
+  same tensors) and returns the same tensors.
 
 Grouped-query heads, RoPE, sliding windows, LoRA and the paged decode are
 not ported yet.
@@ -101,7 +102,7 @@ class MultiHeadAttention(TensorModule):
         kpos = torch.arange(lmax, device=pos.device)
         kv_mask = (kpos[None, None, :] <= qpos[:, :, None])[:, None]  # b,1,t,L
         o = full_attention(q, ck, cv, causal=False, kv_mask=kv_mask)
-        return o, {"cache_k": ck, "cache_v": cv, "pos": pos + t}
+        return o, {"cache_k": ck, "cache_v": cv, "pos": pos.add_(t)}
 
     def extra_repr(self):
         return (f"embed={self.embed_dim}, heads={self.num_heads}, "

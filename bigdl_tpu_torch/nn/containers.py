@@ -65,7 +65,10 @@ class Remat(Container):
     counts grow accordingly), on the parameter tensors the forward used:
     under the trainer's ``functional_call`` those are the step's cast or
     detached ones, which are no longer in place when the backward runs.
-    Without autograd, or with a decode state, the child runs plainly."""
+    The generator's state is not saved for the recomputation: no layer of
+    the port draws random numbers, and a captured training step may not
+    read it. Without autograd, or with a decode state, the child runs
+    plainly."""
 
     def __init__(self, module: AbstractModule = None):
         super().__init__(*([module] if module is not None else []))
@@ -85,5 +88,5 @@ class Remat(Container):
         params = dict(m.named_parameters())     # the tensors in effect now
         out = torch.utils.checkpoint.checkpoint(
             lambda x: functional_call(m, params, (x,)), input,
-            use_reentrant=False)
+            use_reentrant=False, preserve_rng_state=False)
         return out, None

@@ -11,13 +11,16 @@ no cache to clear afterwards.
 
 Positions are always per row ((B,) vectors, JAX's ``per_slot=True``): each
 row sits at its own depth, which lets a serving engine reset or reassign
-one row while the others keep decoding. The cache tensors are updated in
-place by the cached step and by the slot primitives below.
+one row while the others keep decoding. The cache tensors and positions
+are updated in place by the cached step and by the slot primitives below,
+so a state dict keeps its tensor objects from one call to the next: a
+captured decode or prefill program (``serving/engine.py``) replays over
+the same buffers.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Optional
+from typing import Callable
 
 import torch
 
@@ -101,14 +104,42 @@ def reset_decode_slot(state: dict, slot: int) -> dict:
     return state
 
 
-def assign_cache_slot(dst_state: dict, src_state: dict, slot: int,
-                      pos: Optional[int] = None) -> dict:
+def zero_decode_cache(state: dict) -> dict:
+    """Zero every leaf of ``state`` in place: all rows empty, positions 0,
+    as :func:`install_decode_cache` made them."""
+    _map_leaves(lambda key, leaf: leaf.zero_(), state)
+    return state
+
+
+def _row_index(v, device) -> torch.Tensor:
+    """A slot or position as a (1,) long tensor on ``device``: a Python
+    int, or a tensor of one element already there (a captured program's
+    input; converting one would copy from the host)."""
+    if isinstance(v, torch.Tensor):
+        if v.numel() != 1 or v.device != device:
+            raise ValueError(f"expected one index on {device}, got "
+                             f"{tuple(v.shape)} on {v.device}")
+        return v.reshape(1).long()
+    return torch.tensor([int(v)], dtype=torch.long, device=device)
+
+
+def assign_cache_slot(dst_state: dict, src_state: dict, slot,
+                      pos=None) -> dict:
     """Copy a batch-1 cache (``src_state``, typically a just-prefilled
     prompt) into row ``slot`` of ``dst_state`` in place. The whole row is
     replaced, so nothing of the slot's previous occupant survives. The
     positions take the source's value unless ``pos`` overrides them: a
     prompt prefilled right-padded to a bucket length sits at its true
-    length, and the pad positions beyond it are never attended."""
+    length, and the pad positions beyond it are never attended. ``slot``
+    and ``pos`` are ints or one-element long tensors on the cache's device,
+    so one captured program serves every slot (JAX's traced ``slot`` and
+    ``pos``)."""
+    leaves = []
+    _map_leaves(lambda key, leaf: leaves.append(leaf), dst_state)
+    dev = leaves[0].device
+    row = _row_index(slot, dev)
+    at = None if pos is None else _row_index(pos, dev)
+
     def copy(key, d, s):
         if key in _CACHE_ROW_KEYS:
             if s.shape[0] != 1:
@@ -120,9 +151,9 @@ def assign_cache_slot(dst_state: dict, src_state: dict, slot: int,
                     f"cache row shape mismatch for {key}: source "
                     f"{tuple(s.shape[1:])} vs destination "
                     f"{tuple(d.shape[1:])}")
-            d[slot].copy_(s[0])
+            d.index_copy_(0, row, s)
         elif key in _CACHE_POS_KEYS:
-            d[slot] = s[0] if pos is None else pos
+            d.index_copy_(0, row, s.reshape(1) if at is None else at)
 
     _map_leaves(copy, dst_state, src_state)
     return dst_state

@@ -13,8 +13,18 @@ counts as keys ``"0"``, ``"1"``, ...); slots are lists in the same order.
 The arithmetic follows JAX: ``step`` is 0-based, the default decay is
 ``lr / (1 + step · decay)``, and bias corrections use ``t = step + 1``.
 
+The numbers that change from step to step (decayed rates, bias
+corrections) are computed on the host by :meth:`OptimMethod.hyper`, as
+Python floats, and reach the update as one small fp32 tensor on the
+parameters' device (:meth:`OptimMethod.update_with`): a captured training
+step (``optim/optimizer.py``) would freeze a Python number at its capture
+value, and the trainer rewrites the tensor before each replay.
+``update(params, grads, state, step)`` makes that tensor and calls
+``update_with``, on the CPU too, so every path runs the same arithmetic.
+No update reads a value back to the host.
+
 Frozen parameters (``freeze()``, gradient scale 0) carry no slots:
-``init_state_trimmed`` and ``update_trimmed`` show the method 0-size
+``init_state_trimmed`` and ``update_with_trimmed`` show the method 0-size
 stand-ins for them, as JAX does, so every slot of a frozen leaf is empty
 and its parameter is never written.
 """
@@ -55,6 +65,14 @@ def _zeros(params) -> list:
     return [torch.zeros_like(p) for p in leaves(params)]
 
 
+def hyper_tensor(values, params) -> torch.Tensor:
+    """``values`` (host floats) as an fp32 tensor on the device of the
+    first of ``params``."""
+    ps = leaves(params)
+    dev = ps[0].device if ps else torch.device("cpu")
+    return torch.tensor(values, dtype=torch.float32, device=dev)
+
+
 class OptimMethod:
     #: True when ``update`` is a purely elementwise map over the param,
     #: grad and slot tensors (no per-leaf norms, no path-keyed routing):
@@ -66,9 +84,23 @@ class OptimMethod:
         """Slots for ``params`` (lists of tensors shaped like them)."""
         return {}
 
+    def hyper(self, step: int, state: dict) -> list:
+        """The update's step-dependent numbers at the 0-based ``step``, on
+        the host, in the order :meth:`update_with` reads them; as many at
+        every step."""
+        return []
+
+    def update_with(self, params, grads, state: dict,
+                    h: torch.Tensor) -> None:
+        """Step ``params`` and ``state`` in place, reading the step's
+        numbers from ``h`` (fp32, ``hyper(step, state)``, on the
+        parameters' device)."""
+        raise NotImplementedError
+
     def update(self, params, grads, state: dict, step: int) -> None:
         """Step ``params`` and ``state`` in place; ``step`` is 0-based."""
-        raise NotImplementedError
+        self.update_with(params, grads, state,
+                         hyper_tensor(self.hyper(step, state), params))
 
     # ---------------------------------------------- frozen-leaf trimming
     @staticmethod
@@ -87,21 +119,21 @@ class OptimMethod:
             return self.init_state(params)
         return self.init_state(self._mask_frozen(params, trainable))
 
-    def update_trimmed(self, params, grads, state, step,
-                       trainable=None) -> None:
-        """``update`` against trimmed slots: the method sees 0-size frozen
-        leaves (its elementwise work there is empty) and frozen parameters
-        stay untouched. A frozen leaf's gradient may be anything (the
-        trainer computes none)."""
+    def update_with_trimmed(self, params, grads, state, h,
+                            trainable=None) -> None:
+        """:meth:`update_with` against trimmed slots: the method sees 0-size
+        frozen leaves (its elementwise work there is empty) and frozen
+        parameters stay untouched. A frozen leaf's gradient may be anything
+        (the trainer computes none)."""
         if trainable is None:
-            return self.update(params, grads, state, step)
+            return self.update_with(params, grads, state, h)
         ref = leaves(params)
         g = [gr if t else torch.empty(0, dtype=p.dtype, device=p.device)
              for gr, p, t in zip(leaves(grads), ref, trainable)]
         if isinstance(params, dict):
             g = dict(zip(params, g))
-        return self.update(self._mask_frozen(params, trainable), g, state,
-                           step)
+        return self.update_with(self._mask_frozen(params, trainable), g,
+                                state, h)
 
     def get_learning_rate(self, step: int) -> float:
         return 0.0
@@ -164,6 +196,9 @@ class SGD(OptimMethod):
             state["clr"] = float(self.learningrate)
         return state
 
+    def hyper(self, step, state):
+        return [self._lr(step, state)]
+
     def _mults(self, params) -> list:
         out = []
         for name in leaf_names(params):
@@ -172,8 +207,8 @@ class SGD(OptimMethod):
                              if pat in key), 1.0))
         return out
 
-    def update(self, params, grads, state, step):
-        lr = self._lr(step, state)
+    def update_with(self, params, grads, state, h):
+        lr = h[0]
         wd, mu, damp = self.weightdecay, self.momentum, self.dampening
         mults = (self._mults(params) if self.layer_lr_mults
                  else [1.0] * len(leaves(params)))
@@ -185,7 +220,7 @@ class SGD(OptimMethod):
                     v = state["v"][i]
                     v.mul_(mu).add_(g, alpha=1.0 - damp)
                     g = g + mu * v if self.nesterov else v
-                p.sub_(g, alpha=lr * mults[i])
+                p.addcmul_(g, lr, value=-mults[i])
 
 
 class Adam(OptimMethod):
@@ -206,11 +241,15 @@ class Adam(OptimMethod):
     def init_state(self, params):
         return {"m": _zeros(params), "v": _zeros(params)}
 
-    def update(self, params, grads, state, step):
+    def hyper(self, step, state):
+        # lr / bc1 and bc2, the bias corrections at t = step + 1
         t = step + 1
-        lr = self.get_learning_rate(step)
+        return [self.get_learning_rate(step) / (1.0 - self.beta1 ** t),
+                1.0 - self.beta2 ** t]
+
+    def update_with(self, params, grads, state, h):
+        lr_bc1, bc2 = h[0], h[1]
         b1, b2, eps = self.beta1, self.beta2, self.epsilon
-        bc1, bc2 = 1.0 - b1 ** t, 1.0 - b2 ** t
         with torch.no_grad():
             for p, g, m, v in zip(leaves(params), leaves(grads), state["m"],
                                   state["v"]):
@@ -218,7 +257,7 @@ class Adam(OptimMethod):
                 v.mul_(b2).addcmul_(g, g, value=1.0 - b2)
                 # p - lr · (m / bc1) / (sqrt(v / bc2) + eps)
                 denom = (v / bc2).sqrt_().add_(eps)
-                p.addcdiv_(m / bc1, denom, value=-lr)
+                p.addcdiv_(m * lr_bc1, denom, value=-1.0)
 
 
 class AdamW(Adam):
@@ -233,13 +272,16 @@ class AdamW(Adam):
                          epsilon)
         self.weightdecay = weightdecay
 
-    def update(self, params, grads, state, step):
+    def hyper(self, step, state):
+        return super().hyper(step, state) + [
+            self.get_learning_rate(step) * self.weightdecay]
+
+    def update_with(self, params, grads, state, h):
         if not self.weightdecay:
-            return super().update(params, grads, state, step)
-        wd = self.get_learning_rate(step) * self.weightdecay
+            return super().update_with(params, grads, state, h)
         with torch.no_grad():
-            decay = [wd * p for p in leaves(params)]
-        super().update(params, grads, state, step)
+            decay = [p * h[2] for p in leaves(params)]
+        super().update_with(params, grads, state, h)
         with torch.no_grad():
             for p, d in zip(leaves(params), decay):
                 p.sub_(d)
@@ -263,15 +305,18 @@ class Adagrad(OptimMethod):
     def init_state(self, params):
         return {"accum": _zeros(params)}
 
-    def update(self, params, grads, state, step):
-        clr = self.get_learning_rate(step)
+    def hyper(self, step, state):
+        return [self.get_learning_rate(step)]
+
+    def update_with(self, params, grads, state, h):
+        clr = h[0]
         with torch.no_grad():
             for p, g, a in zip(leaves(params), leaves(grads),
                                state["accum"]):
                 if self.weightdecay > 0:
                     g = g + self.weightdecay * p
                 a.addcmul_(g, g)
-                p.addcdiv_(g, a.sqrt().add_(1e-10), value=-clr)
+                p.addcdiv_(g * clr, a.sqrt().add_(1e-10), value=-1.0)
 
 
 class Adadelta(OptimMethod):
@@ -291,7 +336,7 @@ class Adadelta(OptimMethod):
     def init_state(self, params):
         return {"sq_avg": _zeros(params), "acc_delta": _zeros(params)}
 
-    def update(self, params, grads, state, step):
+    def update_with(self, params, grads, state, h):
         rho, eps, lr = self.decayrate, self.epsilon, self.learningrate
         with torch.no_grad():
             for p, g, s, a in zip(leaves(params), leaves(grads),
@@ -318,15 +363,18 @@ class Adamax(OptimMethod):
     def init_state(self, params):
         return {"m": _zeros(params), "u": _zeros(params)}
 
-    def update(self, params, grads, state, step):
+    def hyper(self, step, state):
+        return [self.learningrate / (1.0 - self.beta1 ** (step + 1))]
+
+    def update_with(self, params, grads, state, h):
         b1, b2, eps = self.beta1, self.beta2, self.epsilon
-        clr = self.learningrate / (1.0 - b1 ** (step + 1))
+        clr = h[0]
         with torch.no_grad():
             for p, g, m, u in zip(leaves(params), leaves(grads), state["m"],
                                   state["u"]):
                 m.mul_(b1).add_(g, alpha=1.0 - b1)
                 torch.maximum(u.mul_(b2), g.abs(), out=u)
-                p.addcdiv_(m, u + eps, value=-clr)
+                p.addcdiv_(m * clr, u + eps, value=-1.0)
 
 
 class RMSprop(OptimMethod):
@@ -348,14 +396,17 @@ class RMSprop(OptimMethod):
     def init_state(self, params):
         return {"sq_avg": _zeros(params)}
 
-    def update(self, params, grads, state, step):
-        clr = self.get_learning_rate(step)
+    def hyper(self, step, state):
+        return [self.get_learning_rate(step)]
+
+    def update_with(self, params, grads, state, h):
+        clr = h[0]
         rho, eps = self.decayrate, self.epsilon
         with torch.no_grad():
             for p, g, s in zip(leaves(params), leaves(grads),
                                state["sq_avg"]):
                 s.mul_(rho).addcmul_(g, g, value=1.0 - rho)
-                p.addcdiv_(g, s.sqrt().add_(eps), value=-clr)
+                p.addcdiv_(g * clr, s.sqrt().add_(eps), value=-1.0)
 
 
 class Ftrl(OptimMethod):
@@ -389,7 +440,7 @@ class Ftrl(OptimMethod):
                           for p in leaves(params)],
                 "linear": _zeros(params)}
 
-    def update(self, params, grads, state, step):
+    def update_with(self, params, grads, state, h):
         lr, lp = self.learningrate, self.learningrate_power
         with torch.no_grad():
             for p, g, n, z in zip(leaves(params), leaves(grads),
@@ -436,8 +487,11 @@ class LarsSGD(OptimMethod):
     def init_state(self, params):
         return {"v": _zeros(params)}
 
-    def update(self, params, grads, state, step):
-        clr = self.get_learning_rate(step)
+    def hyper(self, step, state):
+        return [self.get_learning_rate(step)]
+
+    def update_with(self, params, grads, state, h):
+        clr = h[0]
         wd, mu, trust, eps = (self.weightdecay, self.momentum, self.trust,
                               self.epsilon)
         with torch.no_grad():
@@ -447,7 +501,7 @@ class LarsSGD(OptimMethod):
                     (w_norm > 0) & (g_norm > 0),
                     trust * w_norm / (g_norm + wd * w_norm + eps),
                     torch.ones((), dtype=p.dtype, device=p.device))
-                v.mul_(mu).add_(clr * local * (g + wd * p))
+                v.mul_(mu).add_((local * clr) * (g + wd * p))
                 p.sub_(v)
 
 
@@ -455,8 +509,10 @@ class LBFGS(OptimMethod):
     """L-BFGS with a fixed history, one quasi-Newton iteration per
     ``update`` over all parameters flattened into one vector; no line
     search; step ``learningrate``, the first scaled by
-    ``min(1, 1/‖g‖₁)``. The history bookkeeping (write slot, valid pairs)
-    runs on the host."""
+    ``min(1, 1/‖g‖₁)``. As in JAX, the history bookkeeping (write slot,
+    valid pairs, update count) lives on the device as 0-d tensors, and the
+    two-loop recursion runs over every history slot with the invalid ones
+    masked, so the update makes no host read."""
 
     def __init__(self, history: int = 8, learningrate: float = 1.0,
                  epsilon: float = 1e-10):
@@ -475,54 +531,79 @@ class LBFGS(OptimMethod):
         flat = self._flat(params)
         n, m = flat.numel(), self.history
         z = dict(dtype=flat.dtype, device=flat.device)
+
+        def count():
+            return torch.zeros((), dtype=torch.long, device=flat.device)
+
         return {"s": torch.zeros(m, n, **z), "y": torch.zeros(m, n, **z),
-                "rho": torch.zeros(m, **z), "pos": 0, "hist_len": 0,
-                "count": 0, "prev_flat": torch.zeros(n, **z),
+                "rho": torch.zeros(m, **z),
+                "pos": count(),        # next write slot
+                "hist_len": count(),   # valid pairs (<= m)
+                "count": count(),      # update calls so far
+                "prev_flat": torch.zeros(n, **z),
                 "prev_grad": torch.zeros(n, **z)}
 
-    def update(self, params, grads, state, step):
+    def update_with(self, params, grads, state, h):
         m, eps = self.history, self.epsilon
         with torch.no_grad():
             flat, g = self._flat(params), self._flat(grads)
             S, Y, rho = state["s"], state["y"], state["rho"]
-            pos, hist_len = state["pos"], state["hist_len"]
+            pos, hist_len, count = (state["pos"], state["hist_len"],
+                                    state["count"])
+            zero = torch.zeros((), dtype=g.dtype, device=g.device)
+
+            def row(mat, j):
+                return mat.index_select(0, j.reshape(1))[0]
+
             # push last iteration's (s, y) pair if it passes the curvature
             # condition
             s_vec, y_vec = flat - state["prev_flat"], g - state["prev_grad"]
             ys = torch.dot(s_vec, y_vec)
-            if state["count"] > 0 and float(ys) > eps:
-                S[pos], Y[pos] = s_vec, y_vec
-                rho[pos] = 1.0 / ys.clamp(min=eps)
-                pos, hist_len = (pos + 1) % m, min(hist_len + 1, m)
-            newest = (pos - 1) % m
+            accept = (count > 0) & (ys > eps)
+            at = pos.reshape(1)
+            S.index_copy_(0, at, torch.where(accept, s_vec, row(S, pos))[None])
+            Y.index_copy_(0, at, torch.where(accept, y_vec, row(Y, pos))[None])
+            rho.index_copy_(0, at, torch.where(
+                accept, 1.0 / ys.clamp(min=eps), row(rho, pos)).reshape(1))
+            pos.copy_(torch.where(accept, (pos + 1) % m, pos))
+            hist_len.copy_(torch.where(accept, (hist_len + 1).clamp(max=m),
+                                       hist_len))
+            newest = (pos - 1) % m      # valid only when hist_len > 0
             # two-loop recursion: newest to oldest, then oldest to newest
-            q, alphas = g.clone(), [None] * hist_len
-            for i in range(hist_len):
+            q, alphas = g.clone(), []
+            for i in range(m):
                 j = (newest - i) % m
-                alphas[i] = rho[j] * torch.dot(S[j], q)
-                q -= alphas[i] * Y[j]
-            if hist_len > 0:
-                gamma = 1.0 / (rho[newest] * torch.dot(Y[newest], Y[newest])
-                               ).clamp(min=eps)
-                r = gamma * q
-            else:
-                r = q
-            for k in reversed(range(hist_len)):
+                a = torch.where(i < hist_len,
+                                row(rho, j) * torch.dot(row(S, j), q), zero)
+                q -= a * row(Y, j)
+                alphas.append(a)
+            y_new = row(Y, newest)
+            gamma = torch.where(
+                hist_len > 0,
+                1.0 / (row(rho, newest) * torch.dot(y_new, y_new)
+                       ).clamp(min=eps),
+                zero + 1.0)
+            r = gamma * q
+            for k in reversed(range(m)):
                 j = (newest - k) % m
-                b = rho[j] * torch.dot(Y[j], r)
-                r = r + (alphas[k] - b) * S[j]
-            lr = self.learningrate
-            if state["count"] == 0:
-                lr = min(1.0, 1.0 / max(float(g.abs().sum()), eps)) * lr
-            state["prev_flat"], state["prev_grad"] = flat, g
+                b = torch.where(k < hist_len,
+                                row(rho, j) * torch.dot(row(Y, j), r), zero)
+                r = r + torch.where(k < hist_len, alphas[k] - b, zero) \
+                    * row(S, j)
+            lr = torch.where(
+                count == 0,
+                (1.0 / g.abs().sum().clamp(min=eps)).clamp(max=1.0)
+                * self.learningrate,
+                zero + self.learningrate)
+            state["prev_flat"].copy_(flat)
+            state["prev_grad"].copy_(g)
             new_flat = flat - lr * r
             off = 0
             for p in leaves(params):
                 n = p.numel()
                 p.copy_(new_flat[off:off + n].view_as(p))
                 off += n
-            state["pos"], state["hist_len"] = pos, hist_len
-            state["count"] += 1
+            count.add_(1)
 
 
 class CompositeOptimMethod(OptimMethod):
@@ -560,11 +641,18 @@ class CompositeOptimMethod(OptimMethod):
         return {key: method.init_state(part) for (key, method), part
                 in zip(self._methods(), self._partition(params))}
 
-    def update(self, params, grads, state, step):
+    def hyper(self, step, state):
+        return [v for key, method in self._methods()
+                for v in method.hyper(step, state[key])]
+
+    def update_with(self, params, grads, state, h):
+        off = 0
         for (key, method), p, g in zip(self._methods(),
                                        self._partition(params),
                                        self._partition(grads)):
-            method.update(p, g, state[key], step)
+            n = len(method.hyper(0, state[key]))
+            method.update_with(p, g, state[key], h[off:off + n])
+            off += n
 
     def get_learning_rate(self, step: int) -> float:
         return self.default.get_learning_rate(step)
@@ -576,4 +664,5 @@ class CompositeOptimMethod(OptimMethod):
 
 __all__ = ["Adadelta", "Adagrad", "Adam", "AdamW", "Adamax",
            "CompositeOptimMethod", "Ftrl", "LBFGS", "LarsSGD", "OptimMethod",
-           "RMSprop", "SGD", "decayed_lr", "keystr", "leaf_names", "leaves"]
+           "RMSprop", "SGD", "decayed_lr", "hyper_tensor", "keystr",
+           "leaf_names", "leaves"]

@@ -26,14 +26,36 @@ The step follows JAX's options:
   (``kernels/fused_update.py``);
 - ``set_optim_methods`` routes named submodules to their own methods.
 
+**The step as a program.** As JAX jits the whole step (``_make_step_fn``),
+the port runs it as one program of ``utils/programs.py``: on the card a
+CUDA graph of the forward under the precision policy, the criterion, the
+backward, scales, clipping and the update, captured at the first step of
+its key and replayed after that. The key holds what JAX's step cache is
+keyed on and what a graph binds: the compute dtype, the gradient scales
+(frozen ones are 0), the method and its slots, the batch's shapes and
+dtypes, remat, accumulation, clipping, and the parameters' storage. The
+update reads its step-dependent numbers (rates, bias corrections) from a
+small device tensor written before each replay
+(``OptimMethod.hyper``). Slots are created on the host before the first
+run of a key, which is an eager warm-up; the program captures after it.
+
+**Fused windows** (``set_fuse_steps(K)`` / ``BIGDL_FUSE_STEPS``, default
+1), with JAX's semantics: a window runs ``min(K, end_when.next_fire_in)``
+steps (so the stop trigger still fires at its exact iteration), its
+batches stacked on the host and copied to the card in one transfer, the
+step program replayed once a step over the window's slices, and the
+window's losses fetched once; a non-finite one raises
+:class:`NonFiniteLossError` there, with its iteration. A partial trailing
+window at the end of an epoch runs step by step. ``state["neval"]``,
+``state["loss"]`` and the iterations at which ``end_when`` fires are those
+of a per-step run, and so are the losses and parameters. On the CPU the
+same code runs eagerly.
+
 ``state["loss"]`` is the loss of the last step, computed before its
-update. The JAX trainer fetches losses in batches to keep its device
-queue full; here each step reads its loss after the update has been
-enqueued, so the card is never left waiting on the read, and a non-finite
-loss raises :class:`NonFiniteLossError` at the step that produced it.
+update.
 
 Not ported yet (ROADMAP Queue A.1): checkpointing, validation, summaries,
-fused multi-step windows, sparse embeddings, profiling and preemption.
+sparse embeddings, profiling and preemption.
 """
 
 from __future__ import annotations
@@ -60,6 +82,7 @@ from bigdl_tpu_torch.optim.optim_method import (
 from bigdl_tpu_torch.optim.trigger import Trigger
 from bigdl_tpu_torch.utils.device import require_on
 from bigdl_tpu_torch.utils.engine import Engine
+from bigdl_tpu_torch.utils.programs import Program
 
 logger = logging.getLogger(__name__)
 
@@ -77,6 +100,37 @@ def _map(fn, x):
     if isinstance(x, (tuple, list)):
         return type(x)(fn(a) for a in x)
     return fn(x)
+
+
+def _copy_into(dst, src) -> None:
+    """Copy a tensor, or each tensor of a tuple/list, into ``dst``."""
+    if isinstance(dst, (tuple, list)):
+        for d, s in zip(dst, src):
+            d.copy_(s)
+    else:
+        dst.copy_(src)
+
+
+def _stack(xs: list):
+    """Stack host arrays (or tuples of them) along a new leading axis."""
+    if isinstance(xs[0], (tuple, list)):
+        return type(xs[0])(np.stack([np.asarray(x[i]) for x in xs])
+                           for i in range(len(xs[0])))
+    return np.stack([np.asarray(x) for x in xs])
+
+
+def _signature(x) -> tuple:
+    """Shapes and dtypes of a tensor or a tuple/list of them."""
+    if isinstance(x, (tuple, list)):
+        return tuple(_signature(a) for a in x)
+    return (tuple(x.shape), x.dtype)
+
+
+def _fuse_steps(k) -> int:
+    if k != int(k) or int(k) < 1:
+        raise ValueError(f"fuse_steps must be a positive integer, got "
+                         f"{k!r}")
+    return int(k)
 
 
 REMAT_MODES = ("none", "dots", "full")
@@ -126,6 +180,9 @@ class Optimizer:
         # flat-buffer update (set_flat_update / BIGDL_FLAT_UPDATE)
         self.flat_update: bool = os.environ.get("BIGDL_FLAT_UPDATE",
                                                 "0") == "1"
+        # steps a fused window runs (set_fuse_steps / BIGDL_FUSE_STEPS)
+        self.fuse_steps: int = _fuse_steps(
+            int(os.environ.get("BIGDL_FUSE_STEPS", "1")))
         self.state: dict = {"epoch": 1, "neval": 1, "epoch_finished": False}
         # optimizer slots, kept across optimize() calls: a second call
         # continues the run, as in JAX; with the method that made them and
@@ -133,6 +190,9 @@ class Optimizer:
         self._ostate: Optional[dict] = None
         self._method: Optional[OptimMethod] = None
         self._ostate_mask = None
+        self._ostate_version = 0
+        # the step program of the current key (utils/programs.py)
+        self._step_program: Optional[Program] = None
 
     # fluent config (reference API shape) ----------------------------------
     def set_optim_method(self, method: OptimMethod) -> "Optimizer":
@@ -184,6 +244,15 @@ class Optimizer:
         L-BFGS, composite) keep the per-leaf path."""
         self.flat_update = bool(enabled)
         self._ostate = None
+        return self
+
+    def set_fuse_steps(self, k: int) -> "Optimizer":
+        """Run up to ``k`` consecutive steps as one window: their batches
+        go to the card in one copy, the step program is replayed ``k``
+        times, and their losses come back in one fetch. The window is
+        clipped so that ``end_when`` fires at its exact iteration; ``k=1``
+        (the default) is the per-step loop."""
+        self.fuse_steps = _fuse_steps(k)
         return self
 
     def set_end_when(self, trigger: Trigger) -> "Optimizer":
@@ -275,8 +344,11 @@ class Optimizer:
                 torch.utils.checkpoint.create_selective_checkpoint_contexts,
                 _save_dots) if self.remat == "dots"
                 else torch.utils.checkpoint.noop_context_fn)
+            # the model draws no random numbers, and a captured step may not
+            # read the generator's state
             loss = torch.utils.checkpoint.checkpoint(
-                loss_fn, inp, target, use_reentrant=False, context_fn=ctx)
+                loss_fn, inp, target, use_reentrant=False, context_fn=ctx,
+                preserve_rng_state=False)
         grads = torch.autograd.grad(loss, params)
         return loss.detach(), list(grads)
 
@@ -313,11 +385,10 @@ class Optimizer:
             return lsum / accum, [g / accum for g in gsum]
         return lsum, gsum
 
-    def train_step(self, inp, target) -> float:
-        """One optimizer step on a batch already on the model's device, at
-        iteration ``state["neval"]``: forward, backward, scale, clip,
-        update. Sets ``state["loss"]`` (the loss before the update),
-        advances ``neval`` and returns the loss."""
+    def _prepare_step(self):
+        """Host side of a step: the parameters by path, their gradient
+        scales and the trainable mask; creates the optimizer's slots for
+        the mask (before any capture)."""
         named = dict(self.model.named_parameters())
         scales = self.model.grad_scales()
         trainable = [scales[n] != 0.0 for n in named]
@@ -326,26 +397,109 @@ class Optimizer:
             if self._ostate is not None:
                 logger.warning("the frozen parameters changed: optimizer "
                                "slots start again")
+            self._step_program = None
             self._method = self._effective_method()
             self._ostate = self._method.init_state_trimmed(named, mask)
             self._ostate_mask = mask
-        frozen = frozenset(n for n, t in zip(named, trainable) if not t)
+            self._ostate_version += 1
+        return named, scales, mask
+
+    def _make_step_fn(self, named: dict, scales: dict, mask):
+        """One optimizer step over the program's static inputs
+        ``(inp, target, h)``: forward, backward, scale, clip, and the update
+        in place with the step's numbers ``h``. Returns the loss (before
+        the update), on the device."""
+        frozen = frozenset(n for n in named if scales[n] == 0.0)
         train = [n for n in named if n not in frozen]
-        it = self.state["neval"]
-        loss, grads = self._loss_and_grads([named[n] for n in train], inp,
-                                           target, frozen)
-        grads = [g if scales[n] == 1.0 else g * scales[n]
-                 for n, g in zip(train, grads)]
-        grads = dict(zip(train, self._clip_grads(grads)))
-        self._method.update_trimmed(named, {n: grads.get(n) for n in named},
-                                    self._ostate, it - 1, mask)
-        val = float(loss)
-        if not math.isfinite(val):
-            raise NonFiniteLossError(
-                f"non-finite loss at iteration {it}: {val}", iteration=it)
-        self.state["loss"] = val
-        self.state["neval"] = it + 1
-        return val
+        method, ostate = self._method, self._ostate
+
+        def step(inp, target, h):
+            loss, grads = self._loss_and_grads([named[n] for n in train],
+                                               inp, target, frozen)
+            grads = [g if scales[n] == 1.0 else g * scales[n]
+                     for n, g in zip(train, grads)]
+            grads = dict(zip(train, self._clip_grads(grads)))
+            method.update_with_trimmed(
+                named, {n: grads.get(n) for n in named}, ostate, h, mask)
+            return loss
+
+        return step
+
+    def _program_for(self, inp, target) -> Program:
+        """The step program for a batch like ``(inp, target)``, captured
+        anew when its key changes (the previous graph is dropped first)."""
+        named, scales, mask = self._prepare_step()
+        key = ("train_step", Engine.compute_dtype(),
+               tuple(scales.values()), self._method, self._ostate_version,
+               self.criterion, self.remat, self.grad_accum,
+               self.grad_clip_const, self.grad_clip_norm,
+               _signature(inp), _signature(target),
+               tuple(p.data_ptr() for p in named.values()))
+        prog = self._step_program
+        if prog is None or prog.key != key:
+            self._step_program = prog = None
+            h = torch.zeros(len(self._method.hyper(0, self._ostate)),
+                            dtype=torch.float32,
+                            device=next(iter(named.values())).device)
+            prog = Program(key, self._make_step_fn(named, scales, mask),
+                           (_map(torch.empty_like, inp),
+                            _map(torch.empty_like, target), h),
+                           h.device)
+            self._step_program = prog
+        return prog
+
+    def _run_steps(self, batches: list) -> list:
+        """Run one optimizer step for each ``(inp, target)`` of
+        ``batches`` (already on the model's device), from iteration
+        ``state["neval"]``: the step program once a step, the losses
+        fetched once at the end and checked there. Advances ``neval``,
+        sets ``state["loss"]`` and returns the losses."""
+        prog = self._program_for(*batches[0])
+        start, n = self.state["neval"], len(batches)
+        s_inp, s_target, s_h = prog.inputs
+        h = torch.tensor([self._method.hyper(start - 1 + k, self._ostate)
+                          for k in range(n)], dtype=torch.float32)
+        h = h.to(s_h.device, non_blocking=True)
+        losses = torch.empty(n, dtype=torch.float32, device=s_h.device)
+        for k, (inp, target) in enumerate(batches):
+            _copy_into(s_inp, inp)
+            _copy_into(s_target, target)
+            s_h.copy_(h[k])
+            losses[k].copy_(prog())
+        vals = losses.tolist()
+        for k, val in enumerate(vals):
+            if not math.isfinite(val):
+                self.state["neval"] = start + n
+                raise NonFiniteLossError(
+                    f"non-finite loss at iteration {start + k}: {val}",
+                    iteration=start + k)
+        self.state["loss"] = vals[-1]
+        self.state["neval"] = start + n
+        return vals
+
+    def train_step(self, inp, target) -> float:
+        """One optimizer step on a batch already on the model's device, at
+        iteration ``state["neval"]``: forward, backward, scale, clip,
+        update. Sets ``state["loss"]`` (the loss before the update),
+        advances ``neval`` and returns the loss."""
+        return self._run_steps([(inp, target)])[0]
+
+    def _fusible_steps(self, state: dict) -> int:
+        """Iterations that may run from ``state["neval"]`` in one window
+        before ``end_when`` could fire (JAX also clips at its validation,
+        checkpoint and summary triggers, not ported yet)."""
+        return self.end_when.next_fire_in(state)
+
+    def _run_window(self, window: list, device) -> list:
+        """The steps of a window of host batches: stacked on the host and
+        copied to the card in one transfer, each step reading its slice."""
+        inp, target = (
+            _map(lambda a: torch.from_numpy(a).to(device, non_blocking=True),
+                 _stack(xs))
+            for xs in ([b.input for b in window], [b.target for b in window]))
+        return self._run_steps([
+            (_map(lambda a: a[k], inp), _map(lambda a: a[k], target))
+            for k in range(len(window))])
 
     # ------------------------------------------------------------- loop
     def optimize(self) -> torch.nn.Module:
@@ -354,17 +508,13 @@ class Optimizer:
         device = require_on(self.model, self.device)
         self.model.train()
         state = self.state
-
-        def put(a):
-            return torch.as_tensor(np.asarray(a)).to(device,
-                                                     non_blocking=True)
-
         stop = False
         while not stop:
             state["epoch_finished"] = False
             self.dataset.shuffle()
             batches = iter(self.dataset.data(train=True))
-            had_data = False
+            ahead: list = []            # taken from the epoch, not yet run
+            exhausted = had_data = False
             t0, records = time.perf_counter(), 0
             while True:
                 # evaluated at loop top with the 1-based neval, so
@@ -372,17 +522,26 @@ class Optimizer:
                 if self.end_when(state):
                     stop = True
                     break
-                try:
-                    batch = next(batches)
-                except StopIteration:
+                want = min(self.fuse_steps, self._fusible_steps(state))
+                while len(ahead) < want and not exhausted:
+                    try:
+                        ahead.append(next(batches))
+                    except StopIteration:
+                        exhausted = True
+                if not ahead:
                     break
+                # a full window runs fused; the epoch's partial trailing
+                # one step by step
+                n = want if len(ahead) >= want else 1
+                window, ahead = ahead[:n], ahead[n:]
                 had_data = True
-                loss = self.train_step(_map(put, batch.input),
-                                       _map(put, batch.target))
-                records += batch.valid
-                logger.info("Epoch %d iter %d: loss %.6f, %.1f records/s",
-                            state["epoch"], state["neval"] - 1, loss,
-                            records / (time.perf_counter() - t0))
+                first = state["neval"]
+                losses = self._run_window(window, device)
+                for i, (b, loss) in enumerate(zip(window, losses)):
+                    records += b.valid
+                    logger.info("Epoch %d iter %d: loss %.6f, %.1f "
+                                "records/s", state["epoch"], first + i, loss,
+                                records / (time.perf_counter() - t0))
             if stop:
                 break
             if not had_data:

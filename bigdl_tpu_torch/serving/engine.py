@@ -6,14 +6,24 @@ Counterpart of the core of ``bigdl_tpu/serving/engine.py``:
   ``ClosableQueue``; one engine thread owns the model, the cache and the
   device.
 - **Prefill**: a request's prompt runs as one batch-1 chunk, right-padded to
-  the smallest bucket of the prefill grid, through the cached path; the
-  logits at the last true position give the first token (TTFT ends there).
-  The filled batch-1 cache is copied into a free slot of the decode grid
-  at the TRUE prompt length.
+  the smallest bucket of the prefill grid, through the cached path into
+  the engine's one batch-1 cache; the logits at the last true position give
+  the first token (TTFT ends there). The filled batch-1 cache is copied
+  into a free slot of the decode grid at the TRUE prompt length.
 - **Decode tick**: one cached step over the whole slot grid (free rows ride
   along with a dummy token and are ignored), greedy argmax per row, and a
   per-row finiteness flag: a row with non-finite logits fails its own
   request and is wiped, the others never notice.
+- **Programs**: each of those runs as a program of
+  ``utils/programs.py``, keyed as JAX keys its compiled programs
+  (``("serve_prefill", bucket, max_len, dtype)`` for each bucket,
+  ``("serve_decode", slots, max_len, dtype)``, ``("serve_assign", slots,
+  max_len, dtype)``): a CUDA graph captured at the first use of its key and
+  replayed after that, with the greedy token and the finiteness flags
+  computed inside it. A tick copies its tokens to the card once and its
+  results back once. ``stats()["compiled_programs"]`` counts the keys used
+  against ``program_grid_bound = len(buckets) + 2``. Wiping a poisoned row
+  is the fault path and stays eager, outside the bound, as in JAX.
 - **Finish and recycling**: a row that emits ``eos_id`` or reaches
   ``max_new_tokens`` completes its handle and is handed to the next waiting
   request mid-flight.
@@ -36,6 +46,7 @@ import torch
 
 from bigdl_tpu_torch.nn.incremental import (
     assign_cache_slot, install_decode_cache, reset_decode_slot,
+    zero_decode_cache,
 )
 from bigdl_tpu_torch.serving.request import (
     FINISH_EOS, FINISH_LENGTH, Request, RequestHandle,
@@ -44,6 +55,7 @@ from bigdl_tpu_torch.serving.scheduler import (
     SlotScheduler, default_buckets, pick_bucket,
 )
 from bigdl_tpu_torch.utils.device import require_on
+from bigdl_tpu_torch.utils.programs import ProgramCache
 from bigdl_tpu_torch.utils.queues import CLOSED, EMPTY, ClosableQueue
 
 logger = logging.getLogger("bigdl_tpu_torch.serving")
@@ -92,6 +104,16 @@ class ServingEngine:
         self._dtype = dtype
         self._dec_state = install_decode_cache(model, self.slots,
                                                self.max_len, dtype)
+        # the prefill programs' one batch-1 cache (zeroed by each prefill)
+        self._prefill_state = install_decode_cache(model, 1, self.max_len,
+                                                   dtype)
+        self._programs = ProgramCache(self.device)
+        self._dtype_name = str(dtype).replace("torch.", "")
+        # host side of a tick's two copies: pinned on the card, so the
+        # token copy is asynchronous
+        self._tok_host = torch.zeros(
+            (self.slots, 1), dtype=torch.long,
+            pin_memory=self.device.type == "cuda")
         self._queue = ClosableQueue(queue_depth)
         self._sched = SlotScheduler(self.slots)
         self._pending: list[Request] = []
@@ -177,6 +199,8 @@ class ServingEngine:
             "slots": self.slots,
             "buckets": self.buckets,
             "max_len": self.max_len,
+            "compiled_programs": len(self._programs.keys),
+            "program_grid_bound": len(self.buckets) + 2,
             "submitted": self._submitted,
             "completed": self._completed,
             "active_slots": self._sched.active_count,
@@ -230,6 +254,58 @@ class ServingEngine:
         self._pending.append(item)
         return False
 
+    # ------------------------------------------------------------ programs
+    def _prefill_program(self, lb: int):
+        """``("serve_prefill", lb, max_len, dtype)``: zero the batch-1
+        cache, run one right-padded (1, lb) chunk through it, and return the
+        greedy token and the all-finite flag at the true last position, a
+        (2, 1) long tensor. Input: lb token ids, then the true length."""
+        key = ("serve_prefill", lb, self.max_len, self._dtype_name)
+
+        def build():
+            def run(args):
+                state = zero_decode_cache(self._prefill_state)
+                logp, _ = self._model.run(args[None, :lb], state)
+                return _argmax_and_finite(
+                    logp[0].index_select(0, args[lb:] - 1))
+
+            return run, (torch.zeros(lb + 1, dtype=torch.long,
+                                     device=self.device),)
+
+        return self._programs.get_or_capture(key, build)
+
+    def _decode_program(self):
+        """``("serve_decode", slots, max_len, dtype)``: one cached step of
+        the slot grid on (slots, 1) tokens; returns the greedy tokens over
+        the per-row all-finite flags, a (2, slots) long tensor."""
+        key = ("serve_decode", self.slots, self.max_len, self._dtype_name)
+
+        def build():
+            def run(tok):
+                logp, _ = self._model.run(tok, self._dec_state)
+                return _argmax_and_finite(logp[:, 0])
+
+            return run, (torch.zeros((self.slots, 1), dtype=torch.long,
+                                     device=self.device),)
+
+        return self._programs.get_or_capture(key, build)
+
+    def _assign_program(self):
+        """``("serve_assign", slots, max_len, dtype)``: copy the prefilled
+        batch-1 cache into a decode row at the true prompt length. Input:
+        the slot, then the length."""
+        key = ("serve_assign", self.slots, self.max_len, self._dtype_name)
+
+        def build():
+            def run(args):
+                assign_cache_slot(self._dec_state, self._prefill_state,
+                                  args[0:1], pos=args[1:2])
+
+            return run, (torch.zeros(2, dtype=torch.long,
+                                     device=self.device),)
+
+        return self._programs.get_or_capture(key, build)
+
     def _admit(self, req: Request) -> None:
         """Prefill ``req`` into a free slot; its first token falls out of
         the prefill logits."""
@@ -238,19 +314,20 @@ class ServingEngine:
         lb = pick_bucket(clen, self.buckets)
         slot = self._sched.admit(req)
         req.admit_t = time.perf_counter()
-        padded = np.zeros((1, lb), np.int64)
-        padded[0, :clen] = req.prompt
-        state = install_decode_cache(self._model, 1, self.max_len,
-                                     self._dtype)
-        logp, state = self._model.run(
-            torch.from_numpy(padded).to(self.device), state)
+        args = np.zeros(lb + 1, np.int64)
+        args[:clen] = req.prompt
+        args[lb] = clen
+        prefill = self._prefill_program(lb)
+        prefill.inputs[0].copy_(torch.from_numpy(args))
+        nxt, ok = prefill().cpu().numpy()
         self._prefills += 1
-        nxt, ok = _argmax_and_finite(logp[:, clen - 1])
         self._prefill_s += time.perf_counter() - t0
         if not ok[0]:
             self._fail_slot(slot, "prefill")
             return
-        assign_cache_slot(self._dec_state, state, slot.index, pos=clen)
+        assign = self._assign_program()
+        assign.inputs[0].copy_(torch.tensor([slot.index, clen]))
+        assign()
         req.first_token_t = time.perf_counter()
         self._emit(slot, int(nxt[0]))
 
@@ -259,13 +336,15 @@ class ServingEngine:
         ends with the tokens on the host, so it covers the device work."""
         t0 = time.perf_counter()
         active = self._sched.active_slots()
-        tok = np.zeros((self.slots, 1), np.int64)
+        tok = self._tok_host.numpy()
+        tok[:] = 0
         for slot in active:
             tok[slot.index, 0] = slot.last_token
-        logp, self._dec_state = self._model.run(
-            torch.from_numpy(tok).to(self.device), self._dec_state)
+        decode = self._decode_program()
+        decode.inputs[0].copy_(self._tok_host, non_blocking=True)
+        nxt, ok = decode().cpu().numpy()
+        ok = ok.astype(bool)
         self._decode_ticks += 1
-        nxt, ok = _argmax_and_finite(logp[:, 0])
         self._decode_s += time.perf_counter() - t0
         self._decode_tokens += int(ok[[s.index for s in active]].sum())
         for slot in active:
@@ -317,9 +396,8 @@ class ServingEngine:
             item.handle._fail(err)
 
 
-def _argmax_and_finite(rows: torch.Tensor):
-    """Greedy token and all-finite flag of each (V,) row, on the host."""
-    nxt = rows.argmax(dim=-1)
-    ok = torch.isfinite(rows).all(dim=-1)
-    both = torch.stack([nxt, ok.long()]).cpu().numpy()
-    return both[0], both[1].astype(bool)
+def _argmax_and_finite(rows: torch.Tensor) -> torch.Tensor:
+    """Greedy token over the all-finite flag of each (V,) row of ``rows``
+    (R, V), as one (2, R) long tensor on the rows' device."""
+    return torch.stack([rows.argmax(dim=-1),
+                        torch.isfinite(rows).all(dim=-1).long()])

@@ -33,27 +33,38 @@ an NVIDIA H100 and the CUDA toolkit. It builds the port's CUDA kernels from
    a (2, 512) batch through both forward kernels, against the same weights
    on the CPU with the plain LayerNorm and ``attention_impl="full"``;
 5. serves 16 requests (prompt lengths 17..700, 32 new tokens each) from 4
-   client threads through ``ServingEngine(lm, max_len=1024, slots=8)`` and
-   holds every request's tokens against the port's solo
-   ``greedy_generate``, then times one decode step of the slot grid on the
-   card and on the host;
+   client threads through ``ServingEngine(lm, max_len=1024, slots=8)``,
+   whose prefill, decode and assign programs run as captured CUDA graphs,
+   twice on the same engine (the first round captures each program at its
+   first use, the second replays only; each round's decode rate, tick,
+   prefill and TTFT), and holds every request's tokens against the port's
+   solo ``greedy_generate``; checks the engine's program ledger
+   (``compiled_programs`` = buckets used + 2, within ``len(buckets) + 2``)
+   and that every model call launched the LayerNorm forward 13 times; then
+   times one decode step of the slot grid eagerly and as a replayed graph
+   (device and host), with the replayed step's log-probs and launches held
+   against the eager step's;
 6. trains the repo's training configuration,
    ``TransformerLM(32000, 512, 8, 6, max_len=512)`` with ``lm_criterion()``:
    the loss and every parameter's gradient of one (2, 512) step against the
-   same weights on the CPU (``attention_impl="full"``), then 8 steps of
+   same weights on the CPU (``attention_impl="full"``), then 17 steps of
    ``LocalOptimizer`` with ``SGD(0.01, momentum=0.9, dampening=0)`` at
-   batch 16 × 512 on ``synthetic_ptb`` windows, every loss finite, with the
-   step time and tokens/s and one profiled step (device time by kernel
-   name, the GEMMs' share, the device's busy share); then the same under
-   the bf16 mixed-precision policy (``Engine.init(compute_dtype=
-   torch.bfloat16)``, the JAX training leg's default): one (2, 512) step's
-   loss and master gradients against the port's plain bf16 step on the
-   CPU, 8 timed steps and a profiled one, with the bf16 step time and
-   tokens/s beside the fp32 ones, then 8 bf16 steps with the flat update
-   and 8 with every block under ``Remat`` (their step times; remat's
-   losses within 1e-4 relative of the plain run's);
+   batch 16 × 512 on ``synthetic_ptb`` windows (the step a captured graph,
+   replayed after its first step), every loss finite, with the step time
+   and tokens/s and one profiled replayed step (device time by kernel name,
+   the GEMMs' share, the device's busy share, ``cudaLaunchKernel`` and
+   ``cudaGraphLaunch`` calls), and again with ``set_fuse_steps(8)``; each
+   of the two runs is held against the same steps run eagerly on the card
+   (losses, parameters, launches); then the same under the bf16
+   mixed-precision policy (``Engine.init(compute_dtype=torch.bfloat16)``,
+   the JAX training leg's default): one (2, 512) step's loss and master
+   gradients against the port's plain bf16 step on the CPU, the two timed
+   runs with their eager comparisons and a profiled step, with the bf16
+   step time and tokens/s beside the fp32 ones, then 17 bf16 steps with
+   the flat update and 17 with every block under ``Remat`` (their step
+   times; remat's losses within 1e-4 relative of the plain run's);
 7. checks that the serving path (phases 4 and 5) launched both forward
-   kernels and each training run (the 8 steps, fp32 and bf16) all five,
+   kernels and each training run (the 17 steps, fp32 and bf16) all five,
    every launch in the run's dtype (bf16 operands and bf16 gamma and beta
    under the bf16 policy), the LayerNorm backward once for each LayerNorm
    (the forward kernels once a step without remat, twice in each block
@@ -84,6 +95,11 @@ import torch
 SEED = 1234
 VOCAB, EMBED, HEADS, LAYERS, MAX_LEN = 32000, 512, 8, 6, 1024
 TRAIN_LEN, TRAIN_BATCH, TRAIN_STEPS = 512, 16, 8   # benchmark.py:55,164
+# iterations of a timed run: one epoch of 8 batches, a second, and one
+# more, so that set_fuse_steps(8) runs one window that holds the capture
+# and a second of replays only
+TRAIN_ITERS = 2 * TRAIN_STEPS + 1
+FUSE = 8
 DEVICE = "cuda"
 SLOTS, N_REQUESTS, N_CLIENTS, NEW_TOKENS = 8, 16, 4, 32
 PROMPT_LO, PROMPT_HI = 17, 700
@@ -693,12 +709,9 @@ def full_forward(lm, TransformerLM):
     return err
 
 
-def serve(lm, ServingEngine):
-    rng = np.random.default_rng(SEED)
-    lengths = rng.integers(PROMPT_LO, PROMPT_HI + 1, N_REQUESTS)
-    prompts = [rng.integers(0, VOCAB, int(n)).astype(np.int32)
-               for n in lengths]
-    engine = ServingEngine(lm, max_len=MAX_LEN, slots=SLOTS)
+def serve_round(engine, prompts):
+    """Submit every prompt from N_CLIENTS threads at once; returns the
+    results and the wall time until the last one."""
     handles = [None] * N_REQUESTS
     errors = []
 
@@ -717,28 +730,141 @@ def serve(lm, ServingEngine):
         th.start()
     for th in clients:
         th.join(120)
+    if errors or any(h is None for h in handles):
+        raise CheckFailed(f"submit failed: {errors}")
+    results = [h.result(timeout=600) for h in handles]
+    return results, time.perf_counter() - t0
+
+
+def serve(lm, ServingEngine):
+    """Two rounds of the same requests through one engine: the first
+    captures each program at its first use (JAX compiles there), the
+    second replays only. Returns the prompts and each round's results,
+    wall time and engine stats (cumulative)."""
+    rng = np.random.default_rng(SEED)
+    lengths = rng.integers(PROMPT_LO, PROMPT_HI + 1, N_REQUESTS)
+    prompts = [rng.integers(0, VOCAB, int(n)).astype(np.int32)
+               for n in lengths]
+    engine = ServingEngine(lm, max_len=MAX_LEN, slots=SLOTS)
+    rounds = []
     try:
-        if errors or any(h is None for h in handles):
-            raise CheckFailed(f"submit failed: {errors}")
-        results = [h.result(timeout=600) for h in handles]
-        wall = time.perf_counter() - t0
-        stats = engine.stats()
+        for _ in range(2):
+            results, wall = serve_round(engine, prompts)
+            rounds.append((results, wall, engine.stats()))
     finally:
         engine.shutdown()
-    return prompts, results, wall, stats
+    return prompts, rounds
+
+
+def report_round(name, results, wall, stats, before, card):
+    """One round's rates from its results and the engine's counters
+    (``before``: the stats at the round's start)."""
+    ttft = np.array([r.ttft_s for r in results]) * 1e3
+    generated = sum(r.n_generated for r in results)
+    ticks = stats["decode_ticks"] - before.get("decode_ticks", 0)
+    tick_s = stats["decode_seconds"] - before.get("decode_seconds", 0.0)
+    tokens = stats["decode_tokens"] - before.get("decode_tokens", 0)
+    prefill_s = stats["prefill_seconds"] - before.get("prefill_seconds", 0.0)
+    prefills = stats["prefills"] - before.get("prefills", 0)
+    out = {"wall_s": wall, "tokens": generated,
+           "decode_tokens_per_s": tokens / tick_s, "ticks": ticks,
+           "tick_ms": tick_s / ticks * 1e3,
+           "prefill_ms": prefill_s / prefills * 1e3,
+           "ttft_p50_ms": float(np.percentile(ttft, 50)),
+           "ttft_p99_ms": float(np.percentile(ttft, 99))}
+    log(f"  {name}: {len(results)} requests, {generated} tokens in "
+        f"{wall:.3f} s ({generated / wall:.1f} tokens/s with prefill); "
+        f"decode {out['decode_tokens_per_s']:.1f} tokens/s over {ticks} "
+        f"ticks, {out['tick_ms']:.3f} ms a tick (tokens in, the program, "
+        f"results out); prefill {out['prefill_ms']:.2f} ms a request; TTFT "
+        f"p50 {out['ttft_p50_ms']:.1f} ms, p99 {out['ttft_p99_ms']:.1f} ms "
+        f"[{card}]")
+    return out
 
 
 def decode_step_ms(lm, install_decode_cache, card):
     """Device and host time of one cached decode step of the model over
     the full slot grid, the work of one engine tick without its host
-    transfers."""
+    transfers, run eagerly."""
     state = install_decode_cache(lm, SLOTS, MAX_LEN)
     tok = torch.zeros((SLOTS, 1), dtype=torch.long, device="cuda")
     with torch.no_grad():
         dev_ms, host_ms = time_ms(lambda: lm.run(tok, state), reps=2)
-    log(f"  decode step ({SLOTS} slots, cache {MAX_LEN}): device "
+    log(f"  decode step ({SLOTS} slots, cache {MAX_LEN}), eager: device "
         f"{dev_ms:.3f} ms, host enqueue {host_ms:.3f} ms; device busy "
         f"{dev_ms / host_ms:.1%} of the host's time [{card}]")
+    return {"device_ms": dev_ms, "host_ms": host_ms}
+
+
+def copy_tree(tree):
+    return {k: copy_tree(v) if isinstance(v, dict) else v.clone()
+            for k, v in tree.items()}
+
+
+def replayed_decode_step(lm, kernels, install_decode_cache, Program, card):
+    """The same step as a captured program (``utils/programs.py``): its
+    log-probs against the eager step on a copy of the same cache (a
+    64-token prefix in every row, then two steps), the LayerNorm launches
+    one replay counts against one eager step's, and the replay's device
+    and host time. Fails unless the log-probs agree within 1e-5 and the
+    counts are equal."""
+    rng = np.random.default_rng(SEED + 6)
+    prefix = torch.from_numpy(rng.integers(0, VOCAB, (SLOTS, 64))).cuda()
+    tok = torch.from_numpy(rng.integers(0, VOCAB, (SLOTS, 1))).cuda()
+    with torch.no_grad():
+        state = install_decode_cache(lm, SLOTS, MAX_LEN)
+        lm.run(prefix, state)
+        ref_state = copy_tree(state)
+        prog = Program(("decode_check", SLOTS, MAX_LEN),
+                       lambda t: lm.run(t, state)[0], (tok.clone(),), "cuda")
+        prog()                                # warm-up, then capture
+        lm.run(tok, ref_state)
+        kernels.reset_launch_counts()
+        got = prog().clone()                  # the first replay
+        replay_counts = kernels.launch_counts()
+        kernels.reset_launch_counts()
+        want = lm.run(tok, ref_state)[0]
+        eager_counts = kernels.launch_counts()
+        torch.cuda.synchronize()
+        err = max_err(got, want)
+        bitwise = bool(torch.equal(got, want))
+        dev_ms, host_ms = time_ms(prog, reps=2)
+    log(f"  decode step, replayed: device {dev_ms:.3f} ms, host "
+        f"{host_ms:.3f} ms a replay (device-bound when the host is the "
+        f"shorter); log-probs against the eager step max|err| "
+        f"{err:.3e} (atol 1e-5), bitwise {bitwise}; launches a step "
+        f"replayed {replay_counts['layer_norm_fwd']} LN forward, eager "
+        f"{eager_counts['layer_norm_fwd']} [{card}]")
+    if err > 1e-5 or replay_counts != eager_counts:
+        raise CheckFailed(f"the replayed decode step departs from the eager "
+                          f"one: max|err| {err}, launches {replay_counts} "
+                          f"against {eager_counts}")
+    return {"device_ms": dev_ms, "host_ms": host_ms, "max_abs_err": err,
+            "bitwise": bitwise, "launches": replay_counts}
+
+
+def check_programs(stats, prompts, buckets, pick_bucket, launches,
+                   fwd_counts):
+    """The engine's program ledger: one program per prefill bucket used,
+    one decode, one assign, within ``len(buckets) + 2``; every model call
+    of the run (a prefill or a tick, eager warm-up or replay) launched the
+    LayerNorm forward 13 times, as an eager run does."""
+    used = {pick_bucket(len(p), buckets) for p in prompts}
+    n, bound = stats["compiled_programs"], stats["program_grid_bound"]
+    calls = stats["prefills"] + stats["decode_ticks"]
+    ln = launches["layer_norm_fwd"] - fwd_counts["layer_norm_fwd"]
+    log(f"  programs: {n} compiled (bound {bound}; {len(used)} prefill "
+        f"buckets used + decode + assign); LN forward launches {ln} over "
+        f"{calls} model calls ({2 * LAYERS + 1} each eagerly: "
+        f"{(2 * LAYERS + 1) * calls})")
+    if n > bound or n != len(used) + 2:
+        raise CheckFailed(f"the engine compiled {n} programs for "
+                          f"{len(used)} buckets (bound {bound})")
+    if ln != (2 * LAYERS + 1) * calls:
+        raise CheckFailed(f"serving launched the LayerNorm forward {ln} "
+                          f"times over {calls} model calls")
+    return {"compiled_programs": n, "program_grid_bound": bound,
+            "buckets_used": len(used)}
 
 
 def near_tie_gap(lm, seq) -> float:
@@ -909,6 +1035,9 @@ def profile_step(opt, batch, card):
             return us / 1e3
 
         busy = sum(dev_ms(e) for e in events)
+        calls = {name: sum(e.count for e in prof.key_averages()
+                           if e.key == name)
+                 for name in ("cudaLaunchKernel", "cudaGraphLaunch")}
         top = sorted(events, key=dev_ms, reverse=True)[:15]
         host = sorted((e for e in prof.key_averages()
                        if e.device_type == DeviceType.CPU),
@@ -924,7 +1053,8 @@ def profile_step(opt, batch, card):
         shares[kind] = shares.get(kind, 0.0) + dev_ms(e)
     log(f"  profiled step: {wall_ms:.2f} ms wall, device busy {busy:.2f} ms "
         f"({busy / wall_ms:.1%}) over {len(events)} kernel names; by kind "
-        f"{ {k: round(v, 3) for k, v in shares.items()} } ms [{card}]")
+        f"{ {k: round(v, 3) for k, v in shares.items()} } ms; host calls "
+        f"{calls} [{card}]")
     for e in top:
         log(f"    {dev_ms(e):9.3f} ms  x{e.count:<4d} {e.key[:90]}")
     log("  host ops by self time (under the profiler, which adds to each):")
@@ -932,23 +1062,56 @@ def profile_step(opt, batch, card):
         log(f"    {e.self_cpu_time_total / 1e3:9.3f} ms  x{e.count:<5d} "
             f"{e.key[:80]}")
     return {"wall_ms": wall_ms, "busy_ms": busy, "by_kind_ms": shares,
+            "host_calls": calls,
             "top": [[e.key[:90], dev_ms(e), e.count] for e in top]}
 
 
+def eager_reference(TransformerLM, lm_criterion, kernels, method, steps,
+                    remat):
+    """The same steps run eagerly on the card: a fresh model from the same
+    seed, the trainer's step function called directly on each recorded
+    batch with the host's step numbers, as the program would replay it.
+    Returns the losses, the parameters and the launches of those steps."""
+    from bigdl_tpu_torch.dataset import DataSet
+    from bigdl_tpu_torch.optim import LocalOptimizer
+    from bigdl_tpu_torch.optim.optim_method import hyper_tensor
+
+    lm = build_train_lm(TransformerLM, "auto", DEVICE, remat=remat)
+    opt = LocalOptimizer(lm, DataSet.array([]), lm_criterion(),
+                         device=DEVICE).set_optim_method(method)
+    named, scales, mask = opt._prepare_step()
+    step = opt._make_step_fn(named, scales, mask)
+    kernels.reset_launch_counts()
+    losses = [float(step(inp, target, hyper_tensor(
+        opt._method.hyper(k, opt._ostate), list(named.values()))))
+        for k, (inp, target) in enumerate(steps)]
+    torch.cuda.synchronize()
+    return losses, {n: p.detach() for n, p in named.items()}, \
+        kernels.launch_counts()
+
+
 def train(TransformerLM, lm_criterion, kernels, card, bf16=False,
-          flat=False, remat=False, profile=True):
-    """8 LocalOptimizer steps at batch 16 x 512 on synthetic_ptb windows, in
-    fp32 or (``bf16``) under the bf16 mixed-precision policy, with the
-    per-leaf update or (``flat``) the flat update, and (``remat``) with
-    every block under ``Remat`` (``TransformerLM(remat=True)``, the training
-    main's ``--remat``); returns the launch counts of those steps (in all,
-    and by dtype) and the step times, and with ``profile`` one more step's
-    device time by kernel."""
+          flat=False, remat=False, fuse=1, profile=True, compare=False):
+    """TRAIN_ITERS LocalOptimizer steps at batch 16 x 512 on synthetic_ptb
+    windows, with ``set_fuse_steps(fuse)``: the step program is captured at
+    the first step and replayed after it. In fp32 or (``bf16``) under the
+    bf16 mixed-precision policy, with the per-leaf update or (``flat``)
+    the flat update, and (``remat``) with every block under ``Remat``.
+    Returns the launch counts of the run (in all, and by dtype) and its
+    step time: the median between consecutive step ends after the first
+    (fuse 1) or the wall of the second window, all replays, over its
+    steps. With ``compare`` the same steps run eagerly
+    (:func:`eager_reference`) and the replayed losses, parameters and
+    launches are held against them; with ``profile`` one more replayed
+    step's device time by kernel."""
     from bigdl_tpu_torch.dataset import (
         DataSet, Sample, SampleToMiniBatch, ptb_windows, synthetic_ptb,
     )
     from bigdl_tpu_torch.optim import SGD, LocalOptimizer, Trigger
     from bigdl_tpu_torch.utils.random_generator import RandomGenerator
+
+    def method():
+        return SGD(learningrate=0.01, momentum=0.9, dampening=0.0)
 
     RandomGenerator.set_seed(SEED)
     ids = synthetic_ptb(TRAIN_BATCH * TRAIN_STEPS * TRAIN_LEN + 1,
@@ -958,20 +1121,22 @@ def train(TransformerLM, lm_criterion, kernels, card, bf16=False,
             >> SampleToMiniBatch(TRAIN_BATCH))
     lm = build_train_lm(TransformerLM, "auto", DEVICE, remat=remat)
     opt = (LocalOptimizer(lm, data, lm_criterion(), device=DEVICE)
-           .set_optim_method(SGD(learningrate=0.01, momentum=0.9,
-                                 dampening=0.0))
-           .set_end_when(Trigger.max_iteration(TRAIN_STEPS))
-           .set_flat_update(flat))
-    losses, marks = [], []
-    step = opt.train_step
+           .set_optim_method(method())
+           .set_end_when(Trigger.max_iteration(TRAIN_ITERS))
+           .set_flat_update(flat).set_fuse_steps(fuse))
+    losses, marks, windows, seen = [], [], [], []
+    run_steps = opt._run_steps
 
-    def recorded_step(inp, target):
-        loss = step(inp, target)
-        losses.append(loss)
+    def recorded(steps):
+        out = run_steps(steps)
         marks.append(time.perf_counter())
-        return loss
+        losses.extend(out)
+        windows.append(len(steps))
+        if compare:
+            seen.extend((a.clone(), b.clone()) for a, b in steps)
+        return out
 
-    opt.train_step = recorded_step
+    opt._run_steps = recorded
     # the plain LayerNorm backward must not run on the card
     from bigdl_tpu_torch.kernels import layernorm as ln_module
     plain_bwd, plain_calls = ln_module.layer_norm_backward, []
@@ -991,32 +1156,40 @@ def train(TransformerLM, lm_criterion, kernels, card, bf16=False,
         wall = time.perf_counter() - t0
         counts = kernels.launch_counts()     # ... to here
         by_dtype = kernels.launch_counts_by_dtype()
+        if compare:
+            ref = eager_reference(TransformerLM, lm_criterion, kernels,
+                                  method(), seen, remat)
     finally:
-        opt.train_step = step
+        opt._run_steps = run_steps
         ln_module.layer_norm_backward = plain_bwd
     what = ("bf16 steps" if bf16 else "steps") + \
         (" with the flat update" if flat else "") + \
-        (" with remat" if remat else "")
-    if len(losses) != TRAIN_STEPS or not all(np.isfinite(losses)):
+        (" with remat" if remat else "") + f", fuse {fuse}"
+    if len(losses) != TRAIN_ITERS or not all(np.isfinite(losses)):
         raise CheckFailed(f"training gave losses {losses}")
-    step_ms = float(statistics.median(np.diff(marks))) * 1e3
+    if fuse == 1:
+        step_ms = float(statistics.median(np.diff(marks))) * 1e3
+    else:
+        if windows[:2] != [fuse, fuse]:
+            raise CheckFailed(f"windows {windows}, not two of {fuse} first")
+        step_ms = (marks[1] - marks[0]) / fuse * 1e3
     tokens = TRAIN_BATCH * TRAIN_LEN
-    log(f"  {TRAIN_STEPS} {what} at ({TRAIN_BATCH}, {TRAIN_LEN}): losses "
-        f"{[round(v, 4) for v in losses]}; first step "
-        f"{(marks[0] - t0) * 1e3:.1f} ms, median step after it "
+    log(f"  {TRAIN_ITERS} {what} at ({TRAIN_BATCH}, {TRAIN_LEN}): windows "
+        f"{windows}; losses {[round(v, 4) for v in losses]}; first window "
+        f"(warm-up and capture) {(marks[0] - t0) * 1e3:.1f} ms, step "
         f"{step_ms:.2f} ms, {tokens / step_ms * 1e3:.0f} tokens/s; "
         f"{wall:.2f} s in all [{card}]")
     log(f"  launches on the training path ({what}): {by_dtype} "
-        f"({ {k: v / TRAIN_STEPS for k, v in counts.items()} } a step)")
+        f"({ {k: v / TRAIN_ITERS for k, v in counts.items()} } a step)")
     for name, n in counts.items():
         if n == 0:
             raise CheckFailed(f"the training path never launched {name}")
     # LN: two a block, one final; under remat a block's forward kernels
     # run again when its backward recomputes it
     runs = 2 if remat else 1
-    ln_per_run = (2 * LAYERS + 1) * TRAIN_STEPS
-    ln_fwd = (2 * LAYERS * runs + 1) * TRAIN_STEPS
-    flash_fwd = LAYERS * runs * TRAIN_STEPS
+    ln_per_run = (2 * LAYERS + 1) * TRAIN_ITERS
+    ln_fwd = (2 * LAYERS * runs + 1) * TRAIN_ITERS
+    flash_fwd = LAYERS * runs * TRAIN_ITERS
     if (counts["layer_norm_fwd"] != ln_fwd
             or counts["layer_norm_bwd"] != ln_per_run
             or counts["flash_attention_fwd"] != flash_fwd or plain_calls):
@@ -1035,12 +1208,51 @@ def train(TransformerLM, lm_criterion, kernels, card, bf16=False,
         if split != {key: counts[name]}:
             raise CheckFailed(f"the training path ({what}) launched {name} "
                               f"as {split}, not all as {key}")
+    check = compare_eager(what, losses, lm, counts, ref, bf16) \
+        if compare else None
     prof = (profile_step(opt, next(iter(data.data(train=True))), card)
             if profile else None)
     return counts, dict(losses=losses, step_ms=step_ms,
                         tokens_per_s=tokens / step_ms * 1e3,
-                        first_step_ms=(marks[0] - t0) * 1e3, profile=prof,
-                        by_dtype=by_dtype)
+                        first_window_ms=(marks[0] - t0) * 1e3, profile=prof,
+                        by_dtype=by_dtype, windows=windows, eager=check)
+
+
+def compare_eager(what, losses, lm, counts, ref, bf16):
+    """The replayed run against the same steps run eagerly: every loss
+    within the one-step check's loss tolerance (relative 1e-4, bf16 1e-2),
+    every parameter within its gradient tolerance (relative Frobenius 1e-3,
+    bf16 5e-2), and the same launches of every kernel. Reports the largest
+    differences and whether everything is bitwise equal."""
+    ref_losses, ref_params, ref_counts = ref
+    loss_tol, param_tol = (1e-2, 5e-2) if bf16 else (1e-4, 1e-3)
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(losses, ref_losses))
+    params = dict(lm.named_parameters())
+    rel = {n: float((params[n].detach() - p).norm()
+                    / p.norm().clamp(min=1e-30))
+           for n, p in ref_params.items()}
+    worst = max(rel, key=rel.get)
+    abs_err = max(max_err(params[n].detach(), p)
+                  for n, p in ref_params.items())
+    bitwise = losses == ref_losses and all(
+        torch.equal(params[n].detach(), p) for n, p in ref_params.items())
+    log(f"  {what}, replayed against eager on the card: losses relative "
+        f"{loss_rel:.2e} (limit {loss_tol}), parameters worst relative "
+        f"{rel[worst]:.2e} ({worst}, limit {param_tol}), max|err| "
+        f"{abs_err:.3e}; bitwise {bitwise}; launches a step "
+        f"{ {k: v / TRAIN_ITERS for k, v in counts.items()} } replayed, "
+        f"{ {k: v / TRAIN_ITERS for k, v in ref_counts.items()} } eager")
+    if loss_rel > loss_tol or rel[worst] > param_tol:
+        raise CheckFailed(f"{what}: the replayed steps depart from the eager "
+                          f"ones: losses {loss_rel:.3e}, {worst} "
+                          f"{rel[worst]:.3e}")
+    if counts != ref_counts:
+        raise CheckFailed(f"{what}: replayed launches {counts} against "
+                          f"eager {ref_counts}")
+    return {"loss_rel": loss_rel, "param_rel": rel[worst],
+            "param_max_abs_err": abs_err, "bitwise": bitwise,
+            "launches_per_step": {k: v / TRAIN_ITERS
+                                  for k, v in counts.items()}}
 
 
 # -------------------------------------------------------------------- main
@@ -1057,8 +1269,9 @@ def main() -> int:
             TransformerLM, lm_criterion,
         )
         from bigdl_tpu_torch.nn import greedy_generate, install_decode_cache
-        from bigdl_tpu_torch.serving import ServingEngine
+        from bigdl_tpu_torch.serving import ServingEngine, pick_bucket
         from bigdl_tpu_torch.utils.engine import Engine
+        from bigdl_tpu_torch.utils.programs import Program
     except ImportError as e:
         print(f"chip_smoke: the bigdl_tpu_torch package is missing: {e}",
               file=sys.stderr)
@@ -1103,16 +1316,13 @@ def main() -> int:
     fwd_counts = kernels.launch_counts()
 
     log("phase 5: serving")
-    prompts, results, wall, stats = serve(lm, ServingEngine)
+    prompts, rounds = serve(lm, ServingEngine)
     launches = kernels.launch_counts()     # ... to here
-    ttft = np.array([r.ttft_s for r in results]) * 1e3
-    generated = sum(r.n_generated for r in results)
-    log(f"  {len(results)} requests, {generated} tokens in {wall:.3f} s "
-        f"({generated / wall:.1f} tokens/s with prefill); decode "
-        f"{stats['decode_tokens'] / stats['decode_seconds']:.1f} tokens/s "
-        f"over {stats['decode_ticks']} ticks; TTFT p50 "
-        f"{np.percentile(ttft, 50):.1f} ms, p99 {np.percentile(ttft, 99):.1f}"
-        f" ms [{card}]")
+    (results, wall, stats0), (results2, wall2, stats) = rounds
+    cold = report_round("first round (captures)", results, wall, stats0, {},
+                        card)
+    warm = report_round("second round (replays only)", results2, wall2,
+                        stats, stats0, card)
     log(f"  engine stats: {stats}")
     log(f"  launches: full forward {fwd_counts}, serving "
         f"{ {k: launches[k] - fwd_counts[k] for k in launches} }")
@@ -1120,15 +1330,27 @@ def main() -> int:
         if launches[name] == 0:
             raise CheckFailed(f"the serving path never launched {name}")
     check_served_tokens(lm, greedy_generate, prompts, results)
-    log("  served tokens match solo greedy_generate")
-    decode_step_ms(lm, install_decode_cache, card)
+    if any(not np.array_equal(a.tokens, b.tokens)
+           for a, b in zip(results, results2)):
+        raise CheckFailed("the second round served other tokens")
+    log("  served tokens match solo greedy_generate, in both rounds")
+    programs = check_programs(stats, prompts, stats["buckets"], pick_bucket,
+                              launches, fwd_counts)
+    if stats0["compiled_programs"] != stats["compiled_programs"]:
+        raise CheckFailed("the second round captured new programs")
+    eager_step = decode_step_ms(lm, install_decode_cache, card)
+    replayed_step = replayed_decode_step(lm, kernels, install_decode_cache,
+                                         Program, card)
 
     del lm
     torch.cuda.empty_cache()
 
     log("phase 6: training")
     fp32_ref = check_train_step(TransformerLM, lm_criterion)
-    train_counts, run = train(TransformerLM, lm_criterion, kernels, card)
+    train_counts, run = train(TransformerLM, lm_criterion, kernels, card,
+                              compare=True)
+    _, run_fused = train(TransformerLM, lm_criterion, kernels, card,
+                         fuse=FUSE, compare=True, profile=False)
     train_shape, serve_shape = (TRAIN_BATCH, HEADS, TRAIN_LEN, 64), \
         (2, HEADS, 512, 64)
     ln_shape = (TRAIN_BATCH * TRAIN_LEN, EMBED)
@@ -1142,7 +1364,7 @@ def main() -> int:
                 find_row(bwd_rows, train_shape, dtype))
 
     def kernel_ms_a_step(counts, rows):
-        per_step = {k: v / TRAIN_STEPS for k, v in counts.items()}
+        per_step = {k: v / TRAIN_ITERS for k, v in counts.items()}
         ln_r, lnb_r, fa_r, bwd_r = rows
         return (per_step["layer_norm_fwd"] * ln_r["ms"]
                 + per_step["layer_norm_bwd"] * lnb_r["ms"]
@@ -1163,7 +1385,10 @@ def main() -> int:
                                            fp32_ref)
         del fp32_ref
         counts16, run16 = train(TransformerLM, lm_criterion, kernels, card,
-                                bf16=True)
+                                bf16=True, compare=True)
+        _, run16_fused = train(TransformerLM, lm_criterion, kernels, card,
+                               bf16=True, fuse=FUSE, compare=True,
+                               profile=False)
         # the same with the flat update (off by default, as in JAX) and with
         # remat: their step times and launches, beside the plain run's
         _, run16_flat = train(TransformerLM, lm_criterion, kernels, card,
@@ -1181,6 +1406,9 @@ def main() -> int:
                           f"without it: losses {remat_rel:.3e} relative")
     rows16 = kernel_rows("bfloat16")
     kernel_ms16 = kernel_ms_a_step(counts16, rows16)
+    log(f"  set_fuse_steps({FUSE}): step {run_fused['step_ms']:.2f} ms fp32 "
+        f"(fuse 1: {run['step_ms']:.2f}), {run16_fused['step_ms']:.2f} ms "
+        f"bf16 (fuse 1: {run16['step_ms']:.2f}) [{card}]")
     log(f"  bf16 against fp32: median step {run16['step_ms']:.2f} ms against "
         f"{run['step_ms']:.2f} ms ({run['step_ms'] / run16['step_ms']:.2f}x), "
         f"{run16['tokens_per_s']:.0f} against {run['tokens_per_s']:.0f} "
@@ -1348,11 +1576,20 @@ def main() -> int:
          "bf16_training": bf16_training("flash_attention_bwd_dkv"),
          "design": design_of("flash_bwd_dkv_kernel", bwd["plans"][1],
                              bwd_summary)},
-    ], "training": {"step_ms": run["step_ms"],
+    ], "serving": {"programs": programs, "first_round": cold,
+                   "second_round": warm,
+                   "decode_step_eager": eager_step,
+                   "decode_step_replayed": replayed_step},
+        "training": {"step_ms": run["step_ms"],
                     "tokens_per_s": run["tokens_per_s"],
                     "kernel_ms_per_step": kernel_ms,
+                    "replay_vs_eager": run["eager"],
+                    "fused": {"fuse": FUSE, "step_ms": run_fused["step_ms"],
+                              "tokens_per_s": run_fused["tokens_per_s"],
+                              "replay_vs_eager": run_fused["eager"]},
                     "profile": {k: (run["profile"] or {}).get(k)
-                                for k in ("busy_ms", "wall_ms")},
+                                for k in ("busy_ms", "wall_ms",
+                                          "host_calls")},
                     "bf16": {"step_ms": run16["step_ms"],
                              "tokens_per_s": run16["tokens_per_s"],
                              "kernel_ms_per_step": kernel_ms16,
@@ -1360,8 +1597,16 @@ def main() -> int:
                              "flat_update_step_ms": run16_flat["step_ms"],
                              "remat_step_ms": run16_remat["step_ms"],
                              "remat_launches": remat16,
+                             "replay_vs_eager": run16["eager"],
+                             "fused": {"fuse": FUSE,
+                                       "step_ms": run16_fused["step_ms"],
+                                       "tokens_per_s":
+                                           run16_fused["tokens_per_s"],
+                                       "replay_vs_eager":
+                                           run16_fused["eager"]},
                              "profile": {k: (run16["profile"] or {}).get(k)
-                                         for k in ("busy_ms", "wall_ms")}}}}
+                                         for k in ("busy_ms", "wall_ms",
+                                                   "host_calls")}}}}
     print(json.dumps(table), flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -190,13 +190,13 @@ def test_bf16_step_gives_layer_norm_bf16_gamma_and_fp32_gradients(
     monkeypatch.setattr(ln_module, "layer_norm_backward", bwd)
     grads_seen = []
     method = toptim.SGD(learningrate=0.1)
-    update = method.update
+    update = method.update_with      # the trainer's update, h on device
 
-    def spy(params, grads, state, step):
+    def spy(params, grads, state, h):
         grads_seen.extend(g.dtype for g in grads.values())
-        return update(params, grads, state, step)
+        return update(params, grads, state, h)
 
-    method.update = spy
+    method.update_with = spy
     before = kernels.launch_counts()
     (x, y), = _batches(1)
     (toptim.LocalOptimizer(tlm, DataSet.array([]), lm_criterion(),

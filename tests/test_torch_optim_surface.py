@@ -19,6 +19,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from bigdl_tpu import optim as joptim
 from bigdl_tpu.dataset import DataSet as JDataSet
@@ -38,6 +39,7 @@ from bigdl_tpu_torch.kernels.fused_update import (
 )
 from bigdl_tpu_torch.models.transformerlm import TransformerLM, lm_criterion
 from bigdl_tpu_torch.optim import schedules as tsched
+from bigdl_tpu_torch.optim.optim_method import hyper_tensor
 
 VOCAB, E, HEADS, LAYERS, T, BATCH = 64, 32, 2, 2, 16, 4
 
@@ -163,6 +165,78 @@ def test_method_five_steps_match_jax(case):
     assert tm.get_learning_rate(3) == pytest.approx(jm.get_learning_rate(3),
                                                     rel=1e-6)
     assert flat_supported(tm) == jax_flat_supported(jm)
+
+
+class _NoHostReads(TorchDispatchMode):
+    """Fails on any read of a tensor's value by the host (``float(t)``,
+    ``bool(t)``, ``t.item()`` all reach ``aten._local_scalar_dense``): a
+    captured step could not replay it."""
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func is torch.ops.aten._local_scalar_dense.default:
+            raise AssertionError("the update read a tensor on the host")
+        return func(*args, **(kwargs or {}))
+
+
+_DEVICE_SCALAR = {
+    "sgd-poly": _METHODS["sgd-poly"],
+    "adam": lambda m, s: m.Adam(learningrate=0.01, learningrate_decay=0.1),
+    "adamax": _METHODS["adamax"],
+    "lbfgs": _METHODS["lbfgs"],
+}
+
+
+@pytest.mark.parametrize("case", sorted(_DEVICE_SCALAR))
+def test_device_scalar_updates_match_jax(case):
+    """The trainer's form of the update: the step's numbers computed on the
+    host (``hyper``), written into ONE fp32 tensor that is rewritten before
+    every step, as before a replay, and read by ``update_with``; five
+    steps against JAX within the method test's atol 1e-5, with no host
+    read inside the update."""
+    r = np.random.default_rng(len(case) + 7)
+    shapes = [(3, 4), (5,), (2, 2)]
+    params = [r.normal(size=s).astype(np.float32) for s in shapes]
+    jm = _DEVICE_SCALAR[case](joptim, jsched)
+    tm = _DEVICE_SCALAR[case](toptim, tsched)
+    jp = {str(i): jnp.asarray(p) for i, p in enumerate(params)}
+    tp = {str(i): torch.from_numpy(p.copy()) for i, p in enumerate(params)}
+    js, ts = jm.init_state(jp), tm.init_state(tp)
+    h = torch.zeros(len(tm.hyper(0, ts)), dtype=torch.float32)
+    for step in range(5):
+        grads = {k: 2.0 * v.numpy() + 0.1 * np.float32(step)
+                 for k, v in tp.items()}
+        jp, js = jm.update(jp, {k: jnp.asarray(g) for k, g in grads.items()},
+                           js, jnp.asarray(step, jnp.int32))
+        h.copy_(torch.tensor(tm.hyper(step, ts), dtype=torch.float32))
+        with _NoHostReads():
+            tm.update_with(tp, {k: torch.from_numpy(g)
+                                for k, g in grads.items()}, ts, h)
+        for k in tp:
+            np.testing.assert_allclose(tp[k].numpy(), np.asarray(jp[k]),
+                                       atol=1e-5, err_msg=f"step {step} {k}")
+    if case == "lbfgs":   # its bookkeeping stays on the device, as in JAX
+        for key in ("pos", "hist_len", "count"):
+            assert isinstance(ts[key], torch.Tensor)
+            assert int(ts[key]) == int(js[key]), key
+
+
+@pytest.mark.parametrize("case", sorted(set(_METHODS) | {"adam", "sgd"}))
+def test_updates_make_no_host_read(case):
+    make = {**_METHODS, "adam": _DEVICE_SCALAR["adam"],
+            "sgd": lambda m, s: m.SGD(learningrate=0.1, momentum=0.9,
+                                      nesterov=True, dampening=0.0,
+                                      weightdecay=0.01)}[case]
+    tm = make(toptim, tsched)
+    r = np.random.default_rng(1)
+    tp = [torch.from_numpy(r.normal(size=s).astype(np.float32))
+          for s in ((4, 3), (3,))]
+    ts = tm.init_state(tp)
+    for step in range(3):
+        h = hyper_tensor(tm.hyper(step, ts), tp)
+        assert h.shape == (len(tm.hyper(0, ts)),)
+        with _NoHostReads():
+            tm.update_with(tp, [2.0 * p + 0.1 for p in tp], ts, h)
+    assert all(bool(p.isfinite().all()) for p in tp)
 
 
 # ------------------------------------------------------- trainer helpers

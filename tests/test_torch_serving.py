@@ -69,6 +69,92 @@ def test_tokens_match_jax_engine_and_solo_decode(pair):
     assert stats["decode_seconds"] > 0 and stats["prefill_seconds"] > 0
 
 
+def test_compiled_programs_match_jax_engine(pair):
+    """Prompts in three buckets of the default grid (16, 32, 64): both
+    engines use one prefill program per bucket, one decode and one assign
+    program, and report them against the same bound; tokens equal
+    ``greedy_generate``."""
+    jlm, tlm = pair
+    reqs = [(p, 5) for p, _ in _requests(seed=3)]   # lengths 3..40
+    with JaxServingEngine(jlm, MAX_LEN, slots=3) as jeng:
+        for h in [jeng.submit(p, m) for p, m in reqs]:
+            h.result(120)
+        want = jeng.stats()
+    with ServingEngine(tlm, MAX_LEN, slots=3, device="cpu") as eng:
+        got = [h.result(120) for h in [eng.submit(p, m) for p, m in reqs]]
+        stats = eng.stats()
+    used = {pick_bucket(len(p), eng.buckets) for p, _ in reqs}
+    assert len(used) == 3
+    assert stats["compiled_programs"] == want["compiled_programs"] \
+        == len(used) + 2
+    assert stats["program_grid_bound"] == want["program_grid_bound"] \
+        == len(eng.buckets) + 2
+    assert eng._programs.keys[:2] == [
+        ("serve_prefill", pick_bucket(len(reqs[0][0]), eng.buckets), MAX_LEN,
+         "float32"), ("serve_assign", 3, MAX_LEN, "float32")]
+    for (p, m), r in zip(reqs, got):
+        solo = tnn.greedy_generate(tlm, p[None], m, device="cpu")[0]
+        np.testing.assert_array_equal(r.tokens, solo.numpy())
+
+
+def test_run_updates_the_decode_state_in_place(pair):
+    """A captured program replays over the same buffers, so ``run()``
+    keeps the decode state's tensor objects and advances ``pos`` and
+    ``pos_idx`` in place."""
+    _, tlm = pair
+    state = tnn.install_decode_cache(tlm, 2, MAX_LEN)
+    leaves = {}
+
+    def walk(tree, path=()):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                walk(v, path + (k,))
+            else:
+                leaves[path + (k,)] = v
+
+    walk(state)
+    before = dict(leaves)
+    tok = torch.from_numpy(np.array([[3, 5, 7], [1, 2, 4]]))
+    with torch.no_grad():
+        _, new = tlm.run(tok, state)
+        _, new = tlm.run(tok[:, :1], new)
+    leaves.clear()
+    walk(new)
+    assert leaves.keys() == before.keys()
+    for path, leaf in leaves.items():
+        assert leaf is before[path], path
+        if path[-1] in ("pos", "pos_idx"):
+            assert leaf.tolist() == [4, 4], path
+    tnn.zero_decode_cache(new)
+    assert all(not leaf.any() for leaf in leaves.values())
+
+
+def test_assign_cache_slot_takes_device_indices(pair):
+    """One assign program serves every slot: ``slot`` and ``pos`` as
+    one-element tensors give what the ints give."""
+    _, tlm = pair
+    src = tnn.install_decode_cache(tlm, 1, MAX_LEN)
+    with torch.no_grad():
+        tlm.run(torch.arange(6)[None], src)
+    by_int = tnn.install_decode_cache(tlm, 3, MAX_LEN)
+    by_tensor = tnn.install_decode_cache(tlm, 3, MAX_LEN)
+    tnn.assign_cache_slot(by_int, src, 2, pos=4)
+    tnn.assign_cache_slot(by_tensor, src, torch.tensor([2]),
+                          pos=torch.tensor(4))
+    flat_int, flat_tensor = [], []
+    for tree, out in ((by_int, flat_int), (by_tensor, flat_tensor)):
+        stack = [tree]
+        while stack:
+            node = stack.pop()
+            for v in node.values():
+                (stack.append if isinstance(v, dict) else out.append)(v)
+    for a, b in zip(flat_int, flat_tensor):
+        assert torch.equal(a, b)
+    assert by_tensor["1"]["pos_idx"].tolist() == [0, 0, 4]
+    with pytest.raises(ValueError):
+        tnn.assign_cache_slot(by_tensor, src, torch.tensor([1, 2]))
+
+
 def test_concurrent_clients(pair):
     _, tlm = pair
     reqs = _requests(seed=1)
