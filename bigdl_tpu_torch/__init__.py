@@ -9,9 +9,12 @@ use. Entry points run on the GPU unless the caller passes ``device="cpu"``.
 Ported so far: the serving path of the TransformerLM (continuous-batching
 ``serving.ServingEngine`` over the KV-cached decode) and its full-sequence
 forward, with the LayerNorm and flash-attention forward kernels; and its
-training step (``optim.LocalOptimizer`` with SGD or Adam over the
-``dataset`` host path), with the two flash-attention backward kernels.
-All four Pallas kernels of the JAX package have a CUDA counterpart.
+training step (``optim.LocalOptimizer`` over the ``dataset`` host path),
+with the two flash-attention backward kernels; bf16 mixed precision and
+the single-device optimizer; both as captured CUDA graphs; and every
+TransformerLM option but LoRA (grouped-query heads, RoPE, RMSNorm +
+SwiGLU, dropout, the fused LM head, sliding windows, beam search). All
+four Pallas kernels of the JAX package have a CUDA counterpart.
 """
 
 __version__ = "0.1.0"

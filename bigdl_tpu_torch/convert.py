@@ -2,9 +2,11 @@
 
 The JAX ``model.get_params()`` tree nests dicts by container child index
 (``"0"``, ``"1"``, ...) down to the leaf key names (``weight``,
-``qkv_weight``, ``pos``, ...). The port registers its parameters under the
-same names in the same tree, so a leaf's dotted path in the JAX tree is the
-name of the port's parameter.
+``qkv_weight``, ``pos``, ...; grouped-query attention's ``q_weight``,
+``kv_weight`` and their biases, RMSNorm's and ``FusedLMHead``'s
+``weight``/``bias``, the ``"0"`` level a ``Remat`` block adds). The port
+registers its parameters under the same names in the same tree, so a
+leaf's dotted path in the JAX tree is the name of the port's parameter.
 """
 
 from __future__ import annotations

@@ -27,6 +27,7 @@ reaches the whole subtree, as in JAX.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Optional
 
 import torch
@@ -153,6 +154,20 @@ class Container(AbstractModule):
 
     def __getitem__(self, i: int) -> AbstractModule:
         return self._modules[str(i)]
+
+
+@contextlib.contextmanager
+def evaluating(module: torch.nn.Module):
+    """Run ``module`` in eval mode inside the block (JAX passes
+    ``training=False`` to the decode and search paths), then give every
+    submodule back the mode it had."""
+    modes = [(m, m.training) for m in module.modules()]
+    module.eval()
+    try:
+        yield module
+    finally:
+        for m, mode in modes:
+            m.training = mode
 
 
 def child_state(state: Optional[dict], name: str) -> Optional[dict]:

@@ -1,7 +1,8 @@
-"""Activations on the language model's path: GELU and LogSoftMax.
+"""Activations on the language model's path: GELU, Swish and LogSoftMax.
 
 Counterpart of ``bigdl_tpu/nn/activation.py``. ``jax.nn.gelu`` defaults to
-the tanh approximation, so GELU here is ``F.gelu(x, approximate="tanh")``.
+the tanh approximation, so GELU here is ``F.gelu(x, approximate="tanh")``;
+Swish is ``jax.nn.silu`` (``x * sigmoid(x)``), the gate of the SwiGLU MLP.
 LogSoftMax computes and returns fp32 whatever the input dtype, as the JAX
 layer does.
 """
@@ -16,6 +17,11 @@ from bigdl_tpu_torch.nn.abstractnn import TensorModule
 class GELU(TensorModule):
     def run(self, input, state=None):
         return F.gelu(input, approximate="tanh"), state
+
+
+class Swish(TensorModule):
+    def run(self, input, state=None):
+        return F.silu(input), state
 
 
 class LogSoftMax(TensorModule):

@@ -1,8 +1,9 @@
-"""Composition containers: Sequential, ConcatTable, CAddTable, Identity,
-Remat.
+"""Composition containers: Sequential, ConcatTable, CAddTable, CMulTable,
+Identity, Remat.
 
 Counterpart of ``bigdl_tpu/nn/containers.py``. The residual join of the
-transformer blocks is ``ConcatTable(Identity, branch) >> CAddTable``.
+transformer blocks is ``ConcatTable(Identity, branch) >> CAddTable``; the
+SwiGLU MLP's gate is ``ConcatTable(gate, up) >> CMulTable``.
 """
 
 from __future__ import annotations
@@ -11,6 +12,7 @@ import torch.utils.checkpoint
 from torch.func import functional_call
 
 from bigdl_tpu_torch.nn.abstractnn import AbstractModule, Container, child_state
+from bigdl_tpu_torch.nn.normalization import checkpoint_contexts
 from bigdl_tpu_torch.utils.table import T, Table
 
 
@@ -52,6 +54,17 @@ class CAddTable(AbstractModule):
         return out, state
 
 
+class CMulTable(AbstractModule):
+    """Element-wise product of a Table of tensors."""
+
+    def run(self, input, state=None):
+        xs = input.values() if isinstance(input, Table) else list(input)
+        out = xs[0]
+        for x in xs[1:]:
+            out = out * x
+        return out, state
+
+
 class Identity(AbstractModule):
     def run(self, input, state=None):
         return input, state
@@ -65,10 +78,11 @@ class Remat(Container):
     counts grow accordingly), on the parameter tensors the forward used:
     under the trainer's ``functional_call`` those are the step's cast or
     detached ones, which are no longer in place when the backward runs.
-    The generator's state is not saved for the recomputation: no layer of
-    the port draws random numbers, and a captured training step may not
-    read it. Without autograd, or with a decode state, the child runs
-    plainly."""
+    The generator's state is not saved for the recomputation (a captured
+    training step may not read it): the dropout masks of the forward are
+    kept and handed back to the recomputation instead
+    (``normalization.checkpoint_contexts``). Without autograd, or with a
+    decode state, the child runs plainly."""
 
     def __init__(self, module: AbstractModule = None):
         super().__init__(*([module] if module is not None else []))
@@ -88,5 +102,6 @@ class Remat(Container):
         params = dict(m.named_parameters())     # the tensors in effect now
         out = torch.utils.checkpoint.checkpoint(
             lambda x: functional_call(m, params, (x,)), input,
-            use_reentrant=False, preserve_rng_state=False)
+            use_reentrant=False, preserve_rng_state=False,
+            context_fn=checkpoint_contexts)
         return out, None

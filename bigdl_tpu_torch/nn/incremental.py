@@ -3,11 +3,14 @@
 Counterpart of ``bigdl_tpu/nn/incremental.py``. The cache is explicit
 state, as ``apply(params, state, ...)`` carries it in JAX:
 :func:`install_decode_cache` returns a nested dict keyed like the module
-tree, holding zeroed (B, H, max_len, head_dim) K/V buffers and a per-row
-position vector for every ``MultiHeadAttention`` and a position index for
-every ``PositionEmbedding``; ``model.run(tokens, state)`` consumes it and
-returns the advanced state. Nothing is stored on the modules, so there is
-no cache to clear afterwards.
+tree, holding zeroed (B, kv_heads, max_len, head_dim) K/V buffers
+(grouped-query attention caches its KV heads only) and a per-row position
+vector for every ``MultiHeadAttention`` and a position index for every
+``PositionEmbedding`` (a rope model has none); ``model.run(tokens, state)``
+consumes it and returns the advanced state. Nothing is stored on the
+modules, so there is no cache to clear afterwards. The decode paths
+(:func:`generate`, :func:`beam_generate`) run the model in eval mode, as
+JAX passes ``training=False``.
 
 Positions are always per row ((B,) vectors, JAX's ``per_slot=True``): each
 row sits at its own depth, which lets a serving engine reset or reassign
@@ -20,10 +23,11 @@ the same buffers.
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 
+from bigdl_tpu_torch.nn.abstractnn import evaluating
 from bigdl_tpu_torch.nn.attention import MultiHeadAttention
 from bigdl_tpu_torch.utils.device import require_on
 
@@ -79,7 +83,7 @@ def install_decode_cache(model: torch.nn.Module, batch_size: int,
     dev = next(model.parameters()).device
     state: dict = {}
     for path, m in attns:
-        shape = (batch_size, m.num_heads, max_len, m.head_dim)
+        shape = (batch_size, m.kv_heads, max_len, m.head_dim)
         _set_path(state, path, {
             "cache_k": torch.zeros(shape, dtype=dtype, device=dev),
             "cache_v": torch.zeros(shape, dtype=dtype, device=dev),
@@ -166,17 +170,90 @@ def greedy_generate(model: torch.nn.Module, prompt, decode_length: int,
     int32 tokens. One position per step, the prompt included, as the JAX
     ``lax.scan`` does. ``device`` defaults to ``"cuda"`` and must hold the
     model."""
+    return generate(model, prompt, decode_length, dtype, device=device)
+
+
+def generate(model: torch.nn.Module, prompt, decode_length: int,
+             dtype: torch.dtype = torch.float32, *, sample: bool = False,
+             temperature: float = 1.0, top_k: Optional[int] = None,
+             generator: Optional[torch.Generator] = None,
+             device=None) -> torch.Tensor:
+    """KV-cached decode, greedy or (``sample``) drawn from
+    ``softmax(logits / temperature)`` restricted to the ``top_k`` most
+    probable tokens when given, with ``generator`` (on the model's device;
+    its default generator when None). The model runs in eval mode.
+    ``prompt`` (N, T0) → (N, T0 + decode_length) int32 tokens."""
+    if sample and top_k is not None and top_k < 1:
+        raise ValueError(f"top_k must be >= 1, got {top_k!r}")
     dev = require_on(model, device)
     prompt = torch.as_tensor(prompt, dtype=torch.long).to(dev)
     n, t0 = prompt.shape
     total = t0 + decode_length
-    with torch.no_grad():
+
+    def pick(logits):
+        if not sample:
+            return logits.argmax(-1)
+        logits = logits.float() / max(temperature, 1e-6)
+        if top_k is not None:
+            kth = logits.topk(top_k, dim=-1).values[:, -1:]
+            logits = logits.masked_fill(logits < kth, float("-inf"))
+        return torch.multinomial(torch.softmax(logits, -1), 1,
+                                 generator=generator)[:, 0]
+
+    with torch.no_grad(), evaluating(model):
         state = install_decode_cache(model, n, total, dtype)
         seqs = torch.zeros((n, total), dtype=torch.long, device=dev)
         seqs[:, :t0] = prompt
         tok = prompt[:, 0]
         for i in range(total - 1):
             logp, state = model.run(tok[:, None], state)
-            tok = prompt[:, i + 1] if i + 1 < t0 else logp[:, 0].argmax(-1)
+            tok = prompt[:, i + 1] if i + 1 < t0 else pick(logp[:, 0])
             seqs[:, i + 1] = tok
     return seqs.to(torch.int32)
+
+
+def beam_generate(model: torch.nn.Module, prompt, decode_length: int,
+                  beam_size: int, eos_id: int = -1, alpha: float = 0.0,
+                  pad_id: int = 0, dtype: torch.dtype = torch.float32,
+                  device=None) -> tuple:
+    """KV-cached beam search, the O(L)-a-token form of
+    :class:`~bigdl_tpu_torch.nn.beam_search.SequenceBeamSearch`: beams ride
+    the batch axis (N·beam cache rows), the prompt is fed one position a
+    step, and when a step reselects beams the K/V rows are gathered after
+    their parent hypotheses in place (the cache tensors keep their
+    identity). Returns ``(sequences (N, beam, T0 + decode_length) int32,
+    scores (N, beam))``, best beam first: the search's contract and, ties
+    aside, its result."""
+    from bigdl_tpu_torch.nn.beam_search import (
+        beam_step, final_ranking, new_beams,
+    )
+
+    if beam_size < 1 or decode_length < 1:
+        raise ValueError("beam_size and decode_length must be >= 1")
+    dev = require_on(model, device)
+    prompt = torch.as_tensor(prompt, dtype=torch.long).to(dev)
+    n, t0 = prompt.shape
+    b, total = int(beam_size), t0 + decode_length
+    beams = new_beams(prompt, b, total, pad_id)
+    pb = prompt.repeat_interleave(b, dim=0)                    # (n·B, t0)
+    with torch.no_grad(), evaluating(model):
+        state = install_decode_cache(model, n * b, total, dtype)
+        rows = []
+        _map_leaves(lambda key, leaf: rows.append(leaf)
+                    if key in _CACHE_ROW_KEYS else None, state)
+        tok = pb[:, 0]
+        for i in range(total - 1):
+            logp, state = model.run(tok[:, None], state)
+            if i + 1 < t0:                       # the prompt: no beam math
+                tok = pb[:, i + 1]
+                continue
+            step_lp = torch.log_softmax(logp[:, 0].float(), -1)
+            beams, parent, new_tok = beam_step(
+                beams, step_lp.reshape(n, b, -1), i + 1, i + 2.0 - t0,
+                eos_id, alpha)
+            flat = (torch.arange(n, device=dev)[:, None] * b
+                    + parent).reshape(-1)
+            for leaf in rows:
+                leaf.copy_(leaf.index_select(0, flat))
+            tok = new_tok.reshape(-1)
+    return final_ranking(beams, decode_length, alpha)

@@ -75,6 +75,9 @@ from torch.func import functional_call
 
 from bigdl_tpu_torch.dataset.dataset import AbstractDataSet
 from bigdl_tpu_torch.nn.criterion import AbstractCriterion
+from bigdl_tpu_torch.nn.normalization import (
+    checkpoint_contexts, dropout_generators,
+)
 from bigdl_tpu_torch.nn.precision import cast_floating
 from bigdl_tpu_torch.optim.optim_method import (
     SGD, CompositeOptimMethod, OptimMethod,
@@ -340,14 +343,14 @@ class Optimizer:
         if self.remat == "none":
             loss = loss_fn(inp, target)
         else:
-            ctx = (functools.partial(
+            inner = (functools.partial(
                 torch.utils.checkpoint.create_selective_checkpoint_contexts,
-                _save_dots) if self.remat == "dots"
-                else torch.utils.checkpoint.noop_context_fn)
-            # the model draws no random numbers, and a captured step may not
-            # read the generator's state
+                _save_dots) if self.remat == "dots" else None)
+            # a captured step may not read the generator's state: the
+            # recomputation gets the forward's dropout masks instead
             loss = torch.utils.checkpoint.checkpoint(
-                loss_fn, inp, target, use_reentrant=False, context_fn=ctx,
+                loss_fn, inp, target, use_reentrant=False,
+                context_fn=functools.partial(checkpoint_contexts, inner),
                 preserve_rng_state=False)
         grads = torch.autograd.grad(loss, params)
         return loss.detach(), list(grads)
@@ -444,7 +447,8 @@ class Optimizer:
             prog = Program(key, self._make_step_fn(named, scales, mask),
                            (_map(torch.empty_like, inp),
                             _map(torch.empty_like, target), h),
-                           h.device)
+                           h.device,
+                           generators=dropout_generators(self.model))
             self._step_program = prog
         return prog
 

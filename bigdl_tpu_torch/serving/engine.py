@@ -28,10 +28,15 @@ Counterpart of the core of ``bigdl_tpu/serving/engine.py``:
   ``max_new_tokens`` completes its handle and is handed to the next waiting
   request mid-flight.
 
-Batched output equals per-request ``greedy_generate`` because of the
-chunked-prefill == full-forward invariant and per-row positions. Paging,
-the prefix pool, speculative decoding, deadlines, overload control, crash
-recovery, weight swaps and the metrics export are not ported yet.
+The engine thread runs the model in eval mode (JAX applies it with
+``training=False``). The model may be any cached-decode-capable
+``TransformerLM``: grouped-query attention caches its KV heads only, a
+rope model has no position table, and a ``FusedLMHead`` serves log-probs
+in eval mode. Batched output equals per-request ``greedy_generate``
+because of the chunked-prefill == full-forward invariant and per-row
+positions. Paging, the prefix pool, speculative decoding, deadlines,
+overload control, crash recovery, weight swaps and the metrics export are
+not ported yet.
 """
 
 from __future__ import annotations
@@ -44,6 +49,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from bigdl_tpu_torch.nn.abstractnn import evaluating
 from bigdl_tpu_torch.nn.incremental import (
     assign_cache_slot, install_decode_cache, reset_decode_slot,
     zero_decode_cache,
@@ -218,7 +224,7 @@ class ServingEngine:
     # -------------------------------------------------------- engine thread
     def _thread_main(self) -> None:
         try:
-            with torch.no_grad():
+            with torch.no_grad(), evaluating(self._model):
                 self._loop()
         except Exception as e:  # noqa: BLE001 — fail the handles, not silence
             self._failure = e

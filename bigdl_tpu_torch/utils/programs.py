@@ -54,8 +54,12 @@ class Program:
     outputs, valid until the next call."""
 
     def __init__(self, key: Hashable, fn: Callable,
-                 inputs: Sequence[torch.Tensor], device, pool=None):
+                 inputs: Sequence[torch.Tensor], device, pool=None,
+                 generators: Sequence[torch.Generator] = ()):
         self.key = key
+        # CUDA generators other than the default one that ``fn`` draws
+        # from: registered with the graph, so each replay draws anew
+        self.generators = tuple(generators)
         self.inputs = tuple(inputs)
         self.device = torch.device(device)
         self.replays = 0
@@ -95,6 +99,8 @@ class Program:
             # marked as capturing; its state is put back from this copy
             gen = torch.cuda.default_generators[torch.cuda.current_device()]
             gen_state = gen.clone_state()
+            for g in self.generators:
+                graph.register_generator_state(g)
             try:
                 with _cuda.recording_launches(capture.cuda_stream) as rec, \
                         torch.cuda.graph(graph, pool=self._pool,

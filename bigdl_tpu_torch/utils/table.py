@@ -39,6 +39,12 @@ class Table:
     def items(self) -> list:
         return [(k, self._dict[k]) for k in self.keys()]
 
+    def map(self, fn) -> "Table":
+        """A Table of ``fn(value)`` under the same keys."""
+        out = Table()
+        out._dict = {k: fn(v) for k, v in self._dict.items()}
+        return out
+
     def __repr__(self) -> str:
         inner = ", ".join(f"{k}: {v!r}" for k, v in self.items())
         return f"T({{{inner}}})"

@@ -63,14 +63,31 @@ an NVIDIA H100 and the CUDA toolkit. It builds the port's CUDA kernels from
    step time and tokens/s beside the fp32 ones, then 17 bf16 steps with
    the flat update and 17 with every block under ``Remat`` (their step
    times; remat's losses within 1e-4 relative of the plain run's);
-7. checks that the serving path (phases 4 and 5) launched both forward
+7. runs the llama-style path at full width, ``TransformerLM(32000, 512,
+   8, 6)`` with 2 KV heads, RoPE, RMSNorm, SwiGLU and the fused head
+   (``lm_criterion(fused_head=True)``, chunks of 8192): one (2, 256) step
+   of a 2-layer, 8192-token llama model on the card against the CPU plain
+   model in fp32 (loss 1e-4, gradients 1e-3) and bf16 (1e-2, 5e-2); 17
+   bf16 ``LocalOptimizer`` steps at 16 x 512, fuse 1 and
+   ``set_fuse_steps(8)``, replays bitwise equal to eager steps with equal
+   launches; three bf16 steps with dropout 0.1 on one batch, whose two
+   replays draw different masks; the head's forward and backward at (8192,
+   512) x 32000, fused against the unfused bf16 head, with their bounds and
+   peak memory; then, with ``max_len=1024``, the (2, 512) forward against
+   the CPU plain model, two serving rounds of phase 5's 16 requests
+   (tokens equal to ``greedy_generate``, the cache at KV-head width), and
+   one ``SequenceBeamSearch`` (beam 3, decode 32, a 128-token seed; the
+   flash forward at (3·8, 160, 64)) against ``beam_generate``;
+8. checks that the serving path (phases 4 and 5) launched both forward
    kernels and each training run (the 17 steps, fp32 and bf16) all five,
    every launch in the run's dtype (bf16 operands and bf16 gamma and beta
    under the bf16 policy), the LayerNorm backward once for each LayerNorm
    (the forward kernels once a step without remat, twice in each block
-   with it) and the plain backward never, and prints the kernel table as
-   one JSON line (each kernel's row with its bf16 training instance), the
-   card line, and the result line ``{"ok": true, "device": {...}}`` last.
+   with it) and the plain backward never (phase 7's path: the flash
+   kernels only), and prints the kernel table as one JSON line (each
+   kernel's row with its bf16 training instance and every path's
+   launches), the card line, and the result line ``{"ok": true, "device":
+   {...}}`` last.
 
 Any failed check exits non-zero without the result line, as does a machine
 without CUDA or a directory without the package.
@@ -104,6 +121,13 @@ DEVICE = "cuda"
 SLOTS, N_REQUESTS, N_CLIENTS, NEW_TOKENS = 8, 16, 4, 32
 PROMPT_LO, PROMPT_HI = 17, 700
 NEAR_TIE = 1e-4          # top-2 log-prob gap under which a token may differ
+# the llama-style path (phase 7): the transformerlm leg's widths with the
+# JAX training main's options (bigdl_tpu/models/transformerlm/train.py)
+LLAMA = dict(num_kv_heads=2, position="rope", norm="rms", mlp_kind="swiglu",
+             fused_head=True)
+BEAM, BEAM_SEED, BEAM_DECODE = 3, 128, 32
+BEAM_SHAPE = (BEAM, HEADS, BEAM_SEED + BEAM_DECODE, 64)
+HEAD_CHUNK = 8192                                # lm_criterion's default
 HBM_BYTES_PER_S = 3.35e12                       # H100 SXM data sheet
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}   # fp32 non-tensor, bf16
 TF32_FLOPS = 495e12                             # tensor cores, dense
@@ -519,6 +543,8 @@ def check_flash(kernels, card):
     for shape in ((2, HEADS, 512, 64), (TRAIN_BATCH, HEADS, TRAIN_LEN, 64)):
         cases.append((shape, True, torch.float32, 2e-4, 2e-4))
         cases.append((shape, True, torch.bfloat16, 2e-2, 0.0))
+    # the static beam search's full forward: beam x heads, seed + decode
+    cases.append((BEAM_SHAPE, True, torch.float32, 2e-4, 2e-4))
     rows = []
     for (b, h, t, d), causal, dtype, atol, rtol in cases:
         q, k, v = (torch.randn(b * h, t, d, generator=g, device=dev)
@@ -685,7 +711,9 @@ def build_lm(TransformerLM, attention_impl, device):
                          device=device).evaluate()
 
 
-def full_forward(lm, TransformerLM):
+def full_forward(lm, build_ref):
+    """The (2, 512) forward on the card against ``build_ref()``, the same
+    weights on the CPU with the plain attention."""
     g = torch.Generator().manual_seed(SEED + 2)
     ids = torch.randint(0, VOCAB, (2, 512), generator=g)
     torch.cuda.synchronize()
@@ -697,7 +725,7 @@ def full_forward(lm, TransformerLM):
     if tuple(lp.shape) != (2, 512, VOCAB) or not bool(lp.isfinite().all()):
         raise CheckFailed(f"full forward gave shape {tuple(lp.shape)} or "
                           f"non-finite log-probs")
-    ref = build_lm(TransformerLM, "full", "cpu")
+    ref = build_ref()
     with torch.no_grad():
         lp_ref = ref(ids)
     err = max_err(lp.cpu(), lp_ref)
@@ -843,24 +871,66 @@ def replayed_decode_step(lm, kernels, install_decode_cache, Program, card):
             "bitwise": bitwise, "launches": replay_counts}
 
 
+def decode_kernels(lm, install_decode_cache, Program, card, name):
+    """One replayed decode step of the slot grid under ``torch.profiler``
+    (reported only): how many kernels the graph runs and their device
+    time, with the largest by name."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    tok = torch.zeros((SLOTS, 1), dtype=torch.long, device=DEVICE)
+    with torch.no_grad():
+        state = install_decode_cache(lm, SLOTS, MAX_LEN)
+        prog = Program(("decode_profile", name),
+                       lambda t: lm.run(t, state)[0], (tok,), DEVICE)
+        prog()                                # warm-up, then capture
+        prog()
+        torch.cuda.synchronize()
+        try:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                prog()
+                torch.cuda.synchronize()
+            events = [e for e in prof.key_averages()
+                      if e.device_type == DeviceType.CUDA]
+        except Exception as e:  # noqa: BLE001 — an observation, not a check
+            log(f"  profiler: no device times ({type(e).__name__}: {e})")
+            return None
+
+    def dev_ms(e):
+        us = getattr(e, "self_device_time_total", None)
+        return (e.self_cuda_time_total if us is None else us) / 1e3
+
+    n = sum(e.count for e in events)
+    busy = sum(dev_ms(e) for e in events)
+    top = sorted(events, key=dev_ms, reverse=True)[:5]
+    log(f"  {name} decode step, one replay profiled: {n} kernels, "
+        f"{busy:.3f} ms of device time; largest: "
+        + "; ".join(f"{e.key[:48]} x{e.count} {dev_ms(e):.3f} ms"
+                    for e in top) + f" [{card}]")
+    return {"kernels": n, "device_ms": busy,
+            "top": [[e.key[:90], dev_ms(e), e.count] for e in top]}
+
+
 def check_programs(stats, prompts, buckets, pick_bucket, launches,
-                   fwd_counts):
+                   fwd_counts, ln_per_call=2 * LAYERS + 1):
     """The engine's program ledger: one program per prefill bucket used,
     one decode, one assign, within ``len(buckets) + 2``; every model call
     of the run (a prefill or a tick, eager warm-up or replay) launched the
-    LayerNorm forward 13 times, as an eager run does."""
+    LayerNorm forward ``ln_per_call`` times (13; none with RMSNorm), as an
+    eager run does."""
     used = {pick_bucket(len(p), buckets) for p in prompts}
     n, bound = stats["compiled_programs"], stats["program_grid_bound"]
     calls = stats["prefills"] + stats["decode_ticks"]
     ln = launches["layer_norm_fwd"] - fwd_counts["layer_norm_fwd"]
     log(f"  programs: {n} compiled (bound {bound}; {len(used)} prefill "
         f"buckets used + decode + assign); LN forward launches {ln} over "
-        f"{calls} model calls ({2 * LAYERS + 1} each eagerly: "
-        f"{(2 * LAYERS + 1) * calls})")
+        f"{calls} model calls ({ln_per_call} each eagerly: "
+        f"{ln_per_call * calls})")
     if n > bound or n != len(used) + 2:
         raise CheckFailed(f"the engine compiled {n} programs for "
                           f"{len(used)} buckets (bound {bound})")
-    if ln != (2 * LAYERS + 1) * calls:
+    if ln != ln_per_call * calls:
         raise CheckFailed(f"serving launched the LayerNorm forward {ln} "
                           f"times over {calls} model calls")
     return {"compiled_programs": n, "program_grid_bound": bound,
@@ -1067,7 +1137,7 @@ def profile_step(opt, batch, card):
 
 
 def eager_reference(TransformerLM, lm_criterion, kernels, method, steps,
-                    remat):
+                    remat, llama=False):
     """The same steps run eagerly on the card: a fresh model from the same
     seed, the trainer's step function called directly on each recorded
     batch with the host's step numbers, as the program would replay it.
@@ -1076,8 +1146,9 @@ def eager_reference(TransformerLM, lm_criterion, kernels, method, steps,
     from bigdl_tpu_torch.optim import LocalOptimizer
     from bigdl_tpu_torch.optim.optim_method import hyper_tensor
 
-    lm = build_train_lm(TransformerLM, "auto", DEVICE, remat=remat)
-    opt = LocalOptimizer(lm, DataSet.array([]), lm_criterion(),
+    build = build_llama_lm if llama else build_train_lm
+    lm = build(TransformerLM, "auto", DEVICE, remat=remat)
+    opt = LocalOptimizer(lm, DataSet.array([]), lm_criterion(llama),
                          device=DEVICE).set_optim_method(method)
     named, scales, mask = opt._prepare_step()
     step = opt._make_step_fn(named, scales, mask)
@@ -1091,7 +1162,8 @@ def eager_reference(TransformerLM, lm_criterion, kernels, method, steps,
 
 
 def train(TransformerLM, lm_criterion, kernels, card, bf16=False,
-          flat=False, remat=False, fuse=1, profile=True, compare=False):
+          flat=False, remat=False, fuse=1, profile=True, compare=False,
+          llama=False):
     """TRAIN_ITERS LocalOptimizer steps at batch 16 x 512 on synthetic_ptb
     windows, with ``set_fuse_steps(fuse)``: the step program is captured at
     the first step and replayed after it. In fp32 or (``bf16``) under the
@@ -1119,8 +1191,9 @@ def train(TransformerLM, lm_criterion, kernels, card, bf16=False,
     xs, ys = ptb_windows(ids, TRAIN_LEN)
     data = (DataSet.array(Sample(x, y) for x, y in zip(xs, ys))
             >> SampleToMiniBatch(TRAIN_BATCH))
-    lm = build_train_lm(TransformerLM, "auto", DEVICE, remat=remat)
-    opt = (LocalOptimizer(lm, data, lm_criterion(), device=DEVICE)
+    build = build_llama_lm if llama else build_train_lm
+    lm = build(TransformerLM, "auto", DEVICE, remat=remat)
+    opt = (LocalOptimizer(lm, data, lm_criterion(llama), device=DEVICE)
            .set_optim_method(method())
            .set_end_when(Trigger.max_iteration(TRAIN_ITERS))
            .set_flat_update(flat).set_fuse_steps(fuse))
@@ -1158,11 +1231,12 @@ def train(TransformerLM, lm_criterion, kernels, card, bf16=False,
         by_dtype = kernels.launch_counts_by_dtype()
         if compare:
             ref = eager_reference(TransformerLM, lm_criterion, kernels,
-                                  method(), seen, remat)
+                                  method(), seen, remat, llama)
     finally:
         opt._run_steps = run_steps
         ln_module.layer_norm_backward = plain_bwd
-    what = ("bf16 steps" if bf16 else "steps") + \
+    what = ("llama " if llama else "") + \
+        ("bf16 steps" if bf16 else "steps") + \
         (" with the flat update" if flat else "") + \
         (" with remat" if remat else "") + f", fuse {fuse}"
     if len(losses) != TRAIN_ITERS or not all(np.isfinite(losses)):
@@ -1182,15 +1256,18 @@ def train(TransformerLM, lm_criterion, kernels, card, bf16=False,
     log(f"  launches on the training path ({what}): {by_dtype} "
         f"({ {k: v / TRAIN_ITERS for k, v in counts.items()} } a step)")
     for name, n in counts.items():
-        if n == 0:
+        if n == 0 and not (llama and name.startswith("layer_norm")):
             raise CheckFailed(f"the training path never launched {name}")
-    # LN: two a block, one final; under remat a block's forward kernels
-    # run again when its backward recomputes it
+    # LN: two a block, one final (none with RMSNorm); under remat a block's
+    # forward kernels run again when its backward recomputes it
     runs = 2 if remat else 1
-    ln_per_run = (2 * LAYERS + 1) * TRAIN_ITERS
-    ln_fwd = (2 * LAYERS * runs + 1) * TRAIN_ITERS
+    norms = 0 if llama else 1
+    ln_per_run = (2 * LAYERS + 1) * TRAIN_ITERS * norms
+    ln_fwd = (2 * LAYERS * runs + 1) * TRAIN_ITERS * norms
     flash_fwd = LAYERS * runs * TRAIN_ITERS
     if (counts["layer_norm_fwd"] != ln_fwd
+            or counts["flash_attention_bwd_dq"] != LAYERS * TRAIN_ITERS
+            or counts["flash_attention_bwd_dkv"] != LAYERS * TRAIN_ITERS
             or counts["layer_norm_bwd"] != ln_per_run
             or counts["flash_attention_fwd"] != flash_fwd or plain_calls):
         raise CheckFailed(f"the training path ({what}) launched "
@@ -1205,11 +1282,11 @@ def train(TransformerLM, lm_criterion, kernels, card, bf16=False,
     want = "bfloat16" if bf16 else "float32"
     for name, split in by_dtype.items():
         key = f"{want}/{want}" if name.startswith("layer_norm") else want
-        if split != {key: counts[name]}:
+        if counts[name] and split != {key: counts[name]}:
             raise CheckFailed(f"the training path ({what}) launched {name} "
                               f"as {split}, not all as {key}")
-    check = compare_eager(what, losses, lm, counts, ref, bf16) \
-        if compare else None
+    check = compare_eager(what, losses, lm, counts, ref, bf16,
+                          bitwise_required=llama) if compare else None
     prof = (profile_step(opt, next(iter(data.data(train=True))), card)
             if profile else None)
     return counts, dict(losses=losses, step_ms=step_ms,
@@ -1218,12 +1295,14 @@ def train(TransformerLM, lm_criterion, kernels, card, bf16=False,
                         by_dtype=by_dtype, windows=windows, eager=check)
 
 
-def compare_eager(what, losses, lm, counts, ref, bf16):
+def compare_eager(what, losses, lm, counts, ref, bf16,
+                  bitwise_required=False):
     """The replayed run against the same steps run eagerly: every loss
     within the one-step check's loss tolerance (relative 1e-4, bf16 1e-2),
     every parameter within its gradient tolerance (relative Frobenius 1e-3,
     bf16 5e-2), and the same launches of every kernel. Reports the largest
-    differences and whether everything is bitwise equal."""
+    differences and whether everything is bitwise equal, which
+    ``bitwise_required`` demands."""
     ref_losses, ref_params, ref_counts = ref
     loss_tol, param_tol = (1e-2, 5e-2) if bf16 else (1e-4, 1e-3)
     loss_rel = max(abs(a - b) / abs(b) for a, b in zip(losses, ref_losses))
@@ -1249,10 +1328,298 @@ def compare_eager(what, losses, lm, counts, ref, bf16):
     if counts != ref_counts:
         raise CheckFailed(f"{what}: replayed launches {counts} against "
                           f"eager {ref_counts}")
+    if bitwise_required and not bitwise:
+        raise CheckFailed(f"{what}: the replayed steps are not bitwise "
+                          f"equal to the eager ones")
     return {"loss_rel": loss_rel, "param_rel": rel[worst],
             "param_max_abs_err": abs_err, "bitwise": bitwise,
             "launches_per_step": {k: v / TRAIN_ITERS
                                   for k, v in counts.items()}}
+
+
+# ---------------------------------------------------------------- phase 7
+def build_llama_lm(TransformerLM, attention_impl, device, remat=False,
+                   max_len=TRAIN_LEN, dropout=0.0):
+    """The llama-style model at full width: ``TransformerLM(32000, 512, 8,
+    6)`` with 2 KV heads, RoPE, RMSNorm, SwiGLU and the fused head."""
+    return TransformerLM(VOCAB, EMBED, HEADS, LAYERS, max_len,
+                         dropout=dropout, remat=remat,
+                         attention_impl=attention_impl,
+                         generator=torch.Generator().manual_seed(SEED + 8),
+                         device=device, **LLAMA)
+
+
+def check_llama_step(TransformerLM, lm_criterion, bf16):
+    """Loss and every gradient of one (2, 256) step of a small llama-style
+    model, ``TransformerLM(8192, 512, 8, 2, **LLAMA)`` through
+    ``lm_criterion(fused_head=True, chunk_size=2048)``, on the card (flash
+    kernels) against the same weights on the CPU (``attention_impl=
+    "full"``), both through ``LocalOptimizer``'s loss-and-gradient path
+    (under the bf16 policy with ``bf16``). Tolerances as phase 6: fp32
+    loss 1e-4 and gradients 1e-3 relative; bf16 1e-2 and 5e-2."""
+    from bigdl_tpu_torch.dataset import DataSet
+    from bigdl_tpu_torch.optim import LocalOptimizer
+
+    rng = np.random.default_rng(SEED + 9)
+    ids = torch.from_numpy(rng.integers(0, 8192, (2, 257)))
+    x, y = ids[:, :-1], ids[:, 1:]
+    runs = []
+    for device, impl in ((DEVICE, "auto"), ("cpu", "full")):
+        lm = TransformerLM(8192, EMBED, HEADS, 2, 256, attention_impl=impl,
+                           generator=torch.Generator().manual_seed(SEED + 9),
+                           device=device, **LLAMA)
+        opt = LocalOptimizer(lm, DataSet.array([]),
+                             lm_criterion(True, chunk_size=2048),
+                             device=device)
+        names, params = zip(*lm.named_parameters())
+        loss, grads = opt._loss_and_grads(list(params), x.to(device),
+                                          y.to(device))
+        runs.append((loss.item(), {n: g.detach().cpu()
+                                   for n, g in zip(names, grads)}))
+        del lm, opt, loss, grads
+    (loss, grads), (loss_ref, grads_ref) = runs
+    rel_loss = abs(loss - loss_ref) / abs(loss_ref)
+    rel = rel_errors(grads, grads_ref)
+    worst = max(rel, key=rel.get)
+    loss_tol, grad_tol = (1e-2, 5e-2) if bf16 else (1e-4, 1e-3)
+    log(f"  llama one (2, 256) {'bf16 ' if bf16 else ''}step: loss "
+        f"{loss:.6f} vs CPU plain {loss_ref:.6f} (relative {rel_loss:.2e}, "
+        f"limit {loss_tol}); gradients of {len(rel)} parameters, worst "
+        f"relative error {rel[worst]:.2e} ({worst}, limit {grad_tol})")
+    if rel_loss > loss_tol or rel[worst] > grad_tol:
+        raise CheckFailed(f"llama training step disagrees with the CPU plain "
+                          f"model: loss {rel_loss:.3e}, {worst} "
+                          f"{rel[worst]:.3e}")
+    return {"rel_loss": rel_loss, "worst_grad_rel": rel[worst]}
+
+
+def cache_bytes(state) -> int:
+    if isinstance(state, dict):
+        return sum(cache_bytes(v) for v in state.values())
+    return state.numel() * state.element_size()
+
+
+def beam_search(lm, nn, card):
+    """One ``SequenceBeamSearch`` (beam 3, decode 32, a 128-token seed, the
+    full forward a step through the flash kernel) and one ``beam_generate``
+    (KV-cached, plain cached attention) over the same model: their
+    sequences must be equal. The search's candidate selections are
+    recorded: where the two differ, the smallest gap a selection rested on
+    must be under the near-tie bound (the flash kernel and the plain
+    attention round differently)."""
+    from bigdl_tpu_torch.nn import beam_search as bs_module
+
+    rng = np.random.default_rng(SEED + 10)
+    seed = rng.integers(0, VOCAB, (1, BEAM_SEED))
+    gaps = []
+    top_k = bs_module._top_k
+
+    def recorded(x, k):
+        vals, idx = top_k(x, k + 1 if k < x.shape[-1] else k)
+        real = vals > bs_module._NEG / 2
+        d = (vals[..., :-1] - vals[..., 1:])[real[..., 1:]]
+        if d.numel():
+            gaps.append(float(d.min()))
+        return vals[..., :k], idx[..., :k]
+
+    search = nn.SequenceBeamSearch(lm, BEAM, -1, BEAM_DECODE, alpha=0.6)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bs_module._top_k = recorded
+    try:
+        out = search.forward(seed)
+    finally:
+        bs_module._top_k = top_k
+    torch.cuda.synchronize()
+    static_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    seqs, scores = nn.beam_generate(lm, seed, BEAM_DECODE, BEAM, -1, 0.6)
+    torch.cuda.synchronize()
+    cached_s = time.perf_counter() - t0
+    equal = bool(torch.equal(out[1], seqs))
+    score_err = max_err(out[2], scores)
+    min_gap = min(gaps)
+    log(f"  beam search (beam {BEAM}, decode {BEAM_DECODE}, seed "
+        f"{BEAM_SEED}): SequenceBeamSearch {static_s * 1e3:.1f} ms "
+        f"({BEAM_DECODE} full forwards at {BEAM_SHAPE}), beam_generate "
+        f"{cached_s * 1e3:.1f} ms ({BEAM_SEED + BEAM_DECODE - 1} cached "
+        f"steps); sequences equal {equal}, scores max|err| {score_err:.3e}, "
+        f"smallest selection gap {min_gap:.3e} [{card}]")
+    if not equal and min_gap >= NEAR_TIE:
+        raise CheckFailed("SequenceBeamSearch and beam_generate chose other "
+                          f"sequences with no near-tie (gap {min_gap})")
+    if equal and score_err > 1e-3:
+        raise CheckFailed(f"beam scores differ by {score_err}")
+    return {"static_ms": static_s * 1e3, "cached_ms": cached_s * 1e3,
+            "sequences_equal": equal, "score_max_abs_err": score_err,
+            "min_selection_gap": min_gap}
+
+
+def dropout_step(TransformerLM, lm_criterion, card):
+    """Three bf16 steps of the full-width llama model with dropout 0.1 on
+    one batch at learning rate 0: the first is the warm-up and capture, the
+    next two are replays; each replay draws new masks, so their losses
+    differ."""
+    from bigdl_tpu_torch.dataset import DataSet
+    from bigdl_tpu_torch.optim import SGD, LocalOptimizer
+
+    lm = build_llama_lm(TransformerLM, "auto", DEVICE, dropout=0.1)
+    opt = (LocalOptimizer(lm, DataSet.array([]), lm_criterion(True),
+                          device=DEVICE)
+           .set_optim_method(SGD(learningrate=0.0)))
+    rng = np.random.default_rng(SEED + 11)
+    x, y = (torch.from_numpy(rng.integers(0, VOCAB, (TRAIN_BATCH,
+                                                     TRAIN_LEN))).cuda()
+            for _ in range(2))
+    losses = [opt.train_step(x, y) for _ in range(3)]
+    replays = opt._step_program.replays
+    log(f"  dropout 0.1, bf16, one batch three times (lr 0): losses "
+        f"{losses}; replays {replays}")
+    if replays != 2 or losses[1] == losses[2] or \
+            not all(np.isfinite(losses)):
+        raise CheckFailed(f"dropout replays did not draw new masks: "
+                          f"{losses}, {replays} replays")
+    return {"losses": losses, "replays": replays}
+
+
+def time_head(nn, card):
+    """The LM head's forward and backward at (8192, 512) x 32000 under the
+    bf16 policy, as the step runs it: the fused head (bf16 hidden, weight
+    and bias cast to fp32, ``chunked_softmax_xent`` in chunks of 8192, fp32
+    products with TF32 off) against the unfused one (bf16 ``Linear``, the
+    fp32 ``LogSoftMax`` island, NLL), with their bounds: four fp32 products
+    of 2·N·V·d on the CUDA cores (67 TFLOP/s) for the fused head, two bf16
+    ones plus the fp32 softmax's bytes for the unfused one."""
+    import torch.nn.functional as F
+
+    n, d = TRAIN_BATCH * TRAIN_LEN, EMBED
+    g = torch.Generator(device=DEVICE).manual_seed(SEED + 12)
+    h = torch.randn(n, d, generator=g, device=DEVICE).bfloat16()
+    w = (torch.randn(VOCAB, d, generator=g, device=DEVICE) * 0.02).bfloat16()
+    b = torch.zeros(VOCAB, device=DEVICE).bfloat16()
+    labels = torch.randint(0, VOCAB, (n,), generator=g, device=DEVICE)
+    for t in (h, w, b):
+        t.requires_grad_()
+
+    def fused():
+        loss = nn.chunked_softmax_xent(h.float(), w.float(), b.float(),
+                                       labels, HEAD_CHUNK).mean()
+        return torch.autograd.grad(loss, (h, w, b))
+
+    def unfused():
+        logp = F.log_softmax(F.linear(h, w, b).float(), dim=-1)
+        return torch.autograd.grad(F.nll_loss(logp, labels), (h, w, b))
+
+    with torch.no_grad():
+        ref = (F.log_softmax((h.float() @ w.float().T + b.float()), -1)
+               .gather(1, labels[:, None])[:, 0].neg())
+    got = nn.chunked_softmax_xent(h.float(), w.float(), b.float(), labels,
+                                  HEAD_CHUNK).detach()
+    err = max_err(got, ref)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    fused()
+    fused_peak = torch.cuda.max_memory_allocated() - base
+    torch.cuda.reset_peak_memory_stats()
+    unfused()
+    unfused_peak = torch.cuda.max_memory_allocated() - base
+    f_ms, _ = time_ms(fused, reps=3, trials=3)
+    u_ms, _ = time_ms(unfused, reps=3, trials=3)
+    fma_ms = 4 * 2.0 * n * VOCAB * d / PEAK_FLOPS["float32"] * 1e3
+    bf16_ms = max(2 * 2.0 * n * VOCAB * d / PEAK_FLOPS["bfloat16"],
+                  4 * n * VOCAB * 4 / HBM_BYTES_PER_S) * 1e3
+    log(f"  LM head forward + backward at ({n}, {d}) x {VOCAB}: fused "
+        f"{f_ms:.3f} ms (bound {fma_ms:.3f} ms: four fp32 products on the "
+        f"CUDA cores; peak memory {fused_peak / 2**20:.0f} MiB), unfused "
+        f"bf16 {u_ms:.3f} ms (bound {bf16_ms:.3f} ms; peak "
+        f"{unfused_peak / 2**20:.0f} MiB); fused losses against the plain "
+        f"fp32 head max|err| {err:.3e} [{card}]")
+    if err > 1e-3:
+        raise CheckFailed(f"the fused head's losses disagree with the plain "
+                          f"head: {err}")
+    return {"fused_ms": f_ms, "unfused_ms": u_ms, "fused_bound_ms": fma_ms,
+            "unfused_bound_ms": bf16_ms, "fused_peak_bytes": fused_peak,
+            "unfused_peak_bytes": unfused_peak, "max_abs_err": err}
+
+
+def llama_path(TransformerLM, lm_criterion, nn, kernels, card,
+               ServingEngine, pick_bucket, Engine):
+    """Phase 7: the llama-style path at full width. Its serving path (the
+    full forward, two serving rounds, the beam searches) and its bf16
+    training runs are each counted from a reset."""
+    checks = {"fp32": check_llama_step(TransformerLM, lm_criterion, False)}
+    Engine.init(compute_dtype=torch.bfloat16)
+    try:
+        checks["bf16"] = check_llama_step(TransformerLM, lm_criterion, True)
+        counts, run = train(TransformerLM, lm_criterion, kernels, card,
+                            bf16=True, compare=True, llama=True)
+        _, run_fused = train(TransformerLM, lm_criterion, kernels, card,
+                             bf16=True, fuse=FUSE, compare=True,
+                             profile=False, llama=True)
+        drop = dropout_step(TransformerLM, lm_criterion, card)
+    finally:
+        Engine.reset()
+    head = time_head(nn, card)
+
+    lm = build_llama_lm(TransformerLM, "auto", DEVICE,
+                        max_len=MAX_LEN).evaluate()
+    # the serving path: counted from here ...
+    kernels.reset_launch_counts()
+    full_forward(lm, lambda: build_llama_lm(TransformerLM, "full", "cpu",
+                                            max_len=MAX_LEN).evaluate())
+    fwd_counts = kernels.launch_counts()
+    prompts, rounds = serve(lm, ServingEngine)
+    serve_counts = kernels.launch_counts()
+    beams = beam_search(lm, nn, card)
+    launches = kernels.launch_counts()     # ... to here
+    (results, wall, stats0), (results2, wall2, stats) = rounds
+    cold = report_round("llama first round (captures)", results, wall,
+                        stats0, {}, card)
+    warm = report_round("llama second round (replays only)", results2,
+                        wall2, stats, stats0, card)
+    check_served_tokens(lm, nn.greedy_generate, prompts, results)
+    if any(not np.array_equal(a.tokens, b.tokens)
+           for a, b in zip(results, results2)):
+        raise CheckFailed("the llama engine's second round served other "
+                          "tokens")
+    programs = check_programs(stats, prompts, stats["buckets"], pick_bucket,
+                              serve_counts, fwd_counts, ln_per_call=0)
+    from bigdl_tpu_torch.utils.programs import Program
+    tick_profile = decode_kernels(lm, nn.install_decode_cache, Program, card,
+                                  "llama")
+    engine_cache = cache_bytes(nn.install_decode_cache(lm, SLOTS, MAX_LEN))
+    mha_cache = engine_cache * HEADS // LLAMA["num_kv_heads"]
+    log(f"  llama serving: tokens match solo greedy_generate in both rounds; "
+        f"the {SLOTS}-slot, {MAX_LEN}-position fp32 cache is "
+        f"{engine_cache / 1e6:.1f} MB ({LLAMA['num_kv_heads']} KV heads; "
+        f"{mha_cache / 1e6:.1f} MB with {HEADS}); launches {launches} "
+        f"(full forward {fwd_counts})")
+    if launches["flash_attention_fwd"] != LAYERS * (1 + BEAM_DECODE):
+        raise CheckFailed(f"the llama serving path launched the flash "
+                          f"forward {launches['flash_attention_fwd']} times, "
+                          f"not {LAYERS * (1 + BEAM_DECODE)}")
+    del lm
+    torch.cuda.empty_cache()
+    beam_counts = {k: launches[k] - serve_counts[k] for k in launches}
+    return {"counts": counts, "serving_counts": launches,
+            "beam_counts": beam_counts, "summary": {
+        "one_step_check": checks,
+        "training_bf16": {"step_ms": run["step_ms"],
+                          "tokens_per_s": run["tokens_per_s"],
+                          "replay_vs_eager": run["eager"],
+                          "profile": {k: (run["profile"] or {}).get(k)
+                                      for k in ("busy_ms", "wall_ms",
+                                                "by_kind_ms", "host_calls")},
+                          "fused": {"fuse": FUSE,
+                                    "step_ms": run_fused["step_ms"],
+                                    "tokens_per_s": run_fused["tokens_per_s"],
+                                    "replay_vs_eager": run_fused["eager"]}},
+        "dropout": drop, "head": head,
+        "serving": {"programs": programs, "first_round": cold,
+                    "second_round": warm, "cache_bytes": engine_cache,
+                    "decode_step_profile": tick_profile,
+                    "cache_bytes_all_heads": mha_cache},
+        "beam_search": beams}}
 
 
 # -------------------------------------------------------------------- main
@@ -1263,7 +1630,7 @@ def main() -> int:
         return 2
     try:
         import bigdl_tpu_torch
-        from bigdl_tpu_torch import kernels
+        from bigdl_tpu_torch import kernels, nn
         from bigdl_tpu_torch.kernels import _cuda
         from bigdl_tpu_torch.models.transformerlm import (
             TransformerLM, lm_criterion,
@@ -1312,7 +1679,7 @@ def main() -> int:
         f"{n_params} parameters")
     # the serving path is phases 4 and 5: counted from here ...
     kernels.reset_launch_counts()
-    full_forward(lm, TransformerLM)
+    full_forward(lm, lambda: build_lm(TransformerLM, "full", "cpu"))
     fwd_counts = kernels.launch_counts()
 
     log("phase 5: serving")
@@ -1341,6 +1708,8 @@ def main() -> int:
     eager_step = decode_step_ms(lm, install_decode_cache, card)
     replayed_step = replayed_decode_step(lm, kernels, install_decode_cache,
                                          Program, card)
+    replayed_step["profile"] = decode_kernels(
+        lm, install_decode_cache, Program, card, "LayerNorm/GELU")
 
     del lm
     torch.cuda.empty_cache()
@@ -1406,6 +1775,19 @@ def main() -> int:
                           f"without it: losses {remat_rel:.3e} relative")
     rows16 = kernel_rows("bfloat16")
     kernel_ms16 = kernel_ms_a_step(counts16, rows16)
+
+    log("phase 7: the llama-style path, full width")
+    llama = llama_path(TransformerLM, lm_criterion, nn, kernels, card,
+                       ServingEngine, pick_bucket, Engine)
+    llama_step = llama["summary"]["training_bf16"]["step_ms"]
+    llama_kernel_ms = kernel_ms_a_step(llama["counts"], rows16)
+    log(f"  llama bf16 step {llama_step:.2f} ms "
+        f"({llama['summary']['training_bf16']['tokens_per_s']:.0f} tokens/s) "
+        f"against {run16['step_ms']:.2f} ms for the LayerNorm/GELU model's; "
+        f"its flash kernels {llama_kernel_ms:.3f} ms a step at their "
+        f"phase-3 times; the fused head "
+        f"{llama['summary']['head']['fused_ms']:.2f} ms against "
+        f"{llama['summary']['head']['unfused_ms']:.2f} ms unfused [{card}]")
     log(f"  set_fuse_steps({FUSE}): step {run_fused['step_ms']:.2f} ms fp32 "
         f"(fuse 1: {run['step_ms']:.2f}), {run16_fused['step_ms']:.2f} ms "
         f"bf16 (fuse 1: {run16['step_ms']:.2f}) [{card}]")
@@ -1460,7 +1842,11 @@ def main() -> int:
     bwd_bf16 = {"long": bwd_bf16_row((2, HEADS, 1024, 64)),
                 "training": bwd_bf16_row(train_shape)}
     paths = {k: {"serving": launches[k], "training": train_counts[k],
-                 "training_bf16": counts16[k]} for k in launches}
+                 "training_bf16": counts16[k],
+                 "llama_serving": llama["serving_counts"][k],
+                 "llama_training_bf16": llama["counts"][k]}
+             for k in launches}
+    beam_row = find_row(fa_rows, BEAM_SHAPE, "float32")
 
     def bf16_training(name):
         """The kernel's bf16 training instance: its phase-3 row at the
@@ -1545,7 +1931,11 @@ def main() -> int:
          "training_bound_3xtf32_ms": fa_t["bound_3xtf32_ms"],
          "training_library_ms": fa_t["library_ms"],
          "bf16": bf16, "design": design,
-         "bf16_training": bf16_training("flash_attention_fwd")},
+         "bf16_training": bf16_training("flash_attention_fwd"),
+         "beam_search": {k: beam_row[k] for k in (
+             "shape", "dtype", "ms", "plain_ms", "library_ms", "bound_ms",
+             "bound_by", "bound_3xtf32_ms", "err")} | {
+             "launches": llama["beam_counts"]["flash_attention_fwd"]}},
         {"name": "flash_attention_bwd_dq", "route": "cuda",
          "source": src + "flash_attention_bwd.cu",
          "replaces": "bigdl_tpu/kernels/flash_attention.py:132",
@@ -1606,7 +1996,8 @@ def main() -> int:
                                            run16_fused["eager"]},
                              "profile": {k: (run16["profile"] or {}).get(k)
                                          for k in ("busy_ms", "wall_ms",
-                                                   "host_calls")}}}}
+                                                   "host_calls")}}},
+        "llama": dict(llama["summary"], kernel_ms_per_step=llama_kernel_ms)}
     print(json.dumps(table), flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"ok": True, "device": {

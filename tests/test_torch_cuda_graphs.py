@@ -1,6 +1,8 @@
 """The port's captured programs (``utils/programs.py``) on the GPU: the
 serving engine's prefill, decode and assign programs and the training
-step, each replayed against the same work run eagerly.
+step (the llama-style model with the fused head among its variants), each
+replayed against the same work run eagerly, and dropout drawing fresh
+masks at every replay.
 
 Marked ``gpu``: they skip where there is no CUDA device (a CUDA graph has
 no CPU form). This file imports neither JAX nor the JAX package:
@@ -23,7 +25,8 @@ import torch
 from bigdl_tpu_torch import kernels
 from bigdl_tpu_torch.dataset import DataSet, MiniBatch
 from bigdl_tpu_torch.models.transformerlm import TransformerLM, lm_criterion
-from bigdl_tpu_torch.nn import greedy_generate, install_decode_cache
+from bigdl_tpu_torch.nn import Dropout, greedy_generate, install_decode_cache
+from bigdl_tpu_torch.nn.normalization import dropout_generators
 from bigdl_tpu_torch.optim import Adam, LocalOptimizer, Trigger
 from bigdl_tpu_torch.optim.optim_method import hyper_tensor
 from bigdl_tpu_torch.serving import ServingEngine
@@ -42,10 +45,14 @@ def cuda():
     return torch.device("cuda")
 
 
-def _lm(remat=False):
+LLAMA = dict(num_kv_heads=1, position="rope", norm="rms", mlp_kind="swiglu",
+             fused_head=True)
+
+
+def _lm(remat=False, **opts):
     return TransformerLM(VOCAB, E, HEADS, LAYERS, MAX_LEN, remat=remat,
                          generator=torch.Generator().manual_seed(0),
-                         device="cuda")
+                         device="cuda", **opts)
 
 
 def _copy(tree):
@@ -117,20 +124,24 @@ def _batches(n, batch=2, t=MAX_LEN, seed=1):
             for _ in range(n)]
 
 
-# options of the step that ride inside its program: (remat blocks,
+# options of the step that ride inside its program: (model options,
 # trainer settings)
 _VARIANTS = {
-    "plain": (False, lambda opt: opt),
-    "remat": (True, lambda opt: opt),
-    "accumulation-flat-clip": (False, lambda opt: opt
+    "plain": ({}, lambda opt: opt),
+    "remat": (dict(remat=True), lambda opt: opt),
+    "accumulation-flat-clip": ({}, lambda opt: opt
                                .set_gradient_accumulation(2)
                                .set_flat_update(True)
                                .set_gradient_clipping_by_l2_norm(1.0)),
+    # multi-query heads, RoPE, RMSNorm + SwiGLU and the fused head, whose
+    # chunked loss runs inside the program
+    "llama-fused-head": (LLAMA, lambda opt: opt),
 }
 
 
 def _optimizer(lm, ds, variant):
-    opt = LocalOptimizer(lm, ds, lm_criterion()) \
+    fused = _VARIANTS[variant][0].get("fused_head", False)
+    opt = LocalOptimizer(lm, ds, lm_criterion(fused, chunk_size=24)) \
         .set_optim_method(Adam(learningrate=1e-3))
     return _VARIANTS[variant][1](opt)
 
@@ -138,7 +149,7 @@ def _optimizer(lm, ds, variant):
 def _eager_steps(batches, variant):
     """The same steps run eagerly: the trainer's step function called
     directly, as its program would replay it."""
-    lm = _lm(_VARIANTS[variant][0])
+    lm = _lm(**_VARIANTS[variant][0])
     opt = _optimizer(lm, DataSet.array([]), variant)
     named, scales, mask = opt._prepare_step()
     step = opt._make_step_fn(named, scales, mask)
@@ -158,13 +169,14 @@ def test_fused_training_window_equals_eager_steps(cuda, dtype, variant):
     """Two windows of 4 (the first holds the warm-up and the capture, the
     second is replays only) against 8 eager steps: losses, parameters and
     every kernel's launches."""
-    remat = _VARIANTS[variant][0]
+    opts = _VARIANTS[variant][0]
+    remat, rms = opts.get("remat", False), opts.get("norm") == "rms"
     Engine.init(compute_dtype=dtype)
     try:
         batches = _batches(8)
         ds = DataSet.array(batches)
         ds.shuffle = lambda: None
-        lm = _lm(remat)
+        lm = _lm(**opts)
         opt = (_optimizer(lm, ds, variant)
                .set_fuse_steps(4).set_end_when(Trigger.max_iteration(8)))
         losses, windows = [], []
@@ -196,8 +208,10 @@ def test_fused_training_window_equals_eager_steps(cuda, dtype, variant):
     assert counts == want_counts
     runs = 2 if remat else 1                 # forward kernels a step
     calls = 2 if variant.startswith("accumulation") else 1   # microbatches
-    assert counts["layer_norm_bwd"] == 8 * calls * (2 * LAYERS + 1)
-    assert counts["layer_norm_fwd"] == 8 * calls * (2 * LAYERS * runs + 1)
+    norms = 0 if rms else 1                  # RMSNorm is plain torch
+    assert counts["layer_norm_bwd"] == 8 * calls * (2 * LAYERS + 1) * norms
+    assert counts["layer_norm_fwd"] == \
+        8 * calls * (2 * LAYERS * runs + 1) * norms
     assert counts["flash_attention_fwd"] == 8 * calls * LAYERS * runs
     assert counts["flash_attention_bwd_dq"] == \
         counts["flash_attention_bwd_dkv"] == 8 * calls * LAYERS
@@ -240,3 +254,36 @@ def test_a_failed_capture_raises_with_its_key(cuda):
     assert float((x * 2).sum()) == 8.0      # the card still works
     # and so does the default generator, which the capture had marked
     assert torch.randn(4, device="cuda").isfinite().all()
+
+
+@pytest.mark.parametrize("explicit", [False, True],
+                         ids=["default-generator", "explicit-generator"])
+def test_replays_draw_fresh_dropout_masks(cuda, explicit):
+    """A training-mode forward with dropout as a program: each replay draws
+    new masks (the default CUDA generator is tracked by the capture; an
+    explicit one is registered with the graph), and the trainer's replayed
+    steps on one batch give different losses."""
+    lm = _lm(dropout=0.1, **LLAMA)
+    gen = None
+    if explicit:
+        gen = torch.Generator(device="cuda").manual_seed(5)
+        for m in lm.modules():
+            if isinstance(m, Dropout):
+                m.generator = gen
+    x = torch.from_numpy(_batches(1)[0].input).cuda()
+    with torch.no_grad():
+        prog = Program(("dropout_forward", explicit),
+                       lambda t: lm(t)[1], (x,), "cuda",   # the hidden
+                       generators=dropout_generators(lm))
+        assert prog.generators == ((gen,) if explicit else ())
+        prog()                               # warm-up, then capture
+        first, second = prog().clone(), prog().clone()
+    assert first.isfinite().all() and second.isfinite().all()
+    assert not torch.equal(first, second)
+    (b,) = _batches(1)
+    opt = LocalOptimizer(lm, DataSet.array([]), lm_criterion(True, 24)) \
+        .set_optim_method(Adam(learningrate=0.0))
+    inp, target = (torch.from_numpy(a).cuda() for a in (b.input, b.target))
+    losses = [opt.train_step(inp, target) for _ in range(3)]
+    assert opt._step_program.replays == 2
+    assert len(set(losses)) == 3 and all(np.isfinite(losses))

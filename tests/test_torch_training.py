@@ -106,8 +106,9 @@ def test_cross_entropy_and_lm_criterion_match_jax():
     got = lm_criterion().apply(torch.from_numpy(logp),
                                torch.from_numpy(target))
     np.testing.assert_allclose(float(got), float(want), atol=1e-6)
-    with pytest.raises(NotImplementedError, match="Queue A.2"):
-        lm_criterion(fused_head=True)
+    fused = lm_criterion(fused_head=True)
+    assert isinstance(fused, tnn.ChunkedSoftmaxCrossEntropy)
+    assert fused.chunk_size == jax_lm_criterion(fused_head=True).chunk_size
 
 
 # ---------------------------------------------------------- optim methods
@@ -410,7 +411,7 @@ def test_train_main_runs_on_the_cpu_and_refuses_unported_flags(capsys):
                             "--synthetic-tokens", "2000"])
     assert np.isfinite(loss)
     assert "final loss:" in capsys.readouterr().out
-    for flag in (["--rope"], ["-f", "corpus.txt"], ["--fused-head"],
-                 ["--lora=4"]):
+    for flag in (["-f", "corpus.txt"], ["--lora=4"], ["--save", "m.bin"],
+                 ["--model-snapshot", "m.bin"], ["--distributed"]):
         with pytest.raises(SystemExit, match="ROADMAP Queue"):
             train_main.main(["--device", "cpu", *flag])
