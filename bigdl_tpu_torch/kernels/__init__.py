@@ -8,6 +8,9 @@
 | ``flash_attention_bwd_dq`` | ``bigdl_tpu/kernels/flash_attention.py:132`` | ``csrc/flash_attention_bwd.cu`` |
 | ``flash_attention_bwd_dkv`` | ``bigdl_tpu/kernels/flash_attention.py:199`` | ``csrc/flash_attention_bwd.cu`` |
 
+``conv_bn.py`` (``FusedConvBNReLU``) is JAX's XLA-level conv-BN fusion,
+ported as a torch module, not a kernel.
+
 :func:`launch_counts` reads how often each kernel was launched since the
 last :func:`reset_launch_counts`, which is how a run shows that its path
 went through the kernels; :func:`launch_counts_by_dtype` splits the counts

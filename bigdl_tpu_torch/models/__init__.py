@@ -1,1 +1,3 @@
-"""Model zoo of the port (so far the decoder-only TransformerLM)."""
+"""Model zoo of the port: the decoder-only TransformerLM and the vision
+zoo's ResNet, LeNet-5 and VGG (``models/resnet``, ``models/lenet``,
+``models/vgg``)."""

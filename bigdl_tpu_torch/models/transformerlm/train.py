@@ -23,6 +23,8 @@ import sys
 import numpy as np
 import torch
 
+from bigdl_tpu_torch.models.unported import refuse_unported
+
 #: flags of the JAX main that this port does not take yet, and the
 #: ROADMAP item that brings each
 UNPORTED_FLAGS = {
@@ -68,19 +70,9 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def _refuse_unported(argv) -> None:
-    for arg in argv:
-        flag = arg.split("=", 1)[0]
-        if flag == "-f":
-            flag = "--folder"
-        if flag in UNPORTED_FLAGS:
-            raise SystemExit(f"{flag} is not supported by the PyTorch port "
-                             f"yet: ROADMAP {UNPORTED_FLAGS[flag]}")
-
-
 def main(argv=None) -> float:
     argv = sys.argv[1:] if argv is None else list(argv)
-    _refuse_unported(argv)
+    refuse_unported(argv, UNPORTED_FLAGS)
     args = build_parser().parse_args(argv)
 
     from bigdl_tpu_torch import nn

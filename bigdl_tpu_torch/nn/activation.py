@@ -1,4 +1,4 @@
-"""Activations on the language model's path: GELU, Swish and LogSoftMax.
+"""Activations: GELU, Swish, LogSoftMax, and the vision zoo's ReLU and Tanh.
 
 Counterpart of ``bigdl_tpu/nn/activation.py``. ``jax.nn.gelu`` defaults to
 the tanh approximation, so GELU here is ``F.gelu(x, approximate="tanh")``;
@@ -9,6 +9,7 @@ layer does.
 
 from __future__ import annotations
 
+import torch
 import torch.nn.functional as F
 
 from bigdl_tpu_torch.nn.abstractnn import TensorModule
@@ -29,3 +30,16 @@ class LogSoftMax(TensorModule):
 
     def run(self, input, state=None):
         return F.log_softmax(input.float(), dim=-1), state
+
+
+class ReLU(TensorModule):
+    def __init__(self, ip: bool = False):   # in place: not used, as in JAX
+        super().__init__()
+
+    def run(self, input, state=None):
+        return F.relu(input), state
+
+
+class Tanh(TensorModule):
+    def run(self, input, state=None):
+        return torch.tanh(input), state

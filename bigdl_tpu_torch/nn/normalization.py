@@ -1,4 +1,4 @@
-"""Normalization layers: LayerNorm, RMSNorm and Dropout.
+"""Normalization layers: LayerNorm, RMSNorm, Dropout and batch norm.
 
 Counterpart of ``bigdl_tpu/nn/normalization.py``:
 
@@ -19,19 +19,39 @@ Counterpart of ``bigdl_tpu/nn/normalization.py``:
   the forward, as JAX's explicit keys give it: the checkpoint's contexts
   (:func:`checkpoint_contexts`) keep each mask the forward drew and hand
   it back to the recomputation, so no generator state is read or restored
-  (which a capture forbids).
+  (which a capture forbids);
+- ``BatchNormalization`` over the feature axis of (N, F) input and
+  ``SpatialBatchNormalization`` over the channel axis (``nn/layout.py``),
+  with JAX's arithmetic (``:34-133``): an fp32 island whatever the input's
+  dtype; training-mode statistics in a single pass, ``E[x²] − E[x]²``
+  clamped at 0 (``BIGDL_BN_TWO_PASS=1``: the centred two-pass variance);
+  the running variance updated with the unbiased ``n/(n−1)``; the output
+  normalised in fp32 and cast back to the input's dtype. The running
+  statistics are fp32 buffers updated in place in training mode, so a
+  captured training step updates them at each replay and a gradient
+  accumulation's micro-batch i sees what micro-batch i − 1 left, as JAX's
+  scan carries them. A recomputation under a checkpoint (``Remat``,
+  ``set_remat``) does not update them again (:func:`recomputing`). The
+  training forward is one autograd Function whose backward is the
+  derivative of that forward in fp32 torch ops; it keeps only the input and
+  its per-channel statistics for the backward.
 """
 
 from __future__ import annotations
 
 import contextlib
+import os
 import threading
 from typing import Callable, Optional
 
 import torch
 
 from bigdl_tpu_torch.kernels import fused_layer_norm
+from bigdl_tpu_torch.nn import layout
 from bigdl_tpu_torch.nn.abstractnn import TensorModule
+from bigdl_tpu_torch.nn.initialization import (
+    InitializationMethod, RandomUniform, Zeros,
+)
 
 
 class LayerNorm(TensorModule):
@@ -106,6 +126,13 @@ def _draw_mask(draw: Callable[[], torch.Tensor]) -> torch.Tensor:
     return mask
 
 
+def recomputing() -> bool:
+    """Whether a checkpoint's recomputation is running on this thread (its
+    forward already ran once: batch norm does not update its running
+    statistics a second time)."""
+    return any(mode == "replay" for mode, _ in _tapes())
+
+
 def checkpoint_contexts(inner: Optional[Callable[[], tuple]] = None
                         ) -> tuple:
     """A ``context_fn`` for ``torch.utils.checkpoint``: the forward's
@@ -177,3 +204,136 @@ def dropout_generators(model: torch.nn.Module) -> list:
                 all(g is not h for h in gens):
             gens.append(g)
     return gens
+
+
+class _BatchNormTrain(torch.autograd.Function):
+    """Training-mode batch norm over ``axes`` in fp32: returns the output
+    in x's dtype and the batch mean and (biased) variance."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, axes, shape, eps, two_pass):
+        x32 = x.float()
+        mean = x32.mean(axes)
+        if two_pass:
+            var = x32.var(axes, correction=0)
+            var_grad = torch.ones_like(var)
+        else:
+            raw = x32.square().mean(axes) - mean.square()
+            var = raw.clamp(min=0.0)
+            # d max(v, 0)/dv as JAX takes it: 1 above, 0.5 at the tie
+            var_grad = (raw > 0).float() + 0.5 * (raw == 0).float()
+        inv = torch.rsqrt(var + eps)
+        out = (x32 - mean.reshape(shape)) * inv.reshape(shape)
+        if weight is not None:
+            out = out * weight.float().reshape(shape) \
+                + bias.float().reshape(shape)
+        ctx.save_for_backward(x, weight, mean, inv, var_grad)
+        ctx.axes, ctx.shape = axes, shape
+        ctx.mark_non_differentiable(mean, var)
+        return out.to(x.dtype), mean, var
+
+    @staticmethod
+    def backward(ctx, dout, _dmean, _dvar):
+        x, weight, mean, inv, var_grad = ctx.saved_tensors
+        axes, shape = ctx.axes, ctx.shape
+        n = x.numel() // mean.numel()
+        g = dout.float()
+        xhat = (x.float() - mean.reshape(shape)) * inv.reshape(shape)
+        dweight = dbias = None
+        if weight is not None:
+            if ctx.needs_input_grad[1]:
+                dweight = (g * xhat).sum(axes).to(weight.dtype)
+            if ctx.needs_input_grad[2]:
+                dbias = g.sum(axes).to(weight.dtype)
+            g = g * weight.float().reshape(shape)
+        dx = None
+        if ctx.needs_input_grad[0]:
+            gm = g.sum(axes) / n
+            gx = (g * xhat).sum(axes) * var_grad / n
+            dx = ((g - gm.reshape(shape) - xhat * gx.reshape(shape))
+                  * inv.reshape(shape)).to(x.dtype)
+        return dx, dweight, dbias, None, None, None, None
+
+
+class BatchNormalization(TensorModule):
+    """Batch norm over the feature axis of (N, F) input (reference
+    ``nn.BatchNormalization``): weight U(0, 1) and bias zeros by default,
+    running mean zeros and running variance ones, Torch's momentum
+    convention ``running = (1 − m)·running + m·batch``."""
+
+    _feature_axis = 1
+
+    def __init__(self, n_output: int, eps: float = 1e-5,
+                 momentum: float = 0.1, affine: bool = True,
+                 init_weight: Optional[InitializationMethod] = None,
+                 init_bias: Optional[InitializationMethod] = None,
+                 sync: bool = False,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        if sync:
+            raise NotImplementedError(
+                "BatchNormalization(sync=True) needs the data-parallel "
+                "trainer: ROADMAP Queue A.6 (optim/distri_optimizer.py)")
+        self.n_output = n_output
+        self.eps = eps
+        self.momentum = momentum
+        self.affine = affine
+        if affine:
+            init_weight = init_weight or RandomUniform(0.0, 1.0)
+            init_bias = init_bias or Zeros()
+            self.weight = torch.nn.Parameter(init_weight.init(
+                (n_output,), n_output, n_output, generator=generator))
+            self.bias = torch.nn.Parameter(init_bias.init(
+                (n_output,), n_output, n_output, generator=generator))
+        else:
+            self.weight = self.bias = None
+        self.register_buffer("running_mean", torch.zeros(n_output))
+        self.register_buffer("running_var", torch.ones(n_output))
+
+    def _feature(self, ndim: int) -> int:
+        return self._feature_axis
+
+    def run(self, input, state=None):
+        fa = self._feature(input.dim())
+        axes = tuple(a for a in range(input.dim()) if a != fa)
+        shape = tuple(self.n_output if a == fa else 1
+                      for a in range(input.dim()))
+        if self.training:
+            out, mean, var = _BatchNormTrain.apply(
+                input, self.weight, self.bias, axes, shape, self.eps,
+                os.environ.get("BIGDL_BN_TWO_PASS", "0") == "1")
+            if not recomputing():
+                self._update_running(mean, var, input.numel() // self.n_output)
+            return out, state
+        x32 = input.float()
+        out = (x32 - self.running_mean.reshape(shape)) * torch.rsqrt(
+            self.running_var + self.eps).reshape(shape)
+        if self.affine:
+            out = out * self.weight.float().reshape(shape) \
+                + self.bias.float().reshape(shape)
+        return out.to(input.dtype), state
+
+    @torch.no_grad()
+    def _update_running(self, mean, var, n: int) -> None:
+        m = self.momentum
+        unbiased = var * (n / max(n - 1, 1))
+        self.running_mean.copy_((1 - m) * self.running_mean + m * mean)
+        self.running_var.copy_((1 - m) * self.running_var + m * unbiased)
+
+    def extra_repr(self):
+        return f"{self.n_output}, eps={self.eps}, momentum={self.momentum}"
+
+
+class SpatialBatchNormalization(BatchNormalization):
+    """Batch norm over the channel axis of spatial input (reference
+    ``nn.SpatialBatchNormalization``; the axis follows ``nn/layout.py``)."""
+
+    def _feature(self, ndim: int) -> int:
+        return layout.channel_axis(ndim)
+
+    def folded_scale_shift(self):
+        """Per-channel (scale, shift) with ``bn(y) == y·scale + shift``
+        under the running statistics (``kernels/conv_bn.py``)."""
+        from bigdl_tpu_torch.kernels.conv_bn import fold_bn_scale_shift
+        return fold_bn_scale_shift(self.weight, self.bias, self.running_mean,
+                                   self.running_var, self.eps)

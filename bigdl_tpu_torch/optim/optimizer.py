@@ -54,8 +54,27 @@ same code runs eagerly.
 ``state["loss"]`` is the loss of the last step, computed before its
 update.
 
-Not ported yet (ROADMAP Queue A.1): checkpointing, validation, summaries,
-sparse embeddings, profiling and preemption.
+**Module state.** Batch norm's running statistics are buffers of the model,
+JAX's ``mstate`` (``_make_step_fn``, ``bigdl_tpu/optim/optimizer.py:748-870``):
+the training forward updates them in place, once a (micro)batch, so they
+follow the step through a captured program (the key holds their storage),
+fused windows, remat (a recomputation does not update them again,
+``nn.normalization.recomputing``) and gradient accumulation (micro-batch i
+sees what micro-batch i − 1 left). Under mixed precision only the
+parameters are cast (``functional_call``); the buffers stay fp32.
+``BIGDL_CONVBN_FUSE=1`` rewrites the model's conv → BN (→ ReLU) chains into
+``kernels.conv_bn.FusedConvBNReLU`` once, before the first step.
+
+**Validation** (``set_validation``): when its trigger fires, after a window
+with ``neval`` the iteration just run, as JAX evaluates it, or at an epoch's
+end, ``optim/evaluator.run_device_eval`` runs the validation set in eval
+mode through a captured program that folds the metrics on the card; the
+results go to the log and ``state["scores"]`` (``state["score"]``: the
+first method's). Windows are clipped so the trigger fires at its exact
+iteration.
+
+Not ported yet (ROADMAP Queue A.1.6): checkpointing, summaries, Plateau's
+trainer hook, sparse embeddings, profiling and preemption.
 """
 
 from __future__ import annotations
@@ -196,6 +215,10 @@ class Optimizer:
         self._ostate_version = 0
         # the step program of the current key (utils/programs.py)
         self._step_program: Optional[Program] = None
+        self.val_trigger: Optional[Trigger] = None
+        self.val_dataset: Optional[AbstractDataSet] = None
+        self.val_methods: list = []
+        self._convbn_fused = False
 
     # fluent config (reference API shape) ----------------------------------
     def set_optim_method(self, method: OptimMethod) -> "Optimizer":
@@ -260,6 +283,14 @@ class Optimizer:
 
     def set_end_when(self, trigger: Trigger) -> "Optimizer":
         self.end_when = trigger
+        return self
+
+    def set_validation(self, trigger: Trigger, dataset: AbstractDataSet,
+                       methods) -> "Optimizer":
+        """Evaluate ``methods`` (``optim/validation.py``) over ``dataset``
+        whenever ``trigger`` fires."""
+        self.val_trigger, self.val_dataset = trigger, dataset
+        self.val_methods = list(methods)
         return self
 
     def set_constant_gradient_clipping(self, min_v: float,
@@ -437,7 +468,8 @@ class Optimizer:
                self.criterion, self.remat, self.grad_accum,
                self.grad_clip_const, self.grad_clip_norm,
                _signature(inp), _signature(target),
-               tuple(p.data_ptr() for p in named.values()))
+               tuple(p.data_ptr() for p in named.values()),
+               tuple(b.data_ptr() for b in self.model.buffers()))
         prog = self._step_program
         if prog is None or prog.key != key:
             self._step_program = prog = None
@@ -490,9 +522,44 @@ class Optimizer:
 
     def _fusible_steps(self, state: dict) -> int:
         """Iterations that may run from ``state["neval"]`` in one window
-        before ``end_when`` could fire (JAX also clips at its validation,
-        checkpoint and summary triggers, not ported yet)."""
-        return self.end_when.next_fire_in(state)
+        before ``end_when`` or the validation trigger could fire (JAX also
+        clips at its checkpoint and summary triggers, not ported yet)."""
+        bound = self.end_when.next_fire_in(state)
+        if self.val_trigger is not None and _in_scope(self.val_trigger,
+                                                      boundary=False):
+            bound = min(bound, self.val_trigger.next_fire_in(state))
+        return bound
+
+    def _fire_validation(self, boundary: bool) -> None:
+        """Validate if the trigger fires here: inside the loop (``neval``
+        read as the iteration just run, JAX's convention) or at an epoch's
+        end."""
+        trig = self.val_trigger
+        if trig is None or not _in_scope(trig, boundary):
+            return
+        state = self.state if boundary else dict(
+            self.state, neval=self.state["neval"] - 1)
+        if trig(state):
+            self._run_validation()
+
+    def _run_validation(self) -> None:
+        from bigdl_tpu_torch.optim.evaluator import run_device_eval
+        if self.val_dataset is None or not self.val_methods:
+            return
+        results, stats = run_device_eval(self.model, self.val_dataset,
+                                         self.val_methods, self.device,
+                                         allow_empty=True)
+        logger.info("Validation pass: %d batches, val_fetch_bytes=%d",
+                    stats["batches"], stats["fetch_bytes"])
+        self.state["val_fetch_bytes"] = stats["fetch_bytes"]
+        scores = self.state.setdefault("scores", {})
+        for m, r in zip(self.val_methods, results):
+            if r is not None:
+                v, c = r.result()
+                logger.info("Validation %s: %.4f (%d samples)", m.name, v, c)
+                scores[m.name] = v
+        if results and results[0] is not None:
+            self.state["score"] = results[0].result()[0]
 
     def _run_window(self, window: list, device) -> list:
         """The steps of a window of host batches: stacked on the host and
@@ -510,6 +577,12 @@ class Optimizer:
         """Run the training loop until ``end_when`` fires; returns the
         model, trained in place."""
         device = require_on(self.model, self.device)
+        if os.environ.get("BIGDL_CONVBN_FUSE", "0") == "1" \
+                and not self._convbn_fused:
+            from bigdl_tpu_torch.nn.graph import fuse_conv_bn
+            self.model = fuse_conv_bn(self.model)
+            self._convbn_fused = True
+            self._ostate = self._step_program = None
         self.model.train()
         state = self.state
         stop = False
@@ -546,15 +619,24 @@ class Optimizer:
                     logger.info("Epoch %d iter %d: loss %.6f, %.1f "
                                 "records/s", state["epoch"], first + i, loss,
                                 records / (time.perf_counter() - t0))
+                self._fire_validation(boundary=False)
             if stop:
                 break
             if not had_data:
                 raise RuntimeError("dataset yielded no batches")
             state["epoch"] += 1
             state["epoch_finished"] = True
+            self._fire_validation(boundary=True)
             if self.end_when(state):
                 break
         return self.model
+
+
+def _in_scope(trigger: Trigger, boundary: bool) -> bool:
+    """Whether ``trigger`` is evaluated inside the batch loop
+    (``boundary=False``) or at epoch boundaries: its ``scope``."""
+    scope = getattr(trigger, "scope", "any")
+    return scope == "any" or (scope == "epoch") == boundary
 
 
 class LocalOptimizer(Optimizer):

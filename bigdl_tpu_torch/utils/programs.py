@@ -93,6 +93,11 @@ class Program:
             main.wait_stream(side)
             for t in _tensors(out):     # freed only after main's use
                 t.record_stream(main)
+            # the warm-up's freed blocks stay cached outside the graph's
+            # pool: give them back before the capture allocates its own (a
+            # full-width vision step needs tens of GB in each)
+            main.synchronize()
+            torch.cuda.empty_cache()
             graph = torch.cuda.CUDAGraph()
             capture = torch.cuda.Stream()
             # a capture that fails leaves the device's default generator
@@ -152,6 +157,12 @@ class ProgramCache:
             self._programs[key] = prog
         self._used.setdefault(key, None)
         return prog
+
+    def drop(self, key: Hashable) -> None:
+        """Forget the program of ``key`` and its use; its graph and outputs
+        go with the last reference to it."""
+        self._programs.pop(key, None)
+        self._used.pop(key, None)
 
     @property
     def keys(self) -> list:

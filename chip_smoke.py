@@ -78,7 +78,25 @@ an NVIDIA H100 and the CUDA toolkit. It builds the port's CUDA kernels from
    (tokens equal to ``greedy_generate``, the cache at KV-head width), and
    one ``SequenceBeamSearch`` (beam 3, decode 32, a 128-token seed; the
    flash forward at (3·8, 160, 64)) against ``beam_generate``;
-8. checks that the serving path (phases 4 and 5) launched both forward
+8. runs the vision path at full width, NHWC, with cuDNN's deterministic
+   algorithms (autotuned in each program's eager warm-up): ``ImageNormalize
+   -> ResNet(1000, depth 50, ImageNet, conv1SpaceToDepth)``, the JAX bench's
+   resnet50 leg; one (2, 224, 224, 3) uint8 step's loss, gradients and
+   running statistics on the card against the CPU in fp32 and bf16 (the
+   gradients' limits measured: the CPU's NCHW step against its NHWC step,
+   the CPU's bf16 step against its fp32 step); 17 bf16 steps of
+   ``LocalOptimizer`` at batch 256 on 8 in-memory batches, fuse 1 and
+   ``set_fuse_steps(8)``, each bitwise equal to the same steps run eagerly
+   (losses, parameters, running statistics), with step ms, images/s, the
+   share of the bf16 dense peak, peak memory, the first window and one
+   profiled replayed step split into convolutions, batch norm and
+   elementwise glue, pooling and the rest; 17 fp32 steps beside them;
+   ``Top1Accuracy`` and ``Top5Accuracy`` over 868 held-out images (a padded
+   last batch) through the captured eval program, equal to the host folds
+   of eager logits; ``fuse_conv_bn``'s folded inference against the
+   unfused model at batch 256 in fp32 and bf16, timed; and the LeNet-5 and
+   VGG-for-CIFAR training mains on the card, whose losses must fall;
+9. checks that the serving path (phases 4 and 5) launched both forward
    kernels and each training run (the 17 steps, fp32 and bf16) all five,
    every launch in the run's dtype (bf16 operands and bf16 gamma and beta
    under the bf16 policy), the LayerNorm backward once for each LayerNorm
@@ -1079,7 +1097,7 @@ KERNEL_KINDS = (("ported kernels", ("ln_fwd", "ln_bwd", "flash_")),
                 ("gemm", ("gemm", "nvjet", "xmma", "cutlass", "cublas")))
 
 
-def profile_step(opt, batch, card):
+def profile_step(opt, batch, card, kinds=KERNEL_KINDS):
     """Device time of one more training step by kernel name, from
     ``torch.profiler`` (reported only: the measurement, not a check)."""
     from torch.autograd import DeviceType
@@ -1118,7 +1136,7 @@ def profile_step(opt, batch, card):
     shares = {}
     for e in events:
         name = e.key.lower()
-        kind = next((k for k, words in KERNEL_KINDS if any(
+        kind = next((k for k, words in kinds if any(
             w in name for w in words)), "other")
         shares[kind] = shares.get(kind, 0.0) + dev_ms(e)
     log(f"  profiled step: {wall_ms:.2f} ms wall, device busy {busy:.2f} ms "
@@ -1622,6 +1640,657 @@ def llama_path(TransformerLM, lm_criterion, nn, kernels, card,
         "beam_search": beams}}
 
 
+# ---------------------------------------------------------------- phase 8
+# the vision path: the JAX bench's resnet50 leg (bigdl_tpu/benchmark.py:
+# 215-309): ImageNormalize -> ResNet-50 with the space-to-depth stem, NHWC
+# (:197), uint8 224x224x3 pixels normalised on the card (:231-237), batch
+# 256 (:163), ClassNLLCriterion (:239), 8 in-memory batches, SGD(0.01,
+# momentum 0.9, dampening 0) (:354), bf16 (:349)
+VISION_BATCH, VISION_HW, VISION_CLASSES = 256, 224, 1000
+RESNET50_STEP_FLOPS = 3 * 2 * 4.09e9 * VISION_BATCH       # benchmark.py:42
+VISION_PARITY_BATCH = 2
+# each residual branch's last BN gamma in the one-step check's second bf16
+# step, where the backward does not amplify rounding (check_resnet_step)
+DAMPED_GAMMA = 0.05
+# bf16 against fp32 losses: the first (rounding only, the one-step
+# check's 1e-2) and all 17 (the trajectories also drift apart)
+VISION_DRIFT = (1e-2, 5e-2)
+VISION_FOLD_FP32 = 1e-3  # folded against unfused log-probs, relative
+# kinds of a profiled vision step, by words in the kernel's name (first
+# match wins)
+VISION_KINDS = (
+    ("layout transposes", ("nchwtonhwc", "nhwctonchw")),
+    ("conv", ("fprop", "dgrad", "wgrad", "conv", "cudnn", "implicit")),
+    ("gemm", ("gemm", "nvjet", "xmma", "cutlass", "cublas")),
+    ("pooling", ("pool",)),
+    ("bn/elementwise", ("elementwise", "reduce", "vectorized", "unrolled",
+                        "batch_norm")))
+
+
+def build_resnet50(device, seed=SEED + 8):
+    """``ImageNormalize -> ResNet-50`` (s2d stem), weights from a seed."""
+    from bigdl_tpu_torch import nn
+    from bigdl_tpu_torch.models.resnet import ResNet
+    net = ResNet(VISION_CLASSES, {"depth": 50, "dataSet": "ImageNet",
+                                  "conv1SpaceToDepth": True},
+                 generator=torch.Generator().manual_seed(seed), device=device)
+    return nn.Sequential().add(nn.ImageNormalize()).add(net).to(device)
+
+
+def vision_batches(n, seed):
+    """``n`` uint8 NHWC batches of 256 with labels, made from a seed."""
+    from bigdl_tpu_torch.dataset import MiniBatch
+    r = np.random.default_rng(seed)
+    return [MiniBatch(r.integers(0, 256, (VISION_BATCH, VISION_HW, VISION_HW,
+                                          3), dtype=np.uint8),
+                      r.integers(0, VISION_CLASSES, VISION_BATCH).astype(
+                          np.int32)) for _ in range(n)]
+
+
+def flat_rel(a: dict, b: dict) -> float:
+    """Relative Frobenius distance of two gradient sets, the whole model."""
+    num = sum(float((a[n] - g).double().norm()) ** 2 for n, g in b.items())
+    den = sum(float(g.double().norm()) ** 2 for g in b.values())
+    return math.sqrt(num / max(den, 1e-300))
+
+
+def resnet_loss_and_grads(model, x, y, device):
+    """Loss, gradients (host, fp32) and running statistics after one
+    forward and backward of the training step's own path."""
+    from bigdl_tpu_torch.dataset import DataSet
+    from bigdl_tpu_torch.nn import ClassNLLCriterion
+    from bigdl_tpu_torch.optim import LocalOptimizer
+    opt = LocalOptimizer(model, DataSet.array([]), ClassNLLCriterion(),
+                         device=device)
+    names, params = zip(*model.named_parameters())
+    loss, grads = opt._loss_and_grads(list(params), x.to(device),
+                                      y.to(device))
+    stats = {n: b.detach().cpu().clone() for n, b in model.named_buffers()
+             if "running" in n}
+    return loss.item(), {n: g.detach().cpu().float()
+                         for n, g in zip(names, grads)}, stats
+
+
+def damp_residuals(model, gamma=DAMPED_GAMMA):
+    """``model`` (as :func:`build_resnet50` makes it) with each residual branch's last BN gamma (the parameters
+    that ``zeroInitResidual`` zeroes) set to ``gamma``, in place."""
+    from bigdl_tpu_torch import nn
+    from bigdl_tpu_torch.models.resnet import ResNet
+    zeroed = ResNet(VISION_CLASSES, {"depth": 50, "dataSet": "ImageNet",
+                                     "conv1SpaceToDepth": True,
+                                     "zeroInitResidual": True},
+                    device="cpu")
+    # the ResNet is the second child of build_resnet50's Sequential
+    names = {"1." + n for n, p in zeroed.named_parameters()
+             if n.endswith(".weight") and p.dim() == 1 and not bool(p.any())}
+    params = dict(model.named_parameters())
+    assert len(names) == 16 and names <= set(params), names
+    with torch.no_grad():
+        for n in names:
+            params[n].fill_(gamma)
+    return model
+
+
+def gradient_groups(model) -> dict:
+    """Parameter names by group: the whole model, each child of the ResNet
+    that has parameters ("block <i>"), and the classifier (the last
+    ``Linear``)."""
+    from bigdl_tpu_torch import nn
+    names = [n for n, _ in model.named_parameters()]
+    out = {"all": names}
+    for n in names:
+        out.setdefault("block " + n.split(".")[1], []).append(n)
+    fc = [n for n, m in model.named_modules() if isinstance(m, nn.Linear)][-1]
+    out["classifier"] = [n for n in names if n.startswith(fc + ".")]
+    return out
+
+
+def group_rel(a: dict, b: dict, names) -> float:
+    return flat_rel({n: a[n] for n in names}, {n: b[n] for n in names})
+
+
+def check_resnet_step(layout, Engine):
+    """One step of ``ImageNormalize -> ResNet-50`` (s2d, NHWC) at (2, 224,
+    224, 3) uint8 on the card against the same weights on the CPU: the
+    loss, the gradients, and the running statistics after the step, in
+    fp32 (TF32 off) and under the bf16 policy.
+
+    The loss and the statistics are smooth functions of the weights:
+    fp32 within 1e-4 relative (the LM path's loss tolerance; statistics
+    per buffer, Frobenius); bf16: the loss within 1e-2, the statistics
+    within 1.5x the CPU bf16 step's own distance from the CPU fp32 step's
+    (at least 1e-2: over 2 images the last stage's statistics are over 98
+    values a channel, and bf16 inputs move them ~6%).
+
+    The gradients are not smooth: a ReLU gate whose input lies within
+    rounding of zero opens on one side and shuts on the other (a batch of
+    2 at 224x224 has ~20 million gated values), and at init the backward
+    amplifies any difference block by block. In fp32 the CPU runs the same
+    step again in NCHW (other summation orders, the same arithmetic), and
+    the card's distance from the CPU's NHWC gradient (whole model,
+    relative Frobenius) must be within 3x that NCHW-to-NHWC distance (and
+    within 1e-3 when that is smaller). Under bf16 the rounding alone moves
+    the whole gradient at init more than 100% from the fp32 gradient, on
+    the CPU and in JAX alike (tests/test_torch_resnet.py), so it is held
+    only where rounding does not swamp it: per group, the card's bf16
+    gradient within 1.25x the CPU bf16 step's distance from the CPU fp32
+    gradient, measured from the fp32 gradient (1.5x for a tensor alone),
+    and within 1.5x of it from the CPU bf16 gradient (two roundings), with
+    that CPU distance under 0.5, so that every limit is below the 1.0 a
+    zero gradient reads. The
+    groups: the classifier at init; and, in a second bf16 step on the same
+    weights with each residual branch's last BN gamma at DAMPED_GAMMA (the
+    parameters ``zeroInitResidual`` zeroes; the backward is tame there),
+    every block, the whole model and every tensor alone whose CPU gap is
+    under 0.5."""
+    import copy
+    r = np.random.default_rng(SEED + 9)
+    x = torch.from_numpy(r.integers(0, 256, (VISION_PARITY_BATCH, VISION_HW,
+                                             VISION_HW, 3), dtype=np.uint8))
+    y = torch.from_numpy(r.integers(0, VISION_CLASSES, VISION_PARITY_BATCH)
+                         .astype(np.int64))
+    base = build_resnet50("cpu")
+    damped = damp_residuals(copy.deepcopy(base))
+    groups = gradient_groups(base)
+    out = {}
+
+    def run(where, fmt, dtype, weights=base):
+        layout.set_image_format(fmt)
+        Engine.init(compute_dtype=dtype)
+        try:
+            model = copy.deepcopy(weights).to(where)
+            xx = x if fmt == "NHWC" else x.permute(0, 3, 1, 2).contiguous()
+            t0 = time.perf_counter()
+            res = resnet_loss_and_grads(model, xx, y, where)
+            if where != "cpu":
+                torch.cuda.synchronize()
+            del model
+            return res + (time.perf_counter() - t0,)
+        finally:
+            Engine.reset()
+            layout.set_image_format("NHWC")
+
+    card32 = run(DEVICE, "NHWC", torch.float32)
+    cpu32 = run("cpu", "NHWC", torch.float32)
+    cpu32_nchw = run("cpu", "NCHW", torch.float32)
+    card16 = run(DEVICE, "NHWC", torch.bfloat16)
+    cpu16 = run("cpu", "NHWC", torch.bfloat16)
+    card16d = run(DEVICE, "NHWC", torch.bfloat16, damped)
+    cpu16d = run("cpu", "NHWC", torch.bfloat16, damped)
+    cpu32d = run("cpu", "NHWC", torch.float32, damped)
+    torch.cuda.empty_cache()
+
+    def stats_rel(a, b):
+        return max(float((a[n] - v).norm() / v.norm().clamp(min=1e-30))
+                   for n, v in b.items())
+
+    def worst(a, b):
+        rel = rel_errors(a, b)
+        k = max(rel, key=rel.get)
+        return k, rel[k]
+
+    def held(card, cpu_bf16, cpu_fp32, names, fp32_factor=1.25):
+        """Per group: the CPU's bf16-vs-fp32 gap, the card's distances
+        from the CPU's fp32 and bf16 gradients, and the limits."""
+        gap = group_rel(cpu_bf16[1], cpu_fp32[1], names)
+        return {"cpu_gap": gap,
+                "to_fp32": group_rel(card[1], cpu_fp32[1], names),
+                "to_bf16": group_rel(card[1], cpu_bf16[1], names),
+                "limit_fp32": fp32_factor * gap, "limit_bf16": 1.5 * gap}
+
+    order = flat_rel(cpu32_nchw[1], cpu32[1])
+    g32 = flat_rel(card32[1], cpu32[1])
+    out["float32"] = {
+        "loss": card32[0], "loss_rel": abs(card32[0] - cpu32[0]) / cpu32[0],
+        "grad_rel": g32, "grad_limit": max(3 * order, 1e-3),
+        "cpu_nchw_vs_nhwc_grad_rel": order,
+        "worst_tensor": worst(card32[1], cpu32[1]),
+        "stats_rel": stats_rel(card32[2], cpu32[2]),
+        "card_s": card32[3], "cpu_s": cpu32[3]}
+    stats_noise = stats_rel(cpu16[2], cpu32[2])
+    bf16_groups = {"init " + g: held(card16, cpu16, cpu32, groups[g])
+                   for g in ("classifier",)}
+    bf16_groups.update({f"damped {g}": held(card16d, cpu16d, cpu32d, names)
+                        for g, names in groups.items() if g != "classifier"})
+    # and at the damped weights every tensor alone whose CPU gap is under
+    # 0.5 (all but a few, which the CPU runs alone decide): a fault
+    # confined to one kind of tensor (the BN gammas' gradient, say) moves
+    # its own tensors past their limits. One tensor's distance from the
+    # fp32 gradient spreads more than a group's (the CPU's NCHW bf16 step
+    # up to 1.11x its NHWC step's gap, the card 1.15x): 1.5x for both
+    per_tensor = {n: held(card16d, cpu16d, cpu32d, [n], fp32_factor=1.5)
+                  for n in groups["all"]}
+    not_held = sorted(n for n, h in per_tensor.items() if h["cpu_gap"] >= 0.5)
+    per_tensor = {n: h for n, h in per_tensor.items() if n not in not_held}
+    out["bfloat16"] = {
+        "loss": card16[0], "loss_rel": abs(card16[0] - cpu16[0]) / cpu16[0],
+        "grad_rel": flat_rel(card16[1], cpu16[1]),
+        "grad_rel_to_fp32": flat_rel(card16[1], cpu32[1]),
+        "cpu_bf16_vs_fp32_grad_rel": flat_rel(cpu16[1], cpu32[1]),
+        "worst_tensor": worst(card16[1], cpu16[1]),
+        "stats_rel": stats_rel(card16[2], cpu16[2]),
+        "stats_limit": max(1e-2, 1.5 * stats_noise),
+        "cpu_bf16_vs_fp32_stats_rel": stats_noise,
+        "damped_gamma": DAMPED_GAMMA,
+        "damped_loss_rel": abs(card16d[0] - cpu16d[0]) / cpu16d[0],
+        "held": bf16_groups,
+        "per_tensor": {
+            "tensors": len(per_tensor), "not_held": not_held,
+            "max_cpu_gap": max(h["cpu_gap"] for h in per_tensor.values()),
+            "worst_to_fp32": max(((n, h["to_fp32"] / h["limit_fp32"])
+                                  for n, h in per_tensor.items()),
+                                 key=lambda t: t[1]),
+            "worst_to_bf16": max(((n, h["to_bf16"] / h["limit_bf16"])
+                                  for n, h in per_tensor.items()),
+                                 key=lambda t: t[1])},
+        "card_s": card16[3], "cpu_s": cpu16[3]}
+    b = out["bfloat16"]
+    for name, c in out.items():
+        log(f"  one (2, 224, 224, 3) uint8 step, {name}: loss {c['loss']:.6f} "
+            f"(relative to the CPU {c['loss_rel']:.2e}); gradients, whole "
+            f"model, {c['grad_rel']:.2e} from the CPU's (worst tensor "
+            f"{c['worst_tensor'][0]} {c['worst_tensor'][1]:.2e}); running "
+            f"statistics {c['stats_rel']:.2e}; card {c['card_s']:.2f} s, "
+            f"CPU {c['cpu_s']:.2f} s")
+    log(f"  fp32 gradient limit {out['float32']['grad_limit']:.2e} (the "
+        f"CPU's NCHW step is {order:.2e} from its NHWC step); bf16 running "
+        f"statistics {b['stats_rel']:.2e}, limit {b['stats_limit']:.2e} "
+        f"(the CPU bf16 step's are {stats_noise:.2e} from its fp32 "
+        f"step's); bf16 gradients at init, whole model (not held: rounding "
+        f"swamps it): the CPU bf16 step {b['cpu_bf16_vs_fp32_grad_rel']:.2e} "
+        f"from the CPU fp32 step, the card's {b['grad_rel_to_fp32']:.2e}")
+    log(f"  bf16 gradients held (group: CPU bf16-vs-fp32 gap; the card's "
+        f"distance from the CPU fp32 / bf16 gradient, each over its limit); "
+        f"damped: residual branches' last BN gamma {DAMPED_GAMMA}, loss "
+        f"{b['damped_loss_rel']:.2e} from the CPU's:")
+    for g, h in bf16_groups.items():
+        log(f"    {g}: {h['cpu_gap']:.3e}; {h['to_fp32']:.3e} / "
+            f"{h['limit_fp32']:.3e}, {h['to_bf16']:.3e} / "
+            f"{h['limit_bf16']:.3e}")
+    pt = b["per_tensor"]
+    log(f"    damped, each of {pt['tensors']} tensors alone (not held, CPU "
+        f"gap 0.5 or more: {pt['not_held']}): CPU gaps up to "
+        f"{pt['max_cpu_gap']:.3e}; the nearest to its limit "
+        f"{pt['worst_to_fp32'][0]} at {pt['worst_to_fp32'][1]:.3f} of it "
+        f"(from the CPU fp32 gradient), {pt['worst_to_bf16'][0]} at "
+        f"{pt['worst_to_bf16'][1]:.3f} (from the CPU bf16 gradient)")
+    f = out["float32"]
+    if f["loss_rel"] > 1e-4 or f["stats_rel"] > 1e-4 \
+            or f["grad_rel"] > f["grad_limit"]:
+        raise CheckFailed(f"the fp32 ResNet-50 step disagrees with the CPU: "
+                          f"{f}")
+    bad = {g: h for g, h in list(bf16_groups.items()) + [
+               ("damped tensor " + n, h) for n, h in per_tensor.items()]
+           if h["cpu_gap"] >= 0.5 or h["to_fp32"] > h["limit_fp32"]
+           or h["to_bf16"] > h["limit_bf16"]}
+    if b["loss_rel"] > 1e-2 or b["damped_loss_rel"] > 1e-2 \
+            or b["stats_rel"] > b["stats_limit"] or bad:
+        raise CheckFailed(f"the bf16 ResNet-50 step disagrees with the CPU: "
+                          f"{ {k: v for k, v in b.items() if k != 'held'} }; "
+                          f"groups out of their limits {bad}")
+    return out
+
+
+def release() -> None:
+    """Give the memory of the models and programs just dropped back."""
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def train_vision(batches, kernels, card, bf16=False, fuse=1, compare=False,
+                 profile=True):
+    """TRAIN_ITERS steps of the bench's resnet50 leg at batch 256 over the
+    8 in-memory ``batches`` (a fresh dataset, so every run sees the same
+    epoch orders), the step a captured program (fuse 1)
+    or fused windows of ``fuse``; under the bf16 policy or in fp32. Returns
+    the run's numbers and, with ``compare``, the same steps run eagerly
+    from the same seed (:func:`vision_eager`), which must equal the
+    replayed steps bit for bit (cuDNN runs deterministic algorithms in
+    this phase), and that eagerly trained model. ``profile``: one more
+    replayed step under ``torch.profiler``, its device time by kind."""
+    from bigdl_tpu_torch.dataset import DataSet
+    from bigdl_tpu_torch.nn import ClassNLLCriterion
+    from bigdl_tpu_torch.optim import SGD, LocalOptimizer, Trigger
+    from bigdl_tpu_torch.utils.random_generator import RandomGenerator
+
+    data = DataSet.array(batches)
+    model = build_resnet50(DEVICE)
+    opt = (LocalOptimizer(model, data, ClassNLLCriterion(), device=DEVICE)
+           .set_optim_method(SGD(learningrate=0.01, momentum=0.9,
+                                 dampening=0.0))
+           .set_end_when(Trigger.max_iteration(TRAIN_ITERS))
+           .set_fuse_steps(fuse))
+    losses, marks, windows, seen = [], [], [], []
+    run_steps = opt._run_steps
+
+    def recorded(steps):
+        out = run_steps(steps)
+        marks.append(time.perf_counter())
+        losses.extend(out)
+        windows.append(len(steps))
+        if compare:
+            seen.extend((a.clone(), b.clone()) for a, b in steps)
+        return out
+
+    opt._run_steps = recorded
+    RandomGenerator.set_seed(SEED)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        opt.optimize()
+        torch.cuda.synchronize()
+    finally:
+        opt._run_steps = run_steps
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    what = ("bf16" if bf16 else "fp32") + f" steps, fuse {fuse}"
+    if len(losses) != TRAIN_ITERS or not all(np.isfinite(losses)):
+        raise CheckFailed(f"ResNet-50 training gave losses {losses}")
+    if fuse == 1:
+        step_ms = float(statistics.median(np.diff(marks))) * 1e3
+    else:
+        if windows[:2] != [fuse, fuse]:
+            raise CheckFailed(f"windows {windows}, not two of {fuse} first")
+        step_ms = (marks[1] - marks[0]) / fuse * 1e3
+    ips = VISION_BATCH / step_ms * 1e3
+    share = RESNET50_STEP_FLOPS / (step_ms * 1e-3) / PEAK_FLOPS["bfloat16"]
+    log(f"  ResNet-50 {TRAIN_ITERS} {what} at ({VISION_BATCH}, {VISION_HW}, "
+        f"{VISION_HW}, 3) uint8: windows {windows}; losses "
+        f"{[round(v, 4) for v in losses]}; first window (warm-up and "
+        f"capture) {(marks[0] - t0) * 1e3:.1f} ms; step {step_ms:.2f} ms, "
+        f"{ips:.1f} images/s, {share:.1%} of the bf16 dense peak "
+        f"({RESNET50_STEP_FLOPS / 1e12:.2f} TFLOP a step); peak memory "
+        f"{peak / 2**30:.2f} GiB; {wall:.2f} s in all [{card}]")
+    if any(counts.values()):
+        raise CheckFailed(f"the vision path launched the LM kernels "
+                          f"{counts}")
+    params = {n: p.detach().clone() for n, p in model.named_parameters()}
+    stats = {n: b.detach().clone() for n, b in model.named_buffers()
+             if "running" in n}
+    if any(b.dtype != torch.float32 for b in stats.values()):
+        raise CheckFailed("the running statistics are not fp32")
+    prof = (profile_step(opt, next(iter(data.data(train=True))), card,
+                         kinds=VISION_KINDS) if profile else None)
+    run = dict(losses=losses, step_ms=step_ms, images_per_s=ips,
+               bf16_peak_share=share, peak_memory_bytes=peak,
+               first_window_ms=(marks[0] - t0) * 1e3, windows=windows,
+               profile=prof)
+    opt._step_program = None
+    del opt, model, recorded, run_steps
+    release()
+    if not compare:
+        return run, None
+    ref_losses, ref = vision_eager(seen)
+    ref_params = dict(ref.named_parameters())
+    ref_stats = dict(ref.named_buffers())
+    bitwise = losses == ref_losses and all(
+        torch.equal(p, ref_params[n]) for n, p in params.items()) and all(
+        torch.equal(b, ref_stats[n]) for n, b in stats.items())
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(losses, ref_losses))
+    param_err = max(max_err(p, ref_params[n]) for n, p in params.items())
+    stats_err = max(max_err(b, ref_stats[n]) for n, b in stats.items())
+    log(f"  {what}, replayed against eager on the card: losses relative "
+        f"{loss_rel:.2e}, parameters max|err| {param_err:.3e}, running "
+        f"statistics max|err| {stats_err:.3e}; bitwise {bitwise}")
+    if not bitwise:
+        raise CheckFailed(f"ResNet-50 {what}: the replayed steps are not "
+                          f"bitwise equal to the eager ones")
+    run["replay_vs_eager"] = {"bitwise": bitwise, "loss_rel": loss_rel,
+                              "param_max_abs_err": param_err,
+                              "stats_max_abs_err": stats_err}
+    return run, ref
+
+
+def vision_eager(steps):
+    """The recorded steps run eagerly from the same seed: the trainer's
+    step function called on each batch with the host's step numbers."""
+    from bigdl_tpu_torch.dataset import DataSet
+    from bigdl_tpu_torch.nn import ClassNLLCriterion
+    from bigdl_tpu_torch.optim import SGD, LocalOptimizer
+    from bigdl_tpu_torch.optim.optim_method import hyper_tensor
+
+    model = build_resnet50(DEVICE)
+    opt = (LocalOptimizer(model, DataSet.array([]), ClassNLLCriterion(),
+                          device=DEVICE)
+           .set_optim_method(SGD(learningrate=0.01, momentum=0.9,
+                                 dampening=0.0)))
+    named, scales, mask = opt._prepare_step()
+    step = opt._make_step_fn(named, scales, mask)
+    losses = [float(step(inp, target, hyper_tensor(
+        opt._method.hyper(k, opt._ostate), list(named.values()))))
+        for k, (inp, target) in enumerate(steps)]
+    torch.cuda.synchronize()
+    return losses, model
+
+
+def check_validation(model, card, Engine):
+    """``Top1Accuracy`` and ``Top5Accuracy`` over 3 held-out batches of 256
+    and a padded fourth of 100 (``valid`` < batch) through the captured
+    eval program under the bf16 policy, against the same methods' host
+    folds of the logits of an eager eval forward of the same batches:
+    equal counts, exactly."""
+    from bigdl_tpu_torch.dataset import DataSet, Sample, SampleToMiniBatch
+    from bigdl_tpu_torch.nn.abstractnn import evaluating
+    from bigdl_tpu_torch.optim.evaluator import eval_forward, run_device_eval
+    from bigdl_tpu_torch.optim.validation import Top1Accuracy, Top5Accuracy
+
+    n = 3 * VISION_BATCH + 100
+    r = np.random.default_rng(SEED + 10)
+    imgs = r.integers(0, 256, (n, VISION_HW, VISION_HW, 3), dtype=np.uint8)
+    labels = r.integers(0, VISION_CLASSES, n).astype(np.int32)
+    val = (DataSet.array(Sample(imgs[i], labels[i]) for i in range(n))
+           >> SampleToMiniBatch(VISION_BATCH))
+    methods = [Top1Accuracy(), Top5Accuracy()]
+    Engine.init(compute_dtype=torch.bfloat16)
+    try:
+        t0 = time.perf_counter()
+        results, stats = run_device_eval(model, val, methods, DEVICE)
+        torch.cuda.synchronize()
+        pass_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        results2, _ = run_device_eval(model, val, methods, DEVICE)
+        pass2_s = time.perf_counter() - t0
+        host = [None, None]
+        with torch.no_grad(), evaluating(model):
+            for b in val.data(train=False):
+                out = eval_forward(model, torch.from_numpy(b.input).to(
+                    DEVICE)).cpu()
+                for i, m in enumerate(methods):
+                    part = m.apply(out, b.target, b.valid)
+                    host[i] = part if host[i] is None else host[i] + part
+    finally:
+        Engine.reset()
+    got = [(r_.correct, r_.count) for r_ in results]
+    want = [(h.correct, h.count) for h in host]
+    log(f"  validation (bf16): Top1 {results[0].result()[0]:.4f}, Top5 "
+        f"{results[1].result()[0]:.4f} over {results[0].count} images in "
+        f"{stats['batches']} batches (the last padded to {VISION_BATCH} with "
+        f"100 valid); fetched {stats['fetch_bytes']} bytes; the host folds "
+        f"of eager logits: {want}; first pass (captures) {pass_s:.2f} s, "
+        f"second {pass2_s:.2f} s [{card}]")
+    if got != want or [(r_.correct, r_.count) for r_ in results2] != want \
+            or results[0].count != n:
+        raise CheckFailed(f"device validation {got} differs from the host "
+                          f"folds {want}")
+    return {"top1": results[0].result()[0], "top5": results[1].result()[0],
+            "count": n, "correct": got, "fetch_bytes": stats["fetch_bytes"],
+            "first_pass_s": pass_s, "second_pass_s": pass2_s}
+
+
+def check_folded_inference(model, card, Engine):
+    """``fuse_conv_bn`` of the trained model in eval mode against the
+    unfused model at batch 256, in fp32 (TF32 off) and under the bf16
+    policy, both timed. Errors are the largest log-prob difference over
+    the largest log-prob magnitude (at least 1). Limits: fp32 1e-3 (the
+    fold changes the order of operations of 52 conv-BN pairs: every
+    bottleneck's three and the four projection shortcuts; the s2d stem is
+    not a ``SpatialConvolution`` and stays unfused, as in JAX); bf16 within
+    2x the unfused bf16 forward's own distance from the fp32 forward (the
+    folded weights are rounded to bf16 once, the unfused path rounds the
+    convolution's output before the fp32 BN)."""
+    from bigdl_tpu_torch.kernels.conv_bn import FusedConvBNReLU
+    from bigdl_tpu_torch.nn import fuse_conv_bn
+    from bigdl_tpu_torch.nn.abstractnn import evaluating
+    from bigdl_tpu_torch.optim.evaluator import eval_forward
+
+    fused = build_resnet50(DEVICE)
+    fused.load_state_dict(model.state_dict())
+    fused = fuse_conv_bn(fused)
+    n_fused = sum(isinstance(m, FusedConvBNReLU) for m in fused.modules())
+    x = torch.from_numpy(vision_batches(1, SEED + 11)[0].input).to(DEVICE)
+    out = {}
+    with torch.no_grad(), evaluating(model), evaluating(fused):
+        for name, dtype in (("float32", torch.float32),
+                            ("bfloat16", torch.bfloat16)):
+            Engine.init(compute_dtype=dtype)
+            try:
+                plain = eval_forward(model, x)
+                folded = eval_forward(fused, x)
+                ms = time_ms(lambda: eval_forward(model, x), reps=3,
+                             trials=3)[0]
+                fms = time_ms(lambda: eval_forward(fused, x), reps=3,
+                              trials=3)[0]
+            finally:
+                Engine.reset()
+            out[name] = {"max_abs_err": max_err(folded, plain),
+                         "scale": max(1.0, float(plain.abs().max())),
+                         "unfused_ms": ms, "folded_ms": fms,
+                         "plain": plain}
+    drift = max_err(out["bfloat16"]["plain"], out["float32"]["plain"]) \
+        / out["float32"]["scale"]
+    for name, c in out.items():
+        c.pop("plain")
+        c["rel_err"] = c["max_abs_err"] / c["scale"]
+        log(f"  folded inference ({n_fused} conv-BN pairs fused), {name}: "
+            f"log-probs within {c['max_abs_err']:.3e} of the unfused "
+            f"model's (largest |log-prob| {c['scale']:.3g}, relative "
+            f"{c['rel_err']:.2e}); {c['folded_ms']:.2f} ms against "
+            f"{c['unfused_ms']:.2f} ms unfused at batch {VISION_BATCH} "
+            f"[{card}]")
+    out["bf16_vs_fp32_unfused_rel_err"] = drift
+    log(f"  the unfused bf16 forward is {drift:.2e} (relative) from the fp32 "
+        f"forward: the bf16 fold's limit is {2 * drift:.2e}")
+    if n_fused != 52 or out["float32"]["rel_err"] > VISION_FOLD_FP32 \
+            or out["bfloat16"]["rel_err"] > 2 * drift:
+        raise CheckFailed(f"folded inference: {n_fused} pairs fused, "
+                          f"errors {out}")
+    return out
+
+
+def run_main(main, argv, card, batch):
+    """A training main on the card, its per-iteration losses read from the
+    optimizer's log: the loss must fall (the mean of the last 4 below the
+    mean of the first 4); images/s over the steps after the first."""
+    import logging
+    records = []
+
+    class Losses(logging.Handler):
+        def emit(self, record):
+            if record.getMessage().startswith("Epoch"):
+                records.append((time.perf_counter(), record.args[2]))
+
+    logger = logging.getLogger("bigdl_tpu_torch.optim.optimizer")
+    handler, level = Losses(), logger.level
+    logger.addHandler(handler)
+    logger.setLevel(logging.INFO)
+    try:
+        t0 = time.perf_counter()
+        opt = main.main(argv)
+        wall = time.perf_counter() - t0
+    finally:
+        logger.removeHandler(handler)
+        logger.setLevel(level)
+    times, losses = zip(*records)
+    first, last = np.mean(losses[:4]), np.mean(losses[-4:])
+    ips = (len(losses) - 1) * batch / (times[-1] - times[0])
+    name = main.__name__.split(".")[-2]
+    log(f"  {name} main ({' '.join(argv)}): {len(losses)} steps, loss "
+        f"{first:.4f} (first 4) -> {last:.4f} (last 4), Top1 "
+        f"{opt.state['score']:.4f}; {ips:.0f} images/s after the first "
+        f"step; {wall:.2f} s in all [{card}]")
+    if not last < first:
+        raise CheckFailed(f"{name}: the loss did not fall ({first} -> "
+                          f"{last})")
+    return {"steps": len(losses), "first_loss": first, "last_loss": last,
+            "top1": opt.state["score"], "images_per_s": ips, "wall_s": wall}
+
+
+def vision_path(kernels, card, Engine):
+    """Phase 8: the vision path at full width, NHWC, cuDNN with its
+    deterministic algorithms (autotuned in each program's eager warm-up)."""
+    from bigdl_tpu_torch.models.lenet import train as lenet_main
+    from bigdl_tpu_torch.models.vgg import train as vgg_main
+    from bigdl_tpu_torch.nn import layout
+
+    cudnn = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = True
+    layout.set_image_format("NHWC")
+    try:
+        step_check = check_resnet_step(layout, Engine)
+        data = vision_batches(TRAIN_STEPS, SEED + 12)
+        Engine.init(compute_dtype=torch.bfloat16)
+        try:
+            run16, trained = train_vision(data, kernels, card, bf16=True,
+                                          compare=True)
+            run16_fused, _ = train_vision(data, kernels, card, bf16=True,
+                                          fuse=FUSE, compare=True,
+                                          profile=False)
+        finally:
+            Engine.reset()
+        run32, _ = train_vision(data, kernels, card, profile=True)
+        drift = [abs(a - b) / abs(b) for a, b in
+                 zip(run16["losses"], run32["losses"])]
+        log(f"  bf16 against fp32 at batch {VISION_BATCH}: step "
+            f"{run16['step_ms']:.2f} against {run32['step_ms']:.2f} ms "
+            f"({run32['step_ms'] / run16['step_ms']:.2f}x); first loss "
+            f"within {drift[0]:.2e} relative (limit {VISION_DRIFT[0]}), all "
+            f"within {max(drift):.2e} (limit {VISION_DRIFT[1]}) [{card}]")
+        if drift[0] > VISION_DRIFT[0] or max(drift) > VISION_DRIFT[1]:
+            raise CheckFailed(f"bf16 ResNet-50 losses depart from fp32 by "
+                              f"{drift}")
+        drift = max(drift)
+        validation = check_validation(trained, card, Engine)
+        folded = check_folded_inference(trained, card, Engine)
+        del trained, data
+        release()
+    finally:
+        layout.set_image_format(None)
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = cudnn
+    kernels.reset_launch_counts()
+    lenet = run_main(lenet_main, ["-b", "128", "--synthetic-size", "16384"],
+                     card, 128)
+    vgg = run_main(vgg_main, ["-b", "128", "--synthetic-size", "8192"],
+                   card, 128)
+    counts = kernels.launch_counts()
+    if any(counts.values()):
+        raise CheckFailed(f"LeNet-5 or VGG launched the LM kernels {counts}")
+    return {"lm_kernel_launches": counts, "one_step_check": step_check,
+            "training_bf16": {k: run16[k] for k in (
+                "step_ms", "images_per_s", "bf16_peak_share",
+                "peak_memory_bytes", "first_window_ms", "replay_vs_eager",
+                "losses")} | {"profile": {k: (run16["profile"] or {}).get(k)
+                              for k in ("busy_ms", "wall_ms", "by_kind_ms",
+                                        "host_calls")}},
+            "training_bf16_fused": {k: run16_fused[k] for k in (
+                "step_ms", "images_per_s", "bf16_peak_share",
+                "peak_memory_bytes", "first_window_ms", "replay_vs_eager")},
+            "training_fp32": {k: run32[k] for k in (
+                "step_ms", "images_per_s", "peak_memory_bytes",
+                "first_window_ms", "losses")} | {
+                "profile": {k: (run32["profile"] or {}).get(k) for k in (
+                    "busy_ms", "wall_ms", "by_kind_ms", "host_calls")},
+                "bf16_loss_drift": drift},
+            "validation": validation, "folded_inference": folded,
+            "lenet5": lenet, "vgg_cifar10": vgg}
+
+
 # -------------------------------------------------------------------- main
 def main() -> int:
     if not torch.cuda.is_available():
@@ -1800,6 +2469,12 @@ def main() -> int:
         f"with remat {run16_remat['step_ms']:.2f} ms (losses within "
         f"{remat_rel:.1e} relative of the run without) [{card}]")
 
+    log("phase 8: the vision path, full width")
+    vision = vision_path(kernels, card, Engine)
+    log(f"  the vision path launched none of the five kernels (cuDNN "
+        f"convolutions, cuBLAS for the final Linear, torch ops for batch "
+        f"norm, pooling and the rest): {vision['lm_kernel_launches']}")
+
     # each kernel's row: its own slice's path (serving for the forward
     # kernels, training for the backward ones) and shapes; both paths'
     # launches under "paths"
@@ -1844,7 +2519,8 @@ def main() -> int:
     paths = {k: {"serving": launches[k], "training": train_counts[k],
                  "training_bf16": counts16[k],
                  "llama_serving": llama["serving_counts"][k],
-                 "llama_training_bf16": llama["counts"][k]}
+                 "llama_training_bf16": llama["counts"][k],
+                 "vision": vision["lm_kernel_launches"][k]}
              for k in launches}
     beam_row = find_row(fa_rows, BEAM_SHAPE, "float32")
 
@@ -1997,7 +2673,8 @@ def main() -> int:
                              "profile": {k: (run16["profile"] or {}).get(k)
                                          for k in ("busy_ms", "wall_ms",
                                                    "host_calls")}}},
-        "llama": dict(llama["summary"], kernel_ms_per_step=llama_kernel_ms)}
+        "llama": dict(llama["summary"], kernel_ms_per_step=llama_kernel_ms),
+        "vision": vision}
     print(json.dumps(table), flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"ok": True, "device": {

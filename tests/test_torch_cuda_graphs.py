@@ -1,6 +1,7 @@
 """The port's captured programs (``utils/programs.py``) on the GPU: the
 serving engine's prefill, decode and assign programs and the training
-step (the llama-style model with the fused head among its variants), each
+step (the llama-style model with the fused head among its variants, and a
+CIFAR ResNet-20 whose batch-norm statistics ride in the program), each
 replayed against the same work run eagerly, and dropout drawing fresh
 masks at every replay.
 
@@ -24,10 +25,13 @@ import torch
 
 from bigdl_tpu_torch import kernels
 from bigdl_tpu_torch.dataset import DataSet, MiniBatch
+from bigdl_tpu_torch.models.resnet import ResNet
 from bigdl_tpu_torch.models.transformerlm import TransformerLM, lm_criterion
-from bigdl_tpu_torch.nn import Dropout, greedy_generate, install_decode_cache
+from bigdl_tpu_torch.nn import (
+    ClassNLLCriterion, Dropout, greedy_generate, install_decode_cache, layout,
+)
 from bigdl_tpu_torch.nn.normalization import dropout_generators
-from bigdl_tpu_torch.optim import Adam, LocalOptimizer, Trigger
+from bigdl_tpu_torch.optim import SGD, Adam, LocalOptimizer, Trigger
 from bigdl_tpu_torch.optim.optim_method import hyper_tensor
 from bigdl_tpu_torch.serving import ServingEngine
 from bigdl_tpu_torch.utils.engine import Engine
@@ -287,3 +291,64 @@ def test_replays_draw_fresh_dropout_masks(cuda, explicit):
     losses = [opt.train_step(inp, target) for _ in range(3)]
     assert opt._step_program.replays == 2
     assert len(set(losses)) == 3 and all(np.isfinite(losses))
+
+
+def _resnet_steps(batches, replayed: bool):
+    """Four SGD steps of a CIFAR ResNet-20 from one seed: through the
+    trainer's captured program (the first step warms up and captures, the
+    rest replay), or its step function called eagerly. Returns the losses
+    and the running statistics after each step."""
+    model = ResNet(10, {"depth": 20}, generator=torch.Generator().manual_seed(
+        0), device="cuda")
+    opt = LocalOptimizer(model, DataSet.array([]), ClassNLLCriterion()) \
+        .set_optim_method(SGD(learningrate=0.1, momentum=0.9, dampening=0.0,
+                              weightdecay=1e-4))
+    if not replayed:
+        named, scales, mask = opt._prepare_step()
+        step = opt._make_step_fn(named, scales, mask)
+    losses, stats = [], []
+    for k, (x, y) in enumerate(batches):
+        if replayed:
+            losses.append(opt.train_step(x, y))
+        else:
+            losses.append(float(step(x, y, hyper_tensor(
+                opt._method.hyper(k, opt._ostate), list(named.values())))))
+        stats.append({n: b.clone() for n, b in model.named_buffers()})
+    if replayed:
+        assert opt._step_program.captured
+        assert opt._step_program.replays == len(batches) - 1
+    return losses, stats, model
+
+
+@pytest.mark.parametrize("fmt", ["NCHW", "NHWC"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_resnet_step_replays_equal_eager_with_statistics(cuda, dtype, fmt):
+    """A ResNet-20 step replayed against the same steps run eagerly, with
+    cuDNN's deterministic algorithms (its autotuned backward algorithms may
+    sum with atomics): losses, parameters and the running statistics after
+    every step, bit for bit; the statistics stay fp32 under bf16."""
+    r = np.random.default_rng(2)
+    shape = (8, 32, 32, 3) if fmt == "NHWC" else (8, 3, 32, 32)
+    batches = [(torch.from_numpy(r.normal(size=shape).astype(np.float32))
+                .cuda(), torch.from_numpy(r.integers(0, 10, 8)).cuda())
+               for _ in range(4)]
+    deterministic = torch.backends.cudnn.deterministic
+    layout.set_image_format(fmt)
+    Engine.init(compute_dtype=dtype)
+    try:
+        torch.backends.cudnn.deterministic = True
+        got, got_stats, model = _resnet_steps(batches, replayed=True)
+        want, want_stats, ref = _resnet_steps(batches, replayed=False)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        layout.set_image_format(None)
+        Engine.reset()
+    assert got == want
+    for step, (a, b) in enumerate(zip(got_stats, want_stats)):
+        for name in a:
+            assert a[name].dtype == torch.float32
+            assert torch.equal(a[name], b[name]), (step, name)
+    assert step == 3 and not torch.equal(got_stats[0]["0.1.running_mean"],
+                                         got_stats[1]["0.1.running_mean"])
+    for (name, p), q in zip(model.named_parameters(), ref.parameters()):
+        assert torch.equal(p, q), name

@@ -11,8 +11,16 @@ import torch
 
 from bigdl_tpu_torch import nn as tnn
 from bigdl_tpu_torch.dataset import DataSet
+from bigdl_tpu_torch.models.lenet import LeNet5
+from bigdl_tpu_torch.models.lenet import train as lenet_main
+from bigdl_tpu_torch.models.resnet import ResNet, ResNet50
+from bigdl_tpu_torch.models.resnet import train as resnet_main
 from bigdl_tpu_torch.models.transformerlm import TransformerLM, lm_criterion
 from bigdl_tpu_torch.models.transformerlm import train as train_main
+from bigdl_tpu_torch.models.vgg import Vgg_16, Vgg_19, VggForCifar10
+from bigdl_tpu_torch.models.vgg import train as vgg_main
+from bigdl_tpu_torch.optim.evaluator import run_device_eval
+from bigdl_tpu_torch.optim.validation import Top1Accuracy
 from bigdl_tpu_torch.optim import LocalOptimizer
 from bigdl_tpu_torch.serving import ServingEngine
 
@@ -36,7 +44,7 @@ def test_importing_every_module_leaves_jax_out():
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
     count, bad = r.stdout.split(" ", 1)
-    assert int(count) >= 34
+    assert int(count) >= 55
     assert bad.strip() == "[]", bad
 
 
@@ -56,3 +64,19 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         opt.optimize()
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         train_main.main(["--max-iteration", "1"])
+
+
+def test_vision_entry_points_raise_without_cuda(monkeypatch):
+    """The vision models, the evaluator and the three vision training
+    mains run on the card unless told otherwise."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for build in (lambda: ResNet(10, {"depth": 8}), ResNet50, LeNet5,
+                  VggForCifar10, Vgg_16, Vgg_19):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            build()
+    lenet = LeNet5(device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        run_device_eval(lenet, DataSet.array([]), [Top1Accuracy()])
+    for main in (resnet_main, lenet_main, vgg_main):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            main.main(["--max-epoch", "1", "--synthetic-size", "64"])
