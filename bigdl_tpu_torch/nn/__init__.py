@@ -21,7 +21,7 @@ from bigdl_tpu_torch.nn.fused_loss import (
 from bigdl_tpu_torch.nn.graph import fuse_conv_bn
 from bigdl_tpu_torch.nn.incremental import (
     assign_cache_slot, beam_generate, generate, greedy_generate,
-    install_decode_cache, reset_decode_slot, zero_decode_cache,
+    install_decode_cache, reset_decode_slot, restart_decode_cache,
 )
 from bigdl_tpu_torch.nn.initialization import (
     InitializationMethod, MsraFiller, Ones, RandomNormal, RandomUniform,
@@ -52,5 +52,5 @@ __all__ = [
     "assign_cache_slot", "beam_generate", "cast_floating",
     "chunked_softmax_xent", "fuse_conv_bn", "generate", "greedy_decode",
     "greedy_generate", "install_decode_cache", "reset_decode_slot",
-    "rope_rotate", "zero_decode_cache",
+    "restart_decode_cache", "rope_rotate",
 ]

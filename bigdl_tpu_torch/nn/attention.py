@@ -26,10 +26,14 @@ Two paths:
   ``_decode_step`` does for per-slot caches. It writes into the passed
   cache tensors and advances the positions in place (copying a whole
   cache grid per token would dominate decode, and a captured decode
-  program replays over the same tensors) and returns the same tensors.
+  program replays over the same tensors) and returns the same tensors;
+- the paged step (``state`` from ``serving/paged_cache.py``
+  ``install_paged_cache``) writes k and v through the page table and
+  gathers the pool back into the slot grid's view, then attends as the
+  per-slot step does (:meth:`MultiHeadAttention._paged_decode_step`).
 
-LoRA (``_w``, ``add_lora``, ``merge_lora``; ROADMAP Queue A.5) and the
-paged decode (Queue A.3.3) are not ported yet.
+LoRA (``_w``, ``add_lora``, ``merge_lora``; ROADMAP Queue A.5) is not
+ported yet.
 """
 
 from __future__ import annotations
@@ -163,6 +167,8 @@ class MultiHeadAttention(TensorModule):
         q, k, v = self._project_qkv(input)
         if state is not None and "cache_k" in state:
             o, state = self._decode_step(state, q, k, v)
+        elif state is not None and "page_k" in state:
+            o, state = self._paged_decode_step(state, q, k, v)
         else:
             if self.rope:
                 pos = torch.arange(t, device=input.device)
@@ -199,13 +205,61 @@ class MultiHeadAttention(TensorModule):
         cols = pos.clamp(0, lmax - t)[:, None] + steps[None, :]    # (b, t)
         ck[rows, :, cols] = k.transpose(1, 2).to(ck.dtype)         # in place
         cv[rows, :, cols] = v.transpose(1, 2).to(cv.dtype)
-        kpos = torch.arange(lmax, device=pos.device)
+        o = self._attend_cached(q, ck, cv, qpos)
+        return o, {"cache_k": ck, "cache_v": cv, "pos": pos.add_(t)}
+
+    def _attend_cached(self, q, ck, cv, qpos):
+        """Queries at absolute positions ``qpos`` (b, t) against a cache
+        view (b, kv_heads, L, d): each sees the positions up to its own
+        (and within the window); the rest weigh exactly 0."""
+        kpos = torch.arange(ck.shape[2], device=qpos.device)
         kv_mask = kpos[None, None, :] <= qpos[:, :, None]           # b, t, L
         if self.window is not None:
             kv_mask &= kpos[None, None, :] > qpos[:, :, None] - self.window
-        o = full_attention(q, self._expand_kv(ck), self._expand_kv(cv),
-                           causal=False, kv_mask=kv_mask[:, None])
-        return o, {"cache_k": ck, "cache_v": cv, "pos": pos.add_(t)}
+        return full_attention(q, self._expand_kv(ck), self._expand_kv(cv),
+                              causal=False, kv_mask=kv_mask[:, None])
+
+    def _paged_decode_step(self, state, q, k, v):
+        """The cached step over a page pool (``serving/paged_cache.py``):
+        write k and v THROUGH the page table (physical page
+        ``table[row, pos // P]``, offset ``pos % P``), then gather the pool
+        back into the slot grid's ``(b, kv_heads, max_len, d)`` view, a
+        static-shape gather by page index, and attend as
+        :meth:`_decode_step` does, so the tokens are the slot grid's.
+        ``t > 1`` is speculative decoding's verify chunk, written with one
+        vectorised (b, t) scatter whose start clamps to ``max_len - t`` like
+        the slot grid's. Free rows' table rows point at the trash page, so
+        their writes land where nobody attends (several rows may write the
+        same trash offset; which write lands is not fixed, and no one reads
+        it); a row whose position ran past the window writes through its
+        last table entry, trash again."""
+        pos = state["pos"]
+        table = state["page_table"]                             # (b, W)
+        pk, pv = state["page_k"], state["page_v"]
+        b, _, t, _ = q.shape
+        ptok, w = pk.shape[2], table.shape[1]
+        lmax = w * ptok
+        steps = torch.arange(t, device=pos.device)
+        qpos = pos[:, None] + steps[None, :]                        # (b, t)
+        if self.rope:
+            q = rope_rotate(q, qpos, self.rope_base)
+            k = rope_rotate(k, qpos, self.rope_base)
+        if t == 1:
+            wpos = pos[:, None]
+            lp = (wpos // ptok).clamp(0, w - 1)
+        else:
+            wpos = pos.clamp(0, lmax - t)[:, None] + steps[None, :]
+            lp = wpos // ptok
+        phys = table.gather(1, lp)                                  # (b, t)
+        off = wpos % ptok
+        pk[phys, :, off] = k.transpose(1, 2).to(pk.dtype)           # in place
+        pv[phys, :, off] = v.transpose(1, 2).to(pv.dtype)
+        # (b, W, kv, P, d) -> the slot grid's (b, kv, W·P, d)
+        ck = pk[table].transpose(1, 2).reshape(b, pk.shape[1], lmax, -1)
+        cv = pv[table].transpose(1, 2).reshape(b, pv.shape[1], lmax, -1)
+        o = self._attend_cached(q, ck, cv, qpos)
+        return o, {"page_k": pk, "page_v": pv, "page_table": table,
+                   "pos": pos.add_(t)}
 
     def extra_repr(self):
         gqa = (f", kv_heads={self.kv_heads}"

@@ -18,7 +18,9 @@ one row while the others keep decoding. The cache tensors and positions
 are updated in place by the cached step and by the slot primitives below,
 so a state dict keeps its tensor objects from one call to the next: a
 captured decode or prefill program (``serving/engine.py``) replays over
-the same buffers.
+the same buffers. The slot primitives refuse a paged state
+(``serving/paged_cache.py``) loudly: a whole-row reset or assign cannot
+express page-granular ownership.
 """
 
 from __future__ import annotations
@@ -34,6 +36,9 @@ from bigdl_tpu_torch.utils.device import require_on
 #: per-row K/V buffers and the position counters (the JAX key names)
 _CACHE_ROW_KEYS = ("cache_k", "cache_v")
 _CACHE_POS_KEYS = ("pos", "pos_idx")
+#: paged-cache leaves (``serving/paged_cache.py``), which the slot-grid
+#: primitives below refuse
+_PAGED_KEYS = ("page_k", "page_v", "page_table")
 
 
 def _set_path(tree: dict, path: str, leaf: dict) -> None:
@@ -57,11 +62,11 @@ def _map_leaves(fn: Callable, *trees):
             fn(key, node, *others)
 
 
-def install_decode_cache(model: torch.nn.Module, batch_size: int,
-                         max_len: int, dtype: torch.dtype = torch.float32
-                         ) -> dict:
-    """Zeroed decode state for ``model``: ``batch_size`` cache rows of
-    ``max_len`` positions each, on the model's device."""
+def cache_modules(model: torch.nn.Module, max_len: int) -> tuple:
+    """The cached modules of ``model`` for a ``max_len`` window:
+    ``([(path, MultiHeadAttention)], [path of each PositionEmbedding])``.
+    Raises unless every attention is causal and every position table holds
+    ``max_len`` positions."""
     from bigdl_tpu_torch.models.transformerlm.transformerlm import (
         PositionEmbedding,
     )
@@ -80,6 +85,15 @@ def install_decode_cache(model: torch.nn.Module, batch_size: int,
             raise ValueError(
                 f"decode length {max_len} exceeds the model's position "
                 f"table (max_len={m.max_len})")
+    return attns, [p for p, m in mods if isinstance(m, PositionEmbedding)]
+
+
+def install_decode_cache(model: torch.nn.Module, batch_size: int,
+                         max_len: int, dtype: torch.dtype = torch.float32
+                         ) -> dict:
+    """Zeroed decode state for ``model``: ``batch_size`` cache rows of
+    ``max_len`` positions each, on the model's device."""
+    attns, positions = cache_modules(model, max_len)
     dev = next(model.parameters()).device
     state: dict = {}
     for path, m in attns:
@@ -89,15 +103,30 @@ def install_decode_cache(model: torch.nn.Module, batch_size: int,
             "cache_v": torch.zeros(shape, dtype=dtype, device=dev),
             "pos": torch.zeros(batch_size, dtype=torch.long, device=dev),
         })
-    for path, m in mods:
-        if isinstance(m, PositionEmbedding):
-            _set_path(state, path, {"pos_idx": torch.zeros(
-                batch_size, dtype=torch.long, device=dev)})
+    for path in positions:
+        _set_path(state, path, {"pos_idx": torch.zeros(
+            batch_size, dtype=torch.long, device=dev)})
     return state
+
+
+def _refuse_paged(state: dict, what: str, instead: str) -> None:
+    def walk(node):
+        for key, leaf in node.items():
+            if key in _PAGED_KEYS:
+                raise ValueError(
+                    f"{what} got a PAGED cache (page pool leaves present): "
+                    f"a whole-row operation cannot express page-granular "
+                    f"ownership; use serving.paged_cache.{instead}")
+            if isinstance(leaf, dict):
+                walk(leaf)
+
+    walk(state)
 
 
 def reset_decode_slot(state: dict, slot: int) -> dict:
     """Wipe cache row ``slot`` in place: K/V zeroed, positions 0."""
+    _refuse_paged(state, "reset_decode_slot", "reset_page_slot")
+
     def wipe(key, leaf):
         if key in _CACHE_ROW_KEYS:
             leaf[slot].zero_()
@@ -108,10 +137,30 @@ def reset_decode_slot(state: dict, slot: int) -> dict:
     return state
 
 
-def zero_decode_cache(state: dict) -> dict:
-    """Zero every leaf of ``state`` in place: all rows empty, positions 0,
-    as :func:`install_decode_cache` made them."""
-    _map_leaves(lambda key, leaf: leaf.zero_(), state)
+def rewind_decode_positions(state: dict, back: torch.Tensor) -> dict:
+    """Step every position counter of ``state`` back by ``back`` in place:
+    a (B,) long tensor, one count a row, so rows of one batch rewind
+    independently inside one program (speculative decoding's accept)."""
+    _map_leaves(lambda key, leaf: leaf.sub_(back)
+                if key in _CACHE_POS_KEYS else None, state)
+    return state
+
+
+def restart_decode_cache(state: dict, start: torch.Tensor) -> dict:
+    """Put every row of ``state`` at depth ``start`` (a one-element long
+    tensor on the cache's device) in place, and zero its cache positions
+    from ``start`` on: at 0 every leaf as :func:`install_decode_cache` made
+    it, or a prefill from a prefix already in rows ``< start``. No value is
+    read on the host, so a captured prefill program takes the depth as an
+    input."""
+    def restart(key, leaf):
+        if key in _CACHE_ROW_KEYS:
+            kpos = torch.arange(leaf.shape[2], device=leaf.device)
+            leaf.masked_fill_((kpos >= start)[None, None, :, None], 0)
+        elif key in _CACHE_POS_KEYS:
+            leaf.copy_(start.expand_as(leaf))
+
+    _map_leaves(restart, state)
     return state
 
 
@@ -138,6 +187,7 @@ def assign_cache_slot(dst_state: dict, src_state: dict, slot,
     and ``pos`` are ints or one-element long tensors on the cache's device,
     so one captured program serves every slot (JAX's traced ``slot`` and
     ``pos``)."""
+    _refuse_paged(dst_state, "assign_cache_slot", "assign_cache_pages")
     leaves = []
     _map_leaves(lambda key, leaf: leaves.append(leaf), dst_state)
     dev = leaves[0].device

@@ -3,15 +3,17 @@
 Counterpart of ``bigdl_tpu/serving/request.py``. ``submit()`` returns a
 :class:`RequestHandle` at once; the engine thread appends tokens as they
 decode and completes the handle when the sequence finishes (EOS or length
-cap) or fails it when the engine shuts down. Handles are the only
-cross-thread surface: clients never touch slots, caches or the device.
+cap) or fails it: when the engine shuts down, or with ``RequestTimeout``
+when the request's deadline passes. Handles are the only cross-thread
+surface: clients never touch slots, caches or the device.
 """
 
 from __future__ import annotations
 
 import threading
 import time
-from typing import Optional
+import uuid
+from typing import Callable, Optional
 
 import numpy as np
 
@@ -23,11 +25,14 @@ class CompletedRequest:
     """Immutable result of one served request."""
 
     __slots__ = ("request_id", "tokens", "prompt_len", "n_generated",
-                 "finish_reason", "queue_wait_s", "ttft_s", "latency_s")
+                 "finish_reason", "queue_wait_s", "ttft_s", "latency_s",
+                 "trace_id")
 
     def __init__(self, request_id, tokens, prompt_len, n_generated,
-                 finish_reason, queue_wait_s, ttft_s, latency_s):
+                 finish_reason, queue_wait_s, ttft_s, latency_s,
+                 trace_id=None):
         self.request_id = request_id
+        self.trace_id = trace_id
         #: prompt + generated tokens, np.int32 (prompt_len + n_generated,)
         self.tokens = tokens
         self.prompt_len = prompt_len
@@ -82,27 +87,47 @@ class RequestHandle:
 
 class Request:
     """Engine-internal request record; after submission only the engine
-    thread touches it."""
+    thread touches it. Its times are readings of ``clock`` (the engine's,
+    ``time.perf_counter`` unless a test replaces it)."""
 
-    __slots__ = ("request_id", "prompt", "max_new_tokens", "submit_t",
-                 "admit_t", "first_token_t", "generated", "handle")
+    __slots__ = ("request_id", "trace_id", "prompt", "max_new_tokens",
+                 "submit_t", "admit_t", "first_token_t", "deadline_t",
+                 "generated", "handle", "clock")
 
-    def __init__(self, request_id, prompt: np.ndarray, max_new_tokens: int):
+    def __init__(self, request_id, prompt: np.ndarray, max_new_tokens: int,
+                 deadline_s: Optional[float] = None,
+                 trace_id: Optional[str] = None,
+                 clock: Callable[[], float] = time.perf_counter):
         self.request_id = request_id
+        #: request-scoped trace id, stamped at submission and carried by the
+        #: result and by a timeout's message; a caller-supplied one survives
+        #: resubmission elsewhere
+        self.trace_id = trace_id if trace_id else uuid.uuid4().hex[:16]
         self.prompt = prompt                      # np.int32 (prompt_len,)
         self.max_new_tokens = int(max_new_tokens)
-        self.submit_t = time.perf_counter()
+        self.clock = clock
+        self.submit_t = clock()
+        #: the clock reading from which the request is expired (None: no
+        #: deadline); the engine checks it while the request is queued and
+        #: after every decode tick
+        self.deadline_t: Optional[float] = (
+            None if deadline_s is None else self.submit_t + deadline_s)
         self.admit_t: Optional[float] = None
         self.first_token_t: Optional[float] = None
         self.generated: list[int] = []
         self.handle = RequestHandle(self)
+
+    def expired(self, now: Optional[float] = None) -> bool:
+        if self.deadline_t is None:
+            return False
+        return (self.clock() if now is None else now) >= self.deadline_t
 
     @property
     def prompt_len(self) -> int:
         return int(self.prompt.shape[0])
 
     def complete(self, finish_reason: str) -> CompletedRequest:
-        now = time.perf_counter()
+        now = self.clock()
         tokens = np.concatenate(
             [self.prompt, np.asarray(self.generated, np.int32)])
         result = CompletedRequest(
@@ -113,6 +138,6 @@ class Request:
                           if self.admit_t is not None else None),
             ttft_s=(self.first_token_t - self.submit_t
                     if self.first_token_t is not None else None),
-            latency_s=now - self.submit_t)
+            latency_s=now - self.submit_t, trace_id=self.trace_id)
         self.handle._complete(result)
         return result

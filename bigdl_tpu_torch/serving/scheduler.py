@@ -37,15 +37,32 @@ def pick_bucket(n: int, buckets: Sequence[int]) -> Optional[int]:
     return None
 
 
-class Slot:
-    """One decode-batch row: which request owns it and the last token fed."""
+def pick_seed_bucket(n: int, buckets: Sequence[int], base: int,
+                     max_len: int) -> Optional[int]:
+    """Smallest bucket >= n whose write window also fits the cache when the
+    prefill starts at depth ``base`` (the prefix pool's seeded path): the
+    padded chunk lands at rows ``base .. base + bucket - 1``, and the
+    cached step clamps a start that would run past ``max_len``, which
+    would overwrite the reused prefix rows. None when no bucket fits both
+    (the caller takes a shorter prefix or a cold prefill)."""
+    for b in buckets:
+        if b >= n and base + b <= max_len:
+            return b
+    return None
 
-    __slots__ = ("index", "request", "last_token")
+
+class Slot:
+    """One decode-batch row: which request owns it, the last token fed, and
+    the sequence depth (context + generated: the host mirror of the row's
+    ``pos``, from which the paged engine sizes its pages)."""
+
+    __slots__ = ("index", "request", "last_token", "depth")
 
     def __init__(self, index: int):
         self.index = index
         self.request: Optional[Request] = None
         self.last_token: int = 0
+        self.depth: int = 0
 
 
 class SlotScheduler:
@@ -85,6 +102,7 @@ class SlotScheduler:
         slot = self._slots[self._free.pop(0)]
         slot.request = request
         slot.last_token = 0
+        slot.depth = 0
         if slot.index in self._ever_used:
             self._recycles += 1
         self._ever_used.add(slot.index)
@@ -96,4 +114,5 @@ class SlotScheduler:
             raise RuntimeError(f"slot {slot.index} is already free")
         slot.request = None
         slot.last_token = 0
+        slot.depth = 0
         self._free.append(slot.index)

@@ -37,6 +37,7 @@ trainer that owns those buffers.
 
 from __future__ import annotations
 
+import gc
 from typing import Callable, Hashable, Sequence
 
 import torch
@@ -106,6 +107,13 @@ class Program:
             gen_state = gen.clone_state()
             for g in self.generators:
                 graph.register_generator_state(g)
+            # no cyclic garbage collection inside the capture: collecting a
+            # dead owner of programs (an engine, a trainer) there would
+            # destroy its CUDA graphs and release their memory pool in the
+            # middle of this capture; the garbage waits for the next
+            # collection instead
+            gc_was_enabled = gc.isenabled()
+            gc.disable()
             try:
                 with _cuda.recording_launches(capture.cuda_stream) as rec, \
                         torch.cuda.graph(graph, pool=self._pool,
@@ -117,6 +125,9 @@ class Program:
                 raise ProgramCaptureError(
                     f"capturing program {self.key!r} failed: "
                     f"{type(e).__name__}: {e}") from e
+            finally:
+                if gc_was_enabled:
+                    gc.enable()
             main.wait_stream(capture)
         self._graph = graph
         self._launches = rec

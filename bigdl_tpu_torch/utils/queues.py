@@ -45,6 +45,17 @@ class ClosableQueue:
             self._not_empty.notify()
             return True
 
+    def try_put(self, item) -> bool:
+        """``put`` without waiting: False when the queue is full or
+        closed (the serving engine's shed mode rejects instead of
+        blocking)."""
+        with self._not_full:
+            if self._closed or len(self._items) >= self._maxsize:
+                return False
+            self._items.append(item)
+            self._not_empty.notify()
+            return True
+
     def get(self, timeout: float | None = None):
         with self._not_empty:
             if timeout is None:
@@ -66,6 +77,10 @@ class ClosableQueue:
     def qsize(self) -> int:
         with self._not_empty:
             return len(self._items)
+
+    @property
+    def closed(self) -> bool:
+        return self._closed
 
     def close(self) -> None:
         """Close the queue and wake every waiter. Idempotent."""

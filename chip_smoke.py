@@ -13,7 +13,8 @@ an NVIDIA H100 and the CUDA toolkit. It builds the port's CUDA kernels from
    zero count or a spill fails;
 3. times an empty kernel launched through the C interface (the launch
    floor), then holds each kernel against its plain PyTorch version on the
-   card (the LayerNorm forward at every main-path shape: (8, 512),
+   card (the LayerNorm forward at every main-path shape: (8, 512), the
+   paged tick's (16, 512) and the verify chunk's (80, 512),
    (700, 512), (2·512, 512), (16·512, 512) fp32 and bf16, (1024, 256), and
    the bf16 step's (16·512, 512) and (2·512, 512) with bf16 gamma and
    beta; the LayerNorm backward at (16·512, 512) fp32, bf16 and bf16 with
@@ -96,7 +97,31 @@ an NVIDIA H100 and the CUDA toolkit. It builds the port's CUDA kernels from
    of eager logits; ``fuse_conv_bn``'s folded inference against the
    unfused model at batch 256 in fp32 and bf16, timed; and the LeNet-5 and
    VGG-for-CIFAR training mains on the card, whose losses must fall;
-9. checks that the serving path (phases 4 and 5) launched both forward
+9. serves the extras at full width with the phase-5 model (its launches
+   counted from a reset): ``ServingEngine(lm, 1024, slots=16, pages=512,
+   page_tokens=16)``, the 8-slot grid's KV bytes, serves phase 5's 16
+   requests twice (tokens bitwise the grid's, peak residency at least 2x
+   the grid's, no page held after the drain; decode rate, tick and TTFT
+   beside the grid's), then fails a request queued behind its full grid
+   and one mid-decode with ``RequestTimeout`` on an injected clock (rows
+   and pages recycled, the others' tokens the grid's); an exhausted
+   96-page pool (at least one preemption, every token solo decode's);
+   ``overload="shed"`` (``EngineOverloaded`` with ``pages_free``) and
+   ``"degrade"`` (half the new tokens) on a held pool; the prefix pool
+   (``prefix_pool=16``) against a pool-less engine on a 512-token prefix
+   with eight 33..64-token tails and a repeat (each tail a hit at 512
+   through the 64 bucket, the repeat no prefill, tokens the pool-less
+   engine's under the near-tie rule; warm against cold TTFT); the
+   speculative engine (k = 4) on the grid and paged with the target as its
+   own draft (acceptance exactly 1) and with a 256-wide 2-layer draft,
+   tokens solo decode's under the near-tie rule, tokens/s against plain
+   decode; ``SpeculativeDecoder`` on a (4, 8) batch against
+   ``greedy_generate``; every engine's ledger within ``len(buckets) + 2``
+   and its LayerNorm launches (13 a target call, 5 a draft call); one
+   replayed paged tick and one replayed speculative step bitwise equal to
+   eager runs (tokens, log-probs, live pages, the draft's cache, positions)
+   and the paged tick to the slot grid's, with their device and host ms;
+10. checks that the serving path (phases 4 and 5) launched both forward
    kernels and each training run (the 17 steps, fp32 and bf16) all five,
    every launch in the run's dtype (bf16 operands and bf16 gamma and beta
    under the bf16 policy), the LayerNorm backward once for each LayerNorm
@@ -139,6 +164,15 @@ DEVICE = "cuda"
 SLOTS, N_REQUESTS, N_CLIENTS, NEW_TOKENS = 8, 16, 4, 32
 PROMPT_LO, PROMPT_HI = 17, 700
 NEAR_TIE = 1e-4          # top-2 log-prob gap under which a token may differ
+# phase 9, the serving extras at full width: the paged pool at the 8-slot
+# grid's KV bytes (8 x 1024 / 16 pages), an exhausted pool, the prefix
+# pool, the speculative engine (k = 4) with the target as its own draft and
+# with a smaller draft, deadlines and overload
+EXTRA_SLOTS, EXTRA_PAGES, PAGE_TOKENS = 16, SLOTS * MAX_LEN // 16, 16
+EXHAUST_PAGES = 96
+PREFIX_LEN, N_TAILS, TAIL_LO, TAIL_HI = 512, 8, 33, 64
+SPEC_K = 4
+DRAFT_WIDTH = (256, 4, 2)            # embed, heads, layers
 # the llama-style path (phase 7): the transformerlm leg's widths with the
 # JAX training main's options (bigdl_tpu/models/transformerlm/train.py)
 LLAMA = dict(num_kv_heads=2, position="rope", norm="rms", mlp_kind="swiglu",
@@ -411,6 +445,8 @@ def check_layer_norm(kernels, card, floor_ms):
     g = torch.Generator(device=dev).manual_seed(SEED)
     f32, bf16 = torch.float32, torch.bfloat16
     cases = [((SLOTS, EMBED), f32, f32, 1e-5, 1e-5),
+             ((EXTRA_SLOTS, EMBED), f32, f32, 1e-5, 1e-5),
+             ((EXTRA_SLOTS * (SPEC_K + 1), EMBED), f32, f32, 1e-5, 1e-5),
              ((PROMPT_HI, EMBED), f32, f32, 1e-5, 1e-5),
              ((2 * 512, EMBED), f32, f32, 1e-5, 1e-5),
              ((TRAIN_BATCH * TRAIN_LEN, EMBED), f32, f32, 1e-5, 1e-5),
@@ -782,21 +818,34 @@ def serve_round(engine, prompts):
     return results, time.perf_counter() - t0
 
 
-def serve(lm, ServingEngine):
+def serving_prompts():
+    """Phase 5's 16 prompts of 17..700 tokens, from the seed."""
+    rng = np.random.default_rng(SEED)
+    lengths = rng.integers(PROMPT_LO, PROMPT_HI + 1, N_REQUESTS)
+    return [rng.integers(0, VOCAB, int(n)).astype(np.int32)
+            for n in lengths]
+
+
+def serve_rounds(engine, prompts, n):
+    """``n`` rounds of ``prompts`` through ``engine``: each round's
+    results, wall time and engine stats (cumulative)."""
+    rounds = []
+    for _ in range(n):
+        results, wall = serve_round(engine, prompts)
+        rounds.append((results, wall, engine.stats()))
+    return rounds
+
+
+def serve(lm, ServingEngine, **engine_kw):
     """Two rounds of the same requests through one engine: the first
     captures each program at its first use (JAX compiles there), the
     second replays only. Returns the prompts and each round's results,
     wall time and engine stats (cumulative)."""
-    rng = np.random.default_rng(SEED)
-    lengths = rng.integers(PROMPT_LO, PROMPT_HI + 1, N_REQUESTS)
-    prompts = [rng.integers(0, VOCAB, int(n)).astype(np.int32)
-               for n in lengths]
-    engine = ServingEngine(lm, max_len=MAX_LEN, slots=SLOTS)
-    rounds = []
+    prompts = serving_prompts()
+    engine = ServingEngine(lm, max_len=MAX_LEN, device=DEVICE,
+                           **dict(dict(slots=SLOTS), **engine_kw))
     try:
-        for _ in range(2):
-            results, wall = serve_round(engine, prompts)
-            rounds.append((results, wall, engine.stats()))
+        rounds = serve_rounds(engine, prompts, 2)
     finally:
         engine.shutdown()
     return prompts, rounds
@@ -960,30 +1009,51 @@ def near_tie_gap(lm, seq) -> float:
     ``seq`` (the full-sequence forward)."""
     with torch.no_grad():
         lp = lm(torch.as_tensor(np.asarray(seq), dtype=torch.long)[None]
-                .cuda())[0, -1]
+                .to(DEVICE))[0, -1]
     top = lp.topk(2).values
     return float(top[0] - top[1])
 
 
-def check_served_tokens(lm, greedy_generate, prompts, results):
-    for i, (p, r) in enumerate(zip(prompts, results)):
-        if r.n_generated != NEW_TOKENS:
-            raise CheckFailed(f"request {i} generated {r.n_generated} tokens")
-        ref = greedy_generate(lm, p[None], NEW_TOKENS)[0].cpu().numpy()
-        diff = np.nonzero(ref != r.tokens)[0]
+def check_near_ties(lm, name, got, refs, lengths) -> int:
+    """``got[i]`` against ``refs[i]`` (token arrays, prompt first): they
+    may part only where the reference's top-2 gap is under NEAR_TIE (the
+    products of another shape round otherwise). Returns how many parted."""
+    parted = 0
+    for i, (g, ref, n) in enumerate(zip(got, refs, lengths)):
+        g, ref = np.asarray(g), np.asarray(ref)
+        if g.shape != ref.shape:
+            raise CheckFailed(f"{name} request {i}: {g.shape} tokens, "
+                              f"reference {ref.shape}")
+        diff = np.nonzero(ref != g)[0]
         if diff.size == 0:
             continue
         j = int(diff[0])
         gap = near_tie_gap(lm, ref[:j])
-        log(f"  request {i}: token {j - len(p)} differs from solo "
-            f"greedy_generate; reference top-2 gap there {gap:.3e}")
+        parted += 1
+        log(f"  {name} request {i}: token {j - n} differs from its "
+            f"reference; reference top-2 gap there {gap:.3e}")
         if gap >= NEAR_TIE:
-            raise CheckFailed(f"request {i} tokens differ from solo "
-                              f"greedy_generate at a gap of {gap}")
+            raise CheckFailed(f"{name} request {i} tokens differ from the "
+                              f"reference at a gap of {gap}")
+    return parted
+
+
+def check_served_tokens(lm, greedy_generate, prompts, results, refs=None):
+    """Each request's tokens against solo ``greedy_generate`` (computed
+    unless ``refs`` holds them) under the near-tie rule; returns the
+    references."""
+    for i, r in enumerate(results):
+        if r.n_generated != NEW_TOKENS:
+            raise CheckFailed(f"request {i} generated {r.n_generated} tokens")
+    if refs is None:
+        refs = [greedy_generate(lm, p[None], NEW_TOKENS, device=DEVICE)[0]
+                .cpu().numpy() for p in prompts]
+    check_near_ties(lm, "served", [r.tokens for r in results], refs,
+                    [len(p) for p in prompts])
     # the first served token is the argmax of the full-sequence forward
     p, r = prompts[0], results[0]
     with torch.no_grad():
-        lp = lm(torch.as_tensor(p, dtype=torch.long)[None].cuda())[0, -1]
+        lp = lm(torch.as_tensor(p, dtype=torch.long)[None].to(DEVICE))[0, -1]
     first = int(lp.argmax())
     if first != int(r.generated[0]):
         gap = near_tie_gap(lm, p)
@@ -992,6 +1062,7 @@ def check_served_tokens(lm, greedy_generate, prompts, results):
         if gap >= NEAR_TIE:
             raise CheckFailed("first served token differs from the "
                               "full-sequence forward's argmax")
+    return refs
 
 
 # ---------------------------------------------------------------- phase 6
@@ -2291,6 +2362,510 @@ def vision_path(kernels, card, Engine):
             "lenet5": lenet, "vgg_cifar10": vgg}
 
 
+# ---------------------------------------------------------------- phase 9
+def ln_modules(nn, model) -> int:
+    """LayerNorm forward launches a call of ``model``."""
+    return sum(isinstance(m, nn.LayerNorm) for m in model.modules())
+
+
+def check_engine(name, stats, ln, ln_target, ln_draft=0):
+    """An engine's ledger (within ``len(buckets) + 2``) and its LayerNorm
+    launches, counted across replays: ``ln_target`` a target call (a
+    prefill or a tick), ``ln_draft`` a draft call (one a prefill, k + 1 a
+    speculative tick)."""
+    k = stats["spec_tokens"]
+    calls = stats["prefills"] + stats["decode_ticks"]
+    want = ln_target * calls + (
+        ln_draft * (stats["prefills"] + (k + 1) * stats["decode_ticks"])
+        if k else 0)
+    n, bound = stats["compiled_programs"], stats["program_grid_bound"]
+    log(f"  {name}: {n} programs (bound {bound}); LN forward {ln} launches "
+        f"over {stats['prefills']} prefills and {stats['decode_ticks']} "
+        f"ticks ({want} expected)")
+    if n > bound:
+        raise CheckFailed(f"{name} compiled {n} programs (bound {bound})")
+    if ln != want:
+        raise CheckFailed(f"{name} launched the LayerNorm forward {ln} "
+                          f"times, not {want}")
+
+
+def engine_run(ServingEngine, kernels, lm, name, prompts, n_rounds, ln,
+               ln_draft=0, keep=False, **kw):
+    """``n_rounds`` of ``prompts`` through a new engine over ``lm``; its
+    ledger and launches checked. Returns the rounds and the engine (shut
+    down unless ``keep``)."""
+    before = kernels.launch_counts()["layer_norm_fwd"]
+    engine = ServingEngine(lm, max_len=MAX_LEN, device=DEVICE, **kw)
+    try:
+        rounds = serve_rounds(engine, prompts, n_rounds)
+    except BaseException:
+        engine.shutdown()
+        raise
+    if not keep:
+        engine.shutdown()
+    check_engine(name, engine.stats(),
+                 kernels.launch_counts()["layer_norm_fwd"] - before, ln,
+                 ln_draft)
+    return rounds, engine
+
+
+def same_tokens(name, got, want):
+    for i, (a, b) in enumerate(zip(got, want)):
+        if not np.array_equal(a.tokens, b.tokens):
+            raise CheckFailed(f"{name}: request {i}'s tokens differ from "
+                              f"the 8-slot grid engine's")
+
+
+def check_deadlines(engine, prompts, grid, RequestTimeout):
+    """On a warm paged engine, with its clock replaced (the deadlines' time
+    source): B, behind a full grid of the 16 requests, fails while queued
+    once all 16 hold their rows; C fails mid-decode once admitted beside
+    A. The rows and pages come back; the others' tokens are the grid's."""
+    seen = []
+    p0 = engine.stats()["prefills"]
+
+    def queued_clock():
+        if engine._prefills >= p0 + N_REQUESTS and (
+                engine._pending or engine._queue.qsize()):
+            seen.append(engine.stats()["active_slots"])
+            return 10.0
+        return 0.0
+
+    engine.clock = queued_clock
+    hs = [engine.submit(p, NEW_TOKENS) for p in prompts]
+    hb = engine.submit(prompts[0][:100], NEW_TOKENS, deadline_ms=1000)
+    try:
+        hb.result(600)
+        raise CheckFailed("a queued request outlived its deadline")
+    except RequestTimeout as e:
+        queued = str(e)
+    same_tokens("deadline round", [h.result(600) for h in hs], grid)
+    if "while queued" not in queued or max(seen) != EXTRA_SLOTS:
+        raise CheckFailed(f"the queued timeout: {queued!r}, active rows "
+                          f"{max(seen)}")
+    p1 = engine.stats()["prefills"]
+    engine.clock = lambda: 10.0 if engine._prefills >= p1 + 2 else 0.0
+    ha = engine.submit(prompts[0], NEW_TOKENS)
+    hc = engine.submit(prompts[1], NEW_TOKENS, deadline_ms=1000)
+    try:
+        hc.result(600)
+        raise CheckFailed("a decoding request outlived its deadline")
+    except RequestTimeout as e:
+        mid = str(e)
+    same_tokens("mid-decode round", [ha.result(600)], grid[:1])
+    st = engine.stats()
+    engine.clock = time.perf_counter
+    emitted = len(hc._request.generated)
+    log(f"  deadlines: {queued!r} with {max(seen)} rows busy; {mid!r}; "
+        f"timeouts {st['timeouts']}, pages used after {st['pages_used']}")
+    if "mid-decode" not in mid or not 1 <= emitted < NEW_TOKENS \
+            or st["timeouts"] != 2 or st["pages_used"] != 0:
+        raise CheckFailed(f"the mid-decode timeout: {mid!r}, {emitted} "
+                          f"tokens, stats {st}")
+    return {"queued": queued, "mid_decode": mid, "rows_busy": max(seen),
+            "timeouts": st["timeouts"]}
+
+
+def check_overload(ServingEngine, EngineOverloaded, lm, prompts, grid):
+    """Shed and degrade on an exhausted pool: all but one page fewer than
+    the longest prompt needs now are held. Shed raises with
+    ``pages_free``; degrade admits it with half its new tokens once the
+    pages return."""
+    i = int(np.argmax([len(p) for p in prompts]))
+    free = len(prompts[i]) // PAGE_TOKENS
+    kw = dict(max_len=MAX_LEN, slots=EXTRA_SLOTS, pages=EXHAUST_PAGES,
+              page_tokens=PAGE_TOKENS, device=DEVICE)
+    shed = ServingEngine(lm, overload="shed", **kw)
+    held = shed._allocator.alloc(EXHAUST_PAGES - free)
+    try:
+        shed.submit(prompts[i], NEW_TOKENS)
+        raise CheckFailed("shed admitted a request the pool cannot back")
+    except EngineOverloaded as e:
+        err = e
+    finally:
+        shed.shutdown()
+    if err.pages_free != free:
+        raise CheckFailed(f"shed reported pages_free={err.pages_free}")
+    deg = ServingEngine(lm, overload="degrade", **kw)
+    try:
+        held = deg._allocator.alloc(EXHAUST_PAGES - free)
+        h = deg.submit(prompts[i], NEW_TOKENS)
+        halved = h._request.max_new_tokens
+        deg._allocator.free(held)
+        res = h.result(600)
+        st = deg.stats()
+    finally:
+        deg.shutdown()
+    want = grid[i].tokens[:len(prompts[i]) + NEW_TOKENS // 2]
+    log(f"  overload: shed raised {type(err).__name__}(pages_free="
+        f"{err.pages_free}, queue_depth={err.queue_depth}); degrade admitted "
+        f"{halved} of {NEW_TOKENS} new tokens "
+        f"(degraded_admits {st['degraded_admits']})")
+    if halved != NEW_TOKENS // 2 or res.n_generated != halved \
+            or not np.array_equal(res.tokens, want):
+        raise CheckFailed(f"degrade served {res.n_generated} tokens "
+                          f"(max_new_tokens {halved})")
+    return {"shed_pages_free": err.pages_free, "degraded_to": halved}
+
+
+def prefix_traffic(seed):
+    """A 512-token prefix alone, then 8 requests of prefix + a 33..64
+    token tail (a hit at 512 whose remainder takes the 64 bucket), then
+    the first tail request again (an exact hit)."""
+    rng = np.random.default_rng(seed)
+    prefix = rng.integers(0, VOCAB, PREFIX_LEN).astype(np.int32)
+    tails = [np.concatenate([prefix, rng.integers(0, VOCAB, int(n))
+                             .astype(np.int32)])
+             for n in rng.integers(TAIL_LO, TAIL_HI + 1, N_TAILS)]
+    return [prefix] + tails + [tails[0]]
+
+
+def prefix_pool_run(ServingEngine, pick_seed_bucket, kernels, lm, ln, card):
+    """The pooled engine against a pool-less one, two rounds of
+    ``prefix_traffic`` each (the first holds the captures), submitted one
+    at a time: every tail hits at 512 and prefills through the bucket
+    ``pick_seed_bucket`` gives, the repeat runs no prefill, and the tokens
+    are the pool-less engine's (near-tie rule)."""
+    out = {}
+    ttft = {}
+    for name, kw in (("cold", {}), ("pooled", dict(prefix_pool=16,
+                                                   prefix_chunk=16))):
+        before = kernels.launch_counts()["layer_norm_fwd"]
+        engine = ServingEngine(lm, max_len=MAX_LEN, slots=SLOTS,
+                               device=DEVICE, **kw)
+        try:
+            tokens, firsts = [], []
+            for rnd in range(2):
+                for j, p in enumerate(prefix_traffic(SEED + 20 + rnd)):
+                    st0 = engine.stats()
+                    r = engine.submit(p, NEW_TOKENS).result(600)
+                    st1 = engine.stats()
+                    tokens.append(r.tokens)
+                    if rnd == 1 and 1 <= j <= N_TAILS:
+                        firsts.append(r.ttft_s * 1e3)
+                    if name == "pooled":
+                        check_prefix_step(j, p, st0, st1, pick_seed_bucket,
+                                          engine.buckets)
+            st = engine.stats()
+        finally:
+            engine.shutdown()
+        check_engine(f"prefix traffic, {name}", st,
+                     kernels.launch_counts()["layer_norm_fwd"] - before, ln)
+        out[name] = (tokens, st)
+        ttft[name] = float(np.percentile(firsts, 50))
+    lengths = [len(p) for rnd in range(2)
+               for p in prefix_traffic(SEED + 20 + rnd)]
+    parted = check_near_ties(lm, "pooled", out["pooled"][0], out["cold"][0],
+                             lengths)
+    st = out["pooled"][1]
+    log(f"  prefix pool: tails' TTFT p50 {ttft['pooled']:.2f} ms warm "
+        f"(a hit at {PREFIX_LEN}) against {ttft['cold']:.2f} ms cold; "
+        f"{st['prefix_hits']} hits, {st['prefix_tokens_saved']} tokens "
+        f"saved, {st['prefix_entries']} entries, {st['prefix_bytes']} bytes; "
+        f"prefills by bucket {st['prefills_by_bucket']}; {parted} requests "
+        f"parted from the cold engine at near ties [{card}]")
+    return {"ttft_p50_ms_warm": ttft["pooled"],
+            "ttft_p50_ms_cold": ttft["cold"], "hits": st["prefix_hits"],
+            "tokens_saved": st["prefix_tokens_saved"],
+            "bytes": st["prefix_bytes"], "entries": st["prefix_entries"],
+            "prefills_by_bucket": st["prefills_by_bucket"],
+            "parted_at_near_ties": parted}
+
+
+def check_prefix_step(j, prompt, st0, st1, pick_seed_bucket, buckets):
+    """One pooled request's effect on the engine's counters: the prefix
+    alone misses and prefills; a tail hits at 512 and prefills its
+    remainder through ``pick_seed_bucket``'s bucket; the repeat hits
+    whole and runs no prefill."""
+    hits = st1["prefix_hits"] - st0["prefix_hits"]
+    saved = st1["prefix_tokens_saved"] - st0["prefix_tokens_saved"]
+    by = {b: n - st0["prefills_by_bucket"].get(b, 0)
+          for b, n in st1["prefills_by_bucket"].items()}
+    ran = {b: n for b, n in by.items() if n}
+    if j == 0:
+        want = (0, 0, {pick_bucket_of(len(prompt), buckets): 1})
+    elif j <= N_TAILS:
+        want = (1, PREFIX_LEN, {pick_seed_bucket(
+            len(prompt) - PREFIX_LEN, buckets, PREFIX_LEN, MAX_LEN): 1})
+    else:
+        want = (1, len(prompt), {})
+    if (hits, saved, ran) != want:
+        raise CheckFailed(f"pooled request {j}: hits {hits}, tokens saved "
+                          f"{saved}, prefills {ran}; expected {want}")
+
+
+def pick_bucket_of(n, buckets):
+    return min(b for b in buckets if b >= n)
+
+
+def spec_runs(ServingEngine, SpeculativeDecoder, kernels, lm, draft, nn,
+              prompts, refs, plain_rate, card):
+    """The speculative engine, k = 4, on the slot grid and paged, with the
+    target as its own draft (acceptance must be 1) and with the smaller
+    draft; two rounds each (the first holds the captures), tokens against
+    solo ``greedy_generate`` (near-tie rule); then ``SpeculativeDecoder``
+    on a (4, 8) batch against ``greedy_generate``."""
+    ln, ln_d = ln_modules(nn, lm), ln_modules(nn, draft)
+    out = {}
+    for grid in ("grid", "paged"):
+        for dname, d, dln in (("self-draft", lm, ln), ("small draft", draft,
+                                                      ln_d)):
+            kw = (dict(slots=SLOTS) if grid == "grid" else
+                  dict(slots=EXTRA_SLOTS, pages=EXTRA_PAGES,
+                       page_tokens=PAGE_TOKENS))
+            name = f"speculative, {grid}, {dname}"
+            rounds, _ = engine_run(ServingEngine, kernels, lm, name, prompts,
+                                   2, ln, dln, draft_model=d,
+                                   spec_tokens=SPEC_K, **kw)
+            (res1, _, st1), (res2, wall2, st2) = rounds
+            parted = sum(check_near_ties(
+                lm, name, [r.tokens for r in res], refs,
+                [len(p) for p in prompts]) for res in (res1, res2))
+            warm = report_round(f"{name}, second round", res2, wall2, st2,
+                                st1, card)
+            rate = st2["acceptance_rate"]
+            log(f"  {name}: acceptance {rate:.4f} ({st2['spec_accepted']} of "
+                f"{st2['spec_proposed']}); decode "
+                f"{warm['decode_tokens_per_s']:.1f} tokens/s against plain "
+                f"{plain_rate[grid]:.1f} [{card}]")
+            if dname == "self-draft" and rate != 1.0:
+                raise CheckFailed(f"{name}: acceptance {rate}, not 1.0")
+            if grid == "paged" and st2["pages_used"] != 0:
+                raise CheckFailed(f"{name} held {st2['pages_used']} pages "
+                                  f"after the drain")
+            out[f"{grid}_{dname.split()[0].replace('-', '_')}"] = dict(
+                warm, acceptance_rate=rate, parted_at_near_ties=parted)
+    g = torch.Generator().manual_seed(SEED + 11)
+    batch = torch.randint(0, VOCAB, (4, 8), generator=g).numpy()
+    want = nn.greedy_generate(lm, batch, NEW_TOKENS,
+                              device=DEVICE).cpu().numpy()
+    for dname, d in (("self-draft", lm), ("small draft", draft)):
+        dec = SpeculativeDecoder(lm, d, spec_tokens=SPEC_K, device=DEVICE)
+        got = dec.generate(batch, NEW_TOKENS)
+        parted = check_near_ties(lm, f"SpeculativeDecoder, {dname}", got,
+                                 want, [8] * 4)
+        log(f"  SpeculativeDecoder, {dname}, (4, 8) + {NEW_TOKENS}: "
+            f"{dec.stats()}; {parted} rows parted from greedy_generate at "
+            f"near ties")
+        if dname == "self-draft" and dec.stats()["acceptance_rate"] != 1.0:
+            raise CheckFailed(f"SpeculativeDecoder self-draft acceptance "
+                              f"{dec.stats()['acceptance_rate']}")
+        out[f"decoder_{dname.split()[0].replace('-', '_')}"] = dec.stats()
+    return out
+
+
+def paged_state(lm, paged_cache, per_row):
+    """A paged cache of EXTRA_SLOTS rows with ``per_row`` pages each."""
+    state = paged_cache.install_paged_cache(lm, EXTRA_SLOTS, MAX_LEN,
+                                            EXTRA_PAGES, PAGE_TOKENS)
+    table = torch.zeros((EXTRA_SLOTS, MAX_LEN // PAGE_TOKENS),
+                        dtype=torch.long)
+    for r in range(EXTRA_SLOTS):
+        table[r, :per_row] = torch.arange(1 + r * per_row,
+                                          1 + (r + 1) * per_row)
+    paged_cache.with_page_table(state, table.to(DEVICE))
+    return state
+
+
+def leaves(tree):
+    for v in tree.values():
+        yield from leaves(v) if isinstance(v, dict) else (v,)
+
+
+def states_equal(a, b, live) -> bool:
+    """Every leaf of two states equal bit for bit; pools on pages ``live``
+    only (the trash page takes the free writes in no fixed order)."""
+    for x, y in zip(leaves(a), leaves(b)):
+        if x.dim() == 4 and x.shape[0] == EXTRA_PAGES + 1:
+            x, y = x[live], y[live]
+        if not torch.equal(x, y):
+            return False
+    return True
+
+
+def replayed_extras(lm, draft, nn, kernels, Program, paged_cache,
+                    build_spec_step, card):
+    """One replayed paged tick and one replayed speculative step against
+    the same work run eagerly on copies of the same states (a 64-token
+    prefix in each of 16 rows of 16 pages): the tokens and log-probs,
+    the live pages, the draft's cache and the positions bit for bit, and
+    the launches; the paged tick's log-probs also against the slot grid's
+    on the same prefix. Device and host ms of each replay."""
+    per = min(16, EXTRA_PAGES // EXTRA_SLOTS, MAX_LEN // PAGE_TOKENS)
+    live = slice(1, 1 + EXTRA_SLOTS * per)
+    rng = np.random.default_rng(SEED + 7)
+    prefix = torch.from_numpy(rng.integers(
+        0, VOCAB, (EXTRA_SLOTS, per * PAGE_TOKENS // 4))).to(DEVICE)
+    tok = torch.from_numpy(rng.integers(0, VOCAB, (EXTRA_SLOTS, 1))
+                           ).to(DEVICE)
+
+    def ln_count():
+        return kernels.launch_counts()["layer_norm_fwd"]
+
+    out = {}
+    with torch.no_grad():
+        state = paged_state(lm, paged_cache, per)
+        grid = nn.install_decode_cache(lm, EXTRA_SLOTS, MAX_LEN)
+        lm.run(prefix, state)
+        lm.run(prefix, grid)
+        ref = copy_tree(state)
+        prog = Program(("paged_tick_check",),
+                       lambda t: lm.run(t, state)[0], (tok.clone(),), DEVICE)
+        prog()                               # warm-up, then capture
+        lm.run(tok, ref)
+        lm.run(tok, grid)
+        c0 = ln_count()
+        got = prog().clone()
+        c1 = ln_count()
+        want = lm.run(tok, ref)[0]
+        c2 = ln_count()
+        want_grid = lm.run(tok, grid)[0]
+        bitwise = bool(torch.equal(got, want))
+        pages_ok = states_equal(state, ref, live)
+        grid_ok = bool(torch.equal(want, want_grid))
+        dev_ms, host_ms = time_ms(prog, reps=2)
+        out["paged_tick"] = {"device_ms": dev_ms, "host_ms": host_ms,
+                             "bitwise": bitwise, "pages_bitwise": pages_ok,
+                             "grid_bitwise": grid_ok,
+                             "ln_replay": c1 - c0, "ln_eager": c2 - c1}
+        log(f"  paged tick ({EXTRA_SLOTS} rows, {EXTRA_PAGES} pages), "
+            f"replayed: device {dev_ms:.3f} ms, host {host_ms:.3f} ms; "
+            f"log-probs against the eager step bitwise {bitwise}, live "
+            f"pages bitwise {pages_ok}, against the slot grid bitwise "
+            f"{grid_ok}; LN forward {c1 - c0} a replay, {c2 - c1} eager "
+            f"[{card}]")
+        if not (bitwise and pages_ok and grid_ok) or c1 - c0 != c2 - c1:
+            raise CheckFailed(f"the replayed paged tick departs: "
+                              f"{out['paged_tick']}")
+
+        step = build_spec_step(lm, draft, SPEC_K)
+        state_d = nn.install_decode_cache(draft, EXTRA_SLOTS, MAX_LEN)
+        draft.run(prefix, state_d)
+
+        def run(st, st_d, t):
+            props, greedy, n_acc, ok = step(st, st_d, t[:, 0])
+            return torch.cat([props, greedy, n_acc[:, None],
+                              ok[:, None].long()], dim=1)
+
+        ref, ref_d = copy_tree(state), copy_tree(state_d)
+        prog = Program(("spec_step_check",),
+                       lambda t: run(state, state_d, t), (tok.clone(),),
+                       DEVICE)
+        prog()                               # warm-up, then capture
+        run(ref, ref_d, tok)
+        c0 = ln_count()
+        got = prog().clone()
+        c1 = ln_count()
+        want = run(ref, ref_d, tok)
+        c2 = ln_count()
+        bitwise = bool(torch.equal(got, want))
+        pages_ok = states_equal(state, ref, live) and states_equal(
+            state_d, ref_d, live)
+        dev_ms, host_ms = time_ms(prog, reps=2)
+        out["spec_step"] = {"device_ms": dev_ms, "host_ms": host_ms,
+                            "bitwise": bitwise, "states_bitwise": pages_ok,
+                            "ln_replay": c1 - c0, "ln_eager": c2 - c1}
+        log(f"  speculative step (k={SPEC_K}, paged target, small draft), "
+            f"replayed: device {dev_ms:.3f} ms, host {host_ms:.3f} ms; "
+            f"tokens and accepts against the eager step bitwise {bitwise}, "
+            f"live pages, draft cache and positions {pages_ok}; LN forward "
+            f"{c1 - c0} a replay, {c2 - c1} eager [{card}]")
+        if not (bitwise and pages_ok) or c1 - c0 != c2 - c1:
+            raise CheckFailed(f"the replayed speculative step departs: "
+                              f"{out['spec_step']}")
+    return out
+
+
+def serving_extras(TransformerLM, nn, kernels, card, grid_rounds, prompts,
+                   refs):
+    """Phase 9 (its launches are counted from a reset by the caller):
+    ``grid_rounds`` are phase 5's two rounds through the 8-slot grid,
+    ``refs`` the requests' solo ``greedy_generate`` tokens."""
+    from bigdl_tpu_torch.serving import (
+        EngineOverloaded, RequestTimeout, ServingEngine, SpeculativeDecoder,
+        paged_cache, pick_seed_bucket,
+    )
+    from bigdl_tpu_torch.serving.speculative import build_spec_step
+    from bigdl_tpu_torch.utils.programs import Program
+
+    lm = build_lm(TransformerLM, "auto", DEVICE)
+    ln = ln_modules(nn, lm)
+    grid = grid_rounds[1][0]
+    grid_stats = grid_rounds[1][2]
+    grid_warm = report_round("8-slot grid (phase 5), second round",
+                             grid_rounds[1][0], grid_rounds[1][1],
+                             grid_stats, grid_rounds[0][2], card)
+    out = {}
+    rounds, engine = engine_run(
+        ServingEngine, kernels, lm, "paged", prompts, 2, ln, keep=True,
+        slots=EXTRA_SLOTS, pages=EXTRA_PAGES, page_tokens=PAGE_TOKENS)
+    try:
+        for r, (res, _, _) in enumerate(rounds):
+            same_tokens(f"paged round {r + 1}", res, grid)
+        (_, _, st1), (res2, wall2, st2) = rounds
+        warm = report_round("paged, second round", res2, wall2, st2, st1,
+                            card)
+        peak, gpeak = st2["peak_active_slots"], grid_stats["peak_active_slots"]
+        log(f"  paged ({EXTRA_SLOTS} slots, {EXTRA_PAGES} pages of "
+            f"{PAGE_TOKENS}: the {SLOTS}-slot grid's KV bytes): tokens equal "
+            f"the grid's bitwise in both rounds; peak resident {peak} "
+            f"against the grid's {gpeak}; decode "
+            f"{warm['decode_tokens_per_s']:.1f} against "
+            f"{grid_warm['decode_tokens_per_s']:.1f} tokens/s, "
+            f"tick {warm['tick_ms']:.3f} against {grid_warm['tick_ms']:.3f} "
+            f"ms, TTFT p50 {warm['ttft_p50_ms']:.1f} / p99 "
+            f"{warm['ttft_p99_ms']:.1f} against {grid_warm['ttft_p50_ms']:.1f}"
+            f" / {grid_warm['ttft_p99_ms']:.1f} ms; after the drain "
+            f"{st2['pages_used']} pages used, free ratio "
+            f"{st2['free_page_ratio']} [{card}]")
+        if peak < 2 * gpeak or st2["pages_used"] != 0 \
+                or st2["free_page_ratio"] != 1.0:
+            raise CheckFailed(f"paged: peak {peak} (grid {gpeak}), pages "
+                              f"used {st2['pages_used']} after the drain")
+        out["paged"] = dict(warm, peak_active_slots=peak,
+                            grid_peak_active_slots=gpeak, grid=grid_warm)
+        out["deadlines"] = check_deadlines(engine, prompts, grid,
+                                           RequestTimeout)
+    finally:
+        engine.shutdown()
+    del engine
+    rounds, _ = engine_run(ServingEngine, kernels, lm, "exhausted pool",
+                           prompts, 1, ln, slots=EXTRA_SLOTS,
+                           pages=EXHAUST_PAGES, page_tokens=PAGE_TOKENS)
+    res, wall, st = rounds[0]
+    check_served_tokens(lm, None, prompts, res, refs)
+    log(f"  exhausted pool ({EXHAUST_PAGES} pages): {st['completed']} of "
+        f"{N_REQUESTS} completed in {wall:.2f} s, {st['page_evictions']} "
+        f"preemptions, peak resident {st['peak_active_slots']}, "
+        f"{st['pages_used']} pages used after; tokens match solo "
+        f"greedy_generate [{card}]")
+    if st["page_evictions"] < 1 or st["completed"] != N_REQUESTS \
+            or st["pages_used"] != 0:
+        raise CheckFailed(f"exhausted pool: {st}")
+    out["exhausted"] = {"preemptions": st["page_evictions"], "wall_s": wall,
+                        "peak_active_slots": st["peak_active_slots"]}
+    out["overload"] = check_overload(ServingEngine, EngineOverloaded, lm,
+                                     prompts, grid)
+    torch.cuda.empty_cache()
+    out["prefix"] = prefix_pool_run(ServingEngine, pick_seed_bucket, kernels,
+                                    lm, ln, card)
+    embed, heads, layers = DRAFT_WIDTH
+    draft = TransformerLM(VOCAB, embed, heads, layers, MAX_LEN,
+                          generator=torch.Generator().manual_seed(SEED + 9),
+                          device=DEVICE).evaluate()
+    torch.cuda.empty_cache()
+    out["speculative"] = spec_runs(
+        ServingEngine, SpeculativeDecoder, kernels, lm, draft, nn, prompts,
+        refs, {"grid": grid_warm["decode_tokens_per_s"],
+               "paged": warm["decode_tokens_per_s"]}, card)
+    out["replays"] = replayed_extras(lm, draft, nn, kernels, Program,
+                                     paged_cache, build_spec_step, card)
+    del lm, draft
+    torch.cuda.empty_cache()
+    return out
+
+
+
 # -------------------------------------------------------------------- main
 def main() -> int:
     if not torch.cuda.is_available():
@@ -2365,7 +2940,7 @@ def main() -> int:
     for name in ("layer_norm_fwd", "flash_attention_fwd"):
         if launches[name] == 0:
             raise CheckFailed(f"the serving path never launched {name}")
-    check_served_tokens(lm, greedy_generate, prompts, results)
+    refs = check_served_tokens(lm, greedy_generate, prompts, results)
     if any(not np.array_equal(a.tokens, b.tokens)
            for a, b in zip(results, results2)):
         raise CheckFailed("the second round served other tokens")
@@ -2475,11 +3050,28 @@ def main() -> int:
         f"convolutions, cuBLAS for the final Linear, torch ops for batch "
         f"norm, pooling and the rest): {vision['lm_kernel_launches']}")
 
+    log("phase 9: the serving extras, full width")
+    kernels.reset_launch_counts()          # the phase's path: from here ...
+    extras = serving_extras(TransformerLM, nn, kernels, card, rounds,
+                            prompts, refs)
+    extras_counts = kernels.launch_counts()    # ... to here
+    log(f"  launches: {extras_counts}")
+    if extras_counts["layer_norm_fwd"] == 0:
+        raise CheckFailed("the serving extras never launched the LayerNorm "
+                          "forward")
+
+    log("phase 10: the kernel table")
+
     # each kernel's row: its own slice's path (serving for the forward
     # kernels, training for the backward ones) and shapes; both paths'
     # launches under "paths"
     ln = find_row(ln_rows, (2 * 512, EMBED), "float32")
     ln_dec = find_row(ln_rows, (SLOTS, EMBED), "float32")
+    ln_extras = {name: {k: find_row(ln_rows, shape, "float32")[k] for k in (
+        "shape", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+        "err")} for name, shape in (
+        ("paged_tick", (EXTRA_SLOTS, EMBED)),
+        ("verify_chunk", (EXTRA_SLOTS * (SPEC_K + 1), EMBED)))}
     fa = find_row(fa_rows, serve_shape, "float32")
 
     def design_of(kernel, plan, summary):   # the fp32 d = 64 instance's
@@ -2520,7 +3112,8 @@ def main() -> int:
                  "training_bf16": counts16[k],
                  "llama_serving": llama["serving_counts"][k],
                  "llama_training_bf16": llama["counts"][k],
-                 "vision": vision["lm_kernel_launches"][k]}
+                 "vision": vision["lm_kernel_launches"][k],
+                 "serving_extras": extras_counts[k]}
              for k in launches}
     beam_row = find_row(fa_rows, BEAM_SHAPE, "float32")
 
@@ -2565,6 +3158,7 @@ def main() -> int:
          "training_copy_ms": ln_t["copy_ms"],
          "decode_shape": ln_dec["shape"], "decode_ms": ln_dec["ms"],
          "decode_library_ms": ln_dec["library_ms"],
+         "serving_extras": ln_extras,
          "launch_floor_ms": floor_ms,
          "design": "one warp per row (4 rows a CTA), the row in registers, "
                    "128-bit loads and stores, statistics by warp shuffles",
@@ -2674,7 +3268,7 @@ def main() -> int:
                                          for k in ("busy_ms", "wall_ms",
                                                    "host_calls")}}},
         "llama": dict(llama["summary"], kernel_ms_per_step=llama_kernel_ms),
-        "vision": vision}
+        "vision": vision, "serving_extras": extras}
     print(json.dumps(table), flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -90,9 +90,9 @@ def test_served_tokens_and_replayed_programs_equal_eager(cuda):
     assert progs[("serve_decode", 2, MAX_LEN, "float32")].replays > 0
 
     with torch.no_grad():
-        # a prefill bucket: 12 tokens right-padded to 16
+        # a prefill bucket: 12 tokens right-padded to 16, from depth 0
         prefill = eng._prefill_program(16)
-        args = torch.zeros(17, dtype=torch.long)
+        args = torch.zeros(18, dtype=torch.long)
         args[:12] = torch.from_numpy(r.integers(0, VOCAB, 12))
         args[16] = 12
         prefill.inputs[0].copy_(args)
@@ -119,6 +119,35 @@ def test_served_tokens_and_replayed_programs_equal_eager(cuda):
         assert replayed == eager and eager["layer_norm_fwd"] == 2 * LAYERS + 1
         for a, b in zip(_leaves(eng._dec_state), _leaves(ref)):
             torch.testing.assert_close(a, b, atol=1e-6, rtol=1e-6)
+
+
+@pytest.mark.parametrize("draft", [False, True])
+def test_paged_pooled_speculative_serving_replays(cuda, draft):
+    """The paged engine with a prefix pool (and with the model drafting
+    for itself, k = 3) serves cold, seeded and exact-hit requests through
+    replayed programs: solo ``greedy_generate``'s tokens, acceptance 1 with
+    the self-draft, the ledger within its bound, the pool drained."""
+    lm = _lm().evaluate()
+    r = np.random.default_rng(2)
+    base = r.integers(0, VOCAB, 24)
+    reqs = [base, np.concatenate([base, r.integers(0, VOCAB, 7)]), base,
+            r.integers(0, VOCAB, 37)]
+    kw = dict(draft_model=lm, spec_tokens=3) if draft else {}
+    with ServingEngine(lm, MAX_LEN, slots=2, pages=8, prefix_pool=4,
+                       prefix_chunk=8, **kw) as eng:
+        results = [eng.submit(p, 6).result(120) for p in reqs]
+        stats = eng.stats()
+        progs = eng._programs._programs
+    for p, res in zip(reqs, results):
+        want = greedy_generate(lm, p[None], 6)[0].cpu().numpy()
+        np.testing.assert_array_equal(res.tokens, want)
+    assert stats["prefix_hits"] == 2 and stats["prefills"] == 3
+    assert stats["compiled_programs"] <= stats["program_grid_bound"]
+    assert stats["pages_used"] == 0
+    assert all(p.captured for p in progs.values())
+    assert sum(p.replays for p in progs.values()) > 0
+    if draft:
+        assert stats["acceptance_rate"] == 1.0
 
 
 def _batches(n, batch=2, t=MAX_LEN, seed=1):

@@ -23,6 +23,7 @@ from bigdl_tpu_torch.optim.evaluator import run_device_eval
 from bigdl_tpu_torch.optim.validation import Top1Accuracy
 from bigdl_tpu_torch.optim import LocalOptimizer
 from bigdl_tpu_torch.serving import ServingEngine
+from bigdl_tpu_torch.serving import paged_cache, prefix_cache, speculative
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -39,12 +40,27 @@ print(len(names), bad)
 """
 
 
+def test_serving_extras_import_no_jax():
+    """The paged cache, the prefix pool and speculative decoding, imported
+    alone in a fresh interpreter, bring in neither JAX nor the JAX
+    package."""
+    names = [m.__name__ for m in (paged_cache, prefix_cache, speculative)]
+    code = ("import importlib, sys\n"
+            f"for n in {names!r}: importlib.import_module(n)\n"
+            "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'bigdl_tpu')))")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip() == "[]", r.stdout
+
+
 def test_importing_every_module_leaves_jax_out():
     r = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=ROOT,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
     count, bad = r.stdout.split(" ", 1)
-    assert int(count) >= 55
+    assert int(count) >= 58
     assert bad.strip() == "[]", bad
 
 

@@ -16,6 +16,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from bigdl_tpu_torch.dataset import DataSet
 from bigdl_tpu_torch.kernels import _cuda
 from bigdl_tpu_torch.models.transformerlm import TransformerLM, lm_criterion
+from bigdl_tpu_torch.nn import greedy_generate
 from bigdl_tpu_torch.optim import LBFGS, SGD, Adam, LocalOptimizer
 from bigdl_tpu_torch.serving import ServingEngine
 from bigdl_tpu_torch.utils import programs
@@ -95,6 +96,43 @@ def test_serving_programs_make_no_host_read(monkeypatch):
     assert {k[0] for k in called} == {"serve_prefill", "serve_assign",
                                       "serve_decode"}
     assert set(called) == set(keys) and len(keys) == 5
+
+
+def test_paged_spec_pooled_programs_make_no_host_read(monkeypatch):
+    """The paged engine with a draft and a prefix pool: cold, seeded and
+    exact-hit admissions and speculative ticks run only the prefill, spec
+    step and paged assign programs, none of which reads a tensor on the
+    host (the paged gather and scatter, the accept and the rewind are
+    device ops), and the ledger stays within ``len(buckets) + 2``; the
+    paged engine without a draft likewise."""
+    called = _guarded(monkeypatch)
+    lm = TransformerLM(64, 32, 4, 2, 64, device="cpu",
+                       generator=torch.Generator().manual_seed(0))
+    draft = TransformerLM(64, 16, 2, 1, 64, device="cpu",
+                          generator=torch.Generator().manual_seed(1))
+    base = np.arange(24) % 64
+    prompts = [base, np.concatenate([base, [5, 6, 7]]), base,
+               np.arange(40) % 7]
+    want = [greedy_generate(lm, p[None], 6, device="cpu")[0].numpy()
+            for p in prompts]
+    for kw in (dict(draft_model=draft, spec_tokens=3), {}):
+        called.clear()
+        with ServingEngine(lm, 64, slots=2, device="cpu", pages=10,
+                           prefix_pool=4, prefix_chunk=8, **kw) as eng:
+            for p, w in zip(prompts, want):   # cold, seeded, exact, cold
+                np.testing.assert_array_equal(
+                    eng.submit(p, 6).result(60).tokens, w)
+            st = eng.stats()
+            keys = eng._programs.keys
+        assert st["prefix_hits"] == 2 and st["prefills"] == 3
+        assert st["compiled_programs"] == len(keys) <= \
+            st["program_grid_bound"] == len(eng.buckets) + 2
+        assert set(called) == set(keys)
+        kinds = {k[0] for k in keys}
+        assert kinds == ({"serve_prefill_spec", "serve_spec_step",
+                          "serve_assign_paged_spec"} if kw else
+                         {"serve_prefill", "serve_decode_paged",
+                          "serve_assign_paged"})
 
 
 def test_training_step_programs_make_no_host_read(monkeypatch):

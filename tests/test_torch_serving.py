@@ -125,7 +125,7 @@ def test_run_updates_the_decode_state_in_place(pair):
         assert leaf is before[path], path
         if path[-1] in ("pos", "pos_idx"):
             assert leaf.tolist() == [4, 4], path
-    tnn.zero_decode_cache(new)
+    tnn.restart_decode_cache(new, torch.zeros(1, dtype=torch.long))
     assert all(not leaf.any() for leaf in leaves.values())
 
 
