@@ -16,7 +16,11 @@ TransformerLM option but LoRA (grouped-query heads, RoPE, RMSNorm +
 SwiGLU, dropout, the fused LM head, sliding windows, beam search); and
 the vision zoo's training path (convolution, pooling, batch norm with
 running statistics, the NHWC layout, the conv-BN fold, ResNet, LeNet-5,
-VGG, Top-1/Top-5 validation on the card), whose convolutions are cuDNN's.
+VGG, Top-1/Top-5 validation on the card), whose convolutions are cuDNN's;
+the serving extras (paged KV cache, prefix pool, speculative decoding,
+deadlines and overload control); and the trainer's robustness: checkpoints
+either package resumes, preemption, NaN rollback and retries, the numerics
+check, profiling, summaries, Plateau's hook, ``Evaluator``/``Predictor``.
 All four Pallas kernels of the JAX package have a CUDA counterpart.
 """
 

@@ -22,8 +22,6 @@ from bigdl_tpu_torch.models.unported import refuse_unported
 UNPORTED_FLAGS = {
     "--folder": "Queue A.4 (the folder-backed image pipeline: "
                 "dataset/image*.py)",
-    "--checkpoint": "Queue A.1.6 (checkpointing and resume)",
-    "--summary-dir": "Queue A.1.6 (train/val summaries)",
     "--distributed": "Queue A.6 (DistriOptimizer)",
 }
 
@@ -37,6 +35,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--momentum", type=float, default=0.9)
     p.add_argument("--weight-decay", type=float, default=5e-4)
     p.add_argument("--synthetic-size", type=int, default=512)
+    p.add_argument("--checkpoint", default=None, help="checkpoint dir")
+    p.add_argument("--summary-dir", default=None,
+                   help="TensorBoard summary dir")
     p.add_argument("--device", default="cuda",
                    help="where to train: cuda (default) or cpu")
     return p
@@ -73,6 +74,15 @@ def main(argv=None):
                  .set_end_when(Trigger.max_epoch(args.max_epoch))
                  .set_validation(Trigger.every_epoch(), test_set,
                                  [Top1Accuracy()]))
+    if args.checkpoint:
+        optimizer.set_checkpoint(args.checkpoint, Trigger.every_epoch())
+    if args.summary_dir:
+        from bigdl_tpu_torch.visualization import (
+            TrainSummary, ValidationSummary,
+        )
+        optimizer.set_train_summary(TrainSummary(args.summary_dir, "vgg"))
+        optimizer.set_val_summary(ValidationSummary(args.summary_dir,
+                                                    "vgg"))
     optimizer.optimize()
     print(f"final loss: {optimizer.state['loss']:.4f}, Top1Accuracy: "
           f"{optimizer.state['score']:.4f}")

@@ -73,17 +73,62 @@ results go to the log and ``state["scores"]`` (``state["score"]``: the
 first method's). Windows are clipped so the trigger fires at its exact
 iteration.
 
-Not ported yet (ROADMAP Queue A.1.6): checkpointing, summaries, Plateau's
-trainer hook, sparse embeddings, profiling and preemption.
+**Checkpoints** (``set_checkpoint(path, trigger)``, the pickle backend of
+``bigdl_tpu/optim/optimizer.py:2185-2603``): when the trigger fires, the
+loop thread copies the master parameters, batch norm's running statistics
+and the optimizer slots to pinned host buffers once the window's last
+replay is done, and a ``bigdl-ckpt-writer`` thread pickles them with the
+trainer state, the resume record and the stateful schedule's state through
+``utils/file.py`` (CRC32 footer, fsync, atomic rename) as
+``checkpoint.<neval>.pkl``; at most one write is in flight, a failed write
+raises at the next join, ``BIGDL_CKPT_ASYNC=0`` makes the write
+synchronous, ``BIGDL_CKPT_KEEP=N`` keeps the newest N versions. The payload
+is JAX's: ``params``, ``mstate`` and ``ostate`` nested as the JAX package
+nests them (``convert.py``), fp32 numpy arrays, so either package resumes
+the other's files. ``optimize(resume="auto")`` restores the newest loadable
+file (a corrupt one is renamed ``*.corrupt`` and the one before it used) by
+copying into the live parameters, buffers and slots, never rebinding them,
+so a captured step program stays valid; the run then continues mid-epoch
+under the saved epoch order and RNG state, skipping the batches already
+run, bitwise as if never stopped.
+
+**Recovery** (``optimize``): SIGTERM or SIGINT (handlers on the main thread
+only) stops the run at the next window boundary, writes and joins an
+emergency checkpoint and raises :class:`TrainingPreempted`; a
+:class:`NonFiniteLossError` rolls back to the last good checkpoint at most
+``BIGDL_MAX_NAN_ROLLBACKS`` times (default 2), other failures at most
+``Engine.config().failure_retry_times`` times, ``failure_retry_interval``
+seconds apart. Losses are fetched and checked before every checkpoint
+write, so a poisoned state is never saved. ``set_check_numerics`` makes the
+step program also record, in a device flag fetched with the window's
+losses, whether the loss, a gradient or an updated parameter is not
+finite; a failure then re-runs the failing step eagerly from its
+pre-window state under a dispatch mode that names the first op that made a
+NaN or inf from finite inputs. ``set_profile`` traces iterations
+``[start, start + n)`` with ``torch.profiler`` (step by step) into a
+Chrome trace. ``set_train_summary``
+/ ``set_val_summary`` write Loss, LearningRate and Throughput at each
+iteration's own step, the opt-in ``Parameters`` histograms, and the
+validation scores with ``ValFetchBytes`` and ``ValWaitMs``; a ``Plateau``
+schedule is fed after validation (monitor ``"score"`` or a method's name)
+or at an epoch's end (``"loss"``), and SGD reads its rate from the host
+(``OptimMethod.hyper``), so a lower rate takes effect at the next replay.
+
+Not ported yet (ROADMAP Queue A): the feed (prefetch, the batch ring),
+sparse embeddings, the auxiliary loss, the model registry and the orbax
+and elastic checkpoint backends.
 """
 
 from __future__ import annotations
 
 import functools
+import itertools
 import logging
 import math
 import os
+import re
 import sys
+import threading
 import time
 from typing import Optional
 
@@ -91,26 +136,68 @@ import numpy as np
 import torch
 import torch.utils.checkpoint
 from torch.func import functional_call
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_leaves
 
-from bigdl_tpu_torch.dataset.dataset import AbstractDataSet
+from bigdl_tpu_torch import convert
+from bigdl_tpu_torch.dataset.dataset import AbstractDataSet, TransformedDataSet
 from bigdl_tpu_torch.nn.criterion import AbstractCriterion
 from bigdl_tpu_torch.nn.normalization import (
     checkpoint_contexts, dropout_generators,
 )
 from bigdl_tpu_torch.nn.precision import cast_floating
+from bigdl_tpu_torch.obs import trace
+from bigdl_tpu_torch.obs.registry import registry as obs_registry
+from bigdl_tpu_torch.optim.metrics import Metrics
 from bigdl_tpu_torch.optim.optim_method import (
     SGD, CompositeOptimMethod, OptimMethod,
 )
 from bigdl_tpu_torch.optim.trigger import Trigger
+from bigdl_tpu_torch.utils import faults
+from bigdl_tpu_torch.utils import file as ckpt_file
 from bigdl_tpu_torch.utils.device import require_on
 from bigdl_tpu_torch.utils.engine import Engine
+from bigdl_tpu_torch.utils.file import CheckpointCorruptError
 from bigdl_tpu_torch.utils.programs import Program
+from bigdl_tpu_torch.utils.random_generator import RandomGenerator
+from bigdl_tpu_torch.utils.robustness import events
 
 logger = logging.getLogger(__name__)
 
+#: pickle checkpoint file names: ``checkpoint.<neval>.pkl`` (versioned) or
+#: ``checkpoint.pkl`` (``over_write_checkpoint``'s rolling file), as JAX's
+_CKPT_RE = re.compile(r"^checkpoint(?:\.(\d+))?\.pkl$")
+
+
+def _ckpt_version(name: str) -> Optional[int]:
+    """Numeric version of a checkpoint file name; the rolling file sorts
+    below every versioned one; other names (``*.corrupt``, ``*.tmp``) give
+    None."""
+    m = _CKPT_RE.match(name)
+    if m is None:
+        return None
+    return int(m.group(1)) if m.group(1) is not None else -1
+
+
+class TrainingPreempted(RuntimeError):
+    """Raised by ``optimize()`` after a SIGTERM/SIGINT stop at a window
+    boundary, once the emergency checkpoint (when a checkpoint path is set)
+    is on disk; ``optimize(resume="auto")`` continues the run bitwise.
+    ``iteration`` is the first iteration not run; ``checkpoint_path`` is
+    None without a checkpoint path."""
+
+    def __init__(self, message: str, checkpoint_path: Optional[str] = None,
+                 iteration: int = 0):
+        super().__init__(message)
+        self.checkpoint_path = checkpoint_path
+        self.iteration = iteration
+
 
 class NonFiniteLossError(RuntimeError):
-    """A step produced a NaN or infinite loss."""
+    """A step produced a NaN or infinite loss (or, under
+    ``set_check_numerics``, a non-finite gradient or parameter).
+    ``optimize()`` rolls back to the last good checkpoint at most
+    ``BIGDL_MAX_NAN_ROLLBACKS`` times (default 2), then raises it."""
 
     def __init__(self, message: str, iteration: int = 0):
         super().__init__(message)
@@ -131,6 +218,46 @@ def _copy_into(dst, src) -> None:
             d.copy_(s)
     else:
         dst.copy_(src)
+
+
+class _FirstNonFinite(TorchDispatchMode):
+    """Records the first op whose floating outputs hold a NaN or inf while
+    its floating inputs (read before it runs) are all finite. Ops that
+    only allocate are skipped: their outputs are not yet written."""
+
+    _ALLOCATING = frozenset({"empty", "empty_like", "empty_strided",
+                             "new_empty", "new_empty_strided"})
+
+    def __init__(self):
+        super().__init__()
+        self.op = None
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        if self.op is not None \
+                or func.overloadpacket.__name__ in self._ALLOCATING:
+            return func(*args, **kwargs)
+        ins = [t for t in tree_leaves((args, kwargs))
+               if isinstance(t, torch.Tensor) and t.is_floating_point()]
+        finite_in = all(bool(t.isfinite().all()) for t in ins)
+        out = func(*args, **kwargs)
+        if finite_in and ins:
+            outs = [t for t in tree_leaves(out)
+                    if isinstance(t, torch.Tensor) and t.is_floating_point()]
+            if not all(bool(t.isfinite().all()) for t in outs):
+                self.op = str(func)
+        return out
+
+
+def _tensors_of(tree) -> list:
+    """The tensors of nested dicts, lists and tuples, in order."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _tensors_of(v)]
+    if isinstance(tree, (list, tuple)):
+        return [t for v in tree for t in _tensors_of(v)]
+    return []
 
 
 def _stack(xs: list):
@@ -219,6 +346,43 @@ class Optimizer:
         self.val_dataset: Optional[AbstractDataSet] = None
         self.val_methods: list = []
         self._convbn_fused = False
+        # checkpoints (set_checkpoint / over_write_checkpoint)
+        self.checkpoint_path: Optional[str] = None
+        self.checkpoint_trigger: Optional[Trigger] = None
+        self.overwrite_checkpoint = False
+        self.checkpoint_backend = "pickle"
+        # keep-last-N retention of versioned checkpoints (0 keeps all)
+        self.ckpt_keep: int = int(os.environ.get("BIGDL_CKPT_KEEP", "0"))
+        self._ckpt_thread: Optional[threading.Thread] = None
+        self._ckpt_error: Optional[BaseException] = None
+        # summaries (set_train_summary / set_val_summary)
+        self.train_summary = None
+        self.val_summary = None
+        self.metrics = Metrics()
+        # records/s of the last window (not of the first, which holds the
+        # warm-up and the capture); a wall-clock number, kept out of state
+        self.throughput: Optional[float] = None
+        # the numerics check (set_check_numerics / BIGDL_CHECK_NUMERICS)
+        self.check_numerics: bool = os.environ.get(
+            "BIGDL_CHECK_NUMERICS", "0") == "1"
+        # the torch.profiler window (set_profile / BIGDL_PROFILE_DIR)
+        self.profile_dir: Optional[str] = os.environ.get("BIGDL_PROFILE_DIR")
+        self.profile_start_iter = int(os.environ.get("BIGDL_PROFILE_START",
+                                                     "10"))
+        self.profile_n_iters = int(os.environ.get("BIGDL_PROFILE_ITERS", "10"))
+        self._profiler = None
+        self._profile_first = self._profile_stop_at = 0
+        self.profile_trace: Optional[str] = None    # the last trace written
+        # preemption: set by the signal handler, read at window boundaries
+        self._preempt: Optional[threading.Event] = None
+        self._prev_handlers: dict = {}
+        # mid-epoch resume: the feed position and the epoch's RNG state and
+        # order, carried in checkpoints
+        self._epoch_batches = 0
+        self._epoch_rng: Optional[dict] = None
+        self._epoch_order = None
+        self._resume_feed: Optional[dict] = None
+        self._rob_snap0: dict = {}      # robustness events at optimize()
 
     # fluent config (reference API shape) ----------------------------------
     def set_optim_method(self, method: OptimMethod) -> "Optimizer":
@@ -283,6 +447,64 @@ class Optimizer:
 
     def set_end_when(self, trigger: Trigger) -> "Optimizer":
         self.end_when = trigger
+        return self
+
+    def set_checkpoint(self, path: str, trigger: Trigger,
+                       backend: Optional[str] = None) -> "Optimizer":
+        """Write a checkpoint under ``path`` whenever ``trigger`` fires.
+        ``backend``: "pickle" (one file, written on a background thread;
+        None resolves to it). JAX's "orbax" and "elastic" backends are not
+        ported (``BIGDL_CKPT_SHARDED=1`` asks for "elastic")."""
+        if backend is None:
+            backend = ("elastic"
+                       if os.environ.get("BIGDL_CKPT_SHARDED", "0") == "1"
+                       else "pickle")
+        if backend == "orbax":
+            raise NotImplementedError(
+                "checkpoint backend 'orbax' writes through JAX's "
+                "orbax-checkpoint library and is not ported; use 'pickle'")
+        if backend == "elastic":
+            raise NotImplementedError(
+                "checkpoint backend 'elastic' (or BIGDL_CKPT_SHARDED=1) "
+                "shards a mesh's state and waits for ROADMAP Queue A.6; "
+                "use 'pickle'")
+        if backend != "pickle":
+            raise ValueError("checkpoint backend must be 'pickle', 'orbax' "
+                             "or 'elastic'")
+        self.checkpoint_path, self.checkpoint_trigger = path, trigger
+        self.checkpoint_backend = backend
+        return self
+
+    def over_write_checkpoint(self, overwrite: bool = True) -> "Optimizer":
+        """One rolling ``checkpoint.pkl`` instead of a file a version."""
+        self.overwrite_checkpoint = overwrite
+        return self
+
+    def set_train_summary(self, summary) -> "Optimizer":
+        self.train_summary = summary
+        return self
+
+    def set_val_summary(self, summary) -> "Optimizer":
+        self.val_summary = summary
+        return self
+
+    def set_check_numerics(self, enabled: bool = True) -> "Optimizer":
+        """Check every step for a NaN or inf in the loss, the gradients and
+        the updated parameters, in a device flag fetched with the window's
+        losses; a failure raises :class:`NonFiniteLossError` naming the op
+        that produced it. The losses and parameters are those of the
+        unchecked step, bit for bit."""
+        self.check_numerics = bool(enabled)
+        return self
+
+    def set_profile(self, trace_dir: str, start_iter: int = 10,
+                    n_iters: int = 10) -> "Optimizer":
+        """Trace iterations ``[start_iter, start_iter + n_iters)`` with
+        ``torch.profiler`` (run step by step) and write the Chrome trace
+        under ``trace_dir``; one window per ``optimize()``."""
+        self.profile_dir = trace_dir
+        self.profile_start_iter = start_iter
+        self.profile_n_iters = n_iters
         return self
 
     def set_validation(self, trigger: Trigger, dataset: AbstractDataSet,
@@ -446,6 +668,7 @@ class Optimizer:
         frozen = frozenset(n for n in named if scales[n] == 0.0)
         train = [n for n in named if n not in frozen]
         method, ostate = self._method, self._ostate
+        check = self.check_numerics
 
         def step(inp, target, h):
             loss, grads = self._loss_and_grads([named[n] for n in train],
@@ -455,7 +678,15 @@ class Optimizer:
             grads = dict(zip(train, self._clip_grads(grads)))
             method.update_with_trimmed(
                 named, {n: grads.get(n) for n in named}, ostate, h, mask)
-            return loss
+            if not check:
+                return loss
+            # the numerics flag: 1 when the loss, a gradient or an updated
+            # parameter holds a NaN or inf (read on the device, no host sync)
+            with torch.no_grad():
+                ok = torch.stack([t.isfinite().all() for t in
+                                  [loss, *grads.values(),
+                                   *(named[n] for n in train)]]).all()
+            return torch.stack([loss, (~ok).to(loss.dtype)])
 
         return step
 
@@ -465,6 +696,7 @@ class Optimizer:
         named, scales, mask = self._prepare_step()
         key = ("train_step", Engine.compute_dtype(),
                tuple(scales.values()), self._method, self._ostate_version,
+               self.check_numerics,
                self.criterion, self.remat, self.grad_accum,
                self.grad_clip_const, self.grad_clip_norm,
                _signature(inp), _signature(target),
@@ -487,31 +719,87 @@ class Optimizer:
     def _run_steps(self, batches: list) -> list:
         """Run one optimizer step for each ``(inp, target)`` of
         ``batches`` (already on the model's device), from iteration
-        ``state["neval"]``: the step program once a step, the losses
-        fetched once at the end and checked there. Advances ``neval``,
-        sets ``state["loss"]`` and returns the losses."""
+        ``state["neval"]``: the step program once a step, the losses (and
+        numerics flags) fetched once at the end and checked there. Advances
+        ``neval``, sets ``state["loss"]`` and returns the losses."""
         prog = self._program_for(*batches[0])
         start, n = self.state["neval"], len(batches)
         s_inp, s_target, s_h = prog.inputs
         h = torch.tensor([self._method.hyper(start - 1 + k, self._ostate)
                           for k in range(n)], dtype=torch.float32)
         h = h.to(s_h.device, non_blocking=True)
-        losses = torch.empty(n, dtype=torch.float32, device=s_h.device)
+        check = self.check_numerics
+        # the numerics check re-runs a failing step from the window's
+        # starting state: kept on the device
+        before = ([t.detach().clone() for t in self._live_tensors()]
+                  if check else None)
+        out = torch.empty((n, 2) if check else n, dtype=torch.float32,
+                          device=s_h.device)
         for k, (inp, target) in enumerate(batches):
             _copy_into(s_inp, inp)
             _copy_into(s_target, target)
             s_h.copy_(h[k])
-            losses[k].copy_(prog())
-        vals = losses.tolist()
-        for k, val in enumerate(vals):
-            if not math.isfinite(val):
-                self.state["neval"] = start + n
-                raise NonFiniteLossError(
-                    f"non-finite loss at iteration {start + k}: {val}",
-                    iteration=start + k)
-        self.state["loss"] = vals[-1]
+            out[k].copy_(prog())
+        with self.metrics.timer("loss_fetch"):
+            vals = out.tolist()
         self.state["neval"] = start + n
+        if check:
+            flags = [v[1] for v in vals]
+            vals = [v[0] for v in vals]
+            if any(flags):
+                k = flags.index(1.0)
+                self._diagnose_numerics(prog, batches, h, before, start, k)
+        for k, val in enumerate(vals):
+            vals[k] = self._guard_loss(start + k, val)
+        self.state["loss"] = vals[-1]
         return vals
+
+    def _guard_loss(self, it: int, val: float) -> float:
+        """The finite-loss check of every fetched loss: NaN or inf raises
+        :class:`NonFiniteLossError`. The ``nonfinite_loss`` fault site
+        poisons the fetched value here, as in JAX."""
+        if faults.check_fault(faults.SITE_NONFINITE_LOSS,
+                              index=it) is not None:
+            val = float("nan")
+        if not math.isfinite(val):
+            raise NonFiniteLossError(
+                f"non-finite loss at iteration {it}: {val}", iteration=it)
+        return val
+
+    def _live_tensors(self) -> list:
+        """Every tensor a step writes: the parameters, the module's buffers
+        and the optimizer's slots."""
+        return ([p for p in self.model.parameters()]
+                + [b for b in self.model.buffers()]
+                + _tensors_of(self._ostate))
+
+    def _diagnose_numerics(self, prog, batches, h, before, start, k) -> None:
+        """The numerics flag of step ``k`` of the window is set: put the
+        window's starting state back, replay the steps before ``k``, and
+        run step ``k`` eagerly under :class:`_FirstNonFinite`, which names
+        the first op that made a NaN or inf from finite inputs (JAX's
+        checkify names the primitive). Raises."""
+        live = self._live_tensors()
+        with torch.no_grad():
+            for t, b in zip(live, before):
+                t.copy_(b)
+        s_inp, s_target, s_h = prog.inputs
+        for j in range(k + 1):
+            _copy_into(s_inp, batches[j][0])
+            _copy_into(s_target, batches[j][1])
+            s_h.copy_(h[j])
+            if j < k:
+                prog()
+        finder = _FirstNonFinite()
+        with finder:
+            prog._fn(*prog.inputs)
+        cause = (f"nan/inf generated by {finder.op}" if finder.op else
+                 "no op of the eager re-run generated a nan or inf (one of "
+                 "the port's CUDA kernels, whose launches are not ops)")
+        raise NonFiniteLossError(
+            f"non-finite values (nan/inf) in the step at iteration "
+            f"{start + k} (set_check_numerics): {cause}",
+            iteration=start + k)
 
     def train_step(self, inp, target) -> float:
         """One optimizer step on a batch already on the model's device, at
@@ -522,44 +810,146 @@ class Optimizer:
 
     def _fusible_steps(self, state: dict) -> int:
         """Iterations that may run from ``state["neval"]`` in one window
-        before ``end_when`` or the validation trigger could fire (JAX also
-        clips at its checkpoint and summary triggers, not ported yet)."""
+        before ``end_when``, validation, checkpoint or the ``Parameters``
+        summary could fire, as JAX's ``_fusible_steps``; 1 while profiling,
+        so the trace holds single steps."""
+        if self.profile_dir is not None or self._profiler is not None:
+            return 1
         bound = self.end_when.next_fire_in(state)
-        if self.val_trigger is not None and _in_scope(self.val_trigger,
-                                                      boundary=False):
-            bound = min(bound, self.val_trigger.next_fire_in(state))
+        for trig in (self.val_trigger, self.checkpoint_trigger):
+            if trig is not None and _in_scope(trig, boundary=False):
+                bound = min(bound, trig.next_fire_in(state))
+        ptrig = self._summary_trigger("Parameters")
+        if ptrig is not None:
+            bound = min(bound, ptrig.next_fire_in(state))
         return bound
 
-    def _fire_validation(self, boundary: bool) -> None:
-        """Validate if the trigger fires here: inside the loop (``neval``
-        read as the iteration just run, JAX's convention) or at an epoch's
-        end."""
-        trig = self.val_trigger
-        if trig is None or not _in_scope(trig, boundary):
+    def _summary_trigger(self, name: str):
+        get = getattr(self.train_summary, "get_summary_trigger", None)
+        return get(name) if get is not None else None
+
+    def _fire_triggers(self, boundary: bool) -> None:
+        """Validation (and Plateau after it), Plateau on the loss at an
+        epoch's end, the checkpoint and the ``Parameters`` histograms, when
+        their triggers fire here: inside the loop, with ``neval`` read as
+        the iteration just run (JAX's convention), or at an epoch's end."""
+        state = self.state
+        if not boundary:
+            state["neval"] -= 1
+        try:
+            monitor = getattr(self._schedule(), "monitor", None)
+            trig = self.val_trigger
+            if trig is not None and _in_scope(trig, boundary) \
+                    and trig(state):
+                self._run_validation()
+                if monitor is not None and monitor not in ("loss", "Loss"):
+                    self._update_stateful_schedule()
+            if boundary and monitor in ("loss", "Loss"):
+                self._update_stateful_schedule()
+            trig = self.checkpoint_trigger
+            if trig is not None and self.checkpoint_path is not None \
+                    and _in_scope(trig, boundary) and trig(state):
+                # the window's losses were fetched and checked: a poisoned
+                # state never reaches a checkpoint
+                self._save_checkpoint()
+            ptrig = self._summary_trigger("Parameters")
+            if not boundary and ptrig is not None and ptrig(state):
+                for name, p in self.model.named_parameters():
+                    self.train_summary.add_histogram(
+                        name.replace(".", "/"), p.detach().float().cpu()
+                        .numpy(), state["neval"])
+        finally:
+            if not boundary:
+                state["neval"] += 1
+
+    def _schedule(self):
+        """The stateful learning-rate schedule the trainer feeds: the
+        method's (a composite's default method's), as JAX observes it."""
+        method = self.optim_method
+        if isinstance(method, CompositeOptimMethod):
+            method = method.default
+        return getattr(method, "learningrate_schedule", None)
+
+    def _update_stateful_schedule(self) -> None:
+        """Feed the monitored metric to a stateful schedule (Plateau) and
+        write its rate into the slots' ``clr``, which the next step's
+        ``hyper`` reads on the host: no recapture (JAX's
+        ``_update_stateful_schedule``)."""
+        sched = self._schedule()
+        owner = (None if self._ostate is None
+                 else convert.slots_owner(self._method, self._ostate))
+        if not getattr(sched, "stateful", False) or owner is None \
+                or "clr" not in owner:
             return
-        state = self.state if boundary else dict(
-            self.state, neval=self.state["neval"] - 1)
-        if trig(state):
-            self._run_validation()
+        state = self.state
+        monitor = getattr(sched, "monitor", "score")
+        if monitor in ("loss", "Loss"):
+            value = state.get("loss")
+        elif monitor == "score":
+            value = state.get("score")
+        else:
+            value = state.get("scores", {}).get(monitor)
+            if value is None and "scores" in state:
+                raise ValueError(
+                    f"Plateau monitor {monitor!r} matches no validation "
+                    f"method; available: {sorted(state['scores'])}")
+        if value is None:
+            return
+        owner["clr"] = float(sched.on_metric(float(value)))
 
     def _run_validation(self) -> None:
         from bigdl_tpu_torch.optim.evaluator import run_device_eval
         if self.val_dataset is None or not self.val_methods:
             return
-        results, stats = run_device_eval(self.model, self.val_dataset,
-                                         self.val_methods, self.device,
-                                         allow_empty=True)
-        logger.info("Validation pass: %d batches, val_fetch_bytes=%d",
-                    stats["batches"], stats["fetch_bytes"])
-        self.state["val_fetch_bytes"] = stats["fetch_bytes"]
-        scores = self.state.setdefault("scores", {})
+        state = self.state
+        with self.metrics.timer("validation"), trace.span("train/validation"):
+            results, stats = run_device_eval(self.model, self.val_dataset,
+                                             self.val_methods, self.device,
+                                             allow_empty=True)
+        logger.info("Validation pass: %d batches, val_fetch_bytes=%d, "
+                    "val_wait_ms=%.1f", stats["batches"],
+                    stats["fetch_bytes"], stats["wait_ms"])
+        state["val_fetch_bytes"] = stats["fetch_bytes"]
+        state["val_wait_ms"] = stats["wait_ms"]
+        if self.val_summary is not None:
+            self.val_summary.add_scalar("ValFetchBytes",
+                                        float(stats["fetch_bytes"]),
+                                        state["neval"])
+            self.val_summary.add_scalar("ValWaitMs", float(stats["wait_ms"]),
+                                        state["neval"])
+        scores = state.setdefault("scores", {})
         for m, r in zip(self.val_methods, results):
             if r is not None:
                 v, c = r.result()
                 logger.info("Validation %s: %.4f (%d samples)", m.name, v, c)
                 scores[m.name] = v
+                if self.val_summary is not None:
+                    self.val_summary.add_scalar(m.name, v, state["neval"])
         if results and results[0] is not None:
-            self.state["score"] = results[0].result()[0]
+            state["score"] = results[0].result()[0]
+
+    def _write_iter_summary(self, it: int, loss: float) -> None:
+        """Loss, LearningRate and Throughput of iteration ``it``, at its
+        own step, from the window's fetched losses; a tag with a summary
+        trigger is written where the trigger fires for ``it``."""
+        summary = self.train_summary
+        if summary is None:
+            return
+        tag_state = {"neval": it, "epoch": self.state.get("epoch", 1),
+                     "epoch_finished": False}
+
+        def fires(name: str) -> bool:
+            trig = self._summary_trigger(name)
+            return trig is None or trig(tag_state)
+
+        if fires("Loss"):
+            summary.add_scalar("Loss", loss, it)
+        if fires("LearningRate"):
+            summary.add_scalar(
+                "LearningRate", self.optim_method.get_learning_rate(it - 1),
+                it)
+        if self.throughput is not None and fires("Throughput"):
+            summary.add_scalar("Throughput", self.throughput, it)
 
     def _run_window(self, window: list, device) -> list:
         """The steps of a window of host batches: stacked on the host and
@@ -573,9 +963,13 @@ class Optimizer:
             for k in range(len(window))])
 
     # ------------------------------------------------------------- loop
-    def optimize(self) -> torch.nn.Module:
+    def optimize(self, resume: Optional[str] = None) -> torch.nn.Module:
         """Run the training loop until ``end_when`` fires; returns the
-        model, trained in place."""
+        model, trained in place. ``resume="auto"`` first restores the
+        newest loadable checkpoint under ``set_checkpoint``'s path and
+        continues that run (from scratch when there is none)."""
+        if resume not in (None, "auto"):
+            raise ValueError(f"resume must be None or 'auto', got {resume!r}")
         device = require_on(self.model, self.device)
         if os.environ.get("BIGDL_CONVBN_FUSE", "0") == "1" \
                 and not self._convbn_fused:
@@ -583,22 +977,111 @@ class Optimizer:
             self.model = fuse_conv_bn(self.model)
             self._convbn_fused = True
             self._ostate = self._step_program = None
+        # the robustness report covers the whole call: the resume, and the
+        # rollbacks and retries between attempts
+        self._rob_snap0 = events.snapshot()
+        if resume == "auto" and self.checkpoint_path is not None \
+                and self._has_checkpoint():
+            self._load_latest_checkpoint()
+            events.record("resume", path=self.checkpoint_path,
+                          neval=self.state.get("neval", 0))
+        retry_budget = Engine.config().failure_retry_times
+        max_nan = int(os.environ.get("BIGDL_MAX_NAN_ROLLBACKS", "2"))
+        self._install_signal_handlers()
+        try:
+            return self._optimize_with_retry(device, retry_budget, max_nan)
+        finally:
+            self._restore_signal_handlers()
+
+    def _optimize_with_retry(self, device, retry_budget: int,
+                             max_nan: int) -> torch.nn.Module:
+        nan_rollbacks = 0
+        while True:
+            try:
+                return self._optimize_impl(device)
+            except (KeyboardInterrupt, TrainingPreempted):
+                self._stop_profiler()
+                raise
+            except Exception as e:
+                self._stop_profiler()
+                if isinstance(e, NonFiniteLossError):
+                    # a divergence has its own budget: the last good
+                    # checkpoint comes back, and a NaN that keeps coming
+                    # back raises
+                    nan_rollbacks += 1
+                    self.state["nan_rollbacks"] = nan_rollbacks
+                    if nan_rollbacks > max_nan or not self._has_checkpoint():
+                        raise
+                    events.record("nan_rollback", rollbacks=nan_rollbacks)
+                    logger.exception(
+                        "non-finite loss; rolling back to the last good "
+                        "checkpoint (%d/%d rollbacks, "
+                        "BIGDL_MAX_NAN_ROLLBACKS)", nan_rollbacks, max_nan)
+                    self._load_latest_checkpoint()
+                    self.state["nan_rollbacks"] = nan_rollbacks
+                    continue
+                retry_budget -= 1
+                if retry_budget < 0 or not self._has_checkpoint():
+                    raise
+                events.record("retry_rollback", retries_left=retry_budget)
+                logger.exception("training failed; retrying from the last "
+                                 "checkpoint (%d retries left)", retry_budget)
+                time.sleep(Engine.config().failure_retry_interval)
+                self._load_latest_checkpoint()
+
+    def _optimize_impl(self, device) -> torch.nn.Module:
+        sched = self._schedule()
+        monitor = getattr(sched, "monitor", "score")
+        if getattr(sched, "stateful", False) \
+                and monitor not in ("loss", "Loss") \
+                and self.val_trigger is None:
+            logger.warning(
+                "Plateau monitoring a validation metric without "
+                "set_validation never sees a value: the rate stays at its "
+                "base value; configure validation or use monitor='loss'")
         self.model.train()
         state = self.state
         stop = False
+        resume_feed, self._resume_feed = self._resume_feed, None
+        windows_run, records, window_t0 = 0, 0, time.perf_counter()
         while not stop:
             state["epoch_finished"] = False
-            self.dataset.shuffle()
+            skip = 0
+            if resume_feed is not None and resume_feed.get("mid_epoch"):
+                # re-enter the interrupted epoch: its RNG state and shuffled
+                # order back, the batches already run skipped
+                if resume_feed.get("epoch_rng") is not None:
+                    RandomGenerator.load_state_dict(resume_feed["epoch_rng"])
+                order = resume_feed.get("epoch_order")
+                base = self._feed_base()
+                if order is not None and hasattr(base, "_order"):
+                    base._order = np.array(order, copy=True)
+                skip = int(resume_feed.get("feed_pos", 0))
+                self._epoch_rng = resume_feed.get("epoch_rng")
+            else:
+                if resume_feed is not None \
+                        and resume_feed.get("epoch_rng") is not None:
+                    # an epoch-boundary checkpoint: the next shuffle is the
+                    # first draw after it
+                    RandomGenerator.load_state_dict(resume_feed["epoch_rng"])
+                self.dataset.shuffle()
+                self._epoch_rng = RandomGenerator.state_dict()
+            resume_feed = None
+            self._epoch_order = self._base_order_copy()
+            self._epoch_batches = skip
             batches = iter(self.dataset.data(train=True))
+            if skip:
+                batches = itertools.islice(batches, skip, None)
             ahead: list = []            # taken from the epoch, not yet run
-            exhausted = had_data = False
-            t0, records = time.perf_counter(), 0
+            exhausted = False
+            had_data = skip > 0         # a resumed epoch may have no more
             while True:
                 # evaluated at loop top with the 1-based neval, so
                 # max_iteration(n) runs exactly n iterations
                 if self.end_when(state):
                     stop = True
                     break
+                self._maybe_start_profiler()
                 want = min(self.fuse_steps, self._fusible_steps(state))
                 while len(ahead) < want and not exhausted:
                     try:
@@ -613,23 +1096,410 @@ class Optimizer:
                 window, ahead = ahead[:n], ahead[n:]
                 had_data = True
                 first = state["neval"]
-                losses = self._run_window(window, device)
-                for i, (b, loss) in enumerate(zip(window, losses)):
-                    records += b.valid
+                with trace.span("train/window", {"k": n}):
+                    losses = self._run_window(window, device)
+                self._epoch_batches += n
+                for i, loss in enumerate(losses):
+                    self._write_iter_summary(first + i, loss)
+                now = time.perf_counter()
+                records += sum(b.valid for b in window)
+                if windows_run:
+                    self.throughput = records / (now - window_t0)
+                for i, loss in enumerate(losses):
                     logger.info("Epoch %d iter %d: loss %.6f, %.1f "
                                 "records/s", state["epoch"], first + i, loss,
-                                records / (time.perf_counter() - t0))
-                self._fire_validation(boundary=False)
+                                self.throughput or 0.0)
+                # the first window holds the warm-up and the capture: the
+                # throughput counts from its end
+                windows_run += 1
+                records, window_t0 = 0, now
+                self._maybe_stop_profiler()
+                self._fire_triggers(boundary=False)
+                fired = [faults.fault_point(faults.SITE_SIGTERM, index=it)
+                         for it in range(first, first + n)]
+                if any(a is not None for a in fired) \
+                        and self._preempt is not None:
+                    self._preempt.wait(1.0)
+                if self._preempt_requested():
+                    self._do_preempt()
             if stop:
                 break
             if not had_data:
                 raise RuntimeError("dataset yielded no batches")
             state["epoch"] += 1
             state["epoch_finished"] = True
-            self._fire_validation(boundary=True)
+            self._epoch_batches = 0
+            self._fire_triggers(boundary=True)
+            if self._preempt_requested():
+                self._do_preempt()
             if self.end_when(state):
                 break
+        self._stop_profiler()
+        self._join_checkpoint_writer()  # optimize() returning: ckpt on disk
+        rob = events.deltas(self._rob_snap0)
+        if rob:
+            state["robustness"] = rob
+            logger.info("robustness report: %s", events.format_report(rob))
         return self.model
+
+    # ---------------------------------------------------------- profiling
+    def _maybe_start_profiler(self) -> None:
+        if self.profile_dir is None or self._profiler is not None \
+                or self.state["neval"] < self.profile_start_iter:
+            return
+        from torch.profiler import ProfilerActivity, profile
+        activities = [ProfilerActivity.CPU]
+        if torch.cuda.is_available() and any(
+                p.is_cuda for p in self.model.parameters()):
+            activities.append(ProfilerActivity.CUDA)
+        self._profiler = profile(activities=activities)
+        self._profiler.__enter__()
+        self._profile_first = self.state["neval"]
+        self._profile_stop_at = self.state["neval"] + self.profile_n_iters
+
+    def _maybe_stop_profiler(self) -> None:
+        if self._profiler is not None \
+                and self.state["neval"] >= self._profile_stop_at:
+            self._stop_profiler(export=True)
+
+    def _stop_profiler(self, export: bool = False) -> None:
+        """Close a live trace (error paths too, so a retry does not meet an
+        active profiler); ``export`` writes its Chrome trace."""
+        prof, self._profiler = self._profiler, None
+        if prof is None:
+            return
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        prof.__exit__(None, None, None)
+        if export and self.profile_dir is not None:
+            os.makedirs(self.profile_dir, exist_ok=True)
+            path = os.path.join(
+                self.profile_dir, f"trace.iter{self._profile_first}-"
+                f"{self._profile_stop_at - 1}.json")
+            prof.export_chrome_trace(path)
+            self.profile_trace = path
+            logger.info("profiler trace written: %s", path)
+            self.profile_dir = None     # one window per optimize()
+
+    # ---------------------------------------------------------- preemption
+    def _install_signal_handlers(self) -> None:
+        """SIGTERM/SIGINT ask for a stop at the next window boundary, with
+        an emergency checkpoint; a second SIGINT raises KeyboardInterrupt.
+        Handlers install on the main thread only; elsewhere preemption is
+        off, as in JAX."""
+        import signal
+
+        evt = threading.Event()
+
+        def handler(signum, frame):
+            if evt.is_set() and signum == signal.SIGINT:
+                raise KeyboardInterrupt
+            evt.set()
+            logger.warning(
+                "received %s: stopping at the next step boundary "
+                "(emergency checkpoint%s)", signal.Signals(signum).name,
+                "" if self.checkpoint_path else
+                " skipped: no checkpoint path configured")
+
+        try:
+            self._prev_handlers = {
+                sig: signal.signal(sig, handler)
+                for sig in (signal.SIGTERM, signal.SIGINT)}
+            self._preempt = evt
+        except ValueError:  # not the main thread
+            self._preempt = None
+            self._prev_handlers = {}
+
+    def _restore_signal_handlers(self) -> None:
+        import signal
+
+        for sig, h in self._prev_handlers.items():
+            try:
+                signal.signal(sig, h)
+            except (ValueError, TypeError):
+                pass
+        self._prev_handlers = {}
+        self._preempt = None
+
+    def _preempt_requested(self) -> bool:
+        return self._preempt is not None and self._preempt.is_set()
+
+    def _do_preempt(self) -> None:
+        """The stop at a window boundary: the emergency checkpoint written
+        and joined (the window's losses were already fetched and checked),
+        then :class:`TrainingPreempted`."""
+        state = self.state
+        path = None
+        if self.checkpoint_path is not None:
+            # state["neval"] is already the next iteration at a boundary
+            self._save_checkpoint(neval_next=state["neval"])
+            self._join_checkpoint_writer()
+            path = self.checkpoint_path
+        events.record("preemption", iteration=state["neval"],
+                      checkpoint=path)
+        logger.warning("training preempted before iteration %d%s",
+                       state["neval"],
+                       f"; emergency checkpoint in {path}" if path
+                       else " (no checkpoint configured)")
+        raise TrainingPreempted(
+            f"training preempted before iteration {state['neval']}",
+            checkpoint_path=path, iteration=state["neval"])
+
+    # ------------------------------------------------- resume bookkeeping
+    def _feed_base(self):
+        """The innermost dataset, owner of the epoch's order."""
+        ds = self.dataset
+        while isinstance(ds, TransformedDataSet):
+            ds = ds.base
+        return ds
+
+    def _base_order_copy(self):
+        order = getattr(self._feed_base(), "_order", None)
+        return None if order is None else np.array(order, copy=True)
+
+    def _resume_info(self, neval_next: int) -> dict:
+        """What a bitwise mid-epoch resume needs beyond the tensors, keyed
+        as JAX's: the feed position in the epoch, the RNG state as of the
+        epoch's shuffle (mid-epoch) or now (at a boundary), the epoch's
+        order, and ``base_rng``: the states of the model's dropout
+        generators (``dropout_generators``), None without any. JAX's
+        ``base_rng`` is a PRNG key with no torch counterpart, so it is not
+        carried between the packages."""
+        state = self.state
+        mid_epoch = not bool(state.get("epoch_finished", False))
+        gens = dropout_generators(self.model)
+        return {
+            "neval_next": int(neval_next),
+            "epoch": int(state.get("epoch", 1)),
+            "mid_epoch": mid_epoch,
+            "feed_pos": int(self._epoch_batches),
+            "epoch_rng": (self._epoch_rng if mid_epoch
+                          else RandomGenerator.state_dict()),
+            "epoch_order": self._epoch_order,
+            "stream": None,
+            "base_rng": ([g.get_state().numpy() for g in gens]
+                         if gens else None),
+        }
+
+    def _apply_resume_info(self, resume: dict) -> None:
+        self.state["neval"] = int(resume["neval_next"])
+        self._resume_feed = resume
+        rng = resume.get("base_rng")
+        gens = dropout_generators(self.model)
+        if isinstance(rng, list) and len(rng) == len(gens):
+            for g, st in zip(gens, rng):
+                g.set_state(torch.from_numpy(np.asarray(st, np.uint8)))
+        elif rng is not None:
+            logger.warning("the checkpoint's base_rng (%s) is not this "
+                           "model's dropout generators' state; dropout "
+                           "masks after the resume differ from the "
+                           "interrupted run's", type(rng).__name__)
+
+    # ---------------------------------------------------------- checkpoint
+    def _has_checkpoint(self) -> bool:
+        # an in-flight write lands first; a failed one logs (older files may
+        # still be a recovery point)
+        self._join_checkpoint_writer(raise_error=False)
+        if self.checkpoint_path is None \
+                or not os.path.isdir(self.checkpoint_path):
+            return False
+        return any(_ckpt_version(p) is not None
+                   for p in os.listdir(self.checkpoint_path))
+
+    def _ckpt_file(self, state: dict) -> str:
+        tag = "" if self.overwrite_checkpoint else f".{state['neval']}"
+        return os.path.join(self.checkpoint_path, f"checkpoint{tag}.pkl")
+
+    def _snapshot(self) -> dict:
+        """``params``, ``mstate`` and ``ostate`` as host numpy arrays in
+        JAX's layout. Device tensors are copied into pinned buffers after
+        the work already queued (the window's last replay) and the stream
+        is synchronised once; CPU tensors are cloned."""
+        named, _, mask = self._prepare_step()
+        model = self.model
+        trees = {
+            "params": convert.nest(model, named),
+            "mstate": convert.nest(model, convert.module_state(model),
+                                   "state"),
+            "ostate": convert.ostate_tree(self._method, self._ostate, model,
+                                          mask),
+        }
+        on_card = []
+
+        def host(t):
+            if not isinstance(t, torch.Tensor):
+                return np.asarray(t, np.float32)
+            t = t.detach()
+            if t.is_cuda:
+                buf = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                buf.copy_(t, non_blocking=True)
+                on_card.append(buf)
+                return buf
+            return t.clone()
+
+        trees = convert.map_tree(host, trees)
+        if on_card:
+            torch.cuda.current_stream().synchronize()
+        trees = convert.map_tree(
+            lambda t: t.numpy() if isinstance(t, torch.Tensor) else t, trees)
+        trees["ostate"] = convert.ostate_host_layout(self._method,
+                                                     trees["ostate"])
+        return trees
+
+    def _save_checkpoint(self, neval_next: Optional[int] = None) -> None:
+        """Snapshot on the loop thread, write on a ``bigdl-ckpt-writer``
+        thread (JAX's ``_save_checkpoint_pickle``). ``neval_next`` is the
+        first iteration a resume runs; in-loop triggers fire with
+        ``neval`` the iteration just run, epoch boundaries and preemption
+        with the next. ``ckpt/stall_ms`` records how long the loop thread
+        was held: the snapshot (and the previous write, if still running)
+        when async, everything when ``BIGDL_CKPT_ASYNC=0``."""
+        os.makedirs(self.checkpoint_path, exist_ok=True)
+        t0 = time.perf_counter()
+        try:
+            state = self.state
+            if neval_next is None:
+                neval_next = state["neval"] + \
+                    (0 if state.get("epoch_finished") else 1)
+            with trace.span("ckpt/snapshot"):
+                payload = self._snapshot()
+            payload["state"] = dict(state)
+            payload["resume"] = self._resume_info(neval_next)
+            sched = self._schedule()
+            if getattr(sched, "stateful", False):
+                payload["sched_state"] = sched.state_dict()
+            path = self._ckpt_file(state)
+            self._join_checkpoint_writer()
+            self._ckpt_thread = threading.Thread(
+                target=self._write_checkpoint, args=(payload, path),
+                name="bigdl-ckpt-writer", daemon=False)
+            self._ckpt_thread.start()
+            if os.environ.get("BIGDL_CKPT_ASYNC", "1") == "0":
+                self._join_checkpoint_writer()
+        finally:
+            obs_registry.histogram("ckpt/stall_ms").observe(
+                (time.perf_counter() - t0) * 1e3)
+
+    def _write_checkpoint(self, payload: dict, path: str) -> None:
+        """The writer thread's body; a failure waits for the next join."""
+        try:
+            t0 = time.perf_counter()
+            # scripted failures: "torn" leaves a truncated file at the final
+            # path, "error" fails the write, "kill" SIGKILLs the process
+            # with only the tmp file written
+            action = faults.check_fault(faults.SITE_CKPT_WRITE)
+            data = ckpt_file.dumps(payload)
+            if action == "torn":
+                with open(path, "wb") as f:
+                    f.write(data[:max(len(ckpt_file.MAGIC) + 1,
+                                      len(data) // 2)])
+                logger.warning("fault plan: torn checkpoint at %s", path)
+                return
+            if action == "error":
+                raise faults.FaultError("injected checkpoint write failure")
+            if action == "kill":
+                import signal
+                with open(path + ".tmp", "wb") as f:
+                    f.write(data[:len(data) // 2])
+                    f.flush()
+                    os.fsync(f.fileno())
+                    os.kill(os.getpid(), signal.SIGKILL)
+            with trace.span("ckpt/write", {"path": path}):
+                ckpt_file.save_bytes(data, path)
+            obs_registry.counter("ckpt/bytes").inc(len(data))
+            self._prune_old_checkpoints()
+            obs_registry.histogram("ckpt/async_write_ms").observe(
+                (time.perf_counter() - t0) * 1e3)
+            logger.info("checkpoint written: %s", path)
+        except BaseException as e:  # noqa: BLE001 — raised at the next join
+            self._ckpt_error = e
+
+    def _prune_old_checkpoints(self) -> None:
+        """Keep the newest ``BIGDL_CKPT_KEEP`` versions (0 keeps all), with
+        their quarantined ``*.corrupt`` files; on the writer thread, after
+        the new version is on disk."""
+        keep = self.ckpt_keep
+        if keep <= 0 or self.overwrite_checkpoint:
+            return
+        versioned = sorted(
+            (p for p in os.listdir(self.checkpoint_path)
+             if _CKPT_RE.match(p) and _ckpt_version(p) >= 0),
+            key=_ckpt_version)
+        for name in versioned[:-keep]:
+            full = os.path.join(self.checkpoint_path, name)
+            for victim in (full, full + ".corrupt"):
+                try:
+                    os.remove(victim)
+                except OSError:
+                    pass
+
+    def _join_checkpoint_writer(self, raise_error: bool = True) -> None:
+        """Wait for the write in flight; a failed write raises here (logs
+        with ``raise_error=False``), so it never reads as durable."""
+        t = self._ckpt_thread
+        if t is not None:
+            t.join()
+            self._ckpt_thread = None
+        err, self._ckpt_error = self._ckpt_error, None
+        if err is not None:
+            if raise_error:
+                raise RuntimeError(
+                    "background checkpoint write failed") from err
+            logger.error("background checkpoint write failed: %r", err)
+
+    def _load_latest_checkpoint(self) -> None:
+        """Restore the newest loadable checkpoint: versions in numeric
+        order, a candidate that fails its integrity check renamed
+        ``<name>.corrupt`` and the one before it tried. The tensors are
+        copied into the live parameters, buffers and slots."""
+        self._join_checkpoint_writer()
+        cand = sorted((p for p in os.listdir(self.checkpoint_path)
+                       if _ckpt_version(p) is not None), key=_ckpt_version)
+        if not cand:
+            raise RuntimeError(
+                f"no checkpoint found under {self.checkpoint_path}")
+        payload = name = None
+        while cand:
+            name = cand.pop()
+            full = os.path.join(self.checkpoint_path, name)
+            try:
+                payload = ckpt_file.load(full)
+                break
+            except CheckpointCorruptError as e:
+                quarantined = full + ".corrupt"
+                try:
+                    os.replace(full, quarantined)
+                except OSError:
+                    quarantined = "<unremovable>"
+                events.record("ckpt_quarantined", path=full, error=str(e))
+                logger.error("corrupt checkpoint %s quarantined as %s (%s); "
+                             "falling back to the previous version", full,
+                             quarantined, e)
+        if payload is None:
+            raise RuntimeError(
+                f"no loadable checkpoint under {self.checkpoint_path} (every "
+                f"candidate failed its integrity check and was quarantined)")
+        self._restore(payload)
+        logger.info("resumed from checkpoint %s at iter %d", name,
+                    self.state.get("neval", 0))
+
+    def _restore(self, payload: dict) -> None:
+        """Copy a payload (this package's or JAX's) into the live tensors:
+        parameters, batch norm's statistics, then the slots, created first
+        when this trainer has none yet."""
+        model = self.model
+        require_on(model, self.device)
+        _, _, mask = self._prepare_step()
+        convert.load_jax_params(model, payload["params"])
+        convert.load_jax_state(model, payload["mstate"])
+        convert.load_jax_ostate(self._method, self._ostate, model,
+                                payload["ostate"], mask)
+        self.state = dict(payload["state"])
+        sched = self._schedule()
+        if getattr(sched, "stateful", False) and "sched_state" in payload:
+            sched.load_state_dict(payload["sched_state"])
+        if payload.get("resume") is not None:
+            self._apply_resume_info(payload["resume"])
 
 
 def _in_scope(trigger: Trigger, boundary: bool) -> bool:

@@ -7,9 +7,11 @@ Counterpart of ``bigdl_tpu/optim/schedules.py``: ``Default``, ``Step``,
 update takes its learning rate as a Python number, so there is no trace to
 keep the step inside). ``Plateau`` is the one stateful schedule: it reacts
 to a monitored metric, and SGD keeps its current rate in the optimizer
-state (``state["clr"]``). The trainer hook that feeds it after validation
-comes with validation (ROADMAP Queue A.1.6); call :meth:`Plateau.on_metric`
-directly until then.
+state (``state["clr"]``). The trainer feeds it (``LocalOptimizer.
+_update_stateful_schedule``): after each validation for ``monitor="score"``
+or a validation method's name, at each epoch's end for ``"loss"``; the new
+rate reaches the next step through ``OptimMethod.hyper``, with no
+recapture, and ``state_dict`` goes into the checkpoint.
 """
 
 from __future__ import annotations

@@ -275,6 +275,8 @@ class ServingEngine:
         self._stop = threading.Event()
         self._failure: Optional[BaseException] = None
         self._submitted = 0
+        self._submit_lock = threading.Lock()
+        self._prefill_inflight = 0         # prefill_export calls running
         self._completed = 0
         self._backlog = 0                  # submitted, not yet in a slot
         self._prefills = 0
@@ -353,26 +355,30 @@ class ServingEngine:
                     with self._lock:
                         self._degraded_admits += 1
                     max_new_tokens = halved
-        with self._lock:
-            if request_id is None:
-                request_id = self._submitted
-            self._submitted += 1
-            self._backlog += 1
-        req = Request(request_id, prompt, max_new_tokens,
-                      deadline_s=deadline_s, trace_id=trace_id,
-                      clock=self.clock)
-        try:
-            self.start()
-        except EngineShutdown:
-            self._backlog_dec()
-            raise
+        self.start()
         put = self._queue.try_put if self.overload == "shed" \
             else self._queue.put
-        if not put(req):
-            self._backlog_dec()
-            if self._queue.closed:
-                raise EngineShutdown(f"engine {self.name!r} is shut down")
-            self._reject_overloaded(self._backlog, self.estimated_wait_s())
+        # as in JAX, a request counts as submitted once it is queued, and
+        # a default id is the count before it; the submit lock keeps
+        # concurrent callers' ids distinct (the engine thread never takes
+        # it)
+        with self._submit_lock:
+            if request_id is None:
+                request_id = self._submitted
+            req = Request(request_id, prompt, max_new_tokens,
+                          deadline_s=deadline_s, trace_id=trace_id,
+                          clock=self.clock)
+            with self._lock:
+                self._backlog += 1
+            if not put(req):
+                self._backlog_dec()
+                if self._queue.closed:
+                    raise EngineShutdown(
+                        f"engine {self.name!r} is shut down")
+                self._reject_overloaded(self._backlog,
+                                        self.estimated_wait_s())
+            with self._lock:
+                self._submitted += 1
         return req.handle
 
     def _reject_overloaded(self, depth: int, est: float,
@@ -415,13 +421,20 @@ class ServingEngine:
             raise ValueError(
                 f"prompt_len {prompt.size} exceeds the largest prefill "
                 f"bucket {self.buckets[-1]} on engine {self.name!r}")
-        with self._device_lock, torch.no_grad(), self._eval():
-            nxt, ok = self._run_prefill(lb, prompt, 0)
-            if not ok:
-                raise NonFiniteLogitsError(
-                    f"non-finite logits in prefill_export on engine "
-                    f"{self.name!r}")
-            states = tuple(_clone_state(s) for s in self._prefill_states())
+        with self._lock:
+            self._prefill_inflight += 1
+        try:
+            with self._device_lock, torch.no_grad(), self._eval():
+                nxt, ok = self._run_prefill(lb, prompt, 0)
+                if not ok:
+                    raise NonFiniteLogitsError(
+                        f"non-finite logits in prefill_export on engine "
+                        f"{self.name!r}")
+                states = tuple(_clone_state(s)
+                               for s in self._prefill_states())
+        finally:
+            with self._lock:
+                self._prefill_inflight -= 1
         return nxt, states
 
     def seed_prefix(self, prompt, states, next_token: int) -> None:
@@ -474,8 +487,20 @@ class ServingEngine:
         return False
 
     def stats(self) -> dict:
+        """The engine's ledger, under JAX's keys with JAX's rounding
+        (``bigdl_tpu/serving/engine.py`` ``stats``), less the health keys
+        of ROADMAP Queue A.3.2 (``health``, ``respawns``, ``model_version``,
+        ``slo_degraded``), plus the port's own (``device``,
+        ``peak_active_slots``, ``prefills``, ``prefills_by_bucket``,
+        ``prefill_seconds``, ``decode_ticks``, ``decode_tokens``,
+        ``decode_seconds``, ``running``). ``prefix_bytes`` counts the
+        pool's cache leaves as they are held: the positions are int64 here
+        (int32 in JAX, 4 more bytes a position leaf), the dtype the port's
+        index ops take."""
         pool = self._prefix.stats() if self._prefix is not None else {}
         alloc = self._allocator
+        rate = self._rate_tps
+        est = self.estimated_wait_s()
         return {
             "name": self.name,
             "device": str(self.device),
@@ -499,17 +524,22 @@ class ServingEngine:
             "poisoned_slots": self._poisoned,
             # deadlines and overload
             "overload": self.overload,
+            "backlog": self._backlog,
             "timeouts": self._timeouts,
             "shed": self._shed,
             "degraded_admits": self._degraded_admits,
+            "decode_tps": round(rate, 3),
+            "est_wait_s": round(est, 6),
+            # the load triple (queue depth, rate, wait), JAX's names
             "queue_depth": self._backlog,
-            "decode_rate": self._rate_tps,
-            "est_wait_s": self.estimated_wait_s(),
+            "decode_rate": round(rate, 3),
+            "est_wait_ms": round(est * 1e3, 3),
             # speculative decoding (0 without a draft)
             "spec_tokens": self._spec,
             "spec_proposed": self._spec_proposed,
             "spec_accepted": self._spec_accepted,
-            "acceptance_rate": (self._spec_accepted / self._spec_proposed
+            "spec_acceptance": (round(self._spec_accepted
+                                      / self._spec_proposed, 4)
                                 if self._spec_proposed else 0.0),
             # the prefix pool (0 when off)
             "prefix_entries": pool.get("entries", 0),
@@ -525,10 +555,11 @@ class ServingEngine:
             "page_tokens": self.page_tokens if self.paged else 0,
             "pages_used": alloc.used_count if self.paged else 0,
             "pages_free": alloc.free_count if self.paged else 0,
-            "free_page_ratio": (
+            "free_page_ratio": round(
                 alloc.free_count / self.pages if self.paged
-                else (self.slots - self._sched.active_count) / self.slots),
+                else (self.slots - self._sched.active_count) / self.slots, 4),
             "page_evictions": self._page_evictions,
+            "prefill_inflight": self._prefill_inflight,
             "running": self._thread is not None and self._thread.is_alive(),
         }
 
@@ -894,8 +925,12 @@ class ServingEngine:
                 if self._emit(slot, t):
                     break
         self._decode_tokens += emitted
-        if dt > 0 and emitted:
-            inst = emitted / dt
+        # the rate counts as JAX's: every active row, n_acc + 1 a row in a
+        # speculative tick, finished or poisoned rows too
+        counted = (sum(int(out[s.index, 2 * k + 1]) + 1 for s in active)
+                   if k else len(active))
+        if dt > 0 and counted:
+            inst = counted / dt
             self._rate_tps = (inst if self._rate_tps == 0.0
                               else 0.8 * self._rate_tps + 0.2 * inst)
 

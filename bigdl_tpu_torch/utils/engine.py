@@ -1,12 +1,16 @@
-"""The compute-dtype part of the process-wide ``Engine``.
+"""The compute-dtype and failure-retry parts of the process-wide ``Engine``.
 
-Counterpart of the compute-dtype knob of ``bigdl_tpu/utils/engine.py``:
+Counterpart of those knobs of ``bigdl_tpu/utils/engine.py``:
 ``EngineConfig.compute_dtype``, ``_parse_dtype`` (the same names, read from
-the same ``BIGDL_COMPUTE_DTYPE`` variable), ``Engine.init(compute_dtype=)``,
+the same ``BIGDL_COMPUTE_DTYPE`` variable), ``failure_retry_times`` and
+``failure_retry_interval`` (``BIGDL_FAILURE_RETRY_TIMES``, default 5, and
+``BIGDL_FAILURE_RETRY_INTERVAL``, default 15 s, as in JAX),
+``Engine.init(compute_dtype=)``, ``Engine.config()``,
 ``Engine.compute_dtype()``, ``Engine.set_compute_dtype`` and
 ``Engine.reset``. As in JAX, an accessor called before ``init`` initialises
 with the defaults. The trainer reads the dtype to run its mixed-precision
-step (``optim/optimizer.py``); nothing on the serving path reads it.
+step and the retry settings in its failure loop (``optim/optimizer.py``);
+nothing on the serving path reads them.
 
 Device and mesh selection are not ported yet (ROADMAP Queue A.6).
 """
@@ -24,6 +28,8 @@ import torch
 @dataclass
 class EngineConfig:
     compute_dtype: Any = None      # dtype of the step's compute (None = fp32)
+    failure_retry_times: int = 5           # retries from the last checkpoint
+    failure_retry_interval: float = 15.0   # seconds between them
 
 
 def _parse_dtype(name: str) -> torch.dtype:
@@ -52,13 +58,18 @@ class Engine:
     @classmethod
     def init(cls, compute_dtype: Optional[torch.dtype] = None) -> None:
         """Set the step's compute dtype: ``compute_dtype``, else
-        ``BIGDL_COMPUTE_DTYPE`` (default float32). Master parameters stay
-        fp32. A second call replaces the first."""
+        ``BIGDL_COMPUTE_DTYPE`` (default float32), and read the retry
+        settings from the environment. Master parameters stay fp32. A
+        second call replaces the first."""
         with _STATE.lock:
             cfg = EngineConfig()
             cfg.compute_dtype = (compute_dtype if compute_dtype is not None
                                  else _parse_dtype(os.environ.get(
                                      "BIGDL_COMPUTE_DTYPE", "float32")))
+            cfg.failure_retry_times = int(
+                os.environ.get("BIGDL_FAILURE_RETRY_TIMES", "5"))
+            cfg.failure_retry_interval = float(
+                os.environ.get("BIGDL_FAILURE_RETRY_INTERVAL", "15"))
             _STATE.config = cfg
             _STATE.initialized = True
 
@@ -70,6 +81,11 @@ class Engine:
     def _require_init(cls) -> None:
         if not _STATE.initialized:
             cls.init()
+
+    @classmethod
+    def config(cls) -> EngineConfig:
+        cls._require_init()
+        return _STATE.config
 
     @classmethod
     def compute_dtype(cls) -> torch.dtype:

@@ -1,0 +1,139 @@
+"""Checkpoint and object files: one format shared with the JAX package.
+
+A copy of ``bigdl_tpu/utils/file.py`` (stdlib only), so a file written by
+either package loads in the other: the ``MAGIC`` header, the pickle payload
+and a CRC32 footer verified on load. A torn or bit-rotten file raises
+:class:`CheckpointCorruptError` (with its path) instead of a bare pickle
+error; footer-less and plain pickles still load. A payload that names a
+module only the JAX package can unpickle (``jax``, ``jaxlib``,
+``bigdl_tpu``) raises :class:`ForeignObjectError` naming it: the port never
+imports JAX to read a file. Writes are atomic and
+durable: the payload is written to ``<path>.tmp`` and fsynced, renamed over
+``path``, and the directory fsynced after the rename.
+"""
+
+from __future__ import annotations
+
+import io
+import os
+import pickle
+import struct
+import zlib
+
+MAGIC = b"BIGDL_TPU_V1\n"
+#: CRC footer: tag + crc32 of the pickle payload between header and footer
+_CRC_TAG = b"BDLCRC32"
+_FOOTER = struct.Struct("<8sI")
+
+
+class CheckpointCorruptError(RuntimeError):
+    """A persisted file failed its integrity check (CRC mismatch or
+    truncated payload). Carries ``path`` so recovery layers can quarantine
+    the exact file."""
+
+    def __init__(self, path: str, message: str):
+        super().__init__(message)
+        self.path = path
+
+
+class ForeignObjectError(RuntimeError):
+    """A payload holds an object that only the JAX package can unpickle."""
+
+
+#: top-level modules whose objects the port does not unpickle
+_FOREIGN = ("jax", "jaxlib", "bigdl_tpu")
+
+
+class _Unpickler(pickle.Unpickler):
+    def find_class(self, module, name):
+        if module.split(".")[0] in _FOREIGN:
+            raise ForeignObjectError(
+                f"the payload holds {module}.{name}, which only the JAX "
+                f"package can unpickle; save numpy arrays instead")
+        return super().find_class(module, name)
+
+
+def dumps(obj) -> bytes:
+    """Serialize ``obj`` to the on-disk format: header + pickle + CRC
+    footer."""
+    payload = pickle.dumps(obj)
+    return MAGIC + payload + _FOOTER.pack(_CRC_TAG, zlib.crc32(payload))
+
+
+def loads(data: bytes, path: str = "<bytes>"):
+    """Inverse of :func:`dumps`, with integrity verification. Accepts the
+    footer-less V1 layout and plain pickles for back-compat."""
+    if data.startswith(MAGIC):
+        body = data[len(MAGIC):]
+        if len(body) >= _FOOTER.size \
+                and body[-_FOOTER.size:-_FOOTER.size + len(_CRC_TAG)] == _CRC_TAG:
+            payload = body[:-_FOOTER.size]
+            expected = _FOOTER.unpack(body[-_FOOTER.size:])[1]
+            actual = zlib.crc32(payload)
+            if actual != expected:
+                raise CheckpointCorruptError(
+                    path,
+                    f"{path}: CRC mismatch (expected {expected:#010x}, got "
+                    f"{actual:#010x}) — the file is corrupt")
+        else:
+            payload = body  # pre-CRC writer: header but no footer
+    else:
+        payload = data  # plain pickle fallback (files from other tools)
+    try:
+        return _Unpickler(io.BytesIO(payload)).load()
+    except (EOFError, pickle.UnpicklingError, IndexError) as e:
+        # a CRC-verified payload that still fails to unpickle means the file
+        # was TRUNCATED before the footer existed (torn write without rename
+        # protection) or written torn by a crashed process
+        raise CheckpointCorruptError(
+            path,
+            f"{path}: truncated or torn payload ({len(payload)} bytes "
+            f"present; unpickling failed: {e})") from e
+
+
+def _fsync_dir(d: str) -> None:
+    """Make the rename itself durable (the file's fsync alone does not pin
+    the directory entry). Best-effort — not every FS supports dir fds."""
+    try:
+        fd = os.open(d or ".", os.O_RDONLY)
+    except OSError:
+        return
+    try:
+        os.fsync(fd)
+    except OSError:
+        pass
+    finally:
+        os.close(fd)
+
+
+def save_bytes(data: bytes, path: str, overwrite: bool = True) -> None:
+    """Atomic + durable write of pre-serialized bytes (the tmp + fsync +
+    rename + dir-fsync protocol of :func:`save`, without re-encoding).
+    Callers that need the byte count for accounting — the elastic checkpoint
+    writer's ``ckpt/bytes`` metric — serialize once with :func:`dumps` and
+    hand the buffer here."""
+    if os.path.exists(path) and not overwrite:
+        raise FileExistsError(f"{path} exists (pass overwrite=True)")
+    d = os.path.dirname(path)
+    if d:
+        os.makedirs(d, exist_ok=True)
+    tmp = path + ".tmp"
+    with open(tmp, "wb") as f:
+        f.write(data)
+        f.flush()
+        try:
+            os.fsync(f.fileno())
+        except OSError:
+            pass  # exotic FS without fsync: atomicity still holds
+    os.replace(tmp, path)
+    _fsync_dir(d)
+
+
+def save(obj, path: str, overwrite: bool = True) -> None:
+    save_bytes(dumps(obj), path, overwrite=overwrite)
+
+
+def load(path: str):
+    with open(path, "rb") as f:
+        data = f.read()
+    return loads(data, path)

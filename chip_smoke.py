@@ -121,6 +121,24 @@ an NVIDIA H100 and the CUDA toolkit. It builds the port's CUDA kernels from
    replayed paged tick and one replayed speculative step bitwise equal to
    eager runs (tokens, log-probs, live pages, the draft's cache, positions)
    and the paged tick to the slot grid's, with their device and host ms;
+11. checkpoints, preempts, resumes and rolls back the trainer at full
+   width (its launches counted from a reset): phase 6's LM, a checkpoint
+   every 4 of 17 iterations keeping the newest 2, in fp32 at fuse 1 and
+   in bf16 at ``set_fuse_steps(8)``: the uninterrupted run's files (the
+   two newest versions) and its ``TrainSummary`` Loss (every iteration,
+   equal to the run's losses); ``sigterm@9`` (``TrainingPreempted`` at
+   JAX's iteration) and a fresh model resumed with ``resume="auto"``;
+   ``nonfinite_loss@11`` (one rollback, the step program kept) with the
+   write of version 16 torn, then a fresh resume that quarantines it and
+   falls back to version 12, written synchronously, and profiled (fp32:
+   ``set_profile`` over iterations 13-15, whose Chrome trace names the
+   five kernels); fp32 with ``set_check_numerics(True)`` against without;
+   every resumed, rolled-back and checked run bitwise the uninterrupted
+   run's (losses and parameters); checkpoint bytes, loop-thread stalls
+   (async and sync), writer seconds, resume seconds; then ResNet-50 (bf16,
+   NHWC, batch 64, 6 iterations, a checkpoint at 3, ``sigterm@4``),
+   whose resumed parameters and running statistics are bitwise the
+   uninterrupted run's;
 10. checks that the serving path (phases 4 and 5) launched both forward
    kernels and each training run (the 17 steps, fp32 and bf16) all five,
    every launch in the run's dtype (bf16 operands and bf16 gamma and beta
@@ -133,7 +151,13 @@ an NVIDIA H100 and the CUDA toolkit. It builds the port's CUDA kernels from
    {...}}`` last.
 
 Any failed check exits non-zero without the result line, as does a machine
-without CUDA or a directory without the package.
+without CUDA or a directory without the package. Phase 11 runs before the
+kernel table, so its launches are in the ``kernels`` line (``paths``).
+
+``python3 chip_smoke.py --remat-captures N`` builds the kernels and runs
+only phase 6's bf16 training with every block under ``Remat`` N times in
+one process, printing how many of its captures failed (ROADMAP Queue C
+item 1).
 """
 
 from __future__ import annotations
@@ -141,6 +165,7 @@ from __future__ import annotations
 import itertools
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
@@ -2623,7 +2648,7 @@ def spec_runs(ServingEngine, SpeculativeDecoder, kernels, lm, draft, nn,
                 [len(p) for p in prompts]) for res in (res1, res2))
             warm = report_round(f"{name}, second round", res2, wall2, st2,
                                 st1, card)
-            rate = st2["acceptance_rate"]
+            rate = st2["spec_acceptance"]
             log(f"  {name}: acceptance {rate:.4f} ({st2['spec_accepted']} of "
                 f"{st2['spec_proposed']}); decode "
                 f"{warm['decode_tokens_per_s']:.1f} tokens/s against plain "
@@ -2866,6 +2891,454 @@ def serving_extras(TransformerLM, nn, kernels, card, grid_rounds, prompts,
 
 
 
+# --------------------------------------------------------------- phase 11
+# the trainer's robustness at full width: phase 6's LM configuration and
+# data, a checkpoint every ROBUST_EVERY iterations keeping the newest
+# ROBUST_KEEP versions, fp32 at fuse 1 and bf16 at fuse FUSE (windows
+# clipped at the checkpoints); a preemption at ROBUST_SIGTERM, a NaN loss
+# at ROBUST_NAN; phase 8's ResNet-50 at batch ROBUST_VISION_BATCH for
+# ROBUST_VISION_ITERS steps, a checkpoint at 3, a preemption at 4
+ROBUST_EVERY, ROBUST_KEEP, ROBUST_SIGTERM, ROBUST_NAN = 4, 2, 9, 11
+ROBUST_VISION_BATCH, ROBUST_VISION_ITERS = 64, 6
+ROBUST_PROFILE = (13, 3)             # set_profile's first iteration, count
+
+
+def robust_dir(name: str) -> Path:
+    """A fresh checkpoint directory under the checkout's build/."""
+    import shutil
+    d = Path(__file__).resolve().parent / "build" / "phase11" / name
+    shutil.rmtree(d, ignore_errors=True)
+    d.mkdir(parents=True)
+    return d
+
+
+def instrument(opt) -> dict:
+    """Record the run's losses by iteration, its windows' ends and sizes,
+    every checkpoint's loop-thread stall and writer seconds."""
+    rec = {"losses": {}, "marks": [], "windows": [], "stall_ms": [],
+           "write_s": [], "nbytes": [], "programs_at_load": []}
+    run_steps, save, write, load = (
+        opt._run_steps, opt._save_checkpoint, opt._write_checkpoint,
+        opt._load_latest_checkpoint)
+
+    def recorded_load():
+        rec["programs_at_load"].append(opt._step_program)
+        return load()
+
+    def recorded(steps):
+        first = opt.state["neval"]
+        out = run_steps(steps)
+        rec["marks"].append(time.perf_counter())
+        rec["windows"].append(len(steps))
+        rec["losses"].update({first + i: v for i, v in enumerate(out)})
+        return out
+
+    def timed_save(*a, **kw):
+        t0 = time.perf_counter()
+        try:
+            return save(*a, **kw)
+        finally:
+            rec["stall_ms"].append((time.perf_counter() - t0) * 1e3)
+
+    def timed_write(payload, path):
+        t0 = time.perf_counter()
+        write(payload, path)
+        rec["write_s"].append(time.perf_counter() - t0)
+        if os.path.exists(path):
+            rec["nbytes"].append(os.path.getsize(path))
+
+    opt._run_steps, opt._save_checkpoint = recorded, timed_save
+    opt._write_checkpoint, opt._load_latest_checkpoint = (timed_write,
+                                                          recorded_load)
+    return rec
+
+
+def lm_run(TransformerLM, lm_criterion, ckpt, fuse, plan=None, resume=False,
+           summary=None, check_numerics=False, profile=None, sync=False):
+    """One run of phase 6's configuration to TRAIN_ITERS: a fresh model
+    from phase 6's seed and a fresh dataset (the same epoch orders), the
+    step a captured program; checkpoints under ``ckpt`` (None: none),
+    ``plan`` a fault plan, ``resume`` with ``resume="auto"``. Returns the
+    optimizer, the record, the parameters and the ``TrainingPreempted``
+    the run ended with (None when it ran to the end)."""
+    from bigdl_tpu_torch.dataset import (
+        DataSet, Sample, SampleToMiniBatch, ptb_windows, synthetic_ptb,
+    )
+    from bigdl_tpu_torch.optim import SGD, LocalOptimizer, Trigger
+    from bigdl_tpu_torch.optim.optimizer import TrainingPreempted
+    from bigdl_tpu_torch.utils import faults
+    from bigdl_tpu_torch.utils.random_generator import RandomGenerator
+
+    RandomGenerator.set_seed(SEED)
+    ids = synthetic_ptb(TRAIN_BATCH * TRAIN_STEPS * TRAIN_LEN + 1,
+                        vocab_size=VOCAB)
+    xs, ys = ptb_windows(ids, TRAIN_LEN)
+    data = (DataSet.array(Sample(x, y) for x, y in zip(xs, ys))
+            >> SampleToMiniBatch(TRAIN_BATCH))
+    lm = build_train_lm(TransformerLM, "auto", DEVICE)
+    opt = (LocalOptimizer(lm, data, lm_criterion(), device=DEVICE)
+           .set_optim_method(SGD(learningrate=0.01, momentum=0.9,
+                                 dampening=0.0))
+           .set_end_when(Trigger.max_iteration(TRAIN_ITERS))
+           .set_fuse_steps(fuse).set_check_numerics(check_numerics))
+    if ckpt is not None:
+        opt.set_checkpoint(str(ckpt), Trigger.several_iteration(ROBUST_EVERY))
+        opt.ckpt_keep = ROBUST_KEEP
+    if summary is not None:
+        opt.set_train_summary(summary)
+    if profile is not None:
+        opt.set_profile(str(profile), *ROBUST_PROFILE)
+    rec = instrument(opt)
+    stopped = None
+    env = os.environ.get("BIGDL_CKPT_ASYNC")
+    os.environ["BIGDL_CKPT_ASYNC"] = "0" if sync else "1"
+    torch.cuda.synchronize()
+    rec["t0"] = time.perf_counter()
+    try:
+        with faults.inject_faults(plan or ""):
+            opt.optimize(resume="auto" if resume else None)
+    except TrainingPreempted as e:
+        stopped = e
+    finally:
+        if env is None:
+            os.environ.pop("BIGDL_CKPT_ASYNC")
+        else:
+            os.environ["BIGDL_CKPT_ASYNC"] = env
+    torch.cuda.synchronize()
+    rec["wall_s"] = time.perf_counter() - rec["t0"]
+    params = {n: p.detach().clone() for n, p in lm.named_parameters()}
+    return opt, rec, params, stopped
+
+
+def same_run(what, rec, params, ref_rec, ref_params, iters):
+    """Bitwise: the losses of ``iters`` and the final parameters."""
+    lost = [i for i in iters if rec["losses"].get(i) != ref_rec["losses"][i]]
+    differ = [n for n, p in params.items()
+              if not torch.equal(p, ref_params[n])]
+    if lost or differ:
+        worst = max((max_err(params[n], ref_params[n]) for n in differ),
+                    default=0.0)
+        raise CheckFailed(f"{what}: not bitwise equal to the uninterrupted "
+                          f"run: losses of iterations {lost} "
+                          f"({[rec['losses'].get(i) for i in lost]} against "
+                          f"{[ref_rec['losses'][i] for i in lost]}), "
+                          f"{len(differ)} parameters (max|err| {worst:.3e})")
+
+
+def versions(ckpt) -> list:
+    from bigdl_tpu_torch.optim.optimizer import _ckpt_version
+    return sorted((p for p in os.listdir(ckpt)
+                   if _ckpt_version(p) is not None), key=_ckpt_version)
+
+
+def release_run(*opts) -> None:
+    for opt in opts:
+        opt._step_program = None
+    release()
+
+
+def robust_lm(TransformerLM, lm_criterion, card, bf16):
+    """Phase 11's LM checks in one precision (fp32 at fuse 1, bf16 at fuse
+    FUSE): (g) the uninterrupted run's TrainSummary against its losses and
+    (c) the files it leaves; (a) a preemption and a fresh resume; (b) a NaN
+    rollback whose last write is torn, and (d) a fresh resume that
+    quarantines it and falls back; (e) fp32 only, the numerics check; (f)
+    fp32 only, a profile of the resumed run."""
+    from bigdl_tpu_torch.utils.robustness import events
+    from bigdl_tpu_torch.visualization import TrainSummary, read_events
+
+    fuse = FUSE if bf16 else 1
+    what = f"{'bf16' if bf16 else 'fp32'}, fuse {fuse}"
+    out = {}
+    iters = range(1, TRAIN_ITERS + 1)
+    # the uninterrupted run, with a checkpoint every ROBUST_EVERY
+    ck = robust_dir(f"ref_{fuse}")
+    summary = TrainSummary(str(robust_dir(f"summary_{fuse}")), "lm")
+    ref_opt, ref, ref_params, stopped = lm_run(
+        TransformerLM, lm_criterion, ck, fuse, summary=summary)
+    if stopped is not None or sorted(ref["losses"]) != list(iters) \
+            or not all(np.isfinite(list(ref["losses"].values()))):
+        raise CheckFailed(f"{what}: the uninterrupted run gave "
+                          f"{ref['losses']} ({stopped})")
+    want_files = [f"checkpoint.{v}.pkl" for v in range(
+        ROBUST_EVERY, TRAIN_ITERS + 1, ROBUST_EVERY)][-ROBUST_KEEP:]
+    if versions(ck) != want_files:                                  # (c)
+        raise CheckFailed(f"{what}: files {versions(ck)} left, not "
+                          f"{want_files}")
+    summary.close()
+    read = {}
+    for f in os.listdir(summary.dir):
+        for ev in read_events(os.path.join(summary.dir, f)):
+            for tag, v in ev["values"]:
+                if tag == "Loss":
+                    read[ev["step"]] = v
+    if read != ref["losses"]:                                       # (g)
+        raise CheckFailed(f"{what}: the TrainSummary's Loss {read} is not "
+                          f"the run's {ref['losses']}")
+    ckpt_bytes = ref["nbytes"][-1]
+    n_params = sum(p.numel() for p in ref_params.values())
+    out.update(windows=ref["windows"], ckpt_bytes=ckpt_bytes,
+               parameters=n_params,
+               stall_ms_async=ref["stall_ms"], writer_s=ref["write_s"],
+               wall_s=ref["wall_s"], losses=[ref["losses"][i] for i in iters])
+    log(f"  {what}: uninterrupted run, windows {ref['windows']}, "
+        f"{ref['wall_s']:.2f} s; checkpoints of {ckpt_bytes} bytes "
+        f"({n_params} parameters and their momentum, fp32); loop-thread "
+        f"stall {[round(v, 2) for v in ref['stall_ms']]} ms (async), writer "
+        f"{[round(v, 3) for v in ref['write_s']]} s; files left "
+        f"{versions(ck)}; the TrainSummary's Loss at all {len(read)} "
+        f"iterations equals the run's [{card}]")
+    release_run(ref_opt)
+
+    # (a) preemption at ROBUST_SIGTERM, then a fresh model resumes
+    ck = robust_dir(f"preempt_{fuse}")
+    snap = events.snapshot()
+    opt, rec, _, stopped = lm_run(TransformerLM, lm_criterion, ck, fuse,
+                                  plan=f"sigterm@{ROBUST_SIGTERM}")
+    # at fuse 1 the stop follows iteration 9; fused, the window holding 9
+    # (clipped at the checkpoints) runs to its end first
+    want = (ROBUST_SIGTERM + 1 if fuse == 1 else
+            (ROBUST_SIGTERM // ROBUST_EVERY + 1) * ROBUST_EVERY + 1)
+    if stopped is None or stopped.iteration != want \
+            or stopped.checkpoint_path != str(ck) \
+            or events.deltas(snap).get("preemption") != 1:
+        raise CheckFailed(f"{what}: sigterm@{ROBUST_SIGTERM} gave "
+                          f"{stopped!r} (iteration "
+                          f"{getattr(stopped, 'iteration', None)}, want "
+                          f"{want}), events {events.deltas(snap)}")
+    release_run(opt)
+    opt, rec, params, stopped = lm_run(TransformerLM, lm_criterion, ck, fuse,
+                                       resume=True)
+    first_replay = rec["marks"][1 if fuse == 1 else 0] - rec["t0"]
+    same_run(f"{what}, preempted at {ROBUST_SIGTERM} and resumed", rec,
+             params, ref, ref_params, range(want, TRAIN_ITERS + 1))
+    log(f"  {what}: sigterm@{ROBUST_SIGTERM} stopped before iteration "
+        f"{want}, files {versions(ck)}; a fresh model resumed to "
+        f"{TRAIN_ITERS} (windows {rec['windows']}): losses "
+        f"{want}..{TRAIN_ITERS} and parameters bitwise the uninterrupted "
+        f"run's; resume to the end of the first replayed step "
+        f"{first_replay:.3f} s (load, warm-up step, capture) [{card}]")
+    out.update(preempt_iteration=want, resume_s_to_first_replay=first_replay,
+               resume_windows=rec["windows"])
+    release_run(opt)
+
+    # (b) a NaN loss at ROBUST_NAN: one rollback to the last checkpoint,
+    # copied into the live tensors (the step program stays); the 4th write
+    # (version 16) is torn
+    ck = robust_dir(f"rollback_{fuse}")
+    snap = events.snapshot()
+    plan = f"nonfinite_loss@{ROBUST_NAN};ckpt_write@4=torn"
+    opt, rec, params, stopped = lm_run(
+        TransformerLM, lm_criterion, ck, fuse, plan=plan)
+    rollbacks = events.deltas(snap).get("nan_rollback")
+    if stopped is not None or rollbacks != 1:
+        raise CheckFailed(f"{what}: nonfinite_loss@{ROBUST_NAN} gave "
+                          f"{rollbacks} rollbacks ({stopped})")
+    same_run(f"{what}, rolled back at {ROBUST_NAN}", rec, params, ref,
+             ref_params, iters)
+    kept = rec["programs_at_load"] == [opt._step_program]
+    if not kept:
+        raise CheckFailed(f"{what}: the rollback replaced the step program")
+    log(f"  {what}: nonfinite_loss@{ROBUST_NAN} rolled back once to "
+        f"checkpoint.{ROBUST_NAN // ROBUST_EVERY * ROBUST_EVERY}.pkl and ran "
+        f"to {TRAIN_ITERS}: losses and parameters bitwise the uninterrupted "
+        f"run's, with the step program captured before the rollback "
+        f"({opt._step_program.replays} replays) [{card}]")
+    out["rollback_kept_program"] = kept
+    release_run(opt)
+    # (d) the torn newest version is quarantined; the resume falls back
+    snap = events.snapshot()
+    prof_dir = robust_dir(f"profile_{fuse}") if not bf16 else None
+    opt, rec, params, stopped = lm_run(TransformerLM, lm_criterion, ck, fuse,
+                                       resume=True, profile=prof_dir,
+                                       sync=True)
+    torn = f"checkpoint.{TRAIN_ITERS // ROBUST_EVERY * ROBUST_EVERY}.pkl"
+    if events.deltas(snap).get("ckpt_quarantined") != 1 \
+            or not (ck / (torn + ".corrupt")).exists():
+        raise CheckFailed(f"{what}: the torn {torn} was not quarantined "
+                          f"({events.deltas(snap)}, {os.listdir(ck)})")
+    back_to = min(rec["losses"])
+    if back_to != TRAIN_ITERS // ROBUST_EVERY * ROBUST_EVERY - ROBUST_EVERY + 1:
+        raise CheckFailed(f"{what}: the fallback resumed at {back_to}")
+    same_run(f"{what}, resumed past a torn {torn}", rec, params, ref,
+             ref_params, range(back_to, TRAIN_ITERS + 1))
+    out.update(stall_ms_sync=rec["stall_ms"], writer_s_sync=rec["write_s"])
+    log(f"  {what}: the torn {torn} quarantined, the resume fell back to "
+        f"iteration {back_to} and ran to {TRAIN_ITERS} bitwise; its "
+        f"checkpoint written synchronously: stall "
+        f"{[round(v, 2) for v in rec['stall_ms']]} ms [{card}]")
+    if prof_dir is not None:                                        # (f)
+        out["profile"] = check_trace(opt, card)
+    release_run(opt)
+    if not bf16:                                                    # (e)
+        steps = {}
+        for check in (False, True):
+            opt, rec, params, _ = lm_run(TransformerLM, lm_criterion, None,
+                                         1, check_numerics=check)
+            same_run(f"{what}, set_check_numerics({check})", rec, params,
+                     ref, ref_params, iters)
+            steps[check] = float(statistics.median(np.diff(
+                rec["marks"]))) * 1e3
+            release_run(opt)
+        log(f"  {what}: set_check_numerics(True) gave the same losses and "
+            f"parameters bitwise; step {steps[True]:.2f} ms against "
+            f"{steps[False]:.2f} ms unchecked (no checkpoints, median of "
+            f"steps 2-17) [{card}]")
+        out.update(check_numerics_step_ms=steps[True],
+                   unchecked_step_ms=steps[False])
+    del ref_params
+    release()
+    return out
+
+
+def check_trace(opt, card) -> dict:
+    """(f): the Chrome trace of ``set_profile`` names the five kernels."""
+    path = getattr(opt, "profile_trace", None)
+    if path is None or not os.path.exists(path):
+        raise CheckFailed(f"set_profile wrote no trace ({path})")
+    text = Path(path).read_text()
+    names = {"layer_norm_fwd": "ln_fwd", "layer_norm_bwd": "ln_bwd",
+             "flash_attention_fwd": "flash_fwd_kernel",
+             "flash_attention_bwd_dq": "flash_bwd_dq_kernel",
+             "flash_attention_bwd_dkv": "flash_bwd_dkv_kernel"}
+    found = {k: text.count(w) for k, w in names.items()}
+    log(f"  set_profile{ROBUST_PROFILE}: {path} ({len(text)} bytes) names "
+        f"the kernels {found} times [{card}]")
+    if not all(found.values()):
+        raise CheckFailed(f"the profile does not name every kernel: {found}")
+    return {"path": os.path.relpath(path), "bytes": len(text),
+            "kernel_mentions": found}
+
+
+def robust_vision(card, Engine):
+    """Phase 11's ResNet-50 check: bf16, NHWC, batch 64, a checkpoint at 3
+    and sigterm@4; the resumed run's parameters and running statistics
+    bitwise the uninterrupted run's."""
+    from bigdl_tpu_torch.dataset import DataSet, MiniBatch
+    from bigdl_tpu_torch.nn import ClassNLLCriterion, layout
+    from bigdl_tpu_torch.optim import SGD, LocalOptimizer, Trigger
+    from bigdl_tpu_torch.optim.optimizer import TrainingPreempted
+    from bigdl_tpu_torch.utils import faults
+    from bigdl_tpu_torch.utils.random_generator import RandomGenerator
+
+    r = np.random.default_rng(SEED + 13)
+    batches = [MiniBatch(r.integers(0, 256, (ROBUST_VISION_BATCH, VISION_HW,
+                                             VISION_HW, 3), dtype=np.uint8),
+                         r.integers(0, VISION_CLASSES, ROBUST_VISION_BATCH)
+                         .astype(np.int32))
+               for _ in range(ROBUST_VISION_ITERS)]
+
+    def run(ckpt, plan=None, resume=False):
+        RandomGenerator.set_seed(SEED)
+        model = build_resnet50(DEVICE)
+        opt = (LocalOptimizer(model, DataSet.array(batches),
+                              ClassNLLCriterion(), device=DEVICE)
+               .set_optim_method(SGD(learningrate=0.01, momentum=0.9,
+                                     dampening=0.0))
+               .set_end_when(Trigger.max_iteration(ROBUST_VISION_ITERS))
+               .set_checkpoint(str(ckpt), Trigger.several_iteration(3)))
+        rec = instrument(opt)
+        stopped = None
+        try:
+            with faults.inject_faults(plan or ""):
+                opt.optimize(resume="auto" if resume else None)
+        except TrainingPreempted as e:
+            stopped = e
+        torch.cuda.synchronize()
+        state = {n: t.detach().clone() for n, t in
+                 list(model.named_parameters()) + [
+                     (n, b) for n, b in model.named_buffers()
+                     if "running" in n]}
+        opt._step_program = None
+        del opt, model
+        release()
+        return rec, state, stopped
+
+    cudnn = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = True
+    layout.set_image_format("NHWC")
+    Engine.init(compute_dtype=torch.bfloat16)
+    try:
+        ref, ref_state, _ = run(robust_dir("resnet_ref"))
+        ck = robust_dir("resnet")
+        _, _, stopped = run(ck, plan="sigterm@4")
+        if stopped is None or stopped.iteration != 5:
+            raise CheckFailed(f"ResNet-50: sigterm@4 gave {stopped!r}")
+        rec, state, _ = run(ck, resume=True)
+    finally:
+        Engine.reset()
+        layout.set_image_format(None)
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = cudnn
+    differ = [n for n, t in state.items() if not torch.equal(t, ref_state[n])]
+    lost = [i for i in rec["losses"] if rec["losses"][i] != ref["losses"][i]]
+    n_stats = sum(1 for n in state if "running" in n)
+    log(f"  ResNet-50 bf16 NHWC at batch {ROBUST_VISION_BATCH}: sigterm@4 "
+        f"stopped before 5 (checkpoint.3 and the emergency checkpoint.5, "
+        f"{ref['nbytes'][-1]} bytes), the resumed run's iterations "
+        f"{sorted(rec['losses'])}: {len(differ)} of {len(state)} tensors "
+        f"({n_stats} running statistics) differ from the uninterrupted "
+        f"run's, losses differing at {lost}; stall "
+        f"{[round(v, 2) for v in ref['stall_ms']]} ms, writer "
+        f"{[round(v, 3) for v in ref['write_s']]} s [{card}]")
+    if differ or lost or sorted(rec["losses"]) != [5, 6]:
+        raise CheckFailed(f"ResNet-50: the resumed run is not bitwise the "
+                          f"uninterrupted one: {differ[:5]}, losses {lost}")
+    return {"ckpt_bytes": ref["nbytes"][-1], "stall_ms": ref["stall_ms"],
+            "writer_s": ref["write_s"], "running_statistics": n_stats}
+
+
+def robustness(TransformerLM, lm_criterion, card, Engine):
+    """Phase 11: checkpoint, preempt, resume and roll back the trainer at
+    full width (the LM in fp32 and bf16, ResNet-50 in bf16)."""
+    import shutil
+    t0 = time.perf_counter()
+    out = {"fp32": robust_lm(TransformerLM, lm_criterion, card, False)}
+    Engine.init(compute_dtype=torch.bfloat16)
+    try:
+        out["bf16"] = robust_lm(TransformerLM, lm_criterion, card, True)
+    finally:
+        Engine.reset()
+    out["resnet50"] = robust_vision(card, Engine)
+    shutil.rmtree(Path(__file__).resolve().parent / "build" / "phase11",
+                  ignore_errors=True)
+    out["wall_s"] = time.perf_counter() - t0
+    log(f"  phase 11 took {out['wall_s']:.1f} s [{card}]")
+    return out
+
+
+def remat_captures(n: int, TransformerLM, lm_criterion, kernels, card,
+                   Engine) -> int:
+    """``--remat-captures N``: phase 6's bf16 run with every block under
+    ``Remat`` (the step captured at its first use), N times in this
+    process; prints each capture's outcome and the count of failed
+    captures (ROADMAP Queue C item 1, the capture invalidated on the
+    card). An observation, not a check: returns 0."""
+    from bigdl_tpu_torch.utils.programs import ProgramCaptureError
+    failures = []
+    Engine.init(compute_dtype=torch.bfloat16)
+    try:
+        for k in range(n):
+            try:
+                _, run16_remat = train(TransformerLM, lm_criterion, kernels,
+                                       card, bf16=True, remat=True,
+                                       profile=False)
+                log(f"  remat capture {k + 1}/{n}: captured, step "
+                    f"{run16_remat['step_ms']:.2f} ms")
+            except ProgramCaptureError as e:
+                failures.append(str(e))
+                log(f"  remat capture {k + 1}/{n}: FAILED: {e}")
+            release()
+    finally:
+        Engine.reset()
+    log(f"remat captures: {len(failures)} failed of {n} [{card}]")
+    print(json.dumps({"remat_captures": n, "failed": len(failures),
+                      "errors": failures}), flush=True)
+    return 0
+
+
 # -------------------------------------------------------------------- main
 def main() -> int:
     if not torch.cuda.is_available():
@@ -2904,6 +3377,10 @@ def main() -> int:
     log("phase 2: build")
     lib = _cuda.library()
     log(f"  built {lib.path} in {lib.build_seconds:.1f} s")
+    if "--remat-captures" in sys.argv:
+        n = int(sys.argv[sys.argv.index("--remat-captures") + 1])
+        return remat_captures(n, TransformerLM, lm_criterion, kernels, card,
+                              Engine)
     build = report_flash_build(lib, kernels, _cuda.find_nvcc())
     ln_build = report_layer_norm_build(lib)
 
@@ -3060,6 +3537,17 @@ def main() -> int:
         raise CheckFailed("the serving extras never launched the LayerNorm "
                           "forward")
 
+    log("phase 11: checkpoint, preempt, resume and roll back the trainer, "
+        "full width")
+    kernels.reset_launch_counts()          # the phase's path: from here ...
+    robust = robustness(TransformerLM, lm_criterion, card, Engine)
+    robust_counts = kernels.launch_counts()    # ... to here
+    log(f"  launches: {robust_counts}")
+    for name, n in robust_counts.items():
+        if n == 0:
+            raise CheckFailed(f"phase 11 never launched {name}")
+    robust["launches"] = robust_counts
+
     log("phase 10: the kernel table")
 
     # each kernel's row: its own slice's path (serving for the forward
@@ -3113,7 +3601,8 @@ def main() -> int:
                  "llama_serving": llama["serving_counts"][k],
                  "llama_training_bf16": llama["counts"][k],
                  "vision": vision["lm_kernel_launches"][k],
-                 "serving_extras": extras_counts[k]}
+                 "serving_extras": extras_counts[k],
+                 "robustness": robust_counts[k]}
              for k in launches}
     beam_row = find_row(fa_rows, BEAM_SHAPE, "float32")
 
@@ -3268,7 +3757,7 @@ def main() -> int:
                                          for k in ("busy_ms", "wall_ms",
                                                    "host_calls")}}},
         "llama": dict(llama["summary"], kernel_ms_per_step=llama_kernel_ms),
-        "vision": vision, "serving_extras": extras}
+        "vision": vision, "serving_extras": extras, "robustness": robust}
     print(json.dumps(table), flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -147,7 +147,7 @@ def test_paged_pooled_speculative_serving_replays(cuda, draft):
     assert all(p.captured for p in progs.values())
     assert sum(p.replays for p in progs.values()) > 0
     if draft:
-        assert stats["acceptance_rate"] == 1.0
+        assert stats["spec_acceptance"] == 1.0
 
 
 def _batches(n, batch=2, t=MAX_LEN, seed=1):

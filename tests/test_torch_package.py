@@ -55,6 +55,29 @@ def test_serving_extras_import_no_jax():
     assert r.stdout.strip() == "[]", r.stdout
 
 
+def test_trainer_robustness_modules_import_no_jax():
+    """The checkpoint file format, the fault plan, the event sink, the
+    metric registry and tracer, the summaries and the trainer, imported
+    alone in a fresh interpreter, bring in neither JAX nor the JAX
+    package."""
+    names = ["bigdl_tpu_torch.utils.file", "bigdl_tpu_torch.utils.faults",
+             "bigdl_tpu_torch.utils.robustness",
+             "bigdl_tpu_torch.obs.registry", "bigdl_tpu_torch.obs.trace",
+             "bigdl_tpu_torch.visualization",
+             "bigdl_tpu_torch.visualization.tensorboard",
+             "bigdl_tpu_torch.optim.metrics",
+             "bigdl_tpu_torch.optim.optimizer",
+             "bigdl_tpu_torch.optim.evaluator", "bigdl_tpu_torch.convert"]
+    code = ("import importlib, sys\n"
+            f"for n in {names!r}: importlib.import_module(n)\n"
+            "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'bigdl_tpu')))")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip() == "[]", r.stdout
+
+
 def test_importing_every_module_leaves_jax_out():
     r = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=ROOT,
                        capture_output=True, text=True, timeout=120)

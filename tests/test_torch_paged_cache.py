@@ -318,3 +318,30 @@ def test_paged_decode_step_matches_jax(case, t):
                                    rtol=1e-6, atol=1e-6)
     np.testing.assert_array_equal(tout["pos"].numpy(),
                                   np.asarray(jout["pos"]))
+
+
+def test_idle_slot_past_max_len_keeps_rows_finite():
+    """ROADMAP Queue C's reproduction of JAX's trash-page poisoning:
+    ``TransformerLM(64, 32, 4, 2, max_len=64)`` at seed 19, three slots
+    over 7 pages of 8 tokens, six prompts of 5, 17, 9, 30, 3 and 12 tokens
+    from ``default_rng(0)``, 20 new tokens each. An idle slot's position
+    runs past ``max_len``; the port's position embedding clamps its index
+    (``models/transformerlm/transformerlm.py``), so no NaN reaches the
+    shared trash page and all six equal solo ``greedy_generate`` (JAX's
+    engine fails request 5 with ``NonFiniteLogitsError``)."""
+    RandomGenerator.set_seed(19)
+    jlm = JaxTransformerLM(VOCAB, embed_dim=E, num_heads=HEADS, num_layers=2,
+                           max_len=MAX_LEN)
+    tlm = TransformerLM(VOCAB, E, HEADS, 2, MAX_LEN, device="cpu")
+    load_jax_params(tlm, jlm.get_params())
+    r = np.random.default_rng(0)
+    prompts = [r.integers(0, VOCAB, n).astype(np.int32)
+               for n in (5, 17, 9, 30, 3, 12)]
+    with ServingEngine(tlm, MAX_LEN, slots=3, buckets=(16, 32, 64),
+                       pages=7, page_tokens=8, device="cpu") as eng:
+        handles = [eng.submit(p, 20) for p in prompts]
+        got = [h.result(300).tokens for h in handles]
+        st = eng.stats()
+    for p, g in zip(prompts, got):
+        np.testing.assert_array_equal(g, _solo(tlm, p, 20))
+    assert st["poisoned_slots"] == 0 and st["completed"] == 6

@@ -137,9 +137,9 @@ def test_paged_spec_pooled_programs_make_no_host_read(monkeypatch):
 
 def test_training_step_programs_make_no_host_read(monkeypatch):
     """Every option of the step that rides inside its program: remat,
-    clipping, accumulation, bf16, a frozen block, and methods with and
-    without step-dependent numbers (LBFGS keeps its bookkeeping on the
-    device)."""
+    clipping, accumulation, bf16, a frozen block, the numerics check (its
+    flag stays on the device), and methods with and without
+    step-dependent numbers (LBFGS keeps its bookkeeping on the device)."""
     called = _guarded(monkeypatch)
     x = torch.randint(0, 64, (4, 16), generator=torch.Generator()
                       .manual_seed(1))
@@ -149,7 +149,8 @@ def test_training_step_programs_make_no_host_read(monkeypatch):
         lambda o: o.set_optim_method(SGD(learningrate=0.1, momentum=0.9))
         .set_gradient_accumulation(2).set_constant_gradient_clipping(-1, 1)
         .set_flat_update(True),
-        lambda o: o.set_optim_method(LBFGS(history=3)),
+        lambda o: o.set_optim_method(LBFGS(history=3))
+        .set_check_numerics(True),
     ]
     try:
         for i, configure in enumerate(configs):

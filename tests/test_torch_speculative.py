@@ -126,7 +126,7 @@ def test_engine_with_a_draft_serves_plain_tokens(models, jax_spec_engine,
         "serve_prefill_spec", "serve_spec_step",
         "serve_assign_paged_spec" if paged else "serve_assign_spec"}
     if draft == "self":
-        assert st["acceptance_rate"] == 1.0
+        assert st["spec_acceptance"] == 1.0
     else:
         want, jst = jax_spec_engine
         for g, w in zip(got, want):

@@ -466,12 +466,12 @@ def test_training_mains_run_on_the_cpu(main, args, capsys):
     (resnet_main, ["--dataset", "ImageNet"]),
     (resnet_main, ["--dataset=ImageNet"]),
     (resnet_main, ["-f", "/data"]),
-    (resnet_main, ["--checkpoint", "ck"]),
-    (resnet_main, ["--summary-dir", "s"]),
+    (resnet_main, ["--folder=/data"]),
+    (vgg_main, ["--distributed"]),
     (resnet_main, ["--distributed"]),
     (lenet_main, ["--model-snapshot", "m"]),
     (lenet_main, ["--state-snapshot", "s"]),
-    (lenet_main, ["--overwrite-checkpoint"]),
+    (lenet_main, ["--folder", "/data"]),
     (vgg_main, ["--folder", "/data"]),
 ])
 def test_training_mains_refuse_unported_flags(main, flag):
