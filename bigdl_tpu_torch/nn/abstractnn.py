@@ -57,6 +57,13 @@ class AbstractModule(torch.nn.Module):
         self.name = name
         return self
 
+    def inputs(self, *nodes):
+        """Torch-style node wiring: ``layer.inputs(nodeA, nodeB)`` returns a
+        graph ``ModuleNode`` wrapping this layer with the given predecessor
+        nodes (``nn/graph.py``)."""
+        from bigdl_tpu_torch.nn.graph import make_node
+        return make_node(self, nodes)
+
     def evaluate(self) -> "AbstractModule":
         """Switch to eval mode (Torch/BigDL parity)."""
         self.eval()

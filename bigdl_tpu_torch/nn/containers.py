@@ -1,9 +1,10 @@
-"""Composition containers: Sequential, ConcatTable, CAddTable, CMulTable,
-Identity, Remat.
+"""Composition containers: Sequential, Concat, ConcatTable, CAddTable,
+CMulTable, Identity, Remat.
 
 Counterpart of ``bigdl_tpu/nn/containers.py``. The residual join of the
 transformer blocks is ``ConcatTable(Identity, branch) >> CAddTable``; the
-SwiGLU MLP's gate is ``ConcatTable(gate, up) >> CMulTable``.
+SwiGLU MLP's gate is ``ConcatTable(gate, up) >> CMulTable``; Inception's
+branch blocks are ``Concat(2)``.
 """
 
 from __future__ import annotations
@@ -11,6 +12,9 @@ from __future__ import annotations
 import torch.utils.checkpoint
 from torch.func import functional_call
 
+import torch
+
+from bigdl_tpu_torch.nn import layout
 from bigdl_tpu_torch.nn.abstractnn import AbstractModule, Container, child_state
 from bigdl_tpu_torch.nn.normalization import checkpoint_contexts
 from bigdl_tpu_torch.utils.table import T, Table
@@ -27,6 +31,33 @@ class Sequential(Container):
             if new_state is not None and s is not None:
                 new_state[name] = s
         return x, new_state
+
+
+class Concat(Container):
+    """Apply each child to the same input; concatenate the outputs along
+    ``dimension``, 1-based counting the batch axis first (the reference's
+    convention): the default 2 is NCHW's channel axis. Under NHWC
+    (``nn/layout.py``), dimension 2 of a 4-D activation means the channel
+    axis and resolves to the last one, as in JAX; ``literal_dim=True``
+    keeps the literal second axis (4-D tables that are not images)."""
+
+    def __init__(self, dimension: int = 2, literal_dim: bool = False):
+        super().__init__()
+        self.dimension = dimension
+        self.literal_dim = literal_dim
+
+    def run(self, input, state=None):
+        outs = []
+        new_state = None if state is None else {}
+        for name, m in self._modules.items():
+            o, s = m.run(input, child_state(state, name))
+            outs.append(o)
+            if new_state is not None and s is not None:
+                new_state[name] = s
+        axis = self.dimension - 1
+        if axis == 1 and outs and outs[0].dim() == 4 and not self.literal_dim:
+            axis = layout.channel_axis(4)
+        return torch.cat(outs, dim=axis), new_state
 
 
 class ConcatTable(Container):

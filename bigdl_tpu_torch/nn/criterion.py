@@ -1,7 +1,8 @@
 """Loss criterions on the language model's path.
 
 Counterpart of ``bigdl_tpu/nn/criterion.py`` for ``ClassNLLCriterion``,
-``CrossEntropyCriterion`` and ``TimeDistributedCriterion``. A criterion is
+``CrossEntropyCriterion``, ``ParallelCriterion`` and
+``TimeDistributedCriterion``. A criterion is
 a function ``apply(input, target) -> scalar`` in torch ops, differentiated
 by autograd together with the model. Targets are 0-based class indices
 unless ``one_based=True`` (the reference's Torch labels).
@@ -11,6 +12,8 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from bigdl_tpu_torch.utils.table import Table
 
 
 class AbstractCriterion:
@@ -76,6 +79,39 @@ class CrossEntropyCriterion(AbstractCriterion):
 
     def apply(self, input, target):
         return self.inner.apply(F.log_softmax(input, dim=-1), target)
+
+
+class ParallelCriterion(AbstractCriterion):
+    """Weighted sum of criterions over (Table input, Table target) pairs;
+    ``repeat_target`` gives every criterion the same target (Inception's
+    three heads)."""
+
+    def __init__(self, repeat_target: bool = False):
+        self.criterions: list = []
+        self.repeat_target = repeat_target
+
+    def add(self, criterion: AbstractCriterion,
+            weight: float = 1.0) -> "ParallelCriterion":
+        self.criterions.append((criterion, weight))
+        return self
+
+    @property
+    def size_average(self) -> bool:
+        # a weighted sum of means is itself mean-like under gradient
+        # accumulation; only an all-sum composite accumulates by summing
+        return all(bool(getattr(c, "size_average", True))
+                   for c, _ in self.criterions)
+
+    def apply(self, input, target):
+        xs = input.values() if isinstance(input, Table) else list(input)
+        if self.repeat_target:
+            ts = [target] * len(xs)
+        else:
+            ts = target.values() if isinstance(target, Table) else list(target)
+        total = 0.0
+        for (crit, w), x, t in zip(self.criterions, xs, ts):
+            total = total + w * crit.apply(x, t)
+        return total
 
 
 class TimeDistributedCriterion(AbstractCriterion):

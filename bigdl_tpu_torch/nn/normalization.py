@@ -34,7 +34,13 @@ Counterpart of ``bigdl_tpu/nn/normalization.py``:
   ``set_remat``) does not update them again (:func:`recomputing`). The
   training forward is one autograd Function whose backward is the
   derivative of that forward in fp32 torch ops; it keeps only the input and
-  its per-channel statistics for the backward.
+  its per-channel statistics for the backward;
+- ``SpatialCrossMapLRN`` (``:305``): local response normalisation across
+  channels, ``x / (k + alpha/size · Σ x²) ** beta`` over Torch's asymmetric
+  window (``size // 2`` channels before, ``(size - 1) // 2`` after), NCHW
+  and NHWC. The windowed sum is JAX's banded C×C 0/1 product
+  (``torch.einsum`` in the input's dtype; the trainer keeps TF32 off under
+  its fp32 policy), the rest torch ops.
 """
 
 from __future__ import annotations
@@ -337,3 +343,34 @@ class SpatialBatchNormalization(BatchNormalization):
         from bigdl_tpu_torch.kernels.conv_bn import fold_bn_scale_shift
         return fold_bn_scale_shift(self.weight, self.bias, self.running_mean,
                                    self.running_var, self.eps)
+
+
+class SpatialCrossMapLRN(TensorModule):
+    """Local response normalisation across channels (reference
+    ``nn.SpatialCrossMapLRN``; Inception-v1, AlexNet):
+    ``out = x / (k + alpha/size * sum_{size local channels} x^2) ** beta``.
+    """
+
+    def __init__(self, size: int = 5, alpha: float = 1.0, beta: float = 0.75,
+                 k: float = 1.0):
+        super().__init__()
+        self.size = size
+        self.alpha = alpha
+        self.beta = beta
+        self.k = k
+
+    def run(self, input, state=None):
+        sq = input.square()
+        pre, post = self.size // 2, (self.size - 1) // 2
+        c = sq.shape[layout.channel_axis(sq.dim())]
+        idx = torch.arange(c, device=input.device)
+        # band[i, j] = 1 where channel i falls in j's window [j - pre, j + post]
+        band = ((idx[:, None] >= idx[None, :] - pre)
+                & (idx[:, None] <= idx[None, :] + post)).to(sq.dtype)
+        eq = "nhwi,ij->nhwj" if layout.is_nhwc() else "nihw,ij->njhw"
+        summed = torch.einsum(eq, sq, band)
+        denom = (self.k + (self.alpha / self.size) * summed).pow(self.beta)
+        return input / denom, state
+
+    def extra_repr(self):
+        return f"{self.size}, {self.alpha}, {self.beta}, {self.k}"

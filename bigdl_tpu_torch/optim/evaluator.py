@@ -17,8 +17,12 @@ CPU the same function runs eagerly.
 Eval windows, as JAX's (``eval_fuse_steps``, ``BIGDL_EVAL_FUSE_STEPS``,
 default 8): K consecutive batches of one shape are stacked on the host,
 copied in one transfer and folded by one program of K forwards; a trailing
-group of fewer batches runs a batch at a time. The feed is serial (JAX
-prefetches it on a thread, ROADMAP Queue A.1.6 item 7).
+group of fewer batches runs a batch at a time. The batches come through a
+``PrefetchingFeed(train=False)`` (depth ``BIGDL_PREFETCH``, default 2), as
+JAX's (``bigdl_tpu/optim/evaluator.py:184``, ``:322``, ``:424``): its
+producer stacks and copies the next window (``dataset/h2d.py``) while the
+card folds the current one; a window whose batches differ in shape is
+placed and folded a batch at a time.
 
 :class:`Evaluator` (``test``) and :class:`Predictor` (``predict``,
 ``predict_class``, padding rows dropped) are JAX's facade over the same
@@ -38,14 +42,15 @@ from torch.func import functional_call
 from bigdl_tpu_torch.nn.abstractnn import evaluating
 from bigdl_tpu_torch.nn.precision import cast_floating
 from bigdl_tpu_torch.dataset.dataset import AbstractDataSet, DataSet
+from bigdl_tpu_torch.dataset.h2d import HostToDevice
+from bigdl_tpu_torch.dataset.prefetch import PrefetchingFeed
 from bigdl_tpu_torch.dataset.sample import (
     MiniBatch, Sample, SampleToMiniBatch,
 )
-from bigdl_tpu_torch.optim.optimizer import (
-    _copy_into, _map, _signature, _stack,
-)
+from bigdl_tpu_torch.obs import trace
+from bigdl_tpu_torch.optim.optimizer import _copy_into, _map, _signature
 from bigdl_tpu_torch.optim.validation import ValidationMethod, ValidationResult
-from bigdl_tpu_torch.utils.device import require_on
+from bigdl_tpu_torch.utils.device import require_on, wait_for_stream
 from bigdl_tpu_torch.utils.engine import Engine
 from bigdl_tpu_torch.utils.programs import ProgramCache
 
@@ -137,26 +142,13 @@ def _program(model, dev_methods: list, need_outs: bool, inp, target,
     return cache.get_or_capture(key, build)
 
 
-def _groups(batches, k: int):
-    """``batches`` in windows of ``k`` of one shape; a group of fewer (the
-    epoch's tail, or a change of shape) as single batches."""
-    group: list = []
-    for b in batches:
-        if group and _host_signature(b) != _host_signature(group[0]):
-            yield from ([g] for g in group)
-            group = []
-        group.append(b)
-        if len(group) == k:
-            yield group
-            group = []
-    yield from ([g] for g in group)
-
-
 def _with_target(b):
     """A batch without labels (prediction) gets a placeholder target of a
     0 a row, which no fold reads."""
     if b.target is None:
-        b = MiniBatch(b.input, np.zeros(b.size(), np.int32), b.valid)
+        out = MiniBatch(b.input, np.zeros(b.size(), np.int32), b.valid)
+        out._ring_slot, b._ring_slot = b._ring_slot, None
+        return out
     return b
 
 
@@ -168,47 +160,74 @@ def _host_signature(b) -> tuple:
 def _eval_pass(model, dataset, dev_methods, need_outs: bool, dev, fuse: int,
                stats: dict, on_outputs=None):
     """Run every batch of ``dataset`` through the eval programs (windows of
-    ``fuse``); returns the merged device partials of ``dev_methods`` (None
-    without batches) and calls ``on_outputs(out, batch)`` with each batch's
-    outputs on the host when ``need_outs``."""
+    ``fuse``, fed by a ``PrefetchingFeed(train=False)``); returns the merged
+    device partials of ``dev_methods`` (None without batches) and calls
+    ``on_outputs(out, batch)`` with each batch's outputs on the host when
+    ``need_outs``."""
+    h2d = HostToDevice(dev)
+
+    def place(item):
+        if not isinstance(item, list):
+            return h2d.put(item)
+        if len(item) > 1 and all(_host_signature(b) == _host_signature(
+                item[0]) for b in item):
+            return h2d.put_stacked(item)
+        return [h2d.put(b) for b in item]
+
+    def groups(item, placed):
+        """``(batches, (inp, target))`` of the programs to run."""
+        if isinstance(placed, list):
+            return [([b], p.ready()) for b, p in zip(item, placed)]
+        return [(item if isinstance(item, list) else [item], placed.ready())]
+
     carry = None
-    for group in _groups(map(_with_target, dataset.data(train=False)), fuse):
-        k = len(group)
-        if k == 1:
-            b = group[0]
-            inp, target = (_map(lambda a: torch.from_numpy(np.asarray(a)).to(
-                dev, non_blocking=True), x) for x in (b.input, b.target))
-            mask = np.arange(b.size()) < b.valid
-        else:
-            inp, target = (
-                _map(lambda a: torch.from_numpy(a).to(dev, non_blocking=True),
-                     _stack(xs))
-                for xs in ([b.input for b in group],
-                           [b.target for b in group]))
-            mask = np.stack([np.arange(b.size()) < b.valid for b in group])
-            stats["fused_windows"] += 1
-        mask = torch.from_numpy(mask).to(dev, non_blocking=True)
-        prog = _program(model, dev_methods, need_outs, inp, target, dev, k)
-        s_inp, s_target, s_mask = prog.inputs
-        _copy_into(s_inp, inp)
-        _copy_into(s_target, target)
-        s_mask.copy_(mask)
-        parts, out = prog()
-        # the program's outputs are overwritten by its next call: merge on
-        # the card now (into fresh tensors)
-        carry = (tuple(tuple(p.clone() for p in part) for part in parts)
-                 if carry is None else
-                 tuple(m.merge(c, p) for m, c, p in
-                       zip(dev_methods, carry, parts)))
-        if need_outs:
-            t0 = time.perf_counter()
-            host_out = out.cpu()
-            stats["wait_ms"] += (time.perf_counter() - t0) * 1e3
-            stats["fetch_bytes"] += host_out.numel() * host_out.element_size()
-            for j, b in enumerate(group):
-                on_outputs(host_out if k == 1 else host_out[j], b)
-        stats["batches"] += k
-        stats["samples"] += sum(b.valid for b in group)
+    feed = PrefetchingFeed(
+        lambda: map(_with_target, dataset.data(train=False)), place,
+        depth=int(os.environ.get("BIGDL_PREFETCH", "2")), window=fuse,
+        train=False)
+    with feed, trace.span("eval/pass"):
+        for item, placed in feed:
+            for group, (inp, target) in groups(item, placed):
+                carry = _fold(model, dev_methods, need_outs, dev, group, inp,
+                              target, carry, stats, on_outputs)
+    return carry
+
+
+def _fold(model, dev_methods, need_outs, dev, group, inp, target, carry,
+          stats, on_outputs):
+    """One eval program over ``group`` (one batch, or a stacked window of
+    them) already on the device; returns the merged partials."""
+    k = len(group)
+    stacked = k > 1
+    # the mask of valid rows, made on the card (no host copy)
+    n = group[0].size()
+    rows = torch.arange(n, device=dev)
+    mask = (torch.stack([rows < b.valid for b in group]) if stacked
+            else rows < group[0].valid)
+    if stacked:
+        stats["fused_windows"] += 1
+    prog = _program(model, dev_methods, need_outs, inp, target, dev, k)
+    s_inp, s_target, s_mask = prog.inputs
+    _copy_into(s_inp, inp)
+    _copy_into(s_target, target)
+    s_mask.copy_(mask)
+    parts, out = prog()
+    # the program's outputs are overwritten by its next call: merge on
+    # the card now (into fresh tensors)
+    carry = (tuple(tuple(p.clone() for p in part) for part in parts)
+             if carry is None else
+             tuple(m.merge(c, p) for m, c, p in
+                   zip(dev_methods, carry, parts)))
+    if need_outs:
+        t0 = time.perf_counter()
+        wait_for_stream(out)
+        host_out = out.cpu()
+        stats["wait_ms"] += (time.perf_counter() - t0) * 1e3
+        stats["fetch_bytes"] += host_out.numel() * host_out.element_size()
+        for j, b in enumerate(group):
+            on_outputs(host_out[j] if stacked else host_out, b)
+    stats["batches"] += k
+    stats["samples"] += sum(b.valid for b in group)
     return carry
 
 
@@ -247,6 +266,7 @@ def run_device_eval(model: torch.nn.Module, dataset,
         flat = torch.stack([p.double() for part in carry for p in part])
         stats["fetch_bytes"] += flat.numel() * flat.element_size()
         t0 = time.perf_counter()
+        wait_for_stream(flat)
         vals = iter(flat.tolist())
         stats["wait_ms"] += (time.perf_counter() - t0) * 1e3
         for i, m, part in zip(dev_idx, dev_methods, carry):

@@ -114,9 +114,29 @@ schedule is fed after validation (monitor ``"score"`` or a method's name)
 or at an epoch's end (``"loss"``), and SGD reads its rate from the host
 (``OptimMethod.hyper``), so a lower rate takes effect at the next replay.
 
-Not ported yet (ROADMAP Queue A): the feed (prefetch, the batch ring),
-sparse embeddings, the auxiliary loss, the model registry and the orbax
-and elastic checkpoint backends.
+**The feed** (``set_prefetch(depth)`` / ``BIGDL_PREFETCH``, default 2, as
+JAX's ``bigdl_tpu/optim/optimizer.py:216``, ``:1048-1100``): each epoch's
+batches come through ``dataset/prefetch.PrefetchingFeed``, whose producer
+thread assembles them (``SampleToMiniBatch``'s ring, pinned on a CUDA
+device) and places them on the device (``_put_batch``; with
+``set_fuse_steps(K)`` a full window of K batches stacked on the host and
+copied once, ``_put_window``) while the card runs the steps before them:
+on the card from pinned memory on a copy stream of the producer's own,
+recycling a ring slot only once its copy has completed
+(``dataset/h2d.py``); ``depth=0`` places each batch synchronously on the
+loop thread by the same path. The loop takes the placed steps it needs for
+its trigger-aware window (``_fusible_steps``) and keeps the rest for the
+next window; ``_epoch_batches`` counts the batches run, not those
+prefetched. In-memory datasets of ``MiniBatch``es are copied to the device
+once (the device batch cache, up to ``BIGDL_DEVICE_CACHE_MB``, default
+2048; ``BIGDL_DEVICE_CACHE=0`` turns it off). The loop's wait for the feed
+is the ``feed`` phase (``train/feed_wait`` span); the stages' mean ms
+(stack, h2d, ...) go to ``feed_stage_ms`` (JAX's
+``state["feed_stage_ms"]``) and the ``FeedStage/<stage>_ms`` train
+summaries.
+
+Not ported yet (ROADMAP Queue A): sparse embeddings, the auxiliary loss,
+the model registry and the orbax and elastic checkpoint backends.
 """
 
 from __future__ import annotations
@@ -140,7 +160,15 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves
 
 from bigdl_tpu_torch import convert
-from bigdl_tpu_torch.dataset.dataset import AbstractDataSet, TransformedDataSet
+from bigdl_tpu_torch.dataset.dataset import (
+    AbstractDataSet, LocalDataSet, TransformedDataSet,
+)
+from bigdl_tpu_torch.dataset.h2d import HostToDevice, Placed
+from bigdl_tpu_torch.dataset.prefetch import PrefetchingFeed
+from bigdl_tpu_torch.dataset.profiling import (
+    STAGE_AUGMENT, STAGE_CACHE, STAGE_DECODE, STAGE_STACK,
+)
+from bigdl_tpu_torch.dataset.sample import SampleToMiniBatch
 from bigdl_tpu_torch.nn.criterion import AbstractCriterion
 from bigdl_tpu_torch.nn.normalization import (
     checkpoint_contexts, dropout_generators,
@@ -155,7 +183,7 @@ from bigdl_tpu_torch.optim.optim_method import (
 from bigdl_tpu_torch.optim.trigger import Trigger
 from bigdl_tpu_torch.utils import faults
 from bigdl_tpu_torch.utils import file as ckpt_file
-from bigdl_tpu_torch.utils.device import require_on
+from bigdl_tpu_torch.utils.device import require_on, wait_for_stream
 from bigdl_tpu_torch.utils.engine import Engine
 from bigdl_tpu_torch.utils.file import CheckpointCorruptError
 from bigdl_tpu_torch.utils.programs import Program
@@ -260,12 +288,31 @@ def _tensors_of(tree) -> list:
     return []
 
 
-def _stack(xs: list):
-    """Stack host arrays (or tuples of them) along a new leading axis."""
-    if isinstance(xs[0], (tuple, list)):
-        return type(xs[0])(np.stack([np.asarray(x[i]) for x in xs])
-                           for i in range(len(xs[0])))
-    return np.stack([np.asarray(x) for x in xs])
+#: the feed's stages in the obs registry, by the name of their
+#: ``FeedStage/<stage>_ms`` curve (h2d is the trainer's ``put_batch`` phase)
+_FEED_STAGES = {**{"feed/" + s: s for s in (
+    STAGE_DECODE, STAGE_AUGMENT, STAGE_STACK, STAGE_CACHE)},
+    "phase/put_batch": "h2d"}
+
+
+def _feed_stage_totals() -> dict:
+    """``{stage: (count, total seconds)}`` of the feed's stages so far."""
+    return {stage: (h.count, h.total) for name, stage in _FEED_STAGES.items()
+            for h in (obs_registry.histogram(name),)}
+
+
+def pin_feed(dataset) -> None:
+    """Page-locked ring slots for every ``SampleToMiniBatch`` of
+    ``dataset``'s transformer chain (the feed of a CUDA device)."""
+    while isinstance(dataset, TransformedDataSet):
+        stages = [dataset.transformer]
+        while stages:
+            t = stages.pop()
+            if isinstance(t, SampleToMiniBatch):
+                t.pin()
+            stages.extend(getattr(t, a) for a in ("first", "second")
+                          if hasattr(t, a))
+        dataset = dataset.base
 
 
 def _signature(x) -> tuple:
@@ -332,6 +379,16 @@ class Optimizer:
         # steps a fused window runs (set_fuse_steps / BIGDL_FUSE_STEPS)
         self.fuse_steps: int = _fuse_steps(
             int(os.environ.get("BIGDL_FUSE_STEPS", "1")))
+        # feed pipeline depth (placed batches in flight); 0 = synchronous
+        self.prefetch_depth: int = int(os.environ.get("BIGDL_PREFETCH", "2"))
+        # the device batch cache of in-memory datasets (BIGDL_DEVICE_CACHE,
+        # BIGDL_DEVICE_CACHE_MB), keyed by batch identity
+        self.device_cache_mb: float = float(
+            os.environ.get("BIGDL_DEVICE_CACHE_MB", "2048"))
+        self._device_batch_cache: Optional[dict] = None
+        self._device_cache_key = None
+        self._window_cache_bytes = 0.0
+        self._h2d: Optional[HostToDevice] = None
         self.state: dict = {"epoch": 1, "neval": 1, "epoch_finished": False}
         # optimizer slots, kept across optimize() calls: a second call
         # continues the run, as in JAX; with the method that made them and
@@ -362,6 +419,9 @@ class Optimizer:
         # records/s of the last window (not of the first, which holds the
         # warm-up and the capture); a wall-clock number, kept out of state
         self.throughput: Optional[float] = None
+        # the feed's stage means of the run (ms an occurrence: stack a
+        # batch, h2d a placement, ...); wall-clock numbers, out of state
+        self.feed_stage_ms: dict = {}
         # the numerics check (set_check_numerics / BIGDL_CHECK_NUMERICS)
         self.check_numerics: bool = os.environ.get(
             "BIGDL_CHECK_NUMERICS", "0") == "1"
@@ -443,6 +503,15 @@ class Optimizer:
         clipped so that ``end_when`` fires at its exact iteration; ``k=1``
         (the default) is the per-step loop."""
         self.fuse_steps = _fuse_steps(k)
+        return self
+
+    def set_prefetch(self, depth: int) -> "Optimizer":
+        """Feed-pipeline depth: placed batches kept in flight by the
+        background producer (``dataset/prefetch.py``). 0 = synchronous
+        feeding."""
+        if depth < 0:
+            raise ValueError("prefetch depth must be >= 0")
+        self.prefetch_depth = depth
         return self
 
     def set_end_when(self, trigger: Trigger) -> "Optimizer":
@@ -741,6 +810,7 @@ class Optimizer:
             s_h.copy_(h[k])
             out[k].copy_(prog())
         with self.metrics.timer("loss_fetch"):
+            wait_for_stream(out)
             vals = out.tolist()
         self.state["neval"] = start + n
         if check:
@@ -951,16 +1021,114 @@ class Optimizer:
         if self.throughput is not None and fires("Throughput"):
             summary.add_scalar("Throughput", self.throughput, it)
 
-    def _run_window(self, window: list, device) -> list:
-        """The steps of a window of host batches: stacked on the host and
-        copied to the card in one transfer, each step reading its slice."""
-        inp, target = (
-            _map(lambda a: torch.from_numpy(a).to(device, non_blocking=True),
-                 _stack(xs))
-            for xs in ([b.input for b in window], [b.target for b in window]))
-        return self._run_steps([
-            (_map(lambda a: a[k], inp), _map(lambda a: a[k], target))
-            for k in range(len(window))])
+    # ------------------------------------------------------------- feed
+    def _setup_feed(self, device) -> None:
+        """The feed's placement for ``device``, the ring pinned on a card,
+        and the device batch cache (JAX's ``_setup_device_cache``): on when
+        the dataset is a plain ``LocalDataSet`` (which re-yields the same
+        ``MiniBatch`` objects every epoch; a transformed pipeline builds
+        fresh ones) that fits ``device_cache_mb``; kept while the dataset
+        and the device stay the same."""
+        if self._h2d is None or self._h2d.device != torch.device(device):
+            self._h2d = HostToDevice(device)
+        if self._h2d.on_card:
+            pin_feed(self.dataset)
+            if self.val_dataset is not None:
+                pin_feed(self.val_dataset)
+        key = (id(self.dataset), str(device))
+        if self._device_cache_key == key:
+            return
+        self._device_batch_cache = None
+        self._window_cache_bytes = 0.0
+        self._device_cache_key = key
+        ds = self.dataset
+        if os.environ.get("BIGDL_DEVICE_CACHE", "1") == "0" \
+                or not isinstance(ds, LocalDataSet):
+            return
+        total = sum(getattr(b.input, "nbytes", 0)
+                    + getattr(b.target, "nbytes", 0) for b in ds._data)
+        if total <= self.device_cache_mb * 1e6:
+            logger.info("device batch cache enabled (%.0f MB in-memory "
+                        "dataset)", total / 1e6)
+            self._device_batch_cache = {}
+
+    def _put_batch(self, batch) -> Placed:
+        """The producer's placement of one batch (once per distinct batch
+        when the device cache is on)."""
+        faults.fault_point(faults.SITE_H2D)  # scripted transfer failure
+        cache = self._device_batch_cache
+        if cache is not None:
+            hit = cache.get(id(batch))
+            if hit is not None and hit[0] is batch:
+                return hit[1]
+        with self.metrics.timer("put_batch"), trace.span("feed/h2d"):
+            placed = self._h2d.put(batch)
+        if cache is not None:
+            cache[id(batch)] = (batch, placed)
+        return placed
+
+    def _put_window(self, batches: list):
+        """The placement of a fused window: a FULL window of ``fuse_steps``
+        batches stacked on the host and copied once; a partial trailing
+        window as a list of per-batch placements (the loop runs those step
+        by step). Stacked windows ride the device cache too, keyed by
+        batch-identity tuples and bounded by ``device_cache_mb``."""
+        if len(batches) < self.fuse_steps:
+            return [self._put_batch(b) for b in batches]
+        faults.fault_point(faults.SITE_H2D)  # scripted transfer failure
+        cache = self._device_batch_cache
+        key = tuple(id(b) for b in batches)
+        if cache is not None:
+            hit = cache.get(key)
+            if hit is not None and all(a is b for a, b in zip(hit[0],
+                                                                batches)):
+                return hit[1]
+        with self.metrics.timer("put_batch"), trace.span("feed/h2d"):
+            placed = self._h2d.put_stacked(batches)
+        if cache is not None:
+            nbytes = sum(t.numel() * t.element_size()
+                         for t in placed.tensors())
+            if self._window_cache_bytes + nbytes <= \
+                    self.device_cache_mb * 1e6:
+                cache[key] = (list(batches), placed)
+                self._window_cache_bytes += nbytes
+        return placed
+
+    @staticmethod
+    def _placed_steps(item, placed) -> list:
+        """``(batch, (inp, target))`` for each step of a feed item, ready
+        on the current stream: a stacked window's steps read its slices."""
+        if isinstance(placed, list):
+            return [(b, p.ready()) for b, p in zip(item, placed)]
+        inp, target = placed.ready()
+        if not isinstance(item, list):
+            return [(item, (inp, target))]
+        return [(b, (_map(lambda a: a[k], inp), _map(lambda a: a[k], target)))
+                for k, b in enumerate(item)]
+
+    def _write_feed_stages(self, base: dict, it: int) -> None:
+        """The feed's stage means since ``base`` into ``feed_stage_ms``
+        (wall-clock numbers, kept out of ``state`` as ``throughput`` is)
+        and, with a train summary, its ``FeedStage/<stage>_ms`` curves at
+        iteration ``it``."""
+        stages = self._feed_stage_report(base)
+        if not stages:
+            return
+        self.feed_stage_ms = stages
+        if self.train_summary is not None:
+            for stage, ms in stages.items():
+                self.train_summary.add_scalar(f"FeedStage/{stage}_ms", ms, it)
+
+    @staticmethod
+    def _feed_stage_report(base: dict) -> dict:
+        """Mean ms per stage occurrence since ``base``
+        (``_feed_stage_totals()``), JAX's ``_feed_stage_report``."""
+        out = {}
+        for stage, (count, total) in _feed_stage_totals().items():
+            c0, t0 = base.get(stage, (0, 0.0))
+            if count > c0:
+                out[stage] = round(1e3 * (total - t0) / (count - c0), 3)
+        return out
 
     # ------------------------------------------------------------- loop
     def optimize(self, resume: Optional[str] = None) -> torch.nn.Module:
@@ -1044,6 +1212,9 @@ class Optimizer:
         stop = False
         resume_feed, self._resume_feed = self._resume_feed, None
         windows_run, records, window_t0 = 0, 0, time.perf_counter()
+        self._setup_feed(device)
+        stages0 = _feed_stage_totals()
+        fuse = self.fuse_steps
         while not stop:
             state["epoch_finished"] = False
             skip = 0
@@ -1069,59 +1240,70 @@ class Optimizer:
             resume_feed = None
             self._epoch_order = self._base_order_copy()
             self._epoch_batches = skip
-            batches = iter(self.dataset.data(train=True))
-            if skip:
-                batches = itertools.islice(batches, skip, None)
-            ahead: list = []            # taken from the epoch, not yet run
+            make_iter = ((lambda s=skip: itertools.islice(
+                self.dataset.data(train=True), s, None)) if skip
+                else (lambda: self.dataset.data(train=True)))
+            feed = PrefetchingFeed(
+                make_iter, self._put_window if fuse > 1 else self._put_batch,
+                self.prefetch_depth, window=fuse)
+            ahead: list = []     # placed steps taken from the feed, not run
             exhausted = False
             had_data = skip > 0         # a resumed epoch may have no more
-            while True:
-                # evaluated at loop top with the 1-based neval, so
-                # max_iteration(n) runs exactly n iterations
-                if self.end_when(state):
-                    stop = True
-                    break
-                self._maybe_start_profiler()
-                want = min(self.fuse_steps, self._fusible_steps(state))
-                while len(ahead) < want and not exhausted:
-                    try:
-                        ahead.append(next(batches))
-                    except StopIteration:
-                        exhausted = True
-                if not ahead:
-                    break
-                # a full window runs fused; the epoch's partial trailing
-                # one step by step
-                n = want if len(ahead) >= want else 1
-                window, ahead = ahead[:n], ahead[n:]
-                had_data = True
-                first = state["neval"]
-                with trace.span("train/window", {"k": n}):
-                    losses = self._run_window(window, device)
-                self._epoch_batches += n
-                for i, loss in enumerate(losses):
-                    self._write_iter_summary(first + i, loss)
-                now = time.perf_counter()
-                records += sum(b.valid for b in window)
-                if windows_run:
-                    self.throughput = records / (now - window_t0)
-                for i, loss in enumerate(losses):
-                    logger.info("Epoch %d iter %d: loss %.6f, %.1f "
-                                "records/s", state["epoch"], first + i, loss,
-                                self.throughput or 0.0)
-                # the first window holds the warm-up and the capture: the
-                # throughput counts from its end
-                windows_run += 1
-                records, window_t0 = 0, now
-                self._maybe_stop_profiler()
-                self._fire_triggers(boundary=False)
-                fired = [faults.fault_point(faults.SITE_SIGTERM, index=it)
-                         for it in range(first, first + n)]
-                if any(a is not None for a in fired) \
-                        and self._preempt is not None:
-                    self._preempt.wait(1.0)
-                if self._preempt_requested():
-                    self._do_preempt()
+            with feed, trace.span("train/epoch", {"epoch": state["epoch"]}):
+                feed_it = iter(feed)
+                while True:
+                    # evaluated at loop top with the 1-based neval, so
+                    # max_iteration(n) runs exactly n iterations
+                    if self.end_when(state):
+                        stop = True
+                        break
+                    self._maybe_start_profiler()
+                    want = min(fuse, self._fusible_steps(state))
+                    while len(ahead) < want and not exhausted:
+                        # "feed" = the time the loop waits on data; in
+                        # steady state the producer hides assembly and copy
+                        with self.metrics.timer("feed"), \
+                                trace.span("train/feed_wait"):
+                            item = next(feed_it, None)
+                        if item is None:
+                            exhausted = True
+                        else:
+                            ahead.extend(self._placed_steps(*item))
+                    if not ahead:
+                        break
+                    # a full window runs fused; the epoch's partial trailing
+                    # one step by step
+                    n = want if len(ahead) >= want else 1
+                    window, ahead = ahead[:n], ahead[n:]
+                    had_data = True
+                    first = state["neval"]
+                    with trace.span("train/window", {"k": n}):
+                        losses = self._run_steps([p for _, p in window])
+                    self._epoch_batches += n
+                    for i, loss in enumerate(losses):
+                        self._write_iter_summary(first + i, loss)
+                    self._write_feed_stages(stages0, first + n - 1)
+                    now = time.perf_counter()
+                    records += sum(b.valid for b, _ in window)
+                    if windows_run:
+                        self.throughput = records / (now - window_t0)
+                    for i, loss in enumerate(losses):
+                        logger.info("Epoch %d iter %d: loss %.6f, %.1f "
+                                    "records/s", state["epoch"], first + i,
+                                    loss, self.throughput or 0.0)
+                    # the first window holds the warm-up and the capture:
+                    # the throughput counts from its end
+                    windows_run += 1
+                    records, window_t0 = 0, now
+                    self._maybe_stop_profiler()
+                    self._fire_triggers(boundary=False)
+                    fired = [faults.fault_point(faults.SITE_SIGTERM, index=it)
+                             for it in range(first, first + n)]
+                    if any(a is not None for a in fired) \
+                            and self._preempt is not None:
+                        self._preempt.wait(1.0)
+                    if self._preempt_requested():
+                        self._do_preempt()
             if stop:
                 break
             if not had_data:

@@ -29,3 +29,15 @@ def require_on(module: torch.nn.Module, device=None) -> torch.device:
         raise ValueError(f"the model lives on {have}, not on {dev}: move it "
                          f"or pass device={str(have)!r}")
     return have
+
+
+def wait_for_stream(t: torch.Tensor) -> None:
+    """Wait for the current stream's queued work before a host read of
+    ``t``, with an event when ``t`` lies on the card: a blocking copy to
+    pageable host memory (``tolist``, ``cpu``) holds up the CUDA calls of
+    every other thread, the feed producer's copies among them, for as long
+    as it waits; an event's wait does not."""
+    if t.is_cuda:
+        done = torch.cuda.Event()
+        done.record()
+        done.synchronize()

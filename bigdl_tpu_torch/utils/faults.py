@@ -1,6 +1,7 @@
 """Deterministic fault injection: scripted failures at named sites.
 
-Counterpart of ``bigdl_tpu/utils/faults.py`` for the trainer's sites. An
+Counterpart of ``bigdl_tpu/utils/faults.py`` for the trainer's and the
+feed's sites. An
 instrumented site calls :func:`fault_point` or :func:`check_fault`, and an
 active **fault plan** makes a hit of the site fail in a scripted way, so
 every recovery path of the trainer can be fired in a test.
@@ -15,18 +16,27 @@ site                      where it fires
 ``ckpt_write``            the background checkpoint writer: ``torn`` leaves a
                           half-written final file, ``error`` fails the write,
                           ``kill`` SIGKILLs the process mid-write
+``decode``                a record decode of an on-disk source (``error``);
+                          the port's sources are in memory, so it fires in
+                          no ported module yet (ROADMAP Queue A.4.2)
+``transform_worker``      a parallel transform worker (``dataset/parallel.py``):
+                          ``death`` raises :class:`WorkerDeathError`, which
+                          the worker pool's crash budget absorbs
+``h2d``                   the trainer's host-to-device placement of a batch
+                          or window, in the feed's producer (``error``)
 ========================  ====================================================
 
-The serving, feed, cache, fleet and observability sites of the JAX module
-come with the modules that run them (ROADMAP Queue A.3.2 for serving);
-naming one in a plan raises ``ValueError`` here.
+The serving, cache, fleet and observability sites of the JAX module come
+with the modules that run them (ROADMAP Queue A.3.2 for serving); naming
+one in a plan raises ``ValueError`` here.
 
 A plan is a ``;``-separated list of entries ``site@N`` or ``site@N=action``,
 the same syntax as the JAX package's, so one plan string means the same in
 both. ``N`` is 1-based: the training iteration for the index-matched sites
 (``nonfinite_loss``, ``sigterm``), else the Nth hit of the site in this
 process. Each entry fires once. Actions default per site (``nan`` for
-nonfinite_loss, ``sigterm`` for sigterm, ``torn`` for ckpt_write).
+nonfinite_loss, ``sigterm`` for sigterm, ``torn`` for ckpt_write, ``error``
+for decode and h2d, ``death`` for transform_worker).
 
 Activate a plan with the :func:`inject_faults` context manager (in-process
 tests) or the ``BIGDL_FAULT_PLAN`` environment variable (parsed once per
@@ -50,6 +60,9 @@ logger = logging.getLogger(__name__)
 SITE_NONFINITE_LOSS = "nonfinite_loss"
 SITE_SIGTERM = "sigterm"
 SITE_CKPT_WRITE = "ckpt_write"
+SITE_DECODE = "decode"
+SITE_TRANSFORM_WORKER = "transform_worker"
+SITE_H2D = "h2d"
 
 #: sites whose plan entries match the caller-supplied ``index`` (training
 #: iteration) instead of the site's hit counter
@@ -59,13 +72,22 @@ _DEFAULT_ACTION = {
     SITE_NONFINITE_LOSS: "nan",
     SITE_SIGTERM: "sigterm",
     SITE_CKPT_WRITE: "torn",
+    SITE_DECODE: "error",
+    SITE_TRANSFORM_WORKER: "death",
+    SITE_H2D: "error",
 }
 
-_KNOWN_ACTIONS = frozenset({"error", "nan", "sigterm", "torn", "kill"})
+_KNOWN_ACTIONS = frozenset({"error", "death", "nan", "sigterm", "torn",
+                            "kill"})
 
 
 class FaultError(RuntimeError):
     """An injected failure (scripted by the active fault plan)."""
+
+
+class WorkerDeathError(FaultError):
+    """Simulated death of a transform worker — handled by the parallel
+    engine's crash budget, never by the corrupt-sample policy."""
 
 
 class _Entry:
@@ -215,13 +237,16 @@ def check_fault(site: str, index: Optional[int] = None) -> Optional[str]:
 
 def fault_point(site: str, index: Optional[int] = None) -> Optional[str]:
     """Raising poll for instrumented sites: ``error`` raises
-    :class:`FaultError`, ``sigterm``/``kill`` deliver the signal to this
-    process; anything else is returned for the caller to implement."""
+    :class:`FaultError`, ``death`` raises :class:`WorkerDeathError`,
+    ``sigterm``/``kill`` deliver the signal to this process; anything else
+    is returned for the caller to implement."""
     action = check_fault(site, index)
     if action is None:
         return None
     if action == "error":
         raise FaultError(f"injected fault at site {site!r}")
+    if action == "death":
+        raise WorkerDeathError(f"injected worker death at site {site!r}")
     if action in ("sigterm", "kill"):
         import signal
         os.kill(os.getpid(),

@@ -33,16 +33,33 @@ because a jitted function takes its state as an argument. A graph binds
 the buffers it was captured with, the engine's decode cache or the
 trainer's slots, so here a :class:`ProgramCache` belongs to the engine or
 trainer that owns those buffers.
+
+A capture may not meet CUDA work that another thread issues meanwhile: the
+feed's producer copies batches to the card on a stream of its own
+(``dataset/h2d.py``). :func:`capture_guard` is held for the whole of a
+capture, and the producer holds it while it allocates and issues its
+copies, so the two never overlap; the producer only waits for the lock,
+and the loop thread never waits for the producer while it captures.
 """
 
 from __future__ import annotations
 
 import gc
+import threading
 from typing import Callable, Hashable, Sequence
 
 import torch
 
 from bigdl_tpu_torch.kernels import _cuda
+
+
+_CAPTURE_LOCK = threading.RLock()
+
+
+def capture_guard() -> threading.RLock:
+    """The lock a capture holds; CUDA work issued from another thread
+    (the feed's copies) takes it first."""
+    return _CAPTURE_LOCK
 
 
 class ProgramCaptureError(RuntimeError):
@@ -114,6 +131,7 @@ class Program:
             # collection instead
             gc_was_enabled = gc.isenabled()
             gc.disable()
+            _CAPTURE_LOCK.acquire()
             try:
                 with _cuda.recording_launches(capture.cuda_stream) as rec, \
                         torch.cuda.graph(graph, pool=self._pool,
@@ -126,6 +144,7 @@ class Program:
                     f"capturing program {self.key!r} failed: "
                     f"{type(e).__name__}: {e}") from e
             finally:
+                _CAPTURE_LOCK.release()
                 if gc_was_enabled:
                     gc.enable()
             main.wait_stream(capture)

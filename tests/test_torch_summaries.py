@@ -151,8 +151,10 @@ def _run_port(tm, d, method, val_every=2, n_iter=8, val=None, fuse=1):
 
 
 def _points(summary) -> dict:
-    """tag -> {step: value (None for a histogram)}; JAX's feed-stage
-    curves (``FeedStage/*``) come with the feed, not ported yet."""
+    """tag -> {step: value (None for a histogram)}; the feed-stage curves
+    (``FeedStage/*``: wall-clock means, written where each package's loop
+    reports them) are held against JAX's by key in
+    ``tests/test_torch_feed.py``."""
     out: dict = {}
     for f in os.listdir(summary.dir):
         if ".tfevents." not in f:
