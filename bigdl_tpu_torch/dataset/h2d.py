@@ -13,7 +13,9 @@ does it for the trainer's and the evaluator's ``PrefetchingFeed``:
 - the issuing thread (the producer) waits for that event before it returns
   a ring slot to its ring (``MiniBatch.recycle``) or reuses a staging
   buffer, the counterpart of JAX's ``block_until_ready(placed);
-  batch.recycle()``;
+  batch.recycle()``; a consumer that still reads a batch's host arrays
+  after its placement (the evaluator's host folds read ``target``) places
+  with ``recycle=False`` and recycles the batch itself when it is done;
 - the consumer calls :meth:`Placed.ready` before the step reads the
   tensors: its stream waits on the event, and ``record_stream`` tells the
   caching allocator that the compute stream uses the tensors, so their
@@ -91,8 +93,28 @@ class HostToDevice:
     def on_card(self) -> bool:
         return self.device.type == "cuda"
 
-    def put(self, batch) -> Placed:
-        """One ``MiniBatch`` (a ``target`` of None places as None)."""
+    def place(self, item, window: int, put=None, put_stacked=None,
+              recycle: bool = True):
+        """A feed item on the device: a batch as one placement; a full
+        window of ``window`` batches of one shape stacked and copied once;
+        any other window (a partial tail, batches that differ in shape) as
+        a list of per-batch placements. ``put`` and ``put_stacked`` default
+        to this object's (a caller's cache wraps them)."""
+        put = put or (lambda b: self.put(b, recycle))
+        put_stacked = put_stacked or (lambda bs: self.put_stacked(bs,
+                                                                  recycle))
+        if not isinstance(item, list):
+            return put(item)
+        if window > 1 and len(item) == window and all(
+                _host_signature(b) == _host_signature(item[0])
+                for b in item):
+            return put_stacked(item)
+        return [put(b) for b in item]
+
+    def put(self, batch, recycle: bool = True) -> Placed:
+        """One ``MiniBatch`` (a ``target`` of None places as None); its ring
+        slot goes back once the copy has completed unless ``recycle`` is
+        false."""
         trees = (batch.input, batch.target)
         if not self.on_card:
             placed = Placed(*(None if t is None else _map(_owned_tensor, t)
@@ -106,12 +128,13 @@ class HostToDevice:
                             np.copyto(out, np.asarray(a))
                 trees = bufs
             placed = self._copy(trees)
-        self._release([batch], placed)
+        self._release([batch], placed, recycle)
         return placed
 
-    def put_stacked(self, batches: Sequence) -> Placed:
+    def put_stacked(self, batches: Sequence, recycle: bool = True) -> Placed:
         """A window of same-shaped ``MiniBatch``es stacked along a new
-        leading axis: one host stack, one copy."""
+        leading axis: one host stack, one copy (``recycle`` as in
+        :meth:`put`)."""
         k = len(batches)
         trees = (batches[0].input, batches[0].target)
         bufs = (self._buffers(("window", k), trees, (k,)) if self.on_card
@@ -128,17 +151,18 @@ class HostToDevice:
         placed = (self._copy(bufs) if self.on_card else
                   Placed(*(None if t is None else _map(torch.from_numpy, t)
                            for t in bufs), None))
-        self._release(batches, placed)
+        self._release(batches, placed, recycle)
         return placed
 
     @staticmethod
-    def _release(batches, placed: Placed) -> None:
-        """The copy has completed: the batches' ring slots go back (and the
-        staging buffers may be filled again)."""
+    def _release(batches, placed: Placed, recycle: bool) -> None:
+        """The copy has completed: the staging buffers may be filled again
+        and, with ``recycle``, the batches' ring slots go back."""
         if placed.event is not None:
             placed.event.synchronize()
-        for b in batches:
-            b.recycle()
+        if recycle:
+            for b in batches:
+                b.recycle()
 
     def _buffers(self, kind: tuple, trees, lead: tuple):
         """Pinned staging buffers shaped like ``trees`` with a leading
@@ -168,6 +192,20 @@ class HostToDevice:
                        for t in trees]
                 event.record(self._stream)
         return Placed(out[0], out[1], event)
+
+
+def ready_groups(item, placed) -> list:
+    """``(batches, (inp, target))`` of each program to run over a feed item
+    placed by :meth:`HostToDevice.place`, ready on the current stream: a
+    stacked window is one group, a per-batch list a group a batch."""
+    if isinstance(placed, list):
+        return [([b], p.ready()) for b, p in zip(item, placed)]
+    return [(item if isinstance(item, list) else [item], placed.ready())]
+
+
+def _host_signature(b) -> tuple:
+    return tuple(None if x is None else _signature(x)
+                 for x in (b.input, b.target))
 
 
 def _owned_tensor(a) -> torch.Tensor:

@@ -20,9 +20,10 @@ copied in one transfer and folded by one program of K forwards; a trailing
 group of fewer batches runs a batch at a time. The batches come through a
 ``PrefetchingFeed(train=False)`` (depth ``BIGDL_PREFETCH``, default 2), as
 JAX's (``bigdl_tpu/optim/evaluator.py:184``, ``:322``, ``:424``): its
-producer stacks and copies the next window (``dataset/h2d.py``) while the
-card folds the current one; a window whose batches differ in shape is
-placed and folded a batch at a time.
+producer stacks and copies the next window (``HostToDevice.place``) while
+the card folds the current one; a window whose batches differ in shape is
+placed and folded a batch at a time. With a host fold, a batch goes back to
+its ring only after the fold has read its target.
 
 :class:`Evaluator` (``test``) and :class:`Predictor` (``predict``,
 ``predict_class``, padding rows dropped) are JAX's facade over the same
@@ -42,7 +43,7 @@ from torch.func import functional_call
 from bigdl_tpu_torch.nn.abstractnn import evaluating
 from bigdl_tpu_torch.nn.precision import cast_floating
 from bigdl_tpu_torch.dataset.dataset import AbstractDataSet, DataSet
-from bigdl_tpu_torch.dataset.h2d import HostToDevice
+from bigdl_tpu_torch.dataset.h2d import HostToDevice, ready_groups
 from bigdl_tpu_torch.dataset.prefetch import PrefetchingFeed
 from bigdl_tpu_torch.dataset.sample import (
     MiniBatch, Sample, SampleToMiniBatch,
@@ -152,11 +153,6 @@ def _with_target(b):
     return b
 
 
-def _host_signature(b) -> tuple:
-    return tuple(_map(lambda a: (np.shape(a), np.asarray(a).dtype), x)
-                 for x in (b.input, b.target))
-
-
 def _eval_pass(model, dataset, dev_methods, need_outs: bool, dev, fuse: int,
                stats: dict, on_outputs=None):
     """Run every batch of ``dataset`` through the eval programs (windows of
@@ -165,31 +161,21 @@ def _eval_pass(model, dataset, dev_methods, need_outs: bool, dev, fuse: int,
     ``on_outputs(out, batch)`` with each batch's outputs on the host when
     ``need_outs``."""
     h2d = HostToDevice(dev)
-
-    def place(item):
-        if not isinstance(item, list):
-            return h2d.put(item)
-        if len(item) > 1 and all(_host_signature(b) == _host_signature(
-                item[0]) for b in item):
-            return h2d.put_stacked(item)
-        return [h2d.put(b) for b in item]
-
-    def groups(item, placed):
-        """``(batches, (inp, target))`` of the programs to run."""
-        if isinstance(placed, list):
-            return [([b], p.ready()) for b, p in zip(item, placed)]
-        return [(item if isinstance(item, list) else [item], placed.ready())]
-
     carry = None
+    # a host fold reads each batch's target after its placement: the
+    # batches then go back to their ring only once folded
     feed = PrefetchingFeed(
-        lambda: map(_with_target, dataset.data(train=False)), place,
+        lambda: map(_with_target, dataset.data(train=False)),
+        lambda item: h2d.place(item, fuse, recycle=not need_outs),
         depth=int(os.environ.get("BIGDL_PREFETCH", "2")), window=fuse,
         train=False)
     with feed, trace.span("eval/pass"):
         for item, placed in feed:
-            for group, (inp, target) in groups(item, placed):
+            for group, (inp, target) in ready_groups(item, placed):
                 carry = _fold(model, dev_methods, need_outs, dev, group, inp,
                               target, carry, stats, on_outputs)
+                for b in group:
+                    b.recycle()
     return carry
 
 

@@ -118,9 +118,10 @@ or at an epoch's end (``"loss"``), and SGD reads its rate from the host
 JAX's ``bigdl_tpu/optim/optimizer.py:216``, ``:1048-1100``): each epoch's
 batches come through ``dataset/prefetch.PrefetchingFeed``, whose producer
 thread assembles them (``SampleToMiniBatch``'s ring, pinned on a CUDA
-device) and places them on the device (``_put_batch``; with
-``set_fuse_steps(K)`` a full window of K batches stacked on the host and
-copied once, ``_put_window``) while the card runs the steps before them:
+device) and places them on the device (``_place``, through
+``HostToDevice.place``: with ``set_fuse_steps(K)`` a full window of K
+batches stacked on the host and copied once) while the card runs the steps
+before them:
 on the card from pinned memory on a copy stream of the producer's own,
 recycling a ring slot only once its copy has completed
 (``dataset/h2d.py``); ``depth=0`` places each batch synchronously on the
@@ -163,7 +164,7 @@ from bigdl_tpu_torch import convert
 from bigdl_tpu_torch.dataset.dataset import (
     AbstractDataSet, LocalDataSet, TransformedDataSet,
 )
-from bigdl_tpu_torch.dataset.h2d import HostToDevice, Placed
+from bigdl_tpu_torch.dataset.h2d import HostToDevice, Placed, ready_groups
 from bigdl_tpu_torch.dataset.prefetch import PrefetchingFeed
 from bigdl_tpu_torch.dataset.profiling import (
     STAGE_AUGMENT, STAGE_CACHE, STAGE_DECODE, STAGE_STACK,
@@ -1067,14 +1068,12 @@ class Optimizer:
             cache[id(batch)] = (batch, placed)
         return placed
 
-    def _put_window(self, batches: list):
-        """The placement of a fused window: a FULL window of ``fuse_steps``
-        batches stacked on the host and copied once; a partial trailing
-        window as a list of per-batch placements (the loop runs those step
-        by step). Stacked windows ride the device cache too, keyed by
-        batch-identity tuples and bounded by ``device_cache_mb``."""
-        if len(batches) < self.fuse_steps:
-            return [self._put_batch(b) for b in batches]
+    def _put_stacked(self, batches: list) -> Placed:
+        """The producer's placement of a full fused window, stacked on the
+        host and copied once (``HostToDevice.place`` places a partial
+        trailing window batch by batch, which the loop runs step by step).
+        Stacked windows ride the device cache too, keyed by batch-identity
+        tuples and bounded by ``device_cache_mb``."""
         faults.fault_point(faults.SITE_H2D)  # scripted transfer failure
         cache = self._device_batch_cache
         key = tuple(id(b) for b in batches)
@@ -1094,17 +1093,19 @@ class Optimizer:
                 self._window_cache_bytes += nbytes
         return placed
 
+    def _place(self, item):
+        """The feed's placement of one item (a batch or a window)."""
+        return self._h2d.place(item, self.fuse_steps, self._put_batch,
+                               self._put_stacked)
+
     @staticmethod
     def _placed_steps(item, placed) -> list:
         """``(batch, (inp, target))`` for each step of a feed item, ready
         on the current stream: a stacked window's steps read its slices."""
-        if isinstance(placed, list):
-            return [(b, p.ready()) for b, p in zip(item, placed)]
-        inp, target = placed.ready()
-        if not isinstance(item, list):
-            return [(item, (inp, target))]
-        return [(b, (_map(lambda a: a[k], inp), _map(lambda a: a[k], target)))
-                for k, b in enumerate(item)]
+        return [(b, (inp, target)) if len(group) == 1 else
+                (b, (_map(lambda a: a[k], inp), _map(lambda a: a[k], target)))
+                for group, (inp, target) in ready_groups(item, placed)
+                for k, b in enumerate(group)]
 
     def _write_feed_stages(self, base: dict, it: int) -> None:
         """The feed's stage means since ``base`` into ``feed_stage_ms``
@@ -1244,8 +1245,7 @@ class Optimizer:
                 self.dataset.data(train=True), s, None)) if skip
                 else (lambda: self.dataset.data(train=True)))
             feed = PrefetchingFeed(
-                make_iter, self._put_window if fuse > 1 else self._put_batch,
-                self.prefetch_depth, window=fuse)
+                make_iter, self._place, self.prefetch_depth, window=fuse)
             ahead: list = []     # placed steps taken from the feed, not run
             exhausted = False
             had_data = skip > 0         # a resumed epoch may have no more

@@ -1,6 +1,7 @@
 """The feed's host-to-device path on the GPU (``dataset/h2d.py``): the
-pinned ring, the copy stream, and a ring slot recycled only after its
-copy's event.
+pinned ring, the copy stream, a ring slot recycled only after its copy's
+event, and the evaluator's batches held until its host fold has read
+them.
 
 Marked ``gpu``: they skip where there is no CUDA device (pinned memory and
 CUDA streams have no CPU form). This file imports neither JAX nor the JAX
@@ -123,3 +124,28 @@ def test_trainer_feed_recycles_after_the_copy_and_guards_captures(cuda):
     # the guard is free again once the run is over
     assert capture_guard().acquire(blocking=False)
     capture_guard().release()
+
+
+def test_eval_host_fold_reads_each_batch_s_own_labels(cuda):
+    """A method without a device fold scores each batch against its own
+    labels: the evaluator's batches go back to the pinned ring only after
+    the host fold has read them (a ring of 2 under windows of 3)."""
+    from bigdl_tpu_torch.optim import Evaluator
+    from bigdl_tpu_torch.optim import validation as val
+    r = np.random.default_rng(3)
+    xs = r.normal(size=(30, 12)).astype(np.float32)
+    ys = r.integers(0, 5, 30).astype(np.int32)
+    torch.manual_seed(0)
+    model = (nn.Sequential().add(nn.Linear(12, 5)).add(nn.LogSoftMax()))
+    got = {}
+    for where, stm in (("cpu", SampleToMiniBatch(4, ring_depth=0)),
+                       ("cuda", SampleToMiniBatch(4, ring_depth=2).pin())):
+        ds = DataSet.array(Sample(x, y) for x, y in zip(xs, ys)) >> stm
+        methods = [val.Loss(nn.ClassNLLCriterion(size_average=False)),
+                   val.Loss()]
+        res = Evaluator(model.to(where), device=where).test(
+            ds, methods, fuse_steps=3)
+        got[where] = [r.result() for r, _ in res]
+    assert got["cuda"][0][1] == got["cuda"][1][1] == 30
+    for (g, n), (w, m) in zip(got["cuda"], got["cpu"]):
+        assert n == m and g == pytest.approx(w, rel=1e-5)

@@ -4,8 +4,10 @@ on the CPU.
 LeNet-5 with the same weights in both packages, 30 samples in batches of 4
 (the last padded to 4 with 2 valid): ``Evaluator.test`` with
 ``fuse_steps`` 1 and 3 (two windows of 3 and two single batches) gives
-JAX's Top-1 and loss (counts equal, values within 1e-5), beside a method
-without a device fold (its outputs fetched); ``Predictor.predict`` gives JAX's log-probs
+JAX's Top-1 and loss (counts equal, values within 1e-5), and a method
+without a device fold (its outputs fetched, each batch scored on the host
+against its own labels) JAX's value within 1e-5; ``Predictor.predict``
+gives JAX's log-probs
 within 1e-5 with the padding rows dropped, and ``predict_class`` JAX's
 classes; raw numpy arrays are batched as JAX batches them.
 """
@@ -16,6 +18,7 @@ import pytest
 
 from bigdl_tpu import Engine as JEngine
 from bigdl_tpu.dataset import DataSet as JDataSet
+from bigdl_tpu import nn as jnn
 from bigdl_tpu.dataset.sample import Sample as JSample
 from bigdl_tpu.dataset.sample import SampleToMiniBatch as JSampleToMiniBatch
 from bigdl_tpu.models.lenet.lenet5 import LeNet5 as JLeNet5
@@ -65,7 +68,9 @@ def test_evaluator_matches_jax(models, fuse):
     jm, tm = models
     jds, tds = _sets()
     want = JEvaluator(jm).test(
-        jds, [jval.Top1Accuracy(), jval.Loss()], fuse_steps=fuse)
+        jds, [jval.Top1Accuracy(), jval.Loss(),
+              jval.Loss(jnn.ClassNLLCriterion(size_average=False))],
+        fuse_steps=fuse)
     ev = Evaluator(tm, device="cpu")
     host = tval.Loss(tnn.ClassNLLCriterion(size_average=False))
     got = ev.test(tds, [tval.Top1Accuracy(), tval.Loss(), host],
@@ -75,8 +80,8 @@ def test_evaluator_matches_jax(models, fuse):
     for (g, _), (w, _) in zip(got, want):
         assert g.result()[1] == w.result()[1] == N
         assert g.result()[0] == pytest.approx(w.result()[0], rel=1e-5)
-    # a method without a device fold: the outputs came to the host
-    assert got[2][0].result()[1] == N
+    # a method without a device fold: the outputs came to the host, each
+    # scored against its own batch's labels
     assert ev.last_stats["fetch_bytes"] > N * 10 * 4
     with pytest.raises(ValueError, match="methods is required"):
         ev.test(tds, [])

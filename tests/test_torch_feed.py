@@ -7,6 +7,8 @@
 - the batch ring: batches equal JAX's ``SampleToMiniBatch``; a slot a
   consumer holds is never written before it is recycled, and comes back
   after; the CPU placement (``dataset/h2d.py``) never aliases the ring;
+  ``HostToDevice.place`` stacks a full window of one shape once, places
+  anything else batch by batch, and returns ring slots only when asked;
 - ``native.pack_batch`` and ``gather_rows`` equal JAX's;
 - ``fuse_chain``/``plan_stages`` with a seeded per-sample random transform:
   4 workers bitwise equal to 1 and to JAX's output; a worker death absorbed
@@ -54,7 +56,7 @@ from bigdl_tpu_torch.dataset import (
     DataSet, MiniBatch, Sample, SampleToMiniBatch, parallel, resilience,
     transformer,
 )
-from bigdl_tpu_torch.dataset.h2d import HostToDevice
+from bigdl_tpu_torch.dataset.h2d import HostToDevice, ready_groups
 from bigdl_tpu_torch.dataset.prefetch import PrefetchingFeed, ProducerTraceback
 from bigdl_tpu_torch.optim import SGD, LocalOptimizer, Trigger
 from bigdl_tpu_torch.optim.optimizer import TrainingPreempted
@@ -176,6 +178,30 @@ def test_ring_batches_match_jax_and_slots_wait_for_release():
     assert fifth.input is buf
     assert torch.equal(placed.inp, snapshot)
     assert not stm.pinned and not fourth.pinned
+
+
+@pytest.mark.parametrize("case", ["batch", "full", "partial", "ragged"])
+@pytest.mark.parametrize("recycle", [True, False])
+def test_place_groups_a_feed_item_and_recycles_on_request(case, recycle):
+    stm = SampleToMiniBatch(2, ring_depth=8)
+    batches = list(stm.apply(Sample(x, y) for x, y in _samples(6)))
+    odd = MiniBatch(np.zeros((2, 5), np.float32), np.zeros(2, np.int32))
+    item = {"batch": batches[0], "full": batches, "partial": batches[:2],
+            "ragged": batches[:2] + [odd]}[case]
+    placed = HostToDevice("cpu").place(item, 3, recycle=recycle)
+    groups = ready_groups(item, placed)
+    # a full window of one shape is stacked once; anything else (a
+    # partial tail, a window whose shapes differ) goes batch by batch
+    assert [len(g) for g, _ in groups] == {
+        "batch": [1], "full": [3], "partial": [1, 1],
+        "ragged": [1, 1, 1]}[case]
+    for group, (inp, target) in groups:
+        want = [np.asarray(b.input) for b in group]
+        np.testing.assert_array_equal(
+            inp.numpy(), np.stack(want) if len(group) > 1 else want[0])
+    ring = [b for b in (item if isinstance(item, list) else [item])
+            if b is not odd]
+    assert all((b._ring_slot is None) == recycle for b in ring)
 
 
 @pytest.mark.parametrize("dtype", [np.float32, np.uint8, np.int64])
