@@ -1,7 +1,9 @@
 """Transformer LM training main of the port, on the synthetic token stream.
 
 Counterpart of ``bigdl_tpu/models/transformerlm/train.py``: builds
-``TransformerLM``, slices ``synthetic_ptb`` into windows of ``--seq-len``
+``TransformerLM``, slices ``synthetic_ptb`` (or, with ``--folder FILE``,
+the words of that text file through ``SentenceTokenizer`` and a
+``Dictionary`` of ``--vocab-size`` words) into windows of ``--seq-len``
 tokens, and trains with ``Adam`` through ``LocalOptimizer`` for
 ``--max-iteration`` steps, then prints the final loss and, with
 ``--generate N``, beam-decodes N tokens from a seed. Runs on the card
@@ -28,7 +30,6 @@ from bigdl_tpu_torch.models.unported import refuse_unported
 #: flags of the JAX main that this port does not take yet, and the
 #: ROADMAP item that brings each
 UNPORTED_FLAGS = {
-    "--folder": "Queue A.5 (text corpus: Dictionary, SentenceTokenizer)",
     "--model-snapshot": "Queue A.6 (module save/load)",
     "--save": "Queue A.6 (module save/load)",
     "--lora": "Queue A.5 (nn/lora.py)",
@@ -39,6 +40,9 @@ UNPORTED_FLAGS = {
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="Transformer LM training "
                                             "(PyTorch port)")
+    p.add_argument("-f", "--folder", default=None,
+                   help="a text file to train on (default: the synthetic "
+                        "corpus)")
     p.add_argument("-b", "--batch-size", type=int, default=16)
     p.add_argument("--seq-len", type=int, default=128)
     p.add_argument("--embed-dim", type=int, default=128)
@@ -77,7 +81,8 @@ def main(argv=None) -> float:
 
     from bigdl_tpu_torch import nn
     from bigdl_tpu_torch.dataset import (
-        DataSet, Sample, SampleToMiniBatch, ptb_windows, synthetic_ptb,
+        DataSet, Dictionary, Sample, SampleToMiniBatch, SentenceTokenizer,
+        ptb_windows, synthetic_ptb,
     )
     from bigdl_tpu_torch.models.transformerlm import (
         TransformerLM, lm_criterion,
@@ -95,7 +100,14 @@ def main(argv=None) -> float:
                           norm=args.norm, mlp_kind=args.mlp,
                           generator=torch.Generator().manual_seed(0),
                           device=args.device)
-    ids = synthetic_ptb(args.synthetic_tokens, vocab_size=args.vocab_size)
+    if args.folder is not None:
+        with open(args.folder) as f:
+            tokens = SentenceTokenizer().tokens(f.read())
+        vocab = Dictionary(tokens, vocab_size=args.vocab_size)
+        ids = np.asarray([vocab.get_index(t) for t in tokens], np.int32)
+    else:
+        ids = synthetic_ptb(args.synthetic_tokens,
+                            vocab_size=args.vocab_size)
     xs, ys = ptb_windows(ids, args.seq_len)
     data = (DataSet.array(Sample(x, y) for x, y in zip(xs, ys))
             >> SampleToMiniBatch(args.batch_size))

@@ -7,13 +7,16 @@ from bigdl_tpu_torch.nn.activation import GELU, LogSoftMax, ReLU, Swish, Tanh
 from bigdl_tpu_torch.nn.attention import MultiHeadAttention, rope_rotate
 from bigdl_tpu_torch.nn.beam_search import SequenceBeamSearch, greedy_decode
 from bigdl_tpu_torch.nn.containers import (
-    CAddTable, CMulTable, Concat, ConcatTable, Identity, Remat, Sequential,
+    CAddTable, CMulTable, Concat, ConcatTable, Identity, JoinTable, Remat,
+    SelectTable, Sequential,
 )
 from bigdl_tpu_torch.nn.criterion import (
     AbstractCriterion, ClassNLLCriterion, CrossEntropyCriterion,
     ParallelCriterion, TimeDistributedCriterion,
 )
-from bigdl_tpu_torch.nn.convolution import SpatialConvolution
+from bigdl_tpu_torch.nn.convolution import (
+    SpatialConvolution, TemporalConvolution,
+)
 from bigdl_tpu_torch.nn.embedding import LookupTable
 from bigdl_tpu_torch.nn.fused_loss import (
     ChunkedSoftmaxCrossEntropy, FusedLMHead, chunked_softmax_xent,
@@ -35,23 +38,35 @@ from bigdl_tpu_torch.nn.normalization import (
     BatchNormalization, Dropout, LayerNorm, RMSNorm, SpatialBatchNormalization,
     SpatialCrossMapLRN,
 )
-from bigdl_tpu_torch.nn.pooling import SpatialAveragePooling, SpatialMaxPooling
+from bigdl_tpu_torch.nn.pooling import (
+    SpatialAveragePooling, SpatialMaxPooling, TemporalMaxPooling,
+)
 from bigdl_tpu_torch.nn.precision import cast_floating
-from bigdl_tpu_torch.nn.recurrent import TimeDistributed
-from bigdl_tpu_torch.nn.shape_ops import Reshape, View
+from bigdl_tpu_torch.nn.recurrent import (
+    GRU, LSTM, BiRecurrent, Cell, ConvLSTMPeephole, ConvLSTMPeephole3D,
+    LSTMPeephole, Masking, MultiRNNCell, Recurrent, RecurrentDecoder,
+    RnnCell, TimeDistributed,
+)
+from bigdl_tpu_torch.nn.shape_ops import Reshape, Select, Squeeze, View
+from bigdl_tpu_torch.nn.tree import BinaryTreeLSTM
 
 __all__ = [
-    "AbstractCriterion", "AbstractModule", "BatchNormalization", "CAddTable",
-    "CMulTable", "ChunkedSoftmaxCrossEntropy", "ClassNLLCriterion", "Concat",
-    "ConcatTable", "Container", "CrossEntropyCriterion", "Dropout",
-    "FusedLMHead", "GELU", "Graph", "Identity", "ImageNormalize",
-    "InitializationMethod", "Input", "LayerNorm", "Linear", "LogSoftMax",
-    "LookupTable", "ModuleNode", "MsraFiller", "MultiHeadAttention", "Ones",
-    "ParallelCriterion", "RMSNorm", "RandomNormal", "RandomUniform", "ReLU",
-    "Remat", "Reshape", "SequenceBeamSearch", "Sequential",
+    "AbstractCriterion", "AbstractModule", "BatchNormalization",
+    "BiRecurrent", "BinaryTreeLSTM", "CAddTable", "CMulTable", "Cell",
+    "ChunkedSoftmaxCrossEntropy", "ClassNLLCriterion", "Concat",
+    "ConcatTable", "Container", "ConvLSTMPeephole", "ConvLSTMPeephole3D",
+    "CrossEntropyCriterion", "Dropout", "FusedLMHead", "GELU", "GRU",
+    "Graph", "Identity", "ImageNormalize", "InitializationMethod", "Input",
+    "JoinTable", "LSTM", "LSTMPeephole", "LayerNorm", "Linear", "LogSoftMax",
+    "LookupTable", "Masking", "ModuleNode", "MsraFiller",
+    "MultiHeadAttention", "MultiRNNCell", "Ones", "ParallelCriterion",
+    "RMSNorm", "RandomNormal", "RandomUniform", "ReLU", "Recurrent",
+    "RecurrentDecoder", "Remat", "Reshape", "RnnCell", "Select",
+    "SelectTable", "SequenceBeamSearch", "Sequential",
     "SpatialAveragePooling", "SpatialBatchNormalization",
     "SpatialConvolution", "SpatialCrossMapLRN", "SpatialMaxPooling",
-    "StaticGraph", "Swish", "Tanh", "TensorModule", "TimeDistributed",
+    "Squeeze", "StaticGraph", "Swish", "Tanh", "TemporalConvolution",
+    "TemporalMaxPooling", "TensorModule", "TimeDistributed",
     "TimeDistributedCriterion", "View", "Xavier", "Zeros",
     "assign_cache_slot", "beam_generate", "cast_floating",
     "chunked_softmax_xent", "fuse_conv_bn", "generate", "greedy_decode",

@@ -1,10 +1,11 @@
 """Composition containers: Sequential, Concat, ConcatTable, CAddTable,
-CMulTable, Identity, Remat.
+CMulTable, JoinTable, SelectTable, Identity, Remat.
 
 Counterpart of ``bigdl_tpu/nn/containers.py``. The residual join of the
 transformer blocks is ``ConcatTable(Identity, branch) >> CAddTable``; the
 SwiGLU MLP's gate is ``ConcatTable(gate, up) >> CMulTable``; Inception's
-branch blocks are ``Concat(2)``.
+branch blocks are ``Concat(2)``; the TreeLSTM's graph picks its two inputs
+with ``SelectTable``. Table indices and dimensions are 1-based, as in JAX.
 """
 
 from __future__ import annotations
@@ -94,6 +95,36 @@ class CMulTable(AbstractModule):
         for x in xs[1:]:
             out = out * x
         return out, state
+
+
+class JoinTable(AbstractModule):
+    """Concatenate a Table of tensors along ``dimension``; with
+    ``n_input_dims`` a leading batch axis (one axis more than that) shifts
+    the dimension by one."""
+
+    def __init__(self, dimension: int, n_input_dims: int = -1):
+        super().__init__()
+        self.dimension = dimension
+        self.n_input_dims = n_input_dims
+
+    def run(self, input, state=None):
+        xs = input.values() if isinstance(input, Table) else list(input)
+        axis = self.dimension - 1
+        if self.n_input_dims > 0 and xs[0].dim() == self.n_input_dims + 1:
+            axis += 1
+        return torch.cat(xs, dim=axis), state
+
+
+class SelectTable(AbstractModule):
+    """Element ``index`` of the input Table (negative from the end)."""
+
+    def __init__(self, index: int):
+        super().__init__()
+        self.index = index
+
+    def run(self, input, state=None):
+        xs = input.values() if isinstance(input, Table) else list(input)
+        return xs[self.index - 1 if self.index > 0 else self.index], state
 
 
 class Identity(AbstractModule):

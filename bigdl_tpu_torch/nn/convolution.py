@@ -1,4 +1,4 @@
-"""Spatial convolution.
+"""Spatial and temporal convolution.
 
 Counterpart of ``bigdl_tpu/nn/convolution.py:31`` ``SpatialConvolution``:
 OIHW weights in both image formats (``nn/layout.py``), stride (dW, dH),
@@ -12,6 +12,12 @@ kernel; here it is ``F.conv2d`` (cuDNN on the card), as the plain matrix
 products are ``torch.matmul``. Under NHWC the input is handed over as a
 channels-last view (``layout.to_nchw``) and the weight in channels-last
 memory, so cuDNN runs its NHWC kernels with no layout transposes.
+
+``TemporalConvolution`` is ``bigdl_tpu/nn/convolution.py:379``: (N, T, F)
+input, VALID padding, stride ``stride_w``, its weight in JAX's (kw, in,
+out) layout (so ``convert.load_jax_params`` carries it as it is), run as
+``F.conv1d`` on the (N, F, T) view with the weight permuted to (out, in,
+kw).
 """
 
 from __future__ import annotations
@@ -125,3 +131,40 @@ class SpatialConvolution(TensorModule):
         return (f"{self.n_input_plane} -> {self.n_output_plane}, "
                 f"{self.kernel_w}x{self.kernel_h}, {self.stride_w},"
                 f"{self.stride_h}, {self.pad_w},{self.pad_h}")
+
+
+class TemporalConvolution(TensorModule):
+    """1-D convolution over time: (N, T, input_frame_size) -> (N, (T - kw)
+    // dw + 1, output_frame_size); unbatched (T, F) input too."""
+
+    def __init__(self, input_frame_size: int, output_frame_size: int,
+                 kernel_w: int, stride_w: int = 1, with_bias: bool = True,
+                 w_init: Optional[InitializationMethod] = None,
+                 b_init: Optional[InitializationMethod] = None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.input_frame_size = input_frame_size
+        self.output_frame_size = output_frame_size
+        self.kernel_w = kernel_w
+        self.stride_w = stride_w
+        fan_in = input_frame_size * kernel_w
+        w_init = w_init or RandomUniform()
+        b_init = b_init or RandomUniform()
+        self.weight = torch.nn.Parameter(w_init.init(
+            (kernel_w, input_frame_size, output_frame_size), fan_in=fan_in,
+            fan_out=output_frame_size, generator=generator))
+        self.bias = (torch.nn.Parameter(b_init.init(
+            (output_frame_size,), fan_in=fan_in, fan_out=output_frame_size,
+            generator=generator)) if with_bias else None)
+
+    def run(self, input, state=None):
+        x = input[None] if input.dim() == 2 else input
+        out = F.conv1d(x.transpose(1, 2), self.weight.permute(2, 1, 0),
+                       None, self.stride_w).transpose(1, 2)
+        if self.bias is not None:
+            out = out + self.bias
+        return (out[0] if input.dim() == 2 else out), state
+
+    def extra_repr(self):
+        return (f"{self.input_frame_size} -> {self.output_frame_size}, "
+                f"{self.kernel_w}, {self.stride_w}")

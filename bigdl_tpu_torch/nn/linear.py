@@ -4,7 +4,9 @@ Counterpart of ``bigdl_tpu/nn/linear.py``: weight (out, in), optional bias,
 Torch default init U(-1/sqrt(fan_in), +), ``x @ W.T + b``. Takes 1-D or
 2-D input; ``TimeDistributed`` folds time into the batch first.
 ``w_regularizer``/``b_regularizer`` (``optim/regularizer.py``) add their
-penalty to the training loss.
+penalty to the training loss. An fp32 input meets bf16 parameters under
+the bf16 policy behind a recurrent layer (JAX's cells carry fp32 state):
+the product is then fp32, JAX's promotion (``nn/precision.py``).
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import torch.nn.functional as F
 
 from bigdl_tpu_torch.nn.abstractnn import TensorModule
 from bigdl_tpu_torch.nn.initialization import InitializationMethod, RandomUniform
+from bigdl_tpu_torch.nn.precision import promote
 
 
 class Linear(TensorModule):
@@ -44,7 +47,8 @@ class Linear(TensorModule):
             raise ValueError(f"Linear takes 1-D or 2-D input, got "
                              f"{tuple(input.shape)}; wrap it in "
                              f"TimeDistributed for (N, T, ...)")
-        return F.linear(input, self.weight, self.bias), state
+        return F.linear(*promote(input, *(t for t in (self.weight, self.bias)
+                                          if t is not None))), state
 
     def extra_repr(self):
         return f"{self.input_size} -> {self.output_size}"

@@ -1,4 +1,5 @@
-"""Spatial pooling: SpatialMaxPooling and SpatialAveragePooling.
+"""Pooling: SpatialMaxPooling, SpatialAveragePooling and
+TemporalMaxPooling.
 
 Counterpart of ``bigdl_tpu/nn/pooling.py:66`` and ``:115``, with JAX's
 padding arithmetic (``_out_size``, ``_pad_amounts``, ``_same_pad``,
@@ -15,6 +16,10 @@ holds, else by the count of real elements in each window.
 The reductions are PyTorch's ``max_pool2d``/``avg_pool2d`` (outside any
 Pallas kernel in JAX, ``lax.reduce_window``), on a channels-last view under
 NHWC (``layout.to_nchw``).
+
+``TemporalMaxPooling`` is ``bigdl_tpu/nn/pooling.py:199``: (N, T, F) ->
+(N, (T - kw) // dw + 1, F), VALID windows; ``kernel_w=-1`` pools the whole
+sequence.
 """
 
 from __future__ import annotations
@@ -137,3 +142,23 @@ class SpatialAveragePooling(_Pooling):
                               else (1, 1, h, w), device=x.device)
             out = sums / window_sums(ones).clamp(min=1.0)
         return out.to(x.dtype)
+
+
+class TemporalMaxPooling(TensorModule):
+    """1-D max pooling over time; ``stride_w`` defaults to ``kernel_w``."""
+
+    def __init__(self, kernel_w: int, stride_w: Optional[int] = None):
+        super().__init__()
+        self.kernel_w = kernel_w
+        self.stride_w = stride_w if stride_w is not None else kernel_w
+
+    def run(self, input, state=None):
+        x = input[None] if input.dim() == 2 else input
+        t = x.shape[1]
+        kw, dw = (t, t) if self.kernel_w == -1 else (self.kernel_w,
+                                                     self.stride_w)
+        out = F.max_pool1d(x.transpose(1, 2), kw, dw).transpose(1, 2)
+        return (out[0] if input.dim() == 2 else out), state
+
+    def extra_repr(self):
+        return f"{self.kernel_w}, {self.stride_w}"

@@ -12,6 +12,12 @@ update run in fp32 on the masters. LogSoftMax and the attention softmax
 statistics stay fp32 islands; there is no loss scaling (bf16 has fp32's
 exponent range). ``torch.autocast`` is not used: its per-op lists are not
 this policy.
+
+JAX promotes mixed operands of a product (``jnp.matmul`` of an fp32
+activation and a bf16 weight computes in fp32); ``torch.matmul`` and
+``F.linear`` refuse them, so the layers whose operands can differ under
+the policy (``Linear``, the recurrent cells) cast them with
+:func:`promote` first.
 """
 
 from __future__ import annotations
@@ -35,3 +41,14 @@ def cast_floating(tree, dtype: torch.dtype):
     if isinstance(tree, (list, tuple)):
         return type(tree)(cast_floating(v, dtype) for v in tree)
     return tree
+
+
+def promote(*tensors: torch.Tensor) -> tuple:
+    """The tensors cast to their common dtype by JAX's and torch's rule for
+    floating operands (bf16 with fp32 gives fp32), so a product of mixed
+    operands computes as JAX computes it; tensors of that dtype already
+    pass through uncast."""
+    dtype = tensors[0].dtype
+    for t in tensors[1:]:
+        dtype = torch.promote_types(dtype, t.dtype)
+    return tuple(t if t.dtype == dtype else t.to(dtype) for t in tensors)

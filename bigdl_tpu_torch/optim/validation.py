@@ -3,7 +3,8 @@
 Counterpart of ``bigdl_tpu/optim/validation.py:38-273``:
 ``ValidationResult``, ``AccuracyResult``, ``LossResult``,
 ``ValidationMethod``, ``TopKAccuracy`` (``Top1Accuracy``,
-``Top5Accuracy``) and ``Loss``. Partial results add with ``+`` and
+``Top5Accuracy``), ``TreeNNAccuracy`` (``:169-200``, the TreeLSTM's root
+accuracy) and ``Loss``. Partial results add with ``+`` and
 ``result()`` gives (value, count); ``valid`` is a batch's count of real
 rows, so padding rows never count.
 
@@ -165,6 +166,39 @@ class Top1Accuracy(TopKAccuracy):
 class Top5Accuracy(TopKAccuracy):
     def __init__(self, one_based: bool = False):
         super().__init__(5, one_based)
+
+
+class TreeNNAccuracy(ValidationMethod):
+    """Top-1 accuracy of the tree's root prediction: ``output`` (N, nodes,
+    classes) is read at its first node (an (N, classes) output is plain
+    Top-1); a per-node target (N, nodes) at its first column."""
+
+    def __init__(self, one_based: bool = False):
+        self.one_based = one_based
+        self.name = "TreeNNAccuracy"
+
+    @staticmethod
+    def _roots(out, target):
+        if out.ndim == 3:
+            out = out[:, 0, :]
+        if target.ndim == 2:
+            target = target[:, 0]
+        return out, target
+
+    def apply(self, output, target, valid=None):
+        out, t = self._roots(_host(output), _host(target))
+        return Top1Accuracy(self.one_based).apply(out, t, valid)
+
+    def has_device_fold(self) -> bool:
+        return True
+
+    def device_fold(self, out, target, valid_mask):
+        out, target = self._roots(out, target)
+        return Top1Accuracy(self.one_based).device_fold(out, target,
+                                                        valid_mask)
+
+    def finalize(self, acc) -> ValidationResult:
+        return Top1Accuracy(self.one_based).finalize(acc)
 
 
 class Loss(ValidationMethod):

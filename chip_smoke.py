@@ -163,6 +163,26 @@ an NVIDIA H100 and the CUDA toolkit. It builds the port's CUDA kernels from
    ``--v2``; all of Inception under cuDNN's heuristic algorithms
    (``cudnn.benchmark`` off, the package's default), the setting its
    one-step check holds;
+13. trains the text family at full width (its launches counted from a
+   reset; it launches none of the five kernels): the PTB LSTM LM, the
+   bench's ptb-lstm leg (``PTBModel(10000, 650, num_layers=2)``, batch 64
+   x bptt 35, the PTB main's ``SGD(1.0)`` with clip-norm 5, the synthetic
+   corpus over 10000 words): one (16, 35) step's loss and gradients
+   against the CPU in fp32 (1e-4, 1e-3) and bf16 (per layer, within
+   limits set from the CPU's bf16-vs-fp32 gaps); 17 steps through the
+   prefetching feed and the captured step in fp32 and bf16 at fuse 1 and
+   bf16 at ``set_fuse_steps(8)``, each bitwise equal to the same steps run
+   eagerly, with step ms, words/s, the share of the peak (79.5 MFLOP a
+   word), peak memory, the first window, a profiled replayed step by
+   kernel kind and an eager step's GEMMs by shape (recurrent, input
+   projection, decoder) and its update; cuDNN's ``torch.nn.LSTM`` with
+   the same weights on the same (64, 35, 650) input, forward and backward,
+   timed beside the port's two layers as one CUDA graph (a yardstick only;
+   the port never calls it); a 20-word beam search (beam 3), timed; the
+   TreeLSTM main at its defaults (loss falling; its ``TreeNNAccuracy``
+   device fold equal to the host fold) and the text-classifier main; one
+   forward and backward of ``Recurrent(ConvLSTMPeephole(16, 32))`` at (8,
+   10, 16, 32, 32) against the CPU;
 10. checks that the serving path (phases 4 and 5) launched both forward
    kernels and each training run (the 17 steps, fp32 and bf16) all five,
    every launch in the run's dtype (bf16 operands and bf16 gamma and beta
@@ -175,9 +195,12 @@ an NVIDIA H100 and the CUDA toolkit. It builds the port's CUDA kernels from
    {...}}`` last.
 
 Any failed check exits non-zero without the result line, as does a machine
-without CUDA or a directory without the package. Phases 11 and 12 run
+without CUDA or a directory without the package. Phases 11, 12 and 13 run
 before the kernel table, so their launches are in the ``kernels`` line
 (``paths``).
+
+``python3 chip_smoke.py --text-only`` builds the kernels and runs only
+phase 13, printing its numbers as one JSON line (no result line).
 
 ``python3 chip_smoke.py --remat-captures N`` builds the kernels and runs
 only phase 6's bf16 training with every block under ``Remat`` N times in
@@ -2324,10 +2347,11 @@ def check_folded_inference(model, card, Engine):
     return out
 
 
-def run_main(main, argv, card, batch):
+def run_main(main, argv, card, batch, unit="images", keep=False):
     """A training main on the card, its per-iteration losses read from the
     optimizer's log: the loss must fall (the mean of the last 4 below the
-    mean of the first 4); images/s over the steps after the first."""
+    mean of the first 4); ``unit``/s (the samples of a batch) over the
+    steps after the first. With ``keep``, also the main's optimizer."""
     import logging
     records = []
 
@@ -2353,13 +2377,14 @@ def run_main(main, argv, card, batch):
     name = main.__name__.split(".")[-2]
     log(f"  {name} main ({' '.join(argv)}): {len(losses)} steps, loss "
         f"{first:.4f} (first 4) -> {last:.4f} (last 4), Top1 "
-        f"{opt.state['score']:.4f}; {ips:.0f} images/s after the first "
+        f"{opt.state['score']:.4f}; {ips:.0f} {unit}/s after the first "
         f"step; {wall:.2f} s in all [{card}]")
     if not last < first:
         raise CheckFailed(f"{name}: the loss did not fall ({first} -> "
                           f"{last})")
-    return {"steps": len(losses), "first_loss": first, "last_loss": last,
-            "top1": opt.state["score"], "images_per_s": ips, "wall_s": wall}
+    out = {"steps": len(losses), "first_loss": first, "last_loss": last,
+           "top1": opt.state["score"], f"{unit}_per_s": ips, "wall_s": wall}
+    return (out, opt) if keep else out
 
 
 def vision_path(kernels, card, Engine):
@@ -3894,6 +3919,533 @@ def feed_path(TransformerLM, lm_criterion, kernels, card, Engine):
     return out
 
 
+# --------------------------------------------------------------- phase 13
+# the text family: the PTB LSTM LM at the JAX bench's ptb-lstm leg
+# (bigdl_tpu/benchmark.py:259-264): PTBModel(10000, 650, num_layers=2),
+# batch 64 (:164), bptt 35 (:55), TimeDistributedCriterion(
+# ClassNLLCriterion, size_average=True), trained as the PTB main trains
+# (bigdl_tpu/models/rnn/train.py: SGD(1.0), clip-norm 5) on the synthetic
+# corpus over 10000 words (8 batches an epoch), fp32 and bf16; then the
+# TreeLSTM and text-classifier mains at their defaults and one ConvLSTM
+# forward and backward
+PTB_VOCAB, PTB_HIDDEN, PTB_LAYERS = 10000, 650, 2
+PTB_BATCH, PTB_BPTT = 64, 35
+PTB_WORD_FLOPS = 3 * 26.5e6                     # benchmark.py:36-46
+PTB_PARITY_BATCH = 16
+PTB_BEAM, PTB_GENERATE = 3, 20
+CONV_LSTM = (8, 10, 16, 32, 32)                 # N, T, C, H, W
+# kinds of a profiled PTB step, by words in the kernel's name (first match
+# wins): the gates' nonlinearities, the head's log-softmax and the NLL
+# criterion, the embedding's gather and scatter, the stacked outputs
+# (torch.stack: cat), reductions (the clip's norm), the remaining
+# elementwise kernels (the gates' sums and products, the update)
+PTB_KINDS = (
+    ("gemm", ("gemm", "nvjet", "xmma", "cutlass", "cublas")),
+    ("gate sigmoid/tanh", ("sigmoid", "tanh")),
+    ("log-softmax/criterion", ("softmax", "nll_loss")),
+    ("embedding", ("embedding", "indexselect", "index_select",
+                   "indexing_backward", "index_put")),
+    ("stack/copies", ("catarraybatchedcopy", "cat_", "copy")),
+    ("reductions", ("reduce",)),
+    ("other elementwise", ("elementwise", "vectorized", "unrolled")))
+
+
+def build_ptb(device, seed=SEED + 20):
+    from bigdl_tpu_torch.models.rnn import PTBModel
+    return PTBModel(PTB_VOCAB, PTB_HIDDEN, num_layers=PTB_LAYERS,
+                    generator=torch.Generator().manual_seed(seed),
+                    device=device)
+
+
+def ptb_criterion():
+    from bigdl_tpu_torch import nn
+    return nn.TimeDistributedCriterion(nn.ClassNLLCriterion(),
+                                       size_average=True)
+
+
+def ptb_optimizer(model, data):
+    """The PTB main's trainer: SGD(1.0), the gradients clipped to L2 norm
+    5."""
+    from bigdl_tpu_torch.optim import SGD, LocalOptimizer
+    return (LocalOptimizer(model, data, ptb_criterion(), device=DEVICE)
+            .set_optim_method(SGD(learningrate=1.0))
+            .set_gradient_clipping_by_l2_norm(5.0))
+
+
+def ptb_groups(names) -> dict:
+    """Gradient groups of the one-step check: the whole model and each
+    layer (embedding, lstm1, lstm2, decoder)."""
+    groups = {"all": list(names)}
+    labels = {"0": "embedding", "1": "lstm1", "2": "lstm2", "3": "decoder"}
+    for n in names:
+        groups.setdefault(labels[n.split(".")[0]], []).append(n)
+    return groups
+
+
+def check_ptb_step(Engine):
+    """One (16, 35) step of the PTB LM (the trainer's loss-and-gradient
+    path) on the card against the same weights and batch on the CPU.
+
+    fp32 (TF32 off): loss within 1e-4 relative, every parameter's gradient
+    within 1e-3 relative (Frobenius), phase 6's limits. bf16 (JAX's
+    promotion: the embedding and the first layer's input projection in
+    bf16, the recurrences, the second layer and the head in fp32): loss
+    within 1e-2; each group's gradient (the whole model and each layer)
+    within 2x the CPU's own bf16-vs-fp32 gap of that group from the CPU
+    fp32 gradient and 1.5x of it from the CPU bf16 gradient, phase 12's
+    factors, each limit at least 1e-3 (phase 6's fp32 limit, which the
+    fp32 parts of the bf16 step alone may use)."""
+    r = np.random.default_rng(SEED + 21)
+    ids = torch.from_numpy(r.integers(0, PTB_VOCAB, (PTB_PARITY_BATCH,
+                                                     PTB_BPTT + 1)))
+    x, y = ids[:, :-1], ids[:, 1:]
+    base = build_ptb("cpu")
+
+    def run(where, dtype):
+        import copy
+        Engine.init(compute_dtype=dtype)
+        try:
+            model = copy.deepcopy(base).to(where)
+            t0 = time.perf_counter()
+            loss, grads = loss_and_grads(model, ptb_criterion(), x, y, where)
+            if where != "cpu":
+                torch.cuda.synchronize()
+            return loss, grads, time.perf_counter() - t0
+        finally:
+            Engine.reset()
+
+    card32, card16 = run(DEVICE, torch.float32), run(DEVICE, torch.bfloat16)
+    cpu32, cpu16 = run("cpu", torch.float32), run("cpu", torch.bfloat16)
+    rel = rel_errors(card32[1], cpu32[1])
+    worst = max(rel, key=rel.get)
+    f = {"loss": card32[0], "loss_rel": abs(card32[0] - cpu32[0]) / cpu32[0],
+         "worst_grad_rel": rel[worst], "worst": worst,
+         "card_s": card32[2], "cpu_s": cpu32[2]}
+    groups = {}
+    for g, ns in ptb_groups(card16[1]).items():
+        gap = group_rel(cpu16[1], cpu32[1], ns)
+        groups[g] = {"cpu_gap": gap,
+                     "to_fp32": group_rel(card16[1], cpu32[1], ns),
+                     "to_bf16": group_rel(card16[1], cpu16[1], ns),
+                     "limit_fp32": max(2.0 * gap, 1e-3),
+                     "limit_bf16": max(1.5 * gap, 1e-3)}
+    b = {"loss": card16[0], "loss_rel": abs(card16[0] - cpu16[0]) / cpu16[0],
+         "groups": groups, "card_s": card16[2], "cpu_s": cpu16[2]}
+    log(f"  PTB LM one ({PTB_PARITY_BATCH}, {PTB_BPTT}) step, fp32: loss "
+        f"{f['loss']:.6f} ({f['loss_rel']:.2e} from the CPU's, limit 1e-4), "
+        f"worst gradient {f['worst_grad_rel']:.2e} ({worst}, limit 1e-3); "
+        f"bf16: loss {b['loss']:.6f} ({b['loss_rel']:.2e}, limit 1e-2); "
+        f"card {f['card_s']:.2f} / {b['card_s']:.2f} s, CPU "
+        f"{f['cpu_s']:.2f} / {b['cpu_s']:.2f} s")
+    for g, h in groups.items():
+        log(f"    bf16 {g}: CPU gap {h['cpu_gap']:.3e}; card to fp32 "
+            f"{h['to_fp32']:.3e} / {h['limit_fp32']:.3e}, to bf16 "
+            f"{h['to_bf16']:.3e} / {h['limit_bf16']:.3e}")
+    if f["loss_rel"] > 1e-4 or f["worst_grad_rel"] > 1e-3:
+        raise CheckFailed(f"the fp32 PTB step disagrees with the CPU: {f}")
+    bad = {g: h for g, h in groups.items() if h["to_fp32"] > h["limit_fp32"]
+           or h["to_bf16"] > h["limit_bf16"]}
+    if b["loss_rel"] > 1e-2 or bad:
+        raise CheckFailed(f"the bf16 PTB step disagrees with the CPU: loss "
+                          f"{b['loss_rel']:.2e}, groups out of their limits "
+                          f"{bad}")
+    return {"float32": f, "bfloat16": b}
+
+
+def ptb_data():
+    """The synthetic corpus over 10000 words in (64, 35) windows: 8 batches
+    an epoch."""
+    from bigdl_tpu_torch.dataset import (
+        DataSet, Sample, SampleToMiniBatch, ptb_windows, synthetic_ptb,
+    )
+    ids = synthetic_ptb(PTB_BATCH * TRAIN_STEPS * PTB_BPTT + 1,
+                        vocab_size=PTB_VOCAB, seed=SEED)
+    xs, ys = ptb_windows(ids, PTB_BPTT)
+    return (DataSet.array(Sample(x, y) for x, y in zip(xs, ys))
+            >> SampleToMiniBatch(PTB_BATCH))
+
+
+def ptb_gemm_split(opt, batch, card) -> Optional[dict]:
+    """Device time of the GEMMs of one eager step by operand shape, from
+    ``torch.profiler`` with the shapes recorded (a replayed step shows
+    kernels only): the recurrent products (64 rows), the hoisted input
+    projection (N*T rows, 4H columns), the decoder (the vocabulary), forward
+    and backward; and the update's ops (``update_with_trimmed`` run under a
+    label). The eager step runs the replayed step's kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from bigdl_tpu_torch.optim.optim_method import hyper_tensor
+
+    named, scales, mask = opt._prepare_step()
+    method = opt._method
+    plain_update = method.update_with_trimmed
+
+    def labelled(*args, **kw):
+        with record_function("phase13/update"):
+            return plain_update(*args, **kw)
+
+    step = opt._make_step_fn(named, scales, mask)
+    inp, target = (torch.as_tensor(a).to(DEVICE)
+                   for a in (batch.input, batch.target))
+    h = hyper_tensor(method.hyper(0, opt._ostate), list(named.values()))
+    method.update_with_trimmed = labelled
+    try:
+        step(inp, target, h)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     record_shapes=True) as prof:
+            step(inp, target, h)
+            torch.cuda.synchronize()
+    except Exception as e:  # noqa: BLE001 — an observation, not a check
+        log(f"  GEMM split: no device times ({type(e).__name__}: {e})")
+        return None
+    finally:
+        del method.update_with_trimmed
+
+    def dev_ms(e):
+        us = getattr(e, "device_time_total", None)
+        if us is None:
+            us = e.cuda_time_total
+        return us / 1e3
+
+    split = {"recurrent": 0.0, "input projection": 0.0, "decoder": 0.0,
+             "other gemm": 0.0}
+    rows = PTB_BATCH * PTB_BPTT
+    for e in prof.key_averages(group_by_input_shape=True):
+        if e.key not in ("aten::mm", "aten::addmm", "aten::bmm"):
+            continue
+        dims = {d for s in (e.input_shapes or []) for d in (s or [])}
+        if PTB_VOCAB in dims:
+            kind = "decoder"
+        elif rows in dims and 4 * PTB_HIDDEN in dims:
+            kind = "input projection"
+        elif PTB_BATCH in dims:
+            kind = "recurrent"
+        else:
+            kind = "other gemm"
+        split[kind] += dev_ms(e)
+    update = [dev_ms(e) for e in prof.key_averages()
+              if e.key == "phase13/update"
+              and e.device_type == DeviceType.CUDA]
+    split["update"] = update[0] if update else None
+    log(f"  GEMMs of one eager step by shape, and the update: "
+        f"{ {k: (round(v, 3) if v is not None else None) for k, v in split.items()} } "
+        f"ms of device time [{card}]")
+    return split
+
+
+def train_ptb(kernels, card, bf16=False, fuse=1, profile=True):
+    """TRAIN_ITERS steps of the PTB LM at (64, 35) through the PTB main's
+    trainer, the prefetching feed and the captured step (fuse 1) or fused
+    windows of ``fuse``; the same steps run eagerly from the same seed,
+    which the replays must equal bit for bit (losses and parameters).
+    Returns the run's numbers."""
+    from bigdl_tpu_torch.dataset import DataSet
+    from bigdl_tpu_torch.optim import Trigger
+    from bigdl_tpu_torch.optim.optim_method import hyper_tensor
+    from bigdl_tpu_torch.utils.random_generator import RandomGenerator
+
+    data = ptb_data()
+    model = build_ptb(DEVICE)
+    opt = (ptb_optimizer(model, data)
+           .set_end_when(Trigger.max_iteration(TRAIN_ITERS))
+           .set_fuse_steps(fuse))
+    losses, marks, windows, seen = [], [], [], []
+    run_steps = opt._run_steps
+
+    def recorded(steps):
+        out = run_steps(steps)
+        marks.append(time.perf_counter())
+        losses.extend(out)
+        windows.append(len(steps))
+        seen.extend((a.clone(), b.clone()) for a, b in steps)
+        return out
+
+    opt._run_steps = recorded
+    RandomGenerator.set_seed(SEED)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = kernels.launch_counts()
+    waits = feed_waits()
+    t0 = time.perf_counter()
+    try:
+        opt.optimize()
+        torch.cuda.synchronize()
+    finally:
+        opt._run_steps = run_steps
+    wall = time.perf_counter() - t0
+    waits = waits()
+    counts = {k: v - before[k] for k, v in kernels.launch_counts().items()}
+    peak = torch.cuda.max_memory_allocated()
+    what = ("bf16" if bf16 else "fp32") + f" steps, fuse {fuse}"
+    if len(losses) != TRAIN_ITERS or not all(np.isfinite(losses)):
+        raise CheckFailed(f"PTB LM training gave losses {losses}")
+    if fuse == 1:
+        step_ms = float(statistics.median(np.diff(marks))) * 1e3
+    else:
+        if windows[:2] != [fuse, fuse]:
+            raise CheckFailed(f"windows {windows}, not two of {fuse} first")
+        step_ms = (marks[1] - marks[0]) / fuse * 1e3
+    words = PTB_BATCH * PTB_BPTT
+    wps = words / step_ms * 1e3
+    peak_name = "bfloat16" if bf16 else "float32"
+    share = PTB_WORD_FLOPS * wps / PEAK_FLOPS[peak_name]
+    log(f"  PTB LM {TRAIN_ITERS} {what} at ({PTB_BATCH}, {PTB_BPTT}): "
+        f"windows {windows}; losses {[round(v, 4) for v in losses]}; first "
+        f"window (warm-up and capture) {(marks[0] - t0) * 1e3:.1f} ms; step "
+        f"{step_ms:.3f} ms, {wps:.0f} words/s, {share:.2%} of the "
+        f"{peak_name} peak ({PTB_WORD_FLOPS / 1e6:.1f} MFLOP a word); peak "
+        f"memory {peak / 2**30:.2f} GiB; feed waits after the first {waits}; "
+        f"{wall:.2f} s in all [{card}]")
+    if any(counts.values()):
+        raise CheckFailed(f"the PTB LM launched the LM kernels {counts}")
+    params = {n: p.detach().clone() for n, p in model.named_parameters()}
+    prof = split = None
+    if profile:
+        batch = next(iter(data.data(train=True)))
+        prof = profile_step(opt, batch, card, kinds=PTB_KINDS)
+        split = ptb_gemm_split(opt, batch, card)
+    opt._step_program = None
+    del opt, model
+    release()
+    # the same steps, eagerly, from the same seed
+    ref = build_ptb(DEVICE)
+    ropt = ptb_optimizer(ref, DataSet.array([]))
+    named, scales, mask = ropt._prepare_step()
+    step = ropt._make_step_fn(named, scales, mask)
+    ref_losses = [float(step(inp, target, hyper_tensor(
+        ropt._method.hyper(k, ropt._ostate), list(named.values()))))
+        for k, (inp, target) in enumerate(seen)]
+    torch.cuda.synchronize()
+    ref_params = dict(ref.named_parameters())
+    bitwise = losses == ref_losses and all(
+        torch.equal(p, ref_params[n]) for n, p in params.items())
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(losses, ref_losses))
+    param_err = max(max_err(p, ref_params[n]) for n, p in params.items())
+    log(f"  {what}, replayed against eager on the card: losses relative "
+        f"{loss_rel:.2e}, parameters max|err| {param_err:.3e}; bitwise "
+        f"{bitwise}")
+    if not bitwise:
+        raise CheckFailed(f"PTB LM {what}: the replayed steps are not bitwise "
+                          f"equal to the eager ones")
+    if any(p.dtype != torch.float32 for p in params.values()):
+        raise CheckFailed("the PTB LM's master parameters are not fp32")
+    run = dict(losses=losses, step_ms=step_ms, words_per_s=wps,
+               peak_share=share, peak_of=peak_name, peak_memory_bytes=peak,
+               first_window_ms=(marks[0] - t0) * 1e3, windows=windows,
+               feed_wait_ms_after_first_window=waits,
+               replay_vs_eager={"bitwise": bitwise, "loss_rel": loss_rel,
+                                "param_max_abs_err": param_err},
+               gemm_split_ms=split, profile=None if prof is None else {
+                   k: prof.get(k) for k in ("busy_ms", "wall_ms",
+                                            "by_kind_ms", "host_calls",
+                                            "top")})
+    del ref, ropt, seen
+    release()
+    return run
+
+
+def graph_of(fn):
+    """``fn`` captured as one CUDA graph (after a warm-up call on a side
+    stream); returns the graph's replay."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return graph.replay
+
+
+def cudnn_yardstick(card) -> dict:
+    """Not on the port's path: ``torch.nn.LSTM(650, 650, 2,
+    batch_first=True)`` (cuDNN) with the port's two ``Recurrent(LSTM)``
+    layers' weights (i|f|g|o in both), forward and backward on the same
+    (64, 35, 650) fp32 input (TF32 off), against the port's two layers
+    captured as one CUDA graph (as the trainer runs them), both timed by
+    device time; the outputs must agree (5e-5, the weight mapping)."""
+    from bigdl_tpu_torch import nn
+    g = torch.Generator().manual_seed(SEED + 22)
+    port = nn.Sequential()
+    for _ in range(PTB_LAYERS):
+        port.add(nn.Recurrent(nn.LSTM(PTB_HIDDEN, PTB_HIDDEN, generator=g)))
+    port = port.to(DEVICE)
+    lib = torch.nn.LSTM(PTB_HIDDEN, PTB_HIDDEN, PTB_LAYERS,
+                        batch_first=True).to(DEVICE)
+    with torch.no_grad():
+        for i in range(PTB_LAYERS):
+            cell = port[i].cell
+            for k in ("w_ih", "w_hh", "b_ih", "b_hh"):
+                name = k.replace("w_", "weight_").replace("b_", "bias_")
+                getattr(lib, f"{name}_l{i}").copy_(getattr(cell, k))
+    r = np.random.default_rng(SEED + 23)
+    x = torch.from_numpy(r.normal(size=(PTB_BATCH, PTB_BPTT, PTB_HIDDEN))
+                         .astype(np.float32)).to(DEVICE).requires_grad_()
+    gy = torch.from_numpy(r.normal(size=(PTB_BATCH, PTB_BPTT, PTB_HIDDEN))
+                          .astype(np.float32)).to(DEVICE)
+    pp, lp = list(port.parameters()), list(lib.parameters())
+
+    def port_step():
+        return torch.autograd.grad(port(x), [x] + pp, gy)
+
+    def lib_step():
+        return torch.autograd.grad(lib(x)[0], [x] + lp, gy)
+
+    with torch.no_grad():
+        err = max_err(port(x), lib(x)[0])
+    replay = graph_of(port_step)
+    port_ms, port_host = time_ms(replay, reps=10, trials=5)
+    eager_ms, eager_host = time_ms(port_step, reps=3, trials=3)
+    lib_ms, lib_host = time_ms(lib_step, reps=10, trials=5)
+    # the bound: the recurrences' and projections' products (2 layers,
+    # forward and backward: 3x the forward's 2 x 4 x 2 x N x T x H^2)
+    flops = 3 * PTB_LAYERS * 4 * 2 * 2 * PTB_BATCH * PTB_BPTT * \
+        PTB_HIDDEN ** 2
+    bound, by = bound_ms(0.0, flops, "float32")
+    out = {"port_graph_ms": port_ms, "port_eager_ms": eager_ms,
+           "port_eager_host_ms": eager_host, "cudnn_ms": lib_ms,
+           "cudnn_host_ms": lib_host, "gap": port_ms / lib_ms,
+           "bound_ms": bound, "bound_by": by, "max_abs_err": err}
+    log(f"  yardstick (not on the path): two LSTM layers' forward and "
+        f"backward at ({PTB_BATCH}, {PTB_BPTT}, {PTB_HIDDEN}) fp32: the "
+        f"port's Recurrent(LSTM) layers as one CUDA graph {port_ms:.3f} ms "
+        f"(eager {eager_ms:.3f} ms of device time, {eager_host:.3f} ms to "
+        f"enqueue), cuDNN's torch.nn.LSTM {lib_ms:.3f} ms (the port takes "
+        f"{out['gap']:.2f}x cuDNN's time); fp32 FMA bound {bound:.3f} ms; "
+        f"outputs within {err:.2e} [{card}]")
+    if err > 5e-5:
+        raise CheckFailed(f"the yardstick's LSTM disagrees with the port's "
+                          f"({err:.3e}): the weight mapping is wrong")
+    del replay, port, lib
+    release()
+    return out
+
+
+def ptb_generate(card) -> dict:
+    """``--generate 20 --beam 3`` of the PTB main (``SequenceBeamSearch``,
+    the full forward every step) on a full-width model, timed: 20 words
+    from an 8-word seed, finite scores, ids in the vocabulary."""
+    from bigdl_tpu_torch.dataset import Dictionary
+    from bigdl_tpu_torch.models.rnn.train import generate
+    model = build_ptb(DEVICE)
+    seed = np.random.default_rng(SEED + 24).integers(
+        1, PTB_VOCAB, PTB_BPTT // 4)
+    generate(model, Dictionary.synthetic(PTB_VOCAB), seed, 2, PTB_BEAM, 0.6)
+    toks, words, wall = generate(model, Dictionary.synthetic(PTB_VOCAB),
+                                 seed, PTB_GENERATE, PTB_BEAM, 0.6)
+    log(f"  beam search ({PTB_BEAM} beams, {PTB_GENERATE} words after "
+        f"{len(seed)}, the full forward each step): {wall:.3f} s, "
+        f"{wall / PTB_GENERATE * 1e3:.1f} ms a word; {' '.join(words[-5:])} "
+        f"... [{card}]")
+    if len(toks) != len(seed) + PTB_GENERATE or not all(
+            0 <= t < PTB_VOCAB for t in toks):
+        raise CheckFailed(f"beam search gave {toks}")
+    del model
+    release()
+    return {"wall_s": wall, "ms_per_word": wall / PTB_GENERATE * 1e3,
+            "tokens": len(toks)}
+
+
+def check_tree_accuracy(opt, card) -> dict:
+    """The TreeLSTM main's held-out set through ``run_device_eval`` (the
+    ``TreeNNAccuracy`` device fold in the captured eval program) against
+    the host fold of eager outputs: equal counts."""
+    from bigdl_tpu_torch.dataset import DataSet, SampleToMiniBatch
+    from bigdl_tpu_torch.models.treelstm.train import synthetic_trees
+    from bigdl_tpu_torch.nn.abstractnn import evaluating
+    from bigdl_tpu_torch.optim.evaluator import run_device_eval
+    from bigdl_tpu_torch.optim.validation import TreeNNAccuracy
+    samples = synthetic_trees(2048, 8, 60)[int(0.9 * 2048):]
+    test = DataSet.array(samples) >> SampleToMiniBatch(64)
+    (dev,), _ = run_device_eval(opt.model, test, [TreeNNAccuracy()], DEVICE)
+    host = None
+    with torch.no_grad(), evaluating(opt.model):
+        for b in test.data(train=False):
+            out = opt.model(tuple(torch.from_numpy(a).to(DEVICE)
+                                  for a in b.input)).cpu()
+            part = TreeNNAccuracy().apply(out, b.target, b.valid)
+            host = part if host is None else host + part
+    log(f"  TreeNNAccuracy over {dev.count} held-out trees: device fold "
+        f"{dev.correct:.0f}/{dev.count}, host fold {host.correct:.0f}/"
+        f"{host.count} [{card}]")
+    if (dev.correct, dev.count) != (host.correct, host.count):
+        raise CheckFailed(f"TreeNNAccuracy's device fold {dev} differs from "
+                          f"the host fold {host}")
+    return {"correct": dev.correct, "count": dev.count}
+
+
+def check_conv_lstm(card) -> dict:
+    """One forward and backward of ``Recurrent(ConvLSTMPeephole(16, 32))``
+    at (8, 10, 16, 32, 32) fp32 (TF32 off) on the card against the CPU:
+    the output within 1e-4 relative, every gradient (the input's and each
+    parameter's) within 1e-3 relative (Frobenius)."""
+    import copy
+    from bigdl_tpu_torch import nn
+    base = nn.Recurrent(nn.ConvLSTMPeephole(
+        CONV_LSTM[2], 32, generator=torch.Generator().manual_seed(SEED + 25)))
+    r = np.random.default_rng(SEED + 26)
+    x = torch.from_numpy(r.normal(size=CONV_LSTM).astype(np.float32))
+    runs = []
+    for where in (DEVICE, "cpu"):
+        m = copy.deepcopy(base).to(where)
+        xx = x.to(where).requires_grad_()
+        t0 = time.perf_counter()
+        out = m(xx)
+        gy = torch.ones_like(out) / out.numel() ** 0.5
+        grads = torch.autograd.grad(out, [xx] + list(m.parameters()), gy)
+        if where != "cpu":
+            torch.cuda.synchronize()
+        runs.append((out.detach().cpu(), {n: g.cpu() for n, g in zip(
+            ["input"] + [n for n, _ in m.named_parameters()], grads)},
+            time.perf_counter() - t0))
+    (out, grads, s), (out_ref, grads_ref, s_ref) = runs
+    out_rel = float((out - out_ref).norm() / out_ref.norm())
+    rel = rel_errors(grads, grads_ref)
+    worst = max(rel, key=rel.get)
+    log(f"  Recurrent(ConvLSTMPeephole(16, 32)) at {CONV_LSTM}: output "
+        f"{out_rel:.2e} from the CPU's (limit 1e-4), worst gradient "
+        f"{rel[worst]:.2e} ({worst}, limit 1e-3); card {s:.2f} s, CPU "
+        f"{s_ref:.2f} s [{card}]")
+    if out_rel > 1e-4 or rel[worst] > 1e-3:
+        raise CheckFailed(f"the ConvLSTM disagrees with the CPU: output "
+                          f"{out_rel:.3e}, {worst} {rel[worst]:.3e}")
+    return {"out_rel": out_rel, "worst_grad_rel": rel[worst]}
+
+
+def text_path(kernels, card, Engine):
+    """Phase 13: the PTB LSTM LM at full width (the one-step checks, fp32
+    and bf16 at fuse 1 and bf16 at fuse 8, each replayed bitwise against
+    eager steps, profiled; the cuDNN yardstick; generation), then the
+    TreeLSTM and text-classifier mains and the ConvLSTM check."""
+    from bigdl_tpu_torch.models.textclassifier import train as tc_main
+    from bigdl_tpu_torch.models.treelstm import train as tree_main
+    t0 = time.perf_counter()
+    out = {"one_step_check": check_ptb_step(Engine),
+           "training_fp32": train_ptb(kernels, card)}
+    Engine.init(compute_dtype=torch.bfloat16)
+    try:
+        out["training_bf16"] = train_ptb(kernels, card, bf16=True)
+        out["training_bf16_fused"] = train_ptb(kernels, card, bf16=True,
+                                               fuse=FUSE, profile=False)
+    finally:
+        Engine.reset()
+    out["cudnn_yardstick"] = cudnn_yardstick(card)
+    out["generate"] = ptb_generate(card)
+    out["treelstm_main"], opt = run_main(tree_main, [], card, 64,
+                                         unit="trees", keep=True)
+    out["treelstm_main"]["accuracy_folds"] = check_tree_accuracy(opt, card)
+    del opt
+    out["textclassifier_main"] = run_main(tc_main, [], card, 64,
+                                          unit="sentences")
+    out["conv_lstm"] = check_conv_lstm(card)
+    release()
+    out["wall_s"] = time.perf_counter() - t0
+    log(f"  phase 13 took {out['wall_s']:.1f} s [{card}]")
+    return out
+
+
 # -------------------------------------------------------------------- main
 def main() -> int:
     if not torch.cuda.is_available():
@@ -3945,6 +4497,11 @@ def main() -> int:
         n = int(sys.argv[sys.argv.index("--lm-feed-ab") + 1])
         return lm_feed_ab(n, TransformerLM, lm_criterion, kernels, card,
                           Engine)
+    if "--text-only" in sys.argv:
+        log("phase 13 only")
+        text = text_path(kernels, card, Engine)
+        print(json.dumps({"text": text}), flush=True)
+        return 0
     build = report_flash_build(lib, kernels, _cuda.find_nvcc())
     ln_build = report_layer_norm_build(lib)
 
@@ -4116,6 +4673,18 @@ def main() -> int:
         "Inception-v1, full width")
     feed = feed_path(TransformerLM, lm_criterion, kernels, card, Engine)
 
+    log("phase 13: the text family: the PTB LSTM LM at full width, the "
+        "TreeLSTM and text-classifier mains, the ConvLSTM")
+    kernels.reset_launch_counts()          # the phase's path: from here ...
+    text = text_path(kernels, card, Engine)
+    text["launches"] = kernels.launch_counts()     # ... to here
+    log(f"  the text path launched none of the five kernels (cuBLAS for "
+        f"its products, cuDNN for the ConvLSTM's convolutions, torch ops "
+        f"for the gates, the tree and the rest): {text['launches']}")
+    if any(text["launches"].values()):
+        raise CheckFailed(f"the text path launched the LM kernels "
+                          f"{text['launches']}")
+
     log("phase 10: the kernel table")
 
     # each kernel's row: its own slice's path (serving for the forward
@@ -4171,7 +4740,8 @@ def main() -> int:
                  "vision": vision["lm_kernel_launches"][k],
                  "serving_extras": extras_counts[k],
                  "robustness": robust_counts[k],
-                 "feed": feed["launches"][k]}
+                 "feed": feed["launches"][k],
+                 "text": text["launches"][k]}
              for k in launches}
     beam_row = find_row(fa_rows, BEAM_SHAPE, "float32")
 
@@ -4327,7 +4897,7 @@ def main() -> int:
                                                    "host_calls")}}},
         "llama": dict(llama["summary"], kernel_ms_per_step=llama_kernel_ms),
         "vision": vision, "serving_extras": extras, "robustness": robust,
-        "feed": feed}
+        "feed": feed, "text": text}
     print(json.dumps(table), flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,8 @@
 """The port's captured programs (``utils/programs.py``) on the GPU: the
 serving engine's prefill, decode and assign programs and the training
 step (the llama-style model with the fused head among its variants, and a
-CIFAR ResNet-20 whose batch-norm statistics ride in the program), each
+CIFAR ResNet-20 whose batch-norm statistics ride in the program, and the
+PTB LSTM LM whose unrolled recurrence is one program), each
 replayed against the same work run eagerly, and dropout drawing fresh
 masks at every replay.
 
@@ -380,4 +381,50 @@ def test_resnet_step_replays_equal_eager_with_statistics(cuda, dtype, fmt):
     assert step == 3 and not torch.equal(got_stats[0]["0.1.running_mean"],
                                          got_stats[1]["0.1.running_mean"])
     for (name, p), q in zip(model.named_parameters(), ref.parameters()):
+        assert torch.equal(p, q), name
+
+
+def _ptb_steps(batches, replayed: bool):
+    """Three steps of the PTB main's training (``SGD(1.0)``, clip-norm 5)
+    on a small ``PTBModel`` from one seed, through the captured program or
+    its step function called eagerly: the losses and the model."""
+    from bigdl_tpu_torch.models.rnn import PTBModel
+    from bigdl_tpu_torch.nn import TimeDistributedCriterion
+    model = PTBModel(200, 32, num_layers=2,
+                     generator=torch.Generator().manual_seed(0),
+                     device="cuda")
+    crit = TimeDistributedCriterion(ClassNLLCriterion(), size_average=True)
+    opt = (LocalOptimizer(model, DataSet.array([]), crit)
+           .set_optim_method(SGD(learningrate=1.0))
+           .set_gradient_clipping_by_l2_norm(5.0))
+    if replayed:
+        losses = [opt.train_step(x, y) for x, y in batches]
+        assert opt._step_program.captured
+        assert opt._step_program.replays == len(batches) - 1
+        return losses, model
+    named, scales, mask = opt._prepare_step()
+    step = opt._make_step_fn(named, scales, mask)
+    return [float(step(x, y, hyper_tensor(opt._method.hyper(k, opt._ostate),
+                                          list(named.values()))))
+            for k, (x, y) in enumerate(batches)], model
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ptb_lstm_step_replays_equal_eager(cuda, dtype):
+    """The PTB LSTM's whole step (the unrolled recurrence of both layers,
+    forward and backward, the clip and the update) as one captured
+    program, replayed against the same steps run eagerly: losses and
+    parameters bit for bit, the parameters fp32 masters under bf16 too."""
+    r = np.random.default_rng(3)
+    batches = [tuple(torch.from_numpy(r.integers(0, 200, (8, 12))).cuda()
+                     for _ in range(2)) for _ in range(3)]
+    Engine.init(compute_dtype=dtype)
+    try:
+        got, model = _ptb_steps(batches, replayed=True)
+        want, ref = _ptb_steps(batches, replayed=False)
+    finally:
+        Engine.reset()
+    assert got == want and all(np.isfinite(got))
+    for (name, p), q in zip(model.named_parameters(), ref.parameters()):
+        assert p.dtype == torch.float32
         assert torch.equal(p, q), name

@@ -1,7 +1,8 @@
 """The TransformerLM option modules of the port against the JAX package, on
 the CPU: Swish and CMulTable (the SwiGLU pieces), RMSNorm, LookupTable's
 id base and padding row, Dropout, ``cast_floating`` through a ``Table``,
-and ``convert.load_jax_params`` on every new parameter layout.
+and ``convert.load_jax_params`` on every new parameter layout (the
+TransformerLM options', and the recurrent and text layers').
 
 Inputs are made with numpy from a seed and handed to both packages; module
 weights move across by path. Tolerances: fp32 outputs within 1e-5 absolute
@@ -206,5 +207,45 @@ def test_load_jax_params_carries_every_layout(opts):
     assert sorted(tree) == sorted(n for n, _ in tlm.named_parameters())
     load_jax_params(tlm, jlm.get_params())
     for n, p in tlm.named_parameters():
+        np.testing.assert_array_equal(p.detach().numpy(),
+                                      np.asarray(tree[n]))
+
+
+def _recurrent_layouts():
+    from bigdl_tpu.nn.tree import BinaryTreeLSTM as JBinaryTreeLSTM
+
+    def tree(pkg):
+        return (JBinaryTreeLSTM(6, 8) if pkg is jnn
+                else pkg.BinaryTreeLSTM(6, 8))
+    return {
+        "birecurrent": lambda pkg: pkg.BiRecurrent(pkg.LSTMPeephole(5, 6)),
+        "multi-rnn-cell": lambda pkg: pkg.Recurrent(pkg.MultiRNNCell(
+            [pkg.LSTM(5, 6), pkg.GRU(6, 6), pkg.RnnCell(6, 4)])),
+        "bi-multi": lambda pkg: pkg.BiRecurrent(pkg.MultiRNNCell(
+            [pkg.GRU(5, 6), pkg.LSTM(6, 6)]), merge="add"),
+        "conv-lstm": lambda pkg: pkg.Recurrent(pkg.ConvLSTMPeephole(2, 3)),
+        "conv-lstm-3d": lambda pkg: pkg.Recurrent(
+            pkg.ConvLSTMPeephole3D(2, 3, with_peephole=False)),
+        "decoder": lambda pkg: pkg.RecurrentDecoder(3, pkg.LSTM(4, 4)),
+        "tree": tree,
+        "temporal": lambda pkg: pkg.Sequential().add(
+            pkg.TemporalConvolution(4, 5, 3)).add(pkg.Linear(5, 2)),
+    }
+
+
+@pytest.mark.parametrize("layout", sorted(_recurrent_layouts()))
+def test_load_jax_params_carries_the_recurrent_layouts(layout):
+    """The recurrent and text layers' parameter paths equal the JAX
+    tree's (a cell under ``"0"``, ``BiRecurrent``'s ``"0"``/``"1"``,
+    ``MultiRNNCell``'s ``"0"``, ``"1"``, ... nesting, the peepholes, the
+    tree's ``w_x``/``u_l``/``u_r``, the temporal convolution's (kw, in,
+    out) weight), and every leaf arrives."""
+    build = _recurrent_layouts()[layout]
+    JaxRNG.set_seed(7)
+    jm, tm = build(jnn), build(tnn)
+    tree = flatten_tree(jm.get_params())
+    assert sorted(tree) == sorted(n for n, _ in tm.named_parameters())
+    load_jax_params(tm, jm.get_params())
+    for n, p in tm.named_parameters():
         np.testing.assert_array_equal(p.detach().numpy(),
                                       np.asarray(tree[n]))
