@@ -52,10 +52,11 @@ def flatten_tree(tree: dict, prefix: str = "") -> dict:
 
 
 def load_jax_params(module: torch.nn.Module, tree: dict) -> torch.nn.Module:
-    """Copy every leaf of ``tree`` (nested dicts of numpy arrays) into the
-    parameter of ``module`` with the same path. Raises ``KeyError`` on a
-    missing or extra key and ``ValueError`` on a shape mismatch, before any
-    parameter is written."""
+    """Copy every leaf of ``tree`` (nested dicts of numpy arrays, or of
+    tensors on any device) into the parameter of ``module`` with the same
+    path, in place and cast to the parameter's dtype. Raises ``KeyError``
+    on a missing or extra key and ``ValueError`` on a shape mismatch,
+    before any parameter is written."""
     return _load(dict(module.named_parameters()), tree, "parameter", module)
 
 
@@ -81,14 +82,18 @@ def _load(params: dict, tree: dict, kind: str,
                        f"{missing}, not in the module {extra}")
     arrays = {}
     for path, p in params.items():
-        a = np.asarray(flat[path])
+        a = flat[path]
+        if not isinstance(a, torch.Tensor):
+            a = np.asarray(a)
         if tuple(a.shape) != tuple(p.shape):
             raise ValueError(f"{path}: tree shape {tuple(a.shape)} vs "
                              f"module shape {tuple(p.shape)}")
         arrays[path] = a
     with torch.no_grad():
         for path, p in params.items():
-            p.copy_(torch.from_numpy(np.array(arrays[path])).to(p.dtype))
+            a = arrays[path]
+            p.copy_(a if isinstance(a, torch.Tensor)
+                    else torch.from_numpy(np.array(a)).to(p.dtype))
     return module
 
 

@@ -1,0 +1,147 @@
+"""Structured serving access log: one JSONL record a finished request.
+
+Counterpart of ``bigdl_tpu/obs/access_log.py`` (stdlib only). Every
+completed or failed request appends one record::
+
+    {trace_id, tenant, phase, prompt_tokens, output_tokens,
+     ttft_ms, e2e_ms, flops, outcome}
+
+``outcome`` is ``ok``, ``timeout``, ``poisoned``, ``aborted`` or (the
+fleet router's) ``rejected``; ``phase`` is where the request ended
+(``queue`` before admission, ``decode`` after, ``route`` at the router).
+Enabled by pointing ``BIGDL_ACCESS_LOG`` at a directory; the file
+``access-<pid>.jsonl`` rotates at ``BIGDL_ACCESS_LOG_ROTATE_MB`` megabytes
+(default 64). A write failure disables the log with one event and never
+fails a request. The port's engine writes ``flops`` as None: the
+per-program FLOPs come with the MFU accounting (ROADMAP Queue A.6).
+
+JAX's ``to_bdlrec`` (the records re-sharded into ``.bdlrec`` files for a
+streaming dataset) needs ``dataset/recordio.py`` and waits for ROADMAP
+Queue A.5: :func:`to_bdlrec` raises naming it.
+"""
+
+from __future__ import annotations
+
+import json
+import logging
+import os
+import threading
+from typing import Optional
+
+from bigdl_tpu_torch.obs import trace
+
+_LOG: Optional["AccessLog"] = None
+_LOG_LOCK = threading.Lock()
+_ENV_SEEN: Optional[str] = None
+
+#: record fields, in this order
+FIELDS = ("trace_id", "tenant", "phase", "prompt_tokens", "output_tokens",
+          "ttft_ms", "e2e_ms", "flops", "outcome")
+
+
+class AccessLog:
+    """Size-rotated JSONL request log in one directory."""
+
+    def __init__(self, directory: str, rotate_mb: float = 64.0):
+        self.directory = directory
+        self.rotate_bytes = max(int(rotate_mb * 1024 * 1024), 4096)
+        self.path = os.path.join(directory,
+                                 "access-%d.jsonl" % os.getpid())
+        self.records = 0
+        self.rotations = 0
+        self.disabled = False
+        self._lock = threading.Lock()
+        self._f = None
+
+    def log(self, **fields) -> None:
+        """Append one record (missing FIELDS become None; other keywords
+        ride along). Never raises."""
+        if self.disabled:
+            return
+        rec = {k: fields.pop(k, None) for k in FIELDS}
+        rec.update(fields)
+        line = json.dumps(rec, separators=(",", ":"), default=str) + "\n"
+        try:
+            with self._lock:
+                if self._f is None:
+                    os.makedirs(self.directory, exist_ok=True)
+                    self._f = open(self.path, "a")
+                self._f.write(line)
+                self._f.flush()
+                self.records += 1
+                if self._f.tell() >= self.rotate_bytes:
+                    self._rotate_locked()
+        except Exception as exc:
+            self.disabled = True
+            trace.event("access_log_disabled", path=self.path,
+                        error=str(exc))
+            logging.getLogger("bigdl_tpu_torch.obs").error(
+                "access log write to %s failed (%s); request logging "
+                "disabled for this process", self.path, exc)
+
+    def _rotate_locked(self) -> None:
+        self._f.close()
+        self._f = None
+        self.rotations += 1
+        rotated = self.path[:-len(".jsonl")] + "-%d.jsonl" % self.rotations
+        os.replace(self.path, rotated)
+
+    def close(self) -> None:
+        with self._lock:
+            if self._f is not None:
+                self._f.close()
+                self._f = None
+
+
+def from_env() -> Optional[AccessLog]:
+    """The process's log when ``BIGDL_ACCESS_LOG`` names a directory, else
+    None (allocating nothing); re-reads the variable when it changes."""
+    global _LOG, _ENV_SEEN
+    raw = os.environ.get("BIGDL_ACCESS_LOG", "").strip()
+    with _LOG_LOCK:
+        if raw != _ENV_SEEN:
+            if _LOG is not None:
+                _LOG.close()
+            _ENV_SEEN = raw
+            if raw:
+                try:
+                    mb = float(os.environ.get(
+                        "BIGDL_ACCESS_LOG_ROTATE_MB", "64") or "64")
+                except ValueError:
+                    mb = 64.0
+                _LOG = AccessLog(raw, rotate_mb=mb)
+            else:
+                _LOG = None
+        return _LOG
+
+
+def log_request(**fields) -> None:
+    """Record one finished request when the log is on; free when off."""
+    log = from_env()
+    if log is not None:
+        log.log(**fields)
+
+
+def reset() -> None:
+    """Test isolation: close and forget the process's log."""
+    global _LOG, _ENV_SEEN
+    with _LOG_LOCK:
+        if _LOG is not None:
+            _LOG.close()
+        _LOG = None
+        _ENV_SEEN = None
+
+
+def access_record_decoder(payload: bytes) -> dict:
+    """A record's JSON line back to the record."""
+    return json.loads(payload.decode("utf-8"))
+
+
+def to_bdlrec(log_dir: str, out_dir: str, shards: int = 1,
+              prefix: str = "access"):
+    """JAX's converter of the records into ``.bdlrec`` shards: it writes
+    through ``dataset/recordio.py``, which is not ported."""
+    raise NotImplementedError(
+        "to_bdlrec writes .bdlrec shards through dataset/recordio.py, which "
+        "waits for ROADMAP Queue A.5; the JSONL records under "
+        f"{log_dir!r} are complete without it")

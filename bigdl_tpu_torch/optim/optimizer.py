@@ -136,8 +136,22 @@ is the ``feed`` phase (``train/feed_wait`` span); the stages' mean ms
 ``state["feed_stage_ms"]``) and the ``FeedStage/<stage>_ms`` train
 summaries.
 
-Not ported yet (ROADMAP Queue A): sparse embeddings, the auxiliary loss,
-the model registry and the orbax and elastic checkpoint backends.
+**The live plane**: the loop publishes JAX's rails, which the SLO monitor
+(``obs/slo.py``) reads: ``train/step_wall`` (each step's share of its
+window's wall, the feed's wait included), ``train/feed_stall`` (a window
+whose wait on the feed passed half the median step and 10 ms) and
+``train/throughput`` (records/s); it starts the metrics endpoint and the
+SLO monitor when ``BIGDL_METRICS_PORT`` or a ``BIGDL_SLO_*`` rule is set.
+
+**The model registry** (``set_model_registry(registry_or_path)`` /
+``BIGDL_REGISTRY_DIR``): the checkpoint writer thread publishes each
+version it wrote, its params in JAX's layout under the checkpoint's
+``neval``, to a ``utils/model_registry.ModelRegistry`` as a promotion
+candidate (``serving/lifecycle.py``); a registry failure is logged and
+never reaches the trainer.
+
+Not ported yet (ROADMAP Queue A): sparse embeddings, the auxiliary loss
+and the orbax and elastic checkpoint backends.
 """
 
 from __future__ import annotations
@@ -175,6 +189,8 @@ from bigdl_tpu_torch.nn.normalization import (
     checkpoint_contexts, dropout_generators,
 )
 from bigdl_tpu_torch.nn.precision import cast_floating
+from bigdl_tpu_torch.obs import exporter as obs_exporter
+from bigdl_tpu_torch.obs import slo as obs_slo
 from bigdl_tpu_torch.obs import trace
 from bigdl_tpu_torch.obs.registry import registry as obs_registry
 from bigdl_tpu_torch.optim.metrics import Metrics
@@ -296,6 +312,14 @@ _FEED_STAGES = {**{"feed/" + s: s for s in (
     "phase/put_batch": "h2d"}
 
 
+def _obs_feed_wait(wait_s: float, step_hist) -> None:
+    """A step that waited on the feed longer than half the median step
+    (and 10 ms) counts as a ``train/feed_stall`` (JAX's rule)."""
+    med = step_hist.median()
+    if med is not None and wait_s > max(0.010, 0.5 * med):
+        obs_registry.counter("train/feed_stall").inc()
+
+
 def _feed_stage_totals() -> dict:
     """``{stage: (count, total seconds)}`` of the feed's stages so far."""
     return {stage: (h.count, h.total) for name, stage in _FEED_STAGES.items()
@@ -413,6 +437,13 @@ class Optimizer:
         self.ckpt_keep: int = int(os.environ.get("BIGDL_CKPT_KEEP", "0"))
         self._ckpt_thread: Optional[threading.Thread] = None
         self._ckpt_error: Optional[BaseException] = None
+        # each written checkpoint's params published as a promotion
+        # candidate (set_model_registry / BIGDL_REGISTRY_DIR)
+        self.model_registry = None
+        if os.environ.get("BIGDL_REGISTRY_DIR"):
+            from bigdl_tpu_torch.utils.model_registry import ModelRegistry
+            self.model_registry = ModelRegistry(
+                os.environ["BIGDL_REGISTRY_DIR"])
         # summaries (set_train_summary / set_val_summary)
         self.train_summary = None
         self.val_summary = None
@@ -543,6 +574,17 @@ class Optimizer:
                              "or 'elastic'")
         self.checkpoint_path, self.checkpoint_trigger = path, trigger
         self.checkpoint_backend = backend
+        return self
+
+    def set_model_registry(self, registry) -> "Optimizer":
+        """Publish every written checkpoint's params to ``registry`` (a
+        ``ModelRegistry`` or a path) as a serving-lifecycle candidate, on
+        the checkpoint writer thread; a failure is logged, never raised
+        into training."""
+        if isinstance(registry, str):
+            from bigdl_tpu_torch.utils.model_registry import ModelRegistry
+            registry = ModelRegistry(registry)
+        self.model_registry = registry
         return self
 
     def over_write_checkpoint(self, overwrite: bool = True) -> "Optimizer":
@@ -1213,6 +1255,12 @@ class Optimizer:
         stop = False
         resume_feed, self._resume_feed = self._resume_feed, None
         windows_run, records, window_t0 = 0, 0, time.perf_counter()
+        # the rails the SLO monitor reads (JAX's names): each step's wall
+        # (its window's, feed wait included, over its steps), the steps
+        # that waited on the feed, the records/s
+        step_hist = obs_registry.histogram("train/step_wall")
+        obs_exporter.start_from_env()
+        obs_slo.start_from_env()
         self._setup_feed(device)
         stages0 = _feed_stage_totals()
         fuse = self.fuse_steps
@@ -1259,6 +1307,7 @@ class Optimizer:
                         break
                     self._maybe_start_profiler()
                     want = min(fuse, self._fusible_steps(state))
+                    wait0 = time.perf_counter()
                     while len(ahead) < want and not exhausted:
                         # "feed" = the time the loop waits on data; in
                         # steady state the producer hides assembly and copy
@@ -1274,6 +1323,7 @@ class Optimizer:
                     # a full window runs fused; the epoch's partial trailing
                     # one step by step
                     n = want if len(ahead) >= want else 1
+                    _obs_feed_wait(time.perf_counter() - wait0, step_hist)
                     window, ahead = ahead[:n], ahead[n:]
                     had_data = True
                     first = state["neval"]
@@ -1284,9 +1334,13 @@ class Optimizer:
                         self._write_iter_summary(first + i, loss)
                     self._write_feed_stages(stages0, first + n - 1)
                     now = time.perf_counter()
+                    for _ in range(n):
+                        step_hist.observe((now - window_t0) / n)
                     records += sum(b.valid for b, _ in window)
                     if windows_run:
                         self.throughput = records / (now - window_t0)
+                        obs_registry.gauge("train/throughput").set(
+                            self.throughput)
                     for i, loss in enumerate(losses):
                         logger.info("Epoch %d iter %d: loss %.6f, %.1f "
                                     "records/s", state["epoch"], first + i,
@@ -1590,11 +1644,31 @@ class Optimizer:
                 ckpt_file.save_bytes(data, path)
             obs_registry.counter("ckpt/bytes").inc(len(data))
             self._prune_old_checkpoints()
+            # payload["state"] is the snapshot's copy: the live state may
+            # have moved on under the async writer
+            self._publish_to_registry(int(payload["state"]["neval"]),
+                                      payload["params"])
             obs_registry.histogram("ckpt/async_write_ms").observe(
                 (time.perf_counter() - t0) * 1e3)
             logger.info("checkpoint written: %s", path)
         except BaseException as e:  # noqa: BLE001 — raised at the next join
             self._ckpt_error = e
+
+    def _publish_to_registry(self, version: int, params) -> None:
+        """Hand a written version's params to the model registry, on the
+        writer thread. Registry trouble is logged and dropped: it never
+        sets ``_ckpt_error`` or otherwise reaches the loop thread."""
+        reg = self.model_registry
+        if reg is None:
+            return
+        try:
+            if version not in reg.versions():
+                reg.publish(params, version=version,
+                            meta={"source": self.checkpoint_backend,
+                                  "neval": version})
+        except Exception as e:  # noqa: BLE001 — never into the trainer
+            logger.warning("model registry publication failed (v%s): %s",
+                           version, e)
 
     def _prune_old_checkpoints(self) -> None:
         """Keep the newest ``BIGDL_CKPT_KEEP`` versions (0 keeps all), with

@@ -1,16 +1,28 @@
 """Request serving over the KV-cached decode path (continuous batching),
-with the paged KV cache, the prefix pool and speculative decoding."""
+with the paged KV cache, the prefix pool and speculative decoding; crash
+recovery, drain, health and hot weight swaps in the engine; the fleet
+router, the snapshot server and the promotion lifecycle around it.
+
+JAX's ``RankingEngine`` (``serving/ranking.py``) serves the recommenders,
+which wait for ROADMAP Queue A.5."""
 
 from bigdl_tpu_torch.serving.engine import (
-    EngineOverloaded, EngineShutdown, NonFiniteLogitsError, RequestTimeout,
-    ServingEngine,
+    EngineOverloaded, EngineShutdown, EngineShutdownTimeout,
+    NonFiniteLogitsError, RequestTimeout, ServingEngine, SwapResult,
 )
+from bigdl_tpu_torch.serving.fleet import (
+    FleetExhausted, FleetHandle, FleetRouter,
+)
+from bigdl_tpu_torch.serving.lifecycle import (
+    PromotionController, PromotionCriterion, PromotionResult,
+)
+from bigdl_tpu_torch.serving.multitenant import SnapshotServer
 from bigdl_tpu_torch.serving.paged_cache import (
     TRASH_PAGE, PageAllocator, install_paged_cache, logical_pages,
 )
-from bigdl_tpu_torch.serving.prefix_cache import PrefixPool
+from bigdl_tpu_torch.serving.prefix_cache import PrefixEntry, PrefixPool
 from bigdl_tpu_torch.serving.request import (
-    CompletedRequest, Request, RequestHandle,
+    FINISH_EOS, FINISH_LENGTH, CompletedRequest, Request, RequestHandle,
 )
 from bigdl_tpu_torch.serving.scheduler import (
     SlotScheduler, default_buckets, pick_bucket, pick_seed_bucket,
@@ -19,9 +31,12 @@ from bigdl_tpu_torch.serving.speculative import SpeculativeDecoder
 
 __all__ = [
     "CompletedRequest", "EngineOverloaded", "EngineShutdown",
-    "NonFiniteLogitsError", "PageAllocator", "PrefixPool", "Request",
-    "RequestHandle", "RequestTimeout", "ServingEngine", "SlotScheduler",
-    "SpeculativeDecoder", "TRASH_PAGE", "default_buckets",
-    "install_paged_cache", "logical_pages", "pick_bucket",
-    "pick_seed_bucket",
+    "EngineShutdownTimeout", "FINISH_EOS", "FINISH_LENGTH",
+    "FleetExhausted", "FleetHandle", "FleetRouter",
+    "NonFiniteLogitsError", "PageAllocator", "PrefixEntry", "PrefixPool",
+    "PromotionController", "PromotionCriterion", "PromotionResult",
+    "Request", "RequestHandle", "RequestTimeout", "ServingEngine",
+    "SlotScheduler", "SnapshotServer", "SpeculativeDecoder", "SwapResult",
+    "TRASH_PAGE", "default_buckets", "install_paged_cache",
+    "logical_pages", "pick_bucket", "pick_seed_bucket",
 ]

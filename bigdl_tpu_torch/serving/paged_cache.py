@@ -40,6 +40,9 @@ import torch
 from bigdl_tpu_torch.nn.incremental import (
     _row_index, _set_path, cache_modules,
 )
+from bigdl_tpu_torch.utils import faults
+from bigdl_tpu_torch.utils.faults import check_fault
+from bigdl_tpu_torch.utils.robustness import events
 
 #: paged-cache leaf names (the page-granular ``_CACHE_ROW_KEYS``)
 _PAGE_POOL_KEYS = ("page_k", "page_v")
@@ -85,8 +88,15 @@ class PageAllocator:
 
     def alloc(self, n: int = 1) -> Optional[list[int]]:
         """Claim ``n`` pages, lowest ids first, or None when the pool cannot
-        give them all (a partial grant would strand pages)."""
+        give them all (a partial grant would strand pages). The
+        ``serve_page_alloc`` fault site makes an allocation report
+        exhaustion."""
         with self._lock:
+            if check_fault(faults.SITE_PAGE_ALLOC) is not None:
+                self.alloc_failures += 1
+                events.record("serving_page_alloc_fault", requested=n,
+                              pages_free=len(self._free))
+                return None
             if n < 0 or n > len(self._free):
                 self.alloc_failures += 1
                 return None

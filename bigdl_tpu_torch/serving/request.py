@@ -49,6 +49,13 @@ class CompletedRequest:
     def generated(self) -> np.ndarray:
         return self.tokens[self.prompt_len:]
 
+    def time_per_token_s(self) -> Optional[float]:
+        """Mean time a token after the first (None for a one-token
+        request: there is no gap to average)."""
+        if self.n_generated <= 1 or self.ttft_s is None:
+            return None
+        return (self.latency_s - self.ttft_s) / (self.n_generated - 1)
+
     def __repr__(self):
         return (f"CompletedRequest(id={self.request_id}, "
                 f"prompt={self.prompt_len}, generated={self.n_generated}, "

@@ -108,6 +108,19 @@ class SlotScheduler:
         self._ever_used.add(slot.index)
         return slot
 
+    def reset(self) -> list[Request]:
+        """Vacate every slot (crash recovery and weight swaps, which
+        re-prefill the in-flight requests) and rebuild the free list in
+        index order. Returns the evicted requests by slot index; the
+        recycle count survives, so ``stats()`` stays monotone."""
+        evicted = [s.request for s in self._slots if s.request is not None]
+        for s in self._slots:
+            s.request = None
+            s.last_token = 0
+            s.depth = 0
+        self._free = list(range(self.num_slots))
+        return evicted
+
     def release(self, slot: Slot) -> None:
         """Free ``slot``: it is admissible to the next request at once."""
         if slot.request is None:

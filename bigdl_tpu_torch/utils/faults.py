@@ -1,10 +1,10 @@
 """Deterministic fault injection: scripted failures at named sites.
 
-Counterpart of ``bigdl_tpu/utils/faults.py`` for the trainer's and the
-feed's sites. An
+Counterpart of ``bigdl_tpu/utils/faults.py`` for the trainer's, the
+feed's and the serving stack's sites. An
 instrumented site calls :func:`fault_point` or :func:`check_fault`, and an
 active **fault plan** makes a hit of the site fail in a scripted way, so
-every recovery path of the trainer can be fired in a test.
+every recovery path can be fired in a test.
 
 ========================  ====================================================
 site                      where it fires
@@ -24,19 +24,53 @@ site                      where it fires
                           the worker pool's crash budget absorbs
 ``h2d``                   the trainer's host-to-device placement of a batch
                           or window, in the feed's producer (``error``)
+``serve_prefill``         the serving engine's prefill of one request
+                          (``serving/engine.py`` ``_admit``): ``error`` fails
+                          that request; the other slots keep decoding
+``serve_decode``          the serving engine's decode tick, after the
+                          program: ``nonfinite`` poisons the lowest active
+                          slot's flag (its request fails, its row is wiped),
+                          ``error`` kills the engine thread
+``serve_thread``          the serving engine's loop, once an iteration:
+                          ``death`` kills the engine thread, so the
+                          supervisor respawns it and re-prefills
+``serve_stall``           the serving engine's decode tick, before the
+                          program: ``stall`` sleeps ``BIGDL_FAULT_STALL_S``
+                          seconds (default 2), a wedged loop for the hang
+                          watchdog
+``serve_page_alloc``      the paged cache's allocator
+                          (``serving/paged_cache.py``): the allocation
+                          reports exhaustion
+``slo_breach``            the SLO monitor's check (``obs/slo.py``): a
+                          synthetic breach, flipping the engines to
+                          ``degraded`` until the next clean check
+``router_dispatch``       the fleet router, before it hands a request to the
+                          replica it picked (``serving/fleet.py``): ``error``
+                          fails that attempt and the next replica is tried
+``replica_down``          the fleet router's dispatch: kills the replica it
+                          was about to pick (``shutdown(wait=False)``)
+``promote_eval``          the promotion gate's evaluation
+                          (``serving/lifecycle.py``): ``error`` crashes it,
+                          ``nonfinite`` makes the metric NaN
+``promote_swap``          the serving engine's weight swap, at the step
+                          boundary: ``error`` fails it, the old weights
+                          keep serving
+``promote_rollback``      the promotion controller's rollback, before each
+                          attempt: ``error`` spends one unit of its budget
 ========================  ====================================================
 
-The serving, cache, fleet and observability sites of the JAX module come
-with the modules that run them (ROADMAP Queue A.3.2 for serving); naming
-one in a plan raises ``ValueError`` here.
+The cache, spool, profilez and host sites of the JAX module come with the
+modules that run them (ROADMAP Queues A.4 and A.6); naming one in a plan
+raises ``ValueError`` here.
 
 A plan is a ``;``-separated list of entries ``site@N`` or ``site@N=action``,
 the same syntax as the JAX package's, so one plan string means the same in
 both. ``N`` is 1-based: the training iteration for the index-matched sites
 (``nonfinite_loss``, ``sigterm``), else the Nth hit of the site in this
-process. Each entry fires once. Actions default per site (``nan`` for
-nonfinite_loss, ``sigterm`` for sigterm, ``torn`` for ckpt_write, ``error``
-for decode and h2d, ``death`` for transform_worker).
+process. Each entry fires once. Actions default per site as in JAX
+(``nan`` for nonfinite_loss, ``sigterm`` for sigterm, ``torn`` for
+ckpt_write, ``death`` for transform_worker, serve_thread and replica_down,
+``stall`` for serve_stall, ``error`` for the rest).
 
 Activate a plan with the :func:`inject_faults` context manager (in-process
 tests) or the ``BIGDL_FAULT_PLAN`` environment variable (parsed once per
@@ -49,6 +83,7 @@ from __future__ import annotations
 import logging
 import os
 import threading
+import time
 from contextlib import contextmanager
 from typing import Optional
 
@@ -63,6 +98,17 @@ SITE_CKPT_WRITE = "ckpt_write"
 SITE_DECODE = "decode"
 SITE_TRANSFORM_WORKER = "transform_worker"
 SITE_H2D = "h2d"
+SITE_SERVE_PREFILL = "serve_prefill"
+SITE_SERVE_DECODE = "serve_decode"
+SITE_SERVE_THREAD = "serve_thread"
+SITE_SERVE_STALL = "serve_stall"
+SITE_PAGE_ALLOC = "serve_page_alloc"
+SITE_SLO_BREACH = "slo_breach"
+SITE_ROUTER_DISPATCH = "router_dispatch"
+SITE_REPLICA_DOWN = "replica_down"
+SITE_PROMOTE_EVAL = "promote_eval"
+SITE_PROMOTE_SWAP = "promote_swap"
+SITE_PROMOTE_ROLLBACK = "promote_rollback"
 
 #: sites whose plan entries match the caller-supplied ``index`` (training
 #: iteration) instead of the site's hit counter
@@ -75,10 +121,21 @@ _DEFAULT_ACTION = {
     SITE_DECODE: "error",
     SITE_TRANSFORM_WORKER: "death",
     SITE_H2D: "error",
+    SITE_SERVE_PREFILL: "error",
+    SITE_SERVE_DECODE: "error",
+    SITE_SERVE_THREAD: "death",
+    SITE_SERVE_STALL: "stall",
+    SITE_PAGE_ALLOC: "error",
+    SITE_SLO_BREACH: "error",
+    SITE_ROUTER_DISPATCH: "error",
+    SITE_REPLICA_DOWN: "death",
+    SITE_PROMOTE_EVAL: "error",
+    SITE_PROMOTE_SWAP: "error",
+    SITE_PROMOTE_ROLLBACK: "error",
 }
 
 _KNOWN_ACTIONS = frozenset({"error", "death", "nan", "sigterm", "torn",
-                            "kill"})
+                            "kill", "stall", "nonfinite"})
 
 
 class FaultError(RuntimeError):
@@ -177,6 +234,10 @@ def parse_plan(spec: str) -> FaultPlan:
     return FaultPlan(entries, spec)
 
 
+#: how a ``stall`` action waits: ``time.sleep``; a test replaces it to
+#: advance an injected clock instead of the wall clock
+stall_sleep = time.sleep
+
 # ------------------------------------------------------------ active plan
 _ACTIVE: Optional[FaultPlan] = None
 _ENV_SPEC: Optional[str] = None
@@ -238,8 +299,10 @@ def check_fault(site: str, index: Optional[int] = None) -> Optional[str]:
 def fault_point(site: str, index: Optional[int] = None) -> Optional[str]:
     """Raising poll for instrumented sites: ``error`` raises
     :class:`FaultError`, ``death`` raises :class:`WorkerDeathError`,
-    ``sigterm``/``kill`` deliver the signal to this process; anything else
-    is returned for the caller to implement."""
+    ``sigterm``/``kill`` deliver the signal to this process, ``stall``
+    blocks the calling thread ``BIGDL_FAULT_STALL_S`` seconds (default 2)
+    through :data:`stall_sleep`; anything else is returned for the caller
+    to implement."""
     action = check_fault(site, index)
     if action is None:
         return None
@@ -251,4 +314,6 @@ def fault_point(site: str, index: Optional[int] = None) -> Optional[str]:
         import signal
         os.kill(os.getpid(),
                 signal.SIGTERM if action == "sigterm" else signal.SIGKILL)
+    if action == "stall":
+        stall_sleep(float(os.environ.get("BIGDL_FAULT_STALL_S", "2")))
     return action

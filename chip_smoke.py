@@ -105,7 +105,9 @@ an NVIDIA H100 and the CUDA toolkit. It builds the port's CUDA kernels from
    beside the grid's), then fails a request queued behind its full grid
    and one mid-decode with ``RequestTimeout`` on an injected clock (rows
    and pages recycled, the others' tokens the grid's); an exhausted
-   96-page pool (at least one preemption, every token solo decode's);
+   96-page pool, the 16 requests queued longest first before the first
+   prefill (``admit_wait_ms``), so that its preemptions do not hang on
+   the clients' timing (at least one, every token solo decode's);
    ``overload="shed"`` (``EngineOverloaded`` with ``pages_free``) and
    ``"degrade"`` (half the new tokens) on a held pool; the prefix pool
    (``prefix_pool=16``) against a pool-less engine on a 512-token prefix
@@ -183,6 +185,40 @@ an NVIDIA H100 and the CUDA toolkit. It builds the port's CUDA kernels from
    device fold equal to the host fold) and the text-classifier main; one
    forward and backward of ``Recurrent(ConvLSTMPeephole(16, 32))`` at (8,
    10, 16, 32, 32) against the CPU;
+14. drives the rest of serving on phase 5's served LM at full width (8
+   slots, fp32; every engine with a hang watchdog from ``BIGDL_WATCHDOG_S``;
+   launches counted from a reset, the LayerNorm forward among them and,
+   through the lifecycle's training, all five; references are phase 5's
+   solo ``greedy_generate`` tokens, and greedy decoding by full-sequence
+   forwards where there are none, each under the near-tie rule): (1) the
+   16 requests with ``serve_thread`` killing the loop mid-decode: their
+   references' tokens, one respawn, the same programs replayed, the time from the death to the
+   next token; then the crash budget spent: the engine ``dead``, every
+   handle failed, ``/healthz`` 503; (2) ``swap_weights`` v1 -> v2 (a
+   second seeded LM) under traffic from a client thread: tokens before the
+   swap v1's, after it greedy on v2 from that prefix, another engine over
+   the module still v1's, ``promote_swap`` leaving v1 serving, the ledger
+   unchanged, the engine's pause and the re-prefill's time; (3) SIGTERM
+   through ``install_signal_drain`` with 8 requests in flight and 4 queued:
+   the 8 finish, the 4 fail with ``EngineShutdown``, health ready ->
+   draining -> dead, the previous handler called; (4) a 1.5 s
+   ``serve_stall``: exactly one watchdog dump, naming the loop's thread,
+   and none anywhere else in the phase; (5) ``FleetRouter.replicate(lm,
+   1024, replicas=2, phases="prefill,decode", prefix_pool=16)``: the
+   references' tokens, TTFT and decode rate beside one engine's, the
+   handoff's ms and bytes; ``replica_down`` mid-traffic loses nothing and
+   ``/healthz`` says ``degraded``, 200; (6) 8 fp32 steps of the served LM
+   with a checkpoint every 4 publishing to a ``ModelRegistry``; a
+   NaN-poisoned version; a ``PromotionController`` gating with the port's
+   ``Evaluator`` (``Loss`` on 2 batches of the training data) rejects it
+   and promotes the better trained version under traffic; a drill with the
+   gate bypassed swaps a noisy version in, the watch window's SLO check
+   breaches (``slo_breach@1``), the first rollback attempt is spent
+   (``promote_rollback@1``) and the served tokens return bitwise to the
+   promoted version's; (7) two native tenants of a ``SnapshotServer``,
+   ``update_tenant`` on one (the other keeps its tokens), one scrape of a
+   ``MetricsExporter(0)`` (``/metrics`` parses with both tenants' rows,
+   ``/statusz`` is JSON);
 10. checks that the serving path (phases 4 and 5) launched both forward
    kernels and each training run (the 17 steps, fp32 and bf16) all five,
    every launch in the run's dtype (bf16 operands and bf16 gamma and beta
@@ -197,10 +233,13 @@ an NVIDIA H100 and the CUDA toolkit. It builds the port's CUDA kernels from
 Any failed check exits non-zero without the result line, as does a machine
 without CUDA or a directory without the package. Phases 11, 12 and 13 run
 before the kernel table, so their launches are in the ``kernels`` line
-(``paths``).
+(``paths``); so does phase 14 (``paths.serving_stack``).
 
 ``python3 chip_smoke.py --text-only`` builds the kernels and runs only
 phase 13, printing its numbers as one JSON line (no result line).
+
+``python3 chip_smoke.py --serving-only`` builds the kernels and runs only
+phase 14, printing its numbers as one JSON line (no result line).
 
 ``python3 chip_smoke.py --remat-captures N`` builds the kernels and runs
 only phase 6's bf16 training with every block under ``Remat`` N times in
@@ -217,6 +256,7 @@ rounds in one process; with ``--root`` the package of the checkout at DIR
 
 from __future__ import annotations
 
+import contextlib
 import itertools
 import json
 import math
@@ -250,6 +290,7 @@ NEAR_TIE = 1e-4          # top-2 log-prob gap under which a token may differ
 # with a smaller draft, deadlines and overload
 EXTRA_SLOTS, EXTRA_PAGES, PAGE_TOKENS = 16, SLOTS * MAX_LEN // 16, 16
 EXHAUST_PAGES = 96
+ADMIT_ALL_MS = 60_000    # the exhausted pool's linger: ends at 16 queued
 PREFIX_LEN, N_TAILS, TAIL_LO, TAIL_HI = 512, 8, 33, 64
 SPEC_K = 4
 DRAFT_WIDTH = (256, 4, 2)            # embed, heads, layers
@@ -871,15 +912,18 @@ def full_forward(lm, build_ref):
     return err
 
 
-def serve_round(engine, prompts):
-    """Submit every prompt from N_CLIENTS threads at once; returns the
-    results and the wall time until the last one."""
+def serve_round(engine, prompts, order=None):
+    """Submit every prompt from N_CLIENTS threads at once, or from one
+    thread in ``order`` (prompt indices); returns the results in prompt
+    order and the wall time until the last one."""
     handles = [None] * N_REQUESTS
     errors = []
+    shares = ([range(c, N_REQUESTS, N_CLIENTS) for c in range(N_CLIENTS)]
+              if order is None else [order])
 
     def client(c):
         try:
-            for i in range(c, N_REQUESTS, N_CLIENTS):
+            for i in shares[c]:
                 handles[i] = engine.submit(prompts[i], NEW_TOKENS,
                                            request_id=i)
         except Exception as e:  # noqa: BLE001 — reported below
@@ -887,7 +931,7 @@ def serve_round(engine, prompts):
 
     t0 = time.perf_counter()
     clients = [threading.Thread(target=client, args=(c,))
-               for c in range(N_CLIENTS)]
+               for c in range(len(shares))]
     for th in clients:
         th.start()
     for th in clients:
@@ -906,12 +950,13 @@ def serving_prompts():
             for n in lengths]
 
 
-def serve_rounds(engine, prompts, n):
-    """``n`` rounds of ``prompts`` through ``engine``: each round's
-    results, wall time and engine stats (cumulative)."""
+def serve_rounds(engine, prompts, n, order=None):
+    """``n`` rounds of ``prompts`` through ``engine`` (``serve_round``'s
+    ``order``): each round's results, wall time and engine stats
+    (cumulative)."""
     rounds = []
     for _ in range(n):
-        results, wall = serve_round(engine, prompts)
+        results, wall = serve_round(engine, prompts, order)
         rounds.append((results, wall, engine.stats()))
     return rounds
 
@@ -2487,14 +2532,14 @@ def check_engine(name, stats, ln, ln_target, ln_draft=0):
 
 
 def engine_run(ServingEngine, kernels, lm, name, prompts, n_rounds, ln,
-               ln_draft=0, keep=False, **kw):
-    """``n_rounds`` of ``prompts`` through a new engine over ``lm``; its
-    ledger and launches checked. Returns the rounds and the engine (shut
-    down unless ``keep``)."""
+               ln_draft=0, keep=False, order=None, **kw):
+    """``n_rounds`` of ``prompts`` through a new engine over ``lm``
+    (``serve_round``'s ``order``); its ledger and launches checked.
+    Returns the rounds and the engine (shut down unless ``keep``)."""
     before = kernels.launch_counts()["layer_norm_fwd"]
     engine = ServingEngine(lm, max_len=MAX_LEN, device=DEVICE, **kw)
     try:
-        rounds = serve_rounds(engine, prompts, n_rounds)
+        rounds = serve_rounds(engine, prompts, n_rounds, order)
     except BaseException:
         engine.shutdown()
         raise
@@ -2926,9 +2971,15 @@ def serving_extras(TransformerLM, nn, kernels, card, grid_rounds, prompts,
     finally:
         engine.shutdown()
     del engine
+    # the preemptions depend on the order the requests reach the pool:
+    # all 16 queued before the first prefill, longest first, preempt twice
+    # (in the prompts' own order, none), whatever the card's speed
+    longest = [int(i) for i in np.argsort([-len(p) for p in prompts],
+                                          kind="stable")]
     rounds, _ = engine_run(ServingEngine, kernels, lm, "exhausted pool",
-                           prompts, 1, ln, slots=EXTRA_SLOTS,
-                           pages=EXHAUST_PAGES, page_tokens=PAGE_TOKENS)
+                           prompts, 1, ln, order=longest, slots=EXTRA_SLOTS,
+                           pages=EXHAUST_PAGES, page_tokens=PAGE_TOKENS,
+                           admit_wait_ms=ADMIT_ALL_MS)
     res, wall, st = rounds[0]
     check_served_tokens(lm, None, prompts, res, refs)
     log(f"  exhausted pool ({EXHAUST_PAGES} pages): {st['completed']} of "
@@ -4446,6 +4497,892 @@ def text_path(kernels, card, Engine):
     return out
 
 
+# --------------------------------------------------------------- phase 14
+# the rest of serving at full width: phase 5's served LM, 8 slots, fp32,
+# the default buckets; the swap's v2 is a second LM of the same shape from
+# STACK_SEED; the lifecycle trains the served LM (max_len MAX_LEN, so its
+# tree fits the engine) STACK_STEPS fp32 steps at TRAIN_BATCH x TRAIN_LEN
+# with a checkpoint every STACK_EVERY, and gates on STACK_EVAL_BATCHES
+# batches of the training data
+STACK_SEED = SEED + 40
+STACK_STEPS, STACK_EVERY, STACK_EVAL_BATCHES = 8, 4, 2
+STACK_STALL_S = 1.5        # the watchdog check's stall (BIGDL_FAULT_STALL_S)
+# every engine's hard limit (BIGDL_WATCHDOG_S); the monitor polls every
+# eighth of it, so a 1.5 s stall past the ratio rule's 0.25 s is seen
+STACK_WATCHDOG_S = 2.0
+STACK_CRASH_AT = 6         # serve_thread@N: the Nth loop iteration dies
+
+
+def sync() -> None:
+    if DEVICE != "cpu":
+        torch.cuda.synchronize()
+
+
+# phase 14's launches by who made them, beside the process-wide counts
+_APART: dict = {}
+
+
+def count_apart(part: str, counts: dict) -> None:
+    acc = _APART.setdefault(part, {})
+    for k, v in counts.items():
+        acc[k] = acc.get(k, 0) + v
+
+
+@contextlib.contextmanager
+def apart(part: str):
+    """Count the block's launches under ``part`` of phase 14: its
+    references (greedy forwards, near-tie checks), left out of the phase's
+    path; the trainer and the evaluator, kept in it but counted apart from
+    the engines. The counts are process-wide, so a block runs only while
+    every engine is idle. Yields the block's own counts, filled at its
+    end."""
+    from bigdl_tpu_torch import kernels
+    before, mine = kernels.launch_counts(), {}
+    try:
+        yield mine
+    finally:
+        mine.update({k: v - before[k]
+                     for k, v in kernels.launch_counts().items()})
+        count_apart(part, mine)
+
+
+def stack_launches(total: dict) -> dict:
+    """Phase 14's launches, ``total`` since the reset before it: the path's
+    (all but the references'), and the engines' (the path's less the
+    trainer's and the evaluator's). The engines must have launched the
+    LayerNorm forward and the trainer every kernel."""
+    parts = {p: {k: _APART.get(p, {}).get(k, 0) for k in total}
+             for p in ("references", "trainer", "evaluator")}
+    path = {k: n - parts["references"][k] for k, n in total.items()}
+    engines = {k: n - parts["trainer"][k] - parts["evaluator"][k]
+               for k, n in path.items()}
+    log(f"  launches on the path: {path}; the engines' {engines}, the "
+        f"trainer's {parts['trainer']}, the evaluator's "
+        f"{parts['evaluator']}; left out, the references' "
+        f"{parts['references']}")
+    if engines["layer_norm_fwd"] <= 0 or min(engines.values()) < 0:
+        raise CheckFailed(f"phase 14's engines launched {engines}")
+    idle = [k for k, n in parts["trainer"].items() if n == 0]
+    if idle:
+        raise CheckFailed(f"phase 14's trainer never launched {idle}")
+    return dict(parts, path=path, engines=engines)
+
+
+def hist_delta(before: dict, name: str) -> tuple:
+    """(observations, their sum) of histogram ``name`` of the obs registry
+    since its snapshot ``before``."""
+    from bigdl_tpu_torch.obs.registry import registry
+    zero = {"count": 0, "total": 0.0}
+    h0 = before["histograms"].get(name, zero)
+    h1 = registry.snapshot()["histograms"].get(name, zero)
+    return h1["count"] - h0["count"], h1["total"] - h0["total"]
+
+
+def one_observation(before: dict, name: str, what: str) -> float:
+    n, total = hist_delta(before, name)
+    if n != 1:
+        raise CheckFailed(f"{what}: {n} observations of {name}, not 1")
+    return total
+
+
+def forward_greedy(lm, prefix, n: int) -> np.ndarray:
+    """``prefix`` and the ``n`` greedy tokens after it, each the argmax of
+    a full-sequence forward (no cache): a reference independent of the
+    engine's cached path, and far cheaper at 700-token prompts than
+    ``greedy_generate``, which steps the prompt a position at a time."""
+    seq = torch.as_tensor(np.asarray(prefix), dtype=torch.long,
+                          device=DEVICE)[None]
+    with torch.no_grad():
+        for _ in range(n):
+            nxt = lm(seq)[0, -1].argmax()
+            seq = torch.cat([seq, nxt.view(1, 1)], dim=1)
+    return seq[0].cpu().numpy()
+
+
+def stack_dir(name: str) -> Path:
+    """A fresh directory under the checkout's build/."""
+    import shutil
+    d = Path(__file__).resolve().parent / "build" / "phase14" / name
+    shutil.rmtree(d, ignore_errors=True)
+    d.mkdir(parents=True)
+    return d
+
+
+def lm_tree(lm) -> dict:
+    """A copy of the LM's weights laid out as JAX's ``get_params()``,
+    tensors on the LM's device (what ``swap_weights`` takes)."""
+    from bigdl_tpu_torch import convert
+    with torch.no_grad():
+        return convert.nest(lm, {n: p.detach().clone()
+                                 for n, p in lm.named_parameters()})
+
+
+class Stack:
+    """Phase 14's engines: each one's watchdog dumps are summed at the end
+    (the stall check's one dump, no other)."""
+
+    def __init__(self, ServingEngine):
+        self.ServingEngine = ServingEngine
+        self.watched = []
+
+    def engine(self, lm, name, **kw):
+        eng = self.ServingEngine(lm, max_len=MAX_LEN, device=DEVICE,
+                                 name=name, **dict(dict(slots=SLOTS), **kw))
+        self.watch(eng)
+        return eng
+
+    def watch(self, eng):
+        if eng._watchdog is None:
+            raise CheckFailed(f"engine {eng.name!r} built no watchdog from "
+                              f"BIGDL_WATCHDOG_S")
+        self.watched.append((eng.name, eng._watchdog))
+
+    def dumps(self) -> dict:
+        return {n: wd.dumps for n, wd in self.watched if wd.dumps}
+
+
+def warm_all_buckets(engine):
+    """One request of each bucket's length, in turn: every prefill
+    program, the assign and the tick are captured before the checks."""
+    rng = np.random.default_rng(SEED + 41)
+    for b in engine.buckets:
+        n = min(b, MAX_LEN - 2)
+        engine.submit(rng.integers(0, VOCAB, n).astype(np.int32),
+                      2).result(timeout=600)
+
+
+def wait_for(cond, what, bound=600.0):
+    end = time.perf_counter() + bound
+    while not cond():
+        if time.perf_counter() > end:
+            raise CheckFailed(f"phase 14: never reached {what}")
+        time.sleep(0.001)
+
+
+def same_programs(name, engine, progs, keys):
+    st = engine.stats()
+    now = engine._programs._programs
+    if st["compiled_programs"] != keys or set(now) != set(progs) or any(
+            now[k] is not progs[k] for k in progs):
+        raise CheckFailed(f"{name}: the program ledger changed "
+                          f"({keys} -> {st['compiled_programs']})")
+
+
+def swapped_round(engine, prompts, first_id, swap):
+    """Keep the grid full from a client thread (the prompts in turn, a new
+    request as soon as fewer than SLOTS + SLOTS // 2 are outstanding) until
+    ``swap()`` returns. Returns its result and the prompt index and result
+    of every request sent."""
+    sent, errors, stop = [], [], threading.Event()
+
+    def client():
+        try:
+            i, outstanding = 0, []
+            while not stop.is_set():
+                outstanding = [h for h in outstanding if not h.done()]
+                if len(outstanding) >= SLOTS + SLOTS // 2:
+                    time.sleep(0.001)
+                    continue
+                sent.append((i % len(prompts), engine.submit(
+                    prompts[i % len(prompts)], NEW_TOKENS,
+                    request_id=first_id + i)))
+                outstanding.append(sent[-1][1])
+                i += 1
+        except Exception as e:  # noqa: BLE001 — reported below
+            errors.append(e)
+
+    th = threading.Thread(target=client)
+    th.start()
+    try:
+        wait_for(lambda: engine.stats()["active_slots"] == SLOTS,
+                 "a full grid")
+        res = swap()
+    finally:
+        stop.set()
+        th.join(120)
+    if errors:
+        raise CheckFailed(f"the swapped round's client: {errors}")
+    return res, [(j, h.result(timeout=600)) for j, h in sent]
+
+
+def done_before(in_flight: dict, results) -> set:
+    """The ids of a swapped round's requests that finished before the swap.
+    The engine admits in submission order, every request asks NEW_TOKENS,
+    and a swap requeues every admitted request still running: so the
+    requests admitted before it are the ids up to the last one in flight,
+    and those of them not in flight had finished."""
+    if not in_flight:
+        raise CheckFailed("the swap found no request in flight")
+    last = max(in_flight)
+    return {r.request_id for _, r in results
+            if r.request_id < last and r.request_id not in in_flight}
+
+
+def check_split(name, lm_old, lm_new, prompts, results, in_flight, done,
+                refs_old):
+    """A swapped round (``results``: prompt index and result): each
+    in-flight request's tokens before the swap are the old weights'
+    (``refs_old``), the rest greedy on the new weights from that prefix; a
+    request done before the swap is the old weights' throughout, one
+    queued at the swap or sent after it the new weights'. Under the
+    near-tie rule. Returns the count that parted at near ties."""
+    fresh = {}
+    old_got, old_ref, old_len, new_got, new_ref, new_len = ([] for _ in
+                                                             range(6))
+    for j, r in results:
+        p, toks = prompts[j], np.asarray(r.tokens)
+        if r.request_id in done:
+            old_got.append(toks)
+            old_ref.append(refs_old[j])
+            old_len.append(len(p))
+            continue
+        k = in_flight.get(r.request_id, 0)
+        if k:
+            old_got.append(toks[:len(p) + k])
+            old_ref.append(np.asarray(refs_old[j])[:len(p) + k])
+            old_len.append(len(p))
+            ref = forward_greedy(lm_new, toks[:len(p) + k], NEW_TOKENS - k)
+        else:
+            if j not in fresh:
+                fresh[j] = forward_greedy(lm_new, p, NEW_TOKENS)
+            ref = fresh[j]
+        new_got.append(toks)
+        new_ref.append(ref)
+        new_len.append(len(p) + k)
+    return (check_near_ties(lm_old, f"{name} (the old weights)", old_got,
+                            old_ref, old_len)
+            + check_near_ties(lm_new, f"{name} (the new weights)", new_got,
+                              new_ref, new_len))
+
+
+def crash_check(stack, lm, prompts, refs, card):
+    """Check 1: 16 requests with ``serve_thread`` firing mid-decode, then
+    the crash budget spent."""
+    from bigdl_tpu_torch.obs import exporter
+    from bigdl_tpu_torch.obs.registry import registry
+    from bigdl_tpu_torch.utils import faults
+    from bigdl_tpu_torch.utils.faults import WorkerDeathError
+    eng = stack.engine(lm, "crash")
+    warm_all_buckets(eng)
+    serve_round(eng, prompts)               # the traffic's captures
+    st0 = eng.stats()
+    progs, keys = dict(eng._programs._programs), st0["compiled_programs"]
+    obs0 = registry.snapshot()
+    with faults.inject_faults(f"serve_thread@{STACK_CRASH_AT}") as plan:
+        results, wall = serve_round(eng, prompts)
+        if plan.unfired():
+            raise CheckFailed(f"crash: the plan did not fire: "
+                              f"{plan.unfired()}")
+    st = eng.stats()
+    with apart("references"):
+        check_served_tokens(lm, None, prompts, results, refs)
+    same_programs("crash", eng, progs, keys)
+    if st["respawns"] != 1 or st["completed"] - st0["completed"] \
+            != N_REQUESTS:
+        raise CheckFailed(f"crash: respawns {st['respawns']}, completed "
+                          f"{st['completed'] - st0['completed']}")
+    # the engine's own readings: from the loop's death (stamped where the
+    # fault raised) to the first token after it, and the requeued
+    # requests' re-prefills
+    death_ms = one_observation(obs0, "serving/resume_first_token_ms",
+                               "crash")
+    reprefill_ms = one_observation(obs0, "serving/reprefill_ms", "crash")
+    out = {"respawns": st["respawns"], "compiled_programs": keys,
+           "death_to_first_token_ms": death_ms,
+           "reprefill_ms": reprefill_ms, "round_wall_s": wall,
+           "replays_not_captures": True}
+    log(f"  crash: serve_thread@{STACK_CRASH_AT} killed the loop mid-decode; "
+        f"1 respawn, all {N_REQUESTS} requests equal their greedy "
+        f"references, "
+        f"{keys} programs before and after (the same graphs replayed); "
+        f"from the loop's death to the first token after it "
+        f"{death_ms:.2f} ms, the requeued requests' re-prefills "
+        f"{reprefill_ms:.2f} ms, the round {wall:.2f} s [{card}]")
+    # the rest of the budget (2 deaths after 1 respawn: 1 left)
+    with faults.inject_faults("serve_thread@1;serve_thread@2") as plan:
+        hs = [eng.submit(p, NEW_TOKENS) for p in prompts[:4]]
+        aborted = 0
+        for h in hs:
+            try:
+                h.result(timeout=600)
+            except WorkerDeathError:
+                aborted += 1
+        if plan.unfired():
+            raise CheckFailed(f"crash budget: unfired {plan.unfired()}")
+    wait_for(lambda: eng.stats()["health"] == "dead", "a dead engine")
+    for other in exporter.engines():     # earlier phases' engines
+        if other is not eng:
+            exporter.unregister_engine(other)
+    code, payload = exporter.render_healthz()
+    log(f"  crash budget spent: health {eng.stats()['health']}, "
+        f"{aborted} of 4 handles failed with WorkerDeathError, /healthz "
+        f"{code} {payload['status']!r}")
+    if aborted != 4 or code != 503 or eng.stats()["respawns"] != 2:
+        raise CheckFailed(f"crash budget: {aborted} aborted, /healthz "
+                          f"{code}, respawns {eng.stats()['respawns']}")
+    exporter.unregister_engine(eng)
+    eng.shutdown()
+    out.update(budget_aborted=aborted, healthz_code=code)
+    return out
+
+
+def swap_check(stack, lm, lm2, prompts, refs, card):
+    """Check 2: v1 -> v2 under traffic; another engine over the module
+    keeps v1; ``promote_swap`` leaves v1 serving."""
+    from bigdl_tpu_torch.obs.registry import registry
+    from bigdl_tpu_torch.utils import faults
+    from bigdl_tpu_torch.utils.faults import FaultError
+    laps, t0 = {}, time.perf_counter()
+    tree2 = lm_tree(lm2)
+    eng, other = stack.engine(lm, "swap"), stack.engine(lm, "keep")
+    try:
+        warm_all_buckets(eng)
+        serve_round(eng, prompts)
+        serve_round(other, prompts)
+        laps["warm_s"] = time.perf_counter() - t0
+        progs = dict(eng._programs._programs)
+        keys = eng.stats()["compiled_programs"]
+
+        def swap():
+            t0 = time.perf_counter()
+            out = eng.swap_weights(tree2, version=2)
+            calls.append(time.perf_counter() - t0)
+            return out
+
+        calls = []
+        obs0 = registry.snapshot()
+        t0 = time.perf_counter()
+        res, results = swapped_round(eng, prompts, 1000, swap)
+        laps["round_s"] = time.perf_counter() - t0
+        # the engine's own readings of the re-prefills and of the first
+        # token after the swap began
+        reprefill = one_observation(obs0, "serving/reprefill_ms", "swap")
+        first = one_observation(obs0, "serving/resume_first_token_ms",
+                                "swap")
+        same_programs("swap", eng, progs, keys)
+        t0 = time.perf_counter()
+        with apart("references"):
+            parted = check_split("swap", lm, lm2, prompts, results,
+                                 res.in_flight,
+                                 done_before(res.in_flight, results), refs)
+        laps["references_s"] = time.perf_counter() - t0
+        kept = [h.result(timeout=600) for h in
+                [other.submit(p, NEW_TOKENS) for p in prompts[:SLOTS]]]
+        with apart("references"):
+            check_near_ties(lm, "the other engine (v1)",
+                            [r.tokens for r in kept], refs[:SLOTS],
+                            [len(p) for p in prompts[:SLOTS]])
+        with faults.inject_faults("promote_swap@1") as plan:
+            try:
+                other.swap_weights(tree2, version=3)
+                raise CheckFailed("promote_swap did not fail the swap")
+            except FaultError:
+                pass
+            if plan.unfired():
+                raise CheckFailed("promote_swap never fired")
+        after = [h.result(timeout=600) for h in
+                 [other.submit(p, NEW_TOKENS) for p in prompts[:2]]]
+        if other.model_version != 0 or any(
+                not np.array_equal(a.tokens, k.tokens)
+                for a, k in zip(after, kept)):
+            raise CheckFailed("a failed swap changed the served weights")
+    finally:
+        eng.shutdown()
+        other.shutdown()
+    if eng.stats()["model_version"] != 2 or not res.requeued:
+        raise CheckFailed(f"swap: version {eng.stats()['model_version']}, "
+                          f"{res.requeued} re-prefilled")
+    out = {"pause_ms": res.duration_s * 1e3, "swap_call_ms": calls[0] * 1e3,
+           "reprefill_ms": reprefill, "first_token_ms": first,
+           "requeued": res.requeued,
+           "requests": len(results), "near_ties_parted": parted,
+           "compiled_programs": keys, "laps": laps}
+    log(f"  swap v1 -> v2 under traffic: the engine paused "
+        f"{out['pause_ms']:.2f} ms (swap_weights returned in "
+        f"{out['swap_call_ms']:.2f} ms), {res.requeued} in-flight requests "
+        f"re-prefilled in {reprefill:.2f} ms, the first token "
+        f"{first:.2f} ms after the swap began; tokens before the "
+        f"swap v1's, after it greedy on v2 from that prefix ({parted} "
+        f"parted at near ties); the other engine over the same module still "
+        f"serves v1; promote_swap left v1 serving; {keys} programs before "
+        f"and after [{card}]")
+    return out
+
+
+def drain_check(eng, lm, prompts, refs, card):
+    """Check 3, on a warm engine, which it ends: SIGTERM through
+    ``install_signal_drain`` with 8 requests in flight and 4 queued (a
+    backlog under the slot count: health stays ready until the
+    signal)."""
+    import signal
+    from bigdl_tpu_torch.serving import EngineShutdown
+    n = SLOTS + SLOTS // 2
+    original = signal.getsignal(signal.SIGTERM)
+    chained = []
+    signal.signal(signal.SIGTERM, lambda s, f: chained.append(s))
+    try:
+        eng.install_signal_drain()
+        handles = [eng.submit(p, NEW_TOKENS) for p in prompts[:n]]
+        # the health update follows the iteration's admissions
+        wait_for(lambda: eng.stats()["active_slots"] == SLOTS
+                 and eng.stats()["health"] == "ready", "a full grid")
+        health = [eng.stats()["health"]]
+        t0 = time.perf_counter()
+        os.kill(os.getpid(), signal.SIGTERM)
+        wait_for(lambda: chained, "the chained handler")
+        health.append(eng.stats()["health"])
+        eng._thread.join(600)
+        drain_s = time.perf_counter() - t0
+        health.append(eng.stats()["health"])
+    finally:
+        signal.signal(signal.SIGTERM, original)
+    finished, refused = [], 0
+    for h in handles:
+        try:
+            finished.append(h.result(timeout=60))
+        except EngineShutdown:
+            refused += 1
+    with apart("references"):
+        check_near_ties(lm, "drained", [r.tokens for r in finished],
+                        refs[:len(finished)],
+                        [len(p) for p in prompts[:len(finished)]])
+    log(f"  drain: SIGTERM with {SLOTS} in flight and {n - SLOTS} queued: "
+        f"{len(finished)} finished ({NEW_TOKENS} tokens each, their greedy "
+        f"references), {refused} refused with EngineShutdown, health "
+        f"{' -> '.join(health)}, the previous handler called; drained in "
+        f"{drain_s * 1e3:.1f} ms [{card}]")
+    if health != ["ready", "draining", "dead"] or len(finished) != SLOTS \
+            or refused != n - SLOTS or chained != [signal.SIGTERM] \
+            or any(r.n_generated != NEW_TOKENS for r in finished):
+        raise CheckFailed(f"drain: health {health}, {len(finished)} "
+                          f"finished, {refused} refused")
+    return {"drain_ms": drain_s * 1e3, "finished": len(finished),
+            "refused": refused, "health": health}
+
+
+def watchdog_check(eng, prompts, card):
+    """Check 4, on a warm engine (5+ ticks timed): ``serve_stall`` holds a
+    tick for STACK_STALL_S seconds: exactly one dump, naming the engine's
+    loop thread."""
+    from bigdl_tpu_torch.utils import faults
+    texts = []
+    eng._watchdog.sink = texts.append
+    before = os.environ.get("BIGDL_FAULT_STALL_S")
+    os.environ["BIGDL_FAULT_STALL_S"] = str(STACK_STALL_S)
+    try:
+        with faults.inject_faults("serve_stall@10") as plan:
+            serve_round(eng, prompts)
+            if plan.unfired():
+                raise CheckFailed("serve_stall never fired")
+    finally:
+        if before is None:
+            os.environ.pop("BIGDL_FAULT_STALL_S")
+        else:
+            os.environ["BIGDL_FAULT_STALL_S"] = before
+    limit = eng._watchdog.limit()
+    loop = f"bigdl-serve-{eng.name}-loop"
+    log(f"  watchdog: a {STACK_STALL_S:.1f} s serve_stall tripped "
+        f"{eng._watchdog.dumps} dump(s) (limit {limit:.3f} s: 10 x the "
+        f"median tick, floored at 0.25 s), naming {loop}: "
+        f"{bool(texts) and loop in texts[0]}")
+    if eng._watchdog.dumps != 1 or len(texts) != 1 or loop not in texts[0]:
+        raise CheckFailed(f"watchdog: {eng._watchdog.dumps} dumps, "
+                          f"{len(texts)} texts")
+    return {"dumps": 1, "limit_s": limit, "stall_s": STACK_STALL_S}
+
+
+def fleet_check(stack, lm, prompts, refs, engine_round, card):
+    """Check 5: a prefill replica and a decode replica on the one card;
+    then ``replica_down`` mid-traffic; /healthz shows the fleet
+    degraded."""
+    from bigdl_tpu_torch.obs import exporter
+    from bigdl_tpu_torch.obs.registry import registry
+    from bigdl_tpu_torch.serving import FleetRouter
+    from bigdl_tpu_torch.serving.prefix_cache import _states_nbytes
+    from bigdl_tpu_torch.utils import faults
+    fleet = FleetRouter.replicate(lm, MAX_LEN, replicas=2,
+                                  phases="prefill,decode", prefix_pool=16,
+                                  device=DEVICE, slots=SLOTS)
+    for eng in fleet.replicas.values():
+        stack.watch(eng)
+    try:
+        # the captures, one request at a time (no two threads capture at
+        # once), then the timed round
+        for p in prompts:
+            fleet.submit(p, NEW_TOKENS).result(timeout=600)
+        # the prefill tier serves end to end after the decode tier dies
+        # below: its tick and assign are captured now, alone
+        fleet.engine("fleet-r0").submit(prompts[0], 2).result(timeout=600)
+
+        class TimedFleet:
+            """The fleet as ``serve_round``'s engine, each submit timed."""
+            calls = {}
+
+            def submit(self, p, n, request_id=None):
+                t = time.perf_counter()
+                h = fleet.submit(p, n, request_id=request_id)
+                self.calls[request_id] = time.perf_counter() - t
+                return h
+
+        timed_fleet = TimedFleet()
+        obs0 = registry.snapshot()     # the fleet's handoff_ms from here
+        for _ in range(2):
+            before = fleet.engine("fleet-r1").stats()
+            results, wall = serve_round(timed_fleet, prompts)
+        after = fleet.engine("fleet-r1").stats()
+        calls = [timed_fleet.calls[i] for i in range(N_REQUESTS)]
+        n_hand, hand_total = hist_delta(obs0, "serving/handoff_ms")
+        with apart("references"):
+            check_served_tokens(lm, None, prompts, results, refs)
+        # a request's TTFT from its fleet submit: the call (the handoff,
+        # then the decode engine's submit, its last step) and the decode
+        # engine's TTFT from that submit
+        ttft = np.array([c + r.ttft_s for c, r in zip(calls, results)]) \
+            * 1e3
+        ticks = after["decode_ticks"] - before["decode_ticks"]
+        tick_s = after["decode_seconds"] - before["decode_seconds"]
+        warm = {"wall_s": wall, "ticks": ticks,
+                "decode_tokens_per_s": (after["decode_tokens"]
+                                        - before["decode_tokens"]) / tick_s,
+                "tick_ms": tick_s / ticks * 1e3,
+                "ttft_p50_ms": float(np.percentile(ttft, 50)),
+                "ttft_p99_ms": float(np.percentile(ttft, 99)),
+                "engine_ttft_p50_ms": float(np.percentile(
+                    [r.ttft_s * 1e3 for r in results], 50))}
+        st = fleet.stats()
+        if st["handoff_failures"] or st["handoffs"] != 3 * N_REQUESTS \
+                or n_hand != 2 * N_REQUESTS \
+                or st["replicas"]["fleet-r1"]["prefills"] != 0:
+            raise CheckFailed(f"fleet: {st['handoffs']} handoffs "
+                              f"({n_hand} timed), "
+                              f"{st['handoff_failures']} failed, decode "
+                              f"prefills {st['replicas']['fleet-r1']['prefills']}")
+        tok, states = fleet.engine("fleet-r0").prefill_export(prompts[0])
+        nbytes = _states_nbytes(states)
+        del states
+        log(f"  fleet: {N_REQUESTS} requests equal their greedy references; "
+            f"decode {warm['decode_tokens_per_s']:.1f} tokens/s against one "
+            f"engine's {engine_round['decode_tokens_per_s']:.1f} (tick "
+            f"{warm['tick_ms']:.3f} against {engine_round['tick_ms']:.3f} "
+            f"ms); TTFT from the fleet submit p50 {warm['ttft_p50_ms']:.1f} /"
+            f" p99 {warm['ttft_p99_ms']:.1f} ms (from the decode engine's "
+            f"submit p50 {warm['engine_ttft_p50_ms']:.1f}) against "
+            f"{engine_round['ttft_p50_ms']:.1f} / "
+            f"{engine_round['ttft_p99_ms']:.1f}; a handoff (export and "
+            f"seed) "
+            f"{hand_total / n_hand:.2f} ms mean over {n_hand}, "
+            f"{nbytes / 2 ** 20:.2f} MiB for a {len(prompts[0])}-token "
+            f"prompt (both tiers share the card: this is the handoff's "
+            f"cost, not disaggregation's gain) [{card}]")
+        # replica_down: the decode replica is killed at a dispatch
+        with faults.inject_faults("replica_down@3") as plan:
+            handles = [fleet.submit(p, NEW_TOKENS) for p in prompts]
+            downed = [h.result(timeout=600) for h in handles]
+            if plan.unfired():
+                raise CheckFailed("replica_down never fired")
+        wait_for(lambda: fleet.stats()["healthy_replicas"] == 1,
+                 "one healthy replica")
+        with apart("references"):
+            check_served_tokens(lm, None, prompts, downed, refs)
+        mine = set(fleet.replicas.values())
+        for other in exporter.engines():
+            if other not in mine:
+                exporter.unregister_engine(other)
+        code, payload = exporter.render_healthz()
+        fb = payload["fleets"][fleet.name]
+        log(f"  replica_down: {fleet.stats()['replica_downs']} replica "
+            f"killed mid-traffic, all {N_REQUESTS} requests completed "
+            f"(their greedy references), {fleet.stats()['retries']} "
+            f"retries; "
+            f"/healthz {code} {payload['status']!r}, replicas "
+            f"{fb['replicas']}")
+        if code != 200 or payload["status"] != "degraded" \
+                or fb["healthy_replicas"] != 1:
+            raise CheckFailed(f"fleet /healthz {code} {payload['status']}")
+        out = dict(warm, handoff_ms=hand_total / n_hand,
+                   handoff_bytes=nbytes, handoffs=st["handoffs"],
+                   replica_downs=fleet.stats()["replica_downs"],
+                   retries=fleet.stats()["retries"], healthz=code)
+    finally:
+        fleet.shutdown()
+        exporter.unregister_fleet(fleet)
+        for eng in fleet.replicas.values():
+            exporter.unregister_engine(eng)
+    return out
+
+
+def stack_data():
+    """The lifecycle's training data and its first STACK_EVAL_BATCHES
+    batches (phase 6's synthetic corpus)."""
+    from bigdl_tpu_torch.dataset import (
+        DataSet, Sample, SampleToMiniBatch, ptb_windows, synthetic_ptb,
+    )
+    from bigdl_tpu_torch.utils.random_generator import RandomGenerator
+    RandomGenerator.set_seed(SEED)
+    ids = synthetic_ptb(TRAIN_BATCH * STACK_STEPS * TRAIN_LEN + 1,
+                        vocab_size=VOCAB)
+    xs, ys = ptb_windows(ids, TRAIN_LEN)
+    pairs = list(zip(xs, ys))
+
+    def ds(rows):
+        return (DataSet.array(Sample(x, y) for x, y in rows)
+                >> SampleToMiniBatch(TRAIN_BATCH))
+
+    return ds(pairs), ds(pairs[:TRAIN_BATCH * STACK_EVAL_BATCHES])
+
+
+def lifecycle_check(stack, TransformerLM, lm_criterion, lm, prompts, refs,
+                    card):
+    """Check 6: train STACK_STEPS steps publishing to a registry; gate
+    (the port's Evaluator) rejects a NaN version and promotes the best
+    trained one under traffic; a gate-bypassed bad version is rolled back
+    by the watch window."""
+    from bigdl_tpu_torch.obs.slo import SLOMonitor
+    from bigdl_tpu_torch.optim import SGD, LocalOptimizer, Trigger
+    from bigdl_tpu_torch.optim.validation import Loss
+    from bigdl_tpu_torch.serving import (
+        PromotionController, PromotionCriterion,
+    )
+    from bigdl_tpu_torch.utils import faults
+    from bigdl_tpu_torch.utils.model_registry import ModelRegistry
+    laps = {}
+    reg = ModelRegistry(str(stack_dir("registry")), keep=8)
+    train, evald = stack_data()
+    model = TransformerLM(VOCAB, EMBED, HEADS, LAYERS, MAX_LEN,
+                          attention_impl="auto",
+                          generator=torch.Generator().manual_seed(SEED),
+                          device=DEVICE)      # the served LM's weights
+    opt = (LocalOptimizer(model, train, lm_criterion(), device=DEVICE)
+           .set_optim_method(SGD(learningrate=0.01, momentum=0.9,
+                                 dampening=0.0))
+           .set_end_when(Trigger.max_iteration(STACK_STEPS))
+           .set_checkpoint(str(stack_dir("ckpt")),
+                           Trigger.several_iteration(STACK_EVERY))
+           .set_model_registry(reg))
+    sync()
+    t0 = time.perf_counter()
+    with apart("trainer"):
+        opt.optimize()
+        opt._join_checkpoint_writer()
+    train_s = time.perf_counter() - t0
+    trained = reg.versions()
+    del opt, model
+    release()
+    if trained != [STACK_EVERY, STACK_STEPS]:
+        raise CheckFailed(f"the trainer published {trained}")
+    from bigdl_tpu_torch import convert
+    v_nan = reg.publish(convert.map_tree(
+        lambda a: np.full_like(a, np.nan), reg.resolve_params(trained[-1])),
+        meta={"source": "poisoned"})
+    eval_lm = build_lm(TransformerLM, "auto", DEVICE)
+    live = stack.engine(lm, "live")
+    serve_round(live, prompts)
+    ctrl = PromotionController(
+        reg, engine=live, eval_model=eval_lm, eval_dataset=evald,
+        eval_methods=[Loss(lm_criterion())],
+        criterion=PromotionCriterion(mode="min", no_regression=True),
+        slo_monitor=SLOMonitor(), probe_prompts=[prompts[0]],
+        watch_window_s=5.0, poll_s=0.05, rollback_budget=3)
+    try:
+        t0 = time.perf_counter()
+        gates, gate_launches = {}, {}
+        for v in trained + [v_nan]:
+            with apart("evaluator") as gate_launches[v]:
+                gates[v] = ctrl.gate(v)
+        laps["gates_s"] = time.perf_counter() - t0
+        if gates[v_nan][0] or "non-finite" not in gates[v_nan][2] \
+                or reg.status(v_nan)["status"] != "rejected":
+            raise CheckFailed(f"the NaN version passed the gate: "
+                              f"{gates[v_nan]}")
+        best = min(trained, key=lambda v: gates[v][1])
+        # promote under traffic: a client keeps the grid full throughout
+        t0 = time.perf_counter()
+        res, results = swapped_round(
+            live, prompts, 1000, lambda: ctrl.promote(best, watch=False))
+        # the promotion gated v{best} again, its evaluator beside the
+        # engine's traffic: the launches of the same gate run alone above
+        # (the same model, batches and code)
+        count_apart("evaluator", gate_launches[best])
+        if not res.promoted or live.model_version != best \
+                or not res.swap.requeued:
+            raise CheckFailed(f"promotion of v{best}: {res}")
+        best_lm = build_lm(TransformerLM, "auto", DEVICE)
+        convert.load_jax_params(best_lm, reg.resolve_params(best))
+        laps["promote_round_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        with apart("references"):
+            parted = check_split("promotion", lm, best_lm, prompts, results,
+                                 res.swap.in_flight,
+                                 done_before(res.swap.in_flight, results),
+                                 refs)
+        laps["references_s"] = time.perf_counter() - t0
+        probe = live.submit(prompts[0], NEW_TOKENS).result(timeout=600)
+        # the drill: a bad version (the best plus noise) with the gate
+        # bypassed; the SLO check breaches in the window's first round, the
+        # first rollback attempt is spent by promote_rollback
+        g = torch.Generator(device="cpu").manual_seed(STACK_SEED + 1)
+        bad = {n: p.detach().cpu() + 0.5 * torch.randn(
+            p.shape, generator=g) for n, p in best_lm.named_parameters()}
+        v_bad = reg.publish(convert.nest(best_lm, bad),
+                            meta={"source": "drill"})
+        with faults.inject_faults("slo_breach@1;promote_rollback@1") as plan:
+            t0 = time.perf_counter()
+            drill = ctrl.promote(v_bad, gate=False)
+            laps["drill_s"] = time.perf_counter() - t0
+            if plan.unfired():
+                raise CheckFailed(f"the drill's plan: {plan.unfired()}")
+        back = live.submit(prompts[0], NEW_TOKENS).result(timeout=600)
+        with apart("references"):
+            want = forward_greedy(best_lm, prompts[0], NEW_TOKENS)
+    finally:
+        live.shutdown()
+    bitwise = np.array_equal(back.tokens, probe.tokens)
+    log(f"  lifecycle: {STACK_STEPS} fp32 steps in {train_s:.1f} s "
+        f"published v{trained}; gate (Loss on {STACK_EVAL_BATCHES} batches "
+        f"of the training data): "
+        + ", ".join(f"v{v} {gates[v][1]:.4f}" for v in trained)
+        + f", v{v_nan} (NaN) rejected; v{best} promoted under traffic "
+        f"({res.swap.requeued} re-prefilled, {parted} parted at near "
+        f"ties); the drill's v{v_bad} rolled back after "
+        f"{ctrl.rollbacks} attempt(s): served tokens bitwise v{best}'s: "
+        f"{bitwise} [{card}]")
+    if not drill.rolled_back or live.model_version != best or not bitwise \
+            or reg.status(v_bad)["status"] != "rolled_back" \
+            or ctrl.rollbacks != 2:
+        raise CheckFailed(f"the drill: {drill}, serving "
+                          f"v{live.model_version}, rollbacks "
+                          f"{ctrl.rollbacks}, bitwise {bitwise}")
+    with apart("references"):
+        check_near_ties(best_lm, "promoted probe", [probe.tokens], [want],
+                        [len(prompts[0])])
+    del eval_lm, best_lm
+    release()
+    return {"train_s": train_s, "laps": laps, "requests": len(results),
+            "published": trained,
+            "gate": {str(v): gates[v][1] for v in trained},
+            "rejected_nan": v_nan, "promoted": best,
+            "requeued": res.swap.requeued, "rolled_back": v_bad,
+            "rollback_attempts": ctrl.rollbacks}
+
+
+def tenants_check(stack, lm, lm2, prompts, refs, card):
+    """Check 7: two native tenants, ``update_tenant`` on one; the endpoint
+    scraped once."""
+    import json as _json
+    import urllib.request
+    from bigdl_tpu_torch.obs import exporter
+    from bigdl_tpu_torch.serving import SnapshotServer
+    srv = SnapshotServer({"tenant-a": lm, "tenant-b": lm}, max_len=MAX_LEN,
+                         slots=SLOTS, device=DEVICE)
+    for name in srv.snapshots:
+        stack.watch(srv.engine(name))
+    ep = exporter.MetricsExporter(0, host="127.0.0.1").start()
+    try:
+        for name in srv.snapshots:
+            for p in prompts[:2]:
+                srv.submit(name, p, NEW_TOKENS).result(timeout=600)
+        srv.update_tenant("tenant-a", lm_tree(lm2), version=2)
+        a = [srv.submit("tenant-a", p, NEW_TOKENS).result(timeout=600)
+             for p in prompts[:2]]
+        b = [srv.submit("tenant-b", p, NEW_TOKENS).result(timeout=600)
+             for p in prompts[:2]]
+        # the server is on this host: no proxy
+        opener = urllib.request.build_opener(urllib.request.ProxyHandler({}))
+        with opener.open(ep.url + "/metrics", timeout=60) as r:
+            metrics = exporter.parse_metrics(r.read().decode())
+        with opener.open(ep.url + "/statusz", timeout=60) as r:
+            statusz = _json.loads(r.read().decode())
+    finally:
+        ep.stop()
+        srv.shutdown()
+        for name in srv.snapshots:
+            exporter.unregister_engine(srv.engine(name))
+    with apart("references"):
+        refs2 = [forward_greedy(lm2, p, NEW_TOKENS) for p in prompts[:2]]
+        check_near_ties(lm2, "tenant-a (v2)", [r.tokens for r in a], refs2,
+                        [len(p) for p in prompts[:2]])
+        check_near_ties(lm, "tenant-b (v1)", [r.tokens for r in b],
+                        refs[:2], [len(p) for p in prompts[:2]])
+    rows = {t: metrics.get(f'bigdl_serving_tenant_model_version'
+                           f'{{tenant="{t}"}}') for t in srv.snapshots}
+    log(f"  tenants: update_tenant('tenant-a', v2) served v2's tokens, "
+        f"tenant-b kept v1's; /metrics parsed {len(metrics)} series, "
+        f"model_version rows {rows}; /statusz JSON with "
+        f"{len(statusz['engines'])} engine ledgers [{card}]")
+    if rows != {"tenant-a": 2.0, "tenant-b": 0.0} or not all(
+            t in statusz["engines"] for t in srv.snapshots):
+        raise CheckFailed(f"the endpoint: rows {rows}")
+    return {"metrics_series": len(metrics), "model_version_rows": rows}
+
+
+def serving_stack(TransformerLM, lm_criterion, card, prompts=None,
+                  refs=None):
+    """Phase 14 (its launches are counted from a reset by the caller, the
+    references' apart: ``stack_launches``): crash recovery, hot swaps,
+    drain, the watchdog, the fleet, the lifecycle and the snapshot server
+    on phase 5's served LM."""
+    from bigdl_tpu_torch.serving import ServingEngine
+    t0 = time.perf_counter()
+    _APART.clear()
+    env = os.environ.get("BIGDL_WATCHDOG_S")
+    os.environ["BIGDL_WATCHDOG_S"] = str(STACK_WATCHDOG_S)
+    stack = Stack(ServingEngine)
+    try:
+        lm = build_lm(TransformerLM, "auto", DEVICE)
+        lm2 = TransformerLM(VOCAB, EMBED, HEADS, LAYERS, MAX_LEN,
+                            generator=torch.Generator().manual_seed(
+                                STACK_SEED), device=DEVICE).evaluate()
+        if prompts is None:
+            prompts = serving_prompts()
+        if refs is None:
+            with apart("references"):
+                refs = [forward_greedy(lm, p, NEW_TOKENS) for p in prompts]
+        out = {}
+
+        def timed(name, fn, *args):
+            t = time.perf_counter()
+            out[name] = fn(*args)
+            out[name]["wall_s"] = time.perf_counter() - t
+            release()
+
+        timed("crash", crash_check, stack, lm, prompts, refs, card)
+        timed("swap", swap_check, stack, lm, lm2, prompts, refs, card)
+        # one engine: its rates (the fleet's yardstick), the watchdog's
+        # stall, then the drain that ends it
+        one = stack.engine(lm, "serve")
+        try:
+            serve_round(one, prompts)
+            before = one.stats()
+            results, wall = serve_round(one, prompts)
+            out["one_engine"] = report_round(
+                "one engine, second round", results, wall, one.stats(),
+                before, card)
+            timed("watchdog", watchdog_check, one, prompts, card)
+            timed("drain", drain_check, one, lm, prompts, refs, card)
+        finally:
+            one.shutdown()
+        timed("fleet", fleet_check, stack, lm, prompts, refs,
+              out["one_engine"], card)
+        timed("lifecycle", lifecycle_check, stack, TransformerLM,
+              lm_criterion, lm, prompts, refs, card)
+        timed("tenants", tenants_check, stack, lm, lm2, prompts, refs, card)
+    finally:
+        if env is None:
+            os.environ.pop("BIGDL_WATCHDOG_S", None)
+        else:
+            os.environ["BIGDL_WATCHDOG_S"] = env
+    dumps = stack.dumps()
+    log(f"  watchdog dumps over the phase's {len(stack.watched)} engines: "
+        f"{dumps} (the stall check's only)")
+    if dumps != {"serve": 1}:
+        raise CheckFailed(f"watchdog dumps elsewhere in phase 14: {dumps}")
+    del lm, lm2
+    release()
+    out["wall_s"] = time.perf_counter() - t0
+    log(f"  phase 14 took {out['wall_s']:.1f} s [{card}]")
+    return out
+
+
 # -------------------------------------------------------------------- main
 def main() -> int:
     if not torch.cuda.is_available():
@@ -4501,6 +5438,13 @@ def main() -> int:
         log("phase 13 only")
         text = text_path(kernels, card, Engine)
         print(json.dumps({"text": text}), flush=True)
+        return 0
+    if "--serving-only" in sys.argv:
+        log("phase 14 only")
+        kernels.reset_launch_counts()
+        stack = serving_stack(TransformerLM, lm_criterion, card)
+        stack["launches"] = stack_launches(kernels.launch_counts())
+        print(json.dumps({"serving_stack": stack}), flush=True)
         return 0
     build = report_flash_build(lib, kernels, _cuda.find_nvcc())
     ln_build = report_layer_norm_build(lib)
@@ -4685,6 +5629,14 @@ def main() -> int:
         raise CheckFailed(f"the text path launched the LM kernels "
                           f"{text['launches']}")
 
+    log("phase 14: the rest of serving (crash recovery, hot swaps, drain, "
+        "the watchdog, the fleet, the lifecycle, the snapshot server), full "
+        "width")
+    kernels.reset_launch_counts()          # the phase's path: from here ...
+    stack = serving_stack(TransformerLM, lm_criterion, card, prompts, refs)
+    # ... to here, the references' launches left out
+    stack["launches"] = stack_launches(kernels.launch_counts())
+
     log("phase 10: the kernel table")
 
     # each kernel's row: its own slice's path (serving for the forward
@@ -4741,7 +5693,9 @@ def main() -> int:
                  "serving_extras": extras_counts[k],
                  "robustness": robust_counts[k],
                  "feed": feed["launches"][k],
-                 "text": text["launches"][k]}
+                 "text": text["launches"][k],
+                 "serving_stack": stack["launches"]["path"][k],
+                 "serving_stack_engines": stack["launches"]["engines"][k]}
              for k in launches}
     beam_row = find_row(fa_rows, BEAM_SHAPE, "float32")
 
@@ -4897,7 +5851,7 @@ def main() -> int:
                                                    "host_calls")}}},
         "llama": dict(llama["summary"], kernel_ms_per_step=llama_kernel_ms),
         "vision": vision, "serving_extras": extras, "robustness": robust,
-        "feed": feed, "text": text}
+        "feed": feed, "text": text, "serving_stack": stack}
     print(json.dumps(table), flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -4,7 +4,9 @@ step (the llama-style model with the fused head among its variants, and a
 CIFAR ResNet-20 whose batch-norm statistics ride in the program, and the
 PTB LSTM LM whose unrolled recurrence is one program), each
 replayed against the same work run eagerly, and dropout drawing fresh
-masks at every replay.
+masks at every replay; a failed capture captured again at the next call;
+the serving engine's graphs replayed, not captured again, across a crash
+and a weight swap.
 
 Marked ``gpu``: they skip where there is no CUDA device (a CUDA graph has
 no CPU form). This file imports neither JAX nor the JAX package:
@@ -288,6 +290,65 @@ def test_a_failed_capture_raises_with_its_key(cuda):
     assert float((x * 2).sum()) == 8.0      # the card still works
     # and so does the default generator, which the capture had marked
     assert torch.randn(4, device="cuda").isfinite().all()
+
+
+def test_a_failed_capture_is_captured_again_at_the_next_call(cuda):
+    """A capture that failed leaves no graph behind: the next call warms
+    up and captures anew, and replays after that."""
+    x = torch.ones(4, device="cuda")
+    fail = [True]
+
+    def fn(t):
+        if fail[0] and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("the loop died mid-capture")
+        return t * 3
+
+    prog = Program(("dies_once", 4), fn, (x,), "cuda")
+    with pytest.raises(ProgramCaptureError, match="dies_once"):
+        prog()
+    assert not prog.captured
+    fail[0] = False
+    assert prog().sum().item() == 12.0 and prog.captured
+    x.fill_(2.0)
+    assert prog().sum().item() == 24.0 and prog.replays == 1
+
+
+def test_crash_and_swap_replay_the_captured_programs(cuda):
+    """On the card, a crash (``serve_decode@2=error``) and a weight swap
+    keep every captured graph: the same program objects and graphs replay
+    (the grid is zeroed and the weights copied in place), the ledger does
+    not grow, and the tokens are solo greedy's on the weights served."""
+    from bigdl_tpu_torch import convert
+    from bigdl_tpu_torch.utils.faults import inject_faults
+    lm = _lm().evaluate()
+    lm2 = TransformerLM(VOCAB, E, HEADS, LAYERS, MAX_LEN,
+                        generator=torch.Generator().manual_seed(1),
+                        device="cuda").evaluate()
+    tree2 = convert.nest(lm2, {n: p.detach().cpu().numpy()
+                               for n, p in lm2.named_parameters()})
+    r = np.random.default_rng(1)
+    reqs = [r.integers(0, VOCAB, n) for n in (5, 20, 40)]
+    with ServingEngine(lm, MAX_LEN, slots=3) as eng:
+        for p in reqs:
+            eng.submit(p, 2).result(120)
+        progs = dict(eng._programs._programs)
+        graphs = {k: p._graph for k, p in progs.items()}
+        keys = eng.stats()["compiled_programs"]
+        with inject_faults("serve_decode@2=error") as plan:
+            got = [h.result(120).tokens
+                   for h in [eng.submit(p, 8) for p in reqs]]
+        assert plan.unfired() == [] and eng.stats()["respawns"] == 1
+        eng.swap_weights(tree2, version=2)
+        got2 = [h.result(120).tokens
+                for h in [eng.submit(p, 8) for p in reqs]]
+        assert eng.stats()["compiled_programs"] == keys
+        assert eng._programs._programs == progs
+        assert all(p._graph is graphs[k] for k, p in progs.items())
+    for p, a, b in zip(reqs, got, got2):
+        np.testing.assert_array_equal(
+            a, greedy_generate(lm, p[None], 8)[0].cpu().numpy())
+        np.testing.assert_array_equal(
+            b, greedy_generate(lm2, p[None], 8)[0].cpu().numpy())
 
 
 @pytest.mark.parametrize("explicit", [False, True],

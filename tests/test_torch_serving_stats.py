@@ -4,8 +4,8 @@ Both engines serve the same requests on the same weights (a small
 ``TransformerLM``), on the slot grid and paged, without a draft and with
 the target as its own draft (``spec_tokens=2``):
 
-- the key set is JAX's, less the health keys that come with ROADMAP Queue
-  A.3.2 (``A32_KEYS``), plus the port's own (``PORT_KEYS``);
+- the key set is JAX's, the health keys (``HEALTH_KEYS``) included, plus
+  the port's own (``PORT_KEYS``);
 - the rounding is JAX's (``decode_rate``, ``decode_tps`` and
   ``est_wait_ms`` to 3 places, ``est_wait_s`` to 6, ``spec_acceptance``
   and ``free_page_ratio`` to 4) and the counts after the drain equal;
@@ -30,8 +30,8 @@ from bigdl_tpu_torch.serving import (
 
 VOCAB, E, HEADS, MAX_LEN = 64, 32, 4, 64
 BUCKETS = (16, 32, 64)
-#: JAX's keys that come with ROADMAP Queue A.3.2 (health and respawn)
-A32_KEYS = {"health", "respawns", "model_version", "slo_degraded"}
+#: JAX's health and recovery keys
+HEALTH_KEYS = {"health", "respawns", "model_version", "slo_degraded"}
 #: the port's keys that JAX's stats() lacks
 PORT_KEYS = {"device", "peak_active_slots", "prefills", "prefills_by_bucket",
              "prefill_seconds", "decode_ticks", "decode_tokens",
@@ -44,7 +44,8 @@ EQUAL_AFTER_DRAIN = ("submitted", "completed", "shed", "timeouts",
                      "spec_acceptance", "paged", "pages_total",
                      "page_tokens", "pages_used", "pages_free",
                      "free_page_ratio", "prefill_inflight", "slots",
-                     "max_len", "program_grid_bound", "overload")
+                     "max_len", "program_grid_bound", "overload",
+                     "health", "respawns", "model_version", "slo_degraded")
 
 
 @pytest.fixture(scope="module")
@@ -92,8 +93,8 @@ def test_stats_hold_jax_keys_rounding_and_counts(pair, paged, draft):
     finally:
         ours.shutdown()
         theirs.shutdown()
-    assert A32_KEYS <= set(want) and not A32_KEYS & set(got)
-    assert set(got) - PORT_KEYS == set(want) - A32_KEYS
+    assert HEALTH_KEYS <= set(want) and HEALTH_KEYS <= set(got)
+    assert set(got) - PORT_KEYS == set(want)
     assert "acceptance_rate" not in got
     for key, places in ROUNDING.items():
         assert got[key] == round(got[key], places), key
@@ -101,6 +102,7 @@ def test_stats_hold_jax_keys_rounding_and_counts(pair, paged, draft):
     for key in EQUAL_AFTER_DRAIN:
         assert got[key] == want[key], key
     assert got["submitted"] == got["completed"] == 3
+    assert got["health"] == "ready" and got["respawns"] == 0
     if draft:
         assert got["spec_acceptance"] == want["spec_acceptance"] == 1.0
     assert got["decode_rate"] == got["decode_tps"] > 0
