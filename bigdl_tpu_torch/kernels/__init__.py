@@ -14,7 +14,8 @@ ported as a torch module, not a kernel.
 :func:`launch_counts` reads how often each kernel was launched since the
 last :func:`reset_launch_counts`, which is how a run shows that its path
 went through the kernels; :func:`launch_counts_by_dtype` splits the counts
-by the launches' dtypes.
+by the launches' dtypes and :func:`launch_counts_by_variant` the flash
+kernels' by causal and non-causal.
 """
 
 from bigdl_tpu_torch.kernels import flash_attention as _flash
@@ -46,6 +47,12 @@ def launch_counts_by_dtype() -> dict:
     return {c.name: c.by_dtype for c in _COUNTERS}
 
 
+def launch_counts_by_variant() -> dict:
+    """``{kernel name: {variant: launches}}`` since the last reset: the
+    flash kernels' ``"causal"`` and ``"full"`` (non-causal) launches."""
+    return {c.name: c.by_variant for c in _COUNTERS}
+
+
 def reset_launch_counts() -> None:
     for c in _COUNTERS:
         c.reset()
@@ -59,7 +66,8 @@ __all__ = [
     "flash_attention_bwd_reference", "flash_attention_cuda",
     "flash_attention_fwd", "flash_attention_reference", "forward_launch_plan",
     "fused_layer_norm",
-    "launch_counts", "launch_counts_by_dtype", "layer_norm_backward",
+    "launch_counts", "launch_counts_by_dtype", "launch_counts_by_variant",
+    "layer_norm_backward",
     "layer_norm_bwd_cuda",
     "layer_norm_cuda", "layer_norm_reference", "reset_launch_counts",
 ]

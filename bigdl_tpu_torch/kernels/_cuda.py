@@ -48,7 +48,9 @@ _captures_lock = threading.Lock()
 
 class LaunchCounter:
     """Launches of one kernel, counted by its wrapper right after each
-    successful launch and nowhere else, in all and by the launch's dtypes.
+    successful launch and nowhere else, in all, by the launch's dtypes and,
+    where the wrapper names one, by its variant (the flash kernels':
+    ``"causal"`` or ``"full"``).
 
     A launch onto a stream that is being captured into a CUDA graph runs
     nothing yet: it is recorded for that capture instead (see
@@ -60,20 +62,27 @@ class LaunchCounter:
         self.name = name
         self._count = 0
         self._by_dtype: dict = {}
+        self._by_variant: dict = {}
         self._lock = threading.Lock()
 
-    def add(self, dtype: str, stream: int = None, n: int = 1) -> None:
-        """Count ``n`` launches of ``dtype``; ``stream`` is the raw handle
-        of the stream they went to."""
+    def add(self, dtype: str, stream: int = None, n: int = 1,
+            variant: str = None) -> None:
+        """Count ``n`` launches of ``dtype`` (and ``variant``); ``stream``
+        is the raw handle of the stream they went to."""
         if _captures:
             with _captures_lock:
                 record = _captures.get(stream)
                 if record is not None:
-                    record[(self, dtype)] = record.get((self, dtype), 0) + n
+                    key = (self, dtype) if variant is None \
+                        else (self, dtype, variant)
+                    record[key] = record.get(key, 0) + n
                     return
         with self._lock:
             self._count += n
             self._by_dtype[dtype] = self._by_dtype.get(dtype, 0) + n
+            if variant is not None:
+                self._by_variant[variant] = \
+                    self._by_variant.get(variant, 0) + n
 
     @property
     def count(self) -> int:
@@ -84,16 +93,23 @@ class LaunchCounter:
         with self._lock:
             return dict(self._by_dtype)
 
+    @property
+    def by_variant(self) -> dict:
+        with self._lock:
+            return dict(self._by_variant)
+
     def reset(self) -> None:
         with self._lock:
             self._count = 0
             self._by_dtype = {}
+            self._by_variant = {}
 
 
 @contextlib.contextmanager
 def recording_launches(stream: int):
     """While inside, launches counted on the stream of raw handle
-    ``stream`` go into the yielded ``{(counter, dtype): launches}`` record
+    ``stream`` go into the yielded ``{(counter, dtype[, variant]):
+    launches}`` record
     instead of the counters. The launches of an autograd backward, which
     come from the engine's own thread, land on the same stream."""
     record: dict = {}
@@ -110,8 +126,8 @@ def recording_launches(stream: int):
 
 def replay_launches(record: dict) -> None:
     """Count the launches of ``record`` again: one replay of its graph."""
-    for (counter, dtype), n in record.items():
-        counter.add(dtype, n=n)
+    for (counter, dtype, *variant), n in record.items():
+        counter.add(dtype, n=n, variant=variant[0] if variant else None)
 
 
 class KernelLibrary:

@@ -84,6 +84,11 @@ def flash_attention_bwd_reference(q: torch.Tensor, k: torch.Tensor,
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+def _variant(causal: bool) -> str:
+    """The launch counters' variant of a flash launch."""
+    return "causal" if causal else "full"
+
+
 def _check_operands(fn: str, q: torch.Tensor, *others: torch.Tensor) -> None:
     """The kernels take (B·H, T, d) tensors of one shape, dtype (float32 or
     bfloat16) and CUDA device, contiguous, 16-byte aligned, d in
@@ -123,7 +128,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             lse.data_ptr(), bh, t, d, int(bool(causal)),
             _DTYPE_CODES[q.dtype], stream)
     _cuda.check(code, "flash_attention_fwd")
-    launches.add(str(q.dtype)[6:], stream)
+    launches.add(str(q.dtype)[6:], stream, variant=_variant(causal))
     return out, lse
 
 
@@ -182,7 +187,7 @@ def flash_attention_bwd_dq_cuda(q: torch.Tensor, k: torch.Tensor,
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), bh, t, d,
             int(bool(causal)), _DTYPE_CODES[q.dtype], stream)
     _cuda.check(code, "flash_attention_bwd_dq")
-    bwd_dq_launches.add(str(q.dtype)[6:], stream)
+    bwd_dq_launches.add(str(q.dtype)[6:], stream, variant=_variant(causal))
     return dq
 
 
@@ -205,7 +210,8 @@ def flash_attention_bwd_dkv_cuda(q: torch.Tensor, k: torch.Tensor,
             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             bh, t, d, int(bool(causal)), _DTYPE_CODES[q.dtype], stream)
     _cuda.check(code, "flash_attention_bwd_dkv")
-    bwd_dkv_launches.add(str(q.dtype)[6:], stream)
+    bwd_dkv_launches.add(str(q.dtype)[6:], stream,
+                         variant=_variant(causal))
     return dk, dv
 
 

@@ -6,7 +6,9 @@ the words of that text file through ``SentenceTokenizer`` and a
 ``Dictionary`` of ``--vocab-size`` words) into windows of ``--seq-len``
 tokens, and trains with ``Adam`` through ``LocalOptimizer`` for
 ``--max-iteration`` steps, then prints the final loss and, with
-``--generate N``, beam-decodes N tokens from a seed. Runs on the card
+``--generate N``, beam-decodes N tokens from a seed. ``--lora RANK``
+adapts every attention and Linear at that rank (``nn.apply_lora``) and
+trains only the adapters. Runs on the card
 unless ``--device cpu``; ``BIGDL_COMPUTE_DTYPE=bf16`` trains in bf16 mixed
 precision (``utils/engine.py``), and ``BIGDL_FUSE_STEPS=K`` runs K steps a
 window (``LocalOptimizer.set_fuse_steps``, read by the optimizer, as in
@@ -32,7 +34,6 @@ from bigdl_tpu_torch.models.unported import refuse_unported
 UNPORTED_FLAGS = {
     "--model-snapshot": "Queue A.6 (module save/load)",
     "--save": "Queue A.6 (module save/load)",
-    "--lora": "Queue A.5 (nn/lora.py)",
     "--distributed": "Queue A.6 (DistriOptimizer)",
 }
 
@@ -50,6 +51,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--num-layers", type=int, default=2)
     p.add_argument("--vocab-size", type=int, default=256)
     p.add_argument("--dropout", type=float, default=0.0)
+    p.add_argument("--lora", type=int, default=0, metavar="RANK",
+                   help="LoRA fine-tune: adapt the attention and Linear "
+                        "layers at this rank, freeze everything else")
     p.add_argument("--rope", action="store_true",
                    help="rotary position embeddings instead of the learned "
                         "table")
@@ -100,6 +104,16 @@ def main(argv=None) -> float:
                           norm=args.norm, mlp_kind=args.mlp,
                           generator=torch.Generator().manual_seed(0),
                           device=args.device)
+    if args.lora:
+        # the port takes no --model-snapshot yet (Queue A.6): the base is
+        # always the freshly built one
+        print("WARNING: --lora without --model-snapshot freezes a RANDOM "
+              "base and trains only the adapters — this is almost never "
+              "what you want (LoRA fine-tunes a pretrained model)")
+        n = nn.apply_lora(model, rank=args.lora,
+                          generator=torch.Generator().manual_seed(1))
+        print(f"LoRA: adapted {n} modules at rank {args.lora} "
+              f"(base frozen)")
     if args.folder is not None:
         with open(args.folder) as f:
             tokens = SentenceTokenizer().tokens(f.read())

@@ -1,7 +1,8 @@
 """Decoder-only Transformer language model.
 
 Counterpart of ``bigdl_tpu/models/transformerlm/transformerlm.py``, with
-every option of the JAX constructor but LoRA (ROADMAP Queue A.5): token
+every option of the JAX constructor (LoRA adapts a built model through
+``nn.apply_lora``): token
 embedding, a learned position embedding or RoPE, pre-norm blocks
 (``x + MHA(N(x))``; ``x + MLP(N(x))``, each residual the
 ``ConcatTable(Identity, branch) >> CAddTable`` idiom, N LayerNorm or

@@ -32,8 +32,20 @@ Two paths:
   gathers the pool back into the slot grid's view, then attends as the
   per-slot step does (:meth:`MultiHeadAttention._paged_decode_step`).
 
-LoRA (``_w``, ``add_lora``, ``merge_lora``; ROADMAP Queue A.5) is not
-ported yet.
+LoRA: ``lora_rank`` in the constructor or :meth:`MultiHeadAttention.add_lora`
+gives every projection weight (``qkv_weight`` or ``q_weight``/``kv_weight``,
+and ``out_weight``) a rank-r adapter under JAX's keys
+``lora_<weight>_a`` (r, in) and ``lora_<weight>_b`` (out, r); every path
+(full forward, per-slot and paged decode) projects with the effective
+weight ``base + B·A·α/r`` (:meth:`MultiHeadAttention._w`), formed in the
+parameters' dtype as JAX forms it, and ``grad_scales`` freezes the bases.
+:meth:`MultiHeadAttention.merge_lora` bakes the adapters in.
+
+:class:`CrossAttention` is the encoder-decoder attention of the seq2seq
+Transformer: queries from the first element of its input ``Table``, keys
+and values from the second (the memory), through the plain
+``full_attention`` as in JAX (the query and key lengths differ, which the
+flash kernel does not take).
 """
 
 from __future__ import annotations
@@ -45,8 +57,11 @@ import torch.nn.functional as F
 
 from bigdl_tpu_torch.kernels import flash_attention
 from bigdl_tpu_torch.nn.abstractnn import TensorModule
-from bigdl_tpu_torch.nn.initialization import InitializationMethod, Xavier
+from bigdl_tpu_torch.nn.initialization import (
+    InitializationMethod, RandomNormal, Xavier,
+)
 from bigdl_tpu_torch.parallel.ring_attention import full_attention
+from bigdl_tpu_torch.utils.table import Table
 
 ATTENTION_IMPLS = ("auto", "flash", "full")
 
@@ -79,6 +94,8 @@ class MultiHeadAttention(TensorModule):
                  w_init: Optional[InitializationMethod] = None,
                  num_kv_heads: Optional[int] = None, rope: bool = False,
                  rope_base: float = 10000.0, window: Optional[int] = None,
+                 lora_rank: Optional[int] = None,
+                 lora_alpha: Optional[float] = None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         if embed_dim % num_heads != 0:
@@ -108,30 +125,114 @@ class MultiHeadAttention(TensorModule):
         self.rope = bool(rope)
         self.rope_base = float(rope_base)
         self.window = None if window is None else int(window)
-        w_init = w_init or Xavier()
-
-        def param(*shape, fan_out):
-            return torch.nn.Parameter(w_init.init(
-                shape, fan_in=embed_dim, fan_out=fan_out,
-                generator=generator))
+        if lora_rank is not None and int(lora_rank) < 1:
+            raise ValueError(f"lora_rank must be >= 1, got {lora_rank!r}")
+        self.lora_rank = None
+        self.lora_alpha = None
+        self.w_init = w_init or Xavier()
 
         def bias(n):
             return torch.nn.Parameter(torch.zeros(n)) if with_bias else None
 
         e = embed_dim
         if kv_heads == num_heads:
-            self.qkv_weight = param(3 * e, e, fan_out=3 * e)
-            self.out_weight = param(e, e, fan_out=e)
+            self.qkv_weight = torch.nn.Parameter(torch.empty(3 * e, e))
+            self.out_weight = torch.nn.Parameter(torch.empty(e, e))
             self.qkv_bias = bias(3 * e)
             self.out_bias = bias(e)
         else:
             kv = 2 * kv_heads * self.head_dim
-            self.q_weight = param(e, e, fan_out=e)
-            self.kv_weight = param(kv, e, fan_out=kv)
-            self.out_weight = param(e, e, fan_out=e)
+            self.q_weight = torch.nn.Parameter(torch.empty(e, e))
+            self.kv_weight = torch.nn.Parameter(torch.empty(kv, e))
+            self.out_weight = torch.nn.Parameter(torch.empty(e, e))
             self.q_bias = bias(e)
             self.kv_bias = bias(kv)
             self.out_bias = bias(e)
+        self.reset(generator)
+        if lora_rank is not None:
+            self.add_lora(lora_rank, lora_alpha, generator=generator)
+
+    def _weight_names(self) -> list:
+        """The projection weights, in JAX's parameter order."""
+        return [n for n in ("qkv_weight", "q_weight", "kv_weight",
+                            "out_weight") if n in self._parameters]
+
+    def reset(self, generator: Optional[torch.Generator] = None) -> None:
+        """Draw the projection weights anew (``w_init``, fan-in the embed
+        width) and zero the biases, in place. Adapters survive: they are
+        drawn anew too (``A`` seeded, ``B`` zero), as JAX's reset keeps
+        them."""
+        e = self.embed_dim
+        with torch.no_grad():
+            for name in self._weight_names():
+                w = getattr(self, name)
+                w.copy_(self.w_init.init(tuple(w.shape), fan_in=e,
+                                         fan_out=w.shape[0],
+                                         generator=generator))
+            for name, p in self.named_parameters(recurse=False):
+                if "bias" in name:
+                    p.zero_()
+        if self.lora_rank:
+            self._extend_lora_params(generator)
+
+    # ----------------------------------------------------------------- LoRA
+    def _extend_lora_params(self, generator=None) -> None:
+        """Adapters for every projection weight: ``A`` N(0, 0.02), ``B``
+        zero, on the weights' device and in their dtype."""
+        r = self.lora_rank
+        for name in self._weight_names():
+            w = getattr(self, name)
+            out_d, in_d = w.shape
+            a = RandomNormal(0.0, 0.02).init((r, in_d), fan_in=in_d,
+                                             fan_out=r, generator=generator)
+            setattr(self, f"lora_{name}_a", torch.nn.Parameter(
+                a.to(device=w.device, dtype=w.dtype)))
+            setattr(self, f"lora_{name}_b", torch.nn.Parameter(torch.zeros(
+                out_d, r, device=w.device, dtype=w.dtype)))
+
+    def add_lora(self, rank: int, alpha: Optional[float] = None,
+                 generator: Optional[torch.Generator] = None
+                 ) -> "MultiHeadAttention":
+        """Attach rank-``rank`` adapters to every projection; the base
+        weights and biases freeze (grad scale 0), only the adapters
+        train."""
+        if self.lora_rank:
+            raise ValueError("attention already has LoRA adapters")
+        if int(rank) < 1:
+            raise ValueError(f"rank must be >= 1, got {rank!r}")
+        self.lora_rank = int(rank)
+        self.lora_alpha = float(alpha) if alpha is not None else float(rank)
+        self._extend_lora_params(generator)
+        return self
+
+    def merge_lora(self) -> "MultiHeadAttention":
+        """Bake the adapters into the base projections and drop them."""
+        if not self.lora_rank:
+            raise ValueError("attention has no LoRA adapters to merge")
+        with torch.no_grad():
+            for name in self._weight_names():
+                getattr(self, name).copy_(self._w(name))
+        for name in self._weight_names():
+            delattr(self, f"lora_{name}_a")
+            delattr(self, f"lora_{name}_b")
+        self.lora_rank = self.lora_alpha = None
+        return self
+
+    def grad_scales(self) -> dict:
+        if self.lora_rank and not self._frozen:
+            return {k: self.scale_w if k.startswith("lora_") else 0.0
+                    for k, _ in self.named_parameters(recurse=False)}
+        return super().grad_scales()
+
+    def _w(self, name: str) -> torch.Tensor:
+        """The effective projection weight: the base, or under LoRA
+        ``base + B·A·α/r`` in the parameters' dtype (JAX's order)."""
+        w = getattr(self, name)
+        if self.lora_rank:
+            w = w + (getattr(self, f"lora_{name}_b")
+                     @ getattr(self, f"lora_{name}_a")
+                     * (self.lora_alpha / self.lora_rank))
+        return w
 
     def _expand_kv(self, x: torch.Tensor) -> torch.Tensor:
         """(b, kv_heads, t, d) → (b, num_heads, t, d), each KV head over its
@@ -148,11 +249,11 @@ class MultiHeadAttention(TensorModule):
         b, t, _ = input.shape
         h, d = self.num_heads, self.head_dim
         if self.kv_heads == self.num_heads:
-            qkv = F.linear(input, self.qkv_weight, self.qkv_bias)
+            qkv = F.linear(input, self._w("qkv_weight"), self.qkv_bias)
             qkv = qkv.reshape(b, t, 3, h, d)
             return tuple(qkv[:, :, i].transpose(1, 2) for i in range(3))
-        q = F.linear(input, self.q_weight, self.q_bias)
-        kv = F.linear(input, self.kv_weight, self.kv_bias)
+        q = F.linear(input, self._w("q_weight"), self.q_bias)
+        kv = F.linear(input, self._w("kv_weight"), self.kv_bias)
         q = q.reshape(b, t, h, d).transpose(1, 2)
         kv = kv.reshape(b, t, 2, self.kv_heads, d)
         return (q, kv[:, :, 0].transpose(1, 2), kv[:, :, 1].transpose(1, 2))
@@ -183,7 +284,7 @@ class MultiHeadAttention(TensorModule):
             else:
                 o = self._attend(q, k, v)
         o = o.transpose(1, 2).reshape(b, t, e)
-        return F.linear(o, self.out_weight, self.out_bias), state
+        return F.linear(o, self._w("out_weight"), self.out_bias), state
 
     def _decode_step(self, state, q, k, v):
         """Append k/v at each row's ``pos`` (a (b,) vector: every cache row
@@ -267,4 +368,56 @@ class MultiHeadAttention(TensorModule):
         return (f"embed={self.embed_dim}, heads={self.num_heads}{gqa}, "
                 f"causal={self.causal}, impl={self.attention_impl}"
                 + (", rope" if self.rope else "")
-                + (f", window={self.window}" if self.window else ""))
+                + (f", window={self.window}" if self.window else "")
+                + (f", lora_rank={self.lora_rank}" if self.lora_rank else ""))
+
+
+class CrossAttention(TensorModule):
+    """Encoder-decoder attention: ``T(x, memory)`` with x (N, Tq, E) and
+    memory (N, Tk, E) → (N, Tq, E). ``q_weight`` (E, E), ``kv_weight``
+    (2E, E), ``out_weight`` (E, E) and their biases, JAX's layout; never
+    causal, through the plain ``full_attention``."""
+
+    def __init__(self, embed_dim: int, num_heads: int, with_bias: bool = True,
+                 w_init: Optional[InitializationMethod] = None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        if embed_dim % num_heads != 0:
+            raise ValueError(
+                f"embed_dim {embed_dim} % num_heads {num_heads} != 0")
+        self.embed_dim = embed_dim
+        self.num_heads = num_heads
+        self.head_dim = embed_dim // num_heads
+        w_init = w_init or Xavier()
+        e = embed_dim
+
+        def param(rows):
+            return torch.nn.Parameter(w_init.init(
+                (rows, e), fan_in=e, fan_out=rows, generator=generator))
+
+        self.q_weight = param(e)
+        self.kv_weight = param(2 * e)
+        self.out_weight = param(e)
+        zeros = (lambda n: torch.nn.Parameter(torch.zeros(n))
+                 if with_bias else None)
+        self.q_bias = zeros(e)
+        self.kv_bias = zeros(2 * e)
+        self.out_bias = zeros(e)
+
+    def run(self, input, state=None):
+        x, memory = (input[1], input[2]) if isinstance(input, Table) \
+            else tuple(input)
+        b, tq, e = x.shape
+        tk = memory.shape[1]
+        h, d = self.num_heads, self.head_dim
+        q = F.linear(x, self.q_weight, self.q_bias)
+        kv = F.linear(memory, self.kv_weight, self.kv_bias)
+        q = q.reshape(b, tq, h, d).transpose(1, 2)
+        kv = kv.reshape(b, tk, 2, h, d)
+        k, v = (kv[:, :, i].transpose(1, 2) for i in range(2))
+        o = full_attention(q, k, v, causal=False)
+        o = o.transpose(1, 2).reshape(b, tq, e)
+        return F.linear(o, self.out_weight, self.out_bias), state
+
+    def extra_repr(self):
+        return f"embed={self.embed_dim}, heads={self.num_heads}"

@@ -62,16 +62,37 @@ def _map_leaves(fn: Callable, *trees):
             fn(key, node, *others)
 
 
-def cache_modules(model: torch.nn.Module, max_len: int) -> tuple:
-    """The cached modules of ``model`` for a ``max_len`` window:
-    ``([(path, MultiHeadAttention)], [path of each PositionEmbedding])``.
-    Raises unless every attention is causal and every position table holds
-    ``max_len`` positions."""
+def _scope(model: torch.nn.Module, roots) -> list:
+    """``(path, module)`` of every module of ``model`` under ``roots``
+    (submodules of ``model``; None: the whole model)."""
+    if roots is None:
+        return list(model.named_modules())
+    roots = list(roots)
+    if not roots:
+        raise ValueError("roots=[] would cache nothing: pass None for the "
+                         "whole model")
+    paths = {id(m): p for p, m in model.named_modules()}
+    out = []
+    for r in roots:
+        if id(r) not in paths:
+            raise ValueError(f"cache root {type(r).__name__} is not a "
+                             f"submodule of the model")
+        base = paths[id(r)]
+        out.extend((f"{base}.{p}" if base and p else base or p, m)
+                   for p, m in r.named_modules())
+    return out
+
+
+def cache_modules(model: torch.nn.Module, max_len: int, roots=None) -> tuple:
+    """The cached modules of ``model`` (only those under ``roots`` when
+    given) for a ``max_len`` window: ``([(path, MultiHeadAttention)],
+    [path of each PositionEmbedding])``. Raises unless every attention is
+    causal and every position table holds ``max_len`` positions."""
     from bigdl_tpu_torch.models.transformerlm.transformerlm import (
         PositionEmbedding,
     )
 
-    mods = list(model.named_modules())
+    mods = _scope(model, roots)
     attns = [(p, m) for p, m in mods if isinstance(m, MultiHeadAttention)]
     if not attns:
         raise ValueError("model has no MultiHeadAttention modules to cache")
@@ -89,11 +110,14 @@ def cache_modules(model: torch.nn.Module, max_len: int) -> tuple:
 
 
 def install_decode_cache(model: torch.nn.Module, batch_size: int,
-                         max_len: int, dtype: torch.dtype = torch.float32
-                         ) -> dict:
+                         max_len: int, dtype: torch.dtype = torch.float32,
+                         roots=None) -> dict:
     """Zeroed decode state for ``model``: ``batch_size`` cache rows of
-    ``max_len`` positions each, on the model's device."""
-    attns, positions = cache_modules(model, max_len)
+    ``max_len`` positions each, on the model's device. ``roots`` limits the
+    cache to those submodules (the seq2seq decoder: its target embedding
+    and decoder stack; the bidirectional encoder gets none); the state is
+    keyed from ``model`` all the same."""
+    attns, positions = cache_modules(model, max_len, roots)
     dev = next(model.parameters()).device
     state: dict = {}
     for path, m in attns:
@@ -265,15 +289,16 @@ def generate(model: torch.nn.Module, prompt, decode_length: int,
 def beam_generate(model: torch.nn.Module, prompt, decode_length: int,
                   beam_size: int, eos_id: int = -1, alpha: float = 0.0,
                   pad_id: int = 0, dtype: torch.dtype = torch.float32,
-                  device=None) -> tuple:
+                  device=None, cache_roots=None) -> tuple:
     """KV-cached beam search, the O(L)-a-token form of
     :class:`~bigdl_tpu_torch.nn.beam_search.SequenceBeamSearch`: beams ride
     the batch axis (N·beam cache rows), the prompt is fed one position a
     step, and when a step reselects beams the K/V rows are gathered after
     their parent hypotheses in place (the cache tensors keep their
-    identity). Returns ``(sequences (N, beam, T0 + decode_length) int32,
-    scores (N, beam))``, best beam first: the search's contract and, ties
-    aside, its result."""
+    identity). ``cache_roots`` limits the cache as
+    :func:`install_decode_cache`'s ``roots`` does. Returns ``(sequences (N,
+    beam, T0 + decode_length) int32, scores (N, beam))``, best beam first:
+    the search's contract and, ties aside, its result."""
     from bigdl_tpu_torch.nn.beam_search import (
         beam_step, final_ranking, new_beams,
     )
@@ -287,7 +312,8 @@ def beam_generate(model: torch.nn.Module, prompt, decode_length: int,
     beams = new_beams(prompt, b, total, pad_id)
     pb = prompt.repeat_interleave(b, dim=0)                    # (n·B, t0)
     with torch.no_grad(), evaluating(model):
-        state = install_decode_cache(model, n * b, total, dtype)
+        state = install_decode_cache(model, n * b, total, dtype,
+                                     roots=cache_roots)
         rows = []
         _map_leaves(lambda key, leaf: rows.append(leaf)
                     if key in _CACHE_ROW_KEYS else None, state)

@@ -19,8 +19,9 @@ The payload is a plain dict::
      "meta": {...}}             # provenance (source, neval, ...)
 
 :meth:`ModelRegistry.resolve_params` overlays a LoRA artifact's leaves
-onto its base's tree; the port resolves one as data, but serving it waits
-for ``nn/lora.py`` (ROADMAP Queue A.5). The status goes ``candidate`` ->
+onto its base's tree, which an engine serving the adapted model swaps in
+(:func:`lora_delta` extracts them; the base is a full artifact of the
+adapted model, adapters included). The status goes ``candidate`` ->
 ``promoted`` -> (``rolled_back`` | superseded), or ``candidate`` ->
 ``rejected``. Keep-last-N pruning (``BIGDL_REGISTRY_KEEP``, default 4)
 never removes a ``promoted`` version, the newest, or a LoRA base a
@@ -104,12 +105,18 @@ def _to_host(tree):
     return np.asarray(tree)
 
 
+_ADAPTER_LEAF = re.compile(r"^lora_(?:.+_)?[ab]$")
+
+
 def lora_delta(params) -> dict:
-    """Extract the adapter leaves (path ends in ``lora_a``/``lora_b``) from a
-    full params tree — the payload of a LoRA-only artifact."""
+    """Extract every adapter leaf from a full params tree, the payload of a
+    LoRA-only artifact: ``LoRALinear``'s ``lora_a``/``lora_b`` and
+    ``MultiHeadAttention``'s ``lora_<weight>_a``/``_b``. (JAX's rule keeps
+    the first two only, so its artifact of an adapted LM drops the
+    attention's adapters: ROADMAP Queue C.)"""
     flat = flatten_params(_to_host(params))
     return {p: v for p, v in flat.items()
-            if p.rsplit("/", 1)[-1] in ("lora_a", "lora_b")}
+            if _ADAPTER_LEAF.match(p.rsplit("/", 1)[-1])}
 
 
 class ModelRegistry:

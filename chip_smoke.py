@@ -24,7 +24,10 @@ an NVIDIA H100 and the CUDA toolkit. It builds the port's CUDA kernels from
    {1024, 1000}, causal
    and not, fp32/bf16, and the forward also at the main paths' causal
    (2·8, 512, 64) and (16·8, 512, 64) in fp32 and bf16, the backward at
-   the training step's (16·8, 512, 64) causal in fp32 and bf16), and times
+   the training step's (16·8, 512, 64) causal in fp32 and bf16; both at
+   the seq2seq step's (32·8, 256, 64) non-causal and (32·8, 257, 64)
+   causal in fp32 and bf16, with LayerNorm at its (32·256, 512) and
+   (32·257, 512)), and times
    the kernel, the plain version and the one PyTorch call that computes
    the same function (a yardstick only; the port never calls it). fp32
    flash rows carry two bounds: FMA (fp32 at 67 TFLOP/s) and 3xTF32 (the
@@ -219,6 +222,33 @@ an NVIDIA H100 and the CUDA toolkit. It builds the port's CUDA kernels from
    ``update_tenant`` on one (the other keeps its tokens), one scrape of a
    ``MetricsExporter(0)`` (``/metrics`` parses with both tenants' rows,
    ``/statusz`` is JSON);
+15. fine-tunes and serves with LoRA, and trains and translates with the
+   seq2seq Transformer, at full width: phase 6's LM adapted by
+   ``nn.apply_lora`` at rank 8 (every attention and Linear, the head
+   included; the rest frozen): one (2, 512) step's loss and every
+   adapter's gradient against the CPU plain model (1e-4, 1e-3), no
+   gradient on the base; 17 steps at 16 x 512 in fp32 and in bf16, each
+   bitwise equal to the same steps run eagerly, with step ms and tokens/s
+   beside phase 6's full fine-tune, the trainable parameters and the
+   optimizer's slot bytes beside it, a profiled step's GEMM kernels beside
+   it and all five kernels launched; the served LM adapted (``B = 0``)
+   and published to a ``ModelRegistry``, its adapters fine-tuned 8 steps
+   and published with ``publish_lora``; an engine serves phase 5's
+   requests (their tokens), the LoRA version is promoted under traffic
+   (the programs kept), then the engine serves the fine-tuned model's
+   tokens (greedy by full-sequence forwards, ``greedy_generate`` on the
+   two shortest prompts), and ``merge_lora``'s model serves the same, with
+   the decode rate beside phase 5's; Transformer-base
+   (``Transformer(37000, 37000, 512, 8, 6, 6)``, the seq2seq main's
+   ``-b 32 --seq-len 256``): one (2, 256) step's loss and every gradient
+   against the CPU plain model (1e-4, 1e-3); 17 steps of the main's
+   configuration (Adam, the synthetic reversal corpus) in fp32 and bf16,
+   each bitwise equal to eager steps, with step ms, target tokens/s and
+   the flash forward, dq and dk/dv launched non-causal (the encoder) and
+   causal (the decoder, T = 257) each; ``translate_generate`` against
+   ``beam_translate`` on 4 held-out sources of 32 tokens, beam 4 (the same
+   sequences but at ties, scores within 1e-4), with their walls; and the
+   seq2seq main on the card (2 steps, 2 translations);
 10. checks that the serving path (phases 4 and 5) launched both forward
    kernels and each training run (the 17 steps, fp32 and bf16) all five,
    every launch in the run's dtype (bf16 operands and bf16 gamma and beta
@@ -233,13 +263,20 @@ an NVIDIA H100 and the CUDA toolkit. It builds the port's CUDA kernels from
 Any failed check exits non-zero without the result line, as does a machine
 without CUDA or a directory without the package. Phases 11, 12 and 13 run
 before the kernel table, so their launches are in the ``kernels`` line
-(``paths``); so does phase 14 (``paths.serving_stack``).
+(``paths``); so do phase 14 (``paths.serving_stack``) and phase 15
+(``paths.finetune_lora_training``, ``finetune_lora_serving``,
+``seq2seq``; each flash row's ``seq2seq`` instances with their launches
+by variant).
 
 ``python3 chip_smoke.py --text-only`` builds the kernels and runs only
 phase 13, printing its numbers as one JSON line (no result line).
 
 ``python3 chip_smoke.py --serving-only`` builds the kernels and runs only
 phase 14, printing its numbers as one JSON line (no result line).
+
+``python3 chip_smoke.py --finetune-only`` builds the kernels and runs only
+phase 15, with phase 6's full fine-tune (fp32 and bf16) run first for its
+comparisons, printing its numbers as one JSON line (no result line).
 
 ``python3 chip_smoke.py --remat-captures N`` builds the kernels and runs
 only phase 6's bf16 training with every block under ``Remat`` N times in
@@ -306,6 +343,22 @@ PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}   # fp32 non-tensor, bf16
 TF32_FLOPS = 495e12                             # tensor cores, dense
 SM_CLOCK_HZ = 1.98e9                            # H100 SXM boost clock
 L2_BYTES = 50e6                                 # H100 SXM L2 cache
+# phase 15: LoRA fine-tuning and serving of the full-width LM, and the
+# seq2seq Transformer
+LORA_RANK = 8                      # adapters of every attention and Linear
+LORA_TUNE_STEPS = 8                # the served LM's fine-tune (Adam 1e-3)
+# Transformer-base ("Attention Is All You Need", Table 3, row "base"):
+# d_model 512, 8 heads, 6 + 6 layers, d_ff 2048, a shared BPE vocabulary of
+# 37000; the seq2seq main's configuration at -b 32 --seq-len 256
+S2S_ARGV = ["-b", "32", "--seq-len", "256", "--src-vocab", "37000",
+            "--tgt-vocab", "37000", "--embed-dim", "512", "--num-heads", "8",
+            "--num-encoder-layers", "6", "--num-decoder-layers", "6"]
+S2S_BATCH, S2S_LEN = 32, 256
+S2S_ENC_SHAPE = (S2S_BATCH, HEADS, S2S_LEN, 64)        # non-causal
+S2S_DEC_SHAPE = (S2S_BATCH, HEADS, S2S_LEN + 1, 64)    # causal, ragged
+S2S_HELD_OUT, S2S_HELD_LEN, S2S_BEAM = 4, 32, 4
+FLASH_NAMES = ("flash_attention_fwd", "flash_attention_bwd_dq",
+               "flash_attention_bwd_dkv")
 
 
 class CheckFailed(Exception):
@@ -575,6 +628,10 @@ def check_layer_norm(kernels, card, floor_ms):
              ((1024, 256), f32, f32, 1e-5, 1e-5),
              ((TRAIN_BATCH * TRAIN_LEN, EMBED), bf16, bf16, 2e-2, 0.0),
              ((2 * TRAIN_LEN, EMBED), bf16, bf16, 2e-2, 0.0)]
+    # the seq2seq step's encoder and decoder rows
+    for n in (S2S_BATCH * S2S_LEN, S2S_BATCH * (S2S_LEN + 1)):
+        cases += [((n, EMBED), f32, f32, 1e-5, 1e-5),
+                  ((n, EMBED), bf16, bf16, 2e-2, 0.0)]
     rows = []
     for (n, h), dtype, pdtype, atol, rtol in cases:
         item = torch.finfo(dtype).bits // 8
@@ -640,6 +697,9 @@ def check_layer_norm_bwd(kernels, card):
              ((2 * TRAIN_LEN, EMBED), bf16, bf16),
              ((2 * TRAIN_LEN, EMBED), f32, f32),
              ((TRAIN_BATCH * TRAIN_LEN, EMBED), f32, f32)]
+    # the seq2seq step's encoder and decoder rows
+    for n in (S2S_BATCH * S2S_LEN, S2S_BATCH * (S2S_LEN + 1)):
+        cases += [((n, EMBED), f32, f32), ((n, EMBED), bf16, bf16)]
     rows = []
     for (n, h), dtype, pdtype in cases:
         item = torch.finfo(dtype).bits // 8
@@ -720,6 +780,11 @@ def check_flash(kernels, card):
         cases.append((shape, True, torch.bfloat16, 2e-2, 0.0))
     # the static beam search's full forward: beam x heads, seed + decode
     cases.append((BEAM_SHAPE, True, torch.float32, 2e-4, 2e-4))
+    # the seq2seq step's: the encoder non-causal, the decoder causal at a
+    # ragged length
+    for shape, causal in ((S2S_ENC_SHAPE, False), (S2S_DEC_SHAPE, True)):
+        cases.append((shape, causal, torch.float32, 2e-4, 2e-4))
+        cases.append((shape, causal, torch.bfloat16, 2e-2, 0.0))
     rows = []
     for (b, h, t, d), causal, dtype, atol, rtol in cases:
         q, k, v = (torch.randn(b * h, t, d, generator=g, device=dev)
@@ -769,11 +834,11 @@ def check_flash(kernels, card):
     return rows
 
 
-def find_row(rows, shape, dtype, params="float32"):
-    """The causal row of ``shape`` and ``dtype`` (LayerNorm rows: with
-    gamma in ``params``)."""
+def find_row(rows, shape, dtype, params="float32", causal=True):
+    """The row of ``shape`` and ``dtype``, causal or not (LayerNorm rows:
+    with gamma in ``params``)."""
     return next(r for r in rows if r["shape"] == list(shape)
-                and r["dtype"] == dtype and r.get("causal", True)
+                and r["dtype"] == dtype and r.get("causal", True) == causal
                 and r.get("params", "float32") == params)
 
 
@@ -798,6 +863,12 @@ def check_flash_bwd(kernels, card):
     cases = [((2, HEADS, t, 64), causal, dtype)
              for t in (1024, 1000) for causal in (True, False)
              for dtype in (torch.float32, torch.bfloat16)]
+    # the seq2seq step's: the encoder non-causal, the decoder causal at a
+    # ragged length
+    cases += [(shape, causal, dtype)
+              for shape, causal in ((S2S_ENC_SHAPE, False),
+                                    (S2S_DEC_SHAPE, True))
+              for dtype in (torch.float32, torch.bfloat16)]
     # the training step's shape, in both dtypes; the fp32 one last
     cases.append(((TRAIN_BATCH, HEADS, TRAIN_LEN, 64), True, torch.bfloat16))
     cases.append(((TRAIN_BATCH, HEADS, TRAIN_LEN, 64), True, torch.float32))
@@ -1299,8 +1370,11 @@ def profile_step(opt, batch, card, kinds=KERNEL_KINDS):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    inp, target = (torch.as_tensor(a).to(DEVICE)
-                   for a in (batch.input, batch.target))
+    def placed(a):     # a batch's tensor, or a tuple of them (seq2seq)
+        return tuple(placed(x) for x in a) if isinstance(a, (tuple, list)) \
+            else torch.as_tensor(a).to(DEVICE)
+
+    inp, target = placed(batch.input), placed(batch.target)
     torch.cuda.synchronize()
     try:
         with profile(activities=[ProfilerActivity.CPU,
@@ -1329,12 +1403,13 @@ def profile_step(opt, batch, card, kinds=KERNEL_KINDS):
     except Exception as e:  # noqa: BLE001 — an observation, not a check
         log(f"  profiler: no device times ({type(e).__name__}: {e})")
         return None
-    shares = {}
+    shares, launched = {}, {}
     for e in events:
         name = e.key.lower()
         kind = next((k for k, words in kinds if any(
             w in name for w in words)), "other")
         shares[kind] = shares.get(kind, 0.0) + dev_ms(e)
+        launched[kind] = launched.get(kind, 0) + e.count
     log(f"  profiled step: {wall_ms:.2f} ms wall, device busy {busy:.2f} ms "
         f"({busy / wall_ms:.1%}) over {len(events)} kernel names; by kind "
         f"{ {k: round(v, 3) for k, v in shares.items()} } ms; host calls "
@@ -1346,7 +1421,7 @@ def profile_step(opt, batch, card, kinds=KERNEL_KINDS):
         log(f"    {e.self_cpu_time_total / 1e3:9.3f} ms  x{e.count:<5d} "
             f"{e.key[:80]}")
     return {"wall_ms": wall_ms, "busy_ms": busy, "by_kind_ms": shares,
-            "host_calls": calls,
+            "kernels_by_kind": launched, "host_calls": calls,
             "top": [[e.key[:90], dev_ms(e), e.count] for e in top]}
 
 
@@ -1375,6 +1450,22 @@ def eager_reference(TransformerLM, lm_criterion, kernels, method, steps,
         kernels.launch_counts()
 
 
+def lm_data(batches=TRAIN_STEPS, seed=SEED):
+    """Phase 6's training data: ``synthetic_ptb`` windows of TRAIN_LEN at
+    TRAIN_BATCH."""
+    from bigdl_tpu_torch.dataset import (
+        DataSet, Sample, SampleToMiniBatch, ptb_windows, synthetic_ptb,
+    )
+    from bigdl_tpu_torch.utils.random_generator import RandomGenerator
+
+    RandomGenerator.set_seed(seed)
+    ids = synthetic_ptb(TRAIN_BATCH * batches * TRAIN_LEN + 1,
+                        vocab_size=VOCAB)
+    xs, ys = ptb_windows(ids, TRAIN_LEN)
+    return (DataSet.array(Sample(x, y) for x, y in zip(xs, ys))
+            >> SampleToMiniBatch(TRAIN_BATCH))
+
+
 def train(TransformerLM, lm_criterion, kernels, card, bf16=False,
           flat=False, remat=False, fuse=1, profile=True, compare=False,
           llama=False):
@@ -1390,21 +1481,12 @@ def train(TransformerLM, lm_criterion, kernels, card, bf16=False,
     (:func:`eager_reference`) and the replayed losses, parameters and
     launches are held against them; with ``profile`` one more replayed
     step's device time by kernel."""
-    from bigdl_tpu_torch.dataset import (
-        DataSet, Sample, SampleToMiniBatch, ptb_windows, synthetic_ptb,
-    )
     from bigdl_tpu_torch.optim import SGD, LocalOptimizer, Trigger
-    from bigdl_tpu_torch.utils.random_generator import RandomGenerator
 
     def method():
         return SGD(learningrate=0.01, momentum=0.9, dampening=0.0)
 
-    RandomGenerator.set_seed(SEED)
-    ids = synthetic_ptb(TRAIN_BATCH * TRAIN_STEPS * TRAIN_LEN + 1,
-                        vocab_size=VOCAB)
-    xs, ys = ptb_windows(ids, TRAIN_LEN)
-    data = (DataSet.array(Sample(x, y) for x, y in zip(xs, ys))
-            >> SampleToMiniBatch(TRAIN_BATCH))
+    data = lm_data()
     build = build_llama_lm if llama else build_train_lm
     lm = build(TransformerLM, "auto", DEVICE, remat=remat)
     opt = (LocalOptimizer(lm, data, lm_criterion(llama), device=DEVICE)
@@ -3564,10 +3646,10 @@ INCEPTION_KINDS = (
 LRN_SHAPES = ((VISION_BATCH, 56, 56, 64), (VISION_BATCH, 56, 56, 192))
 
 
-def phase_dir(name: str) -> Path:
-    """A fresh directory under the checkout's build/phase12/."""
+def phase_dir(name: str, phase: str = "phase12") -> Path:
+    """A fresh directory under the checkout's build/<phase>/."""
     import shutil
-    d = Path(__file__).resolve().parent / "build" / "phase12" / name
+    d = Path(__file__).resolve().parent / "build" / phase / name
     shutil.rmtree(d, ignore_errors=True)
     d.mkdir(parents=True)
     return d
@@ -5384,6 +5466,617 @@ def serving_stack(TransformerLM, lm_criterion, card, prompts=None,
 
 
 # -------------------------------------------------------------------- main
+# ---------------------------------------------------------------- phase 15
+def tree_bytes(tree) -> int:
+    """Bytes of every tensor in nested dicts, lists and tuples."""
+    if isinstance(tree, torch.Tensor):
+        return tree.numel() * tree.element_size()
+    if isinstance(tree, dict):
+        return sum(tree_bytes(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(tree_bytes(v) for v in tree)
+    return 0
+
+
+def clone_batch(x):
+    return tuple(clone_batch(a) for a in x) if isinstance(x, (tuple, list)) \
+        else x.clone()
+
+
+def adapt(nn, lm, seed, trained_b=True):
+    """``apply_lora`` at LORA_RANK (alpha = rank) with ``A`` drawn from
+    ``seed``; with ``trained_b`` every ``B`` is drawn N(0, 0.02) too (an
+    adapter with signal in every path; ``B = 0`` is the identity). Returns
+    the count of adapted modules."""
+    n = nn.apply_lora(lm, rank=LORA_RANK,
+                      generator=torch.Generator().manual_seed(seed))
+    if trained_b:
+        g = torch.Generator().manual_seed(seed + 1)
+        with torch.no_grad():
+            for name, p in lm.named_parameters():
+                if "lora" in name and name.endswith("_b"):
+                    p.copy_(0.02 * torch.randn(p.shape, generator=g))
+    return n
+
+
+def build_lora_lm(TransformerLM, nn, attention_impl, device):
+    """Phase 6's training LM adapted at LORA_RANK."""
+    lm = build_train_lm(TransformerLM, attention_impl, device)
+    adapt(nn, lm, SEED + 50)
+    return lm
+
+
+def check_lora_step(TransformerLM, lm_criterion, nn):
+    """One (2, 512) LoRA step on the card against the same weights on the
+    CPU (plain LayerNorm, ``attention_impl="full"``), through the
+    trainer's loss-and-gradient path: the base is frozen (its gradient
+    scale 0), so only the adapters get a gradient. Tolerances: loss
+    relative 1e-4, every adapter's gradient relative (Frobenius) 1e-3."""
+    from bigdl_tpu_torch.dataset import DataSet
+    from bigdl_tpu_torch.optim import LocalOptimizer
+
+    rng = np.random.default_rng(SEED + 4)
+    ids = torch.from_numpy(rng.integers(0, VOCAB, (2, TRAIN_LEN + 1)))
+    x, y = ids[:, :-1], ids[:, 1:]
+    runs = []
+    for device, impl in ((DEVICE, "auto"), ("cpu", "full")):
+        lm = build_lora_lm(TransformerLM, nn, impl, device)
+        opt = LocalOptimizer(lm, DataSet.array([]), lm_criterion(),
+                             device=device)
+        named, scales, _ = opt._prepare_step()
+        frozen = frozenset(n for n in named if scales[n] == 0.0)
+        train = [n for n in named if n not in frozen]
+        if not train or any("lora" not in n for n in train) or any(
+                "lora" in n for n in frozen):
+            raise CheckFailed(f"LoRA: trainable {train}")
+        loss, grads = opt._loss_and_grads([named[n] for n in train],
+                                          x.to(device), y.to(device), frozen)
+        if any(p.grad is not None for p in named.values()):
+            raise CheckFailed("LoRA: a parameter holds a gradient")
+        runs.append((loss.item(), {n: g.detach().cpu()
+                                   for n, g in zip(train, grads)},
+                     len(named), len(frozen)))
+        del lm, opt, loss, grads
+    (loss, grads, n_all, n_frozen), (loss_ref, grads_ref, _, _) = runs
+    rel_loss = abs(loss - loss_ref) / abs(loss_ref)
+    rel = rel_errors(grads, grads_ref)
+    worst = max(rel, key=rel.get)
+    log(f"  one (2, {TRAIN_LEN}) LoRA step (rank {LORA_RANK}): loss "
+        f"{loss:.6f} vs CPU plain {loss_ref:.6f} (relative {rel_loss:.2e}, "
+        f"limit 1e-4); gradients of {len(rel)} adapters, worst relative "
+        f"error {rel[worst]:.2e} ({worst}, limit 1e-3); {n_frozen} of "
+        f"{n_all} parameters frozen, none with a gradient")
+    if rel_loss > 1e-4 or rel[worst] > 1e-3:
+        raise CheckFailed(f"the LoRA step disagrees with the CPU plain "
+                          f"model: loss {rel_loss:.3e}, {worst} "
+                          f"{rel[worst]:.3e}")
+    return {"rel_loss": rel_loss, "worst_grad_rel": rel[worst],
+            "adapters": len(rel), "frozen": n_frozen}
+
+
+def recorded_run(build, crit, method, data, iters, kernels, card, what,
+                 tokens, profile=False):
+    """``iters`` steps of ``LocalOptimizer`` (the step a captured program,
+    replayed after the first), then the same steps run eagerly on a fresh
+    model from ``build()`` (the step function called on each recorded
+    batch): the losses and parameters must be bitwise equal and the
+    launches the same. Returns the trained model, its optimizer and the
+    run's numbers (step ms: the median between consecutive step ends after
+    the first)."""
+    from bigdl_tpu_torch.dataset import DataSet
+    from bigdl_tpu_torch.optim import LocalOptimizer, Trigger
+    from bigdl_tpu_torch.optim.optim_method import hyper_tensor
+
+    model = build()
+    opt = (LocalOptimizer(model, data, crit, device=DEVICE)
+           .set_optim_method(method())
+           .set_end_when(Trigger.max_iteration(iters)))
+    losses, marks, seen = [], [], []
+    run_steps = opt._run_steps
+
+    def recorded(steps):
+        out = run_steps(steps)
+        marks.append(time.perf_counter())
+        losses.extend(out)
+        seen.extend((clone_batch(a), clone_batch(b)) for a, b in steps)
+        return out
+
+    opt._run_steps = recorded
+    torch.cuda.synchronize()
+    try:
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        opt.optimize()
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        variants = kernels.launch_counts_by_variant()
+        by_dtype = kernels.launch_counts_by_dtype()
+    finally:
+        opt._run_steps = run_steps
+    if len(losses) != iters or not all(np.isfinite(losses)):
+        raise CheckFailed(f"{what}: losses {losses}")
+    ref = build()
+    ref_opt = LocalOptimizer(ref, DataSet.array([]), crit, device=DEVICE) \
+        .set_optim_method(method())
+    named, scales, mask = ref_opt._prepare_step()
+    step = ref_opt._make_step_fn(named, scales, mask)
+    kernels.reset_launch_counts()
+    ref_losses = [float(step(inp, target, hyper_tensor(
+        ref_opt._method.hyper(k, ref_opt._ostate), list(named.values()))))
+        for k, (inp, target) in enumerate(seen)]
+    torch.cuda.synchronize()
+    ref_counts = kernels.launch_counts()
+    params = dict(model.named_parameters())
+    bitwise = losses == ref_losses and all(
+        torch.equal(params[n], p) for n, p in named.items())
+    step_ms = float(statistics.median(np.diff(marks))) * 1e3
+    log(f"  {iters} {what}: losses {[round(v, 4) for v in losses]}; first "
+        f"step (warm-up and capture) {(marks[0] - t0) * 1e3:.1f} ms, step "
+        f"{step_ms:.2f} ms, {tokens / step_ms * 1e3:.0f} tokens/s; replayed "
+        f"against eager: bitwise {bitwise}; launches {by_dtype}, flash by "
+        f"variant { {k: variants[k] for k in FLASH_NAMES} } [{card}]")
+    if not bitwise:
+        raise CheckFailed(f"{what}: the replayed steps are not bitwise "
+                          f"equal to the eager ones")
+    if counts != ref_counts:
+        raise CheckFailed(f"{what}: replayed launches {counts} against "
+                          f"eager {ref_counts}")
+    prof = None
+    if profile:
+        prof = profile_step(opt, next(iter(data.data(train=True))), card)
+    del ref, ref_opt, named, step, seen
+    return model, opt, {
+        "losses": losses, "step_ms": step_ms,
+        "tokens_per_s": tokens / step_ms * 1e3,
+        "first_step_ms": (marks[0] - t0) * 1e3, "launches": counts,
+        "launches_by_variant": {k: variants[k] for k in FLASH_NAMES},
+        "launches_by_dtype": by_dtype, "bitwise_vs_eager": bitwise,
+        "profile": prof}
+
+
+def lora_training(TransformerLM, lm_criterion, nn, kernels, card, Engine,
+                  full):
+    """The LoRA fine-tune at phase 6's configuration: the one-step check,
+    then TRAIN_ITERS steps fp32 and bf16, each bitwise equal to eager
+    steps, with the step time, the trainable parameters, the optimizer's
+    slot bytes and a profiled step's GEMMs beside the full fine-tune's
+    (``full``: phase 6's runs, fp32 and bf16)."""
+    from bigdl_tpu_torch.optim import SGD
+
+    def method():
+        return SGD(learningrate=0.01, momentum=0.9, dampening=0.0)
+
+    check = check_lora_step(TransformerLM, lm_criterion, nn)
+    tokens = TRAIN_BATCH * TRAIN_LEN
+    out = {"one_step_check": check}
+    launches = {}
+    for bf16 in (False, True):
+        key = "bf16" if bf16 else "fp32"
+        if bf16:
+            Engine.init(compute_dtype=torch.bfloat16)
+        try:
+            model, opt, run = recorded_run(
+                lambda: build_lora_lm(TransformerLM, nn, "auto", DEVICE),
+                lm_criterion(), method, lm_data(), TRAIN_ITERS, kernels,
+                card, f"LoRA steps ({key}) at ({TRAIN_BATCH}, {TRAIN_LEN})",
+                tokens, profile=True)
+        finally:
+            if bf16:
+                Engine.reset()
+        idle = [k for k, n in run["launches"].items() if n == 0]
+        if idle:
+            raise CheckFailed(f"the LoRA path ({key}) never launched {idle}")
+        for k, n in run["launches"].items():
+            launches[k] = launches.get(k, 0) + n
+        trainable = sum(p.numel() for n, p in model.named_parameters()
+                        if "lora" in n)
+        total = sum(p.numel() for p in model.parameters())
+        slot_bytes = tree_bytes(opt._ostate)
+        # the full fine-tune of the same model: one momentum slot a weight
+        base_params = total - trainable
+        full_slot_bytes = base_params * 4
+        fr = full[key]
+        gemm = (run["profile"] or {}).get("kernels_by_kind", {}).get("gemm")
+        full_gemm = ((fr.get("profile") or {}).get("kernels_by_kind", {})
+                     .get("gemm"))
+        gemm_ms = (run["profile"] or {}).get("by_kind_ms", {}).get("gemm")
+        full_gemm_ms = ((fr.get("profile") or {}).get("by_kind_ms", {})
+                        .get("gemm"))
+        log(f"  LoRA {key}: step {run['step_ms']:.2f} ms "
+            f"({run['tokens_per_s']:.0f} tokens/s) against the full "
+            f"fine-tune's {fr['step_ms']:.2f} ms ({fr['tokens_per_s']:.0f} "
+            f"tokens/s); trainable parameters {trainable} of {total} "
+            f"(full fine-tune {base_params}); optimizer slots {slot_bytes} "
+            f"bytes (full fine-tune {full_slot_bytes}); GEMM kernels in a "
+            f"profiled step {gemm} ({gemm_ms} ms) against {full_gemm} "
+            f"({full_gemm_ms} ms) [{card}]")
+        out[key] = dict({k: run[k] for k in (
+            "step_ms", "tokens_per_s", "first_step_ms", "launches",
+            "launches_by_dtype", "bitwise_vs_eager")},
+            losses=run["losses"], trainable_params=trainable,
+            total_params=total, slot_bytes=slot_bytes,
+            full_step_ms=fr["step_ms"], full_tokens_per_s=fr["tokens_per_s"],
+            full_trainable_params=base_params,
+            full_slot_bytes=full_slot_bytes, gemm_kernels=gemm,
+            gemm_ms=gemm_ms, full_gemm_kernels=full_gemm,
+            full_gemm_ms=full_gemm_ms,
+            busy_ms=(run["profile"] or {}).get("busy_ms"),
+            wall_ms=(run["profile"] or {}).get("wall_ms"))
+        del model, opt
+        release()
+    return out, launches
+
+
+def lora_serving(TransformerLM, lm_criterion, nn, kernels, card,
+                 ServingEngine, prompts, refs, plain_rate):
+    """The adapted served LM: ``TransformerLM(32000, 512, 8, 6, 1024)`` (phase
+    5's weights) with fresh adapters (``B = 0``) published as the base, then
+    fine-tuned LORA_TUNE_STEPS steps (Adam 1e-3) and its adapters published
+    with ``publish_lora``. An engine serves the base to phase 5's requests
+    (``refs``: their tokens, solo ``greedy_generate`` of the unadapted LM,
+    the same function), the LoRA version is promoted under traffic, then
+    the engine serves the fine-tuned model's tokens (greedy by
+    full-sequence forwards; ``greedy_generate`` on the two shortest
+    prompts), with its programs kept; the merged model serves the same.
+    Returns the numbers and the engines' launches."""
+    from bigdl_tpu_torch import convert
+    from bigdl_tpu_torch.nn import greedy_generate
+    from bigdl_tpu_torch.optim import Adam, LocalOptimizer, Trigger
+    from bigdl_tpu_torch.serving import (
+        PromotionController, PromotionCriterion,
+    )
+    from bigdl_tpu_torch.utils.model_registry import ModelRegistry, lora_delta
+
+    def served_lm():
+        lm = build_lm(TransformerLM, "auto", DEVICE)
+        n = adapt(nn, lm, SEED + 52, trained_b=False)
+        return lm.evaluate(), n
+
+    launches = {}
+
+    def engine_round(eng):
+        kernels.reset_launch_counts()
+        results, wall = serve_round(eng, prompts)
+        for k, n in kernels.launch_counts().items():
+            launches[k] = launches.get(k, 0) + n
+        return results, wall
+
+    reg = ModelRegistry(str(phase_dir("registry", "phase15")), keep=8)
+    lm, n_adapted = served_lm()
+    v_base = reg.publish(lm_tree(lm), meta={"source": "adapted base"})
+    tuned, _ = served_lm()
+    opt = (LocalOptimizer(tuned, lm_data(seed=SEED + 53), lm_criterion(),
+                          device=DEVICE)
+           .set_optim_method(Adam(learningrate=1e-3))
+           .set_end_when(Trigger.max_iteration(LORA_TUNE_STEPS)))
+    opt.optimize()
+    tuned.evaluate()
+    delta = lora_delta(lm_tree(tuned))
+    v_lora = reg.publish_lora(delta, base_version=v_base,
+                              meta={"source": "LoRA fine-tune"})
+    del opt
+    if refs is None:
+        refs = [forward_greedy(lm, p, NEW_TOKENS) for p in prompts]
+    eng = ServingEngine(lm, max_len=MAX_LEN, device=DEVICE, slots=SLOTS)
+    try:
+        results, wall = engine_round(eng)
+        st0 = eng.stats()
+        base_round = report_round("LoRA base, first round (captures)",
+                                  results, wall, st0, {}, card)
+        check_near_ties(lm, "LoRA base", [r.tokens for r in results], refs,
+                        [len(p) for p in prompts])
+        progs, keys = dict(eng._programs._programs), st0["compiled_programs"]
+        ctrl = PromotionController(
+            reg, engine=eng, eval_fn=lambda params: 1.0,
+            criterion=PromotionCriterion(min_metric=0.5),
+            watch_window_s=0.0)
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        res, swapped = swapped_round(
+            eng, prompts, 1000, lambda: ctrl.promote(v_lora, watch=False))
+        promote_s = time.perf_counter() - t0
+        for k, n in kernels.launch_counts().items():
+            launches[k] = launches.get(k, 0) + n
+        if not res.promoted or eng.model_version != v_lora \
+                or not res.swap.requeued:
+            raise CheckFailed(f"the LoRA promotion: {res}")
+        same_programs("the LoRA promotion", eng, progs, keys)
+        resolved, _ = served_lm()
+        convert.load_jax_params(resolved, reg.resolve_params(v_lora))
+        if any(not torch.equal(p, q) for p, q in zip(
+                resolved.parameters(), tuned.parameters())):
+            raise CheckFailed("the resolved LoRA version is not the "
+                              "fine-tuned model")
+        parted = check_split("the LoRA promotion", lm, resolved, prompts,
+                             swapped, res.swap.in_flight,
+                             done_before(res.swap.in_flight, swapped), refs)
+        st1 = eng.stats()
+        results, wall = engine_round(eng)
+        st2 = eng.stats()
+        tuned_round = report_round("LoRA version, replays only", results,
+                                   wall, st2, st1, card)
+        same_programs("the LoRA version's round", eng, progs, keys)
+    finally:
+        eng.shutdown()
+    tuned_refs = [forward_greedy(resolved, p, NEW_TOKENS) for p in prompts]
+    parted += check_near_ties(resolved, "LoRA version",
+                              [r.tokens for r in results], tuned_refs,
+                              [len(p) for p in prompts])
+    changed = sum(not np.array_equal(a, b) for a, b in zip(tuned_refs, refs))
+    shortest = sorted(range(len(prompts)), key=lambda i: len(prompts[i]))[:2]
+    solo = [greedy_generate(resolved, prompts[i][None], NEW_TOKENS,
+                            device=DEVICE)[0].cpu().numpy() for i in shortest]
+    parted += check_near_ties(resolved, "LoRA version against "
+                              "greedy_generate",
+                              [results[i].tokens for i in shortest], solo,
+                              [len(prompts[i]) for i in shortest])
+    # the merged model serves the same tokens
+    n_merged = nn.merge_lora(resolved)
+    if n_merged != n_adapted or any("lora" in n for n, _ in
+                                    resolved.named_parameters()):
+        raise CheckFailed(f"merge_lora merged {n_merged} of {n_adapted}")
+    merged_eng = ServingEngine(resolved, max_len=MAX_LEN, device=DEVICE,
+                               slots=SLOTS)
+    try:
+        merged, _ = engine_round(merged_eng)
+    finally:
+        merged_eng.shutdown()
+    parted += check_near_ties(resolved, "merged LoRA version",
+                              [r.tokens for r in merged], tuned_refs,
+                              [len(p) for p in prompts])
+    same = sum(np.array_equal(a.tokens, b.tokens)
+               for a, b in zip(merged, results))
+    log(f"  LoRA serving: {n_adapted} modules adapted at rank "
+        f"{LORA_RANK}; base v{v_base} served phase 5's tokens; v{v_lora} "
+        f"({len(delta)} adapter leaves, "
+        f"{sum(a.nbytes for a in delta.values())} bytes) promoted under "
+        f"traffic in {promote_s:.2f} s (the gate, the artifact resolved "
+        f"through its base, the engine's pause "
+        f"{res.swap.duration_s * 1e3:.2f} ms; {res.swap.requeued} "
+        f"re-prefilled), programs kept "
+        f"({keys}); {changed} of {len(prompts)} requests' tokens changed "
+        f"by the fine-tune; the merged model served {same} of "
+        f"{len(prompts)} requests bitwise as the adapted engine; {parted} "
+        f"parted at near ties; decode {tuned_round['decode_tokens_per_s']:.1f}"
+        f" tokens/s adapted against {plain_rate} unadapted (phase 5) "
+        f"[{card}]")
+    del lm, tuned, resolved
+    release()
+    return {"adapted_modules": n_adapted, "base_version": v_base,
+            "lora_version": v_lora, "delta_leaves": len(delta),
+            "delta_bytes": sum(a.nbytes for a in delta.values()),
+            "requeued": res.swap.requeued, "promote_s": promote_s,
+            "swap_pause_ms": res.swap.duration_s * 1e3,
+            "compiled_programs": keys, "changed_requests": changed,
+            "merged_bitwise_requests": same, "parted_near_ties": parted,
+            "base_round": base_round, "tuned_round": tuned_round,
+            "plain_decode_tokens_per_s": plain_rate}, launches
+
+
+def s2s_args(*extra):
+    from bigdl_tpu_torch.models.transformer import train as s2s
+    return s2s.build_parser().parse_args(S2S_ARGV + list(extra))
+
+
+def check_s2s_step():
+    """One (2, 256) step of Transformer-base on the card (the flash kernels
+    non-causal in the encoder, causal at 257 in the decoder; the LayerNorm
+    kernels) against the same weights on the CPU (plain LayerNorm,
+    ``attention_impl="full"``): the loss (relative 1e-4) and every
+    parameter's gradient (relative Frobenius 1e-3)."""
+    from bigdl_tpu_torch.dataset import DataSet
+    from bigdl_tpu_torch.models.transformer import train as s2s
+    from bigdl_tpu_torch.optim import LocalOptimizer
+
+    args = s2s_args()
+    bos, eos, payload = s2s.special_ids(args)
+    rng = np.random.default_rng(SEED + 60)
+    src = rng.integers(0, payload, (2, S2S_LEN))
+    tgt = src[:, ::-1]
+    tin = np.concatenate([np.full((2, 1), bos), tgt], 1)
+    tout = np.concatenate([tgt, np.full((2, 1), eos)], 1)
+    inp = tuple(torch.from_numpy(np.ascontiguousarray(a)) for a in (src, tin))
+    target = torch.from_numpy(np.ascontiguousarray(tout))
+    runs = []
+    for device, impl in ((DEVICE, "auto"), ("cpu", "full")):
+        model = s2s.build_model(args, device, attention_impl=impl)
+        opt = LocalOptimizer(model, DataSet.array([]), s2s.criterion(),
+                             device=device)
+        names, params = zip(*model.named_parameters())
+        loss, grads = opt._loss_and_grads(
+            list(params), tuple(a.to(device) for a in inp), target.to(device))
+        runs.append((loss.item(), {n: g.detach().cpu()
+                                   for n, g in zip(names, grads)},
+                     sum(p.numel() for p in params)))
+        del model, opt, loss, grads
+    (loss, grads, n_params), (loss_ref, grads_ref, _) = runs
+    rel_loss = abs(loss - loss_ref) / abs(loss_ref)
+    rel = rel_errors(grads, grads_ref)
+    worst = max(rel, key=rel.get)
+    log(f"  Transformer-base ({n_params} parameters), one (2, {S2S_LEN}) "
+        f"step: loss {loss:.6f} vs CPU plain {loss_ref:.6f} (relative "
+        f"{rel_loss:.2e}, limit 1e-4); gradients of {len(rel)} parameters, "
+        f"worst relative error {rel[worst]:.2e} ({worst}, limit 1e-3)")
+    if rel_loss > 1e-4 or rel[worst] > 1e-3:
+        raise CheckFailed(f"the seq2seq step disagrees with the CPU plain "
+                          f"model: loss {rel_loss:.3e}, {worst} "
+                          f"{rel[worst]:.3e}")
+    return {"rel_loss": rel_loss, "worst_grad_rel": rel[worst],
+            "parameters": n_params}
+
+
+def same_translations(name, a, b) -> int:
+    """Two searches' ``(sequences, scores)``: scores within 1e-4, and the
+    sequences equal except where a beam's score is within 1e-4 of another
+    beam's of its row (a tie either search may break its own way).
+    Returns how many rows differed at ties."""
+    (sa, ca), (sb, cb) = a, b
+    sa, sb = sa.cpu().numpy(), sb.cpu().numpy()
+    ca, cb = ca.float().cpu().numpy(), cb.float().cpu().numpy()
+    err = float(np.abs(ca - cb).max())
+    if err > 1e-4:
+        raise CheckFailed(f"{name}: scores differ by {err}")
+    tied = 0
+    for n in range(sa.shape[0]):
+        if np.array_equal(sa[n], sb[n]):
+            continue
+        gaps = np.abs(np.diff(np.sort(ca[n])))
+        if gaps.size == 0 or gaps.min() > 1e-4:
+            raise CheckFailed(f"{name}: row {n}'s sequences differ with no "
+                              f"tie among its beams")
+        tied += 1
+    return tied
+
+
+def seq2seq_path(kernels, card, Engine):
+    """Transformer-base through the seq2seq main's configuration: the
+    one-step check, TRAIN_ITERS steps fp32 and bf16 (Adam 3e-3, the
+    synthetic reversal corpus), each bitwise equal to eager steps, with the
+    flash kernels' causal and non-causal launches; ``translate_generate``
+    against ``beam_translate`` on held-out sources; the main itself."""
+    from bigdl_tpu_torch.dataset import DataSet, SampleToMiniBatch
+    from bigdl_tpu_torch.models.transformer import (
+        beam_translate, translate_generate,
+    )
+    from bigdl_tpu_torch.models.transformer import train as s2s
+    from bigdl_tpu_torch.optim import Adam
+
+    check = check_s2s_step()
+    args = s2s_args("--synthetic-size", str(S2S_BATCH * TRAIN_STEPS))
+    bos, eos, payload = s2s.special_ids(args)
+    rng = np.random.default_rng(0)
+    srcs, tgts = s2s.corpus(args, rng)
+    data = (DataSet.array(s2s.samples(args, srcs, tgts))
+            >> SampleToMiniBatch(args.batch_size))
+
+    def method():
+        return Adam(learningrate=args.learning_rate)
+
+    tokens = S2S_BATCH * (S2S_LEN + 1)
+    out, launches, variants = {"one_step_check": check}, {}, {}
+    for bf16 in (False, True):
+        key = "bf16" if bf16 else "fp32"
+        if bf16:
+            Engine.init(compute_dtype=torch.bfloat16)
+        try:
+            model, opt, run = recorded_run(
+                lambda: s2s.build_model(args, DEVICE), s2s.criterion(),
+                method, data, TRAIN_ITERS, kernels, card,
+                f"Transformer-base steps ({key}) at ({S2S_BATCH}, "
+                f"{S2S_LEN} -> {S2S_LEN + 1})", tokens, profile=True)
+        finally:
+            if bf16:
+                Engine.reset()
+        for name in FLASH_NAMES:
+            split = run["launches_by_variant"][name]
+            if not split.get("full") or not split.get("causal"):
+                raise CheckFailed(f"the seq2seq path ({key}) launched "
+                                  f"{name} as {split}: both non-causal and "
+                                  f"causal must be > 0")
+            for v, n in split.items():
+                variants.setdefault(name, {})
+                variants[name][v] = variants[name].get(v, 0) + n
+        idle = [k for k, n in run["launches"].items() if n == 0]
+        if idle:
+            raise CheckFailed(f"the seq2seq path ({key}) never launched "
+                              f"{idle}")
+        for k, n in run["launches"].items():
+            launches[k] = launches.get(k, 0) + n
+        out[key] = {k: run[k] for k in (
+            "losses", "step_ms", "tokens_per_s", "first_step_ms", "launches",
+            "launches_by_variant", "launches_by_dtype", "bitwise_vs_eager")}
+        if run["profile"]:
+            out[key]["profile"] = {k: run["profile"][k] for k in (
+                "wall_ms", "busy_ms", "by_kind_ms", "kernels_by_kind")}
+        if not bf16:
+            held = np.random.default_rng(SEED + 61).integers(
+                0, payload, (S2S_HELD_OUT, S2S_HELD_LEN)).astype(np.int32)
+            kw = dict(beam_size=S2S_BEAM, eos_id=eos, bos_id=bos,
+                      decode_length=S2S_HELD_LEN + 1, device=DEVICE)
+            walls = {}
+            found = {}
+            for name, fn in (("translate_generate", translate_generate),
+                             ("beam_translate", beam_translate)):
+                for _ in range(2):              # the second call is timed
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    found[name] = fn(model, held, **kw)
+                    torch.cuda.synchronize()
+                    walls[name] = (time.perf_counter() - t0) * 1e3
+            seqs = found["translate_generate"][0]
+            if tuple(seqs.shape) != (S2S_HELD_OUT, S2S_BEAM,
+                                     S2S_HELD_LEN + 2) \
+                    or not bool((seqs[:, :, 0] == bos).all()):
+                raise CheckFailed(f"translate_generate gave "
+                                  f"{tuple(seqs.shape)}")
+            tied = same_translations("translate_generate against "
+                                     "beam_translate",
+                                     found["translate_generate"],
+                                     found["beam_translate"])
+            log(f"  {S2S_HELD_OUT} held-out sources of {S2S_HELD_LEN} "
+                f"tokens, beam {S2S_BEAM}: translate_generate "
+                f"{walls['translate_generate']:.1f} ms, beam_translate "
+                f"{walls['beam_translate']:.1f} ms; the same sequences "
+                f"({tied} rows apart at ties), scores within 1e-4 [{card}]")
+            out["translate"] = {"wall_ms": walls, "rows_apart_at_ties": tied,
+                                "best": seqs[:, 0].tolist()}
+        del model, opt
+        release()
+    # the main on the card at Transformer-base widths: 2 steps, 2 rows
+    t0 = time.perf_counter()
+    loss = s2s.main(S2S_ARGV + ["--synthetic-size", str(2 * S2S_BATCH),
+                                "--max-epoch", "1", "--translate", "2",
+                                "--device", DEVICE])
+    out["main"] = {"loss": loss, "wall_s": time.perf_counter() - t0}
+    if not np.isfinite(loss):
+        raise CheckFailed(f"the seq2seq main's loss {loss}")
+    release()
+    return out, launches, variants
+
+
+def finetune_path(TransformerLM, lm_criterion, nn, kernels, card, Engine,
+                  ServingEngine, full=None, prompts=None, refs=None,
+                  plain_rate=None):
+    """Phase 15: LoRA fine-tuning and serving of the full-width LM, and the
+    seq2seq Transformer at Transformer-base widths. ``full``: phase 6's
+    full fine-tune runs (``{"fp32": run, "bf16": run}``), run here when
+    None; ``prompts``/``refs``: phase 5's requests and their tokens;
+    ``plain_rate``: phase 5's warm decode rate."""
+    if full is None:
+        full = {"fp32": train(TransformerLM, lm_criterion, kernels, card)[1]}
+        Engine.init(compute_dtype=torch.bfloat16)
+        try:
+            full["bf16"] = train(TransformerLM, lm_criterion, kernels, card,
+                                 bf16=True)[1]
+        finally:
+            Engine.reset()
+        release()
+    t0 = time.perf_counter()
+    lora, lora_launches = lora_training(TransformerLM, lm_criterion, nn,
+                                        kernels, card, Engine, full)
+    laps = {"lora_training_s": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    serving, serve_launches = lora_serving(
+        TransformerLM, lm_criterion, nn, kernels, card, ServingEngine,
+        prompts or serving_prompts(), refs, plain_rate)
+    laps["lora_serving_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    s2s, s2s_launches, variants = seq2seq_path(kernels, card, Engine)
+    laps["seq2seq_s"] = time.perf_counter() - t0
+    # an engine's prefill and ticks attend through the cached path (plain
+    # attention); its LayerNorms run the kernel
+    if serve_launches.get("layer_norm_fwd", 0) <= 0:
+        raise CheckFailed(f"the adapted engines launched {serve_launches}")
+    log(f"  phase 15 laps {laps}; launches: LoRA training {lora_launches}, "
+        f"LoRA serving {serve_launches}, seq2seq {s2s_launches} (flash by "
+        f"variant {variants})")
+    return {"lora": lora, "lora_serving": serving, "seq2seq": s2s,
+            "laps": laps, "launches": {
+                "lora_training": lora_launches,
+                "lora_serving": serve_launches, "seq2seq": s2s_launches,
+                "seq2seq_by_variant": variants}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on the "
@@ -5438,6 +6131,12 @@ def main() -> int:
         log("phase 13 only")
         text = text_path(kernels, card, Engine)
         print(json.dumps({"text": text}), flush=True)
+        return 0
+    if "--finetune-only" in sys.argv:
+        log("phase 15 only")
+        finetune = finetune_path(TransformerLM, lm_criterion, nn, kernels,
+                                 card, Engine, ServingEngine)
+        print(json.dumps({"finetune": finetune}), flush=True)
         return 0
     if "--serving-only" in sys.argv:
         log("phase 14 only")
@@ -5637,6 +6336,15 @@ def main() -> int:
     # ... to here, the references' launches left out
     stack["launches"] = stack_launches(kernels.launch_counts())
 
+    log("phase 15: LoRA fine-tuning and serving of the full-width LM; the "
+        "seq2seq Transformer at Transformer-base widths")
+    finetune = finetune_path(TransformerLM, lm_criterion, nn, kernels, card,
+                             Engine, ServingEngine,
+                             full={"fp32": run, "bf16": run16},
+                             prompts=prompts, refs=refs,
+                             plain_rate=warm["decode_tokens_per_s"])
+    ft_launches = finetune["launches"]
+
     log("phase 10: the kernel table")
 
     # each kernel's row: its own slice's path (serving for the forward
@@ -5695,8 +6403,39 @@ def main() -> int:
                  "feed": feed["launches"][k],
                  "text": text["launches"][k],
                  "serving_stack": stack["launches"]["path"][k],
-                 "serving_stack_engines": stack["launches"]["engines"][k]}
+                 "serving_stack_engines": stack["launches"]["engines"][k],
+                 "finetune_lora_training": ft_launches["lora_training"][k],
+                 "finetune_lora_serving": ft_launches["lora_serving"][k],
+                 "seq2seq": ft_launches["seq2seq"][k]}
              for k in launches}
+
+    def s2s_flash(rows, name):
+        """A flash kernel's seq2seq instances: the encoder's non-causal and
+        the decoder's causal phase-3 rows, fp32 and bf16, and the seq2seq
+        path's launches by variant."""
+        part = {"flash_attention_fwd": None, "flash_attention_bwd_dq": "dq",
+                "flash_attention_bwd_dkv": "dkv"}[name]
+        out = {"launches_by_variant":
+               ft_launches["seq2seq_by_variant"][name]}
+        for where, shape, causal in (("encoder", S2S_ENC_SHAPE, False),
+                                     ("decoder", S2S_DEC_SHAPE, True)):
+            for dtype in ("float32", "bfloat16"):
+                r = find_row(rows, shape, dtype, causal=causal)
+                row = {"shape": list(shape), "causal": causal,
+                       "plain_ms": r["plain_ms"],
+                       "library_ms": r["library_ms"]}
+                if part is None:
+                    row.update(ms=r["ms"], bound_ms=r["bound_ms"],
+                               bound_by=r["bound_by"], max_abs_err=r["err"])
+                else:
+                    row.update(ms=r[f"{part}_ms"],
+                               bound_ms=r[f"{part}_bound"][0],
+                               bound_by=r[f"{part}_bound"][1],
+                               max_abs_err=r[f"err_{part}"],
+                               plain_and_library_cover="dq+dk+dv")
+                out[f"{where}_{dtype}"] = row
+        return out
+
     beam_row = find_row(fa_rows, BEAM_SHAPE, "float32")
 
     def bf16_training(name):
@@ -5787,7 +6526,8 @@ def main() -> int:
          "beam_search": {k: beam_row[k] for k in (
              "shape", "dtype", "ms", "plain_ms", "library_ms", "bound_ms",
              "bound_by", "bound_3xtf32_ms", "err")} | {
-             "launches": llama["beam_counts"]["flash_attention_fwd"]}},
+             "launches": llama["beam_counts"]["flash_attention_fwd"]},
+         "seq2seq": s2s_flash(fa_rows, "flash_attention_fwd")},
         {"name": "flash_attention_bwd_dq", "route": "cuda",
          "source": src + "flash_attention_bwd.cu",
          "replaces": "bigdl_tpu/kernels/flash_attention.py:132",
@@ -5801,6 +6541,7 @@ def main() -> int:
          "paths": paths["flash_attention_bwd_dq"],
          "bound_3xtf32_ms": bwd["dq_bound_3xtf32_ms"], "bf16": bwd_bf16,
          "bf16_training": bf16_training("flash_attention_bwd_dq"),
+         "seq2seq": s2s_flash(bwd_rows, "flash_attention_bwd_dq"),
          "design": design_of("flash_bwd_dq_kernel", bwd["plans"][0],
                              bwd_summary)},
         {"name": "flash_attention_bwd_dkv", "route": "cuda",
@@ -5816,6 +6557,7 @@ def main() -> int:
          "paths": paths["flash_attention_bwd_dkv"],
          "bound_3xtf32_ms": bwd["dkv_bound_3xtf32_ms"], "bf16": bwd_bf16,
          "bf16_training": bf16_training("flash_attention_bwd_dkv"),
+         "seq2seq": s2s_flash(bwd_rows, "flash_attention_bwd_dkv"),
          "design": design_of("flash_bwd_dkv_kernel", bwd["plans"][1],
                              bwd_summary)},
     ], "serving": {"programs": programs, "first_round": cold,
@@ -5851,7 +6593,8 @@ def main() -> int:
                                                    "host_calls")}}},
         "llama": dict(llama["summary"], kernel_ms_per_step=llama_kernel_ms),
         "vision": vision, "serving_extras": extras, "robustness": robust,
-        "feed": feed, "text": text, "serving_stack": stack}
+        "feed": feed, "text": text, "serving_stack": stack,
+        "finetune": finetune}
     print(json.dumps(table), flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -6,7 +6,8 @@ PTB LSTM LM whose unrolled recurrence is one program), each
 replayed against the same work run eagerly, and dropout drawing fresh
 masks at every replay; a failed capture captured again at the next call;
 the serving engine's graphs replayed, not captured again, across a crash
-and a weight swap.
+and a weight swap; a LoRA step and the seq2seq Transformer's step (``-k
+"lora or seq2seq"``), and an adapted engine's swap of adapter leaves.
 
 Marked ``gpu``: they skip where there is no CUDA device (a CUDA graph has
 no CPU form). This file imports neither JAX nor the JAX package:
@@ -489,3 +490,141 @@ def test_ptb_lstm_step_replays_equal_eager(cuda, dtype):
     for (name, p), q in zip(model.named_parameters(), ref.parameters()):
         assert p.dtype == torch.float32
         assert torch.equal(p, q), name
+
+
+def _replayed(model, crit, method, batches):
+    """The trainer's step over ``batches`` (inputs on the card) through its
+    captured program: the losses."""
+    opt = LocalOptimizer(model, DataSet.array([]), crit) \
+        .set_optim_method(method())
+    got = [opt.train_step(x, y) for x, y in batches]
+    assert opt._step_program.captured
+    assert opt._step_program.replays == len(batches) - 1
+    return got
+
+
+def _eager(model, crit, method, batches):
+    """The same steps through the step function called eagerly."""
+    opt = LocalOptimizer(model, DataSet.array([]), crit) \
+        .set_optim_method(method())
+    named, scales, mask = opt._prepare_step()
+    step = opt._make_step_fn(named, scales, mask)
+    return [float(step(x, y, hyper_tensor(opt._method.hyper(k, opt._ostate),
+                                          list(named.values()))))
+            for k, (x, y) in enumerate(batches)]
+
+
+def _lora_lm():
+    from bigdl_tpu_torch.nn import apply_lora
+    lm = _lm()
+    apply_lora(lm, rank=4, generator=torch.Generator().manual_seed(2))
+    with torch.no_grad():           # trained adapters: B away from 0
+        for n, p in lm.named_parameters():
+            if "lora" in n and n.endswith("_b"):
+                p.normal_(0.0, 0.02, generator=torch.Generator(
+                    "cuda").manual_seed(len(n)))
+    return lm
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lora_step_replays_equal_eager(cuda, dtype):
+    """A LoRA step (every attention and Linear adapted, the rest frozen):
+    replayed bit for bit against the same steps run eagerly, the frozen
+    base untouched, and all five kernels launched."""
+    batches = [(torch.from_numpy(b.input).cuda(),
+                torch.from_numpy(b.target).cuda()) for b in _batches(3)]
+
+    def sgd():
+        return SGD(learningrate=0.01, momentum=0.9, dampening=0.0)
+
+    Engine.init(compute_dtype=dtype)
+    try:
+        lm = _lora_lm()
+        base = {n: p.detach().clone() for n, p in lm.named_parameters()}
+        kernels.reset_launch_counts()
+        got = _replayed(lm, lm_criterion(), sgd, batches)
+        counts = kernels.launch_counts()
+        ref = _lora_lm()
+        want = _eager(ref, lm_criterion(), sgd, batches)
+    finally:
+        Engine.reset()
+    assert got == want and all(np.isfinite(got))
+    scales = lm.grad_scales()
+    for (name, p), q in zip(lm.named_parameters(), ref.parameters()):
+        assert torch.equal(p, q), name
+        assert torch.equal(p, base[name]) == (scales[name] == 0.0), name
+    assert all(n > 0 for n in counts.values()), counts
+
+
+def _seq2seq(gen_seed=0):
+    from bigdl_tpu_torch.models.transformer import Transformer
+    return Transformer(VOCAB, VOCAB, E, HEADS, 1, 1, max_len=MAX_LEN,
+                       generator=torch.Generator().manual_seed(gen_seed),
+                       device="cuda")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_seq2seq_step_replays_equal_eager(cuda, dtype):
+    """The seq2seq Transformer's step on a two-tensor input (source, and
+    the decoder's input one longer): replayed bit for bit against eager
+    steps; the encoder launches the flash kernels non-causal, the decoder
+    causal at a ragged length."""
+    from bigdl_tpu_torch.models.transformer import train as s2s
+    r = np.random.default_rng(4)
+    batches = [((torch.from_numpy(r.integers(0, VOCAB, (2, 32))).cuda(),
+                 torch.from_numpy(r.integers(0, VOCAB, (2, 33))).cuda()),
+                torch.from_numpy(r.integers(0, VOCAB, (2, 33))).cuda())
+               for _ in range(3)]
+
+    def adam():
+        return Adam(learningrate=1e-3)
+
+    Engine.init(compute_dtype=dtype)
+    try:
+        model = _seq2seq()
+        kernels.reset_launch_counts()
+        got = _replayed(model, s2s.criterion(), adam, batches)
+        variants = kernels.launch_counts_by_variant()
+        ref = _seq2seq()
+        want = _eager(ref, s2s.criterion(), adam, batches)
+    finally:
+        Engine.reset()
+    assert got == want and all(np.isfinite(got))
+    for (name, p), q in zip(model.named_parameters(), ref.parameters()):
+        assert torch.equal(p, q), name
+    for name in ("flash_attention_fwd", "flash_attention_bwd_dq",
+                 "flash_attention_bwd_dkv"):
+        assert variants[name].get("full", 0) > 0, (name, variants)
+        assert variants[name].get("causal", 0) > 0, (name, variants)
+
+
+def test_lora_engine_swap_of_adapter_leaves_keeps_programs(cuda):
+    """An engine serving an adapted LM: a swap that writes new adapter
+    leaves reaches the captured programs without capturing again, and the
+    tokens are then solo greedy's on the swapped weights."""
+    from bigdl_tpu_torch import convert
+    lm = _lora_lm().evaluate()
+    tuned = _lora_lm().evaluate()
+    with torch.no_grad():
+        for n, p in tuned.named_parameters():
+            if "lora" in n:
+                p.add_(0.05 * torch.randn(p.shape, device="cuda",
+                                          generator=torch.Generator(
+                                              "cuda").manual_seed(7)))
+    tree = convert.nest(tuned, {n: p.detach().cpu().numpy()
+                                for n, p in tuned.named_parameters()})
+    r = np.random.default_rng(2)
+    reqs = [r.integers(0, VOCAB, n) for n in (5, 20, 40)]
+    with ServingEngine(lm, MAX_LEN, slots=3) as eng:
+        for p in reqs:
+            eng.submit(p, 2).result(120)
+        progs = dict(eng._programs._programs)
+        keys = eng.stats()["compiled_programs"]
+        eng.swap_weights(tree, version=2)
+        got = [h.result(120).tokens
+               for h in [eng.submit(p, 8) for p in reqs]]
+        assert eng.stats()["compiled_programs"] == keys
+        assert eng._programs._programs == progs
+    for p, a in zip(reqs, got):
+        np.testing.assert_array_equal(
+            a, greedy_generate(tuned, p[None], 8)[0].cpu().numpy())

@@ -11,6 +11,7 @@ injected clocks and the stall on an event (``faults.stall_sleep``), never
 on wall-clock margins; threads are joined with a bound.
 """
 
+import contextlib
 import os
 import signal
 import threading
@@ -123,7 +124,14 @@ def test_crash_under_one_request_plan_matches_jax(pair):
 def test_crash_budget_spent_leaves_engine_dead_like_jax(pair):
     """Three deaths against a budget of two: both engines give up, the
     handle raises the real ``WorkerDeathError``, health is ``dead`` and a
-    later submit raises ``EngineShutdown``."""
+    later submit raises ``EngineShutdown``.
+
+    The loop dies at the top of its first iteration, request or not, and
+    ``submit`` starts the thread before it queues the request: a submitter
+    descheduled in between (a loaded host) would find all three deaths
+    done and the engine shut. The port's supervisor recovers each death
+    under the device lock, so holding that lock across the submit queues
+    the request before the second death."""
     jlm, tlm = pair
     from bigdl_tpu.serving.engine import EngineShutdown as JaxShutdown
     spec = "serve_thread@1;serve_thread@2;serve_thread@3"
@@ -135,7 +143,9 @@ def test_crash_budget_spent_leaves_engine_dead_like_jax(pair):
              JaxShutdown)):
         with fl.inject_faults(spec) as plan:
             eng = make()
-            h = eng.submit(_prompt(4, 5), 6)
+            with eng._device_lock if fl is faults \
+                    else contextlib.nullcontext():
+                h = eng.submit(_prompt(4, 5), 6)
             with pytest.raises(fl.WorkerDeathError):
                 h.result(120)
             assert plan.unfired() == []

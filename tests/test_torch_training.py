@@ -411,7 +411,7 @@ def test_train_main_runs_on_the_cpu_and_refuses_unported_flags(capsys):
                             "--synthetic-tokens", "2000"])
     assert np.isfinite(loss)
     assert "final loss:" in capsys.readouterr().out
-    for flag in (["--lora=4"], ["--save", "m.bin"],
-                 ["--model-snapshot", "m.bin"], ["--distributed"]):
+    for flag in (["--save", "m.bin"], ["--model-snapshot", "m.bin"],
+                 ["--distributed"]):
         with pytest.raises(SystemExit, match="ROADMAP Queue"):
             train_main.main(["--device", "cpu", *flag])
