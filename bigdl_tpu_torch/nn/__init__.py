@@ -3,21 +3,42 @@
 from bigdl_tpu_torch.nn.abstractnn import (
     AbstractModule, Container, TensorModule,
 )
-from bigdl_tpu_torch.nn.activation import GELU, LogSoftMax, ReLU, Swish, Tanh
+from bigdl_tpu_torch.nn.activation import (
+    ELU, GELU, Abs, AddConstant, BinaryThreshold, Clamp, Exp, HardSigmoid,
+    HardTanh, LeakyReLU, Log, LogSigmoid, LogSoftMax, MulConstant, Power,
+    PReLU, ReLU, ReLU6, Sigmoid, SoftMax, SoftMin, SoftPlus, SoftSign, Sqrt,
+    Square, SReLU, Swish, Tanh, TanhShrink,
+)
 from bigdl_tpu_torch.nn.attention import (
     CrossAttention, MultiHeadAttention, rope_rotate,
 )
 from bigdl_tpu_torch.nn.beam_search import SequenceBeamSearch, greedy_decode
 from bigdl_tpu_torch.nn.containers import (
-    CAddTable, CMulTable, Concat, ConcatTable, Identity, JoinTable, Remat,
-    SelectTable, Sequential,
-)
-from bigdl_tpu_torch.nn.criterion import (
-    AbstractCriterion, ClassNLLCriterion, CrossEntropyCriterion,
-    ParallelCriterion, TimeDistributedCriterion,
+    BifurcateSplitTable, Bottle, CAddTable, CAveTable, CDivTable, CMaxTable,
+    CMinTable, CMulTable, Concat, ConcatTable, CSubTable, Echo, FlattenTable,
+    Identity, JoinTable, MapTable, MaskedSelect, MixtureTable, NarrowTable,
+    Pack, ParallelTable, Remat, SelectTable, Sequential,
 )
 from bigdl_tpu_torch.nn.convolution import (
-    SpatialConvolution, TemporalConvolution,
+    LocallyConnected1D, LocallyConnected2D, SpatialConvolution,
+    SpatialConvolutionMap, SpatialDilatedConvolution, SpatialFullConvolution,
+    SpatialSeparableConvolution, SpatialShareConvolution, TemporalConvolution,
+)
+from bigdl_tpu_torch.nn.cosine import Cosine, CosineDistance
+from bigdl_tpu_torch.nn.criterion import (
+    AbsCriterion, AbstractCriterion, BCECriterion, BCECriterionWithLogits,
+    CategoricalCrossEntropy, ClassNLLCriterion, ClassSimplexCriterion,
+    CosineDistanceCriterion, CosineEmbeddingCriterion,
+    CosineProximityCriterion, CrossEntropyCriterion, DiceCoefficientCriterion,
+    DistKLDivCriterion, GaussianCriterion, HingeEmbeddingCriterion,
+    KLDCriterion, KullbackLeiblerDivergenceCriterion, L1Cost,
+    L1HingeEmbeddingCriterion, MarginCriterion, MarginRankingCriterion,
+    MeanAbsolutePercentageCriterion, MeanSquaredLogarithmicCriterion,
+    MSECriterion, MultiCriterion, MultiLabelMarginCriterion,
+    MultiLabelSoftMarginCriterion, MultiMarginCriterion, ParallelCriterion,
+    PoissonCriterion, SmoothL1Criterion, SmoothL1CriterionWithWeights,
+    SoftMarginCriterion, SoftmaxWithCriterion, TimeDistributedCriterion,
+    TimeDistributedMaskCriterion, TransformerCriterion,
 )
 from bigdl_tpu_torch.nn.embedding import LookupTable
 from bigdl_tpu_torch.nn.fused_loss import (
@@ -31,18 +52,30 @@ from bigdl_tpu_torch.nn.incremental import (
     install_decode_cache, reset_decode_slot, restart_decode_cache,
 )
 from bigdl_tpu_torch.nn.initialization import (
-    InitializationMethod, MsraFiller, Ones, RandomNormal, RandomUniform,
-    Xavier, Zeros,
+    BilinearFiller, ConstInitMethod, InitializationMethod, MsraFiller, Ones,
+    RandomNormal, RandomUniform, Xavier, Zeros,
 )
 from bigdl_tpu_torch.nn.linear import Linear
 from bigdl_tpu_torch.nn.lora import LoRALinear, apply_lora, merge_lora
-from bigdl_tpu_torch.nn.misc import ImageNormalize
+from bigdl_tpu_torch.nn.misc import (
+    MM, MV, ActivityRegularization, Bilinear, Cropping2D, Cropping3D,
+    CrossProduct, DotProduct, Euclidean, GaussianSampler, GradientReversal,
+    HardShrink, Highway, ImageNormalize, L1Penalty, Max, Maxout, Mean, Min,
+    Negative, NegativeEntropyPenalty, PairwiseDistance, ResizeBilinear, RReLU,
+    Scale, SoftShrink, SpatialUpSamplingBilinear, SpatialUpSamplingNearest,
+    Sum, Threshold, UpSampling1D, UpSampling2D, UpSampling3D,
+)
 from bigdl_tpu_torch.nn.normalization import (
-    BatchNormalization, Dropout, LayerNorm, RMSNorm, SpatialBatchNormalization,
-    SpatialCrossMapLRN,
+    Add, BatchNormalization, CAdd, CMul, Dropout, GaussianDropout,
+    GaussianNoise, LayerNorm, Mul, Normalize, RMSNorm,
+    SpatialBatchNormalization, SpatialContrastiveNormalization,
+    SpatialCrossMapLRN, SpatialDivisiveNormalization, SpatialDropout1D,
+    SpatialDropout2D, SpatialDropout3D, SpatialSubtractiveNormalization,
+    SpatialWithinChannelLRN,
 )
 from bigdl_tpu_torch.nn.pooling import (
-    SpatialAveragePooling, SpatialMaxPooling, TemporalMaxPooling,
+    SpatialAveragePooling, SpatialMaxPooling, TemporalAveragePooling,
+    TemporalMaxPooling,
 )
 from bigdl_tpu_torch.nn.precision import cast_floating
 from bigdl_tpu_torch.nn.recurrent import (
@@ -50,33 +83,28 @@ from bigdl_tpu_torch.nn.recurrent import (
     LSTMPeephole, Masking, MultiRNNCell, Recurrent, RecurrentDecoder,
     RnnCell, TimeDistributed,
 )
-from bigdl_tpu_torch.nn.shape_ops import Reshape, Select, Squeeze, View
+from bigdl_tpu_torch.nn.shape_ops import (
+    Contiguous, Flatten, Index, InferReshape, Narrow, Padding, Replicate,
+    Reshape, Reverse, Select, SpatialZeroPadding, SplitTable, Squeeze, Tile,
+    Transpose, Unsqueeze, View,
+)
+from bigdl_tpu_torch.nn.tf_utils import (
+    Const, Fill, Shape, SplitAndSelect, StrideSlice,
+)
 from bigdl_tpu_torch.nn.transformer_layers import (
     Attention, ExpandSize, FeedForwardNetwork, LayerNormalization,
     TableOperation, Transformer,
 )
 from bigdl_tpu_torch.nn.tree import BinaryTreeLSTM
+from bigdl_tpu_torch.nn.volumetric import (
+    VolumetricAveragePooling, VolumetricConvolution, VolumetricFullConvolution,
+    VolumetricMaxPooling,
+)
 
-__all__ = [
-    "AbstractCriterion", "AbstractModule", "Attention", "BatchNormalization",
-    "BiRecurrent", "BinaryTreeLSTM", "CAddTable", "CMulTable", "Cell",
-    "ChunkedSoftmaxCrossEntropy", "ClassNLLCriterion", "Concat", "ConcatTable",
-    "Container", "ConvLSTMPeephole", "ConvLSTMPeephole3D", "CrossAttention",
-    "CrossEntropyCriterion", "Dropout", "ExpandSize", "FeedForwardNetwork",
-    "FusedLMHead", "GELU", "GRU", "Graph", "Identity", "ImageNormalize",
-    "InitializationMethod", "Input", "JoinTable", "LSTM", "LSTMPeephole",
-    "LayerNorm", "LayerNormalization", "Linear", "LoRALinear", "LogSoftMax",
-    "LookupTable", "Masking", "ModuleNode", "MsraFiller", "MultiHeadAttention",
-    "MultiRNNCell", "Ones", "ParallelCriterion", "RMSNorm", "RandomNormal",
-    "RandomUniform", "ReLU", "Recurrent", "RecurrentDecoder", "Remat",
-    "Reshape", "RnnCell", "Select", "SelectTable", "SequenceBeamSearch",
-    "Sequential", "SpatialAveragePooling", "SpatialBatchNormalization",
-    "SpatialConvolution", "SpatialCrossMapLRN", "SpatialMaxPooling", "Squeeze",
-    "StaticGraph", "Swish", "TableOperation", "Tanh", "TemporalConvolution",
-    "TemporalMaxPooling", "TensorModule", "TimeDistributed",
-    "TimeDistributedCriterion", "Transformer", "View", "Xavier", "Zeros",
+# every class imported above, and these functions
+__all__ = sorted([name for name, value in dict(globals()).items()
+                  if isinstance(value, type)] + [
     "apply_lora", "assign_cache_slot", "beam_generate", "cast_floating",
     "chunked_softmax_xent", "fuse_conv_bn", "generate", "greedy_decode",
     "greedy_generate", "install_decode_cache", "make_node", "merge_lora",
-    "reset_decode_slot", "restart_decode_cache", "rope_rotate",
-]
+    "reset_decode_slot", "restart_decode_cache", "rope_rotate"])

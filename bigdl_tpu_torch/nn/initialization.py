@@ -81,3 +81,28 @@ class Zeros(InitializationMethod):
 class Ones(InitializationMethod):
     def init(self, shape, fan_in, fan_out, generator=None):
         return torch.ones(shape)
+
+
+class ConstInitMethod(InitializationMethod):
+    def __init__(self, value: float):
+        self.value = value
+
+    def init(self, shape, fan_in, fan_out, generator=None):
+        return torch.full(shape, float(self.value))
+
+
+class BilinearFiller(InitializationMethod):
+    """The bilinear up-sampling kernel of a (nOut, nIn, kH, kW) weight (the
+    deconvolution's init), the same filter at every (out, in) pair."""
+
+    def init(self, shape, fan_in, fan_out, generator=None):
+        if len(shape) != 4:
+            raise ValueError("BilinearFiller expects a 4-D conv weight shape")
+        kh, kw = shape[-2], shape[-1]
+        f_h, f_w = (kh + 1) // 2, (kw + 1) // 2
+        c_h = (2 * f_h - 1 - f_h % 2) / (2.0 * f_h)
+        c_w = (2 * f_w - 1 - f_w % 2) / (2.0 * f_w)
+        yy = torch.arange(kh, dtype=torch.float64)[:, None]
+        xx = torch.arange(kw, dtype=torch.float64)[None, :]
+        filt = (1 - (yy / f_h - c_h).abs()) * (1 - (xx / f_w - c_w).abs())
+        return filt.float().expand(*shape).clone()

@@ -40,7 +40,20 @@ Counterpart of ``bigdl_tpu/nn/normalization.py``:
   window (``size // 2`` channels before, ``(size - 1) // 2`` after), NCHW
   and NHWC. The windowed sum is JAX's banded C×C 0/1 product
   (``torch.einsum`` in the input's dtype; the trainer keeps TF32 off under
-  its fp32 policy), the rest torch ops.
+  its fp32 policy), the rest torch ops;
+- the tail (``:247-610``): ``Normalize``, the learned ``CMul``, ``CAdd``,
+  ``Mul`` and ``Add``; ``SpatialWithinChannelLRN`` (a SAME window of the
+  last two axes: ``avg_pool2d`` counting the padding, so ``alpha · avg``
+  is JAX's ``alpha/size² · sum``); the Spatial{Subtractive,Divisive,
+  Contrastive}Normalization, whose kernel-weighted neighbourhood mean over
+  every channel is one ``F.conv2d`` divided by the same convolution of
+  ones (JAX's border correction); and the random layers
+  ``SpatialDropout1D/2D/3D``, ``GaussianDropout`` and ``GaussianNoise``,
+  which draw from ``generator`` as ``Dropout`` does (their masks and noise
+  recorded for a recomputation the same way). Like JAX's, the Gaussian
+  layers draw fp32 noise, so a bf16 input gives an fp32 output. The
+  spatial normalizations take (N, C, H, W) in both image formats, as
+  JAX's do; ``SpatialDropout2D``'s channel axis follows ``nn/layout.py``.
 """
 
 from __future__ import annotations
@@ -50,7 +63,9 @@ import os
 import threading
 from typing import Callable, Optional
 
+import numpy as np
 import torch
+import torch.nn.functional as F
 
 from bigdl_tpu_torch.kernels import fused_layer_norm
 from bigdl_tpu_torch.nn import layout
@@ -161,6 +176,8 @@ def _joined(*contexts):
 
 
 class Dropout(TensorModule):
+    draws_random = True
+
     """Inverted dropout (reference ``nn.Dropout``): in training mode each
     element is kept with probability ``1 - p`` and, with ``scale``, divided
     by it."""
@@ -201,11 +218,13 @@ def _check_p(p: float) -> None:
 
 
 def dropout_generators(model: torch.nn.Module) -> list:
-    """The explicit CUDA generators of ``model``'s Dropout layers, which a
+    """The explicit CUDA generators of ``model``'s random layers (Dropout
+    and every layer marked ``draws_random``: the spatial and Gaussian
+    dropouts, ``GaussianNoise``, ``RReLU``, ``GaussianSampler``), which a
     captured program must register with its graph."""
     gens = []
     for m in model.modules():
-        g = m.generator if isinstance(m, Dropout) else None
+        g = m.generator if getattr(m, "draws_random", False) else None
         if g is not None and g.device.type == "cuda" and \
                 all(g is not h for h in gens):
             gens.append(g)
@@ -374,3 +393,300 @@ class SpatialCrossMapLRN(TensorModule):
 
     def extra_repr(self):
         return f"{self.size}, {self.alpha}, {self.beta}, {self.k}"
+
+
+class _RandomLayer(TensorModule):
+    """A layer that draws in training mode from ``generator`` (the
+    default generator of the input's device when None)."""
+
+    draws_random = True
+
+    def __init__(self, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.generator = generator
+
+    def _keep_mask(self, shape, keep: float, device) -> torch.Tensor:
+        return _draw_mask(lambda: torch.rand(
+            shape, generator=self.generator, device=device) < keep)
+
+    def _normal(self, shape, device) -> torch.Tensor:
+        """fp32 N(0, 1) noise of ``shape``, as ``jax.random.normal``'s."""
+        return _draw_mask(lambda: torch.randn(
+            shape, generator=self.generator, device=device))
+
+
+class _SpatialDropout(_RandomLayer):
+    def __init__(self, init_p: float = 0.5,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__(generator)
+        _check_p(init_p)
+        self.p = init_p
+
+    def _mask_shape(self, x) -> tuple:
+        raise NotImplementedError
+
+    def run(self, input, state=None):
+        if not self.training or self.p == 0.0:
+            return input, state
+        keep = 1.0 - self.p
+        mask = self._keep_mask(self._mask_shape(input), keep, input.device)
+        return torch.where(mask, input / keep, 0.0), state
+
+    def extra_repr(self):
+        return f"p={self.p}"
+
+
+class SpatialDropout1D(_SpatialDropout):
+    """Whole feature channels of (N, T, C) input dropped (one mask a row),
+    or of (T, C) input."""
+
+    def _mask_shape(self, x):
+        return (x.shape[0], 1, x.shape[-1]) if x.dim() == 3 \
+            else (1, x.shape[-1])
+
+
+class SpatialDropout2D(_SpatialDropout):
+    """Whole channels of spatial input dropped (one mask a sample), the
+    channel axis from ``nn/layout.py``."""
+
+    def _mask_shape(self, x):
+        ca = layout.channel_axis(x.dim())
+        return tuple(x.shape[a] if a == ca or (a == 0 and x.dim() == 4)
+                     else 1 for a in range(x.dim()))
+
+
+class SpatialDropout3D(_SpatialDropout):
+    """Whole channels of (N, C, D, H, W) input dropped."""
+
+    def _mask_shape(self, x):
+        return tuple(x.shape[:2]) + (1,) * (x.dim() - 2)
+
+
+class GaussianDropout(_RandomLayer):
+    """Multiplicative noise ``1 + sqrt(rate / (1 - rate)) · N(0, 1)`` in
+    training mode."""
+
+    def __init__(self, rate: float,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__(generator)
+        self.rate = rate
+
+    def run(self, input, state=None):
+        if not self.training or self.rate == 0.0:
+            return input, state
+        stddev = (self.rate / (1.0 - self.rate)) ** 0.5
+        return input * (1.0 + stddev * self._normal(input.shape,
+                                                    input.device)), state
+
+
+class GaussianNoise(_RandomLayer):
+    """Additive noise ``stddev · N(0, 1)`` in training mode."""
+
+    def __init__(self, stddev: float,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__(generator)
+        self.stddev = stddev
+
+    def run(self, input, state=None):
+        if not self.training:
+            return input, state
+        return input + self.stddev * self._normal(input.shape,
+                                                  input.device), state
+
+
+class Normalize(TensorModule):
+    """The input over its ``p``-norm along axis 1 (plus ``eps``)."""
+
+    def __init__(self, p: float = 2.0, eps: float = 1e-10):
+        super().__init__()
+        self.p = p
+        self.eps = eps
+
+    def run(self, input, state=None):
+        if self.p == float("inf"):
+            norm = input.abs().amax(1, keepdim=True)
+        else:
+            norm = input.abs().pow(self.p).sum(1, keepdim=True) \
+                .pow(1.0 / self.p)
+        return input / (norm + self.eps), state
+
+
+def _prod(size) -> int:
+    out = 1
+    for s in size:
+        out *= int(s)
+    return out
+
+
+class CMul(TensorModule):
+    """A learned scale of shape ``size``, broadcast over the input."""
+
+    def __init__(self, size: tuple,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.size = tuple(size)
+        n = _prod(self.size)
+        self.weight = torch.nn.Parameter(RandomUniform().init(
+            self.size, n, n, generator=generator))
+
+    def run(self, input, state=None):
+        return input * self.weight, state
+
+
+class CAdd(TensorModule):
+    """A learned bias of shape ``size``, broadcast over the input."""
+
+    def __init__(self, size: tuple,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.size = tuple(size)
+        n = _prod(self.size)
+        self.bias = torch.nn.Parameter(RandomUniform().init(
+            self.size, n, n, generator=generator))
+
+    def run(self, input, state=None):
+        return input + self.bias, state
+
+
+class Mul(TensorModule):
+    """One learned scalar gain."""
+
+    def __init__(self, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.weight = torch.nn.Parameter(RandomUniform().init(
+            (1,), 1, 1, generator=generator))
+
+    def run(self, input, state=None):
+        return input * self.weight[0], state
+
+
+class Add(TensorModule):
+    """A learned bias vector added to (N, F) input."""
+
+    def __init__(self, input_size: int,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.input_size = input_size
+        self.bias = torch.nn.Parameter(RandomUniform().init(
+            (input_size,), input_size, input_size, generator=generator))
+
+    def run(self, input, state=None):
+        return input + self.bias, state
+
+
+class SpatialWithinChannelLRN(TensorModule):
+    """``x / (1 + alpha/size² · Σ_{size×size window} x²) ** beta`` per
+    channel, the window SAME-padded (``size`` odd)."""
+
+    def __init__(self, size: int = 5, alpha: float = 1.0, beta: float = 0.75):
+        super().__init__()
+        if size % 2 == 0:
+            raise ValueError("LRN window size must be odd")
+        self.size, self.alpha, self.beta = size, alpha, beta
+
+    def run(self, input, state=None):
+        x = input[None] if input.dim() == 3 else input
+        s = self.size
+        avg = F.avg_pool2d(x.square(), s, 1, s // 2, count_include_pad=True)
+        out = x / (1.0 + self.alpha * avg) ** self.beta
+        return (out[0] if input.dim() == 3 else out), state
+
+
+def _kernel2d(kernel) -> np.ndarray:
+    k = np.asarray(kernel if kernel is not None else np.ones((9, 9)),
+                   np.float32)
+    if k.ndim == 1:              # a separable 1-D kernel: its outer product
+        k = np.outer(k, k).astype(np.float32)
+    return k
+
+
+def _check_odd_kernel(kernel: np.ndarray, who: str) -> None:
+    kh, kw = kernel.shape
+    if kh % 2 == 0 or kw % 2 == 0:
+        raise ValueError(
+            f"{who}: kernel must have odd dimensions for SAME-centered "
+            f"neighborhoods, got {kh}x{kw}")
+
+
+class _Neighbourhood(TensorModule):
+    """The kernel-weighted mean over every channel around each pixel of
+    (N, C, H, W) input, border-corrected: ``conv(x, k) / conv(1, k)`` with
+    ``k = kernel / (Σ kernel · C)`` broadcast over the C input channels."""
+
+    def __init__(self, n_input_plane: int, kernel, who: str):
+        super().__init__()
+        self.n_input_plane = n_input_plane
+        self.kernel = _kernel2d(kernel)
+        _check_odd_kernel(self.kernel, who)
+        k = torch.from_numpy(self.kernel)
+        # the per-channel weight, made once (no host copy at run time)
+        self.register_buffer("weight_k", (k / (k.sum() * n_input_plane))[
+            None, None].expand(1, n_input_plane, *k.shape).contiguous(),
+            persistent=False)
+
+    def _mean(self, x: torch.Tensor) -> torch.Tensor:
+        w = self.weight_k.to(x.dtype)
+        pad = (w.shape[-2] // 2, w.shape[-1] // 2)
+        mean = F.conv2d(x, w, padding=pad)
+        ones = torch.ones((1,) + tuple(x.shape[1:]), dtype=x.dtype,
+                          device=x.device)
+        return mean / F.conv2d(ones, w, padding=pad)
+
+
+class SpatialSubtractiveNormalization(_Neighbourhood):
+    """The input minus its neighbourhood mean (a 9×9 ones kernel by
+    default; a 1-D kernel stands for its outer product)."""
+
+    def __init__(self, n_input_plane: int = 1, kernel=None):
+        super().__init__(n_input_plane, kernel,
+                         "SpatialSubtractiveNormalization")
+
+    def run(self, input, state=None):
+        x = input[None] if input.dim() == 3 else input
+        out = x - self._mean(x)
+        return (out[0] if input.dim() == 3 else out), state
+
+
+class SpatialDivisiveNormalization(_Neighbourhood):
+    """The input over its local standard deviation (the square root of
+    the neighbourhood mean of x²). With ``threshold``, a deviation at or
+    below it is replaced by ``thresval`` (default: the threshold); without
+    it, the divisor is floored by its per-sample mean."""
+
+    def __init__(self, n_input_plane: int = 1, kernel=None,
+                 threshold: Optional[float] = None,
+                 thresval: Optional[float] = None):
+        super().__init__(n_input_plane, kernel,
+                         "SpatialDivisiveNormalization")
+        self.threshold = threshold
+        self.thresval = thresval if thresval is not None else threshold
+
+    def run(self, input, state=None):
+        x = input[None] if input.dim() == 3 else input
+        localstd = torch.sqrt(self._mean(x.square()).clamp(min=0.0))
+        if self.threshold is not None:
+            divisor = torch.where(localstd > self.threshold, localstd,
+                                  self.thresval)
+        else:
+            divisor = torch.maximum(localstd, localstd.mean(
+                (1, 2, 3), keepdim=True))
+        out = x / divisor
+        return (out[0] if input.dim() == 3 else out), state
+
+
+class SpatialContrastiveNormalization(TensorModule):
+    """Subtractive, then divisive normalization."""
+
+    def __init__(self, n_input_plane: int = 1, kernel=None,
+                 threshold: Optional[float] = None,
+                 thresval: Optional[float] = None):
+        super().__init__()
+        # children without parameters (JAX's has none): their kernel
+        # buffers move with .to(device)
+        self.sub = SpatialSubtractiveNormalization(n_input_plane, kernel)
+        self.div = SpatialDivisiveNormalization(n_input_plane, kernel,
+                                                threshold, thresval)
+
+    def run(self, input, state=None):
+        out = self.sub.run(input)[0]
+        return self.div.run(out)[0], state

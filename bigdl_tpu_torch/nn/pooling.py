@@ -17,9 +17,9 @@ The reductions are PyTorch's ``max_pool2d``/``avg_pool2d`` (outside any
 Pallas kernel in JAX, ``lax.reduce_window``), on a channels-last view under
 NHWC (``layout.to_nchw``).
 
-``TemporalMaxPooling`` is ``bigdl_tpu/nn/pooling.py:199``: (N, T, F) ->
-(N, (T - kw) // dw + 1, F), VALID windows; ``kernel_w=-1`` pools the whole
-sequence.
+``TemporalMaxPooling`` is ``bigdl_tpu/nn/pooling.py:199`` and
+``TemporalAveragePooling`` ``:229``: (N, T, F) -> (N, (T - kw) // dw + 1,
+F), VALID windows; ``kernel_w=-1`` pools the whole sequence.
 """
 
 from __future__ import annotations
@@ -158,6 +158,27 @@ class TemporalMaxPooling(TensorModule):
         kw, dw = (t, t) if self.kernel_w == -1 else (self.kernel_w,
                                                      self.stride_w)
         out = F.max_pool1d(x.transpose(1, 2), kw, dw).transpose(1, 2)
+        return (out[0] if input.dim() == 2 else out), state
+
+    def extra_repr(self):
+        return f"{self.kernel_w}, {self.stride_w}"
+
+
+class TemporalAveragePooling(TensorModule):
+    """1-D average pooling over time; ``stride_w`` defaults to
+    ``kernel_w``."""
+
+    def __init__(self, kernel_w: int, stride_w: Optional[int] = None):
+        super().__init__()
+        self.kernel_w = kernel_w
+        self.stride_w = stride_w if stride_w is not None else kernel_w
+
+    def run(self, input, state=None):
+        x = input[None] if input.dim() == 2 else input
+        t = x.shape[1]
+        kw, dw = (t, t) if self.kernel_w == -1 else (self.kernel_w,
+                                                     self.stride_w)
+        out = F.avg_pool1d(x.transpose(1, 2), kw, dw).transpose(1, 2)
         return (out[0] if input.dim() == 2 else out), state
 
     def extra_repr(self):

@@ -185,6 +185,7 @@ from bigdl_tpu_torch.dataset.profiling import (
 )
 from bigdl_tpu_torch.dataset.sample import SampleToMiniBatch
 from bigdl_tpu_torch.nn.criterion import AbstractCriterion
+from bigdl_tpu_torch.nn.misc import collecting_penalties
 from bigdl_tpu_torch.nn.normalization import (
     checkpoint_contexts, dropout_generators,
 )
@@ -681,24 +682,30 @@ class Optimizer:
     def _loss(self, frozen: frozenset, inp, target):
         """The loss of one (micro)batch, the function that remat
         checkpoints: the model under the precision policy, with frozen
-        parameters detached, the criterion in fp32, and the regularizers'
-        penalty on the parameters the model ran with."""
+        parameters detached, the criterion in fp32, the penalties that
+        layers declared in this forward (``ActivityRegularization``,
+        ``NegativeEntropyPenalty``: JAX's ``"penalty"`` state leaves) at
+        full strength, and the regularizers' penalty on the parameters the
+        model ran with."""
         model = self.model
         dtype = Engine.compute_dtype()
         mixed = dtype != torch.float32
         params = None
-        if mixed or frozen:
-            params = {n: p.detach() if n in frozen else p
-                      for n, p in model.named_parameters()}
-            if mixed:
-                params = cast_floating(params, dtype)
-                inp = cast_floating(inp, dtype)
-            out = functional_call(model, params, (inp,))
-            if mixed:
-                out = cast_floating(out, torch.float32)
-        else:
-            out = model(inp)
+        with collecting_penalties() as penalties:
+            if mixed or frozen:
+                params = {n: p.detach() if n in frozen else p
+                          for n, p in model.named_parameters()}
+                if mixed:
+                    params = cast_floating(params, dtype)
+                    inp = cast_floating(inp, dtype)
+                out = functional_call(model, params, (inp,))
+                if mixed:
+                    out = cast_floating(out, torch.float32)
+            else:
+                out = model(inp)
         loss = self.criterion.apply(out, target)
+        for pen in penalties:
+            loss = loss + pen
         if model.has_regularizers():
             loss = loss + model.regularizer_penalty(params)
         return loss

@@ -249,6 +249,36 @@ an NVIDIA H100 and the CUDA toolkit. It builds the port's CUDA kernels from
    ``beam_translate`` on 4 held-out sources of 32 tokens, beam 4 (the same
    sequences but at ties, scores within 1e-4), with their walls; and the
    seq2seq main on the card (2 steps, 2 translations);
+16. runs the layer tail and the MNIST autoencoder at full width (its
+   launches counted from a reset; it launches none of the five kernels):
+   every ported layer and criterion (the activations, the shape, table and
+   container layers, ``nn/misc.py``, the normalization tail,
+   ``nn/cosine.py``, ``TemporalAveragePooling``, the random layers, the
+   convolution tail, ``nn/volumetric.py``, ``nn/tf_utils.py``, the 32
+   criteria) forward and backward on the card in fp32 with TF32 off and
+   cuDNN deterministic, at users' widths (pointwise and table layers at
+   (256, 4096), spatial ones at (32, 64, 56, 56) in both layouts where the
+   layer follows ``nn/layout.py``, volumetric ones at (8, 32, 16, 56, 56),
+   ``LocallyConnected2D`` at (64, 32, 28, 28) with a 3x3 kernel, criteria
+   at (256, 1000), ``TimeDistributedMaskCriterion`` at (32, 256, 1000))
+   against the same module and inputs on the CPU (outputs within 1e-5 of
+   1 + their largest magnitude, gradients 1e-4 relative, the cuDNN layers'
+   outputs 1e-4);
+   the random layers exact in eval mode and, in training mode, by the CPU
+   tests' statistics; each layer again eagerly under
+   ``torch.cuda.set_sync_debug_mode("error")`` (a host sync fails it), then
+   as a ``utils/programs.Program`` whose replay is bitwise its eager run
+   (``MaskedSelect`` must be refused by the capture instead); each layer's
+   forward-plus-backward ms, and for the heavy ones the bound (bytes at
+   3.35 TB/s or fp32 operations at 67 TFLOP/s, the larger) and
+   ``MultiLabelMarginCriterion``'s peak memory; then the autoencoder at its
+   main's configuration (784 -> 32 -> 784, batch 128, Adam 0.01, MSE,
+   synthetic MNIST 2048): one step's loss and gradients against the CPU
+   (1e-4, 1e-3), 17 steps in fp32 and in bf16 through the captured step,
+   each bitwise equal to the same steps run eagerly, with step ms,
+   images/s, the first window, a profiled replayed step and the replay's
+   device time beside its host launch time, and the main at its defaults
+   (the loss falling);
 10. checks that the serving path (phases 4 and 5) launched both forward
    kernels and each training run (the 17 steps, fp32 and bf16) all five,
    every launch in the run's dtype (bf16 operands and bf16 gamma and beta
@@ -266,7 +296,7 @@ before the kernel table, so their launches are in the ``kernels`` line
 (``paths``); so do phase 14 (``paths.serving_stack``) and phase 15
 (``paths.finetune_lora_training``, ``finetune_lora_serving``,
 ``seq2seq``; each flash row's ``seq2seq`` instances with their launches
-by variant).
+by variant) and phase 16 (``paths.tail``).
 
 ``python3 chip_smoke.py --text-only`` builds the kernels and runs only
 phase 13, printing its numbers as one JSON line (no result line).
@@ -278,11 +308,14 @@ phase 14, printing its numbers as one JSON line (no result line).
 phase 15, with phase 6's full fine-tune (fp32 and bf16) run first for its
 comparisons, printing its numbers as one JSON line (no result line).
 
+``python3 chip_smoke.py --tail-only`` builds the kernels and runs only
+phase 16, printing its numbers as one JSON line (no result line).
+
 ``python3 chip_smoke.py --remat-captures N`` builds the kernels and runs
 only phase 6's bf16 training with every block under ``Remat`` N times in
 one process, through the prefetching feed (its producer thread alive
 during every capture), printing how many of its captures failed (ROADMAP
-Queue C item 1).
+Queue C, the remat capture: closed after 0 failures in 56).
 
 ``python3 chip_smoke.py --lm-feed-ab N [--root DIR]`` builds the kernels
 and times only phase 6's bf16 fuse-1 LM steps (both models) at prefetch 0
@@ -2474,11 +2507,13 @@ def check_folded_inference(model, card, Engine):
     return out
 
 
-def run_main(main, argv, card, batch, unit="images", keep=False):
+def run_main(main, argv, card, batch, unit="images", keep=False,
+             scored=True):
     """A training main on the card, its per-iteration losses read from the
     optimizer's log: the loss must fall (the mean of the last 4 below the
     mean of the first 4); ``unit``/s (the samples of a batch) over the
-    steps after the first. With ``keep``, also the main's optimizer."""
+    steps after the first. With ``keep``, also the main's optimizer;
+    ``scored=False`` for a main without validation (no Top1)."""
     import logging
     records = []
 
@@ -2502,15 +2537,17 @@ def run_main(main, argv, card, batch, unit="images", keep=False):
     first, last = np.mean(losses[:4]), np.mean(losses[-4:])
     ips = (len(losses) - 1) * batch / (times[-1] - times[0])
     name = main.__name__.split(".")[-2]
-    log(f"  {name} main ({' '.join(argv)}): {len(losses)} steps, loss "
-        f"{first:.4f} (first 4) -> {last:.4f} (last 4), Top1 "
-        f"{opt.state['score']:.4f}; {ips:.0f} {unit}/s after the first "
-        f"step; {wall:.2f} s in all [{card}]")
+    top1 = opt.state["score"] if scored else None
+    log(f"  {name} main ({' '.join(argv) or 'defaults'}): {len(losses)} "
+        f"steps, loss {first:.4f} (first 4) -> {last:.4f} (last 4)"
+        + (f", Top1 {top1:.4f}" if scored else "")
+        + f"; {ips:.0f} {unit}/s after the first step; {wall:.2f} s in all "
+        f"[{card}]")
     if not last < first:
         raise CheckFailed(f"{name}: the loss did not fall ({first} -> "
                           f"{last})")
     out = {"steps": len(losses), "first_loss": first, "last_loss": last,
-           "top1": opt.state["score"], f"{unit}_per_s": ips, "wall_s": wall}
+           "top1": top1, f"{unit}_per_s": ips, "wall_s": wall}
     return (out, opt) if keep else out
 
 
@@ -3521,9 +3558,10 @@ def remat_captures(n: int, TransformerLM, lm_criterion, kernels, card,
                    Engine) -> int:
     """``--remat-captures N``: phase 6's bf16 run with every block under
     ``Remat`` (the step captured at its first use), N times in this
-    process; prints each capture's outcome and the count of failed
-    captures (ROADMAP Queue C item 1, the capture invalidated on the
-    card). An observation, not a check: returns 0."""
+    process; prints each capture's outcome (a failed one with its step
+    and the threads alive as it began) and the count of failed captures
+    (ROADMAP Queue C, the remat capture invalidated on the card). An
+    observation, not a check: returns 0."""
     from bigdl_tpu_torch.utils import programs
     from bigdl_tpu_torch.utils.programs import ProgramCaptureError
     failures, live = [], []
@@ -3531,9 +3569,13 @@ def remat_captures(n: int, TransformerLM, lm_criterion, kernels, card,
 
     def spied(self):
         # is the feed's producer thread running while this one captures?
-        live.append(any(t.name.startswith("bigdl-prefetch")
-                        for t in threading.enumerate()))
-        return capture(self)
+        threads = [t.name for t in threading.enumerate()]
+        live.append(any(t.startswith("bigdl-prefetch") for t in threads))
+        try:
+            return capture(self)
+        except ProgramCaptureError:
+            failures.append({"threads_alive": threads})
+            raise
 
     programs.Program._warm_up_and_capture = spied
     Engine.init(compute_dtype=torch.bfloat16)
@@ -3546,8 +3588,10 @@ def remat_captures(n: int, TransformerLM, lm_criterion, kernels, card,
                 log(f"  remat capture {k + 1}/{n}: captured, step "
                     f"{run16_remat['step_ms']:.2f} ms")
             except ProgramCaptureError as e:
-                failures.append(str(e))
-                log(f"  remat capture {k + 1}/{n}: FAILED: {e}")
+                # the step is captured at its first use: iteration 1
+                failures[-1].update(run=k + 1, iteration=1, error=str(e))
+                log(f"  remat capture {k + 1}/{n}: FAILED at iteration 1 "
+                    f"with threads {failures[-1]['threads_alive']}: {e}")
             release()
     finally:
         Engine.reset()
@@ -6077,6 +6121,911 @@ def finetune_path(TransformerLM, lm_criterion, nn, kernels, card, Engine,
                 "seq2seq_by_variant": variants}}
 
 
+# --------------------------------------------------------------- phase 16
+# the layer tail and the MNIST autoencoder at full width. Sweep shapes: the
+# pointwise and table layers at TAIL_P, the spatial ones at TAIL_S (both
+# layouts where the layer follows nn/layout.py), the volumetric ones at
+# TAIL_V, LocallyConnected2D at TAIL_LC, the criteria at TAIL_CRIT and
+# TimeDistributedMaskCriterion at TAIL_TIME
+TAIL_SEED = SEED + 60
+TAIL_P = (256, 4096)
+TAIL_S = (32, 64, 56, 56)                   # N, C, H, W
+TAIL_V = (8, 32, 16, 56, 56)                # N, C, D, H, W
+TAIL_LC = (64, 32, 28, 28)
+TAIL_CRIT = (256, 1000)
+TAIL_TIME = (32, 256, 1000)
+TAIL_SEQ = (32, 256, 512)                   # N, T, F of the temporal layers
+TAIL_TOL = (1e-5, 1e-4)     # outputs (absolute, and relative to their
+                            # largest magnitude), gradients (relative)
+TAIL_CONV_TOL = (1e-4, 1e-4)                # cuDNN against the CPU, TF32 off
+TAIL_REPS = (5, 3)                          # time_ms's reps and trials
+# the autoencoder main's configuration (bigdl_tpu/models/autoencoder/train.py)
+AE_BATCH, AE_BOTTLENECK, AE_LR, AE_SYNTHETIC = 128, 32, 0.01, 2048
+AE_IMAGE_FLOPS = 3 * 2 * 2 * 784 * AE_BOTTLENECK    # fwd + bwd, both Linears
+
+
+class TailCase:
+    """One layer (or criterion) of the sweep: ``build(nn)`` makes it on the
+    CPU (its weights from the seeded default generator), ``inputs(nhwc)``
+    the nested list of its CPU input tensors; ``target`` a criterion's
+    target; ``flops`` the fwd + bwd operations for the bound (0: the bytes
+    bound only); ``heavy`` prints the bound; ``random`` checks training
+    draws by their statistics; ``train`` runs the layer in training mode
+    (the others run in eval mode, where the random layers are exact)."""
+
+    def __init__(self, name, build, inputs, *, target=None, layout=False,
+                 tol=TAIL_TOL, flops=None, heavy=False, random=None,
+                 eager_only=False, peak=False, train=False):
+        self.name, self.build, self.inputs = name, build, inputs
+        self.train = train
+        self.target, self.layout, self.tol = target, layout, tol
+        self.flops, self.heavy, self.random = flops, heavy, random
+        self.eager_only, self.peak = eager_only, peak
+
+
+def _gen(seed):
+    return torch.Generator().manual_seed(seed)
+
+
+def t_rn(*shape, seed=0):
+    return torch.randn(shape, generator=_gen(TAIL_SEED + seed))
+
+
+def t_pos(*shape, seed=0):
+    return torch.rand(shape, generator=_gen(TAIL_SEED + seed)) * 1.8 + 0.2
+
+
+def t_img(nhwc, seed=0, shape=None):
+    n, c, h, w = shape or TAIL_S
+    return t_rn(n, h, w, c, seed=seed) if nhwc else t_rn(n, c, h, w,
+                                                         seed=seed)
+
+
+def t_labels(n, c, seed=0, low=0):
+    return torch.randint(low, c + low, (n,), generator=_gen(TAIL_SEED + seed))
+
+
+def conv_flops(n_out_elems, c_in, k_elems):
+    """fwd + the two backward products of a convolution."""
+    return 3 * 2 * n_out_elems * c_in * k_elems
+
+
+def tail_cases(nn) -> list:
+    P, S, V, CR = TAIL_P, TAIL_S, TAIL_V, TAIL_CRIT
+    n, c, h, w = S
+    vn, vc, vd, vh, vw = V
+    pair = lambda: [t_rn(*P), t_rn(*P, seed=1)]          # noqa: E731
+    three = lambda: [t_rn(*P), t_rn(*P, seed=1), t_rn(*P, seed=2)]  # noqa
+    x = lambda _: t_rn(*P)                               # noqa: E731
+    img = lambda f: t_img(f)                             # noqa: E731
+    nchw = lambda _: t_img(False)                        # noqa: E731
+    vol = lambda _: t_rn(*V)                             # noqa: E731
+    seq = lambda _: t_rn(*TAIL_SEQ)                      # noqa: E731
+    C = TailCase
+    cases = [C(name, (lambda m: lambda nn: getattr(nn, m)())(name), x)
+             for name in ("Abs", "ELU", "Exp", "HardSigmoid", "HardTanh",
+                          "LeakyReLU", "LogSigmoid", "ReLU6", "Sigmoid",
+                          "SoftMax", "SoftMin", "SoftPlus", "SoftSign",
+                          "Square", "TanhShrink", "Negative", "HardShrink",
+                          "SoftShrink", "Threshold")]
+    cases += [
+        C("AddConstant", lambda nn: nn.AddConstant(0.5), x),
+        C("BinaryThreshold", lambda nn: nn.BinaryThreshold(0.1), x),
+        C("Clamp", lambda nn: nn.Clamp(-0.5, 0.7), x),
+        C("Log", lambda nn: nn.Log(), lambda _: t_pos(*P)),
+        C("Sqrt", lambda nn: nn.Sqrt(), lambda _: t_pos(*P)),
+        C("MulConstant", lambda nn: nn.MulConstant(1.5), x),
+        C("Power", lambda nn: nn.Power(2.5, 0.5, 2.0), x),
+        C("PReLU", lambda nn: nn.PReLU(), x),
+        C("PReLU-channels", lambda nn: nn.PReLU(c), img, layout=True,
+          heavy=True),
+        C("SReLU", lambda nn: nn.SReLU((P[1],)), x),
+        # shape layers
+        C("Flatten", lambda nn: nn.Flatten(), nchw),
+        C("Unsqueeze", lambda nn: nn.Unsqueeze(2), x),
+        C("Transpose", lambda nn: nn.Transpose([(1, 2)]), x),
+        C("Narrow", lambda nn: nn.Narrow(2, P[1] // 4 + 1, P[1] // 2), x),
+        C("SplitTable", lambda nn: nn.SplitTable(2),
+          lambda _: t_rn(P[0], 8, P[1] // 8)),
+        C("Padding", lambda nn: nn.Padding(2, 64, value=0.5), x),
+        C("SpatialZeroPadding", lambda nn: nn.SpatialZeroPadding(1, 1, 1, 1),
+          nchw),
+        C("Contiguous", lambda nn: nn.Contiguous(), x),
+        C("Replicate", lambda nn: nn.Replicate(4, 2),
+          lambda _: t_rn(P[0], P[1] // 4)),
+        C("Tile", lambda nn: nn.Tile(2, 2), x),
+        C("Reverse", lambda nn: nn.Reverse(2), x),
+        # a permutation of the rows and two out of range (NaN rows): no
+        # repeated index, so the backward's scattered adds do not collide
+        C("Index", lambda nn: nn.Index(1), lambda _: [t_rn(*P), torch.cat([
+            torch.randperm(P[0], generator=_gen(TAIL_SEED)),
+            torch.tensor([P[0], -P[0] - 1])])]),
+        C("InferReshape", lambda nn: nn.InferReshape([0, -1, 64]), x),
+        # containers and table layers
+        C("ParallelTable", lambda nn: nn.ParallelTable().add(nn.Tanh())
+          .add(nn.Sigmoid()), lambda _: pair()),
+        C("MapTable", lambda nn: nn.MapTable(nn.Linear(P[1], 1024)),
+          lambda _: pair()),
+        C("NarrowTable", lambda nn: nn.NarrowTable(2, 2), lambda _: three()),
+        C("FlattenTable", lambda nn: nn.FlattenTable(), lambda _: [
+            t_rn(*P), [t_rn(*P, seed=1), [t_rn(*P, seed=2)]]]),
+        C("CSubTable", lambda nn: nn.CSubTable(), lambda _: pair()),
+        C("CDivTable", lambda nn: nn.CDivTable(),
+          lambda _: [t_rn(*P), t_pos(*P, seed=1)]),
+        C("CMaxTable", lambda nn: nn.CMaxTable(), lambda _: three()),
+        C("CMinTable", lambda nn: nn.CMinTable(), lambda _: three()),
+        C("CAveTable", lambda nn: nn.CAveTable(), lambda _: three()),
+        C("MixtureTable", lambda nn: nn.MixtureTable(), lambda _: [
+            t_rn(P[0], 4), [t_rn(*P, seed=k + 1) for k in range(4)]]),
+        C("Bottle", lambda nn: nn.Bottle(nn.Linear(P[1] // 16, 256), 2),
+          lambda _: t_rn(P[0], 16, P[1] // 16)),
+        C("Pack", lambda nn: nn.Pack(2), lambda _: pair()),
+        C("Echo", lambda nn: nn.Echo(), x),
+        C("BifurcateSplitTable", lambda nn: nn.BifurcateSplitTable(2), x),
+        C("MaskedSelect", lambda nn: nn.MaskedSelect(), lambda _: [
+            t_rn(*P), (t_rn(*P, seed=1) > 0).float()], eager_only=True),
+        # nn/misc.py
+        C("Max", lambda nn: nn.Max(2), x),
+        C("Min", lambda nn: nn.Min(2), x),
+        C("Mean", lambda nn: nn.Mean(2), x),
+        C("Sum", lambda nn: nn.Sum(2), x),
+        C("RReLU", lambda nn: nn.RReLU(), x, random="rrelu"),
+        C("DotProduct", lambda nn: nn.DotProduct(), lambda _: pair()),
+        C("MM", lambda nn: nn.MM(False, True), lambda _: [
+            t_rn(P[0], 64, 64), t_rn(P[0], 64, 64, seed=1)]),
+        C("MV", lambda nn: nn.MV(True), lambda _: [
+            t_rn(P[0], 64, 64), t_rn(P[0], 64, seed=1)]),
+        C("Euclidean", lambda nn: nn.Euclidean(1024, 128),
+          lambda _: t_rn(P[0], 1024), heavy=True,
+          flops=3 * 3 * P[0] * 128 * 1024),
+        C("Bilinear", lambda nn: nn.Bilinear(512, 512, 128), lambda _: [
+            t_rn(P[0], 512), t_rn(P[0], 512, seed=1)],
+          heavy=True, flops=3 * 2 * P[0] * 128 * 512 * 512),
+        C("Maxout", lambda nn: nn.Maxout(P[1], 1024, 4), x,
+          heavy=True, flops=3 * 2 * P[0] * P[1] * 4096),
+        C("SpatialUpSamplingNearest",
+          lambda nn: nn.SpatialUpSamplingNearest(2), nchw, heavy=True),
+        C("SpatialUpSamplingBilinear",
+          lambda nn: nn.SpatialUpSamplingBilinear(2), nchw, heavy=True,
+          flops=3 * 2 * n * c * (2 * h * h * w + 2 * h * w * 2 * w)),
+        C("GradientReversal", lambda nn: nn.GradientReversal(0.7), x),
+        C("L1Penalty", lambda nn: nn.L1Penalty(0.1, True), x, train=True),
+        C("Scale", lambda nn: nn.Scale((c, 1, 1)), nchw, heavy=True),
+        C("PairwiseDistance", lambda nn: nn.PairwiseDistance(2),
+          lambda _: pair()),
+        C("GaussianSampler", lambda nn: nn.GaussianSampler(), lambda _: [
+            torch.full(P, 0.5), torch.full(P, 2 * math.log(0.7))],
+          random="sampler"),
+        C("Highway", lambda nn: nn.Highway(P[1]), x,
+          heavy=True, flops=3 * 2 * 2 * P[0] * P[1] * P[1]),
+        C("UpSampling1D", lambda nn: nn.UpSampling1D(2), seq),
+        C("UpSampling2D", lambda nn: nn.UpSampling2D((2, 2)), img,
+          layout=True, heavy=True),
+        C("UpSampling3D", lambda nn: nn.UpSampling3D((2, 2, 2)), vol,
+          heavy=True),
+        C("ResizeBilinear", lambda nn: nn.ResizeBilinear(112, 112), nchw,
+          heavy=True,
+          flops=3 * 2 * n * c * (112 * h * w + 112 * w * 112)),
+        C("ResizeBilinear-corners", lambda nn: nn.ResizeBilinear(28, 28, True),
+          nchw, heavy=True,
+          flops=3 * 2 * n * c * (28 * h * w + 28 * w * 28)),
+        C("Cropping2D", lambda nn: nn.Cropping2D((2, 2), (2, 2)), nchw),
+        C("Cropping3D", lambda nn: nn.Cropping3D((1, 1), (2, 2), (2, 2)),
+          vol),
+        C("ActivityRegularization",
+          lambda nn: nn.ActivityRegularization(0.1, 0.2), x),
+        C("NegativeEntropyPenalty",
+          lambda nn: nn.NegativeEntropyPenalty(0.3), lambda _: t_pos(*P)),
+        C("CrossProduct", lambda nn: nn.CrossProduct(8, 512),
+          lambda _: [t_rn(P[0], 512, seed=k) for k in range(8)]),
+        C("ImageNormalize", lambda nn: nn.ImageNormalize(
+            tuple(np.linspace(0.4, 0.5, c)), tuple(np.linspace(0.2, 0.3, c)),
+            1.0), img, layout=True, heavy=True),
+        # nn/normalization.py's tail, nn/cosine.py, nn/pooling.py
+        C("Normalize", lambda nn: nn.Normalize(2.0), x),
+        C("CMul", lambda nn: nn.CMul((1, P[1])), x),
+        C("CAdd", lambda nn: nn.CAdd((P[1],)), x),
+        C("Mul", lambda nn: nn.Mul(), x),
+        C("Add", lambda nn: nn.Add(P[1]), x),
+        C("SpatialWithinChannelLRN",
+          lambda nn: nn.SpatialWithinChannelLRN(5, 1.0, 0.75), nchw,
+          heavy=True),
+        C("SpatialSubtractiveNormalization",
+          lambda nn: nn.SpatialSubtractiveNormalization(c), nchw, heavy=True,
+          tol=TAIL_CONV_TOL, flops=2 * conv_flops(n * h * w, c, 81)),
+        # with a threshold far below the local deviations (about 1 here):
+        # the default floor, the per-sample mean deviation, has pixels
+        # within rounding of it, whose branch then differs between the
+        # card and the CPU (a gradient 1.67e-4 apart, PR 16); both modes
+        # are held against JAX on the CPU (tests/test_torch_layer_tail.py)
+        C("SpatialDivisiveNormalization",
+          lambda nn: nn.SpatialDivisiveNormalization(c, threshold=0.05),
+          nchw, heavy=True, tol=TAIL_CONV_TOL,
+          flops=2 * conv_flops(n * h * w, c, 81)),
+        C("SpatialContrastiveNormalization",
+          lambda nn: nn.SpatialContrastiveNormalization(c, threshold=0.05),
+          nchw, heavy=True, tol=TAIL_CONV_TOL,
+          flops=4 * conv_flops(n * h * w, c, 81)),
+        C("Cosine", lambda nn: nn.Cosine(P[1], 1000), x,
+          heavy=True, flops=3 * 2 * P[0] * P[1] * 1000),
+        C("CosineDistance", lambda nn: nn.CosineDistance(), lambda _: pair()),
+        C("TemporalAveragePooling", lambda nn: nn.TemporalAveragePooling(3, 2),
+          seq),
+        # the random layers (checked in training mode by their statistics)
+        C("SpatialDropout1D", lambda nn: nn.SpatialDropout1D(0.3), seq,
+          random="dropout"),
+        C("SpatialDropout2D", lambda nn: nn.SpatialDropout2D(0.3), img,
+          layout=True, random="dropout"),
+        C("SpatialDropout3D", lambda nn: nn.SpatialDropout3D(0.3), vol,
+          random="dropout"),
+        C("GaussianDropout", lambda nn: nn.GaussianDropout(0.3),
+          lambda _: torch.ones(P), random="gauss_mul"),
+        C("GaussianNoise", lambda nn: nn.GaussianNoise(0.7),
+          lambda _: torch.zeros(P), random="gauss_add"),
+        # nn/convolution.py's tail and nn/volumetric.py
+        C("SpatialDilatedConvolution", lambda nn: nn.SpatialDilatedConvolution(
+            c, c, 3, 3, 1, 1, 2, 2, 2, 2), nchw, heavy=True,
+          tol=TAIL_CONV_TOL, flops=conv_flops(n * c * h * w, c, 9)),
+        C("SpatialFullConvolution", lambda nn: nn.SpatialFullConvolution(
+            c, c // 2, 4, 4, 2, 2, 1, 1), nchw, heavy=True, tol=TAIL_CONV_TOL,
+          flops=conv_flops(n * c * h * w, c // 2, 16)),
+        C("SpatialSeparableConvolution",
+          lambda nn: nn.SpatialSeparableConvolution(c, 2 * c, 1, 3, 3, 1, 1,
+                                                    1, 1),
+          img, layout=True, heavy=True, tol=TAIL_CONV_TOL,
+          flops=conv_flops(n * c * h * w, 1, 9)
+          + conv_flops(n * 2 * c * h * w, c, 1)),
+        C("SpatialShareConvolution", lambda nn: nn.SpatialShareConvolution(
+            c, c, 3, 3, 1, 1, 1, 1), img, layout=True, heavy=True,
+          tol=TAIL_CONV_TOL, flops=conv_flops(n * c * h * w, c, 9)),
+        C("SpatialConvolutionMap", lambda nn: nn.SpatialConvolutionMap(
+            nn.SpatialConvolutionMap.random(c, c, min(16, c), seed=1), 3, 3,
+            1, 1, 1, 1), img, layout=True, heavy=True, tol=TAIL_CONV_TOL,
+          flops=conv_flops(n * c * h * w, c, 9)),
+        C("LocallyConnected2D", lambda nn: nn.LocallyConnected2D(
+            TAIL_LC[1], TAIL_LC[3], TAIL_LC[2], TAIL_LC[1], 3, 3),
+          lambda _: t_rn(*TAIL_LC), heavy=True, tol=TAIL_CONV_TOL,
+          flops=3 * 2 * TAIL_LC[0] * (TAIL_LC[2] - 2) * (TAIL_LC[3] - 2)
+          * TAIL_LC[1] * TAIL_LC[1] * 9),
+        C("LocallyConnected1D", lambda nn: nn.LocallyConnected1D(
+            TAIL_SEQ[1], TAIL_SEQ[2], 256, 3, 2), seq, heavy=True,
+          tol=TAIL_CONV_TOL,
+          flops=3 * 2 * TAIL_SEQ[0] * ((TAIL_SEQ[1] - 3) // 2 + 1) * 256 * 3
+          * TAIL_SEQ[2]),
+        C("VolumetricConvolution", lambda nn: nn.VolumetricConvolution(
+            vc, vc, 3, 3, 3, 1, 1, 1, 1, 1, 1), vol, heavy=True,
+          tol=TAIL_CONV_TOL, flops=conv_flops(vn * vc * vd * vh * vw, vc, 27)),
+        C("VolumetricFullConvolution", lambda nn: nn.VolumetricFullConvolution(
+            vc, vc // 2, 2, 2, 2, 2, 2, 2), vol, heavy=True,
+          tol=TAIL_CONV_TOL, flops=conv_flops(vn * vc * vd * vh * vw,
+                                              vc // 2, 8)),
+        # windows that do not overlap: the pooling backwards' scattered
+        # adds then never collide (bitwise replays)
+        C("VolumetricMaxPooling", lambda nn: nn.VolumetricMaxPooling(2, 2, 2),
+          vol, heavy=True),
+        C("VolumetricAveragePooling",
+          lambda nn: nn.VolumetricAveragePooling(2, 2, 2), vol, heavy=True),
+        # nn/tf_utils.py
+        C("Const", lambda nn: nn.Const(np.linspace(0, 1, P[1],
+                                                   dtype=np.float32)), x),
+        C("Fill", lambda nn: nn.Fill(), lambda _: [P, torch.tensor(1.5)]),
+        C("Shape", lambda nn: nn.Shape(), nchw),
+        C("StrideSlice", lambda nn: nn.StrideSlice([(1, 0, P[1], 2)]), x),
+        C("SplitAndSelect", lambda nn: nn.SplitAndSelect(1, 1, 4), x),
+    ]
+    n_, k_ = CR
+    crit = lambda _: t_rn(*CR)                            # noqa: E731
+    prob = lambda _: torch.softmax(t_rn(*CR), -1)         # noqa: E731
+    sign = lambda: torch.where(t_rn(*CR, seed=5) > 0, 1.0, -1.0)  # noqa
+    labels = lambda: t_labels(n_, k_, seed=6)             # noqa: E731
+    # every row lists 4 distinct labels, then the sentinel
+    multi = torch.full(CR, -1, dtype=torch.int64)
+    multi[:, :4] = torch.stack([torch.randperm(k_, generator=_gen(
+        TAIL_SEED + r))[:4] for r in range(n_)])
+    tn, tt, tk = TAIL_TIME
+    times = t_labels(tn * tt, tk, seed=7).reshape(tn, tt)
+    times[:, tt // 2:] = 0                  # the padded half of each row
+
+    def crit_case(name, build, inp, target, **kw):
+        return C(name, build, inp, target=target, **kw)
+
+    cases += [
+        crit_case("MSECriterion", lambda nn: nn.MSECriterion(), crit,
+                  lambda: t_rn(*CR, seed=1)),
+        crit_case("AbsCriterion", lambda nn: nn.AbsCriterion(), crit,
+                  lambda: t_rn(*CR, seed=1)),
+        crit_case("BCECriterion", lambda nn: nn.BCECriterion(),
+                  lambda _: torch.rand(CR, generator=_gen(1)) * 0.9 + 0.05,
+                  lambda: (t_rn(*CR, seed=1) > 0).float()),
+        crit_case("BCECriterionWithLogits",
+                  lambda nn: nn.BCECriterionWithLogits(), crit,
+                  lambda: torch.rand(CR, generator=_gen(2))),
+        crit_case("SmoothL1Criterion", lambda nn: nn.SmoothL1Criterion(),
+                  crit, lambda: t_rn(*CR, seed=1)),
+        crit_case("MarginCriterion", lambda nn: nn.MarginCriterion(0.7), crit,
+                  sign),
+        crit_case("HingeEmbeddingCriterion",
+                  lambda nn: nn.HingeEmbeddingCriterion(0.8), crit, sign),
+        crit_case("DistKLDivCriterion", lambda nn: nn.DistKLDivCriterion(),
+                  lambda _: torch.log_softmax(t_rn(*CR), -1),
+                  lambda: torch.softmax(t_rn(*CR, seed=1), -1)),
+        crit_case("MultiLabelSoftMarginCriterion",
+                  lambda nn: nn.MultiLabelSoftMarginCriterion(), crit,
+                  lambda: (t_rn(*CR, seed=1) > 0).float()),
+        crit_case("CosineEmbeddingCriterion",
+                  lambda nn: nn.CosineEmbeddingCriterion(0.2),
+                  lambda _: [t_rn(*CR), t_rn(*CR, seed=1)],
+                  lambda: torch.where(t_rn(n_, seed=5) > 0, 1.0, -1.0)),
+        crit_case("MarginRankingCriterion",
+                  lambda nn: nn.MarginRankingCriterion(0.5),
+                  lambda _: [t_rn(n_), t_rn(n_, seed=1)],
+                  lambda: torch.where(t_rn(n_, seed=5) > 0, 1.0, -1.0)),
+        crit_case("MultiMarginCriterion", lambda nn: nn.MultiMarginCriterion(),
+                  crit, labels),
+        crit_case("MultiLabelMarginCriterion",
+                  lambda nn: nn.MultiLabelMarginCriterion(), crit,
+                  lambda: multi, heavy=True, peak=True,
+                  flops=0),
+        crit_case("SoftMarginCriterion", lambda nn: nn.SoftMarginCriterion(),
+                  crit, sign),
+        crit_case("CosineDistanceCriterion",
+                  lambda nn: nn.CosineDistanceCriterion(), crit,
+                  lambda: t_rn(*CR, seed=1)),
+        crit_case("L1HingeEmbeddingCriterion",
+                  lambda nn: nn.L1HingeEmbeddingCriterion(30.0),
+                  lambda _: [t_rn(*CR), t_rn(*CR, seed=1)],
+                  lambda: torch.where(t_rn(n_, seed=5) > 0, 1.0, -1.0)),
+        crit_case("PoissonCriterion", lambda nn: nn.PoissonCriterion(),
+                  lambda _: t_pos(*CR), lambda: t_pos(*CR, seed=1)),
+        crit_case("CosineProximityCriterion",
+                  lambda nn: nn.CosineProximityCriterion(), crit,
+                  lambda: t_rn(*CR, seed=1)),
+        crit_case("MeanAbsolutePercentageCriterion",
+                  lambda nn: nn.MeanAbsolutePercentageCriterion(), crit,
+                  lambda: t_pos(*CR, seed=1)),
+        crit_case("MeanSquaredLogarithmicCriterion",
+                  lambda nn: nn.MeanSquaredLogarithmicCriterion(),
+                  lambda _: t_pos(*CR), lambda: t_pos(*CR, seed=1)),
+        crit_case("KullbackLeiblerDivergenceCriterion",
+                  lambda nn: nn.KullbackLeiblerDivergenceCriterion(), prob,
+                  lambda: torch.softmax(t_rn(*CR, seed=1), -1)),
+        crit_case("ClassSimplexCriterion",
+                  lambda nn: nn.ClassSimplexCriterion(k_), crit, labels),
+        crit_case("MultiCriterion", lambda nn: nn.MultiCriterion()
+                  .add(nn.MSECriterion(), 0.5).add(nn.AbsCriterion(), 2.0),
+                  crit, lambda: t_rn(*CR, seed=1)),
+        crit_case("L1Cost", lambda nn: nn.L1Cost(), crit,
+                  lambda: t_rn(*CR, seed=1)),
+        crit_case("KLDCriterion", lambda nn: nn.KLDCriterion(),
+                  lambda _: [t_rn(*CR), 0.5 * t_rn(*CR, seed=1)],
+                  lambda: t_rn(*CR, seed=2)),
+        crit_case("GaussianCriterion", lambda nn: nn.GaussianCriterion(),
+                  lambda _: [t_rn(*CR), 0.5 * t_rn(*CR, seed=1)],
+                  lambda: t_rn(*CR, seed=2)),
+        crit_case("DiceCoefficientCriterion",
+                  lambda nn: nn.DiceCoefficientCriterion(),
+                  lambda _: torch.rand(CR, generator=_gen(3)),
+                  lambda: (t_rn(*CR, seed=1) > 0).float()),
+        crit_case("SoftmaxWithCriterion",
+                  lambda nn: nn.SoftmaxWithCriterion(), crit, labels),
+        crit_case("CategoricalCrossEntropy",
+                  lambda nn: nn.CategoricalCrossEntropy(), prob,
+                  lambda: torch.eye(k_)[labels()]),
+        crit_case("TimeDistributedMaskCriterion",
+                  lambda nn: nn.TimeDistributedMaskCriterion(
+                      nn.CrossEntropyCriterion(), 0),
+                  lambda _: t_rn(*TAIL_TIME), lambda: times, heavy=True),
+        crit_case("SmoothL1CriterionWithWeights",
+                  lambda nn: nn.SmoothL1CriterionWithWeights(2.0, 3), crit,
+                  lambda: [t_rn(*CR, seed=1), t_pos(*CR, seed=2),
+                           t_pos(*CR, seed=3)]),
+        crit_case("TransformerCriterion",
+                  lambda nn: nn.TransformerCriterion(
+                      nn.MSECriterion(), nn.Linear(k_, 256),
+                      nn.Linear(k_, 256)), crit, lambda: t_rn(*CR, seed=1),
+                  flops=3 * 2 * 2 * n_ * k_ * 256),
+    ]
+    return cases
+
+
+def _nest(spec, fn):
+    """``spec`` (a tensor, a tuple, or nested lists of them) with ``fn``
+    applied to every tensor, the lists as port Tables."""
+    from bigdl_tpu_torch.utils.table import T
+    if isinstance(spec, list):
+        return T(*[_nest(s, fn) for s in spec])
+    return fn(spec) if isinstance(spec, torch.Tensor) else spec
+
+
+def _tensors_in(spec) -> list:
+    if isinstance(spec, list):
+        return [t for s in spec for t in _tensors_in(s)]
+    return [spec] if isinstance(spec, torch.Tensor) else []
+
+
+def _outputs(out) -> list:
+    from bigdl_tpu_torch.utils.table import Table
+    if isinstance(out, Table):
+        return [t for v in out.values() for t in _outputs(v)]
+    return [out]
+
+
+def _on(module, device):
+    """A copy of a layer or criterion on ``device`` (a criterion's modules
+    and constants too)."""
+    import copy
+    m = copy.deepcopy(module)
+    if isinstance(m, torch.nn.Module):
+        return m.to(device)
+    for k, v in vars(m).items():
+        if isinstance(v, torch.nn.Module):
+            setattr(m, k, v.to(device))
+    return m
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    """A tensor's bit patterns (NaN equal to itself)."""
+    if t.dtype.is_floating_point:
+        return t.contiguous().view({2: torch.int16, 4: torch.int32,
+                                    8: torch.int64}[t.element_size()])
+    return t
+
+
+def bitwise_equal(a: list, b: list) -> bool:
+    return len(a) == len(b) and all(
+        x.shape == y.shape and torch.equal(_bits(x), _bits(y))
+        for x, y in zip(a, b))
+
+
+class TailRun:
+    """One case on one device: its module, its inputs (floating ones with
+    ``requires_grad``), the weights of ``sum(out * w)``, and the function
+    that runs the forward and backward, returning ``[outputs..., grads
+    of the parameters..., grads of the floating inputs...]``."""
+
+    def __init__(self, case, module, spec, target, weights, device):
+        self.case, self.device = case, device
+        self.module = _on(module, device)
+        # fresh leaves on the device (a CUDA copy of a CPU leaf that
+        # requires grad would hang the card's graph off the CPU's)
+        self.spec = _nest(spec, lambda t: t.detach().to(device)
+                          .requires_grad_(t.is_floating_point()))
+        self.inputs = [t for t in _tensors_in(self.spec) if t.requires_grad]
+        self.target = None if target is None else _nest(
+            target, lambda t: t.detach().to(device))
+        self.weights = None if weights is None else [
+            None if w is None else w.to(device) for w in weights]
+        self.params = list(self.module.parameters()) if isinstance(
+            self.module, torch.nn.Module) else []
+
+    def forward(self):
+        if self.target is not None:
+            return [self.module.apply(self.spec, self.target)]
+        return _outputs(self.module.run(self.spec, None)[0])
+
+    def __call__(self):
+        outs = self.forward()
+        if self.target is not None:
+            loss = outs[0]
+        else:
+            terms = [(o * w).sum() for o, w in zip(outs, self.weights)
+                     if w is not None]
+            loss = sum(terms) if terms else None
+        wrt = self.params + self.inputs
+        grads = [None] * len(wrt)
+        if loss is not None and loss.requires_grad and wrt:
+            grads = list(torch.autograd.grad(loss, wrt, allow_unused=True))
+        grads = [torch.zeros_like(t) if g is None else g
+                 for g, t in zip(grads, wrt)]
+        return [o.detach() for o in outs] + grads
+
+
+def _weights_for(outs: list) -> list:
+    return [t_rn(*o.shape, seed=11 + k) if o.is_floating_point() else None
+            for k, o in enumerate(outs)]
+
+
+def _close(what, got, want, tol):
+    atol, grad_rel = tol
+    n_out = len(want["outs"])
+    for k, (g, w) in enumerate(zip(got[:n_out], want["outs"])):
+        g = g.cpu()
+        # relative to the output's scale: a reduction's rounding grows with
+        # its terms' magnitude, not with the (possibly cancelled) result
+        scale = float(w.float().nan_to_num(0.0).abs().max()) \
+            if w.is_floating_point() and w.numel() else 0.0
+        if g.shape != w.shape or (g.is_floating_point() and not torch.allclose(
+                g.float(), w.float(), rtol=0.0, atol=atol * (1.0 + scale),
+                equal_nan=True)) \
+                or (not g.is_floating_point() and not torch.equal(g, w)):
+            raise CheckFailed(f"{what}: output {k} differs from the CPU's "
+                              f"(max|err| {max_err(g, w):.3e})")
+    errs = []
+    for k, (g, w) in enumerate(zip(got[n_out:], want["grads"])):
+        rel = float((g.cpu().double() - w.double()).norm()
+                    / max(float(w.double().norm()), 1e-30))
+        errs.append(rel)
+        if rel > grad_rel:
+            raise CheckFailed(f"{what}: gradient {k} is {rel:.3e} from the "
+                              f"CPU's (limit {grad_rel})")
+    return max(errs, default=0.0)
+
+
+def _fwd_bwd_bytes(run) -> float:
+    """Bytes of a forward and backward: each floating input and parameter
+    read twice (forward and backward) and its gradient written, each
+    output written once and its gradient read once."""
+    size = lambda ts: sum(t.numel() * t.element_size() for t in ts)  # noqa
+    outs = run.forward()
+    return 3 * size(run.inputs) + 3 * size(run.params) + 2 * size(
+        [o for o in outs if o.is_floating_point()])
+
+
+def _random_stats(case, run, card):
+    """Training-mode draws on the card held by the CPU tests' statistics
+    (5 sigma): the kept share (per channel for the spatial dropouts), the
+    noise's mean and variance, RReLU's slopes in [lower, upper]."""
+    kind = case.random
+    x = run.spec
+    with torch.no_grad():
+        if kind == "dropout":
+            keep = 1.0 - run.module.p
+            kept = run.module.run(torch.ones_like(x))[0] > 0
+            mask_shape = run.module._mask_shape(x)
+            # one draw a (sample, channel): the mask's own entries
+            small = kept[tuple(slice(None) if s > 1 else slice(0, 1)
+                               for s in mask_shape)]
+            if not torch.equal(small.expand(kept.shape), kept):
+                raise CheckFailed(f"{case.name}: a channel was not dropped "
+                                  f"whole")
+            draws = small.reshape(-1, math.prod(mask_shape[1:])).float()
+            n = draws.shape[0]
+            worst = float((draws.mean(0) - keep).abs().max())
+            limit = 5 * (keep * (1 - keep) / n) ** 0.5
+            total = float(draws.mean())
+            stats = {"kept_share": total, "worst_channel_dev": worst,
+                     "channel_limit_5sigma": limit, "draws": draws.numel()}
+            ok = worst <= limit and abs(total - keep) <= 5 * (
+                keep * (1 - keep) / draws.numel()) ** 0.5
+        elif kind in ("gauss_mul", "gauss_add", "sampler"):
+            out = run.forward()[0].double()
+            if kind == "gauss_mul":
+                r = run.module.rate
+                mean, var = 1.0, r / (1 - r)
+            elif kind == "gauss_add":
+                mean, var = 0.0, run.module.stddev ** 2
+            else:
+                mean, var = 0.5, 0.49
+            m, v, n = float(out.mean()), float(out.var()), out.numel()
+            stats = {"mean": m, "var": v, "want_mean": mean,
+                     "want_var": var, "n": n}
+            ok = (abs(m - mean) <= 5 * (var / n) ** 0.5
+                  and abs(v - var) <= 5 * var * (2.0 / n) ** 0.5)
+        else:                                            # rrelu
+            lo, hi = run.module.lower, run.module.upper
+            slopes = -run.module.run(-torch.ones(x.shape, device=DEVICE))[0]
+            n = slopes.numel()
+            stats = {"min": float(slopes.min()), "max": float(slopes.max()),
+                     "mean": float(slopes.mean()), "n": n}
+            ok = (stats["min"] >= lo and stats["max"] <= hi and abs(
+                stats["mean"] - (lo + hi) / 2) <= 5 * (
+                (hi - lo) ** 2 / 12 / n) ** 0.5)
+    if not ok:
+        raise CheckFailed(f"{case.name}: training-mode draws off their "
+                          f"statistics {stats}")
+    return stats
+
+
+def tail_case(case, nhwc, Program, card) -> dict:
+    """One layer or criterion of the sweep on the card against the CPU
+    (the same module and inputs), eager under the sync-debug mode, as a
+    captured program replayed bitwise against its eager run, timed."""
+    from bigdl_tpu_torch.nn.containers import MaskedSelectCaptureError
+    from bigdl_tpu_torch.nn.layout import set_image_format
+    from bigdl_tpu_torch.nn.normalization import dropout_generators
+    from bigdl_tpu_torch.utils.programs import ProgramCaptureError
+    what = case.name + ("-NHWC" if nhwc else "")
+    set_image_format("NHWC" if nhwc else "NCHW")
+    t0 = time.perf_counter()
+    torch.manual_seed(TAIL_SEED)
+    try:
+        module = case.build(__import__("bigdl_tpu_torch.nn").nn)
+        spec = case.inputs(nhwc)
+        target = case.target() if case.target is not None else None
+        if isinstance(module, torch.nn.Module):
+            module.train(case.train)
+        cpu = TailRun(case, module, spec, target, None, "cpu")
+        weights = None if target is not None else _weights_for(cpu.forward())
+        cpu.weights = weights
+        res = cpu()
+        cpu_s = time.perf_counter() - t0
+        n_out = len(res) - len(cpu.params) - len(cpu.inputs)
+        want = {"outs": res[:n_out], "grads": res[n_out:]}
+        card_run = TailRun(case, module, spec, target, weights, DEVICE)
+        got = card_run()
+        grad_err = _close(what, got, want, case.tol)
+        row = {"name": what, "grad_rel_err": grad_err, "cpu_s": cpu_s}
+        if case.eager_only:        # MaskedSelect: its size is a host read
+            prog = Program(("tail", what), card_run, (), DEVICE)
+            try:
+                prog()
+            except ProgramCaptureError as e:
+                if not isinstance(e.__cause__, MaskedSelectCaptureError):
+                    raise
+                row["capture"] = "refused: " + str(e.__cause__)[:60]
+            else:
+                if DEVICE != "cpu":
+                    raise CheckFailed(f"{what} ran inside a capture")
+            return row
+        if DEVICE != "cpu":
+            # a second eager run: no host sync (a hidden read fails here)
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                card_run()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        gens = []
+        if case.random:     # training mode, from a generator of its own
+            m = card_run.module
+            m.train()
+            m.generator = torch.Generator(DEVICE)
+            row["training_draws"] = _random_stats(case, card_run, card)
+            gens = [m.generator]
+
+        def reseed():
+            for g in gens:
+                g.manual_seed(TAIL_SEED)
+
+        reseed()
+        eager = [t.clone() for t in card_run()]
+        prog = Program(("tail", what), card_run, (), DEVICE,
+                       generators=dropout_generators(card_run.module)
+                       if gens else ())
+        prog()                                       # warm-up and capture
+        reseed()
+        replay = [t.clone() for t in prog()]
+        if not bitwise_equal(replay, eager):
+            raise CheckFailed(f"{what}: the replayed program is not bitwise "
+                              f"equal to its eager run")
+        row["replay_bitwise"] = True
+        if DEVICE != "cpu":
+            if case.peak:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                base = torch.cuda.memory_allocated()
+                card_run()
+                torch.cuda.synchronize()
+                row["peak_memory_bytes"] = \
+                    torch.cuda.max_memory_allocated() - base
+            row["ms"], row["host_ms"] = time_ms(prog, *TAIL_REPS)
+            if case.heavy:
+                nbytes = _fwd_bwd_bytes(card_run)
+                row["bytes"] = nbytes
+                row["bound_ms"], row["bound_by"] = bound_ms(
+                    nbytes, case.flops or 0, "float32")
+                row["bound_share"] = row["bound_ms"] / row["ms"]
+        row["wall_s"] = time.perf_counter() - t0
+        return row
+    finally:
+        set_image_format(None)
+
+
+def tail_sweep(card, Program) -> list:
+    """Every ported layer and criterion of the tail, forward and
+    backward on the card in fp32 with TF32 off (cuDNN deterministic),
+    against the CPU."""
+    import bigdl_tpu_torch.nn as nn
+    rows = []
+    cudnn = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        for case in tail_cases(nn):
+            for nhwc in ((False, True) if case.layout else (False,)):
+                row = tail_case(case, nhwc, Program, card)
+                rows.append(row)
+                extra = ""
+                if "bound_ms" in row:
+                    extra = (f", bound {row['bound_ms']:.4f} ms by "
+                             f"{row['bound_by']} ({row['bound_share']:.1%})")
+                if "peak_memory_bytes" in row:
+                    extra += (f", peak {row['peak_memory_bytes'] / 2**30:.2f}"
+                              f" GiB")
+                if "training_draws" in row:
+                    extra += f", training draws {row['training_draws']}"
+                if "capture" in row:
+                    extra += f", capture {row['capture']}"
+                timing = (f"{row['ms']:.4f} ms fwd+bwd" if "ms" in row
+                          else "not timed")
+                log(f"  {row['name']}: {timing}{extra}; gradients "
+                    f"{row['grad_rel_err']:.1e} from the CPU's")
+                if case.heavy and DEVICE != "cpu":
+                    release()
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = cudnn
+    walls = sorted(rows, key=lambda r: -r.get("wall_s", 0.0))[:8]
+    log(f"  the sweep: {len(rows)} runs; every replay bitwise its eager "
+        f"run; the longest (wall s, of which the CPU reference) "
+        f"{[(r['name'], round(r.get('wall_s', 0), 2), round(r['cpu_s'], 2)) for r in walls]} "
+        f"[{card}]")
+    return rows
+
+
+def ae_data():
+    """The autoencoder main's data: synthetic MNIST (2048 images), scaled
+    to [0, 1] and flattened, input and target alike, batches of 128."""
+    from bigdl_tpu_torch.dataset import DataSet, Sample, SampleToMiniBatch
+    from bigdl_tpu_torch.dataset.mnist import load_mnist
+    imgs, _ = load_mnist(None, "train", synthetic_size=AE_SYNTHETIC)
+    flat = (imgs.astype(np.float32) / 255.0).reshape(len(imgs), -1)
+    return (DataSet.array([Sample(x, x) for x in flat])
+            >> SampleToMiniBatch(AE_BATCH))
+
+
+def ae_model(device):
+    from bigdl_tpu_torch.models.autoencoder import Autoencoder
+    return Autoencoder(AE_BOTTLENECK, generator=_gen(TAIL_SEED),
+                       device=device)
+
+
+def ae_optimizer(model, data):
+    from bigdl_tpu_torch import nn
+    from bigdl_tpu_torch.optim import Adam, LocalOptimizer
+    return (LocalOptimizer(model, data, nn.MSECriterion(), device=DEVICE)
+            .set_optim_method(Adam(learningrate=AE_LR)))
+
+
+def check_ae_step() -> dict:
+    """One batch's loss and every gradient on the card against the same
+    weights on the CPU (loss 1e-4, gradients 1e-3 relative)."""
+    from bigdl_tpu_torch import nn
+    batch = next(iter(ae_data().data(train=False)))
+    out = {}
+    for dev in ("cpu", DEVICE):
+        model = ae_model(dev)
+        x = torch.as_tensor(batch.input).to(dev)
+        loss = nn.MSECriterion()(model(x), x)
+        grads = torch.autograd.grad(loss, list(model.parameters()))
+        out[dev] = (loss.item(), {n: g.cpu() for (n, _), g in zip(
+            model.named_parameters(), grads)})
+    (l_cpu, g_cpu), (l_card, g_card) = out["cpu"], out[DEVICE]
+    loss_rel = abs(l_card - l_cpu) / abs(l_cpu)
+    grad_rel = max(float((g_card[n] - g).norm() / g.norm())
+                   for n, g in g_cpu.items())
+    log(f"  autoencoder one step, card against CPU: loss {l_card:.6f} "
+        f"({loss_rel:.2e} relative), gradients {grad_rel:.2e} relative")
+    if loss_rel > 1e-4 or grad_rel > 1e-3:
+        raise CheckFailed(f"the autoencoder step departs from the CPU: loss "
+                          f"{loss_rel:.3e}, gradients {grad_rel:.3e}")
+    return {"loss_rel": loss_rel, "grad_rel": grad_rel}
+
+
+def train_ae(kernels, card, bf16=False, profile=True) -> dict:
+    """TRAIN_ITERS steps of the autoencoder main's configuration through
+    the captured step at fuse 1, each bitwise equal to the same steps run
+    eagerly from the same weights (losses and parameters)."""
+    from bigdl_tpu_torch.dataset import DataSet
+    from bigdl_tpu_torch.optim import Trigger
+    from bigdl_tpu_torch.optim.optim_method import hyper_tensor
+    from bigdl_tpu_torch.utils.random_generator import RandomGenerator
+    data = ae_data()
+    model = ae_model(DEVICE)
+    opt = ae_optimizer(model, data).set_end_when(
+        Trigger.max_iteration(TRAIN_ITERS))
+    losses, marks, seen = [], [], []
+    run_steps = opt._run_steps
+
+    def recorded(steps):
+        out = run_steps(steps)
+        sync()
+        marks.append(time.perf_counter())
+        losses.extend(out)
+        seen.extend((a.clone(), b.clone()) for a, b in steps)
+        return out
+
+    opt._run_steps = recorded
+    RandomGenerator.set_seed(SEED)
+    sync()
+    t0 = time.perf_counter()
+    try:
+        opt.optimize()
+    finally:
+        opt._run_steps = run_steps
+    what = "bf16" if bf16 else "fp32"
+    if len(losses) != TRAIN_ITERS or not all(np.isfinite(losses)):
+        raise CheckFailed(f"autoencoder {what} training gave {losses}")
+    step_ms = float(statistics.median(np.diff(marks))) * 1e3
+    ips = AE_BATCH / step_ms * 1e3
+    params = {n: p.detach().clone() for n, p in model.named_parameters()}
+    prof = timing = None
+    if profile and DEVICE != "cpu":
+        batch = next(iter(data.data(train=True)))
+        prof = profile_step(opt, batch, card)
+        dev_ms, host_ms = time_ms(opt._step_program, *TAIL_REPS)
+        # the card works dev_ms of each step: the rest of the step is the
+        # host's (the graph's launch and the trainer's loop around it)
+        timing = {"replay_device_ms": dev_ms, "replay_host_ms": host_ms,
+                  "device_share_of_step": dev_ms / step_ms,
+                  "paced_by": "host" if dev_ms < step_ms / 2 else "device"}
+        log(f"  autoencoder {what}: a replayed step {dev_ms:.4f} ms on the "
+            f"device, {host_ms:.4f} ms to launch from the host, in a "
+            f"{step_ms:.4f} ms step ({dev_ms / step_ms:.1%} on the device): "
+            f"the {timing['paced_by']} sets the pace [{card}]")
+    opt._step_program = None
+    # the same steps, eagerly, from the same weights
+    ref = ae_model(DEVICE)
+    ropt = ae_optimizer(ref, DataSet.array([]))
+    named, scales, mask = ropt._prepare_step()
+    step = ropt._make_step_fn(named, scales, mask)
+    ref_losses = [float(step(inp, target, hyper_tensor(
+        ropt._method.hyper(k, ropt._ostate), list(named.values()))))
+        for k, (inp, target) in enumerate(seen)]
+    ref_params = dict(ref.named_parameters())
+    bitwise = losses == ref_losses and all(
+        torch.equal(p, ref_params[n]) for n, p in params.items())
+    log(f"  autoencoder {TRAIN_ITERS} {what} steps at batch {AE_BATCH}: "
+        f"losses {[round(v, 5) for v in losses]}; first window (warm-up and "
+        f"capture) {(marks[0] - t0) * 1e3:.1f} ms; step {step_ms:.4f} ms, "
+        f"{ips:.0f} images/s; replays bitwise the eager steps: {bitwise} "
+        f"[{card}]")
+    if not bitwise:
+        raise CheckFailed(f"autoencoder {what}: the replayed steps are not "
+                          f"bitwise equal to the eager ones")
+    return {"losses": losses, "step_ms": step_ms, "images_per_s": ips,
+            "first_window_ms": (marks[0] - t0) * 1e3, "bitwise": bitwise,
+            "replay": timing,
+            "profile": None if prof is None else {
+                k: prof.get(k) for k in ("busy_ms", "wall_ms", "by_kind_ms",
+                                         "host_calls")}}
+
+
+def tail_path(kernels, card, Engine, Program) -> dict:
+    """Phase 16: the layer sweep, then the autoencoder at its main's
+    configuration (one-step check, 17 fp32 and 17 bf16 captured steps
+    against eager, a profiled step, the main at its defaults)."""
+    from bigdl_tpu_torch.models.autoencoder import train as ae_main
+    t0 = time.perf_counter()
+    out = {"sweep": tail_sweep(card, Program),
+           "autoencoder": {"one_step_check": check_ae_step(),
+                           "training_fp32": train_ae(kernels, card)}}
+    Engine.init(compute_dtype=torch.bfloat16)
+    try:
+        out["autoencoder"]["training_bf16"] = train_ae(kernels, card,
+                                                       bf16=True)
+    finally:
+        Engine.reset()
+    out["autoencoder"]["main"] = run_main(
+        ae_main, [] if DEVICE != "cpu" else AE_CPU_ARGV, card, AE_BATCH,
+        scored=False)
+    ranked = sorted((r for r in out["sweep"] if "bound_share" in r),
+                    key=lambda r: r["bound_share"])
+    out["farthest_from_bound"] = [
+        {k: r[k] for k in ("name", "ms", "bound_ms", "bound_by",
+                           "bound_share")} for r in ranked[:5]]
+    if DEVICE != "cpu":
+        release()
+    out["wall_s"] = time.perf_counter() - t0
+    log(f"  the five layers farthest from their bound: "
+        f"{[(r['name'], round(r['bound_share'], 3)) for r in ranked[:5]]}; "
+        f"phase 16 took {out['wall_s']:.1f} s [{card}]")
+    return out
+
+
+AE_CPU_ARGV = ["--device", "cpu", "--synthetic-size", "512", "-b", "64"]
+
+
+def tail_launches(counts: dict) -> dict:
+    """Phase 16's launches of the five kernels: none (the tail is torch
+    ops, cuBLAS and cuDNN)."""
+    log(f"  phase 16 launched none of the five kernels: {counts}")
+    if any(counts.values()):
+        raise CheckFailed(f"phase 16 launched the LM kernels {counts}")
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on the "
@@ -6137,6 +7086,13 @@ def main() -> int:
         finetune = finetune_path(TransformerLM, lm_criterion, nn, kernels,
                                  card, Engine, ServingEngine)
         print(json.dumps({"finetune": finetune}), flush=True)
+        return 0
+    if "--tail-only" in sys.argv:
+        log("phase 16 only")
+        kernels.reset_launch_counts()
+        tail = tail_path(kernels, card, Engine, Program)
+        tail["launches"] = tail_launches(kernels.launch_counts())
+        print(json.dumps({"tail": tail}), flush=True)
         return 0
     if "--serving-only" in sys.argv:
         log("phase 14 only")
@@ -6345,6 +7301,12 @@ def main() -> int:
                              plain_rate=warm["decode_tokens_per_s"])
     ft_launches = finetune["launches"]
 
+    log("phase 16: the layer tail (every ported layer and criterion on the "
+        "card against the CPU) and the MNIST autoencoder, full width")
+    kernels.reset_launch_counts()          # the phase's path: from here ...
+    tail = tail_path(kernels, card, Engine, Program)
+    tail["launches"] = tail_launches(kernels.launch_counts())   # ... to here
+
     log("phase 10: the kernel table")
 
     # each kernel's row: its own slice's path (serving for the forward
@@ -6406,7 +7368,8 @@ def main() -> int:
                  "serving_stack_engines": stack["launches"]["engines"][k],
                  "finetune_lora_training": ft_launches["lora_training"][k],
                  "finetune_lora_serving": ft_launches["lora_serving"][k],
-                 "seq2seq": ft_launches["seq2seq"][k]}
+                 "seq2seq": ft_launches["seq2seq"][k],
+                 "tail": tail["launches"][k]}
              for k in launches}
 
     def s2s_flash(rows, name):
@@ -6594,7 +7557,7 @@ def main() -> int:
         "llama": dict(llama["summary"], kernel_ms_per_step=llama_kernel_ms),
         "vision": vision, "serving_extras": extras, "robustness": robust,
         "feed": feed, "text": text, "serving_stack": stack,
-        "finetune": finetune}
+        "finetune": finetune, "tail": tail}
     print(json.dumps(table), flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -11,7 +11,6 @@ injected clocks and the stall on an event (``faults.stall_sleep``), never
 on wall-clock margins; threads are joined with a bound.
 """
 
-import contextlib
 import os
 import signal
 import threading
@@ -121,7 +120,7 @@ def test_crash_under_one_request_plan_matches_jax(pair):
     assert st["respawns"] == 1 and st["health"] == "degraded"
 
 
-def test_crash_budget_spent_leaves_engine_dead_like_jax(pair):
+def test_crash_budget_spent_leaves_engine_dead_like_jax(pair, monkeypatch):
     """Three deaths against a budget of two: both engines give up, the
     handle raises the real ``WorkerDeathError``, health is ``dead`` and a
     later submit raises ``EngineShutdown``.
@@ -129,23 +128,35 @@ def test_crash_budget_spent_leaves_engine_dead_like_jax(pair):
     The loop dies at the top of its first iteration, request or not, and
     ``submit`` starts the thread before it queues the request: a submitter
     descheduled in between (a loaded host) would find all three deaths
-    done and the engine shut. The port's supervisor recovers each death
-    under the device lock, so holding that lock across the submit queues
-    the request before the second death."""
+    done and the engine shut, and ``submit`` itself would raise
+    ``EngineShutdown``. Both engines have that window, so on both legs the
+    loop's ``serve_thread`` fault point waits until the request is queued
+    (the engine modules' ``fault_point`` is wrapped; no engine changes)."""
     jlm, tlm = pair
+    from bigdl_tpu.serving import engine as jengine
     from bigdl_tpu.serving.engine import EngineShutdown as JaxShutdown
+    from bigdl_tpu_torch.serving import engine as tengine
     spec = "serve_thread@1;serve_thread@2;serve_thread@3"
     seen = []
-    for make, fl, shut in (
-            (lambda: _engine(tlm, crash_budget=2), faults, EngineShutdown),
+    for make, fl, shut, mod in (
+            (lambda: _engine(tlm, crash_budget=2), faults, EngineShutdown,
+             tengine),
             (lambda: JaxServingEngine(jlm, MAX_LEN, slots=2, buckets=BUCKETS,
                                       crash_budget=2), jfaults,
-             JaxShutdown)):
+             JaxShutdown, jengine)):
+        queued = threading.Event()
+
+        def gated(site, index=None, _real=mod.fault_point, _fl=fl,
+                  _queued=queued):
+            if site == _fl.SITE_SERVE_THREAD:
+                assert _queued.wait(60), "the request was never queued"
+            return _real(site, index)
+
+        monkeypatch.setattr(mod, "fault_point", gated)
         with fl.inject_faults(spec) as plan:
             eng = make()
-            with eng._device_lock if fl is faults \
-                    else contextlib.nullcontext():
-                h = eng.submit(_prompt(4, 5), 6)
+            h = eng.submit(_prompt(4, 5), 6)
+            queued.set()
             with pytest.raises(fl.WorkerDeathError):
                 h.result(120)
             assert plan.unfired() == []
@@ -179,7 +190,10 @@ def test_crash_keeps_programs_and_releases_locks(pair):
         assert eng._programs._programs == progs
         assert all(eng._programs._programs[k] is progs[k] for k in progs)
         for lock in (eng._device_lock, eng._swap_lock, capture_guard()):
-            assert lock.acquire(blocking=False)
+            # the respawned loop may still be in its last iteration, under
+            # the device lock, as the last token arrives: wait for it to
+            # let go (a lock the dead thread kept is never released)
+            _wait(lambda: lock.acquire(blocking=False), f"{lock} released")
             lock.release()
     for p, g in zip(prompts, got):
         np.testing.assert_array_equal(g, _solo(tlm, p, 10))
