@@ -28,7 +28,9 @@ sorted). The port's slots are lists in ``named_parameters()`` order (flat
 buffers in first-seen dtype order under the flat update):
 :func:`ostate_tree` lays them out as JAX does and :func:`load_jax_ostate`
 copies a JAX-laid-out tree into them, so a checkpoint of either package
-resumes in the other.
+resumes in the other. Under sparse embedding updates the slots are JAX's
+``{"dense": the method's layout with the tables' weights 0-size, "embed":
+{table path: the method's slots of the table's weight}}``.
 """
 
 from __future__ import annotations
@@ -144,6 +146,11 @@ def _flat_update(method) -> bool:
     return isinstance(method, FlatParamUpdate)
 
 
+def _sparse_update(method) -> bool:
+    from bigdl_tpu_torch.parallel.embedding import SparseEmbeddingUpdate
+    return isinstance(method, SparseEmbeddingUpdate)
+
+
 def _masked(module, trainable) -> list:
     """``(name, parameter or its 0-size stand-in)`` as the method saw them."""
     named = list(module.named_parameters())
@@ -165,6 +172,14 @@ def ostate_tree(method, ostate: dict, module: torch.nn.Module,
     float). Under the flat update the leaves are per parameter here;
     :func:`ostate_host_layout` makes JAX's flat vectors of them."""
     from bigdl_tpu_torch.optim.optim_method import CompositeOptimMethod
+    if _sparse_update(method):
+        plan = method.plan
+        named = dict(module.named_parameters())
+        return {"dense": ostate_tree(method.method, ostate["dense"], module,
+                                     plan.mask_embed(named, trainable)),
+                "embed": {key: {k: v[0] if isinstance(v, list) else v
+                                for k, v in slots.items()}
+                          for key, slots in ostate["embed"].items()}}
     masked = _masked(module, trainable)
     names = [n for n, _ in masked]
     if isinstance(method, CompositeOptimMethod):
@@ -292,8 +307,10 @@ def load_jax_ostate(method, ostate: dict, module: torch.nn.Module,
 def slots_owner(method, ostate: dict) -> dict:
     """The slots dict that holds the method's own slots and SGD's ``clr``:
     the default group's of a composite, the inner method's under the flat
-    update."""
+    update, the dense pass's under sparse embedding updates."""
     from bigdl_tpu_torch.optim.optim_method import CompositeOptimMethod
+    if _sparse_update(method):
+        return ostate["dense"]
     if isinstance(method, CompositeOptimMethod):
         return ostate["default"]
     if _flat_update(method):

@@ -40,7 +40,7 @@ from bigdl_tpu_torch.nn.criterion import (
     SoftMarginCriterion, SoftmaxWithCriterion, TimeDistributedCriterion,
     TimeDistributedMaskCriterion, TransformerCriterion,
 )
-from bigdl_tpu_torch.nn.embedding import LookupTable
+from bigdl_tpu_torch.nn.embedding import HashBucketEmbedding, LookupTable
 from bigdl_tpu_torch.nn.fused_loss import (
     ChunkedSoftmaxCrossEntropy, FusedLMHead, chunked_softmax_xent,
 )
@@ -87,6 +87,10 @@ from bigdl_tpu_torch.nn.shape_ops import (
     Contiguous, Flatten, Index, InferReshape, Narrow, Padding, Replicate,
     Reshape, Reverse, Select, SpatialZeroPadding, SplitTable, Squeeze, Tile,
     Transpose, Unsqueeze, View,
+)
+from bigdl_tpu_torch.nn.sparse import (
+    DenseToSparse, LookupTableSparse, SparseEmbeddingSum, SparseJoinTable,
+    SparseLinear,
 )
 from bigdl_tpu_torch.nn.tf_utils import (
     Const, Fill, Shape, SplitAndSelect, StrideSlice,

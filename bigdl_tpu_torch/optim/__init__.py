@@ -16,8 +16,17 @@ from bigdl_tpu_torch.optim.schedules import (
     Plateau, Poly, SequentialSchedule, Step, Warmup,
 )
 from bigdl_tpu_torch.optim.trigger import Trigger
+from bigdl_tpu_torch.optim.validation import (
+    MAE, NDCG, AccuracyResult, HitRatio, Loss, LossResult, MAPResult,
+    MeanAveragePrecision, Top1Accuracy, Top5Accuracy, TopKAccuracy,
+    TreeNNAccuracy, ValidationMethod, ValidationResult,
+)
 
-__all__ = ["Adadelta", "Adagrad", "Adam", "AdamW", "Adamax",
+__all__ = ["AccuracyResult", "HitRatio", "Loss", "LossResult", "MAE",
+           "MAPResult", "MeanAveragePrecision", "NDCG", "Top1Accuracy",
+           "Top5Accuracy", "TopKAccuracy", "TreeNNAccuracy",
+           "ValidationMethod", "ValidationResult",
+           "Adadelta", "Adagrad", "Adam", "AdamW", "Adamax",
            "CompositeOptimMethod", "Default", "Evaluator", "Exponential",
            "Ftrl",
            "L1L2Regularizer", "L1Regularizer", "L2Regularizer", "LBFGS",

@@ -135,6 +135,31 @@ class OptimMethod:
         return self.update_with(self._mask_frozen(params, trainable), g,
                                 state, h)
 
+    # ------------------------------------------------- sparse-row protocol
+    # The sparse embedding step (parallel/embedding.py) hands the method a
+    # (U, D) block of gathered rows, their gradients and their slot rows.
+    # A purely elementwise method steps a block of rows exactly as it steps
+    # those rows of the whole leaf, so the default runs ``update_with`` on
+    # the block. Semantics are lazy (JAX's, torch's SparseAdam's): rows a
+    # batch does not touch, and their slots, do not move, so decay terms
+    # advance only on touched rows.
+    def supports_sparse_update(self) -> bool:
+        """JAX's rule: elementwise, no per-layer rate multipliers, no
+        stateful schedule."""
+        if not self.elementwise_update:
+            return False
+        if getattr(self, "layer_lr_mults", None):
+            return False
+        sched = getattr(self, "learningrate_schedule", None)
+        return not (sched is not None and getattr(sched, "stateful", False))
+
+    def sparse_update(self, rows, grad_rows, slot_rows: dict,
+                      h: torch.Tensor) -> None:
+        """Step a gathered row block in place: ``slot_rows`` is
+        ``init_state``'s dict with each slot a one-element list of the
+        block's slot rows."""
+        self.update_with([rows], [grad_rows], slot_rows, h)
+
     def get_learning_rate(self, step: int) -> float:
         return 0.0
 

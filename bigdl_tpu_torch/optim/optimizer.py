@@ -150,8 +150,18 @@ version it wrote, its params in JAX's layout under the checkpoint's
 candidate (``serving/lifecycle.py``); a registry failure is logged and
 never reaches the trainer.
 
-Not ported yet (ROADMAP Queue A): sparse embeddings, the auxiliary loss
-and the orbax and elastic checkpoint backends.
+**Sparse embeddings** (``set_sparse_embeddings`` /
+``BIGDL_EMBED_SPARSE``, JAX's ``:518-578``, ``:773-801``): a model whose
+tables are ``parallel/embedding.ShardedEmbedding``s trains them sparsely
+where JAX would: the step injects zero (U, D) row deltas (made with the
+step's program, U fixed by the batch's shape), differentiates them with the
+other parameters, clips both together and runs
+``SparseEmbeddingUpdate.sparse_apply`` (the dense pass, then the touched
+rows and their slot rows); slots ``{"dense", "embed"}`` as JAX's. One
+program, as the dense step; fused windows replay it.
+
+Not ported yet (ROADMAP Queue A): the auxiliary loss and the orbax and
+elastic checkpoint backends.
 """
 
 from __future__ import annotations
@@ -402,6 +412,12 @@ class Optimizer:
         # flat-buffer update (set_flat_update / BIGDL_FLAT_UPDATE)
         self.flat_update: bool = os.environ.get("BIGDL_FLAT_UPDATE",
                                                 "0") == "1"
+        # sparse embedding updates (set_sparse_embeddings /
+        # BIGDL_EMBED_SPARSE): None = on where eligible, "0"/"1" force
+        sparse_env = os.environ.get("BIGDL_EMBED_SPARSE", "")
+        self.sparse_embed: Optional[bool] = (
+            None if sparse_env not in ("0", "1") else sparse_env == "1")
+        self._sparse_memo: Optional[tuple] = None
         # steps a fused window runs (set_fuse_steps / BIGDL_FUSE_STEPS)
         self.fuse_steps: int = _fuse_steps(
             int(os.environ.get("BIGDL_FUSE_STEPS", "1")))
@@ -422,6 +438,7 @@ class Optimizer:
         self._ostate: Optional[dict] = None
         self._method: Optional[OptimMethod] = None
         self._ostate_mask = None
+        self._ostate_plan = None
         self._ostate_version = 0
         # the step program of the current key (utils/programs.py)
         self._step_program: Optional[Program] = None
@@ -526,6 +543,18 @@ class Optimizer:
         update. Methods that need the leaves (``layer_lr_mults``, LARS,
         L-BFGS, composite) keep the per-leaf path."""
         self.flat_update = bool(enabled)
+        self._ostate = None
+        return self
+
+    def set_sparse_embeddings(self, enabled: bool = True) -> "Optimizer":
+        """Step only the embedding rows each batch gathered, in models whose
+        tables are wrapped in ``parallel/embedding.ShardedEmbedding``: the
+        step differentiates a zero row block (no dense (V, D) gradient) and
+        the method's ``sparse_update`` steps those rows and their slot rows
+        (lazy: untouched rows stay bitwise unchanged). On by default where
+        eligible; ``set_sparse_embeddings(False)`` forces the dense path.
+        Slots start again."""
+        self.sparse_embed = bool(enabled)
         self._ostate = None
         return self
 
@@ -665,10 +694,51 @@ class Optimizer:
             grads = [g * scale for g in grads]
         return grads
 
-    def _effective_method(self) -> OptimMethod:
-        """The method the step runs: the configured one, wrapped for the
-        flat update when that is on and the method allows it."""
+    def _sparse_plan(self, scales: Optional[dict] = None):
+        """The model's sparse embedding plan, or None for the dense path,
+        under JAX's rules (``bigdl_tpu/optim/optimizer.py:537-564``): the
+        method must support sparse updates, no regularizer, every table's
+        gradient scale 1; gradient accumulation and mixed precision keep
+        the dense path. Memoized on what it depends on; the reason for a
+        dense fallback is logged once."""
+        scales = self.model.grad_scales() if scales is None else scales
+        key = (self.sparse_embed, self.optim_method, self.grad_accum,
+               Engine.compute_dtype(), tuple(scales.values()))
+        if self._sparse_memo is not None and self._sparse_memo[0] == key:
+            return self._sparse_memo[1]
+        plan, reason = None, None
+        if self.sparse_embed is not False:
+            from bigdl_tpu_torch.parallel.embedding import build_sparse_plan
+            plan, reason = build_sparse_plan(self.model, self.optim_method)
+            if plan is not None:
+                if self.grad_accum > 1:
+                    plan, reason = None, ("gradient accumulation needs a "
+                                          "dense gradient")
+                elif Engine.compute_dtype() != torch.float32:
+                    plan, reason = None, ("mixed precision casts the "
+                                          "gathered rows")
+        if reason is not None and (self.sparse_embed or plan is None):
+            logger.warning("sparse embedding updates unavailable (%s); "
+                           "training the embedding tables densely", reason)
+        if plan is not None:
+            logger.info("sparse embedding updates active: %r", plan)
+        self._sparse_memo = (key, plan)
+        return plan
+
+    def _effective_method(self, plan=None) -> OptimMethod:
+        """The method the step runs: the configured one, wrapped for sparse
+        embedding updates when ``plan`` is set (sparse wins over the flat
+        update, as in JAX), else for the flat update when that is on and
+        the method allows it."""
         method = self.optim_method
+        if plan is not None:
+            from bigdl_tpu_torch.parallel.embedding import (
+                SparseEmbeddingUpdate,
+            )
+            if self.flat_update:
+                logger.warning("flat update skipped: sparse embedding "
+                               "updates wrap the method first")
+            return SparseEmbeddingUpdate(method, plan)
         if self.flat_update:
             from bigdl_tpu_torch.kernels.fused_update import (
                 FlatParamUpdate, flat_supported,
@@ -768,35 +838,71 @@ class Optimizer:
         scales = self.model.grad_scales()
         trainable = [scales[n] != 0.0 for n in named]
         mask = None if all(trainable) else trainable
-        if self._ostate is None or mask != self._ostate_mask:
+        plan = self._sparse_plan(scales)
+        if self._ostate is None or mask != self._ostate_mask \
+                or plan is not self._ostate_plan:
             if self._ostate is not None:
-                logger.warning("the frozen parameters changed: optimizer "
-                               "slots start again")
+                logger.warning("the frozen parameters or the sparse "
+                               "embedding plan changed: optimizer slots "
+                               "start again")
             self._step_program = None
-            self._method = self._effective_method()
+            self._method = self._effective_method(plan)
             self._ostate = self._method.init_state_trimmed(named, mask)
             self._ostate_mask = mask
+            self._ostate_plan = plan
             self._ostate_version += 1
         return named, scales, mask
 
-    def _make_step_fn(self, named: dict, scales: dict, mask):
+    def _make_step_fn(self, named: dict, scales: dict, mask, inp=None):
         """One optimizer step over the program's static inputs
         ``(inp, target, h)``: forward, backward, scale, clip, and the update
         in place with the step's numbers ``h``. Returns the loss (before
-        the update), on the device."""
+        the update), on the device. Under sparse embedding updates ``inp``,
+        a batch of the step's shape, sizes the step's zero deltas."""
         frozen = frozenset(n for n in named if scales[n] == 0.0)
-        train = [n for n in named if n not in frozen]
+        plan = self._ostate_plan
+        deltas = None
+        if plan is not None:
+            if inp is None:
+                raise ValueError("the sparse embedding step needs a batch "
+                                 "of its shape to size its row deltas")
+            deltas = plan.zero_deltas(self.model, inp)
+        embed = plan.weight_names() if plan is not None else set()
+        train = [n for n in named if n not in frozen and n not in embed]
         method, ostate = self._method, self._ostate
         check = self.check_numerics
 
         def step(inp, target, h):
-            loss, grads = self._loss_and_grads([named[n] for n in train],
-                                               inp, target, frozen)
+            if plan is None:
+                loss, grads = self._loss_and_grads(
+                    [named[n] for n in train], inp, target, frozen)
+                row_grads = {}
+            else:
+                # the sparse step (JAX's ``_make_step_fn``, ``:773-801``):
+                # the tables' rows enter as the injected zero deltas, whose
+                # gradients are the row gradients
+                plan.inject(self.model, deltas)
+                try:
+                    loss, grads = self._value_and_grad(
+                        [named[n] for n in train] + list(deltas.values()),
+                        inp, target, frozen)
+                    uids = plan.pop_uids(self.model)
+                finally:
+                    plan.clear(self.model)
+                row_grads = dict(zip(deltas, grads[len(train):]))
+                grads = grads[:len(train)]
             grads = [g if scales[n] == 1.0 else g * scales[n]
                      for n, g in zip(train, grads)]
-            grads = dict(zip(train, self._clip_grads(grads)))
-            method.update_with_trimmed(
-                named, {n: grads.get(n) for n in named}, ostate, h, mask)
+            clipped = self._clip_grads(grads + list(row_grads.values()))
+            grads = dict(zip(train, clipped))
+            if plan is None:
+                method.update_with_trimmed(
+                    named, {n: grads.get(n) for n in named}, ostate, h, mask)
+            else:
+                row_grads = dict(zip(row_grads, clipped[len(train):]))
+                method.sparse_apply(named, {n: grads.get(n) for n in named},
+                                    row_grads, uids, ostate, h, mask)
+                grads.update(row_grads)
             if not check:
                 return loss
             # the numerics flag: 1 when the loss, a gradient or an updated
@@ -827,7 +933,7 @@ class Optimizer:
             h = torch.zeros(len(self._method.hyper(0, self._ostate)),
                             dtype=torch.float32,
                             device=next(iter(named.values())).device)
-            prog = Program(key, self._make_step_fn(named, scales, mask),
+            prog = Program(key, self._make_step_fn(named, scales, mask, inp),
                            (_map(torch.empty_like, inp),
                             _map(torch.empty_like, target), h),
                            h.device,

@@ -1,10 +1,14 @@
 """Validation methods and their results.
 
-Counterpart of ``bigdl_tpu/optim/validation.py:38-273``:
+Counterpart of ``bigdl_tpu/optim/validation.py``:
 ``ValidationResult``, ``AccuracyResult``, ``LossResult``,
 ``ValidationMethod``, ``TopKAccuracy`` (``Top1Accuracy``,
 ``Top5Accuracy``), ``TreeNNAccuracy`` (``:169-200``, the TreeLSTM's root
-accuracy) and ``Loss``. Partial results add with ``+`` and
+accuracy), ``Loss``, and the ranking and regression metrics: ``MAPResult``
+and ``MeanAveragePrecision`` (detection mAP, VOC2010 all-points AP, a
+host fold: AP ranks over every batch), ``MAE`` (``:380``), ``HitRatio``
+(``:408``) and ``NDCG`` (``:513``) over groups of one positive and
+``neg_num`` negatives, with JAX's device folds (``:394``, ``:464``). Partial results add with ``+`` and
 ``result()`` gives (value, count); ``valid`` is a batch's count of real
 rows, so padding rows never count.
 
@@ -22,6 +26,7 @@ answer, in comparisons only, so the host fold (numpy) and the device fold
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import numpy as np
@@ -241,3 +246,223 @@ class Loss(ValidationMethod):
     def finalize(self, acc) -> ValidationResult:
         loss_sum, count = acc
         return LossResult(float(loss_sum), int(count))
+
+
+class MAPResult(ValidationResult):
+    """Raw per-image detections and ground truth gathered across batches
+    (AP ranks globally: per-batch fractions do not add); VOC2010
+    all-points mAP at ``result()``."""
+
+    def __init__(self, dets: list, gts: list, iou_threshold: float):
+        self.dets = list(dets)     # per image: (K, 6) [label, score, 4 box]
+        self.gts = list(gts)       # per image: (G, 5) [label, 4 box]
+        self.iou_threshold = iou_threshold
+
+    def __add__(self, other):
+        if self.iou_threshold != other.iou_threshold:
+            raise ValueError(
+                f"cannot merge MAPResults with different IoU thresholds "
+                f"({self.iou_threshold} vs {other.iou_threshold})")
+        return MAPResult(self.dets + other.dets, self.gts + other.gts,
+                         self.iou_threshold)
+
+    @staticmethod
+    def _iou(a, b):
+        ix = np.maximum(0.0, np.minimum(a[2], b[:, 2])
+                        - np.maximum(a[0], b[:, 0]))
+        iy = np.maximum(0.0, np.minimum(a[3], b[:, 3])
+                        - np.maximum(a[1], b[:, 1]))
+        inter = ix * iy
+        area_a = max(a[2] - a[0], 0.0) * max(a[3] - a[1], 0.0)
+        area_b = (np.clip(b[:, 2] - b[:, 0], 0, None)
+                  * np.clip(b[:, 3] - b[:, 1], 0, None))
+        return inter / np.maximum(area_a + area_b - inter, 1e-12)
+
+    def result(self):
+        def by_class(rows):
+            return {c: rows[rows[:, 0] == c]
+                    for c in np.unique(rows[:, 0]).astype(int)}
+
+        gt_grp = [by_class(g) for g in self.gts]
+        det_grp = [by_class(d) for d in self.dets]
+        aps = []
+        for c in sorted({c for g in gt_grp for c in g}):
+            gt_by_img = [g.get(c, np.zeros((0, 5)))[:, 1:] for g in gt_grp]
+            n_gt = sum(len(b) for b in gt_by_img)
+            if n_gt == 0:
+                continue
+            records = [(float(row[1]), i, row[2:])
+                       for i, d in enumerate(det_grp)
+                       for row in d.get(c, np.zeros((0, 6)))]
+            records.sort(key=lambda r: -r[0])
+            matched = [np.zeros(len(b), bool) for b in gt_by_img]
+            tp = np.zeros(len(records))
+            for k, (_, i, box) in enumerate(records):
+                boxes = gt_by_img[i]
+                if len(boxes):
+                    ious = self._iou(box, boxes)
+                    j = int(np.argmax(ious))
+                    if ious[j] >= self.iou_threshold and not matched[i][j]:
+                        matched[i][j] = True
+                        tp[k] = 1.0
+            cum_tp = np.cumsum(tp)
+            recall = cum_tp / n_gt
+            precision = cum_tp / (np.arange(len(records)) + 1)
+            # the monotone precision envelope, integrated over recall
+            for k in range(len(precision) - 2, -1, -1):
+                precision[k] = max(precision[k], precision[k + 1])
+            ap, prev_r = 0.0, 0.0
+            for k in range(len(recall)):
+                ap += (recall[k] - prev_r) * precision[k]
+                prev_r = recall[k]
+            aps.append(ap)
+        return (float(np.mean(aps)) if aps else 0.0, len(self.dets))
+
+    def __repr__(self):
+        v, c = self.result()
+        return f"MeanAveragePrecision({v:.4f}, images={c})"
+
+
+class MeanAveragePrecision(ValidationMethod):
+    """Detection mAP: ``output`` (N, K, 6) rows ``[label, score, xmin,
+    ymin, xmax, ymax]``, ``target`` (N, G, 5) padded ground truth
+    ``[label, x1, y1, x2, y2]``; rows with label <= 0 (padding, background)
+    are dropped on both sides. A host fold."""
+
+    def __init__(self, iou_threshold: float = 0.5):
+        self.iou_threshold = float(iou_threshold)
+        self.name = "MeanAveragePrecision"
+
+    def apply(self, output, target, valid=None):
+        out, gt = _host(output), _host(target)
+        if valid is not None and valid < out.shape[0]:
+            out, gt = out[:valid], gt[:valid]
+        return MAPResult([img[img[:, 0] > 0] for img in out],
+                         [g[g[:, 0] > 0] for g in gt], self.iou_threshold)
+
+
+class MAE(ValidationMethod):
+    """Mean absolute error, a row's mean over its elements averaged over
+    the valid rows."""
+
+    name = "MAE"
+
+    def apply(self, output, target, valid=None):
+        out, t = _host(output), _host(target)
+        n = out.shape[0]
+        if valid is not None and valid < n:
+            out, t, n = out[:valid], t[:valid], valid
+        return LossResult(float(np.abs(out - t).mean()) * n, n)
+
+    def has_device_fold(self) -> bool:
+        return True
+
+    def device_fold(self, out, target, valid_mask):
+        diff = (out - target).abs()
+        per_row = diff.reshape(diff.shape[0], -1).mean(1)
+        per_row = torch.where(valid_mask, per_row, 0.0)
+        return (per_row.sum(), valid_mask.int().sum())
+
+    def finalize(self, acc) -> ValidationResult:
+        loss_sum, count = acc
+        return LossResult(float(loss_sum), int(count))
+
+
+class HitRatio(ValidationMethod):
+    """HR@k over groups of ``neg_num + 1`` candidates (one positive, target
+    1; negatives 0), formed in order: the share of groups whose positive
+    has fewer than ``k`` candidates scoring strictly higher. Scores of an
+    (N, C) output are its last column (NCF's log P(interaction))."""
+
+    def __init__(self, k: int = 10, neg_num: int = 100):
+        self.k = k
+        self.neg_num = neg_num
+        self.name = f"HitRatio@{k}"
+
+    def _misaligned(self, n: int) -> ValueError:
+        group = self.neg_num + 1
+        return ValueError(
+            f"{self.name}: got {n} scores, not a positive multiple of "
+            f"neg_num+1={group}; evaluate with batch_size a multiple of "
+            f"{group} so every (positive + negatives) group stays within "
+            "one batch")
+
+    def _no_positive(self, n: int = 1) -> ValueError:
+        return ValueError(
+            f"{self.name}: found {n} candidate group(s) with no positive "
+            "label (every label 0); each neg_num+1 group must contain "
+            "exactly one positive item")
+
+    def _ranks(self, output, target, valid):
+        output = _host(output).reshape(-1)
+        target = _host(target).reshape(-1)
+        if valid is not None:
+            output, target = output[:valid], target[:valid]
+        group = self.neg_num + 1
+        if len(output) % group != 0 or len(output) == 0:
+            raise self._misaligned(len(output))
+        rows = len(output) // group
+        scores = output.reshape(rows, group)
+        labels = target.reshape(rows, group)
+        if not (labels.max(axis=1) > 0).all():
+            raise self._no_positive()
+        pos = scores[np.arange(rows), labels.argmax(axis=1)]
+        return 1 + (scores > pos[:, None]).sum(axis=1), rows
+
+    def _gains(self, ranks):
+        return (ranks <= self.k).astype(np.float64)
+
+    def apply(self, output, target, valid: Optional[int] = None):
+        ranks, n = self._ranks(output, target, valid)
+        return AccuracyResult(float(self._gains(ranks).sum()), n)
+
+    def has_device_fold(self) -> bool:
+        return True
+
+    def _device_gains(self, ranks):
+        return (ranks <= self.k).float()
+
+    def device_fold(self, out, target, valid_mask):
+        group = self.neg_num + 1
+        scores = out
+        if scores.dim() > 1:
+            scores = scores.reshape(scores.shape[0], -1)[:, -1]
+        scores = scores.reshape(-1)
+        n = scores.shape[0]
+        if n == 0 or n % group != 0:
+            raise self._misaligned(n)
+        rows = n // group
+        s = scores.reshape(rows, group)
+        lab = target.reshape(rows, group)
+        gvalid = valid_mask.reshape(rows, group).all(1)
+        pos = lab.argmax(1, keepdim=True)
+        ranks = 1 + (s > s.gather(1, pos)).sum(1)
+        gains = torch.where(gvalid, self._device_gains(ranks), 0.0)
+        # a valid group without a positive is refused at finalize (the
+        # host path's error, once the sums are fetched)
+        bad = gvalid & ~(lab.max(1).values > 0)
+        return (gains.sum(), gvalid.int().sum(), bad.int().sum())
+
+    def finalize(self, acc) -> ValidationResult:
+        gains, count, bad = acc
+        if int(bad) > 0:
+            raise self._no_positive(int(bad))
+        return AccuracyResult(float(gains), int(count))
+
+
+class NDCG(HitRatio):
+    """NDCG@k over :class:`HitRatio`'s groups: one relevant item a group,
+    so a group's gain is ``log(2) / log(1 + rank)`` within the top k."""
+
+    def __init__(self, k: int = 10, neg_num: int = 100):
+        super().__init__(k, neg_num)
+        self.name = f"NDCG@{k}"
+
+    def _gains(self, ranks):
+        return np.where(ranks <= self.k, np.log(2.0) / np.log(1.0 + ranks),
+                        0.0)
+
+    def _device_gains(self, ranks):
+        r = ranks.float()
+        return torch.where(ranks <= self.k,
+                           math.log(2.0) / torch.log(1.0 + r), 0.0)

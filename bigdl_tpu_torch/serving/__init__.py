@@ -1,10 +1,8 @@
 """Request serving over the KV-cached decode path (continuous batching),
 with the paged KV cache, the prefix pool and speculative decoding; crash
 recovery, drain, health and hot weight swaps in the engine; the fleet
-router, the snapshot server and the promotion lifecycle around it.
-
-JAX's ``RankingEngine`` (``serving/ranking.py``) serves the recommenders,
-which wait for ROADMAP Queue A.5."""
+router, the snapshot server and the promotion lifecycle around it; the
+``RankingEngine`` of the recommenders (``serving/ranking.py``)."""
 
 from bigdl_tpu_torch.serving.engine import (
     EngineOverloaded, EngineShutdown, EngineShutdownTimeout,
@@ -21,6 +19,9 @@ from bigdl_tpu_torch.serving.paged_cache import (
     TRASH_PAGE, PageAllocator, install_paged_cache, logical_pages,
 )
 from bigdl_tpu_torch.serving.prefix_cache import PrefixEntry, PrefixPool
+from bigdl_tpu_torch.serving.ranking import (
+    RankedResult, RankingEngine, RankingHandle,
+)
 from bigdl_tpu_torch.serving.request import (
     FINISH_EOS, FINISH_LENGTH, CompletedRequest, Request, RequestHandle,
 )
@@ -35,6 +36,7 @@ __all__ = [
     "FleetExhausted", "FleetHandle", "FleetRouter",
     "NonFiniteLogitsError", "PageAllocator", "PrefixEntry", "PrefixPool",
     "PromotionController", "PromotionCriterion", "PromotionResult",
+    "RankedResult", "RankingEngine", "RankingHandle",
     "Request", "RequestHandle", "RequestTimeout", "ServingEngine",
     "SlotScheduler", "SnapshotServer", "SpeculativeDecoder", "SwapResult",
     "TRASH_PAGE", "default_buckets", "install_paged_cache",

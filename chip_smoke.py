@@ -279,6 +279,26 @@ an NVIDIA H100 and the CUDA toolkit. It builds the port's CUDA kernels from
    images/s, the first window, a profiled replayed step and the replay's
    device time beside its host launch time, and the main at its defaults
    (the loss falling);
+17. runs the recsys path and the Keras API (its launches counted from a
+   reset: none of the five kernels may launch): NeuralCF at the MLPerf
+   Training v0.5 NCF widths on MovieLens-20M (138,493 users, 26,744 items,
+   GMF 64, MLP 256-256-128-64, ``sharded=True``, Adam, batch 65,536, ids
+   from the NCF main's ``synthetic_interactions`` with 4 negatives a
+   positive): one step's loss, dense and row gradients and unique ids
+   against the CPU (1e-5, 1e-4 relative, exact); 21 captured sparse steps,
+   bitwise the same steps run eagerly (losses, tables, slots), and 21
+   dense ones (``set_sparse_embeddings(False)``), with step ms; HR@10 and
+   NDCG@10 folded on the card over 4,096 held-out users x 1,000
+   candidates (equal to the host fold on two batches); the
+   ``RankingEngine`` serving 256 requests of 1,000 candidates at
+   ``max_batch=8`` from 4 threads through one captured program, each order
+   a stable sort of the eager model's scores, with requests/s and p50/p99
+   latency; Wide & Deep's main at its defaults (beating the class prior);
+   a Keras ``Sequential`` LeNet-5 fitted 2 epochs on 8,192 synthetic
+   images at batch 128 with Adam, its losses equal to the same model built
+   from ``nn`` with the same weights; a functional Keras ``Model`` over
+   ``merge_nodes(mode="concat")``; and the NCF main with ``--sharded`` and
+   with ``--hash-buckets 4096``, each beating its uniform baseline;
 10. checks that the serving path (phases 4 and 5) launched both forward
    kernels and each training run (the 17 steps, fp32 and bf16) all five,
    every launch in the run's dtype (bf16 operands and bf16 gamma and beta
@@ -296,7 +316,7 @@ before the kernel table, so their launches are in the ``kernels`` line
 (``paths``); so do phase 14 (``paths.serving_stack``) and phase 15
 (``paths.finetune_lora_training``, ``finetune_lora_serving``,
 ``seq2seq``; each flash row's ``seq2seq`` instances with their launches
-by variant) and phase 16 (``paths.tail``).
+by variant), phase 16 (``paths.tail``) and phase 17 (``paths.recsys``).
 
 ``python3 chip_smoke.py --text-only`` builds the kernels and runs only
 phase 13, printing its numbers as one JSON line (no result line).
@@ -310,6 +330,9 @@ comparisons, printing its numbers as one JSON line (no result line).
 
 ``python3 chip_smoke.py --tail-only`` builds the kernels and runs only
 phase 16, printing its numbers as one JSON line (no result line).
+
+``python3 chip_smoke.py --recsys-only`` builds the kernels and runs only
+phase 17, printing its numbers as one JSON line (no result line).
 
 ``python3 chip_smoke.py --remat-captures N`` builds the kernels and runs
 only phase 6's bf16 training with every block under ``Remat`` N times in
@@ -7026,6 +7049,565 @@ def tail_launches(counts: dict) -> dict:
     return counts
 
 
+# --------------------------------------------------------------- phase 17
+# NeuralCF at the MLPerf Training v0.5 NCF reference's widths on
+# MovieLens-20M: its user and item counts, factors 64 (the GMF tables) and
+# MLP layers 256-256-128-64 (two 128-wide tables, then the tower)
+RECSYS_SEED = SEED + 70
+NCF_USERS, NCF_ITEMS = 138_493, 26_744
+NCF_WIDTHS = dict(mf_embed=64, user_embed=128, item_embed=128,
+                  hidden_layers=(256, 128, 64))
+NCF_BATCH = 65_536
+NCF_NEG = 4                   # training negatives a positive
+NCF_BATCHES = 4               # distinct training batches, cycled
+NCF_STEPS = 20                # timed steps, after the first (the capture)
+NCF_LR = 1e-3
+NCF_EVAL_USERS = 4096
+NCF_EVAL_CANDIDATES = 1000    # the held-out positive and 999 negatives
+NCF_EVAL_GROUPS = 64          # groups a batch: 64,000 pairs
+NCF_K = 10
+NCF_TOL = (1e-5, 1e-4)        # the one-step check: loss, gradients
+RANK_REQUESTS, RANK_BATCH, RANK_CLIENTS = 256, 8, 4
+KERAS_IMAGES, KERAS_BATCH, KERAS_EPOCHS = 8192, 128, 2
+KERAS_TOL = 1e-6              # the Keras LeNet's losses against nn's
+
+
+def ncf_model(device, hash_buckets=0):
+    from bigdl_tpu_torch.models.ncf import NeuralCF
+    return NeuralCF(NCF_USERS, NCF_ITEMS, class_num=2,
+                    hash_buckets=hash_buckets, sharded=True,
+                    generator=_gen(RECSYS_SEED), device=device,
+                    **NCF_WIDTHS)
+
+
+def ncf_data() -> tuple:
+    """``(training batches, eval batches)`` as MiniBatches made with numpy
+    from the seed: positives from the NCF main's ``synthetic_interactions``
+    at MovieLens-20M's counts; the first ``NCF_EVAL_USERS`` users' last
+    interaction held out; the rest each with ``NCF_NEG`` uniform negatives,
+    shuffled into ``NCF_BATCHES`` batches of ``NCF_BATCH`` 1-based pairs
+    (classes 1 and 0); each held-out positive ranked against 999 negatives
+    other than it, the positive first in its group."""
+    from bigdl_tpu_torch.dataset import MiniBatch
+    from bigdl_tpu_torch.models.ncf import train as ncf_main
+    n_train = NCF_BATCHES * NCF_BATCH // (1 + NCF_NEG) + 1
+    users, items, _, _ = ncf_main.synthetic_interactions(
+        NCF_USERS, NCF_ITEMS, n_train + 2 * NCF_EVAL_USERS, seed=RECSYS_SEED)
+    last = {}
+    for idx, u in enumerate(users):
+        last[int(u)] = idx
+    held = np.array(sorted(last.values())[:NCF_EVAL_USERS])
+    train = np.setdiff1d(np.arange(len(users)), held)[:n_train]
+    rng = np.random.default_rng(RECSYS_SEED + 1)
+    u, i = users[train], items[train]
+    neg = rng.integers(0, NCF_ITEMS, (len(u), NCF_NEG))
+    pairs = np.concatenate([
+        np.stack([u, i], 1),
+        np.stack([np.repeat(u, NCF_NEG), neg.reshape(-1)], 1)]) + 1
+    labels = np.concatenate([np.ones(len(u)), np.zeros(len(u) * NCF_NEG)])
+    order = rng.permutation(len(pairs))[:NCF_BATCHES * NCF_BATCH]
+    pairs = pairs[order].astype(np.int32)
+    labels = labels[order].astype(np.int32)
+    train_batches = [MiniBatch(pairs[k * NCF_BATCH:(k + 1) * NCF_BATCH],
+                               labels[k * NCF_BATCH:(k + 1) * NCF_BATCH])
+                     for k in range(NCF_BATCHES)]
+    eu, ei = users[held], items[held]
+    negs = rng.integers(0, NCF_ITEMS, (len(eu), NCF_EVAL_CANDIDATES - 1))
+    while (hit := negs == ei[:, None]).any():
+        negs[hit] = rng.integers(0, NCF_ITEMS, int(hit.sum()))
+    cands = np.concatenate([ei[:, None], negs], 1) + 1
+    eval_pairs = np.stack([np.repeat(eu + 1, NCF_EVAL_CANDIDATES),
+                           cands.reshape(-1)], 1).astype(np.int32)
+    eval_labels = np.zeros(len(eval_pairs), np.int32)
+    eval_labels[::NCF_EVAL_CANDIDATES] = 1
+    per = NCF_EVAL_GROUPS * NCF_EVAL_CANDIDATES
+    eval_batches = [MiniBatch(eval_pairs[k:k + per], eval_labels[k:k + per])
+                    for k in range(0, len(eval_pairs), per)]
+    return train_batches, eval_batches
+
+
+def ncf_optimizer(model, data, device=None, sparse=True):
+    from bigdl_tpu_torch import nn
+    from bigdl_tpu_torch.optim import Adam, LocalOptimizer
+    return (LocalOptimizer(model, data, nn.ClassNLLCriterion(),
+                           device=device or DEVICE)
+            .set_optim_method(Adam(learningrate=NCF_LR))
+            .set_sparse_embeddings(sparse))
+
+
+def ncf_grads(model, batch, device) -> tuple:
+    """The sparse step's loss, dense gradients, row gradients and unique
+    ids of one batch (the step function's forward and backward, without
+    the update)."""
+    from bigdl_tpu_torch.dataset import DataSet
+    opt = ncf_optimizer(model, DataSet.array([]), device)
+    named, _, _ = opt._prepare_step()
+    plan = opt._ostate_plan
+    x = torch.as_tensor(batch.input).to(device)
+    y = torch.as_tensor(batch.target).to(device)
+    deltas = plan.zero_deltas(model, x)
+    train = [n for n in named if n not in plan.weight_names()]
+    plan.inject(model, deltas)
+    try:
+        loss, grads = opt._value_and_grad([named[n] for n in train]
+                                          + list(deltas.values()), x, y)
+        uids = plan.pop_uids(model)
+    finally:
+        plan.clear(model)
+    out = dict(zip(train, grads))
+    out.update({f"rows:{k}": g for k, g in zip(deltas, grads[len(train):])})
+    return float(loss), {k: g.cpu() for k, g in out.items()}, {
+        k: u.cpu() for k, u in uids.items()}
+
+
+def check_ncf_step(model, batch) -> dict:
+    """One full-width sparse step's loss, dense and row gradients and
+    unique ids on the card against the same weights on the CPU."""
+    cpu = ncf_model("cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    l_cpu, g_cpu, u_cpu = ncf_grads(cpu, batch, "cpu")
+    l_card, g_card, u_card = ncf_grads(model, batch, DEVICE)
+    loss_rel = abs(l_card - l_cpu) / abs(l_cpu)
+    grad_rel = max(float((g_card[n] - g).norm() / g.norm())
+                   for n, g in g_cpu.items())
+    same_ids = all(torch.equal(u_card[k], u) for k, u in u_cpu.items())
+    n_unique = {k: int((u < cpu.get_submodule(k).table.n_index).sum())
+                for k, u in u_cpu.items()}
+    log(f"  NCF one sparse step, card against CPU: loss {l_card:.6f} "
+        f"({loss_rel:.2e} relative), gradients {grad_rel:.2e} relative "
+        f"(dense and rows), unique ids equal: {same_ids} ({n_unique})")
+    if loss_rel > NCF_TOL[0] or grad_rel > NCF_TOL[1] or not same_ids:
+        raise CheckFailed(f"the NCF step departs from the CPU: loss "
+                          f"{loss_rel:.3e}, gradients {grad_rel:.3e}, ids "
+                          f"equal {same_ids}")
+    return {"loss_rel": loss_rel, "grad_rel": grad_rel,
+            "unique_ids": n_unique}
+
+
+def train_ncf(model, batches, card, sparse=True) -> tuple:
+    """1 + NCF_STEPS steps through the trainer's captured step; the step's
+    ms is the median between step ends after the first. Returns the
+    optimizer, the batches it ran and the numbers."""
+    from bigdl_tpu_torch.dataset import DataSet
+    from bigdl_tpu_torch.optim import Trigger
+    from bigdl_tpu_torch.utils.random_generator import RandomGenerator
+    opt = ncf_optimizer(model, DataSet.array(batches), sparse=sparse) \
+        .set_end_when(Trigger.max_iteration(1 + NCF_STEPS))
+    losses, marks, seen = [], [], []
+    run_steps = opt._run_steps
+
+    def recorded(steps):
+        out = run_steps(steps)
+        sync()
+        marks.append(time.perf_counter())
+        losses.extend(out)
+        seen.extend((a.clone(), b.clone()) for a, b in steps)
+        return out
+
+    opt._run_steps = recorded
+    RandomGenerator.set_seed(RECSYS_SEED)
+    sync()
+    t0 = time.perf_counter()
+    try:
+        opt.optimize()
+    finally:
+        opt._run_steps = run_steps
+    what = "sparse" if sparse else "dense"
+    if len(losses) != 1 + NCF_STEPS or not all(np.isfinite(losses)):
+        raise CheckFailed(f"NCF {what} training gave {losses}")
+    if (type(opt._method).__name__ == "SparseEmbeddingUpdate") != sparse:
+        raise CheckFailed(f"NCF {what}: the step ran {opt._method!r}")
+    step_ms = float(statistics.median(np.diff(marks))) * 1e3
+    out = {"losses": losses, "step_ms": step_ms,
+           "pairs_per_s": NCF_BATCH / step_ms * 1e3,
+           "first_step_ms": (marks[0] - t0) * 1e3}
+    log(f"  NCF {what}: {len(losses)} steps at batch {NCF_BATCH}, loss "
+        f"{losses[0]:.5f} -> {losses[-1]:.5f}; first step (warm-up and "
+        f"capture) {out['first_step_ms']:.1f} ms, step {step_ms:.3f} ms "
+        f"({out['pairs_per_s']:.0f} pairs/s) [{card}]")
+    return opt, seen, out
+
+
+RECSYS_KINDS = (("gemm", ("gemm", "nvjet", "xmma", "cutlass", "cublas")),
+                ("sort", ("sort", "radix")),
+                ("gather/scatter", ("index", "gather", "scatter",
+                                    "embedding")),
+                ("cat", ("cat",)),
+                ("reduce", ("reduce",)),
+                ("elementwise", ("elementwise", "vectorized", "unrolled")))
+
+
+def replay_ms(opt, batch, what, out, card) -> None:
+    """The device and host time of one replay of the step program, and a
+    profiled replay by kernel kind (more steps: run it after any
+    comparison of the trained state)."""
+    if DEVICE == "cpu":
+        out["replay_device_ms"] = out["replay_host_ms"] = None
+        return
+    dev_ms, host_ms = time_ms(opt._step_program, 5, 3)
+    out["replay_device_ms"], out["replay_host_ms"] = dev_ms, host_ms
+    log(f"  NCF {what}: a replayed step {dev_ms:.4f} ms on the device, "
+        f"{host_ms:.4f} ms to launch, in a {out['step_ms']:.3f} ms step "
+        f"[{card}]")
+    out["profile"] = profile_step(opt, batch, card, RECSYS_KINDS)
+
+
+def ncf_replays_bitwise(opt, model, seen, losses, card) -> bool:
+    """The sparse run's steps again, eagerly (the step function called on
+    each recorded batch) from the same initial weights: losses, tables,
+    the other parameters and every slot bitwise equal."""
+    from bigdl_tpu_torch.dataset import DataSet
+    from bigdl_tpu_torch.optim.optim_method import hyper_tensor
+    ref = ncf_model(DEVICE)
+    ropt = ncf_optimizer(ref, DataSet.array([]))
+    named, scales, mask = ropt._prepare_step()
+    step = ropt._make_step_fn(named, scales, mask, seen[0][0])
+    ref_losses = [float(step(x, y, hyper_tensor(
+        ropt._method.hyper(k, ropt._ostate), list(named.values()))))
+        for k, (x, y) in enumerate(seen)]
+    from bigdl_tpu_torch.optim.optimizer import _tensors_of
+    params = dict(model.named_parameters())
+    bitwise = (ref_losses == losses and bitwise_equal(
+        [params[n] for n in named], list(named.values()))
+        and bitwise_equal(_tensors_of(opt._ostate), _tensors_of(ropt._ostate)))
+    log(f"  NCF sparse: the {len(seen)} replayed steps bitwise the eager "
+        f"ones (losses, parameters, slots): {bitwise} [{card}]")
+    if not bitwise:
+        raise CheckFailed("NCF sparse: the replayed steps are not bitwise "
+                          "equal to the eager ones")
+    del ref, ropt, step
+    return bitwise
+
+
+def ncf_eval(model, eval_batches, card) -> dict:
+    """HR@10 and NDCG@10 folded on the card over every held-out group, and
+    the fold of two batches against the host fold of the same scores."""
+    from bigdl_tpu_torch.dataset import DataSet
+    from bigdl_tpu_torch.optim import NDCG, HitRatio
+    from bigdl_tpu_torch.optim.evaluator import run_device_eval
+    neg = NCF_EVAL_CANDIDATES - 1
+    methods = [HitRatio(NCF_K, neg), NDCG(NCF_K, neg)]
+    sync()
+    t0 = time.perf_counter()
+    (hr, ndcg), stats = run_device_eval(model, DataSet.array(eval_batches),
+                                        methods, device=DEVICE)
+    sync()
+    wall = time.perf_counter() - t0
+    (hr_v, n), (ndcg_v, _) = hr.result(), ndcg.result()
+    few = eval_batches[:2]
+    (hr2, nd2), _ = run_device_eval(model, DataSet.array(few), methods,
+                                    device=DEVICE)
+    host = [None, None]
+    model.eval()
+    with torch.no_grad():
+        for b in few:
+            s = model(torch.as_tensor(b.input).to(DEVICE))[:, -1].cpu()
+            for j, m in enumerate(methods):
+                r = m.apply(s.numpy(), b.target)
+                host[j] = r if host[j] is None else host[j] + r
+    model.train()
+    fold_ok = (abs(hr2.result()[0] - host[0].result()[0]) <= 1e-12
+               and abs(nd2.result()[0] - host[1].result()[0]) <= 1e-9)
+    log(f"  NCF eval: HR@{NCF_K} {hr_v:.4f}, NDCG@{NCF_K} {ndcg_v:.4f} over "
+        f"{n} users x {NCF_EVAL_CANDIDATES} candidates (uniform "
+        f"{NCF_K / NCF_EVAL_CANDIDATES:.4f}) in {wall * 1e3:.1f} ms, "
+        f"{stats['fetch_bytes']} bytes fetched; device fold equals the host "
+        f"fold on two batches: {fold_ok} [{card}]")
+    if n != NCF_EVAL_USERS or not 0 <= hr_v <= 1 or not fold_ok \
+            or not np.isfinite(ndcg_v):
+        raise CheckFailed(f"NCF eval: HR {hr_v} over {n}, NDCG {ndcg_v}, "
+                          f"fold equal {fold_ok}")
+    return {"hr": hr_v, "ndcg": ndcg_v, "groups": n, "wall_ms": wall * 1e3,
+            "fetch_bytes": stats["fetch_bytes"], "fold_equals_host": fold_ok}
+
+
+def ranking_run(model, eval_batches, card) -> dict:
+    """RANK_REQUESTS requests of NCF_EVAL_CANDIDATES candidates (the held-out
+    groups) through a RankingEngine at max_batch RANK_BATCH from
+    RANK_CLIENTS threads, after one warm-up request (the capture): one
+    program, each order a stable descending sort of the eager model's
+    scores at the engine's shape; requests/s and p50/p99 latency."""
+    from bigdl_tpu_torch.serving import RankingEngine
+    c = NCF_EVAL_CANDIDATES
+    pairs = np.concatenate([b.input for b in eval_batches])
+    reqs = [(int(pairs[k * c, 0]), pairs[k * c:(k + 1) * c, 1].copy())
+            for k in range(RANK_REQUESTS)]
+    results = [None] * RANK_REQUESTS
+    with RankingEngine(model, max_candidates=c, max_batch=RANK_BATCH) as eng:
+        eng.rank(*reqs[0], timeout=600)            # warm-up and capture
+        t0 = time.perf_counter()
+
+        def client(j):
+            hs = [(k, eng.submit(*reqs[k]))
+                  for k in range(j, RANK_REQUESTS, RANK_CLIENTS)]
+            for k, h in hs:
+                results[k] = h.result(600)
+
+        threads = [threading.Thread(target=client, args=(j,))
+                   for j in range(RANK_CLIENTS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        wall = time.perf_counter() - t0
+        stats = eng.stats()
+        captured, replays = eng._program.captured, eng._program.replays
+    lat = np.array([r.latency_s for r in results]) * 1e3
+    mismatched, max_diff = 0, 0.0
+    model.eval()
+    with torch.no_grad():
+        for (u, items), r in zip(reqs, results):
+            batch = np.ones((RANK_BATCH * c, 2), np.int32)
+            batch[:c, 0], batch[:c, 1] = u, items
+            s = model(torch.from_numpy(batch).to(DEVICE)).reshape(
+                RANK_BATCH * c, -1)[:c, -1].cpu().numpy()
+            order = np.argsort(-s, kind="stable")
+            mismatched += not np.array_equal(r.item_ids, items[order])
+            max_diff = max(max_diff, float(np.abs(r.scores - s[order]).max()))
+    model.train()
+    out = {"requests": RANK_REQUESTS, "candidates": c,
+           "max_batch": RANK_BATCH, "requests_per_s": RANK_REQUESTS / wall,
+           "p50_ms": float(np.percentile(lat, 50)),
+           "p99_ms": float(np.percentile(lat, 99)),
+           "ticks": stats["ticks"], "mean_batch_fill":
+               stats["mean_batch_fill"], "program_replays": replays,
+           "orders_mismatched": mismatched, "max_score_diff": max_diff}
+    log(f"  ranking engine: {RANK_REQUESTS} requests of {c} candidates from "
+        f"{RANK_CLIENTS} threads in {wall * 1e3:.1f} ms "
+        f"({out['requests_per_s']:.1f} requests/s), latency p50 "
+        f"{out['p50_ms']:.2f} ms, p99 {out['p99_ms']:.2f} ms, "
+        f"{stats['ticks']} ticks (fill {stats['mean_batch_fill']:.2f}); one "
+        f"program captured ({captured}, {replays} replays); orders unlike a "
+        f"stable sort of the eager scores: {mismatched}, scores within "
+        f"{max_diff:.2e} [{card}]")
+    if (DEVICE != "cpu" and not captured) \
+            or stats["compiled_programs"] != 1 or mismatched:
+        raise CheckFailed(f"ranking engine: captured {captured}, "
+                          f"{mismatched} orders unlike the eager scores'")
+    return out
+
+
+def widedeep_main(card) -> dict:
+    """Wide & Deep's main at its defaults on the card: the held-out
+    Top1Accuracy must beat the class prior."""
+    from bigdl_tpu_torch.models.widedeep import train as wd_main
+    argv = ["--device", "cpu"] if DEVICE == "cpu" else []
+    t0 = time.perf_counter()
+    acc = wd_main.main(argv)
+    wall = time.perf_counter() - t0
+    a = wd_main.build_parser().parse_args(argv)
+    held = [int(s.label[0]) for s in wd_main.synthetic_tabular(
+        a.examples, a.wide_features, a.deep_vocab, a.dense_dim, a.wide_k,
+        a.deep_k)[int(0.9 * a.examples):]]
+    prior = max(np.mean(held), 1 - np.mean(held))
+    log(f"  Wide & Deep main (defaults): held-out Top1 {acc:.4f} against the "
+        f"class prior {prior:.4f}, {wall:.2f} s [{card}]")
+    if not acc > prior:
+        raise CheckFailed(f"Wide & Deep: Top1 {acc} under the prior {prior}")
+    return {"top1": acc, "prior": prior, "wall_s": wall}
+
+
+def ncf_main_run(argv, card) -> dict:
+    from bigdl_tpu_torch.models.ncf import train as ncf_main
+    t0 = time.perf_counter()
+    hr, ndcg = ncf_main.main(argv)
+    wall = time.perf_counter() - t0
+    a = ncf_main.build_parser().parse_args(argv)
+    uniform = a.k / (a.eval_neg_num + 1)
+    log(f"  NCF main ({' '.join(argv)}): HR@{a.k} {hr:.4f} against uniform "
+        f"{uniform:.4f}, NDCG@{a.k} {ndcg:.4f}, {wall:.2f} s [{card}]")
+    if not hr > uniform:
+        raise CheckFailed(f"the NCF main {argv}: HR {hr} not above the "
+                          f"uniform {uniform}")
+    return {"hr": hr, "ndcg": ndcg, "uniform": uniform, "wall_s": wall}
+
+
+def step_losses(fit):
+    """The per-iteration losses that ``fit()`` logs."""
+    import logging
+    records = []
+
+    class Losses(logging.Handler):
+        def emit(self, record):
+            if record.getMessage().startswith("Epoch"):
+                records.append(record.args[2])
+
+    logger = logging.getLogger("bigdl_tpu_torch.optim.optimizer")
+    handler, level = Losses(), logger.level
+    logger.addHandler(handler)
+    logger.setLevel(logging.INFO)
+    try:
+        fit()
+    finally:
+        logger.removeHandler(handler)
+        logger.setLevel(level)
+    return records
+
+
+def keras_runs(card) -> dict:
+    """The Keras LeNet-5 fitted against the same stack of ``nn`` layers from
+    the same weights (cuDNN deterministic), then a functional Keras Model
+    over ``merge_nodes(mode="concat")``."""
+    from bigdl_tpu_torch import nn, optim
+    from bigdl_tpu_torch.dataset import DataSet, Sample, SampleToMiniBatch
+    from bigdl_tpu_torch.dataset.mnist import load_mnist
+    from bigdl_tpu_torch.nn import keras as K
+    from bigdl_tpu_torch.nn.keras.topology import merge_nodes
+    from bigdl_tpu_torch.utils.random_generator import RandomGenerator
+    imgs, labels = load_mnist(None, "train", synthetic_size=KERAS_IMAGES)
+    x = (imgs.astype(np.float32) / 255.0)[:, None]
+    y = labels.astype(np.int32)
+    torch.manual_seed(RECSYS_SEED)
+    km = K.Sequential(device=DEVICE)
+    for layer in (K.Convolution2D(6, 5, 5, activation="tanh",
+                                  input_shape=(1, 28, 28)),
+                  K.MaxPooling2D(), K.Convolution2D(12, 5, 5,
+                                                    activation="tanh"),
+                  K.MaxPooling2D(), K.Flatten(),
+                  K.Dense(100, activation="tanh"),
+                  K.Dense(10, activation="softmax")):
+        km.add(layer)
+    ref = (nn.Sequential()
+           .add(nn.Sequential().add(nn.SpatialConvolution(1, 6, 5, 5))
+                .add(nn.Tanh()))
+           .add(nn.SpatialMaxPooling(2, 2, 2, 2, 0, 0))
+           .add(nn.Sequential().add(nn.SpatialConvolution(6, 12, 5, 5))
+                .add(nn.Tanh()))
+           .add(nn.SpatialMaxPooling(2, 2, 2, 2, 0, 0))
+           .add(nn.Reshape([192]))
+           .add(nn.Sequential().add(nn.Linear(192, 100)).add(nn.Tanh()))
+           .add(nn.Sequential().add(nn.Linear(100, 10)).add(nn.SoftMax())))
+    ref.load_state_dict(km._module().state_dict())
+    ref.to(DEVICE)
+    km.compile("adam", "sparse_categorical_crossentropy")
+    det = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+        True, False
+    try:
+        RandomGenerator.set_seed(RECSYS_SEED)
+        t0 = time.perf_counter()
+        klosses = step_losses(lambda: km.fit(x, y, batch_size=KERAS_BATCH,
+                                             nb_epoch=KERAS_EPOCHS))
+        kwall = time.perf_counter() - t0
+        data = (DataSet.array([Sample(a, b) for a, b in zip(x, y)])
+                >> SampleToMiniBatch(KERAS_BATCH))
+        opt = (optim.LocalOptimizer(
+            ref, data, nn.ClassNLLCriterion(logprob_as_input=False),
+            device=DEVICE)
+            .set_optim_method(optim.Adam())
+            .set_end_when(optim.Trigger.max_epoch(KERAS_EPOCHS)))
+        RandomGenerator.set_seed(RECSYS_SEED)
+        rlosses = step_losses(opt.optimize)
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+            det
+    steps = KERAS_EPOCHS * KERAS_IMAGES // KERAS_BATCH
+    rel = max(abs(a - b) / abs(b) for a, b in zip(klosses, rlosses))
+    acc = km.evaluate(x[:1024], y[:1024], batch_size=KERAS_BATCH)[0]
+    log(f"  Keras LeNet-5: {len(klosses)} steps, loss {klosses[0]:.4f} -> "
+        f"{klosses[-1]:.4f}, against the nn stack's {rlosses[-1]:.4f} (the "
+        f"losses within {rel:.1e} relative, bitwise {klosses == rlosses}), "
+        f"Top1 {acc:.4f} on 1,024 training images; fit {kwall:.2f} s "
+        f"[{card}]")
+    if len(klosses) != steps or len(rlosses) != steps or rel > KERAS_TOL \
+            or not klosses[-1] < klosses[0]:
+        raise CheckFailed(f"Keras LeNet: {len(klosses)} losses, {rel:.2e} "
+                          f"from the nn stack's")
+    flat = x.reshape(len(x), -1)
+    rows = x.mean(axis=3).reshape(len(x), -1)
+    ia, ib = K.Input((784,)), K.Input((28,))
+    merged = merge_nodes([K.Dense(64, activation="relu")(ia),
+                          K.Dense(16, activation="relu")(ib)],
+                         mode="concat")
+    fm = K.Model([ia, ib], K.Dense(10, activation="softmax")(merged),
+                 device=DEVICE)
+    fm.compile("adam", "sparse_categorical_crossentropy", ["accuracy"])
+    flosses = step_losses(lambda: fm.fit([flat, rows], y,
+                                         batch_size=KERAS_BATCH, nb_epoch=1))
+    facc = fm.evaluate([flat, rows], y, batch_size=KERAS_BATCH)[0]
+    pred = fm.predict([flat[:256], rows[:256]], batch_size=KERAS_BATCH)
+    log(f"  functional Keras Model (concat merge of two Dense branches): "
+        f"{len(flosses)} steps, loss {flosses[0]:.4f} -> {flosses[-1]:.4f}, "
+        f"Top1 {facc:.4f}, predict {pred.shape} [{card}]")
+    if not (flosses[-1] < flosses[0] and pred.shape == (256, 10)
+            and np.isfinite(pred).all()):
+        raise CheckFailed(f"functional Keras Model: losses {flosses[0]} -> "
+                          f"{flosses[-1]}, predict {pred.shape}")
+    return {"lenet": {"steps": len(klosses), "first_loss": klosses[0],
+                      "last_loss": klosses[-1], "max_rel_vs_nn": rel,
+                      "bitwise_vs_nn": klosses == rlosses, "top1": acc,
+                      "fit_s": kwall},
+            "functional": {"steps": len(flosses), "first_loss": flosses[0],
+                           "last_loss": flosses[-1], "top1": facc}}
+
+
+def recsys_path(card) -> dict:
+    """Phase 17: NeuralCF at full width (the one-step check, 21 sparse
+    steps bitwise against eager, 21 dense steps, the eval, the ranking
+    engine), then Wide & Deep's main, the Keras runs and the NCF mains."""
+    t0 = time.perf_counter()
+    laps = {}
+    train_batches, eval_batches = ncf_data()
+    laps["data_s"] = time.perf_counter() - t0
+    model = ncf_model(DEVICE)
+    n_params = sum(p.numel() for p in model.parameters())
+    tables = sum(p.numel() for n, p in model.named_parameters()
+                 if "table" in n)
+    log(f"  NeuralCF({NCF_USERS}, {NCF_ITEMS}, {NCF_WIDTHS}): {n_params} "
+        f"parameters, {tables} in the four tables; {len(train_batches)} "
+        f"batches of {NCF_BATCH} pairs, {len(eval_batches)} eval batches "
+        f"({laps['data_s']:.1f} s to make)")
+    out = {"parameters": n_params, "table_parameters": tables,
+           "one_step_check": check_ncf_step(model, train_batches[0])}
+    laps["check_s"] = time.perf_counter() - t0
+    opt, seen, out["sparse"] = train_ncf(model, train_batches, card)
+    out["sparse"]["bitwise_vs_eager"] = ncf_replays_bitwise(
+        opt, model, seen, out["sparse"]["losses"], card)
+    replay_ms(opt, train_batches[0], "sparse", out["sparse"], card)
+    opt._step_program = None
+    del opt, seen
+    laps["sparse_s"] = time.perf_counter() - t0
+    dense = ncf_model(DEVICE)
+    dopt, _, out["dense"] = train_ncf(dense, train_batches, card,
+                                      sparse=False)
+    replay_ms(dopt, train_batches[0], "dense", out["dense"], card)
+    dopt._step_program = None
+    del dense, dopt
+    if DEVICE != "cpu":
+        release()
+    log(f"  NCF step: sparse {out['sparse']['step_ms']:.3f} ms against dense "
+        f"{out['dense']['step_ms']:.3f} ms "
+        f"({out['dense']['step_ms'] / out['sparse']['step_ms']:.2f}x) "
+        f"[{card}]")
+    laps["dense_s"] = time.perf_counter() - t0
+    out["eval"] = ncf_eval(model, eval_batches, card)
+    out["ranking"] = ranking_run(model, eval_batches, card)
+    laps["serve_s"] = time.perf_counter() - t0
+    del model
+    out["widedeep_main"] = widedeep_main(card)
+    out["keras"] = keras_runs(card)
+    laps["keras_s"] = time.perf_counter() - t0
+    cpu = ["--device", "cpu"] if DEVICE == "cpu" else []
+    out["ncf_main"] = {"sharded": ncf_main_run(["--sharded"] + cpu, card),
+                       "hashed": ncf_main_run(["--hash-buckets", "4096"]
+                                              + cpu, card)}
+    if DEVICE != "cpu":
+        release()
+    out["wall_s"] = laps["total_s"] = time.perf_counter() - t0
+    out["laps_s"] = laps
+    log(f"  phase 17 laps {laps}; took {out['wall_s']:.1f} s [{card}]")
+    return out
+
+
+def recsys_launches(counts: dict) -> dict:
+    """Phase 17's launches of the five kernels: none (the recsys path and
+    the Keras runs are torch ops, cuBLAS and cuDNN)."""
+    log(f"  phase 17 launched none of the five kernels: {counts}")
+    if any(counts.values()):
+        raise CheckFailed(f"phase 17 launched the LM kernels {counts}")
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on the "
@@ -7093,6 +7675,13 @@ def main() -> int:
         tail = tail_path(kernels, card, Engine, Program)
         tail["launches"] = tail_launches(kernels.launch_counts())
         print(json.dumps({"tail": tail}), flush=True)
+        return 0
+    if "--recsys-only" in sys.argv:
+        log("phase 17 only")
+        kernels.reset_launch_counts()
+        recsys = recsys_path(card)
+        recsys["launches"] = recsys_launches(kernels.launch_counts())
+        print(json.dumps({"recsys": recsys}), flush=True)
         return 0
     if "--serving-only" in sys.argv:
         log("phase 14 only")
@@ -7307,6 +7896,13 @@ def main() -> int:
     tail = tail_path(kernels, card, Engine, Program)
     tail["launches"] = tail_launches(kernels.launch_counts())   # ... to here
 
+    log("phase 17: the recsys path (NeuralCF at MLPerf's MovieLens-20M "
+        "widths, sparse and dense steps, HR@10, the ranking engine), Wide & "
+        "Deep and the Keras API")
+    kernels.reset_launch_counts()          # the phase's path: from here ...
+    recsys = recsys_path(card)
+    recsys["launches"] = recsys_launches(kernels.launch_counts())  # to here
+
     log("phase 10: the kernel table")
 
     # each kernel's row: its own slice's path (serving for the forward
@@ -7369,7 +7965,8 @@ def main() -> int:
                  "finetune_lora_training": ft_launches["lora_training"][k],
                  "finetune_lora_serving": ft_launches["lora_serving"][k],
                  "seq2seq": ft_launches["seq2seq"][k],
-                 "tail": tail["launches"][k]}
+                 "tail": tail["launches"][k],
+                 "recsys": recsys["launches"][k]}
              for k in launches}
 
     def s2s_flash(rows, name):
@@ -7557,7 +8154,7 @@ def main() -> int:
         "llama": dict(llama["summary"], kernel_ms_per_step=llama_kernel_ms),
         "vision": vision, "serving_extras": extras, "robustness": robust,
         "feed": feed, "text": text, "serving_stack": stack,
-        "finetune": finetune, "tail": tail}
+        "finetune": finetune, "tail": tail, "recsys": recsys}
     print(json.dumps(table), flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"ok": True, "device": {

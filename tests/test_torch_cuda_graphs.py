@@ -7,7 +7,9 @@ replayed against the same work run eagerly, and dropout drawing fresh
 masks at every replay; a failed capture captured again at the next call;
 the serving engine's graphs replayed, not captured again, across a crash
 and a weight swap; a LoRA step and the seq2seq Transformer's step (``-k
-"lora or seq2seq"``), and an adapted engine's swap of adapter leaves.
+"lora or seq2seq"``), and an adapted engine's swap of adapter leaves;
+NeuralCF's sparse embedding step and the deduplicated lookup with no host
+sync (``-k recsys``).
 
 Marked ``gpu``: they skip where there is no CUDA device (a CUDA graph has
 no CPU form). This file imports neither JAX nor the JAX package:
@@ -628,3 +630,86 @@ def test_lora_engine_swap_of_adapter_leaves_keeps_programs(cuda):
     for p, a in zip(reqs, got):
         np.testing.assert_array_equal(
             a, greedy_generate(tuned, p[None], 8)[0].cpu().numpy())
+
+
+def _ncf(sharded=True):
+    from bigdl_tpu_torch.models.ncf import NeuralCF
+    return NeuralCF(500, 300, user_embed=32, item_embed=32,
+                    hidden_layers=(64, 32), mf_embed=16, sharded=sharded,
+                    generator=torch.Generator().manual_seed(0),
+                    device="cuda")
+
+
+def _ncf_batches(n=4, rows=1024):
+    g = torch.Generator().manual_seed(3)
+    return [(torch.stack([torch.randint(1, 501, (rows,), generator=g),
+                          torch.randint(1, 301, (rows,), generator=g)],
+                         1).int().cuda(),
+             torch.randint(0, 2, (rows,), generator=g).int().cuda())
+            for _ in range(n)]
+
+
+def test_recsys_sparse_step_replays_equal_eager(cuda):
+    """NeuralCF's sparse step (ShardedEmbedding tables, Adam): the captured
+    program replayed bit for bit against the same steps run eagerly, the
+    tables' slots included, and none of the five kernels launched."""
+    batches = _ncf_batches()
+    model = _ncf()
+    kernels.reset_launch_counts()
+    opt = LocalOptimizer(model, DataSet.array([]), ClassNLLCriterion()) \
+        .set_optim_method(Adam(learningrate=0.01))
+    got = [opt.train_step(x, y) for x, y in batches]
+    assert opt._step_program.captured
+    assert opt._step_program.replays == len(batches) - 1
+    assert type(opt._method).__name__ == "SparseEmbeddingUpdate"
+    ref = _ncf()
+    ropt = LocalOptimizer(ref, DataSet.array([]), ClassNLLCriterion()) \
+        .set_optim_method(Adam(learningrate=0.01))
+    named, scales, mask = ropt._prepare_step()
+    step = ropt._make_step_fn(named, scales, mask, batches[0][0])
+    want = [float(step(x, y, hyper_tensor(
+        ropt._method.hyper(k, ropt._ostate), list(named.values()))))
+        for k, (x, y) in enumerate(batches)]
+    assert got == want and all(np.isfinite(got))
+    for (n, p), q in zip(model.named_parameters(), ref.parameters()):
+        assert torch.equal(p, q), n
+    for key, slots in opt._ostate["embed"].items():
+        for name, s in slots.items():
+            assert torch.equal(s[0], ropt._ostate["embed"][key][name][0])
+    assert not any(kernels.launch_counts().values())
+
+
+def test_recsys_dedup_and_sharded_lookup_capture_without_host_sync(cuda):
+    """``dedup_ids`` and a ShardedEmbedding forward and backward run under
+    ``torch.cuda.set_sync_debug_mode("error")`` (no host sync) and capture
+    as a program whose replay equals the eager run on new ids."""
+    from bigdl_tpu_torch.nn import LookupTable
+    from bigdl_tpu_torch.parallel.embedding import ShardedEmbedding, dedup_ids
+    table = ShardedEmbedding(LookupTable(1000, 16, max_norm=2.0)).cuda()
+    ids = torch.randint(1, 1001, (64, 8), device="cuda")
+
+    def fn(x):
+        uids, inv = dedup_ids(x - 1, 1000)
+        out = table(x)
+        (grad,) = torch.autograd.grad((out * out).sum(), [table.table.weight])
+        return uids, inv, out.detach(), grad
+
+    fn(ids)                       # warm-up: lazy CUDA state, no capture
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        eager = fn(ids)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    prog = Program(("dedup",), fn, (ids.clone(),), "cuda")
+    prog()
+    new = torch.randint(1, 1001, (64, 8), device="cuda")
+    prog.inputs[0].copy_(new)
+    got = [t.clone() for t in prog()]
+    want = fn(new)
+    assert prog.captured
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    uids, inv = got[0], got[1]
+    assert torch.equal(uids[inv], new.reshape(-1).long() - 1)
+    assert eager[0].shape == (512,)
