@@ -12,9 +12,12 @@ in the JAX tree is the name of the port's parameter (:func:`load_jax_params`).
 
 The JAX ``model.get_state()`` tree nests the same way down to the module
 state's leaves: batch norm's ``running_mean`` and ``running_var`` (the only
-state leaves of the ported modules; stateless modules give empty dicts).
-The port keeps them as persistent buffers of the same names
-(:func:`load_jax_state`).
+state leaves of the ported modules besides a static int8 layer's
+``x_absmax``; stateless modules give empty dicts). The port keeps them as
+persistent buffers of the same names (:func:`load_jax_state`, which then
+re-arms a calibrated int8 layer as JAX's ``set_state`` does). An int8
+layer's ``weight_q`` (int8), ``w_scale`` and ``bias`` are parameters
+like any other.
 
 The JAX optimizer's slots (``ostate``) nest as its method's
 ``init_state`` makes them: a slot of every parameter (SGD's ``v``, Adam's
@@ -71,7 +74,11 @@ def load_jax_state(module: torch.nn.Module, tree: dict) -> torch.nn.Module:
     params = {n for n, _ in module.named_parameters()}
     buffers = {n: b for n, b in module.state_dict(keep_vars=True).items()
                if n not in params}
-    return _load(buffers, tree, "state", module)
+    _load(buffers, tree, "state", module)
+    for m in module.modules():
+        if hasattr(m, "state_loaded"):
+            m.state_loaded()
+    return module
 
 
 def _load(params: dict, tree: dict, kind: str,

@@ -8,7 +8,13 @@ from bigdl_tpu_torch.dataset.parallel import (
 )
 from bigdl_tpu_torch.dataset.prefetch import PrefetchingFeed
 from bigdl_tpu_torch.dataset.profiling import feed_stats, stage_deltas_ms
+from bigdl_tpu_torch.dataset.recordio import (
+    RecordFileDataSet, RecordIOError, RecordWriter, encode_image_record,
+    image_record_decoder, write_image_records, write_records,
+)
 from bigdl_tpu_torch.dataset.sample import MiniBatch, Sample, SampleToMiniBatch
+from bigdl_tpu_torch.dataset.sample_cache import CacheCorruptError, SampleCache
+from bigdl_tpu_torch.dataset.streaming import StreamingDataSet
 from bigdl_tpu_torch.dataset.text import (
     Dictionary, LabeledSentenceToSample, SentenceTokenizer,
     TextToLabeledSentence, load_ptb, ptb_windows, synthetic_ptb,
@@ -19,11 +25,14 @@ from bigdl_tpu_torch.dataset.transformer import (
 )
 
 __all__ = [
-    "AbstractDataSet", "ChainedTransformer", "DataSet", "Dictionary",
-    "FusedTransformer", "Identity", "LabeledSentenceToSample",
+    "AbstractDataSet", "CacheCorruptError", "ChainedTransformer", "DataSet",
+    "Dictionary", "FusedTransformer", "Identity", "LabeledSentenceToSample",
     "LocalDataSet", "MapTransformer", "MiniBatch", "ParallelTransformer",
-    "PrefetchingFeed", "Sample", "SampleToMiniBatch", "SentenceTokenizer",
-    "TextToLabeledSentence", "TransformedDataSet", "Transformer",
-    "data_workers", "feed_stats", "fuse_chain", "load_ptb", "plan_stages",
-    "ptb_windows", "stage_deltas_ms", "synthetic_ptb",
+    "PrefetchingFeed", "RecordFileDataSet", "RecordIOError", "RecordWriter",
+    "Sample", "SampleCache", "SampleToMiniBatch", "SentenceTokenizer",
+    "StreamingDataSet", "TextToLabeledSentence", "TransformedDataSet",
+    "Transformer", "data_workers", "encode_image_record", "feed_stats",
+    "fuse_chain", "image_record_decoder", "load_ptb", "plan_stages",
+    "ptb_windows", "stage_deltas_ms", "synthetic_ptb", "write_image_records",
+    "write_records",
 ]

@@ -7,13 +7,15 @@ current order, as the JAX package does, so one seed gives the same epoch
 orders in both. ``TransformedDataSet.data`` runs its transformer chain
 serially, or through the parallel transform engine
 (``dataset/parallel.py``) when ``BIGDL_DATA_WORKERS`` asks for workers.
-The distributed marker and the on-disk sources are not ported (ROADMAP
+``DataSet.record_files`` and ``DataSet.stream_shards`` are JAX's on-disk
+record sources (``dataset/recordio.py``, ``dataset/streaming.py``). The
+distributed marker and the image-folder source are not ported (ROADMAP
 Queue A.6 and A.4.2).
 """
 
 from __future__ import annotations
 
-from typing import Iterable, Iterator, Sequence
+from typing import Iterable, Iterator, Optional, Sequence
 
 import numpy as np
 
@@ -104,8 +106,33 @@ class TransformedDataSet(AbstractDataSet):
 
 
 class DataSet:
-    """Factory namespace (reference ``DataSet.array``)."""
+    """Factory namespace (reference ``DataSet.array``), with JAX's on-disk
+    record sources."""
 
     @staticmethod
     def array(data: Iterable) -> AbstractDataSet:
         return LocalDataSet(list(data))
+
+    @staticmethod
+    def record_files(paths, decoder=None, num_workers: int = 8,
+                     distributed: bool = False) -> AbstractDataSet:
+        """Packed ``.bdlrec`` shards (``dataset/recordio.py``), decoded by
+        ``decoder`` (payload bytes → record). JAX's default, the image
+        decoder, waits for ROADMAP Queue A.4.2 and raises."""
+        from bigdl_tpu_torch.dataset.recordio import RecordFileDataSet
+        return RecordFileDataSet(paths, decoder, num_workers=num_workers,
+                                 distributed=distributed)
+
+    @staticmethod
+    def stream_shards(paths, decoder=None, shuffle_window=None,
+                      num_workers: int = 8, cache: Optional[bool] = None,
+                      cache_dir: Optional[str] = None,
+                      distributed: bool = False) -> AbstractDataSet:
+        """A sharded record stream (``dataset/streaming.py``): ``.bdlrec``
+        or uncompressed ``.tar`` shards, the deterministic window shuffle,
+        a checkpointable position and the decoded-sample cache."""
+        from bigdl_tpu_torch.dataset.streaming import StreamingDataSet
+        return StreamingDataSet(paths, decoder=decoder,
+                                shuffle_window=shuffle_window,
+                                num_workers=num_workers, cache=cache,
+                                cache_dir=cache_dir, distributed=distributed)

@@ -7,6 +7,7 @@
 | ``flash_attention_fwd`` | ``bigdl_tpu/kernels/flash_attention.py:54`` | ``csrc/flash_attention.cu`` |
 | ``flash_attention_bwd_dq`` | ``bigdl_tpu/kernels/flash_attention.py:132`` | ``csrc/flash_attention_bwd.cu`` |
 | ``flash_attention_bwd_dkv`` | ``bigdl_tpu/kernels/flash_attention.py:199`` | ``csrc/flash_attention_bwd.cu`` |
+| ``nms_sweep`` | none: the greedy pass of ``bigdl_tpu/nn/detection.py:56`` (``nms_mask``'s ``fori_loop``) | ``csrc/nms.cu`` |
 
 ``conv_bn.py`` (``FusedConvBNReLU``) is JAX's XLA-level conv-BN fusion,
 ported as a torch module, not a kernel.
@@ -20,6 +21,7 @@ kernels' by causal and non-causal.
 
 from bigdl_tpu_torch.kernels import flash_attention as _flash
 from bigdl_tpu_torch.kernels import layernorm as _layernorm
+from bigdl_tpu_torch.kernels import nms as _nms
 from bigdl_tpu_torch.kernels.flash_attention import (
     FlashAttention, backward_launch_plan, flash_attention, flash_attention_bwd,
     flash_attention_bwd_cuda, flash_attention_bwd_dkv_cuda,
@@ -31,9 +33,12 @@ from bigdl_tpu_torch.kernels.layernorm import (
     LayerNormFunction, fused_layer_norm, layer_norm_backward,
     layer_norm_bwd_cuda, layer_norm_cuda, layer_norm_reference,
 )
+from bigdl_tpu_torch.kernels.nms import (
+    nms_sweep, nms_sweep_cuda, nms_sweep_reference,
+)
 
 _COUNTERS = (_layernorm.launches, _layernorm.bwd_launches, _flash.launches,
-             _flash.bwd_dq_launches, _flash.bwd_dkv_launches)
+             _flash.bwd_dq_launches, _flash.bwd_dkv_launches, _nms.launches)
 
 
 def launch_counts() -> dict:
@@ -69,5 +74,6 @@ __all__ = [
     "launch_counts", "launch_counts_by_dtype", "launch_counts_by_variant",
     "layer_norm_backward",
     "layer_norm_bwd_cuda",
-    "layer_norm_cuda", "layer_norm_reference", "reset_launch_counts",
+    "layer_norm_cuda", "layer_norm_reference", "nms_sweep", "nms_sweep_cuda",
+    "nms_sweep_reference", "reset_launch_counts",
 ]

@@ -28,7 +28,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("layernorm.cu", "flash_attention.cu", "flash_attention_bwd.cu",
-           "runtime.cu")
+           "nms.cu", "runtime.cu")
 HEADERS = ("common.cuh", "hopper.cuh", "tma.cuh")
 # -Xptxas -v: ptxas reports each kernel's registers, spills and static
 # shared memory; the report is kept beside the library (BUILD_LOG)
@@ -160,6 +160,8 @@ class KernelLibrary:
         lib.bigdl_flash_attn_bwd_plan.argtypes = \
             [ll, i, i, i, i] + [ctypes.POINTER(i)] * 3
         lib.bigdl_flash_attn_bwd_plan.restype = i
+        lib.bigdl_nms_sweep.argtypes = [p, p, p, ll, i, f, p]
+        lib.bigdl_nms_sweep.restype = i
         lib.bigdl_cuda_error_string.argtypes = [i]
         lib.bigdl_cuda_error_string.restype = ctypes.c_char_p
         lib.bigdl_empty_launch.argtypes = [p]

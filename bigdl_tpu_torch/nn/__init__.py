@@ -25,6 +25,10 @@ from bigdl_tpu_torch.nn.convolution import (
     SpatialSeparableConvolution, SpatialShareConvolution, TemporalConvolution,
 )
 from bigdl_tpu_torch.nn.cosine import Cosine, CosineDistance
+from bigdl_tpu_torch.nn.detection import (
+    Anchor, DetectionOutputSSD, NormalizeScale, PriorBox, Proposal,
+    decode_rcnn, decode_ssd, encode_ssd, nms_mask, pairwise_iou,
+)
 from bigdl_tpu_torch.nn.criterion import (
     AbsCriterion, AbstractCriterion, BCECriterion, BCECriterionWithLogits,
     CategoricalCrossEntropy, ClassNLLCriterion, ClassSimplexCriterion,
@@ -57,6 +61,10 @@ from bigdl_tpu_torch.nn.initialization import (
 )
 from bigdl_tpu_torch.nn.linear import Linear
 from bigdl_tpu_torch.nn.lora import LoRALinear, apply_lora, merge_lora
+from bigdl_tpu_torch.nn.maskrcnn import (
+    FPN, BoxHead, DetectionOutputFrcnn, MaskHead, Pooler, RegionProposal,
+    RoiAlign,
+)
 from bigdl_tpu_torch.nn.misc import (
     MM, MV, ActivityRegularization, Bilinear, Cropping2D, Cropping3D,
     CrossProduct, DotProduct, Euclidean, GaussianSampler, GradientReversal,
@@ -65,6 +73,7 @@ from bigdl_tpu_torch.nn.misc import (
     Scale, SoftShrink, SpatialUpSamplingBilinear, SpatialUpSamplingNearest,
     Sum, Threshold, UpSampling1D, UpSampling2D, UpSampling3D,
 )
+from bigdl_tpu_torch.nn.multibox import MultiBoxCriterion, match_priors
 from bigdl_tpu_torch.nn.normalization import (
     Add, BatchNormalization, CAdd, CMul, Dropout, GaussianDropout,
     GaussianNoise, LayerNorm, Mul, Normalize, RMSNorm,
@@ -78,11 +87,16 @@ from bigdl_tpu_torch.nn.pooling import (
     TemporalMaxPooling,
 )
 from bigdl_tpu_torch.nn.precision import cast_floating
+from bigdl_tpu_torch.nn.quantized import (
+    QuantizedLinear, QuantizedSpatialConvolution,
+    QuantizedSpatialDilatedConvolution, calibrate, quantize_module,
+)
 from bigdl_tpu_torch.nn.recurrent import (
     GRU, LSTM, BiRecurrent, Cell, ConvLSTMPeephole, ConvLSTMPeephole3D,
     LSTMPeephole, Masking, MultiRNNCell, Recurrent, RecurrentDecoder,
     RnnCell, TimeDistributed,
 )
+from bigdl_tpu_torch.nn.roi import RoiPooling
 from bigdl_tpu_torch.nn.shape_ops import (
     Contiguous, Flatten, Index, InferReshape, Narrow, Padding, Replicate,
     Reshape, Reverse, Select, SpatialZeroPadding, SplitTable, Squeeze, Tile,
@@ -108,7 +122,9 @@ from bigdl_tpu_torch.nn.volumetric import (
 # every class imported above, and these functions
 __all__ = sorted([name for name, value in dict(globals()).items()
                   if isinstance(value, type)] + [
-    "apply_lora", "assign_cache_slot", "beam_generate", "cast_floating",
-    "chunked_softmax_xent", "fuse_conv_bn", "generate", "greedy_decode",
-    "greedy_generate", "install_decode_cache", "make_node", "merge_lora",
+    "apply_lora", "assign_cache_slot", "beam_generate", "calibrate",
+    "cast_floating", "chunked_softmax_xent", "decode_rcnn", "decode_ssd",
+    "encode_ssd", "fuse_conv_bn", "generate", "greedy_decode",
+    "greedy_generate", "install_decode_cache", "make_node", "match_priors",
+    "merge_lora", "nms_mask", "pairwise_iou", "quantize_module",
     "reset_decode_slot", "restart_decode_cache", "rope_rotate"])

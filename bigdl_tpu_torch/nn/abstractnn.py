@@ -111,6 +111,13 @@ class AbstractModule(torch.nn.Module):
     def is_frozen(self) -> bool:
         return self._frozen
 
+    def quantize(self, mode: str = "dynamic") -> "AbstractModule":
+        """An int8 copy for inference (``nn/quantized.py``): Linear and
+        the spatial convolutions become int8-weight modules; ``mode`` is
+        "dynamic", "weight_only" or "static" (then ``nn.calibrate``)."""
+        from bigdl_tpu_torch.nn.quantized import quantize_module
+        return quantize_module(self, mode)
+
     def has_regularizers(self) -> bool:
         return any(getattr(m, "w_regularizer", None) is not None
                    or getattr(m, "b_regularizer", None) is not None

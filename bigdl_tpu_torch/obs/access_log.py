@@ -15,9 +15,8 @@ Enabled by pointing ``BIGDL_ACCESS_LOG`` at a directory; the file
 fails a request. The port's engine writes ``flops`` as None: the
 per-program FLOPs come with the MFU accounting (ROADMAP Queue A.6).
 
-JAX's ``to_bdlrec`` (the records re-sharded into ``.bdlrec`` files for a
-streaming dataset) needs ``dataset/recordio.py`` and waits for ROADMAP
-Queue A.5: :func:`to_bdlrec` raises naming it.
+:func:`to_bdlrec` re-shards the records into ``.bdlrec`` files for a
+streaming dataset, byte for byte as JAX's does.
 """
 
 from __future__ import annotations
@@ -138,10 +137,35 @@ def access_record_decoder(payload: bytes) -> dict:
 
 
 def to_bdlrec(log_dir: str, out_dir: str, shards: int = 1,
-              prefix: str = "access"):
-    """JAX's converter of the records into ``.bdlrec`` shards: it writes
-    through ``dataset/recordio.py``, which is not ported."""
-    raise NotImplementedError(
-        "to_bdlrec writes .bdlrec shards through dataset/recordio.py, which "
-        "waits for ROADMAP Queue A.5; the JSONL records under "
-        f"{log_dir!r} are complete without it")
+              prefix: str = "access") -> "tuple[list, int]":
+    """Re-shard every access-log record under ``log_dir`` (all ``*.jsonl``
+    files, rotated generations included, in name order) into ``shards``
+    ``.bdlrec`` files under ``out_dir``, round-robin. Returns
+    ``(shard_paths, count)``. Blank and torn lines are skipped; a record's
+    payload is its exact JSON line, so the round trip is byte-faithful."""
+    from bigdl_tpu_torch.dataset.recordio import RecordWriter
+
+    shards = max(int(shards), 1)
+    names = sorted(n for n in os.listdir(log_dir) if n.endswith(".jsonl"))
+    os.makedirs(out_dir, exist_ok=True)
+    paths = [os.path.join(out_dir, "%s-%05d.bdlrec" % (prefix, s))
+             for s in range(shards)]
+    writers = [RecordWriter(p) for p in paths]
+    n = 0
+    try:
+        for name in names:
+            with open(os.path.join(log_dir, name), "rb") as f:
+                for line in f:
+                    line = line.strip()
+                    if not line:
+                        continue
+                    try:
+                        json.loads(line.decode("utf-8"))
+                    except (ValueError, UnicodeDecodeError):
+                        continue   # the torn tail of a crashed writer
+                    writers[n % shards].write(line)
+                    n += 1
+    finally:
+        for w in writers:
+            w.close()
+    return paths, n

@@ -491,6 +491,7 @@ class Optimizer:
         self._epoch_batches = 0
         self._epoch_rng: Optional[dict] = None
         self._epoch_order = None
+        self._epoch_stream = None
         self._resume_feed: Optional[dict] = None
         self._rob_snap0: dict = {}      # robustness events at optimize()
 
@@ -1389,6 +1390,12 @@ class Optimizer:
                 base = self._feed_base()
                 if order is not None and hasattr(base, "_order"):
                     base._order = np.array(order, copy=True)
+                # a streamed feed: the epoch's shard order and window seed,
+                # which this process's shuffle never drew
+                stream = resume_feed.get("stream")
+                if stream is not None and hasattr(base,
+                                                  "restore_stream_state"):
+                    base.restore_stream_state(stream)
                 skip = int(resume_feed.get("feed_pos", 0))
                 self._epoch_rng = resume_feed.get("epoch_rng")
             else:
@@ -1401,6 +1408,7 @@ class Optimizer:
                 self._epoch_rng = RandomGenerator.state_dict()
             resume_feed = None
             self._epoch_order = self._base_order_copy()
+            self._epoch_stream = self._capture_stream_state()
             self._epoch_batches = skip
             make_iter = ((lambda s=skip: itertools.islice(
                 self.dataset.data(train=True), s, None)) if skip
@@ -1606,11 +1614,20 @@ class Optimizer:
         order = getattr(self._feed_base(), "_order", None)
         return None if order is None else np.array(order, copy=True)
 
+    def _capture_stream_state(self):
+        """The epoch's stream identity of a streaming base dataset
+        (``StreamingDataSet.stream_state``: shard order and epoch seed), or
+        None for other sources: a resumed process never ran the epoch's
+        shuffle, so the checkpoint carries it."""
+        fn = getattr(self._feed_base(), "stream_state", None)
+        return fn() if callable(fn) else None
+
     def _resume_info(self, neval_next: int) -> dict:
         """What a bitwise mid-epoch resume needs beyond the tensors, keyed
         as JAX's: the feed position in the epoch, the RNG state as of the
         epoch's shuffle (mid-epoch) or now (at a boundary), the epoch's
-        order, and ``base_rng``: the states of the model's dropout
+        order, a streamed feed's ``stream`` identity (mid-epoch), and
+        ``base_rng``: the states of the model's dropout
         generators (``dropout_generators``), None without any. JAX's
         ``base_rng`` is a PRNG key with no torch counterpart, so it is not
         carried between the packages."""
@@ -1625,7 +1642,7 @@ class Optimizer:
             "epoch_rng": (self._epoch_rng if mid_epoch
                           else RandomGenerator.state_dict()),
             "epoch_order": self._epoch_order,
-            "stream": None,
+            "stream": self._epoch_stream if mid_epoch else None,
             "base_rng": ([g.get_state().numpy() for g in gens]
                          if gens else None),
         }

@@ -7,8 +7,9 @@ card without cross-engine scheduling. Engine knobs are per snapshot
 (``per_model``): a latency-critical tenant can run ``admit_wait_ms=0``
 beside a bulk tenant that batches.
 
-The tenants of the port are native snapshots: the int8 tenants of JAX's
-``quantize()`` wait for ``nn/quantized.py`` (ROADMAP Queue A.5).
+A tenant may be a ``model.quantize(mode)`` snapshot (``nn/quantized.py``)
+beside fp32 ones: the engine serves it unchanged (its private copy,
+``swap_weights``, the captured prefill and decode programs).
 """
 
 from __future__ import annotations

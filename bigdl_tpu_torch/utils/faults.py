@@ -16,9 +16,17 @@ site                      where it fires
 ``ckpt_write``            the background checkpoint writer: ``torn`` leaves a
                           half-written final file, ``error`` fails the write,
                           ``kill`` SIGKILLs the process mid-write
-``decode``                a record decode of an on-disk source (``error``);
-                          the port's sources are in memory, so it fires in
-                          no ported module yet (ROADMAP Queue A.4.2)
+``decode``                a record decode of an on-disk source
+                          (``dataset/recordio.py``, ``dataset/streaming.py``):
+                          ``error`` fails that record, and the corrupt-sample
+                          policy decides
+``cache_read``            a read of the decoded-sample cache
+                          (``dataset/sample_cache.py``): any action models a
+                          corrupt read, so the cache is quarantined and the
+                          epoch decodes live from that record on
+``cache_write``           a write into the cache being built: the build is
+                          abandoned with a ``cache_write_failed`` event, and
+                          training goes on uncached
 ``transform_worker``      a parallel transform worker (``dataset/parallel.py``):
                           ``death`` raises :class:`WorkerDeathError`, which
                           the worker pool's crash budget absorbs
@@ -59,9 +67,9 @@ site                      where it fires
                           attempt: ``error`` spends one unit of its budget
 ========================  ====================================================
 
-The cache, spool, profilez and host sites of the JAX module come with the
-modules that run them (ROADMAP Queues A.4 and A.6); naming one in a plan
-raises ``ValueError`` here.
+The spool, profilez and host sites of the JAX module come with the
+modules that run them (ROADMAP Queue A.6); naming one in a plan raises
+``ValueError`` here.
 
 A plan is a ``;``-separated list of entries ``site@N`` or ``site@N=action``,
 the same syntax as the JAX package's, so one plan string means the same in
@@ -109,6 +117,8 @@ SITE_REPLICA_DOWN = "replica_down"
 SITE_PROMOTE_EVAL = "promote_eval"
 SITE_PROMOTE_SWAP = "promote_swap"
 SITE_PROMOTE_ROLLBACK = "promote_rollback"
+SITE_CACHE_READ = "cache_read"
+SITE_CACHE_WRITE = "cache_write"
 
 #: sites whose plan entries match the caller-supplied ``index`` (training
 #: iteration) instead of the site's hit counter
@@ -132,6 +142,8 @@ _DEFAULT_ACTION = {
     SITE_PROMOTE_EVAL: "error",
     SITE_PROMOTE_SWAP: "error",
     SITE_PROMOTE_ROLLBACK: "error",
+    SITE_CACHE_READ: "error",
+    SITE_CACHE_WRITE: "error",
 }
 
 _KNOWN_ACTIONS = frozenset({"error", "death", "nan", "sigterm", "torn",

@@ -316,7 +316,20 @@ before the kernel table, so their launches are in the ``kernels`` line
 (``paths``); so do phase 14 (``paths.serving_stack``) and phase 15
 (``paths.finetune_lora_training``, ``finetune_lora_serving``,
 ``seq2seq``; each flash row's ``seq2seq`` instances with their launches
-by variant), phase 16 (``paths.tail``) and phase 17 (``paths.recsys``).
+by variant), phase 16 (``paths.tail``) and phase 17 (``paths.recsys``),
+phase 18 (``paths.quantized``: ResNet-50 inference at batch 256 in bf16
+and int8 dynamic, weight_only and static, images/s, weight bytes, top-1
+agreement with fp32 and the int32 accumulators bitwise the CPU's; phase
+4's LM served as fp32, weight_only, static and dynamic tenants of one
+``SnapshotServer``) and phase 19 (``paths.detection``: SSD512-width
+training under bf16 from four streamed ``.bdlrec`` shards, epoch 2 served
+by the decoded-sample cache, one fp32 step against the CPU, a preemption
+at step 4 of epoch 2 resumed onto the same batches bitwise; the trained
+SSD's detections on 32 images against the CPU's head; the SSD main at
+its defaults, held-out IoU > 0.3; Mask R-CNN at COCO test widths, eager
+and replayed bitwise, against the CPU's detections; every eager NMS
+launch held against the plain sweep). The kernel table has the NMS
+kernel's row (``nms_sweep``) at the path's three shapes.
 
 ``python3 chip_smoke.py --text-only`` builds the kernels and runs only
 phase 13, printing its numbers as one JSON line (no result line).
@@ -333,6 +346,10 @@ phase 16, printing its numbers as one JSON line (no result line).
 
 ``python3 chip_smoke.py --recsys-only`` builds the kernels and runs only
 phase 17, printing its numbers as one JSON line (no result line).
+
+``python3 chip_smoke.py --quantized-only`` and ``--detection-only`` build
+the kernels and run only phase 18 or phase 19, printing its numbers as one
+JSON line (no result line).
 
 ``python3 chip_smoke.py --remat-captures N`` builds the kernels and runs
 only phase 6's bf16 training with every block under ``Remat`` N times in
@@ -377,6 +394,11 @@ DEVICE = "cuda"
 SLOTS, N_REQUESTS, N_CLIENTS, NEW_TOKENS = 8, 16, 4, 32
 PROMPT_LO, PROMPT_HI = 17, 700
 NEAR_TIE = 1e-4          # top-2 log-prob gap under which a token may differ
+# an int8 static tenant: one activation's rounding flip (its float input a
+# few ulps off the reference's, across a .5 boundary) moves a log-prob by
+# about s_x * s_w * |w_q|, ~1e-3 at these widths (parts measured on an
+# H100 at gaps up to 7.3e-3); the weight_only tenant keeps NEAR_TIE
+NEAR_TIE_INT8 = 1e-2
 # phase 9, the serving extras at full width: the paged pool at the 8-slot
 # grid's KV bytes (8 x 1024 / 16 pages), an exhausted pool, the prefix
 # pool, the speculative engine (k = 4) with the target as its own draft and
@@ -1266,10 +1288,11 @@ def near_tie_gap(lm, seq) -> float:
     return float(top[0] - top[1])
 
 
-def check_near_ties(lm, name, got, refs, lengths) -> int:
+def check_near_ties(lm, name, got, refs, lengths, near_tie=NEAR_TIE) -> int:
     """``got[i]`` against ``refs[i]`` (token arrays, prompt first): they
-    may part only where the reference's top-2 gap is under NEAR_TIE (the
-    products of another shape round otherwise). Returns how many parted."""
+    may part only where the reference's top-2 gap is under ``near_tie``
+    (the products of another shape round otherwise). Returns how many
+    parted."""
     parted = 0
     for i, (g, ref, n) in enumerate(zip(got, refs, lengths)):
         g, ref = np.asarray(g), np.asarray(ref)
@@ -1284,7 +1307,7 @@ def check_near_ties(lm, name, got, refs, lengths) -> int:
         parted += 1
         log(f"  {name} request {i}: token {j - n} differs from its "
             f"reference; reference top-2 gap there {gap:.3e}")
-        if gap >= NEAR_TIE:
+        if gap >= near_tie:
             raise CheckFailed(f"{name} request {i} tokens differ from the "
                               f"reference at a gap of {gap}")
     return parted
@@ -1608,7 +1631,8 @@ def train(TransformerLM, lm_criterion, kernels, card, bf16=False,
     log(f"  launches on the training path ({what}): {by_dtype} "
         f"({ {k: v / TRAIN_ITERS for k, v in counts.items()} } a step)")
     for name, n in counts.items():
-        if n == 0 and not (llama and name.startswith("layer_norm")):
+        if n == 0 and name != "nms_sweep" and not (
+                llama and name.startswith("layer_norm")):
             raise CheckFailed(f"the training path never launched {name}")
     # LN: two a block, one final (none with RMSNorm); under remat a block's
     # forward kernels run again when its backward recomputes it
@@ -4106,7 +4130,7 @@ def feed_path(TransformerLM, lm_criterion, kernels, card, Engine):
     out["launches"] = kernels.launch_counts()   # ... to here
     log(f"  launches on the feed's LM path: {out['launches']}")
     for name, n in out["launches"].items():
-        if n == 0:
+        if n == 0 and name != "nms_sweep":
             raise CheckFailed(f"phase 12's LM path never launched {name}")
     shutil.rmtree(Path(__file__).resolve().parent / "build" / "phase12",
                   ignore_errors=True)
@@ -4711,7 +4735,8 @@ def stack_launches(total: dict) -> dict:
         f"{parts['references']}")
     if engines["layer_norm_fwd"] <= 0 or min(engines.values()) < 0:
         raise CheckFailed(f"phase 14's engines launched {engines}")
-    idle = [k for k, n in parts["trainer"].items() if n == 0]
+    idle = [k for k, n in parts["trainer"].items()
+            if n == 0 and k != "nms_sweep"]
     if idle:
         raise CheckFailed(f"phase 14's trainer never launched {idle}")
     return dict(parts, path=path, engines=engines)
@@ -5730,7 +5755,8 @@ def lora_training(TransformerLM, lm_criterion, nn, kernels, card, Engine,
         finally:
             if bf16:
                 Engine.reset()
-        idle = [k for k, n in run["launches"].items() if n == 0]
+        idle = [k for k, n in run["launches"].items()
+                if n == 0 and k != "nms_sweep"]
         if idle:
             raise CheckFailed(f"the LoRA path ({key}) never launched {idle}")
         for k, n in run["launches"].items():
@@ -6043,7 +6069,8 @@ def seq2seq_path(kernels, card, Engine):
             for v, n in split.items():
                 variants.setdefault(name, {})
                 variants[name][v] = variants[name].get(v, 0) + n
-        idle = [k for k, n in run["launches"].items() if n == 0]
+        idle = [k for k, n in run["launches"].items()
+                if n == 0 and k != "nms_sweep"]
         if idle:
             raise CheckFailed(f"the seq2seq path ({key}) never launched "
                               f"{idle}")
@@ -7608,6 +7635,762 @@ def recsys_launches(counts: dict) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------- phase 18
+Q_SEED = SEED + 80
+Q_BATCH = 256                 # benchmark.py:504-556's int8 leg, ResNet-50
+Q_HW, Q_CLASSES = 224, 1000
+Q_REPS = (2, 3)               # time_ms's reps and trials of one forward
+Q_CHECK_IMAGES = 4            # images of the CPU's int32 check of a conv
+Q_MODES = ("dynamic", "weight_only", "static")
+Q_TENANTS = ("fp32", "weight_only", "static", "dynamic")
+Q_CALIBRATION = 4             # prompts the static tenant calibrates on
+
+
+def param_bytes(model) -> int:
+    return sum(p.numel() * p.element_size() for p in model.parameters())
+
+
+def captured_input(model, module, x, n=None):
+    """The input ``module`` gets in ``model``'s forward of ``x`` (its first
+    ``n`` rows): ``run`` patched for one call (containers call ``run``, so
+    forward hooks never fire)."""
+    seen = {}
+    run = module.run
+
+    def spy(inp, state=None):
+        seen.setdefault("x", inp[:n].detach().clone())
+        return run(inp, state)
+
+    module.run = spy
+    try:
+        with torch.no_grad():
+            model(x)
+    finally:
+        del module.run
+    return seen["x"]
+
+
+def int32_checks(forms, x) -> dict:
+    """One QuantizedSpatialConvolution (the first 3x3) and the
+    QuantizedLinear of the dynamic ResNet-50 at the path's shapes: the
+    card's int32 accumulators against the CPU's, bit for bit."""
+    from bigdl_tpu_torch.nn import quantized as tq
+    m = forms["dynamic"]
+    conv = next(q for q in m.modules()
+                if isinstance(q, tq.QuantizedSpatialConvolution)
+                and q.kernel_w == 3)
+    fc = next(q for q in m.modules() if isinstance(q, tq.QuantizedLinear))
+    out = {}
+    xc = captured_input(m, conv, x, Q_CHECK_IMAGES)
+    x_q, _ = tq._quantize_activation(xc)
+    args = conv._conv_args(xc)
+    card = tq.int8_conv2d(x_q, conv.weight_q, *args).cpu()
+    cpu = tq.int8_conv2d(x_q.cpu(), conv.weight_q.cpu(), *args)
+    out["conv"] = {"input": list(xc.shape),
+                   "weight": list(conv.weight_q.shape),
+                   "bitwise": bool(torch.equal(card, cpu))}
+    xf = captured_input(m, fc, x).reshape(x.shape[0], -1)
+    f_q, _ = tq._quantize_activation(xf)
+    card = tq.int8_matmul(f_q, fc.weight_q).cpu()
+    cpu = tq.int8_matmul(f_q.cpu(), fc.weight_q.cpu())
+    out["linear"] = {"input": list(xf.shape),
+                     "weight": list(fc.weight_q.shape),
+                     "bitwise": bool(torch.equal(card, cpu))}
+    log(f"  int32 accumulators card vs CPU: conv {out['conv']}, linear "
+        f"{out['linear']}")
+    if not (out["conv"]["bitwise"] and out["linear"]["bitwise"]):
+        raise CheckFailed(f"the card's int32 accumulators differ from the "
+                          f"CPU's: {out}")
+    return out
+
+
+def quantized_resnet(card) -> dict:
+    """ResNet-50 inference at batch 256: bf16 against ``quantize()``
+    dynamic, weight_only and static (calibrated on the batch): images/s,
+    weight bytes, top-1 agreement with fp32, and the int32 checks."""
+    import copy
+    from bigdl_tpu_torch.models.resnet import ResNet50
+    from bigdl_tpu_torch.nn import calibrate
+    model = ResNet50(Q_CLASSES, generator=torch.Generator().manual_seed(
+        Q_SEED), device=DEVICE).evaluate()
+    x = torch.randn(Q_BATCH, 3, Q_HW, Q_HW, generator=torch.Generator()
+                    .manual_seed(Q_SEED + 1)).to(DEVICE)
+    forms = {"fp32": model, "bf16": copy.deepcopy(model).bfloat16()}
+    for mode in Q_MODES:
+        forms[mode] = model.quantize(mode).evaluate()
+    calibrate(forms["static"], [x])
+    out = {"batch": Q_BATCH, "int32": int32_checks(forms, x), "forms": {}}
+    with torch.no_grad():
+        top1 = model(x).argmax(1)
+    for name, m in forms.items():
+        inp = x.bfloat16() if name == "bf16" else x
+
+        def fwd(m=m, inp=inp):
+            with torch.no_grad():
+                return m(inp)
+
+        with torch.no_grad():
+            y = m(inp)
+        if not bool(y.float().isfinite().all()):
+            raise CheckFailed(f"ResNet-50 {name}: non-finite outputs")
+        ms = time_ms(fwd, *Q_REPS)[0]
+        out["forms"][name] = {
+            "ms": ms, "images_per_s": Q_BATCH / ms * 1e3,
+            "weight_bytes": param_bytes(m),
+            "top1_agreement_with_fp32": float(
+                (y.float().argmax(1) == top1).float().mean())}
+        log(f"  ResNet-50 {name}: {ms:.2f} ms a batch of {Q_BATCH}, "
+            f"{Q_BATCH / ms * 1e3:.0f} images/s, weights "
+            f"{param_bytes(m) / 2**20:.1f} MiB, top-1 agreement with fp32 "
+            f"{out['forms'][name]['top1_agreement_with_fp32']:.4f} [{card}]")
+        del y
+    del forms, model
+    if DEVICE != "cpu":
+        release()
+    return out
+
+
+def quantized_tenants(TransformerLM, kernels, card) -> dict:
+    """Phase 4's LM served as fp32, weight_only, static and dynamic tenants
+    of one SnapshotServer, phase 5's 16 requests each, a round that
+    captures and a round of replays, one tenant at a time. Each compared
+    tenant's tokens against its own greedy reference (full-sequence
+    forwards) under the near-tie rule (NEAR_TIE_INT8 for the static
+    tenant); the dynamic tenant, whose scale spans the whole slot grid,
+    is timed only. Returns the numbers and the
+    launches of the serving rounds (not the references')."""
+    from bigdl_tpu_torch.nn import calibrate
+    from bigdl_tpu_torch.serving import SnapshotServer
+    lm = build_lm(TransformerLM, "auto", DEVICE)
+    prompts = serving_prompts()
+    tenants = {"fp32": lm}
+    for mode in Q_TENANTS[1:]:
+        tenants[mode] = lm.quantize(mode).evaluate()
+    calibrate(tenants["static"],
+              [torch.as_tensor(p[None], dtype=torch.long)
+               for p in prompts[:Q_CALIBRATION]])
+    srv = SnapshotServer(tenants, max_len=MAX_LEN, slots=SLOTS,
+                         device=DEVICE)
+    out, rounds = {}, {}
+    try:
+        for name in Q_TENANTS:
+            eng = srv.engine(name)
+            first = serve_round(eng, prompts)
+            before = eng.stats()
+            results, wall = serve_round(eng, prompts)
+            rounds[name] = results
+            out[name] = report_round(f"{name} tenant (replays)", results,
+                                     wall, eng.stats(), before, card)
+            out[name]["compiled_programs"] = eng.stats()["compiled_programs"]
+            # the dynamic tenant's scale spans the batch, which the
+            # arrival order sets: its rounds may differ
+            if name != "dynamic" and any(
+                    not np.array_equal(a.tokens, b.tokens)
+                    for a, b in zip(first[0], results)):
+                raise CheckFailed(f"the {name} tenant's two rounds differ")
+    finally:
+        srv.shutdown()
+    launches = kernels.launch_counts()
+    for name in Q_TENANTS[:3]:
+        m = tenants[name]
+        refs = [forward_greedy(m, p, NEW_TOKENS) for p in prompts]
+        near_tie = NEAR_TIE_INT8 if name == "static" else NEAR_TIE
+        out[name]["near_tie"] = near_tie
+        out[name]["parted_near_ties"] = check_near_ties(
+            m, f"{name} tenant", [r.tokens for r in rounds[name]], refs,
+            [len(p) for p in prompts], near_tie)
+    log(f"  the fp32, weight_only and static tenants served their own "
+        f"greedy tokens; launches of the rounds {launches}")
+    out["weight_bytes"] = {n: param_bytes(m) for n, m in tenants.items()}
+    del tenants, lm
+    if DEVICE != "cpu":
+        release()
+    return out, launches
+
+
+def quantized_path(TransformerLM, kernels, card) -> dict:
+    """Phase 18: int8 inference (ResNet-50 at batch 256) and the full-width
+    LM served as int8 tenants."""
+    t0 = time.perf_counter()
+    out = {"resnet50": quantized_resnet(card)}
+    resnet_counts = kernels.launch_counts()
+    if any(resnet_counts.values()):
+        raise CheckFailed(f"the int8 ResNet-50 launched {resnet_counts}")
+    out["tenants"], out["launches"] = quantized_tenants(TransformerLM,
+                                                        kernels, card)
+    if DEVICE != "cpu" and out["launches"]["layer_norm_fwd"] == 0:
+        raise CheckFailed("the int8 tenants never launched layer_norm_fwd")
+    out["wall_s"] = time.perf_counter() - t0
+    log(f"  phase 18 took {out['wall_s']:.1f} s [{card}]")
+    return out
+
+
+# ---------------------------------------------------------------- phase 19
+DET_SEED = SEED + 90
+SSD_CLASSES, SSD_IMG = 21, 512          # SSD512, VOC's 20 classes + bg
+SSD_WIDTHS, SSD_RATIOS = (64, 128, 256), (2.0, 3.0)
+SSD_SAMPLES, SSD_SHARDS, SSD_BATCH = 256, 4, 32
+SSD_WINDOW, SSD_EPOCHS = 64, 2
+SSD_PREEMPT = 12                        # step 4 of epoch 2
+SSD_PARITY_BATCH = 2
+SSD_SERVE = 32
+SSD_TOL = (1e-4, 1e-3)                  # the one-step check: loss, grads
+NMS_MARGINS = (1e-5, 1e-6)              # IoU off its threshold, scores apart
+MRCNN_CLASSES = 81                      # COCO
+MRCNN = dict(image_size=(800, 1344), out_channels=256, post_nms_topn=1000,
+             max_per_image=100, box_resolution=7, mask_resolution=14)
+MRCNN_GAINS = (1, 2, 4, 8, 16, 32, 64, 128)   # of the class layer
+
+
+class SSDRecordDecoder:
+    """An SSD record: the (1, 5) float32 ground truth, then the (3, H, W)
+    uint8 image; decoded to a Sample of the image in [0, 1]."""
+
+    def __call__(self, payload: bytes):
+        from bigdl_tpu_torch.dataset import Sample
+        gt = np.frombuffer(payload[:20], np.float32).reshape(1, 5).copy()
+        img = np.frombuffer(payload[20:], np.uint8).reshape(
+            3, SSD_IMG, SSD_IMG).astype(np.float32) / 255.0
+        return Sample(img, gt)
+
+
+def ssd_sample(rng, img):
+    """The SSD main's ``make_dataset`` at ``img`` pixels and VOC's 20
+    classes, the image stored as uint8: one square a class, its brightness
+    the class's."""
+    x = rng.rand(3, img, img) * 0.1
+    side = rng.randint(img // 8, img // 4)
+    y0 = rng.randint(0, img - side)
+    x0 = rng.randint(0, img - side)
+    cls = rng.randint(1, SSD_CLASSES)
+    x[:, y0:y0 + side, x0:x0 + side] = 0.3 + 0.035 * cls
+    gt = np.array([[cls, x0 / img, y0 / img, (x0 + side) / img,
+                    (y0 + side) / img]], np.float32)
+    return np.round(x * 255).astype(np.uint8), gt
+
+
+def ssd_records(root: Path) -> list:
+    from bigdl_tpu_torch.dataset import RecordWriter
+    rng = np.random.RandomState(DET_SEED)
+    paths = [str(root / f"ssd-{s:02d}.bdlrec") for s in range(SSD_SHARDS)]
+    writers = [RecordWriter(p) for p in paths]
+    try:
+        for i in range(SSD_SAMPLES):
+            img, gt = ssd_sample(rng, SSD_IMG)
+            writers[i % SSD_SHARDS].write(gt.tobytes() + img.tobytes())
+    finally:
+        for w in writers:
+            w.close()
+    return paths
+
+
+def ssd_model(device):
+    from bigdl_tpu_torch.models.ssd import SSD
+    return SSD(SSD_CLASSES, img_size=SSD_IMG, base_channels=SSD_WIDTHS,
+               aspect_ratios=SSD_RATIOS, generator=torch.Generator()
+               .manual_seed(DET_SEED), device=device)
+
+
+def ssd_batch(n, seed):
+    rng = np.random.RandomState(seed)
+    dec = SSDRecordDecoder()
+    s = [dec(gt.tobytes() + img.tobytes())
+         for img, gt in (ssd_sample(rng, SSD_IMG) for _ in range(n))]
+    return (torch.from_numpy(np.stack([x.feature[0] for x in s])),
+            torch.from_numpy(np.stack([x.label[0] for x in s])))
+
+
+def check_ssd_step() -> dict:
+    """One fp32 step at batch 2: the card's loss and every parameter's
+    gradient against the same weights on the CPU (TF32 off)."""
+    from bigdl_tpu_torch import nn
+    x, y = ssd_batch(SSD_PARITY_BATCH, DET_SEED + 1)
+    res = {}
+    for dev in ("cpu", DEVICE):
+        model = ssd_model(dev)
+        loss = nn.MultiBoxCriterion(SSD_CLASSES)(model(x.to(dev)), y.to(dev))
+        loss.backward()
+        res[dev] = (loss.item(), {n: p.grad.detach().cpu()
+                                  for n, p in model.named_parameters()})
+    loss_rel = abs(res[DEVICE][0] - res["cpu"][0]) / abs(res["cpu"][0])
+    grads = rel_errors(res[DEVICE][1], res["cpu"][1])
+    worst = max(grads, key=grads.get)
+    log(f"  SSD512 one fp32 step at batch {SSD_PARITY_BATCH}: loss "
+        f"{res[DEVICE][0]:.6f} vs CPU {res['cpu'][0]:.6f} (rel "
+        f"{loss_rel:.2e}); worst gradient {worst} rel {grads[worst]:.2e}")
+    if loss_rel > SSD_TOL[0] or grads[worst] > SSD_TOL[1]:
+        raise CheckFailed(f"the SSD step disagrees with the CPU: loss "
+                          f"{loss_rel}, {worst} {grads[worst]}")
+    return {"loss_rel": loss_rel, "max_grad_rel": grads[worst],
+            "worst": worst}
+
+
+def ssd_run(paths, cache_dir, ckpt=None, plan=None, resume=False) -> dict:
+    """Train the SSD512 from the streamed shards under bf16 (Adam, 2
+    epochs of 8 steps); ``plan`` a fault plan (a preemption), ``resume``
+    from ``ckpt``. Returns the losses, step end times, batches seen (a
+    fingerprint a batch), feed stages by epoch and the model."""
+    import warnings
+    from bigdl_tpu_torch import nn
+    from bigdl_tpu_torch.dataset import DataSet, SampleToMiniBatch
+    from bigdl_tpu_torch.dataset.profiling import feed_stats
+    from bigdl_tpu_torch.optim import Adam, LocalOptimizer, Trigger
+    from bigdl_tpu_torch.optim.optimizer import TrainingPreempted
+    from bigdl_tpu_torch.utils import faults
+    from bigdl_tpu_torch.utils.engine import Engine
+    from bigdl_tpu_torch.utils.random_generator import RandomGenerator
+    RandomGenerator.set_seed(DET_SEED)
+    ds = DataSet.stream_shards(paths, decoder=SSDRecordDecoder(),
+                               shuffle_window=SSD_WINDOW, cache=True,
+                               cache_dir=str(cache_dir))
+    model = ssd_model(DEVICE)
+    opt = (LocalOptimizer(model, ds >> SampleToMiniBatch(SSD_BATCH),
+                          nn.MultiBoxCriterion(SSD_CLASSES), device=DEVICE)
+           .set_optim_method(Adam(learningrate=1e-3))
+           .set_end_when(Trigger.max_epoch(SSD_EPOCHS)))
+    if ckpt is not None:
+        opt.set_checkpoint(str(ckpt), Trigger.every_epoch())
+    rec = {"losses": [], "ends": [], "batches": [], "epochs": []}
+    data, run_steps, place = ds.data, opt._run_steps, opt._place
+
+    def epoch_data(train):
+        rec["epochs"].append(feed_stats.snapshot())
+        return data(train)
+
+    def recorded(steps):
+        got = run_steps(steps)
+        rec["losses"].extend(got)
+        rec["ends"].append(time.perf_counter())
+        return got
+
+    def seen(item, *a, **k):
+        rec["batches"].append(batch_fingerprint(item))
+        return place(item, *a, **k)
+
+    ds.data, opt._run_steps, opt._place = epoch_data, recorded, seen
+    Engine.init(compute_dtype=torch.bfloat16)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    t0 = time.perf_counter()
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            if plan is None:
+                opt.optimize(resume="auto" if resume else None)
+            else:
+                try:
+                    with faults.inject_faults(plan):
+                        opt.optimize()
+                    raise CheckFailed(f"{plan} did not preempt the SSD run")
+                except TrainingPreempted:
+                    pass
+    finally:
+        torch.use_deterministic_algorithms(False)
+        Engine.reset()
+        ds.close()
+    rec["wall_s"] = time.perf_counter() - t0
+    rec["epochs"].append(feed_stats.snapshot())
+    rec["nondeterministic"] = sorted({
+        str(w.message).split(" does not have")[0] for w in caught
+        if "deterministic" in str(w.message)})
+    opt._step_program = None            # its graph and memory pool
+    rec["model"] = model
+    return rec
+
+
+def batch_fingerprint(item) -> int:
+    """A CRC of a batch's targets and a strided sample of its images."""
+    import zlib
+    return zlib.crc32(np.ascontiguousarray(np.asarray(item.target)).tobytes(),
+                      zlib.crc32(np.ascontiguousarray(
+                          np.asarray(item.input)[:, :, ::37, ::41]).tobytes()))
+
+
+def stage_deltas(a: dict, b: dict) -> dict:
+    """``{stage: (ms, count)}`` between two feed_stats snapshots."""
+    return {k: ((b[k][0] - a.get(k, (0.0, 0))[0]) * 1e3,
+                b[k][1] - a.get(k, (0.0, 0))[1]) for k in b}
+
+
+def ssd_training(kernels, card, root: Path) -> dict:
+    """The streamed SSD512 training: the uninterrupted run, a preemption
+    at step 4 of epoch 2 and its resume, one timed fp32 step."""
+    from bigdl_tpu_torch.dataset.profiling import STAGE_CACHE, STAGE_DECODE
+    t0 = time.perf_counter()
+    paths = ssd_records(root)
+    shard_bytes = sum(os.path.getsize(p) for p in paths)
+    out = {"records_s": time.perf_counter() - t0, "shard_bytes": shard_bytes}
+    log(f"  {SSD_SAMPLES} records of {SSD_IMG}x{SSD_IMG} uint8 images in "
+        f"{SSD_SHARDS} .bdlrec shards, {shard_bytes / 2**20:.1f} MiB "
+        f"({out['records_s']:.1f} s to write)")
+    out["one_step_check"] = check_ssd_step()
+    ref = ssd_run(paths, root / "cache")
+    steps = len(ref["losses"])
+    if steps != SSD_EPOCHS * SSD_SAMPLES // SSD_BATCH or not all(
+            np.isfinite(ref["losses"])):
+        raise CheckFailed(f"the SSD run took {steps} steps, losses "
+                          f"{ref['losses']}")
+    e1 = stage_deltas(ref["epochs"][0], ref["epochs"][1])
+    e2 = stage_deltas(ref["epochs"][1], ref["epochs"][2])
+    out["feed"] = {"epoch1": e1, "epoch2": e2}
+    log(f"  feed stages (ms, count): epoch 1 {e1}; epoch 2 {e2}")
+    if e2.get(STAGE_DECODE, (0, 0))[1] != 0 or \
+            e2.get(STAGE_CACHE, (0, 0))[1] != SSD_SAMPLES:
+        raise CheckFailed(f"epoch 2 was not served by the cache: {e2}")
+    per = np.diff(ref["ends"])[-(steps // 2 - 1):]
+    step_ms = float(np.median(per)) * 1e3
+    out["bf16"] = {"losses": ref["losses"], "step_ms": step_ms,
+                   "images_per_s": SSD_BATCH / step_ms * 1e3,
+                   "wall_s": ref["wall_s"],
+                   "nondeterministic_ops": ref["nondeterministic"]}
+    log(f"  SSD512 bf16 at batch {SSD_BATCH}: {step_ms:.2f} ms a step "
+        f"(median of epoch 2), {SSD_BATCH / step_ms * 1e3:.1f} images/s; "
+        f"loss {ref['losses'][0]:.4f} -> {ref['losses'][-1]:.4f} [{card}]")
+    ckpt = root / "ckpt"
+    stopped = ssd_run(paths, root / "cache", ckpt,
+                      plan=f"sigterm@{SSD_PREEMPT}")
+    resumed = ssd_run(paths, root / "cache", ckpt, resume=True)
+    n_after = steps - SSD_PREEMPT
+    same_batches = resumed["batches"][-n_after:] == ref["batches"][-n_after:]
+    same_losses = resumed["losses"] == ref["losses"][-n_after:]
+    named = ref["nondeterministic"] + resumed["nondeterministic"]
+    rels = {n: float((p.detach().float() - q.detach().float()).norm()
+                     / q.detach().float().norm().clamp(min=1e-30))
+            for (n, p), q in zip(resumed["model"].named_parameters(),
+                                 ref["model"].parameters())}
+    bitwise = all(torch.equal(p, q) for p, q in zip(
+        resumed["model"].parameters(), ref["model"].parameters()))
+    out["resume"] = {"preempted_at": SSD_PREEMPT,
+                     "resumed_steps": len(resumed["losses"]),
+                     "same_batches": same_batches,
+                     "same_losses": same_losses,
+                     "params_bitwise": bitwise,
+                     "max_param_rel": max(rels.values()),
+                     "nondeterministic_ops": sorted(set(named)),
+                     "wall_s": resumed["wall_s"]}
+    log(f"  preempted at iteration {SSD_PREEMPT}, resumed "
+        f"{len(resumed['losses'])} steps in {resumed['wall_s']:.2f} s: "
+        f"{out['resume']} [{card}]")
+    if not (same_batches and same_losses and len(resumed["losses"])
+            == n_after):
+        raise CheckFailed(f"the resume did not replay the same batches: "
+                          f"{out['resume']}")
+    if not bitwise and (not named or max(rels.values()) > 1e-6):
+        raise CheckFailed(f"the resumed parameters differ: {out['resume']}")
+    # one timed fp32 step (Engine reset: fp32)
+    model = ref["model"]
+    del stopped, resumed, ref
+    out["fp32_step_ms"] = fp32_ssd_step_ms(card)
+    return out, model
+
+
+def fp32_ssd_step_ms(card) -> float:
+    from bigdl_tpu_torch import nn
+    from bigdl_tpu_torch.dataset import DataSet
+    from bigdl_tpu_torch.optim import Adam, LocalOptimizer
+    x, y = ssd_batch(SSD_BATCH, DET_SEED + 2)
+    x, y = x.to(DEVICE), y.to(DEVICE)
+    model = ssd_model(DEVICE)
+    opt = LocalOptimizer(model, DataSet.array([]),
+                         nn.MultiBoxCriterion(SSD_CLASSES), device=DEVICE) \
+        .set_optim_method(Adam(learningrate=1e-3))
+    opt.train_step(x, y)                       # the capture
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        opt.train_step(x, y)
+    sync()
+    ms = (time.perf_counter() - t0) / 3 * 1e3
+    log(f"  SSD512 fp32 step at batch {SSD_BATCH}: {ms:.2f} ms, "
+        f"{SSD_BATCH / ms * 1e3:.1f} images/s [{card}]")
+    opt._step_program = None
+    return ms
+
+
+def margin_mismatches(got, want, thr) -> int:
+    """Rows of ``got`` ((..., 6) detections) that differ from ``want``, each
+    explained by a near-tie (two scores within NMS_MARGINS[1], or an IoU
+    with a detection of its class within NMS_MARGINS[0] of ``thr``); raises
+    on a difference that is not. Returns how many were left out."""
+    from bigdl_tpu_torch.nn import pairwise_iou
+    got = np.asarray(got, np.float64).reshape(-1, got.shape[-2], 6)
+    want = np.asarray(want, np.float64).reshape(got.shape)
+    left_out = 0
+    for g, w in zip(got, want):
+        diff = ~np.all(np.isclose(g, w, rtol=1e-5, atol=1e-5), axis=1)
+        for i in np.nonzero(diff)[0]:
+            others = np.delete(w, i, axis=0)
+            tie = np.any(np.abs(others[:, 1] - w[i, 1]) < NMS_MARGINS[1]) \
+                or np.any(np.abs(w[:, 1] - g[i, 1]) < NMS_MARGINS[1])
+            same = others[others[:, 0] == w[i, 0]]
+            near = same.size and bool((pairwise_iou(
+                torch.from_numpy(w[i:i + 1, 2:]),
+                torch.from_numpy(same[:, 2:])) - thr).abs().min()
+                < NMS_MARGINS[0])
+            if not (tie or near):
+                raise CheckFailed(f"detection {i} differs from the CPU's "
+                                  f"with no near-tie: {g[i]} vs {w[i]}")
+            left_out += 1
+    return left_out
+
+
+def ssd_serving(model, card) -> dict:
+    """The trained SSD behind ``detector`` at the paper's NMS settings on 32
+    held-out images (640 NMS rows of K = 400, one launch): the head's
+    detections on the card against the CPU's on the same head inputs, and
+    ms a batch."""
+    from bigdl_tpu_torch import nn
+    from bigdl_tpu_torch.models.ssd import detector
+    from bigdl_tpu_torch.utils.table import T
+    x, _ = ssd_batch(SSD_SERVE, DET_SEED + 3)
+    x = x.to(DEVICE)
+    serve = detector(model, SSD_CLASSES, keep_topk=200, conf_thresh=0.01)
+    dets = serve(x)
+    head = nn.DetectionOutputSSD(SSD_CLASSES, keep_topk=200, conf_thresh=0.01)
+    with torch.no_grad():
+        wire = model(x)
+        card_dets = head(wire).cpu()
+        cpu_dets = head(T(*(t.cpu() for t in wire.values())))
+    if not torch.equal(card_dets, dets.cpu()):
+        raise CheckFailed("detector() and the head on the same forward "
+                          "disagree on the card")
+    left_out = margin_mismatches(card_dets.numpy(), cpu_dets.numpy(), 0.45)
+    with nms_unchecked():
+        ms = time_ms(lambda: serve(x), 2, 3)[0]
+        head_ms = time_ms(lambda: head(wire), 2, 3)[0]
+    valid = int((card_dets[..., 0] >= 0).sum())
+    log(f"  SSD512 serving: {SSD_SERVE} images, {valid} detections, equal "
+        f"to the CPU's but {left_out} near-tie rows; {ms:.2f} ms a batch, "
+        f"of which the head (decode, sorts, NMS) {head_ms:.2f} ms [{card}]")
+    return {"images": SSD_SERVE, "detections": valid,
+            "left_out_near_ties": left_out, "ms_per_batch": ms,
+            "head_ms": head_ms, "nms_rows": SSD_SERVE * (SSD_CLASSES - 1),
+            "nms_k": 400}
+
+
+def ssd_main_run(card) -> dict:
+    from bigdl_tpu_torch.models.ssd import train as ssd_train
+    argv = [] if DEVICE != "cpu" else ["--device", "cpu", "--max-epoch", "2",
+                                       "--n-train", "32"]
+    t0 = time.perf_counter()
+    iou = ssd_train.main(argv)
+    wall = time.perf_counter() - t0
+    log(f"  SSD main ({' '.join(argv) or 'defaults'}): held-out IoU "
+        f"{iou:.3f} in {wall:.1f} s [{card}]")
+    if DEVICE != "cpu" and not iou > 0.3:
+        raise CheckFailed(f"the SSD main's held-out IoU {iou} <= 0.3")
+    return {"iou": iou, "wall_s": wall}
+
+
+def maskrcnn_run(kernels, Program, card) -> dict:
+    """Mask R-CNN at Detectron's R-50-FPN test settings on one seeded image,
+    fp32: eager and as a captured program (replay bitwise eager), its
+    detections against the CPU's under the margin rule, 4 NMS launches an
+    image."""
+    from bigdl_tpu_torch.models.maskrcnn import MaskRCNN
+
+    def build(device, gain=1.0):
+        m = MaskRCNN(MRCNN_CLASSES, **MRCNN, generator=torch.Generator()
+                     .manual_seed(DET_SEED + 5), device=device).evaluate()
+        with torch.no_grad():
+            m[2][2].weight.mul_(gain)
+            m[2][2].bias.mul_(gain)
+        return m
+
+    h, w = MRCNN["image_size"]
+    img = torch.randn(1, 3, h, w, generator=torch.Generator().manual_seed(
+        DET_SEED + 6))
+    # random class logits barely move off uniform (1/81 < the 0.05 score
+    # threshold): scale the class layer by the least gain at which a tenth
+    # of the ROIs have a class above 0.1, the same gain on the card and
+    # the CPU
+    model = build(DEVICE)
+    cls = model[2][2]
+    feats = captured_input(model, cls, img.to(DEVICE))
+    with torch.no_grad():
+        logits = torch.nn.functional.linear(feats, cls.weight, cls.bias)
+        gain = next((g for g in MRCNN_GAINS if int(
+            (torch.softmax(g * logits, -1)[:, 1:] >= 0.1).sum())
+            >= feats.shape[0] // 10), MRCNN_GAINS[-1])
+        cls.weight.mul_(gain)
+        cls.bias.mul_(gain)
+
+    def fn(x):
+        with torch.no_grad():
+            return tuple(model(x).values())
+
+    x = img.to(DEVICE)
+    fn(x)
+    sync()
+    before = kernels.launch_counts()["nms_sweep"]
+    eager = fn(x)
+    n_nms = kernels.launch_counts()["nms_sweep"] - before
+    with nms_unchecked():
+        eager_ms = time_ms(lambda: fn(x), 2, 3)[0] \
+            if DEVICE != "cpu" else None
+    out = {"nms_launches_an_image": n_nms, "eager_ms": eager_ms}
+    if DEVICE != "cpu":
+        prog = Program(("maskrcnn",), fn, (x.clone(),), DEVICE)
+        prog()
+        replay = [t.clone() for t in prog()]
+        out["replay_bitwise"] = all(torch.equal(a, b)
+                                    for a, b in zip(replay, eager))
+        out["replay_ms"] = time_ms(prog, 2, 3)[0]
+        if not (prog.captured and out["replay_bitwise"]):
+            raise CheckFailed("the Mask R-CNN replay differs from its eager "
+                              "run")
+        if n_nms != 4:
+            raise CheckFailed(f"Mask R-CNN launched the NMS kernel {n_nms} "
+                              f"times an image, not 4")
+        del prog
+    ref = build("cpu", gain)
+    with torch.no_grad():
+        cpu = tuple(ref(img).values())
+    dets, valid = eager[0].cpu(), eager[1].cpu()
+    out["detections"] = int(valid.sum())
+    out["left_out_near_ties"] = margin_mismatches(
+        dets.numpy()[None], cpu[0].numpy()[None], 0.5)
+    out["class_logit_gain"] = gain
+    log(f"  Mask R-CNN {MRCNN}: {out['detections']} detections, equal to "
+        f"the CPU's but {out['left_out_near_ties']} near-tie rows; eager "
+        f"{eager_ms} ms, replay {out.get('replay_ms')} ms, bitwise "
+        f"{out.get('replay_bitwise')}; {n_nms} NMS launches [{card}]")
+    if out["detections"] == 0:
+        raise CheckFailed("Mask R-CNN kept no detection: nothing compared")
+    return out
+
+
+_NMS_CHECKS = {"paused": False}
+
+
+@contextlib.contextmanager
+def nms_unchecked():
+    """Time the path without its plain-version checks."""
+    _NMS_CHECKS["paused"] = True
+    try:
+        yield
+    finally:
+        _NMS_CHECKS["paused"] = False
+
+
+@contextlib.contextmanager
+def nms_checked():
+    """Hold every eager launch of the NMS kernel against its plain version
+    on the same inputs (keep bits equal), and keep the last inputs of each
+    shape for the kernel's timing; launches inside a capture are left to
+    the replay checks."""
+    import importlib
+    mod = importlib.import_module("bigdl_tpu_torch.kernels.nms")
+    launch = mod.nms_sweep_cuda
+    stats = {"checked": 0, "rows": 0, "inputs": {}}
+
+    def checked(iou, alive, thr):
+        keep = launch(iou, alive, thr)
+        if not (_NMS_CHECKS["paused"]
+                or torch.cuda.is_current_stream_capturing()):
+            want = mod.nms_sweep_reference(iou, alive, thr)
+            if not torch.equal(keep, want):
+                raise CheckFailed(f"the NMS kernel's keep bits differ from "
+                                  f"the plain version's at "
+                                  f"{tuple(iou.shape)}")
+            stats["checked"] += 1
+            stats["rows"] += iou.shape[0]
+            stats["inputs"][tuple(iou.shape[:2])] = (iou.clone(),
+                                                     alive.clone(), thr)
+        return keep
+
+    mod.nms_sweep_cuda = checked
+    try:
+        yield stats
+    finally:
+        mod.nms_sweep_cuda = launch
+
+
+def nms_rows(kernels, inputs: dict, card) -> list:
+    """The NMS kernel at the path's shapes, on the path's own inputs: its
+    time beside the plain version's and its bytes bound (the alive flags
+    read, the keep flags written, and the IoU entries the sweep reads: row
+    j past the diagonal for each kept j). No PyTorch call computes the
+    greedy sweep (``library_ms`` null)."""
+    rows = []
+    for (r, k), (iou, alive, thr) in sorted(inputs.items()):
+        keep = kernels.nms_sweep_cuda(iou, alive, thr)
+        want = kernels.nms_sweep_reference(iou, alive, thr)
+        j = torch.arange(k, device=keep.device)
+        read = float(((k - 1 - j) * keep).sum()) * 4
+        b, by = bound_ms(2 * r * k + read, 0.0, "float32")
+        ms = time_ms(lambda: kernels.nms_sweep_cuda(iou, alive, thr), 5, 3)[0]
+        plain = time_ms(lambda: kernels.nms_sweep_reference(iou, alive, thr),
+                        1, 3)[0]
+        row = {"rows": r, "k": k, "ms": ms, "plain_ms": plain,
+               "bound_ms": b, "bound_by": by, "library_ms": None,
+               "max_abs_err": float((keep != want).sum()),
+               "kept": int(keep.sum())}
+        log(f"  nms_sweep ({r}, {k}): {ms:.4f} ms, plain {plain:.3f} ms, "
+            f"bound {b:.5f} ms ({by}), {row['kept']} kept [{card}]")
+        rows.append(row)
+    return rows
+
+
+def detection_path(kernels, card, Program) -> dict:
+    """Phase 19: the streamed SSD512 training, its serving, the SSD main and
+    Mask R-CNN. Returns the numbers, the path's launches and the NMS
+    kernel's rows (timed after the launches are read)."""
+    import shutil
+    import tempfile
+    t0 = time.perf_counter()
+    root = Path(tempfile.mkdtemp(prefix="bigdl-phase19-"))
+    out = {}
+    try:
+        with nms_checked() as checked:
+            out["ssd"], model = ssd_training(kernels, card, root)
+            out["ssd"]["serving"] = ssd_serving(model, card)
+            del model
+            if DEVICE != "cpu":
+                release()
+            out["ssd_main"] = ssd_main_run(card)
+            out["maskrcnn"] = maskrcnn_run(kernels, Program, card)
+            out["launches"] = kernels.launch_counts()
+        out["nms_checked"] = {k: checked[k] for k in ("checked", "rows")}
+        log(f"  every eager NMS launch held against the plain version: "
+            f"{out['nms_checked']}; launches {out['launches']}")
+        if DEVICE != "cpu" and out["launches"]["nms_sweep"] == 0:
+            raise CheckFailed("phase 19 never launched the NMS kernel")
+        lm = {k: n for k, n in out["launches"].items() if k != "nms_sweep"}
+        if any(lm.values()):
+            raise CheckFailed(f"phase 19 launched the LM kernels {lm}")
+        out["nms_rows"] = nms_rows(kernels, checked["inputs"], card) \
+            if DEVICE != "cpu" else []
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    if DEVICE != "cpu":
+        release()
+    out["wall_s"] = time.perf_counter() - t0
+    log(f"  phase 19 took {out['wall_s']:.1f} s [{card}]")
+    return out
+
+
+def nms_row(detection: dict, paths: dict, src: str) -> dict:
+    """The NMS kernel's row of the kernel table: the SSD serving shape
+    (640 rows of K = 400) as its main instance, every path shape beside."""
+    rows = detection["nms_rows"]
+    main_row = next(r for r in rows if r["k"] == 400)
+    return {"name": "nms_sweep", "route": "cuda", "source": src + "nms.cu",
+            "replaces": "none: the greedy pass of bigdl_tpu/nn/detection.py:"
+                        "56 (nms_mask's lax.fori_loop), no Pallas kernel",
+            "launches": detection["launches"]["nms_sweep"],
+            "shape": [main_row["rows"], main_row["k"], main_row["k"]],
+            "dtype": "float32", "max_abs_err": main_row["max_abs_err"],
+            "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
+            "bound_ms": main_row["bound_ms"],
+            "bound_by": main_row["bound_by"], "library_ms": None,
+            "shapes": rows, "paths": paths,
+            "checked_launches": detection["nms_checked"],
+            "design": "one CTA a row, the keep flags in shared memory; K "
+                      "sequential steps, each a block-wide barrier when its "
+                      "candidate is kept, reading row j of the IoU matrix "
+                      "past the diagonal"}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on the "
@@ -7682,6 +8465,18 @@ def main() -> int:
         recsys = recsys_path(card)
         recsys["launches"] = recsys_launches(kernels.launch_counts())
         print(json.dumps({"recsys": recsys}), flush=True)
+        return 0
+    if "--quantized-only" in sys.argv:
+        log("phase 18 only")
+        kernels.reset_launch_counts()
+        quantized = quantized_path(TransformerLM, kernels, card)
+        print(json.dumps({"quantized": quantized}), flush=True)
+        return 0
+    if "--detection-only" in sys.argv:
+        log("phase 19 only")
+        kernels.reset_launch_counts()
+        detection = detection_path(kernels, card, Program)
+        print(json.dumps({"detection": detection}), flush=True)
         return 0
     if "--serving-only" in sys.argv:
         log("phase 14 only")
@@ -7853,7 +8648,7 @@ def main() -> int:
     robust_counts = kernels.launch_counts()    # ... to here
     log(f"  launches: {robust_counts}")
     for name, n in robust_counts.items():
-        if n == 0:
+        if n == 0 and name != "nms_sweep":
             raise CheckFailed(f"phase 11 never launched {name}")
     robust["launches"] = robust_counts
 
@@ -7902,6 +8697,18 @@ def main() -> int:
     kernels.reset_launch_counts()          # the phase's path: from here ...
     recsys = recsys_path(card)
     recsys["launches"] = recsys_launches(kernels.launch_counts())  # to here
+
+    log("phase 18: int8 inference (ResNet-50 at batch 256, bf16 against "
+        "dynamic, weight_only and static) and the full-width LM as int8 "
+        "tenants")
+    kernels.reset_launch_counts()          # the phase's path: from here ...
+    quantized = quantized_path(TransformerLM, kernels, card)  # ... to its
+    # serving rounds (the counts read inside, before the references)
+
+    log("phase 19: the streamed SSD512 training, its serving, the SSD main "
+        "and Mask R-CNN")
+    kernels.reset_launch_counts()          # the phase's path: from here ...
+    detection = detection_path(kernels, card, Program)   # ... to its end
 
     log("phase 10: the kernel table")
 
@@ -7966,7 +8773,9 @@ def main() -> int:
                  "finetune_lora_serving": ft_launches["lora_serving"][k],
                  "seq2seq": ft_launches["seq2seq"][k],
                  "tail": tail["launches"][k],
-                 "recsys": recsys["launches"][k]}
+                 "recsys": recsys["launches"][k],
+                 "quantized": quantized["launches"][k],
+                 "detection": detection["launches"][k]}
              for k in launches}
 
     def s2s_flash(rows, name):
@@ -8120,6 +8929,7 @@ def main() -> int:
          "seq2seq": s2s_flash(bwd_rows, "flash_attention_bwd_dkv"),
          "design": design_of("flash_bwd_dkv_kernel", bwd["plans"][1],
                              bwd_summary)},
+        nms_row(detection, paths["nms_sweep"], src),
     ], "serving": {"programs": programs, "first_round": cold,
                    "second_round": warm,
                    "decode_step_eager": eager_step,
@@ -8154,7 +8964,10 @@ def main() -> int:
         "llama": dict(llama["summary"], kernel_ms_per_step=llama_kernel_ms),
         "vision": vision, "serving_extras": extras, "robustness": robust,
         "feed": feed, "text": text, "serving_stack": stack,
-        "finetune": finetune, "tail": tail, "recsys": recsys}
+        "finetune": finetune, "tail": tail, "recsys": recsys,
+        "quantized": quantized,
+        "detection": {k: v for k, v in detection.items()
+                      if k != "nms_rows"}}
     print(json.dumps(table), flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"ok": True, "device": {

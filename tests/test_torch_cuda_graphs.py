@@ -9,7 +9,9 @@ the serving engine's graphs replayed, not captured again, across a crash
 and a weight swap; a LoRA step and the seq2seq Transformer's step (``-k
 "lora or seq2seq"``), and an adapted engine's swap of adapter leaves;
 NeuralCF's sparse embedding step and the deduplicated lookup with no host
-sync (``-k recsys``).
+sync (``-k recsys``); the SSD's training step, Mask R-CNN's forward with no
+host sync, and an int8 LM's serving programs in each mode (``-k "detection
+or quantized"``).
 
 Marked ``gpu``: they skip where there is no CUDA device (a CUDA graph has
 no CPU form). This file imports neither JAX nor the JAX package:
@@ -555,7 +557,7 @@ def test_lora_step_replays_equal_eager(cuda, dtype):
     for (name, p), q in zip(lm.named_parameters(), ref.parameters()):
         assert torch.equal(p, q), name
         assert torch.equal(p, base[name]) == (scales[name] == 0.0), name
-    assert all(n > 0 for n in counts.values()), counts
+    assert all(n > 0 for k, n in counts.items() if k != "nms_sweep"), counts
 
 
 def _seq2seq(gen_seed=0):
@@ -713,3 +715,100 @@ def test_recsys_dedup_and_sharded_lookup_capture_without_host_sync(cuda):
     uids, inv = got[0], got[1]
     assert torch.equal(uids[inv], new.reshape(-1).long() - 1)
     assert eager[0].shape == (512,)
+
+
+def _ssd_batches(n_batches=3, batch=4, img=32):
+    from bigdl_tpu_torch.models.ssd.train import make_dataset
+    rng = np.random.RandomState(4)
+    out = []
+    for _ in range(n_batches):
+        s = make_dataset(batch, img, rng)
+        out.append((torch.from_numpy(np.stack([x.feature[0] for x in s]))
+                    .cuda(),
+                    torch.from_numpy(np.stack([x.label[0] for x in s]))
+                    .cuda()))
+    return out
+
+
+def _ssd():
+    from bigdl_tpu_torch.models.ssd import SSD
+    return SSD(3, img_size=32, base_channels=(8, 16, 16),
+               aspect_ratios=(2.0,), generator=torch.Generator().manual_seed(1),
+               device="cuda")
+
+
+def test_detection_ssd_step_replays_equal_eager(cuda):
+    """The SSD's training step (the MultiBox matching, the mining's stable
+    sort and the loss with its gradient) as one captured program, replayed
+    against the same steps run eagerly: losses and parameters bit for
+    bit (cuDNN deterministic)."""
+    from bigdl_tpu_torch.nn import MultiBoxCriterion
+    batches = _ssd_batches()
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    model, ref = _ssd(), _ssd()
+    crit = MultiBoxCriterion(n_classes=3)
+    got = _replayed(model, crit, lambda: Adam(learningrate=1e-3), batches)
+    want = _eager(ref, crit, lambda: Adam(learningrate=1e-3), batches)
+    assert got == want and all(np.isfinite(got))
+    for (name, p), q in zip(model.named_parameters(), ref.parameters()):
+        assert torch.equal(p, q), name
+
+
+def test_detection_maskrcnn_forward_captures_and_replays_bitwise(cuda):
+    """Mask R-CNN's whole forward (the RPN's three NMS launches, the class
+    rows' one launch, the poolers) runs with no host sync and captures as
+    one program whose replay on a new image equals its eager run, with
+    four NMS launches an image."""
+    from bigdl_tpu_torch.models.maskrcnn import MaskRCNN
+    model = MaskRCNN(5, image_size=(64, 64), out_channels=8,
+                     post_nms_topn=30, max_per_image=10,
+                     generator=torch.Generator().manual_seed(3),
+                     device="cuda").evaluate()
+
+    def fn(x):
+        with torch.no_grad():
+            return tuple(model(x).values())
+
+    x = torch.randn(1, 3, 64, 64, device="cuda")
+    fn(x)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        before = kernels.launch_counts()["nms_sweep"]
+        fn(x)
+        assert kernels.launch_counts()["nms_sweep"] == before + 4
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    prog = Program(("maskrcnn",), fn, (x.clone(),), "cuda")
+    prog()
+    new = torch.randn(1, 3, 64, 64, device="cuda")
+    prog.inputs[0].copy_(new)
+    before = kernels.launch_counts()["nms_sweep"]
+    got = [t.clone() for t in prog()]
+    assert prog.captured and kernels.launch_counts()["nms_sweep"] == before + 4
+    for g, w in zip(got, fn(new)):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("mode", ["weight_only", "static", "dynamic"])
+def test_quantized_lm_decode_programs_capture(cuda, mode):
+    """A ``quantize(mode)`` LM behind the engine: its prefill and decode
+    programs capture (the int8 products through ``torch._int_mm``) and
+    serve the model's own greedy tokens (one request at a time: the
+    dynamic mode's scale spans the whole slot grid)."""
+    from bigdl_tpu_torch.nn import calibrate
+    lm = _lm().evaluate()
+    q = lm.quantize(mode).evaluate()
+    r = np.random.default_rng(1)
+    p = r.integers(0, VOCAB, 12)
+    if mode == "static":
+        calibrate(q, [torch.from_numpy(p[None]).cuda()])
+    with ServingEngine(q, MAX_LEN, slots=2) as eng:
+        res = eng.submit(p, 6).result(120)
+        stats = eng.stats()
+    want = greedy_generate(q, p[None], 6)[0].cpu().numpy()
+    np.testing.assert_array_equal(res.tokens, want)
+    progs = eng._programs._programs
+    assert stats["compiled_programs"] >= 2
+    assert all(pr.captured for pr in progs.values())

@@ -676,3 +676,51 @@ def test_flat_update_on_the_card_is_bitwise_the_per_leaf_update(cuda,
     assert losses == want_losses
     for p, q in zip(got, want):
         assert torch.equal(p, q)
+
+
+def _nms_inputs(g, rows, k, ties=False, dead_rows=()):
+    """Score-sorted IoU matrices of random boxes, as ``nn.nms_mask`` builds
+    them, and their alive flags (some candidates dead, whole rows dead)."""
+    from bigdl_tpu_torch.nn.detection import pairwise_iou
+    xy = torch.rand(rows, k, 2, generator=g, device="cuda") * 0.8
+    wh = 0.02 + 0.2 * torch.rand(rows, k, 2, generator=g, device="cuda")
+    boxes = torch.cat([xy, xy + wh], -1)
+    scores = torch.rand(rows, k, generator=g, device="cuda")
+    if ties:
+        scores = torch.round(scores * 8) / 8
+    alive = torch.rand(rows, k, generator=g, device="cuda") > 0.2
+    for r in dead_rows:
+        alive[r] = False
+    order = torch.sort(-scores, dim=-1, stable=True).indices
+    sb = boxes.gather(1, order[..., None].expand(rows, k, 4))
+    return pairwise_iou(sb, sb).contiguous(), alive.gather(1, order)
+
+
+@pytest.mark.parametrize("rows,k", [(640, 400), (80, 999), (1, 1333),
+                                    (3, 1)])
+@pytest.mark.parametrize("ties", [False, True])
+def test_nms_sweep_matches_plain(cuda, rows, k, ties):
+    g = torch.Generator(device=cuda).manual_seed(rows * 7 + k)
+    dead = (0,) if rows > 1 else ()
+    iou, alive = _nms_inputs(g, rows, k, ties, dead_rows=dead)
+    before = kernels.launch_counts()["nms_sweep"]
+    got = kernels.nms_sweep(iou, alive, 0.45)
+    assert kernels.launch_counts()["nms_sweep"] == before + 1
+    want = kernels.nms_sweep_reference(iou, alive, 0.45)
+    assert got.dtype == torch.bool and torch.equal(got, want)
+    assert not dead or not got[0].any()
+    if k > 1:
+        assert 0 < int(got.sum()) < int(alive.sum())
+
+
+def test_nms_through_nms_mask_on_the_card(cuda):
+    from bigdl_tpu_torch import nn
+    g = torch.Generator(device=cuda).manual_seed(5)
+    xy = torch.rand(4, 3, 50, 2, generator=g, device="cuda")
+    boxes = torch.cat([xy, xy + 0.2], -1)
+    scores = torch.rand(4, 3, 50, generator=g, device="cuda")
+    before = kernels.launch_counts()["nms_sweep"]
+    order, keep = nn.nms_mask(boxes, scores, 0.5)
+    assert kernels.launch_counts()["nms_sweep"] == before + 1
+    o_cpu, k_cpu = nn.nms_mask(boxes.cpu(), scores.cpu(), 0.5)
+    assert torch.equal(order.cpu(), o_cpu) and torch.equal(keep.cpu(), k_cpu)

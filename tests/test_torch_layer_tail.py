@@ -719,7 +719,8 @@ def test_cosine_similarity_matches_jax():
 # ---------------------------------------------------------- the name diff
 TAIL_FILES = ("activation", "criterion", "misc", "containers",
               "normalization", "shape_ops", "convolution", "tf_utils",
-              "volumetric", "cosine", "initialization", "pooling")
+              "volumetric", "cosine", "initialization", "pooling",
+              "quantized", "detection", "multibox", "roi", "maskrcnn")
 
 
 def _defined(path) -> set:

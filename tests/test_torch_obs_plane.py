@@ -252,8 +252,15 @@ def test_access_log_records_every_outcome(tlm, tmp_path, monkeypatch):
         ("ok", "decode"), ("timeout", "queue")]
     assert lines[0]["trace_id"] == r.trace_id
     assert lines[0]["output_tokens"] == 3 and lines[0]["flops"] is None
-    with pytest.raises(NotImplementedError, match="A.5"):
-        access_log.to_bdlrec(str(tmp_path), str(tmp_path / "out"))
+    # the records re-sharded into .bdlrec files come back as logged
+    from bigdl_tpu_torch.dataset.streaming import StreamingDataSet
+    paths, n = access_log.to_bdlrec(str(tmp_path), str(tmp_path / "out"),
+                                    shards=2)
+    assert n == 2 and len(paths) == 2
+    back = StreamingDataSet(paths, decoder=access_log.access_record_decoder,
+                            shuffle_window=0)
+    assert sorted(x["trace_id"] for x in back.data(True)) == sorted(
+        x["trace_id"] for x in lines)
 
 
 def test_access_log_rotates_and_never_raises(tmp_path):
