@@ -21,7 +21,7 @@ from bigdl_tpu_torch.dataset.text import (
 )
 from bigdl_tpu_torch.dataset.transformer import (
     ChainedTransformer, FusedTransformer, Identity, MapTransformer,
-    Transformer, fuse_chain,
+    Transformer, flatten_chain, fuse_chain, sample_index_scope,
 )
 
 __all__ = [
@@ -32,7 +32,7 @@ __all__ = [
     "Sample", "SampleCache", "SampleToMiniBatch", "SentenceTokenizer",
     "StreamingDataSet", "TextToLabeledSentence", "TransformedDataSet",
     "Transformer", "data_workers", "encode_image_record", "feed_stats",
-    "fuse_chain", "image_record_decoder", "load_ptb", "plan_stages",
+    "flatten_chain", "fuse_chain", "sample_index_scope", "image_record_decoder", "load_ptb", "plan_stages",
     "ptb_windows", "stage_deltas_ms", "synthetic_ptb", "write_image_records",
     "write_records",
 ]

@@ -1,15 +1,19 @@
-"""CIFAR-10, the synthetic set.
+"""CIFAR-10: the file readers and the synthetic set.
 
-Counterpart of the synthetic path of ``bigdl_tpu/dataset/cifar.py``:
-``synthetic_cifar10`` (``:25``; smooth class prototypes plus noise, numpy
-only, the same seeds, so both packages see the same images), ``normalize``
-(``:93``), ``to_samples`` (``:99``) and ``train_val_sets`` (``:103``)
-without a folder. Reading the CIFAR-10 files (a ``folder``) is not ported:
-no dataset is in the repo.
+Counterpart of ``bigdl_tpu/dataset/cifar.py``: with a ``folder`` the
+python-pickle batches (``data_batch_1..5``, ``test_batch``, also under
+``cifar-10-batches-py/``) then the binary ones (``data_batch_*.bin``,
+``test_batch.bin``: a label byte and 3072 pixel bytes a record, also under
+``cifar-10-batches-bin/``) are read into JAX's arrays, and a folder without
+them is an error; without one, ``synthetic_cifar10`` (smooth class
+prototypes plus noise, numpy only, JAX's seeds). ``normalize``,
+``to_samples`` and ``train_val_sets`` are JAX's.
 """
 
 from __future__ import annotations
 
+import os
+import pickle
 from typing import Optional
 
 import numpy as np
@@ -36,13 +40,58 @@ def synthetic_cifar10(n: int, seed: int = 0):
     return np.clip(imgs, 0, 1).astype(np.float32), labels.astype(np.int32)
 
 
+def _load_python_batches(folder: str, split: str):
+    names = ([f"data_batch_{i}" for i in range(1, 6)] if split == "train"
+             else ["test_batch"])
+    root = folder
+    sub = os.path.join(folder, "cifar-10-batches-py")
+    if os.path.isdir(sub):
+        root = sub
+    xs, ys = [], []
+    for name in names:
+        path = os.path.join(root, name)
+        if not os.path.exists(path):
+            return None
+        with open(path, "rb") as f:
+            d = pickle.load(f, encoding="bytes")
+        xs.append(np.asarray(d[b"data"], np.uint8).reshape(-1, 3, 32, 32))
+        ys.append(np.asarray(d[b"labels"], np.int64))
+    return (np.concatenate(xs) / np.float32(255.0),
+            np.concatenate(ys).astype(np.int32))
+
+
+def _load_binary_batches(folder: str, split: str):
+    names = ([f"data_batch_{i}.bin" for i in range(1, 6)] if split == "train"
+             else ["test_batch.bin"])
+    root = folder
+    sub = os.path.join(folder, "cifar-10-batches-bin")
+    if os.path.isdir(sub):
+        root = sub
+    xs, ys = [], []
+    for name in names:
+        path = os.path.join(root, name)
+        if not os.path.exists(path):
+            return None
+        raw = np.fromfile(path, np.uint8).reshape(-1, 3073)
+        ys.append(raw[:, 0].astype(np.int64))
+        xs.append(raw[:, 1:].reshape(-1, 3, 32, 32))
+    return (np.concatenate(xs) / np.float32(255.0),
+            np.concatenate(ys).astype(np.int32))
+
+
 def load_cifar10(folder: Optional[str] = None, split: str = "train",
                  synthetic_size: Optional[int] = None):
-    """The synthetic split (train seed 0, test seed 1)."""
+    """``(images float32 NCHW in [0, 1], labels int32)``: the files under
+    ``folder`` (python layout, then binary; none is an error), else the
+    synthetic split (train seed 0, test seed 1)."""
     if folder:
-        raise NotImplementedError(
-            "reading CIFAR-10 files is not ported yet: ROADMAP Queue A.4 "
-            "(dataset/image*.py, the folder-backed image pipeline)")
+        loaded = (_load_python_batches(folder, split)
+                  or _load_binary_batches(folder, split))
+        if loaded is None:
+            raise FileNotFoundError(
+                f"no CIFAR-10 batches (python or binary layout) under "
+                f"{folder!r}")
+        return loaded
     n = synthetic_size or (2048 if split == "train" else 512)
     return synthetic_cifar10(n, seed=0 if split == "train" else 1)
 

@@ -7,10 +7,11 @@ current order, as the JAX package does, so one seed gives the same epoch
 orders in both. ``TransformedDataSet.data`` runs its transformer chain
 serially, or through the parallel transform engine
 (``dataset/parallel.py``) when ``BIGDL_DATA_WORKERS`` asks for workers.
-``DataSet.record_files`` and ``DataSet.stream_shards`` are JAX's on-disk
-record sources (``dataset/recordio.py``, ``dataset/streaming.py``). The
-distributed marker and the image-folder source are not ported (ROADMAP
-Queue A.6 and A.4.2).
+``DataSet.image_folder``, ``DataSet.record_files`` and
+``DataSet.stream_shards`` are JAX's on-disk sources
+(``dataset/image_folder.py``, ``dataset/recordio.py``,
+``dataset/streaming.py``), images decoded by the port's codec. The
+distributed marker is not ported (ROADMAP Queue A.6).
 """
 
 from __future__ import annotations
@@ -114,11 +115,21 @@ class DataSet:
         return LocalDataSet(list(data))
 
     @staticmethod
+    def image_folder(root: str, num_workers: int = 8, one_based: bool = False,
+                     distributed: bool = False) -> AbstractDataSet:
+        """On-disk ``root/<class>/<image>`` source streaming ImageFeatures
+        (``dataset/image_folder.py``): compose vision transformers and
+        ``SampleToMiniBatch``."""
+        from bigdl_tpu_torch.dataset.image_folder import ImageFolderDataSet
+        return ImageFolderDataSet(root, num_workers=num_workers,
+                                  one_based=one_based, distributed=distributed)
+
+    @staticmethod
     def record_files(paths, decoder=None, num_workers: int = 8,
                      distributed: bool = False) -> AbstractDataSet:
         """Packed ``.bdlrec`` shards (``dataset/recordio.py``), decoded by
-        ``decoder`` (payload bytes → record). JAX's default, the image
-        decoder, waits for ROADMAP Queue A.4.2 and raises."""
+        ``decoder`` (payload bytes → record); JAX's default, the image
+        decoder (ImageFeature records)."""
         from bigdl_tpu_torch.dataset.recordio import RecordFileDataSet
         return RecordFileDataSet(paths, decoder, num_workers=num_workers,
                                  distributed=distributed)

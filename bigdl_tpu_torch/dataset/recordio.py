@@ -10,10 +10,12 @@ each record's CRC on read and decodes through a caller's ``decoder(bytes)``
 on a thread pool with a bounded in-order window, through the
 decoded-sample cache when enabled (``dataset/sample_cache.py``).
 
-JAX's image records decode with PIL through ``transform/vision``, which
-the port does not have yet: :func:`image_record_decoder` and
-:func:`write_image_records` raise naming ROADMAP Queue A.4.2, and a dataset
-needs a decoder of its own. ``distributed=True`` raises naming A.6.
+Image records (:func:`encode_image_record`, :func:`write_image_records`)
+hold an i32 label and the file's bytes; :func:`image_record_decoder`, the
+default decoder of both record sources as in JAX, decodes them with the
+port's codec (``transform/vision/codec.py``, PIL's pixels) into
+``ImageFeature`` records. ``distributed=True`` raises naming ROADMAP
+Queue A.6.
 """
 
 from __future__ import annotations
@@ -38,10 +40,6 @@ _MAGIC = b"BDLR"
 _VERSION = 1
 _HEADER = struct.Struct("<4sI")
 _REC = struct.Struct("<II")
-
-_IMAGE_DECODER = ("the image record decoder needs PIL and transform/vision "
-                  "(ROADMAP Queue A.4.2); pass a decoder of your own")
-
 
 class RecordIOError(Exception):
     pass
@@ -136,9 +134,7 @@ class _RecordSource(AbstractDataSet):
         self.paths = [paths] if isinstance(paths, str) else list(paths)
         if not self.paths:
             raise ValueError("no record files given")
-        if decoder is None:
-            raise NotImplementedError(_IMAGE_DECODER)
-        self.decoder = decoder
+        self.decoder = image_record_decoder if decoder is None else decoder
         self.num_workers = max(int(num_workers), 1)
         self.distributed = distributed
         self._cache_enabled = cache
@@ -265,15 +261,32 @@ def encode_image_record(label: int, image_bytes: bytes) -> bytes:
 
 
 def image_record_decoder(payload: bytes):
-    """JAX's PIL decoder of image records: ROADMAP Queue A.4.2."""
-    raise NotImplementedError(_IMAGE_DECODER)
+    """Record payload → ImageFeature (HWC uint8 RGB + int label), the record
+    type the image-folder source yields; decoded by the port's codec."""
+    from bigdl_tpu_torch.transform.vision.codec import decode
+    from bigdl_tpu_torch.transform.vision.image import ImageFeature
+
+    (label,) = struct.unpack("<i", payload[:4])
+    return ImageFeature(decode(payload[4:]), label)
 
 
 def write_image_records(image_folder_root: str, out_path: str,
-                        shards: int = 1, one_based: bool = False):
-    """JAX's ImageFolder packer: it reads through the image-folder source,
-    ROADMAP Queue A.4.2."""
-    raise NotImplementedError(
-        "write_image_records reads an ImageFolder tree through the image "
-        "source and transform/vision (ROADMAP Queue A.4.2); write records "
-        "with RecordWriter and encode_image_record")
+                        shards: int = 1, one_based: bool = False) -> list:
+    """Pack an ImageFolder tree (class subdirs of images) into ``shards``
+    ``.bdlrec`` files, the files' bytes as they are, in JAX's order and
+    layout. Returns the shard paths."""
+    from bigdl_tpu_torch.dataset.image_folder import ImageFolderDataSet
+
+    src = ImageFolderDataSet(image_folder_root, one_based=one_based)
+    paths = [out_path if shards == 1 else f"{out_path}.{s:05d}"
+             for s in range(shards)]
+    writers = [RecordWriter(p) for p in paths]
+    try:
+        for n, (path, label) in enumerate(src._items):
+            with open(path, "rb") as f:
+                writers[n % shards].write(encode_image_record(label, f.read()))
+    finally:
+        for w in writers:
+            w.close()
+        src.close()
+    return paths

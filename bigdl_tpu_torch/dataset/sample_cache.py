@@ -18,9 +18,9 @@ A CRC mismatch, a short file or an unreadable index quarantines the pair
 as ``*.corrupt`` with a ``cache_fallback`` robustness event and the epoch
 decodes live from that record on; a build commits only when every record
 of the dataset was written. The ``cache_read`` and ``cache_write`` fault
-sites fire those paths in tests. The port caches ``Sample`` records and
-bare arrays; JAX's ``ImageFeature`` records come with ``transform/vision``
-(ROADMAP Queue A.4.2).
+sites fire those paths in tests. The records are JAX's three kinds:
+``ImageFeature`` (the decoded image, its label and uri), ``Sample`` and
+bare arrays.
 """
 
 from __future__ import annotations
@@ -48,9 +48,6 @@ from bigdl_tpu_torch.utils.faults import (
 from bigdl_tpu_torch.utils.robustness import events
 
 logger = logging.getLogger("bigdl_tpu_torch.dataset")
-
-_IMAGE_FEATURE = ("ImageFeature records come with transform/vision "
-                  "(ROADMAP Queue A.4.2)")
 
 _IDX_VERSION = 1
 
@@ -86,31 +83,37 @@ def fingerprint(material) -> str:
 
 # ------------------------------------------------------------------- codec
 def encode_record(rec) -> tuple[list[np.ndarray], dict]:
-    """Record → (arrays, small picklable meta): ``Sample`` (feature and
-    label arrays) and bare ndarrays, with JAX's meta."""
+    """Record → (arrays, small picklable meta): ``ImageFeature`` (decoded
+    image, label and uri), ``Sample`` (feature and label arrays) and bare
+    ndarrays, with JAX's meta."""
+    from bigdl_tpu_torch.transform.vision.image import ImageFeature
+
+    if isinstance(rec, ImageFeature):
+        return [np.asarray(rec.image)], {
+            "k": "imf", "label": rec.get(ImageFeature.LABEL),
+            "uri": rec.get(ImageFeature.URI)}
     if isinstance(rec, Sample):
         return [np.asarray(a) for a in (*rec.feature, *rec.label)], {
             "k": "smp", "nf": len(rec.feature)}
     if isinstance(rec, np.ndarray):
         return [rec], {"k": "arr"}
-    if type(rec).__name__ == "ImageFeature":
-        raise TypeError(_IMAGE_FEATURE)
     raise TypeError(
-        f"record type {type(rec).__name__} is not cacheable (Sample or "
-        f"ndarray)")
+        f"record type {type(rec).__name__} is not cacheable (ImageFeature, "
+        f"Sample, or ndarray)")
 
 
 def decode_record(arrays: list[np.ndarray], meta: dict):
     """Inverse of :func:`encode_record`: a record equal to the freshly
     decoded one."""
     kind = meta["k"]
+    if kind == "imf":
+        from bigdl_tpu_torch.transform.vision.image import ImageFeature
+        return ImageFeature(arrays[0], meta.get("label"), uri=meta.get("uri"))
     if kind == "smp":
         nf = int(meta["nf"])
         return Sample(list(arrays[:nf]), list(arrays[nf:]) or None)
     if kind == "arr":
         return arrays[0]
-    if kind == "imf":
-        raise NotImplementedError(_IMAGE_FEATURE)
     raise CacheCorruptError(f"unknown cache record kind {kind!r}")
 
 

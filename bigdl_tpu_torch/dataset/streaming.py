@@ -23,7 +23,7 @@ Decoded records go through the decoded-sample cache when enabled
 (``dataset/sample_cache.py``): the first epoch decodes and writes it, later
 epochs read it and never build the decode pool. ``distributed=True`` and
 :meth:`shard` (the per-host slice) raise naming ROADMAP Queue A.6; the
-default image decoder raises naming A.4.2.
+default decoder is the image decoder (``recordio.image_record_decoder``).
 """
 
 from __future__ import annotations

@@ -109,3 +109,8 @@ class FusedConvBNReLU(Container):
 
     def extra_repr(self):
         return "relu" if self.with_relu else ""
+
+
+from bigdl_tpu_torch.utils.serializer import register as _register  # noqa: E402
+
+_register(FusedConvBNReLU)

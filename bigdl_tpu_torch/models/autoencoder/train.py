@@ -1,10 +1,12 @@
-"""MNIST autoencoder training main of the port, on the synthetic MNIST set.
+"""MNIST autoencoder training main of the port.
 
 Counterpart of ``bigdl_tpu/models/autoencoder/train.py``: the images
 scaled to [0, 1] and flattened are both input and target,
 ``Autoencoder(--bottleneck)`` is trained with ``Adam(--learning-rate)``
 and ``MSECriterion`` through ``LocalOptimizer`` for ``--max-epoch``
-epochs; prints the final loss. Runs on the card unless ``--device cpu``::
+epochs; prints the final loss. The images are MNIST's idx files under
+``--folder`` (else the synthetic set). Runs on the card unless ``--device
+cpu``::
 
     python -m bigdl_tpu_torch.models.autoencoder.train -b 128
 """
@@ -19,8 +21,6 @@ import torch
 from bigdl_tpu_torch.models.unported import refuse_unported
 
 UNPORTED_FLAGS = {
-    "--folder": "Queue A.4.2 (the folder-backed image pipeline: the MNIST "
-                "idx reader, dataset/image*.py)",
     "--distributed": "Queue A.6 (DistriOptimizer)",
 }
 
@@ -28,6 +28,7 @@ UNPORTED_FLAGS = {
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         description="MNIST autoencoder (PyTorch port)")
+    p.add_argument("-f", "--folder", default=None)
     p.add_argument("-b", "--batch-size", type=int, default=128)
     p.add_argument("--bottleneck", type=int, default=32)
     p.add_argument("--max-epoch", type=int, default=1)
@@ -54,7 +55,8 @@ def main(argv=None):
     from bigdl_tpu_torch.utils.random_generator import RandomGenerator
 
     RandomGenerator.set_seed(0)
-    imgs, _ = load_mnist(None, "train", synthetic_size=args.synthetic_size)
+    imgs, _ = load_mnist(args.folder, "train",
+                         synthetic_size=args.synthetic_size)
     flat = (imgs.astype(np.float32) / 255.0).reshape(len(imgs), -1)
     train_set = (DataSet.array([Sample(x, x) for x in flat])
                  >> SampleToMiniBatch(args.batch_size))

@@ -1,11 +1,13 @@
-"""Inception-v1/v2 training main of the port, on synthetic images.
+"""Inception-v1/v2 training main of the port, on an image folder or
+synthetic images.
 
 Counterpart of ``bigdl_tpu/models/inception/train.py``, with its flags
 (``:15-29``) and ``--device`` (default ``cuda``): with the aux heads the
 loss is ``ParallelCriterion(repeat_target=True)`` over the three outputs
 (main ×1.0, aux ×0.3); ``--no-aux`` trains the NoAuxClassifier variant with
-``ClassNLLCriterion``; ``--v2`` the BN-Inception family. The data is JAX's
-synthetic in-memory set (clustered blobs of ``--image-size`` pixels, NCHW
+``ClassNLLCriterion``; ``--v2`` the BN-Inception family. The data is an
+ImageNet-layout ``--folder`` through ``imagenet_sets`` (crop
+``--image-size``), else JAX's synthetic in-memory set (clustered blobs of ``--image-size`` pixels, NCHW
 float32, 10 classes at most, so the loss visibly drops) through
 ``SampleToMiniBatch`` and the trainer's prefetching feed; prints the final
 loss. Runs on the card unless ``--device cpu``::
@@ -24,8 +26,6 @@ import torch
 from bigdl_tpu_torch.models.unported import refuse_unported
 
 UNPORTED_FLAGS = {
-    "--folder": "Queue A.4.2 (the folder-backed image pipeline: "
-                "dataset/image*.py, models/imagenet_data.py)",
     "--distributed": "Queue A.6 (DistriOptimizer)",
 }
 
@@ -33,6 +33,8 @@ UNPORTED_FLAGS = {
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="Inception-v1/v2 training "
                                             "(PyTorch port)")
+    p.add_argument("-f", "--folder", default=None,
+                   help="ImageNet-layout image folder")
     p.add_argument("-b", "--batch-size", type=int, default=32)
     p.add_argument("--classes", type=int, default=1000)
     p.add_argument("--no-aux", action="store_true",
@@ -82,9 +84,18 @@ def main(argv=None):
     from bigdl_tpu_torch.utils.random_generator import RandomGenerator
 
     RandomGenerator.set_seed(0)
-    train_set = (DataSet.array(synthetic_set(
-        args.synthetic_size, args.image_size, args.classes))
-        >> SampleToMiniBatch(args.batch_size))
+    if args.folder is not None:
+        # an ImageNet-layout folder through the streaming pipeline
+        from bigdl_tpu_torch.models.imagenet_data import imagenet_sets
+        from bigdl_tpu_torch.utils.engine import Engine
+        if not Engine.is_initialized():
+            Engine.init()
+        train_set, _ = imagenet_sets(args.folder, args.batch_size,
+                                     crop=args.image_size)
+    else:
+        train_set = (DataSet.array(synthetic_set(
+            args.synthetic_size, args.image_size, args.classes))
+            >> SampleToMiniBatch(args.batch_size))
     dev = resolve_device(args.device)
     g = torch.Generator().manual_seed(0)
     # the dropout masks' generator, on the card for a captured step

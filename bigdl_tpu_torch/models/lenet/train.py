@@ -1,10 +1,14 @@
-"""LeNet-5 training main of the port, on the synthetic MNIST set.
+"""LeNet-5 training main of the port, on MNIST.
 
 Counterpart of ``bigdl_tpu/models/lenet/train.py``: ``LeNet5(10)`` trained
 with ``SGD(learning rate, decay)`` and ``ClassNLLCriterion`` through
 ``LocalOptimizer`` for ``--max-epoch`` epochs, validated with
 ``Top1Accuracy`` at every epoch's end; prints the final loss and the last
-Top-1. Runs on the card unless ``--device cpu``::
+Top-1. The data are MNIST's idx files under ``--folder`` (else the
+synthetic set); ``--model-snapshot`` starts from a saved module (either
+format of ``AbstractModule.load``, JAX's files too) and
+``--state-snapshot`` from a pickled optim method (``utils/file.py``). Runs
+on the card unless ``--device cpu``::
 
     python -m bigdl_tpu_torch.models.lenet.train -b 128
 """
@@ -19,16 +23,14 @@ import torch
 from bigdl_tpu_torch.models.unported import refuse_unported
 
 UNPORTED_FLAGS = {
-    "--folder": "Queue A.4 (the folder-backed image pipeline: "
-                "dataset/image*.py)",
-    "--model-snapshot": "Queue A.6 (module save/load)",
-    "--state-snapshot": "Queue A.6 (utils/file.py)",
     "--distributed": "Queue A.6 (DistriOptimizer)",
 }
 
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="LeNet-5 on MNIST (PyTorch port)")
+    p.add_argument("-f", "--folder", default=None,
+                   help="MNIST data dir (idx files)")
     p.add_argument("-b", "--batch-size", type=int, default=128)
     p.add_argument("--learning-rate", type=float, default=0.05)
     p.add_argument("--learning-rate-decay", type=float, default=0.0)
@@ -36,6 +38,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--synthetic-size", type=int, default=2048)
     p.add_argument("--checkpoint", default=None, help="checkpoint dir")
     p.add_argument("--overwrite-checkpoint", action="store_true")
+    p.add_argument("--model-snapshot", default=None,
+                   help="resume model snapshot")
+    p.add_argument("--state-snapshot", default=None,
+                   help="resume optim state snapshot")
     p.add_argument("--summary-dir", default=None,
                    help="TensorBoard summary dir")
     p.add_argument("--device", default="cuda",
@@ -58,19 +64,26 @@ def main(argv=None):
     from bigdl_tpu_torch.utils.random_generator import RandomGenerator
 
     RandomGenerator.set_seed(0)
-    train = to_samples(*load_mnist(None, "train",
+    train = to_samples(*load_mnist(args.folder, "train",
                                    synthetic_size=args.synthetic_size))
     test = to_samples(*load_mnist(
-        None, "test", synthetic_size=max(args.synthetic_size // 4, 256)))
+        args.folder, "test", synthetic_size=max(args.synthetic_size // 4, 256)))
     train_set = DataSet.array(train) >> SampleToMiniBatch(args.batch_size)
     test_set = DataSet.array(test) >> SampleToMiniBatch(args.batch_size)
-    model = LeNet5(10, generator=torch.Generator().manual_seed(0),
-                   device=args.device)
+    if args.model_snapshot:
+        model = nn.AbstractModule.load(args.model_snapshot, args.device)
+    else:
+        model = LeNet5(10, generator=torch.Generator().manual_seed(0),
+                       device=args.device)
+    if args.state_snapshot:
+        from bigdl_tpu_torch.utils import file as _file
+        method = _file.load(args.state_snapshot)
+    else:
+        method = SGD(learningrate=args.learning_rate,
+                     learningrate_decay=args.learning_rate_decay)
     optimizer = (LocalOptimizer(model, train_set, nn.ClassNLLCriterion(),
                                 device=args.device)
-                 .set_optim_method(SGD(
-                     learningrate=args.learning_rate,
-                     learningrate_decay=args.learning_rate_decay))
+                 .set_optim_method(method)
                  .set_end_when(Trigger.max_epoch(args.max_epoch))
                  .set_validation(Trigger.every_epoch(), test_set,
                                  [Top1Accuracy()]))

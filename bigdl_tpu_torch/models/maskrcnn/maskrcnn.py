@@ -115,3 +115,8 @@ class MaskRCNN(nn.Container):
     def extra_repr(self):
         return (f"classes={self.n_classes}, image={self.image_size}, "
                 f"max={self.max_per_image}")
+
+
+from bigdl_tpu_torch.utils.serializer import register as _register  # noqa: E402
+
+_register(MaskRCNN)

@@ -259,3 +259,9 @@ def ResNet50(class_num: int = 1000, shortcut_type: str = "B", *,
     return ResNet(class_num, {"depth": 50, "dataSet": "ImageNet",
                               "shortcutType": shortcut_type},
                   generator=generator, device=device)
+
+
+from bigdl_tpu_torch.utils.serializer import register as _register  # noqa: E402
+
+for _cls in (_ShortcutA, _Conv1SpaceToDepth, _GlobalAvgPool):
+    _register(_cls)

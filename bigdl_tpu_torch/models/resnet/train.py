@@ -1,16 +1,21 @@
-"""ResNet training main of the port, on the synthetic CIFAR-10 set.
+"""ResNet training main of the port: CIFAR-10 or ImageNet.
 
 Counterpart of ``bigdl_tpu/models/resnet/train.py``: builds
 ``ResNet(classes, {"depth", "dataSet", "shortcutType"})``, trains it with
 ``SGD`` (momentum, weight decay, Nesterov by default, dampening 0) and
 ``ClassNLLCriterion`` through ``LocalOptimizer`` for ``--max-epoch``
 epochs, validating with ``Top1Accuracy`` at every epoch's end, and prints
-the final loss and the last Top-1. Runs on the card unless ``--device
+the final loss and the last Top-1. The data are CIFAR-10's batches under
+``--folder`` (else the synthetic set) or, with ``--dataset ImageNet``, an
+ImageNet-layout image folder through ``imagenet_sets`` (else a synthetic
+folder of PNGs). Runs on the card unless ``--device
 cpu``; ``BIGDL_COMPUTE_DTYPE=bf16`` trains in bf16 mixed precision,
 ``BIGDL_FUSE_STEPS=K`` runs K steps a window, ``BIGDL_IMAGE_FORMAT=NHWC``
 runs channels-last::
 
     python -m bigdl_tpu_torch.models.resnet.train --depth 20 -b 128
+    python -m bigdl_tpu_torch.models.resnet.train --dataset ImageNet \
+        --depth 50 --classes 1000 -b 256 --folder /data/imagenet
 """
 
 from __future__ import annotations
@@ -25,17 +30,15 @@ from bigdl_tpu_torch.models.unported import refuse_unported
 #: flags and values of the JAX main that this port does not take yet, and
 #: the ROADMAP item that brings each
 UNPORTED_FLAGS = {
-    "--dataset=ImageNet": "Queue A.4 (the folder-backed image pipeline: "
-                          "dataset/image*.py, imagenet_sets)",
-    "--folder": "Queue A.4 (the folder-backed image pipeline: "
-                "dataset/image*.py)",
     "--distributed": "Queue A.6 (DistriOptimizer)",
 }
 
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="ResNet training (PyTorch port)")
-    p.add_argument("--dataset", default="CIFAR-10", choices=["CIFAR-10"])
+    p.add_argument("-f", "--folder", default=None, help="dataset dir")
+    p.add_argument("--dataset", default="CIFAR-10",
+                   choices=["CIFAR-10", "ImageNet"])
     p.add_argument("--depth", type=int, default=20)
     p.add_argument("--classes", type=int, default=10)
     p.add_argument("--shortcut-type", default=None, choices=["A", "B", "C"])
@@ -67,11 +70,20 @@ def main(argv=None):
     from bigdl_tpu_torch.models.resnet import ResNet
     from bigdl_tpu_torch.optim import SGD, LocalOptimizer, Trigger
     from bigdl_tpu_torch.optim.validation import Top1Accuracy
+    from bigdl_tpu_torch.utils.engine import Engine
     from bigdl_tpu_torch.utils.random_generator import RandomGenerator
 
     RandomGenerator.set_seed(0)
-    train_set, test_set = cifar.train_val_sets(
-        None, args.batch_size, synthetic_size=args.synthetic_size)
+    if not Engine.is_initialized():
+        Engine.init()
+    if args.dataset == "ImageNet":
+        from bigdl_tpu_torch.models.imagenet_data import imagenet_sets
+        train_set, test_set = imagenet_sets(
+            args.folder, args.batch_size,
+            synthetic_per_class=max(args.synthetic_size // 4, 8))
+    else:
+        train_set, test_set = cifar.train_val_sets(
+            args.folder, args.batch_size, synthetic_size=args.synthetic_size)
     opt = {"depth": args.depth, "dataSet": args.dataset}
     if args.shortcut_type:
         opt["shortcutType"] = args.shortcut_type

@@ -106,3 +106,8 @@ def detector(model: nn.Graph, n_classes: int, keep_topk: int = 20,
             return head.forward(model.forward(images))
 
     return run
+
+
+from bigdl_tpu_torch.utils.serializer import register as _register  # noqa: E402
+
+_register(PermuteFlatten)

@@ -4,8 +4,9 @@ Counterpart of ``bigdl_tpu/models/ssd/train.py`` with its flags and
 defaults: the two-scale SSD trains on bright (class 1) and dim (class 2)
 squares, one an image, with Adam and ``MultiBoxCriterion``, then reports
 the held-out IoU of the top detection through ``detector``. Runs on the
-card unless ``--device cpu``; ``--distributed`` and ``--save`` exit naming
-their ROADMAP item::
+card unless ``--device cpu``; ``--save FILE`` writes the trained model in
+the portable format (``utils/serializer.py``); ``--distributed`` exits
+naming its ROADMAP item::
 
     python -m bigdl_tpu_torch.models.ssd.train
 """
@@ -20,8 +21,7 @@ import torch
 
 from bigdl_tpu_torch.models.unported import refuse_unported
 
-UNPORTED_FLAGS = {"--distributed": "Queue A.6 (DistriOptimizer)",
-                  "--save": "Queue A.6 (the module serializer)"}
+UNPORTED_FLAGS = {"--distributed": "Queue A.6 (DistriOptimizer)"}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -32,6 +32,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--learning-rate", type=float, default=0.01)
     p.add_argument("--max-epoch", type=int, default=20)
     p.add_argument("--n-train", type=int, default=256)
+    p.add_argument("--save", default=None, help="save trained model here")
     p.add_argument("--device", default="cuda",
                    help="where to train: cuda (default) or cpu")
     return p
@@ -94,6 +95,9 @@ def main(argv=None):
         cls_ok += int(det[0] == gt[0])
     print(f"held-out mean IoU: {np.mean(ious):.3f}  "
           f"class acc: {cls_ok / len(test):.3f}")
+    if args.save:
+        model.save_module(args.save)
+        print(f"saved to {args.save}")
     return float(np.mean(ious))
 
 

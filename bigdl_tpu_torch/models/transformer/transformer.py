@@ -214,3 +214,9 @@ def translate_generate(model: Transformer, src, *, beam_size: int = 4,
                             beam_size=beam_size, eos_id=eos_id, alpha=alpha,
                             pad_id=pad_id, device=dev,
                             cache_roots=[model[1], model[2]])
+
+
+from bigdl_tpu_torch.utils.serializer import register as _register  # noqa: E402
+
+_register(TransformerDecoderBlock)
+_register(Transformer)

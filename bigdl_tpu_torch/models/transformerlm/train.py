@@ -8,7 +8,10 @@ tokens, and trains with ``Adam`` through ``LocalOptimizer`` for
 ``--max-iteration`` steps, then prints the final loss and, with
 ``--generate N``, beam-decodes N tokens from a seed. ``--lora RANK``
 adapts every attention and Linear at that rank (``nn.apply_lora``) and
-trains only the adapters. Runs on the card
+trains only the adapters. ``--model-snapshot FILE`` starts from a saved
+module (either format, JAX's files too; the vocabulary, fused head, rope
+and ``max_len`` come from the model, as in JAX) and ``--save FILE`` writes
+the trained model in the portable format. Runs on the card
 unless ``--device cpu``; ``BIGDL_COMPUTE_DTYPE=bf16`` trains in bf16 mixed
 precision (``utils/engine.py``), and ``BIGDL_FUSE_STEPS=K`` runs K steps a
 window (``LocalOptimizer.set_fuse_steps``, read by the optimizer, as in
@@ -32,8 +35,6 @@ from bigdl_tpu_torch.models.unported import refuse_unported
 #: flags of the JAX main that this port does not take yet, and the
 #: ROADMAP item that brings each
 UNPORTED_FLAGS = {
-    "--model-snapshot": "Queue A.6 (module save/load)",
-    "--save": "Queue A.6 (module save/load)",
     "--distributed": "Queue A.6 (DistriOptimizer)",
 }
 
@@ -51,6 +52,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--num-layers", type=int, default=2)
     p.add_argument("--vocab-size", type=int, default=256)
     p.add_argument("--dropout", type=float, default=0.0)
+    p.add_argument("--model-snapshot", default=None,
+                   help="start from a saved model archive (fine-tuning); "
+                        "vocab/seq-len/rope/fused-head are read from the "
+                        "model, not these flags")
+    p.add_argument("--save", default=None,
+                   help="save the trained model archive here")
     p.add_argument("--lora", type=int, default=0, metavar="RANK",
                    help="LoRA fine-tune: adapt the attention and Linear "
                         "layers at this rank, freeze everything else")
@@ -95,25 +102,48 @@ def main(argv=None) -> float:
     from bigdl_tpu_torch.utils.random_generator import RandomGenerator
 
     RandomGenerator.set_seed(0)
-    model = TransformerLM(args.vocab_size, args.embed_dim, args.num_heads,
-                          args.num_layers, max_len=args.seq_len,
-                          dropout=args.dropout, remat=args.remat,
-                          fused_head=args.fused_head,
-                          num_kv_heads=args.num_kv_heads,
-                          position="rope" if args.rope else "learned",
-                          norm=args.norm, mlp_kind=args.mlp,
-                          generator=torch.Generator().manual_seed(0),
-                          device=args.device)
-    if args.lora:
-        # the port takes no --model-snapshot yet (Queue A.6): the base is
-        # always the freshly built one
+    if args.lora and not args.model_snapshot:
         print("WARNING: --lora without --model-snapshot freezes a RANDOM "
               "base and trains only the adapters — this is almost never "
               "what you want (LoRA fine-tunes a pretrained model)")
-        n = nn.apply_lora(model, rank=args.lora,
-                          generator=torch.Generator().manual_seed(1))
-        print(f"LoRA: adapted {n} modules at rank {args.lora} "
-              f"(base frozen)")
+    if args.model_snapshot:
+        from bigdl_tpu_torch.models.transformerlm import PositionEmbedding
+        model = nn.AbstractModule.load(args.model_snapshot, args.device)
+        # trust the MODEL, not the flags, for everything structural
+        mods = list(model.modules())
+        args.fused_head = any(isinstance(m, nn.FusedLMHead) for m in mods)
+        args.rope = any(getattr(m, "rope", False) for m in mods
+                        if isinstance(m, nn.MultiHeadAttention))
+        emb = [m for m in mods if isinstance(m, nn.LookupTable)]
+        if emb and emb[0].n_index != args.vocab_size:
+            print(f"snapshot vocab {emb[0].n_index} overrides "
+                  f"--vocab-size {args.vocab_size}")
+            args.vocab_size = emb[0].n_index
+        pos = [m for m in mods if isinstance(m, PositionEmbedding)]
+        if pos and args.seq_len > pos[0].max_len:
+            print(f"snapshot max_len {pos[0].max_len} caps "
+                  f"--seq-len {args.seq_len}")
+            args.seq_len = pos[0].max_len
+    else:
+        model = TransformerLM(args.vocab_size, args.embed_dim,
+                              args.num_heads, args.num_layers,
+                              max_len=args.seq_len, dropout=args.dropout,
+                              remat=args.remat, fused_head=args.fused_head,
+                              num_kv_heads=args.num_kv_heads,
+                              position="rope" if args.rope else "learned",
+                              norm=args.norm, mlp_kind=args.mlp,
+                              generator=torch.Generator().manual_seed(0),
+                              device=args.device)
+    if args.lora:
+        if any(isinstance(m, nn.LoRALinear)
+               or getattr(m, "lora_rank", None) for m in model.modules()):
+            print("snapshot already carries LoRA adapters — resuming "
+                  "fine-tuning with them (bases stay frozen)")
+        else:
+            n = nn.apply_lora(model, rank=args.lora,
+                              generator=torch.Generator().manual_seed(1))
+            print(f"LoRA: adapted {n} modules at rank {args.lora} "
+                  f"(base frozen)")
     if args.folder is not None:
         with open(args.folder) as f:
             tokens = SentenceTokenizer().tokens(f.read())
@@ -132,6 +162,9 @@ def main(argv=None) -> float:
            .set_end_when(Trigger.max_iteration(args.max_iteration)))
     opt.optimize()
     print(f"final loss: {opt.state['loss']:.4f}")
+    if args.save:
+        model.save_module(args.save)
+        print(f"saved to {args.save}")
     if args.generate:
         # a rope model has no position table to outgrow; only the learned
         # table bounds the total length

@@ -164,3 +164,8 @@ def lm_criterion(fused_head: bool = False, chunk_size: int = 8192):
         return nn.ChunkedSoftmaxCrossEntropy(chunk_size=chunk_size)
     return nn.TimeDistributedCriterion(nn.ClassNLLCriterion(),
                                        size_average=True)
+
+
+from bigdl_tpu_torch.utils.serializer import register as _register  # noqa: E402
+
+_register(PositionEmbedding)

@@ -1,11 +1,12 @@
-"""VGG-for-CIFAR-10 training main of the port, on the synthetic CIFAR-10
-set.
+"""VGG-for-CIFAR-10 training main of the port, on CIFAR-10.
 
 Counterpart of ``bigdl_tpu/models/vgg/train.py``: ``VggForCifar10(10)``
 trained with ``SGD`` (momentum, weight decay, dampening 0) and
 ``ClassNLLCriterion`` through ``LocalOptimizer`` for ``--max-epoch``
 epochs, validated with ``Top1Accuracy`` at every epoch's end; prints the
-final loss and the last Top-1. Runs on the card unless ``--device cpu``::
+final loss and the last Top-1. The data are CIFAR-10's batches under
+``--folder`` (python or binary layout), else the synthetic set. Runs on
+the card unless ``--device cpu``::
 
     python -m bigdl_tpu_torch.models.vgg.train -b 128
 """
@@ -20,8 +21,6 @@ import torch
 from bigdl_tpu_torch.models.unported import refuse_unported
 
 UNPORTED_FLAGS = {
-    "--folder": "Queue A.4 (the folder-backed image pipeline: "
-                "dataset/image*.py)",
     "--distributed": "Queue A.6 (DistriOptimizer)",
 }
 
@@ -29,6 +28,8 @@ UNPORTED_FLAGS = {
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="VggForCifar10 training "
                                             "(PyTorch port)")
+    p.add_argument("-f", "--folder", default=None,
+                   help="CIFAR-10 batches dir (python or binary layout)")
     p.add_argument("-b", "--batch-size", type=int, default=128)
     p.add_argument("--max-epoch", type=int, default=1)
     p.add_argument("--learning-rate", type=float, default=0.01)
@@ -59,7 +60,7 @@ def main(argv=None):
 
     RandomGenerator.set_seed(0)
     train_set, test_set = cifar.train_val_sets(
-        None, args.batch_size, synthetic_size=args.synthetic_size)
+        args.folder, args.batch_size, synthetic_size=args.synthetic_size)
     dev = resolve_device(args.device)
     # the dropout masks' generator, on the card for a captured step
     dropout_gen = torch.Generator(device=dev).manual_seed(0)

@@ -6,7 +6,8 @@ with the GIL released, so the prefetch producer assembles the next batch
 while the loop thread runs the step. It is host code, not a device kernel.
 
 The library is compiled at first use with the local ``g++`` into
-``build/native/`` at the root of the checkout (listed in ``.gitignore``);
+``build/native/`` at the root of the checkout (listed in ``.gitignore``)
+by :func:`build_so`, which the image codec's build uses too;
 the JAX package's ``_batchpack.so`` is never loaded. When the toolchain or
 the build fails, every entry point keeps JAX's numpy path, with JAX's
 warning; ``BIGDL_NATIVE=0`` turns the library off. ``native_available()``
@@ -20,6 +21,7 @@ import logging
 import os
 import subprocess
 import threading
+import time
 
 import numpy as np
 
@@ -36,6 +38,27 @@ _lib = None
 _lib_failed = False
 
 
+def build_so(src: str, so: str, extra_flags=()) -> float | None:
+    """Compile the C++ source ``src`` into the shared library ``so`` with
+    the local ``g++``, when ``so`` is missing or older than ``src``; returns
+    the build's wall seconds, or None when the library was current. A
+    failed build raises ``RuntimeError`` with the compiler's errors."""
+    if os.path.exists(so) and os.path.getmtime(so) >= os.path.getmtime(src):
+        return None
+    os.makedirs(os.path.dirname(so), exist_ok=True)
+    # pid-unique temp: concurrent first-use builds (test workers) must not
+    # install each other's half-written output
+    tmp = f"{so}.{os.getpid()}.tmp"
+    t0 = time.perf_counter()
+    proc = subprocess.run(["g++", "-O3", "-shared", "-fPIC", "-std=c++17",
+                           *extra_flags, src, "-o", tmp],
+                          capture_output=True, text=True, timeout=300)
+    if proc.returncode != 0:
+        raise RuntimeError(f"building {src} failed:\n{proc.stderr}")
+    os.replace(tmp, so)
+    return time.perf_counter() - t0
+
+
 def _enabled() -> bool:
     return os.environ.get("BIGDL_NATIVE", "1") == "1"
 
@@ -48,17 +71,7 @@ def _load():
         if _lib is not None or _lib_failed:
             return _lib
         try:
-            if not os.path.exists(_SO) or (os.path.getmtime(_SO)
-                                           < os.path.getmtime(_SRC)):
-                os.makedirs(_BUILD_DIR, exist_ok=True)
-                # pid-unique temp: concurrent first-use builds (test
-                # workers) must not install each other's half-written output
-                tmp = f"{_SO}.{os.getpid()}.tmp"
-                cmd = ["g++", "-O3", "-shared", "-fPIC", "-std=c++17",
-                       "-pthread", _SRC, "-o", tmp]
-                subprocess.run(cmd, check=True, capture_output=True,
-                               timeout=120)
-                os.replace(tmp, _SO)
+            if build_so(_SRC, _SO, ["-pthread"]) is not None:
                 logger.info("built native batchpack: %s", _SO)
             lib = ctypes.CDLL(_SO)
             lib.pack_batch.argtypes = [

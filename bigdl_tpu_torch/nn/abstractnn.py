@@ -23,6 +23,13 @@ step (``optim/optimizer.py``): per-layer gradient multipliers
 optimizer slots), and the weight regularizers a layer was built with
 (:meth:`regularizer_penalty`, added to the loss). On a container each call
 reaches the whole subtree, as in JAX.
+
+Every instance keeps its constructor arguments as ``_init_args``
+(:class:`RecordsInit`, JAX's metaclass, without the port-only
+``generator``/``dropout_generator``/``device``), from which the portable
+serializer (``utils/serializer.py``) rebuilds it. ``save`` pickles a module
+(``utils/file.py``), ``save_module`` writes the portable format, and
+``load``/``load_module`` read either, sniffing the format, as JAX's do.
 """
 
 from __future__ import annotations
@@ -34,8 +41,25 @@ import torch
 
 Activity = Any  # a tensor or a Table
 
+#: constructor arguments of the port that JAX's modules do not take
+_PORT_ONLY_KWARGS = frozenset({"generator", "dropout_generator", "device"})
 
-class AbstractModule(torch.nn.Module):
+
+class RecordsInit(type):
+    """Metaclass recording the constructor arguments of every instance as
+    ``_init_args = (args, kwargs)`` (JAX's ``RecordsInit``), the port-only
+    keyword arguments left out."""
+
+    def __call__(cls, *args, **kwargs):
+        obj = super().__call__(*args, **kwargs)
+        if "_init_args" not in obj.__dict__:
+            obj.__dict__["_init_args"] = (
+                args, {k: v for k, v in kwargs.items()
+                       if k not in _PORT_ONLY_KWARGS})
+        return obj
+
+
+class AbstractModule(torch.nn.Module, metaclass=RecordsInit):
     """Base class of all layers and containers."""
 
     scale_w: float = 1.0
@@ -56,6 +80,40 @@ class AbstractModule(torch.nn.Module):
     def set_name(self, name: str) -> "AbstractModule":
         self.name = name
         return self
+
+    # serialization: ``save`` pickles (fast, in-version), ``save_module``
+    # writes the portable format; ``load`` sniffs which it reads
+    def save(self, path: str, overwrite: bool = True) -> "AbstractModule":
+        """Persist this module via pickle (reference ``Module.save``)."""
+        from bigdl_tpu_torch.utils import file as _file
+        _file.save(self, path, overwrite=overwrite)
+        return self
+
+    def save_module(self, path: str, overwrite: bool = True
+                    ) -> "AbstractModule":
+        """Persist in the portable versioned format (reference
+        ``saveModule``), readable by the JAX package."""
+        from bigdl_tpu_torch.utils import serializer
+        serializer.save_module(self, path, overwrite=overwrite)
+        return self
+
+    @staticmethod
+    def load(path: str, device=None) -> "AbstractModule":
+        """Read a module in either format onto ``device`` (default the
+        card)."""
+        from bigdl_tpu_torch.utils import file as _file
+        from bigdl_tpu_torch.utils import serializer
+        from bigdl_tpu_torch.utils.device import resolve_device
+        if serializer.is_portable_file(path):
+            obj = serializer.load_module(path, device)
+        else:
+            obj = _file.load(path)
+        if not isinstance(obj, AbstractModule):
+            raise TypeError(f"{path} does not contain a module "
+                            f"(got {type(obj)})")
+        return obj.to(resolve_device(device))
+
+    load_module = load  # reference ``Module.loadModule`` alias
 
     def inputs(self, *nodes):
         """Torch-style node wiring: ``layer.inputs(nodeA, nodeB)`` returns a

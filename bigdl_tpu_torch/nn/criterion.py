@@ -29,11 +29,11 @@ import torch
 import torch.nn.functional as F
 from torch.func import functional_call
 
-from bigdl_tpu_torch.nn.abstractnn import evaluating
+from bigdl_tpu_torch.nn.abstractnn import RecordsInit, evaluating
 from bigdl_tpu_torch.utils.table import Table
 
 
-class AbstractCriterion:
+class AbstractCriterion(metaclass=RecordsInit):
     def apply(self, input, target) -> torch.Tensor:
         """The loss as a scalar tensor."""
         raise NotImplementedError

@@ -16,8 +16,10 @@ from typing import Optional
 
 import torch
 
+from bigdl_tpu_torch.nn.abstractnn import RecordsInit
 
-class InitializationMethod:
+
+class InitializationMethod(metaclass=RecordsInit):
     def init(self, shape, fan_in: int, fan_out: int,
              generator: Optional[torch.Generator] = None) -> torch.Tensor:
         raise NotImplementedError

@@ -326,3 +326,10 @@ class DetectionOutputFrcnn(AbstractModule):
     def extra_repr(self):
         return (f"classes={self.n_classes}, nms={self.nms_thresh}, "
                 f"max={self.max_per_image}")
+
+
+from bigdl_tpu_torch.utils.serializer import register as _register  # noqa: E402
+
+for _cls in (RoiAlign, FPN, Pooler, BoxHead, MaskHead, RegionProposal,
+             DetectionOutputFrcnn):
+    _register(_cls)

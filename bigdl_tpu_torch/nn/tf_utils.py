@@ -116,3 +116,9 @@ class SplitAndSelect(TensorModule):
                              f"{self.num_split}")
         size = n // self.num_split
         return input.narrow(self.dim, self.index * size, size), state
+
+
+from bigdl_tpu_torch.utils.serializer import register as _register  # noqa: E402
+
+for _cls in (Const, Fill, Shape, StrideSlice, SplitAndSelect):
+    _register(_cls)

@@ -252,3 +252,12 @@ class Transformer(Container):
     def extra_repr(self):
         return (f"vocab={self.vocab_size}, h={self.hidden_size}, "
                 f"heads={self.num_heads}, layers={self.num_hidden_layers}")
+
+
+from bigdl_tpu_torch.utils.serializer import register as _register  # noqa: E402
+
+for _cls in (LayerNormalization, ExpandSize, TableOperation, Attention,
+             FeedForwardNetwork):
+    _register(_cls)
+# JAX's registry names: the seq2seq zoo model owns the bare "Transformer"
+_register(Transformer, name="nn.Transformer")

@@ -11,8 +11,10 @@ from __future__ import annotations
 
 import torch
 
+from bigdl_tpu_torch.nn.abstractnn import RecordsInit
 
-class Regularizer:
+
+class Regularizer(metaclass=RecordsInit):
     def penalty(self, w: torch.Tensor) -> torch.Tensor:
         raise NotImplementedError
 

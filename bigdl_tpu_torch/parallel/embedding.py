@@ -387,3 +387,8 @@ class SparseEmbeddingUpdate(OptimMethod):
 def _flat_slots(slots: dict) -> list:
     """The slot tensors of a per-leaf slot dict, in order."""
     return [t for v in slots.values() if isinstance(v, list) for t in v]
+
+
+from bigdl_tpu_torch.utils.serializer import register as _register  # noqa: E402
+
+_register(ShardedEmbedding)

@@ -7,7 +7,9 @@ the same ``BIGDL_COMPUTE_DTYPE`` variable), ``failure_retry_times`` and
 ``BIGDL_FAILURE_RETRY_INTERVAL``, default 15 s, as in JAX),
 ``Engine.init(compute_dtype=)``, ``Engine.config()``,
 ``Engine.compute_dtype()``, ``Engine.set_compute_dtype`` and
-``Engine.reset``. As in JAX, an accessor called before ``init`` initialises
+``Engine.reset``, and ``seed`` (``BIGDL_SEED``, default 1), the seed
+material of the vision transformers (``transform/vision/image.py``;
+unlike JAX's, ``init`` does not reseed ``RandomGenerator``). As in JAX, an accessor called before ``init`` initialises
 with the defaults. The trainer reads the dtype to run its mixed-precision
 step and the retry settings in its failure loop (``optim/optimizer.py``);
 nothing on the serving path reads them.
@@ -28,6 +30,7 @@ import torch
 @dataclass
 class EngineConfig:
     compute_dtype: Any = None      # dtype of the step's compute (None = fp32)
+    seed: int = 1                  # seed material of the vision transformers
     failure_retry_times: int = 5           # retries from the last checkpoint
     failure_retry_interval: float = 15.0   # seconds between them
 
@@ -56,7 +59,8 @@ class Engine:
     """Process-wide runtime settings; all methods are classmethods."""
 
     @classmethod
-    def init(cls, compute_dtype: Optional[torch.dtype] = None) -> None:
+    def init(cls, compute_dtype: Optional[torch.dtype] = None,
+             seed: Optional[int] = None) -> None:
         """Set the step's compute dtype: ``compute_dtype``, else
         ``BIGDL_COMPUTE_DTYPE`` (default float32), and read the retry
         settings from the environment. Master parameters stay fp32. A
@@ -66,6 +70,8 @@ class Engine:
             cfg.compute_dtype = (compute_dtype if compute_dtype is not None
                                  else _parse_dtype(os.environ.get(
                                      "BIGDL_COMPUTE_DTYPE", "float32")))
+            cfg.seed = int(seed if seed is not None
+                           else os.environ.get("BIGDL_SEED", "1"))
             cfg.failure_retry_times = int(
                 os.environ.get("BIGDL_FAILURE_RETRY_TIMES", "5"))
             cfg.failure_retry_interval = float(

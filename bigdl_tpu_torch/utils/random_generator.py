@@ -6,9 +6,10 @@ Counterpart of ``bigdl_tpu/utils/random_generator.py`` (``set_seed``,
 it, so the same seed gives the same epoch orders in both packages. The JAX
 keys for traced randomness have no counterpart here; the port's weights are
 drawn from an explicit ``torch.Generator`` (``nn/initialization.py``). The
-state dict has JAX's keys: the key and salt counters, which nothing here
-draws from, are kept as given (0 after ``set_seed``), so a checkpoint's
-RNG state passes between the packages.
+state dict has JAX's keys: the key counter, which nothing here draws
+from, is kept as given (0 after ``set_seed``); the salt counter
+advances with :meth:`RandomGenerator.next_salt` as JAX's does. So a
+checkpoint's RNG state passes between the packages.
 """
 
 from __future__ import annotations
@@ -35,6 +36,15 @@ class RandomGenerator:
     @classmethod
     def get_seed(cls) -> int:
         return cls._seed
+
+    @classmethod
+    def next_salt(cls) -> int:
+        """JAX's monotonic per-construction salt: 1, 2, ... after
+        ``set_seed`` (vision transformers sharing one seed draw
+        decorrelated streams)."""
+        with cls._lock:
+            cls._salt_counter += 1
+            return cls._salt_counter
 
     @classmethod
     def numpy(cls) -> np.random.Generator:

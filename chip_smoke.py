@@ -329,7 +329,24 @@ SSD's detections on 32 images against the CPU's head; the SSD main at
 its defaults, held-out IoU > 0.3; Mask R-CNN at COCO test widths, eager
 and replayed bitwise, against the CPU's detections; every eager NMS
 launch held against the plain sweep). The kernel table has the NMS
-kernel's row (``nms_sweep``) at the path's three shapes.
+kernel's row (``nms_sweep``) at the path's three shapes. Phase 20
+(``paths.images``, all 0: no ported kernel lies on it) builds the host
+image codec with ``g++``, decodes every fixture of
+``tests/torch_image_fixtures/`` against the SHA-256 of PIL's decode
+recorded beside it, times the decode of a 500 x 375 4:2:0 JPEG and a 280
+x 280 PNG on one thread and on a pool, trains the ResNet main on a
+synthetic ImageNet folder (1,024 PNGs, ``--dataset ImageNet --depth 50
+--classes 1000 -b 256``, two epochs, bf16, the transform chain serial and
+on the parallel engine) and on a folder of 1,024 copies of the 500 x 375
+JPEG fixture (ImageNet's traffic: each decoded and resized anew; the
+parallel engine) with its step ms, images/s, feed wait a step and
+whether the feed keeps up with the step (beside the same model's step on
+in-memory batches), the VGG
+main on CIFAR-10 binary batches and the LeNet main on MNIST idx files
+(batch 128), runs ``converge`` on resnet50, lenet and vgg16 for one
+epoch, resumes the LeNet main from a module and an optim method saved in
+the phase, and saves and reloads ResNet-50 and phase 4's LM, their
+forwards bitwise equal on the card.
 
 ``python3 chip_smoke.py --text-only`` builds the kernels and runs only
 phase 13, printing its numbers as one JSON line (no result line).
@@ -350,6 +367,9 @@ phase 17, printing its numbers as one JSON line (no result line).
 ``python3 chip_smoke.py --quantized-only`` and ``--detection-only`` build
 the kernels and run only phase 18 or phase 19, printing its numbers as one
 JSON line (no result line).
+
+``python3 chip_smoke.py --images-only`` builds the kernels and runs only
+phase 20, printing its numbers as one JSON line (no result line).
 
 ``python3 chip_smoke.py --remat-captures N`` builds the kernels and runs
 only phase 6's bf16 training with every block under ``Remat`` N times in
@@ -8391,6 +8411,390 @@ def nms_row(detection: dict, paths: dict, src: str) -> dict:
                       "past the diagonal"}
 
 
+# ----------------------------------------------------------------- phase 20
+# the folder-backed image pipeline at full width: a synthetic ImageNet
+# folder of 280 x 280 PNGs (crop 224 + 56, what imagenet_sets writes), and
+# one of the 500 x 375 fixture JPEG, four batches of 256 an epoch, two
+# epochs a run; CIFAR-10's binary batches and MNIST's idx files in their
+# real formats
+IMG_CLASSES, IMG_PER_CLASS, IMG_SIDE, IMG_BATCH = 4, 256, 280, 256
+RESNET_IMG_ARGV = ["--dataset", "ImageNet", "--depth", "50", "--classes",
+                   "1000"]
+IMG_EPOCHS = 2
+CIFAR_PER_FILE, MNIST_TRAIN, MNIST_TEST, SMALL_BATCH = 1024, 6144, 1024, 128
+DECODE_REPS = 200          # decodes a rate, one thread (the pool: x threads)
+
+
+def fixture_decodes(codec, fixtures: Path) -> dict:
+    """Every fixture decoded by the port against the SHA-256 and shape of
+    PIL's decode recorded beside it."""
+    import hashlib
+    table = json.loads((fixtures / "fixtures.json").read_text())
+    for name, want in sorted(table.items()):
+        arr = codec.decode((fixtures / name).read_bytes())
+        got = hashlib.sha256(arr.tobytes()).hexdigest()
+        if list(arr.shape) != want["shape"] or got != want["sha256"]:
+            raise CheckFailed(f"the codec's decode of {name} differs from "
+                              f"PIL's ({list(arr.shape)}, {got[:12]})")
+    log(f"  {len(table)} fixtures decode bitwise PIL's")
+    return {"fixtures": len(table), "bitwise": True}
+
+
+def decode_rates(codec, fixtures: Path, card) -> dict:
+    """Images/s of the codec on one thread and on a pool of one thread a
+    CPU: a 500 x 375 4:2:0 JPEG (ImageNet's typical shape) and a 280 x 280
+    PNG (the synthetic folder's); and the pipeline's 280 → 256 resize."""
+    from concurrent.futures import ThreadPoolExecutor
+    threads = os.cpu_count() or 1
+    png = codec.encode_png(np.random.default_rng(SEED).integers(
+        0, 256, (IMG_SIDE, IMG_SIDE, 3), dtype=np.uint8))
+    out = {"threads": threads}
+    for name, data in (
+            ("jpeg_500x375_420", (fixtures / "jpeg_420_500x375.jpg")
+             .read_bytes()),
+            ("png_280x280", png)):
+        codec.decode(data)
+        t0 = time.perf_counter()
+        for _ in range(DECODE_REPS):
+            codec.decode(data)
+        one = DECODE_REPS / (time.perf_counter() - t0)
+        with ThreadPoolExecutor(threads) as ex:
+            list(ex.map(codec.decode, [data] * threads))
+            t0 = time.perf_counter()
+            list(ex.map(codec.decode, [data] * (DECODE_REPS * threads)))
+            pool = DECODE_REPS * threads / (time.perf_counter() - t0)
+        out[name] = {"bytes": len(data), "one_thread_images_per_s": one,
+                     "pool_images_per_s": pool}
+        log(f"  decode {name} ({len(data)} bytes): {one:.1f} images/s on "
+            f"one thread, {pool:.1f} on {threads} [{card}]")
+    img = codec.decode(png)
+    t0 = time.perf_counter()
+    for _ in range(DECODE_REPS):
+        codec.resize_bilinear(img, 256, 256)
+    out["resize_280_to_256_per_s"] = DECODE_REPS / (time.perf_counter() - t0)
+    log(f"  resize 280x280 -> 256x256: {out['resize_280_to_256_per_s']:.1f} "
+        f"images/s on one thread [{card}]")
+    return out
+
+
+def copy_jpeg_folder(fixtures: Path, root: Path) -> str:
+    """An ImageNet-layout folder of the 500 x 375 4:2:0 fixture JPEG,
+    ``IMG_PER_CLASS`` copies in each of ``IMG_CLASSES`` classes."""
+    import shutil
+    src = fixtures / "jpeg_420_500x375.jpg"
+    for c in range(IMG_CLASSES):
+        cdir = root / f"class_{c:03d}"
+        cdir.mkdir(parents=True)
+        for i in range(IMG_PER_CLASS):
+            shutil.copyfile(src, cdir / f"img_{i:04d}.jpg")
+    return str(root)
+
+
+def write_cifar_bins(root: Path) -> str:
+    """CIFAR-10's binary layout: five train batches and a test batch of
+    ``CIFAR_PER_FILE`` records (a label byte, 3072 pixel bytes)."""
+    rng = np.random.default_rng(SEED + 20)
+    root.mkdir(parents=True, exist_ok=True)
+    for name in [f"data_batch_{i}.bin" for i in range(1, 6)] + \
+            ["test_batch.bin"]:
+        raw = rng.integers(0, 256, (CIFAR_PER_FILE, 3073), dtype=np.uint8)
+        raw[:, 0] %= 10
+        raw.tofile(root / name)
+    return str(root)
+
+
+def write_mnist_idx(root: Path) -> str:
+    """MNIST's idx files, gzipped: class prototypes plus noise."""
+    import gzip
+    import struct
+    rng = np.random.default_rng(SEED + 21)
+    protos = rng.integers(0, 256, (10, 28, 28))
+    root.mkdir(parents=True, exist_ok=True)
+    for split, n in (("train", MNIST_TRAIN), ("t10k", MNIST_TEST)):
+        labels = rng.integers(0, 10, n)
+        imgs = np.clip(protos[labels] + rng.integers(-40, 40, (n, 28, 28)),
+                       0, 255)
+        for kind, arr in (("images-idx3", imgs), ("labels-idx1", labels)):
+            with gzip.open(root / f"{split}-{kind}-ubyte.gz", "wb") as f:
+                f.write(struct.pack(">I", 0x800 | arr.ndim))
+                f.write(struct.pack(">" + "I" * arr.ndim, *arr.shape))
+                f.write(arr.astype(np.uint8).tobytes())
+    return str(root)
+
+
+def folder_main_run(module, argv, name, batch, root: Path, card,
+                    run=None) -> dict:
+    """One training main through the entry point: its per-step losses (the
+    train summary's: the main writes them under ``name``, into a folder of
+    ``run``, default ``name``), step ms (``train/step_wall`` after the
+    first), images/s, the loop's feed wait a step and the feed's stage
+    ms."""
+    from bigdl_tpu_torch.obs.registry import registry
+    from bigdl_tpu_torch.visualization import TrainSummary
+    summaries = root / f"tb_{run or name}"
+    hist = registry.histogram("train/step_wall")
+    n0 = hist.count
+    waits = feed_waits()
+    t0 = time.perf_counter()
+    opt = module.main(argv + ["--device", DEVICE, "--summary-dir",
+                              str(summaries)])
+    sync()
+    wall = time.perf_counter() - t0
+    waits = waits()
+    losses = [v for _, v, _ in TrainSummary(str(summaries), name)
+              .read_scalar("Loss")]
+    if not losses or not all(math.isfinite(v) for v in losses):
+        raise CheckFailed(f"the {name} main's losses {losses}")
+    steps = hist.count - n0
+    walls = list(hist._window)[-steps:][1:] if steps > 1 else []
+    step_ms = float(np.median(walls)) * 1e3 if walls else None
+    stack = (waits.get("stack") or {}).get("median_ms")
+    wait = (waits.get("wait") or {}).get("median_ms")
+    out = {"steps": steps, "first_loss": losses[0], "last_loss": losses[-1],
+           "step_ms": step_ms,
+           # after the first step: the loop's wait on the feed under 5% of
+           # the step (the producer's host work can still slow the step:
+           # compare the runs' step ms)
+           "stack_ms_a_batch": stack,
+           "feed_keeps_up": bool(step_ms and wait is not None
+                                 and wait < 0.05 * step_ms),
+           "images_per_s": batch / step_ms * 1e3 if step_ms else None,
+           "feed_wait_ms_per_step": opt.metrics.totals().get("feed", 0.0)
+           / max(steps, 1) * 1e3,
+           "feed_wait_after_first": waits,
+           "feed_stage_ms": dict(opt.feed_stage_ms),
+           "top1": opt.state.get("score"), "wall_s": wall}
+    log(f"  {name}: {steps} steps, loss {losses[0]:.4f} -> {losses[-1]:.4f}, "
+        f"step {step_ms if step_ms is None else round(step_ms, 2)} ms "
+        f"(median after the first), "
+        f"{out['images_per_s'] and round(out['images_per_s'], 1)} images/s,"
+        f" feed wait {out['feed_wait_ms_per_step']:.2f} ms a step (median "
+        f"after the first {wait}; a batch's stack {stack} ms: no wait "
+        f"{out['feed_keeps_up']}), stages "
+        f"{ {k: round(v, 3) for k, v in out['feed_stage_ms'].items()} }, "
+        f"wall {wall:.1f} s [{card}]")
+    return out, opt
+
+
+def resnet_in_memory(card) -> dict:
+    """The ResNet main's model, criterion and SGD on two in-memory batches
+    of the folder runs' shape, 8 steps: the step with no decode or augment
+    beside it (the batches cached on the card), the folder runs'
+    yardstick."""
+    from bigdl_tpu_torch import nn
+    from bigdl_tpu_torch.dataset import DataSet, MiniBatch
+    from bigdl_tpu_torch.models.resnet import ResNet
+    from bigdl_tpu_torch.obs.registry import registry
+    from bigdl_tpu_torch.optim import SGD, LocalOptimizer, Trigger
+    r = np.random.default_rng(SEED + 23)
+    classes = int(RESNET_IMG_ARGV[RESNET_IMG_ARGV.index("--classes") + 1])
+    depth = int(RESNET_IMG_ARGV[RESNET_IMG_ARGV.index("--depth") + 1])
+    batches = [MiniBatch(r.standard_normal((IMG_BATCH, 3, 224, 224),
+                                           dtype=np.float32),
+                         r.integers(0, classes, IMG_BATCH).astype(np.int32))
+               for _ in range(2)]
+    model = ResNet(classes, {"depth": depth, "dataSet": "ImageNet"},
+                   generator=torch.Generator().manual_seed(0), device=DEVICE)
+    opt = (LocalOptimizer(model, DataSet.array(batches * 4),
+                          nn.ClassNLLCriterion(), device=DEVICE)
+           .set_optim_method(SGD(learningrate=0.1, momentum=0.9,
+                                 weightdecay=1e-4, nesterov=True,
+                                 dampening=0.0))
+           .set_end_when(Trigger.max_iteration(8)))
+    hist = registry.histogram("train/step_wall")
+    n0 = hist.count
+    opt.optimize()
+    sync()
+    walls = list(hist._window)[-(hist.count - n0):][1:]
+    step_ms = float(np.median(walls)) * 1e3
+    log(f"  ResNet-{depth} in memory: step {step_ms:.2f} ms (median after "
+        f"the first), {IMG_BATCH / step_ms * 1e3:.1f} images/s [{card}]")
+    return {"steps": len(walls) + 1, "step_ms": step_ms,
+            "images_per_s": IMG_BATCH / step_ms * 1e3}
+
+
+def verdict(config, folder, batch, extra=()) -> dict:
+    from bigdl_tpu_torch.convergence import converge
+    v = converge(config, folder, epochs=1, batch_size=batch, device=DEVICE,
+                 extra=tuple(extra))
+    log(f"  converge {config}: {json.dumps(v)}")
+    if set(v) != {"config", "metric", "value", "target", "achieved",
+                  "synthetic", "epochs", "batch"} or v["synthetic"]:
+        raise CheckFailed(f"converge {config}: {v}")
+    return v
+
+
+def same_forward(name, build, x, root: Path, card) -> dict:
+    """``save_module`` then ``load_module`` of ``build()``; the reloaded
+    module's forward equals the saved one's bitwise."""
+    from bigdl_tpu_torch import nn
+    model = build()
+    n_params = sum(p.numel() for p in model.parameters())
+    path = root / f"{name}.bdlm"
+    t0 = time.perf_counter()
+    model.save_module(str(path))
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    again = nn.AbstractModule.load_module(str(path), DEVICE)
+    sync()
+    load_s = time.perf_counter() - t0
+    model.eval()
+    again.eval()
+    with torch.no_grad():
+        a, b = model(x), again(x)
+    if not torch.equal(a, b):
+        raise CheckFailed(f"{name} reloaded from its file: forward differs "
+                          f"by {float((a - b).abs().max())}")
+    out = {"params": n_params, "bytes": path.stat().st_size,
+           "save_s": save_s, "load_s": load_s, "forward_bitwise": True}
+    log(f"  {name}: {n_params} parameters, {out['bytes']} bytes, save "
+        f"{save_s:.2f} s, load {load_s:.2f} s, forward bitwise [{card}]")
+    return out
+
+
+def images_path(kernels, card, repo: Path) -> dict:
+    """Phase 20: the codec, the ImageNet folder path at full width, CIFAR-10
+    and MNIST files, module save and load. The kernels' launches are read
+    after the path and before the LM's reload check (counted apart)."""
+    import shutil
+    import tempfile
+
+    from bigdl_tpu_torch.dataset.image_folder import (
+        write_synthetic_image_folder,
+    )
+    from bigdl_tpu_torch.models.lenet import train as lenet_main
+    from bigdl_tpu_torch.models.resnet import ResNet
+    from bigdl_tpu_torch.models.resnet import train as resnet_main
+    from bigdl_tpu_torch.models.transformerlm import TransformerLM
+    from bigdl_tpu_torch.models.vgg import train as vgg_main
+    from bigdl_tpu_torch.transform.vision import codec
+    from bigdl_tpu_torch.utils import file as ufile
+    from bigdl_tpu_torch.utils.engine import Engine
+
+    t_phase = time.perf_counter()
+    fixtures = repo / "tests" / "torch_image_fixtures"
+    root = Path(tempfile.mkdtemp(prefix="bigdl-phase20-"))
+    out = {}
+    try:
+        Path(codec._SO).unlink(missing_ok=True)    # time a build
+        codec.build()
+        out["codec_build_s"] = codec.build_seconds
+        log(f"  built the codec (g++ -O3 -ffp-contract=off) in "
+            f"{codec.build_seconds:.2f} s")
+        out["fixtures"] = fixture_decodes(codec, fixtures)
+        out["decode"] = decode_rates(codec, fixtures, card)
+
+        t0 = time.perf_counter()
+        folder = write_synthetic_image_folder(
+            str(root / "imagenet"), n_classes=IMG_CLASSES,
+            n_per_class=IMG_PER_CLASS, size=IMG_SIDE, seed=SEED)
+        out["imagenet_folder"] = {"images": IMG_CLASSES * IMG_PER_CLASS,
+                                  "side": IMG_SIDE,
+                                  "write_s": time.perf_counter() - t0}
+        log(f"  wrote {IMG_CLASSES * IMG_PER_CLASS} PNGs of {IMG_SIDE} px "
+            f"in {out['imagenet_folder']['write_s']:.1f} s")
+        Engine.init(compute_dtype=torch.bfloat16)
+        try:
+            argv = RESNET_IMG_ARGV + ["-b", str(IMG_BATCH), "--folder",
+                                      folder, "--max-epoch", str(IMG_EPOCHS)]
+            out["resnet50_imagenet"] = {}
+            for workers in ("0", "auto"):
+                os.environ["BIGDL_DATA_WORKERS"] = workers
+                try:
+                    out["resnet50_imagenet"][f"data_workers_{workers}"], _ = \
+                        folder_main_run(resnet_main, argv, "resnet", IMG_BATCH,
+                                 root, card + f", bf16, data workers "
+                                 f"{workers}", run=f"resnet_{workers}")
+                finally:
+                    os.environ.pop("BIGDL_DATA_WORKERS", None)
+                release()
+            # ImageNet's own traffic: 500 x 375 4:2:0 JPEGs, each decoded
+            # and resized (to 341 x 256) anew, on the parallel engine
+            jpeg_folder = copy_jpeg_folder(fixtures, root / "imagenet_jpeg")
+            os.environ["BIGDL_DATA_WORKERS"] = "auto"
+            try:
+                out["resnet50_imagenet"]["jpeg_500x375_data_workers_auto"], \
+                    _ = folder_main_run(
+                        resnet_main, RESNET_IMG_ARGV + [
+                            "-b", str(IMG_BATCH), "--folder", jpeg_folder,
+                            "--max-epoch", str(IMG_EPOCHS)], "resnet",
+                        IMG_BATCH, root, card + ", bf16, 500 x 375 JPEGs, "
+                        "data workers auto", run="resnet_jpeg")
+            finally:
+                os.environ.pop("BIGDL_DATA_WORKERS", None)
+            release()
+            out["resnet50_imagenet"]["in_memory"] = resnet_in_memory(
+                card + ", bf16")
+            release()
+            out["converge_resnet50"] = verdict(
+                "resnet50", folder, IMG_BATCH, RESNET_IMG_ARGV)
+        finally:
+            Engine.init()
+        release()
+
+        cifar_dir = write_cifar_bins(root / "cifar")
+        mnist_dir = write_mnist_idx(root / "mnist")
+        out["vgg16_cifar10"], _ = folder_main_run(
+            vgg_main, ["-b", str(SMALL_BATCH), "--folder", cifar_dir], "vgg",
+            SMALL_BATCH, root, card)
+        out["lenet5_mnist"], lenet = folder_main_run(
+            lenet_main, ["-b", str(SMALL_BATCH), "--folder", mnist_dir],
+            "lenet", SMALL_BATCH, root, card)
+        out["converge_lenet"] = verdict("lenet", mnist_dir, SMALL_BATCH)
+        out["converge_vgg16"] = verdict("vgg16", cifar_dir, SMALL_BATCH)
+        release()
+
+        # module save and load; the LeNet main from the files saved here
+        lenet.model.save_module(str(root / "lenet.bdlm"))
+        ufile.save(lenet.optim_method, str(root / "lenet_sgd.obj"))
+        out["lenet_from_snapshots"], _ = folder_main_run(
+            lenet_main, ["-b", str(SMALL_BATCH), "--folder", mnist_dir,
+                         "--model-snapshot", str(root / "lenet.bdlm"),
+                         "--state-snapshot", str(root / "lenet_sgd.obj")],
+            "lenet", SMALL_BATCH, root / "again", card)
+        if out["lenet_from_snapshots"]["first_loss"] >= \
+                out["lenet5_mnist"]["first_loss"]:
+            raise CheckFailed("the LeNet main resumed from its snapshot "
+                              "started no lower than the fresh run")
+        g = torch.Generator().manual_seed(SEED + 22)
+        with cudnn_deterministic():
+            out["save_load"] = {"resnet50": same_forward(
+                "resnet50", lambda: ResNet(
+                    1000, {"depth": 50, "dataSet": "ImageNet"},
+                    generator=torch.Generator().manual_seed(SEED),
+                    device=DEVICE),
+                torch.randn(16, 3, 224, 224, generator=g).to(DEVICE),
+                root, card)}
+            out["launches"] = kernels.launch_counts()   # the path's, to here
+            with apart("references") as lm_check:
+                out["save_load"]["transformerlm"] = same_forward(
+                    "transformerlm",
+                    lambda: build_lm(TransformerLM, "auto", DEVICE),
+                    torch.randint(0, VOCAB, (2, 512), generator=g).to(DEVICE),
+                    root, card)
+        out["reference_launches"] = dict(lm_check)
+        log(f"  launches on the path {out['launches']} (the LM reload's "
+            f"forward check, counted apart: {out['reference_launches']})")
+        if any(out["launches"].values()):
+            raise CheckFailed(f"phase 20 launched {out['launches']}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        release()
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"  phase 20 took {out['wall_s']:.1f} s [{card}]")
+    return out
+
+
+@contextlib.contextmanager
+def cudnn_deterministic():
+    was = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = was
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on the "
@@ -8477,6 +8881,12 @@ def main() -> int:
         kernels.reset_launch_counts()
         detection = detection_path(kernels, card, Program)
         print(json.dumps({"detection": detection}), flush=True)
+        return 0
+    if "--images-only" in sys.argv:
+        log("phase 20 only")
+        kernels.reset_launch_counts()
+        images = images_path(kernels, card, root)
+        print(json.dumps({"images": images}), flush=True)
         return 0
     if "--serving-only" in sys.argv:
         log("phase 14 only")
@@ -8710,6 +9120,13 @@ def main() -> int:
     kernels.reset_launch_counts()          # the phase's path: from here ...
     detection = detection_path(kernels, card, Program)   # ... to its end
 
+    log("phase 20: the folder-backed image pipeline (the codec against "
+        "PIL's fixtures, ResNet-50 from an ImageNet folder at batch 256, "
+        "VGG-16 and LeNet-5 from CIFAR-10 and MNIST files, the convergence "
+        "harness), module save and load")
+    kernels.reset_launch_counts()          # the phase's path: from here ...
+    images = images_path(kernels, card, root)    # ... to its save and load
+
     log("phase 10: the kernel table")
 
     # each kernel's row: its own slice's path (serving for the forward
@@ -8775,7 +9192,8 @@ def main() -> int:
                  "tail": tail["launches"][k],
                  "recsys": recsys["launches"][k],
                  "quantized": quantized["launches"][k],
-                 "detection": detection["launches"][k]}
+                 "detection": detection["launches"][k],
+                 "images": images["launches"][k]}
              for k in launches}
 
     def s2s_flash(rows, name):
@@ -8967,7 +9385,7 @@ def main() -> int:
         "finetune": finetune, "tail": tail, "recsys": recsys,
         "quantized": quantized,
         "detection": {k: v for k, v in detection.items()
-                      if k != "nms_rows"}}
+                      if k != "nms_rows"}, "images": images}
     print(json.dumps(table), flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -15,7 +15,7 @@
 - a streamed trainer preempted mid-epoch and resumed from its checkpoint
   replays the uninterrupted run bit for bit (the checkpoint's ``stream``
   key, which JAX's loader reads as JAX wrote it);
-- the refusals: the image decoder and packer (A.4.2), ``distributed=True``
+- the image decoder as the record sources' default, and the refusals: ``distributed=True``
   and ``shard()`` (A.6).
 """
 
@@ -347,21 +347,16 @@ def test_streamed_resume_replays_the_same_batches(tmp_path):
 
 def test_refusals_name_their_roadmap_items(tmp_path):
     (p,) = _shards(tmp_path, n_shards=1, per=2)
-    with pytest.raises(NotImplementedError, match="A.4.2"):
-        recordio.image_record_decoder(b"")
-    with pytest.raises(NotImplementedError, match="A.4.2"):
-        recordio.write_image_records(str(tmp_path), str(tmp_path / "o"))
-    with pytest.raises(NotImplementedError, match="A.4.2"):
-        DataSet.record_files([p])
-    with pytest.raises(NotImplementedError, match="A.4.2"):
-        DataSet.stream_shards([p])
+    # the image decoder is the default of both record sources, as in JAX
+    assert DataSet.record_files([p]).decoder is recordio.image_record_decoder
+    assert DataSet.stream_shards([p]).decoder is recordio.image_record_decoder
     with pytest.raises(NotImplementedError, match="A.6"):
         DataSet.stream_shards([p], decoder=_decoder(Sample), distributed=True)
     with pytest.raises(NotImplementedError, match="A.6"):
         recordio.RecordFileDataSet([p], _decoder(Sample), distributed=True)
     with pytest.raises(NotImplementedError, match="A.6"):
         _stream(streaming, [p], Sample).shard(0, 2)
-    with pytest.raises(TypeError, match="A.4.2"):
+    with pytest.raises(TypeError, match="not cacheable"):
         sample_cache.encode_record(type("ImageFeature", (), {})())
     assert recordio.encode_image_record(7, b"ab") == \
         jrec.encode_image_record(7, b"ab")

@@ -369,7 +369,7 @@ def test_lm_main_lora_trains_two_steps(capsys):
     assert "WARNING: --lora without --model-snapshot" in out
     assert "LoRA: adapted 7 modules at rank 2" in out
     with pytest.raises(SystemExit, match="A.6"):
-        lm_main.main(["--model-snapshot", "x"])
+        lm_main.main(["--distributed"])
 
 
 # --------------------------------------------------------------- serving

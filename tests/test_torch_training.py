@@ -12,6 +12,8 @@ atol 1e-4 in parameters (sums of a whole model's backward in another
 order).
 """
 
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -404,14 +406,16 @@ def test_triggers_match_jax(name, args, fires):
     assert toptim.Trigger.or_(ours, always)(fires[0])
 
 
-def test_train_main_runs_on_the_cpu_and_refuses_unported_flags(capsys):
+def test_train_main_runs_on_the_cpu_and_refuses_unported_flags(capsys,
+                                                                tmp_path):
+    saved = str(tmp_path / "lm.bdlm")
     loss = train_main.main(["--device", "cpu", "-b", "4", "--seq-len", "16",
                             "--embed-dim", "32", "--num-heads", "2",
                             "--vocab-size", "64", "--max-iteration", "3",
-                            "--synthetic-tokens", "2000"])
+                            "--synthetic-tokens", "2000", "--save", saved])
     assert np.isfinite(loss)
     assert "final loss:" in capsys.readouterr().out
-    for flag in (["--save", "m.bin"], ["--model-snapshot", "m.bin"],
-                 ["--distributed"]):
+    assert os.path.exists(saved)
+    for flag in (["--distributed"],):
         with pytest.raises(SystemExit, match="ROADMAP Queue"):
             train_main.main(["--device", "cpu", *flag])
