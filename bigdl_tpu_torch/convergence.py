@@ -13,8 +13,8 @@ dataset. With no data folder the mains fall back to their synthetic sets:
 the harness still runs end to end, and the verdict says ``synthetic:
 true`` with ``achieved: null``, so a synthetic number is never mistaken
 for a parity claim. The port trains on the card unless ``--device cpu``
-(``device=`` of :func:`converge`); ``--distributed`` exits naming ROADMAP
-Queue A.6 as the mains do.
+(``device=`` of :func:`converge`); ``--distributed`` trains each main
+through ``DistriOptimizer``, as the mains do (one process a rank).
 """
 
 from __future__ import annotations

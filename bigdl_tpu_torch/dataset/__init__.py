@@ -1,7 +1,8 @@
 """Host data path of the port, named as in ``bigdl_tpu.dataset``."""
 
 from bigdl_tpu_torch.dataset.dataset import (
-    AbstractDataSet, DataSet, LocalDataSet, TransformedDataSet,
+    AbstractDataSet, DataSet, DistributedDataSet, LocalDataSet,
+    TransformedDataSet, is_distributed,
 )
 from bigdl_tpu_torch.dataset.parallel import (
     ParallelTransformer, data_workers, plan_stages,
@@ -26,6 +27,7 @@ from bigdl_tpu_torch.dataset.transformer import (
 
 __all__ = [
     "AbstractDataSet", "CacheCorruptError", "ChainedTransformer", "DataSet",
+    "DistributedDataSet", "is_distributed",
     "Dictionary", "FusedTransformer", "Identity", "LabeledSentenceToSample",
     "LocalDataSet", "MapTransformer", "MiniBatch", "ParallelTransformer",
     "PrefetchingFeed", "RecordFileDataSet", "RecordIOError", "RecordWriter",

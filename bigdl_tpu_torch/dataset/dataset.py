@@ -10,8 +10,11 @@ serially, or through the parallel transform engine
 ``DataSet.image_folder``, ``DataSet.record_files`` and
 ``DataSet.stream_shards`` are JAX's on-disk sources
 (``dataset/image_folder.py``, ``dataset/recordio.py``,
-``dataset/streaming.py``), images decoded by the port's codec. The
-distributed marker is not ported (ROADMAP Queue A.6).
+``dataset/streaming.py``), images decoded by the port's codec.
+``DataSet.array(..., distributed=True)`` (a :class:`DistributedDataSet`)
+and the sources' ``distributed=True`` mark a dataset for the
+data-parallel trainer: ``Optimizer(model, dataset, criterion)`` then
+builds a ``DistriOptimizer`` (:func:`is_distributed`), as in JAX.
 """
 
 from __future__ import annotations
@@ -106,13 +109,28 @@ class TransformedDataSet(AbstractDataSet):
         return it
 
 
+class DistributedDataSet(LocalDataSet):
+    """Marker dataset: train with DistriOptimizer over the mesh."""
+
+
+def is_distributed(dataset: AbstractDataSet) -> bool:
+    """Whether ``dataset`` (or the base of a transformed one) is marked
+    distributed."""
+    if isinstance(dataset, DistributedDataSet):
+        return True
+    if isinstance(dataset, TransformedDataSet):
+        return is_distributed(dataset.base)
+    return bool(getattr(dataset, "distributed", False))
+
+
 class DataSet:
     """Factory namespace (reference ``DataSet.array``), with JAX's on-disk
     record sources."""
 
     @staticmethod
-    def array(data: Iterable) -> AbstractDataSet:
-        return LocalDataSet(list(data))
+    def array(data: Iterable, distributed: bool = False) -> AbstractDataSet:
+        return (DistributedDataSet(list(data)) if distributed
+                else LocalDataSet(list(data)))
 
     @staticmethod
     def image_folder(root: str, num_workers: int = 8, one_based: bool = False,

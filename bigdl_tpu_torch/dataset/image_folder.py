@@ -16,7 +16,8 @@ runs under the ``feed/decode`` span, adds to the ``decode`` feed stage,
 passes the ``decode`` fault site and follows ``BIGDL_BAD_SAMPLE_POLICY``
 (a file the codec does not decode is treated as any unreadable file); the
 decoded-sample cache serves later epochs when enabled. ``distributed=True``
-raises naming ROADMAP Queue A.6.
+marks the source for the data-parallel trainer (``DistriOptimizer``), as
+in JAX.
 """
 
 from __future__ import annotations
@@ -46,10 +47,6 @@ class ImageFolderDataSet(AbstractDataSet):
                  extensions: Sequence[str] = _EXTENSIONS,
                  one_based: bool = False, distributed: bool = False,
                  cache: Optional[bool] = None, cache_dir: Optional[str] = None):
-        if distributed:
-            raise NotImplementedError(
-                "a distributed image folder feeds the data-parallel "
-                "trainer: ROADMAP Queue A.6 (DistriOptimizer)")
         if not os.path.isdir(root):
             raise FileNotFoundError(f"image folder root not found: {root}")
         self.root = root

@@ -14,8 +14,9 @@ Image records (:func:`encode_image_record`, :func:`write_image_records`)
 hold an i32 label and the file's bytes; :func:`image_record_decoder`, the
 default decoder of both record sources as in JAX, decodes them with the
 port's codec (``transform/vision/codec.py``, PIL's pixels) into
-``ImageFeature`` records. ``distributed=True`` raises naming ROADMAP
-Queue A.6.
+``ImageFeature`` records. ``distributed=True`` marks a source for the
+data-parallel trainer (``DistriOptimizer``), as in JAX: every rank reads
+the same global batches and trains on its block of each.
 """
 
 from __future__ import annotations
@@ -127,10 +128,6 @@ class _RecordSource(AbstractDataSet):
 
     def _init_source(self, paths, decoder, num_workers, cache, cache_dir,
                       distributed) -> None:
-        if distributed:
-            raise NotImplementedError(
-                "a distributed record source feeds the data-parallel "
-                "trainer: ROADMAP Queue A.6 (DistriOptimizer)")
         self.paths = [paths] if isinstance(paths, str) else list(paths)
         if not self.paths:
             raise ValueError("no record files given")

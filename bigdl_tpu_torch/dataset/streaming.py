@@ -21,9 +21,10 @@ mid-epoch resume rebuilds the epoch's stream and replays to its batch;
 
 Decoded records go through the decoded-sample cache when enabled
 (``dataset/sample_cache.py``): the first epoch decodes and writes it, later
-epochs read it and never build the decode pool. ``distributed=True`` and
-:meth:`shard` (the per-host slice) raise naming ROADMAP Queue A.6; the
-default decoder is the image decoder (``recordio.image_record_decoder``).
+epochs read it and never build the decode pool. ``distributed=True`` marks
+the stream for the data-parallel trainer, and :meth:`shard` takes a
+host's strided slice of the shards (``bigdl_tpu/dataset/streaming.py:
+266-282``), as in JAX; the default decoder is the image decoder (``recordio.image_record_decoder``).
 """
 
 from __future__ import annotations
@@ -212,10 +213,20 @@ class StreamingDataSet(_RecordSource):
         self._epoch_seed = int(rng.integers(0, 2 ** 31 - 1))
 
     def shard(self, host_index: int, host_count: int) -> "StreamingDataSet":
-        """JAX's per-host slice of the shards: ROADMAP Queue A.6."""
-        raise NotImplementedError(
-            "StreamingDataSet.shard() slices the shards across hosts of the "
-            "data-parallel trainer: ROADMAP Queue A.6 (DistriOptimizer)")
+        """This dataset restricted to ``paths[host_index::host_count]``,
+        the per-host assignment of multi-host input: every host builds the
+        same shard list and takes its strided slice."""
+        if host_count < 1 or not (0 <= host_index < host_count):
+            raise ValueError(f"invalid shard({host_index}, {host_count})")
+        mine = self.paths[host_index::host_count]
+        if not mine:
+            raise ValueError(
+                f"host {host_index}/{host_count} got no shards from "
+                f"{len(self.paths)} files — write more shards than hosts")
+        return StreamingDataSet(
+            mine, decoder=self.decoder, shuffle_window=self.shuffle_window,
+            num_workers=self.num_workers, cache=self._cache_enabled,
+            cache_dir=self._cache_dir, distributed=self.distributed)
 
     def _locate(self, gid: int) -> tuple:
         """Global record id → (shard, record within the shard)."""

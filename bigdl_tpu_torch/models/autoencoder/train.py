@@ -18,11 +18,9 @@ import sys
 
 import torch
 
-from bigdl_tpu_torch.models.unported import refuse_unported
-
-UNPORTED_FLAGS = {
-    "--distributed": "Queue A.6 (DistriOptimizer)",
-}
+from bigdl_tpu_torch.models.mains import (
+    add_distributed_flag, distributed_setup, trainer,
+)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -36,14 +34,15 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--synthetic-size", type=int, default=2048)
     p.add_argument("--device", default="cuda",
                    help="where to train: cuda (default) or cpu")
+    add_distributed_flag(p)
     return p
 
 
 def main(argv=None):
     """Train; returns the ``LocalOptimizer``."""
     argv = sys.argv[1:] if argv is None else list(argv)
-    refuse_unported(argv, UNPORTED_FLAGS)
     args = build_parser().parse_args(argv)
+    distributed_setup(args)
 
     import numpy as np
 
@@ -51,19 +50,20 @@ def main(argv=None):
     from bigdl_tpu_torch.dataset import DataSet, Sample, SampleToMiniBatch
     from bigdl_tpu_torch.dataset.mnist import load_mnist
     from bigdl_tpu_torch.models.autoencoder import Autoencoder
-    from bigdl_tpu_torch.optim import Adam, LocalOptimizer, Trigger
+    from bigdl_tpu_torch.optim import Adam, Trigger
     from bigdl_tpu_torch.utils.random_generator import RandomGenerator
 
     RandomGenerator.set_seed(0)
     imgs, _ = load_mnist(args.folder, "train",
                          synthetic_size=args.synthetic_size)
     flat = (imgs.astype(np.float32) / 255.0).reshape(len(imgs), -1)
-    train_set = (DataSet.array([Sample(x, x) for x in flat])
+    train_set = (DataSet.array([Sample(x, x) for x in flat],
+                                distributed=args.distributed)
                  >> SampleToMiniBatch(args.batch_size))
     model = Autoencoder(args.bottleneck,
                         generator=torch.Generator().manual_seed(0),
                         device=args.device)
-    optimizer = (LocalOptimizer(model, train_set, nn.MSECriterion(),
+    optimizer = (trainer(args)(model, train_set, nn.MSECriterion(),
                                 device=args.device)
                  .set_optim_method(Adam(learningrate=args.learning_rate))
                  .set_end_when(Trigger.max_epoch(args.max_epoch)))

@@ -23,11 +23,9 @@ import sys
 import numpy as np
 import torch
 
-from bigdl_tpu_torch.models.unported import refuse_unported
-
-UNPORTED_FLAGS = {
-    "--distributed": "Queue A.6 (DistriOptimizer)",
-}
+from bigdl_tpu_torch.models.mains import (
+    add_distributed_flag, distributed_setup, trainer,
+)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -49,6 +47,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--image-size", type=int, default=224)
     p.add_argument("--device", default="cuda",
                    help="where to train: cuda (default) or cpu")
+    add_distributed_flag(p)
     return p
 
 
@@ -70,8 +69,8 @@ def synthetic_set(size: int, image_size: int, classes: int):
 def main(argv=None):
     """Train; returns the ``LocalOptimizer``."""
     argv = sys.argv[1:] if argv is None else list(argv)
-    refuse_unported(argv, UNPORTED_FLAGS)
     args = build_parser().parse_args(argv)
+    distributed_setup(args)
 
     from bigdl_tpu_torch import nn
     from bigdl_tpu_torch.dataset import DataSet, SampleToMiniBatch
@@ -79,7 +78,7 @@ def main(argv=None):
         Inception_v1, Inception_v1_NoAuxClassifier, Inception_v2,
         Inception_v2_NoAuxClassifier,
     )
-    from bigdl_tpu_torch.optim import SGD, LocalOptimizer, Trigger
+    from bigdl_tpu_torch.optim import SGD, Trigger
     from bigdl_tpu_torch.utils.device import resolve_device
     from bigdl_tpu_torch.utils.random_generator import RandomGenerator
 
@@ -116,7 +115,7 @@ def main(argv=None):
                      .add(nn.ClassNLLCriterion(), 1.0)
                      .add(nn.ClassNLLCriterion(), 0.3)
                      .add(nn.ClassNLLCriterion(), 0.3))
-    optimizer = (LocalOptimizer(model, train_set, criterion,
+    optimizer = (trainer(args)(model, train_set, criterion,
                                 device=args.device)
                  .set_optim_method(SGD(learningrate=args.learning_rate,
                                        momentum=args.momentum,

@@ -20,11 +20,9 @@ import sys
 
 import torch
 
-from bigdl_tpu_torch.models.unported import refuse_unported
-
-UNPORTED_FLAGS = {
-    "--distributed": "Queue A.6 (DistriOptimizer)",
-}
+from bigdl_tpu_torch.models.mains import (
+    add_distributed_flag, distributed_setup, trainer,
+)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -46,20 +44,21 @@ def build_parser() -> argparse.ArgumentParser:
                    help="TensorBoard summary dir")
     p.add_argument("--device", default="cuda",
                    help="where to train: cuda (default) or cpu")
+    add_distributed_flag(p)
     return p
 
 
 def main(argv=None):
     """Train; returns the ``LocalOptimizer``."""
     argv = sys.argv[1:] if argv is None else list(argv)
-    refuse_unported(argv, UNPORTED_FLAGS)
     args = build_parser().parse_args(argv)
+    distributed_setup(args)
 
     from bigdl_tpu_torch import nn
     from bigdl_tpu_torch.dataset import DataSet, SampleToMiniBatch
     from bigdl_tpu_torch.dataset.mnist import load_mnist, to_samples
     from bigdl_tpu_torch.models.lenet import LeNet5
-    from bigdl_tpu_torch.optim import SGD, LocalOptimizer, Trigger
+    from bigdl_tpu_torch.optim import SGD, Trigger
     from bigdl_tpu_torch.optim.validation import Top1Accuracy
     from bigdl_tpu_torch.utils.random_generator import RandomGenerator
 
@@ -68,7 +67,7 @@ def main(argv=None):
                                    synthetic_size=args.synthetic_size))
     test = to_samples(*load_mnist(
         args.folder, "test", synthetic_size=max(args.synthetic_size // 4, 256)))
-    train_set = DataSet.array(train) >> SampleToMiniBatch(args.batch_size)
+    train_set = DataSet.array(train, distributed=args.distributed) >> SampleToMiniBatch(args.batch_size)
     test_set = DataSet.array(test) >> SampleToMiniBatch(args.batch_size)
     if args.model_snapshot:
         model = nn.AbstractModule.load(args.model_snapshot, args.device)
@@ -81,7 +80,7 @@ def main(argv=None):
     else:
         method = SGD(learningrate=args.learning_rate,
                      learningrate_decay=args.learning_rate_decay)
-    optimizer = (LocalOptimizer(model, train_set, nn.ClassNLLCriterion(),
+    optimizer = (trainer(args)(model, train_set, nn.ClassNLLCriterion(),
                                 device=args.device)
                  .set_optim_method(method)
                  .set_end_when(Trigger.max_epoch(args.max_epoch))

@@ -1,0 +1,34 @@
+"""What the port's training mains share: JAX's ``--distributed`` flag,
+the Engine mesh it brings up, and the trainer it picks."""
+
+from __future__ import annotations
+
+
+def add_distributed_flag(parser) -> None:
+    """JAX's ``--distributed``: train over the Engine mesh with
+    ``DistriOptimizer`` (one process a rank, e.g. under ``torchrun``)."""
+    parser.add_argument("--distributed", action="store_true",
+                        help="data-parallel training over the Engine mesh "
+                             "(DistriOptimizer); run one process a rank")
+
+
+def distributed_setup(args) -> None:
+    """With ``--distributed``: bring up the Engine mesh (gloo on the CPU
+    for ``--device cpu``, NCCL on the card otherwise) and point
+    ``args.device`` at this rank's device."""
+    if not getattr(args, "distributed", False):
+        return
+    from bigdl_tpu_torch.utils.engine import Engine
+    if Engine.mesh_if_up() is None:
+        Engine.init(backend="cpu" if args.device == "cpu" else None)
+    args.device = str(Engine.device())
+
+
+def trainer(args):
+    """``DistriOptimizer`` under ``--distributed``, else
+    ``LocalOptimizer``."""
+    if getattr(args, "distributed", False):
+        from bigdl_tpu_torch.optim.distri_optimizer import DistriOptimizer
+        return DistriOptimizer
+    from bigdl_tpu_torch.optim import LocalOptimizer
+    return LocalOptimizer

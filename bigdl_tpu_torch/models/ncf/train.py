@@ -21,9 +21,9 @@ import sys
 import numpy as np
 import torch
 
-from bigdl_tpu_torch.models.unported import refuse_unported
-
-UNPORTED_FLAGS = {"--distributed": "Queue A.6 (DistriOptimizer)"}
+from bigdl_tpu_torch.models.mains import (
+    add_distributed_flag, distributed_setup, trainer,
+)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -48,6 +48,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "deduplicated gathers and sparse row updates")
     p.add_argument("--device", default="cuda",
                    help="where to train: cuda (default) or cpu")
+    add_distributed_flag(p)
     return p
 
 
@@ -127,14 +128,14 @@ def holdout_split(users):
 def main(argv=None):
     """Train and evaluate; returns ``(hit_ratio, ndcg)``."""
     argv = sys.argv[1:] if argv is None else list(argv)
-    refuse_unported(argv, UNPORTED_FLAGS)
     args = build_parser().parse_args(argv)
+    distributed_setup(args)
 
     from bigdl_tpu_torch import nn
     from bigdl_tpu_torch.dataset import DataSet, SampleToMiniBatch
     from bigdl_tpu_torch.models.ncf import NeuralCF
     from bigdl_tpu_torch.optim import (
-        NDCG, SGD, Adam, HitRatio, LocalOptimizer, Trigger,
+        NDCG, SGD, Adam, HitRatio, Trigger,
     )
     from bigdl_tpu_torch.optim.evaluator import run_device_eval
     from bigdl_tpu_torch.utils.random_generator import RandomGenerator
@@ -146,7 +147,8 @@ def main(argv=None):
     train_samples = build_training_samples(
         users[train_mask], pos_items[train_mask], args.item_count,
         args.neg_ratio)
-    data = DataSet.array(train_samples) >> SampleToMiniBatch(args.batch_size)
+    data = DataSet.array(train_samples,
+                         distributed=args.distributed) >> SampleToMiniBatch(args.batch_size)
 
     model = NeuralCF(args.user_count, args.item_count, class_num=2,
                      hash_buckets=args.hash_buckets, sharded=args.sharded,
@@ -157,7 +159,7 @@ def main(argv=None):
     else:
         method = SGD(learningrate=args.learning_rate, momentum=0.9,
                      dampening=0.0)
-    opt = (LocalOptimizer(model, data, nn.ClassNLLCriterion(),
+    opt = (trainer(args)(model, data, nn.ClassNLLCriterion(),
                           device=args.device)
            .set_optim_method(method)
            .set_end_when(Trigger.max_epoch(args.max_epoch)))

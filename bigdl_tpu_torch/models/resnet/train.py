@@ -25,13 +25,9 @@ import sys
 
 import torch
 
-from bigdl_tpu_torch.models.unported import refuse_unported
-
-#: flags and values of the JAX main that this port does not take yet, and
-#: the ROADMAP item that brings each
-UNPORTED_FLAGS = {
-    "--distributed": "Queue A.6 (DistriOptimizer)",
-}
+from bigdl_tpu_torch.models.mains import (
+    add_distributed_flag, distributed_setup, trainer,
+)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -55,6 +51,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="TensorBoard summary dir")
     p.add_argument("--device", default="cuda",
                    help="where to train: cuda (default) or cpu")
+    add_distributed_flag(p)
     return p
 
 
@@ -62,13 +59,13 @@ def main(argv=None):
     """Train; returns the ``LocalOptimizer`` (its ``state`` holds the final
     loss and the validation scores)."""
     argv = sys.argv[1:] if argv is None else list(argv)
-    refuse_unported(argv, UNPORTED_FLAGS)
     args = build_parser().parse_args(argv)
+    distributed_setup(args)
 
     from bigdl_tpu_torch import nn
     from bigdl_tpu_torch.dataset import cifar
     from bigdl_tpu_torch.models.resnet import ResNet
-    from bigdl_tpu_torch.optim import SGD, LocalOptimizer, Trigger
+    from bigdl_tpu_torch.optim import SGD, Trigger
     from bigdl_tpu_torch.optim.validation import Top1Accuracy
     from bigdl_tpu_torch.utils.engine import Engine
     from bigdl_tpu_torch.utils.random_generator import RandomGenerator
@@ -90,7 +87,7 @@ def main(argv=None):
     model = ResNet(args.classes, opt,
                    generator=torch.Generator().manual_seed(0),
                    device=args.device)
-    optimizer = (LocalOptimizer(model, train_set, nn.ClassNLLCriterion(),
+    optimizer = (trainer(args)(model, train_set, nn.ClassNLLCriterion(),
                                 device=args.device)
                  .set_optim_method(SGD(learningrate=args.learning_rate,
                                        momentum=args.momentum,

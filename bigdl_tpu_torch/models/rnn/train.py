@@ -25,11 +25,9 @@ import time
 import numpy as np
 import torch
 
-from bigdl_tpu_torch.models.unported import refuse_unported
-
-UNPORTED_FLAGS = {
-    "--distributed": "Queue A.6 (DistriOptimizer)",
-}
+from bigdl_tpu_torch.models.mains import (
+    add_distributed_flag, distributed_setup, trainer,
+)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -56,6 +54,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="beam length-penalty exponent")
     p.add_argument("--device", default="cuda",
                    help="where to train: cuda (default) or cpu")
+    add_distributed_flag(p)
     return p
 
 
@@ -82,15 +81,15 @@ def main(argv=None):
     """Train; returns the ``LocalOptimizer`` (``generated``: the decoded
     words and the search's seconds, with ``--generate``)."""
     argv = sys.argv[1:] if argv is None else list(argv)
-    refuse_unported(argv, UNPORTED_FLAGS)
     args = build_parser().parse_args(argv)
+    distributed_setup(args)
 
     from bigdl_tpu_torch import nn
     from bigdl_tpu_torch.dataset import (
         DataSet, Sample, SampleToMiniBatch, load_ptb, ptb_windows,
     )
     from bigdl_tpu_torch.models.rnn import PTBModel
-    from bigdl_tpu_torch.optim import SGD, LocalOptimizer, Trigger
+    from bigdl_tpu_torch.optim import SGD, Trigger
     from bigdl_tpu_torch.optim.validation import Loss
     from bigdl_tpu_torch.utils.random_generator import RandomGenerator
 
@@ -101,7 +100,8 @@ def main(argv=None):
     vocab = dictionary.vocab_size()
     xs, ys = ptb_windows(ids, args.bptt)
     vxs, vys = ptb_windows(vids, args.bptt)
-    train_set = (DataSet.array([Sample(x, y) for x, y in zip(xs, ys)])
+    train_set = (DataSet.array([Sample(x, y) for x, y in zip(xs, ys)],
+                               distributed=args.distributed)
                  >> SampleToMiniBatch(args.batch_size))
     val_set = (DataSet.array([Sample(x, y) for x, y in zip(vxs, vys)])
                >> SampleToMiniBatch(args.batch_size))
@@ -111,7 +111,7 @@ def main(argv=None):
                      dropout=args.dropout,
                      generator=torch.Generator().manual_seed(0),
                      device=args.device)
-    optimizer = (LocalOptimizer(model, train_set, criterion,
+    optimizer = (trainer(args)(model, train_set, criterion,
                                 device=args.device)
                  .set_optim_method(SGD(learningrate=args.learning_rate))
                  .set_end_when(Trigger.max_epoch(args.max_epoch))

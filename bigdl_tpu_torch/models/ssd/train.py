@@ -5,8 +5,8 @@ defaults: the two-scale SSD trains on bright (class 1) and dim (class 2)
 squares, one an image, with Adam and ``MultiBoxCriterion``, then reports
 the held-out IoU of the top detection through ``detector``. Runs on the
 card unless ``--device cpu``; ``--save FILE`` writes the trained model in
-the portable format (``utils/serializer.py``); ``--distributed`` exits
-naming its ROADMAP item::
+the portable format (``utils/serializer.py``); ``--distributed`` trains
+with ``DistriOptimizer`` over the Engine mesh, one process a rank::
 
     python -m bigdl_tpu_torch.models.ssd.train
 """
@@ -19,9 +19,9 @@ import sys
 import numpy as np
 import torch
 
-from bigdl_tpu_torch.models.unported import refuse_unported
-
-UNPORTED_FLAGS = {"--distributed": "Queue A.6 (DistriOptimizer)"}
+from bigdl_tpu_torch.models.mains import (
+    add_distributed_flag, distributed_setup, trainer,
+)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -35,6 +35,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--save", default=None, help="save trained model here")
     p.add_argument("--device", default="cuda",
                    help="where to train: cuda (default) or cpu")
+    add_distributed_flag(p)
     return p
 
 
@@ -60,24 +61,24 @@ def make_dataset(n: int, img: int, rng: np.random.RandomState):
 def main(argv=None):
     """Train; returns the held-out mean IoU."""
     argv = sys.argv[1:] if argv is None else list(argv)
-    refuse_unported(argv, UNPORTED_FLAGS)
     args = build_parser().parse_args(argv)
+    distributed_setup(args)
 
     from bigdl_tpu_torch import nn
     from bigdl_tpu_torch.dataset import DataSet, SampleToMiniBatch
     from bigdl_tpu_torch.models.ssd import SSD, detector
-    from bigdl_tpu_torch.optim import Adam, LocalOptimizer, Trigger
+    from bigdl_tpu_torch.optim import Adam, Trigger
     from bigdl_tpu_torch.utils.random_generator import RandomGenerator
 
     RandomGenerator.set_seed(1)
     rng = np.random.RandomState(0)
     n_cls = 3   # bg + bright + dim
     train = make_dataset(args.n_train, args.img_size, rng)
-    data = DataSet.array(train) >> SampleToMiniBatch(args.batch_size)
+    data = DataSet.array(train, distributed=args.distributed) >> SampleToMiniBatch(args.batch_size)
     model = SSD(n_cls, img_size=args.img_size,
                 generator=torch.Generator().manual_seed(0),
                 device=args.device)
-    opt = (LocalOptimizer(model, data, nn.MultiBoxCriterion(n_classes=n_cls),
+    opt = (trainer(args)(model, data, nn.MultiBoxCriterion(n_classes=n_cls),
                           device=args.device)
            .set_optim_method(Adam(learningrate=args.learning_rate))
            .set_end_when(Trigger.max_epoch(args.max_epoch)))

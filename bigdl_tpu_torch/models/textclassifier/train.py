@@ -20,11 +20,9 @@ import sys
 import numpy as np
 import torch
 
-from bigdl_tpu_torch.models.unported import refuse_unported
-
-UNPORTED_FLAGS = {
-    "--distributed": "Queue A.6 (DistriOptimizer)",
-}
+from bigdl_tpu_torch.models.mains import (
+    add_distributed_flag, distributed_setup, trainer,
+)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -39,6 +37,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--vocab-size", type=int, default=2000)
     p.add_argument("--device", default="cuda",
                    help="where to train: cuda (default) or cpu")
+    add_distributed_flag(p)
     return p
 
 
@@ -77,15 +76,15 @@ def texts_to_samples(texts, labels, dictionary, seq_len):
 def main(argv=None):
     """Train; returns the ``LocalOptimizer``."""
     argv = sys.argv[1:] if argv is None else list(argv)
-    refuse_unported(argv, UNPORTED_FLAGS)
     args = build_parser().parse_args(argv)
+    distributed_setup(args)
 
     from bigdl_tpu_torch import nn
     from bigdl_tpu_torch.dataset import (
         DataSet, Dictionary, SampleToMiniBatch, SentenceTokenizer,
     )
     from bigdl_tpu_torch.models.textclassifier import TextClassifier
-    from bigdl_tpu_torch.optim import Adam, LocalOptimizer, Trigger
+    from bigdl_tpu_torch.optim import Adam, Trigger
     from bigdl_tpu_torch.optim.validation import Top1Accuracy
     from bigdl_tpu_torch.utils.random_generator import RandomGenerator
 
@@ -96,7 +95,8 @@ def main(argv=None):
                             vocab_size=args.vocab_size)
     samples = texts_to_samples(texts, labels, dictionary, args.seq_len)
     split = int(0.9 * len(samples))
-    train = DataSet.array(samples[:split]) >> SampleToMiniBatch(
+    train = DataSet.array(samples[:split],
+                          distributed=args.distributed) >> SampleToMiniBatch(
         args.batch_size)
     test = DataSet.array(samples[split:]) >> SampleToMiniBatch(
         args.batch_size)
@@ -104,7 +104,7 @@ def main(argv=None):
                            seq_len=args.seq_len,
                            generator=torch.Generator().manual_seed(0),
                            device=args.device)
-    opt = (LocalOptimizer(model, train, nn.ClassNLLCriterion(),
+    opt = (trainer(args)(model, train, nn.ClassNLLCriterion(),
                           device=args.device)
            .set_optim_method(Adam(learningrate=args.learning_rate))
            .set_end_when(Trigger.max_epoch(args.max_epoch))

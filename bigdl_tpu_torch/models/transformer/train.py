@@ -23,11 +23,9 @@ import sys
 import numpy as np
 import torch
 
-from bigdl_tpu_torch.models.unported import refuse_unported
-
-#: flags of the JAX main that this port does not take yet, and the
-#: ROADMAP item that brings each
-UNPORTED_FLAGS = {"--distributed": "Queue A.6 (DistriOptimizer)"}
+from bigdl_tpu_torch.models.mains import (
+    add_distributed_flag, distributed_setup, trainer,
+)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -53,6 +51,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--beam", type=int, default=4)
     p.add_argument("--device", default="cuda",
                    help="where to train: cuda (default) or cpu")
+    add_distributed_flag(p)
     return p
 
 
@@ -131,19 +130,20 @@ def criterion():
 
 def main(argv=None) -> float:
     argv = sys.argv[1:] if argv is None else list(argv)
-    refuse_unported(argv, UNPORTED_FLAGS)
     args = build_parser().parse_args(argv)
+    distributed_setup(args)
 
     from bigdl_tpu_torch.dataset import DataSet, SampleToMiniBatch
     from bigdl_tpu_torch.models.transformer import translate_generate
-    from bigdl_tpu_torch.optim import Adam, LocalOptimizer, Trigger
+    from bigdl_tpu_torch.optim import Adam, Trigger
 
     rng = np.random.default_rng(0)
     srcs, tgts = corpus(args, rng)
-    data = (DataSet.array(samples(args, srcs, tgts))
+    data = (DataSet.array(samples(args, srcs, tgts),
+                          distributed=args.distributed)
             >> SampleToMiniBatch(args.batch_size))
     model = build_model(args, args.device)
-    opt = (LocalOptimizer(model, data, criterion(), device=args.device)
+    opt = (trainer(args)(model, data, criterion(), device=args.device)
            .set_optim_method(Adam(learningrate=args.learning_rate))
            .set_end_when(Trigger.max_epoch(args.max_epoch)))
     opt.optimize()

@@ -30,13 +30,9 @@ import sys
 import numpy as np
 import torch
 
-from bigdl_tpu_torch.models.unported import refuse_unported
-
-#: flags of the JAX main that this port does not take yet, and the
-#: ROADMAP item that brings each
-UNPORTED_FLAGS = {
-    "--distributed": "Queue A.6 (DistriOptimizer)",
-}
+from bigdl_tpu_torch.models.mains import (
+    add_distributed_flag, distributed_setup, trainer,
+)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -82,13 +78,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--beam", type=int, default=3)
     p.add_argument("--device", default="cuda",
                    help="where to train: cuda (default) or cpu")
+    add_distributed_flag(p)
     return p
 
 
 def main(argv=None) -> float:
     argv = sys.argv[1:] if argv is None else list(argv)
-    refuse_unported(argv, UNPORTED_FLAGS)
     args = build_parser().parse_args(argv)
+    distributed_setup(args)
 
     from bigdl_tpu_torch import nn
     from bigdl_tpu_torch.dataset import (
@@ -98,7 +95,7 @@ def main(argv=None) -> float:
     from bigdl_tpu_torch.models.transformerlm import (
         TransformerLM, lm_criterion,
     )
-    from bigdl_tpu_torch.optim import Adam, LocalOptimizer, Trigger
+    from bigdl_tpu_torch.optim import Adam, Trigger
     from bigdl_tpu_torch.utils.random_generator import RandomGenerator
 
     RandomGenerator.set_seed(0)
@@ -153,9 +150,10 @@ def main(argv=None) -> float:
         ids = synthetic_ptb(args.synthetic_tokens,
                             vocab_size=args.vocab_size)
     xs, ys = ptb_windows(ids, args.seq_len)
-    data = (DataSet.array(Sample(x, y) for x, y in zip(xs, ys))
+    data = (DataSet.array((Sample(x, y) for x, y in zip(xs, ys)),
+                          distributed=args.distributed)
             >> SampleToMiniBatch(args.batch_size))
-    opt = (LocalOptimizer(model, data,
+    opt = (trainer(args)(model, data,
                           lm_criterion(fused_head=args.fused_head),
                           device=args.device)
            .set_optim_method(Adam(learningrate=args.learning_rate))

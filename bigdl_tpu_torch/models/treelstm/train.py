@@ -21,11 +21,9 @@ from typing import Optional
 import numpy as np
 import torch
 
-from bigdl_tpu_torch.models.unported import refuse_unported
-
-UNPORTED_FLAGS = {
-    "--distributed": "Queue A.6 (DistriOptimizer)",
-}
+from bigdl_tpu_torch.models.mains import (
+    add_distributed_flag, distributed_setup, trainer,
+)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -41,6 +39,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--hidden", type=int, default=64)
     p.add_argument("--device", default="cuda",
                    help="where to train: cuda (default) or cpu")
+    add_distributed_flag(p)
     return p
 
 
@@ -123,26 +122,27 @@ def build_model(vocab_size: int, embed_dim: int, hidden: int,
 def main(argv=None):
     """Train; returns the ``LocalOptimizer``."""
     argv = sys.argv[1:] if argv is None else list(argv)
-    refuse_unported(argv, UNPORTED_FLAGS)
     args = build_parser().parse_args(argv)
+    distributed_setup(args)
 
     from bigdl_tpu_torch import nn
     from bigdl_tpu_torch.dataset import DataSet, SampleToMiniBatch
-    from bigdl_tpu_torch.optim import Adam, LocalOptimizer, Trigger
+    from bigdl_tpu_torch.optim import Adam, Trigger
     from bigdl_tpu_torch.optim.validation import TreeNNAccuracy
     from bigdl_tpu_torch.utils.random_generator import RandomGenerator
 
     RandomGenerator.set_seed(0)
     samples = synthetic_trees(args.trees, args.leaves, args.vocab_size)
     split = int(0.9 * len(samples))
-    train = DataSet.array(samples[:split]) >> SampleToMiniBatch(
+    train = DataSet.array(samples[:split],
+                          distributed=args.distributed) >> SampleToMiniBatch(
         args.batch_size)
     test = DataSet.array(samples[split:]) >> SampleToMiniBatch(
         args.batch_size)
     model = build_model(args.vocab_size, args.embed_dim, args.hidden,
                         generator=torch.Generator().manual_seed(0),
                         device=args.device)
-    opt = (LocalOptimizer(model, train, nn.ClassNLLCriterion(),
+    opt = (trainer(args)(model, train, nn.ClassNLLCriterion(),
                           device=args.device)
            .set_optim_method(Adam(learningrate=args.learning_rate))
            .set_end_when(Trigger.max_epoch(args.max_epoch))

@@ -18,11 +18,9 @@ import sys
 
 import torch
 
-from bigdl_tpu_torch.models.unported import refuse_unported
-
-UNPORTED_FLAGS = {
-    "--distributed": "Queue A.6 (DistriOptimizer)",
-}
+from bigdl_tpu_torch.models.mains import (
+    add_distributed_flag, distributed_setup, trainer,
+)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -41,19 +39,20 @@ def build_parser() -> argparse.ArgumentParser:
                    help="TensorBoard summary dir")
     p.add_argument("--device", default="cuda",
                    help="where to train: cuda (default) or cpu")
+    add_distributed_flag(p)
     return p
 
 
 def main(argv=None):
     """Train; returns the ``LocalOptimizer``."""
     argv = sys.argv[1:] if argv is None else list(argv)
-    refuse_unported(argv, UNPORTED_FLAGS)
     args = build_parser().parse_args(argv)
+    distributed_setup(args)
 
     from bigdl_tpu_torch import nn
     from bigdl_tpu_torch.dataset import cifar
     from bigdl_tpu_torch.models.vgg import VggForCifar10
-    from bigdl_tpu_torch.optim import SGD, LocalOptimizer, Trigger
+    from bigdl_tpu_torch.optim import SGD, Trigger
     from bigdl_tpu_torch.optim.validation import Top1Accuracy
     from bigdl_tpu_torch.utils.device import resolve_device
     from bigdl_tpu_torch.utils.random_generator import RandomGenerator
@@ -66,7 +65,7 @@ def main(argv=None):
     dropout_gen = torch.Generator(device=dev).manual_seed(0)
     model = VggForCifar10(10, generator=torch.Generator().manual_seed(0),
                           dropout_generator=dropout_gen, device=args.device)
-    optimizer = (LocalOptimizer(model, train_set, nn.ClassNLLCriterion(),
+    optimizer = (trainer(args)(model, train_set, nn.ClassNLLCriterion(),
                                 device=args.device)
                  .set_optim_method(SGD(learningrate=args.learning_rate,
                                        momentum=args.momentum,

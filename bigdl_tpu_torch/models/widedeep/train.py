@@ -18,9 +18,9 @@ import sys
 import numpy as np
 import torch
 
-from bigdl_tpu_torch.models.unported import refuse_unported
-
-UNPORTED_FLAGS = {"--distributed": "Queue A.6 (DistriOptimizer)"}
+from bigdl_tpu_torch.models.mains import (
+    add_distributed_flag, distributed_setup, trainer,
+)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -37,6 +37,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--deep-k", type=int, default=6)
     p.add_argument("--device", default="cuda",
                    help="where to train: cuda (default) or cpu")
+    add_distributed_flag(p)
     return p
 
 
@@ -63,14 +64,14 @@ def synthetic_tabular(n, wide_features, deep_vocab, dense_dim, wide_k, deep_k,
 def main(argv=None):
     """Train; returns the held-out Top1Accuracy."""
     argv = sys.argv[1:] if argv is None else list(argv)
-    refuse_unported(argv, UNPORTED_FLAGS)
     args = build_parser().parse_args(argv)
+    distributed_setup(args)
 
     from bigdl_tpu_torch import nn
     from bigdl_tpu_torch.dataset import DataSet, SampleToMiniBatch
     from bigdl_tpu_torch.models.widedeep import WideAndDeep
     from bigdl_tpu_torch.optim import (
-        Adam, LocalOptimizer, Top1Accuracy, Trigger,
+        Adam, Top1Accuracy, Trigger,
     )
     from bigdl_tpu_torch.utils.random_generator import RandomGenerator
 
@@ -79,14 +80,15 @@ def main(argv=None):
                                 args.deep_vocab, args.dense_dim,
                                 args.wide_k, args.deep_k)
     split = int(0.9 * len(samples))
-    train = DataSet.array(samples[:split]) >> SampleToMiniBatch(
+    train = DataSet.array(samples[:split],
+                          distributed=args.distributed) >> SampleToMiniBatch(
         args.batch_size)
     test = DataSet.array(samples[split:]) >> SampleToMiniBatch(
         args.batch_size)
     model = WideAndDeep(args.wide_features, args.deep_vocab, args.dense_dim,
                         generator=torch.Generator().manual_seed(0),
                         device=args.device)
-    opt = (LocalOptimizer(model, train, nn.ClassNLLCriterion(),
+    opt = (trainer(args)(model, train, nn.ClassNLLCriterion(),
                           device=args.device)
            .set_optim_method(Adam(learningrate=args.learning_rate))
            .set_end_when(Trigger.max_epoch(args.max_epoch))

@@ -14,11 +14,15 @@ head axis gives. ``rope=True`` rotates q and k by their positions
 Two paths:
 
 - the full-sequence call applies RoPE, expands k and v over the query
-  groups, and attends through ``_attend``: ``"auto"`` and ``"flash"`` take
-  the flash kernel (``kernels.flash_attention``; the port has no
-  sequence-parallel mesh yet, so "auto" is the single-device branch),
-  ``"full"`` the plain ``full_attention``. A window takes the masked
-  ``full_attention`` band, as in JAX;
+  groups, and attends through ``_attend`` (``bigdl_tpu/nn/attention.py:
+  235-253``): ``"auto"`` takes ``parallel.ring_attention`` when the Engine
+  mesh is up with a ``seq`` axis, else the flash kernel
+  (``kernels.flash_attention``, which raises on the card for a head dim
+  other than 32, 64 or 128), as ``"flash"`` always does; ``"ring"``
+  needs such a mesh (the ring over a ``seq`` axis of size 1 is
+  ``full_attention``, as in JAX); ``"full"`` the plain ``full_attention``.
+  A window takes the masked ``full_attention`` band, as in JAX, and
+  refuses ``"ring"``;
 - the KV-cached step (``state`` from ``install_decode_cache``) rotates the
   new positions by their absolute per-row positions, appends k and v at
   **kv-head** width at every row's own position, and attends through
@@ -63,7 +67,7 @@ from bigdl_tpu_torch.nn.initialization import (
 from bigdl_tpu_torch.parallel.ring_attention import full_attention
 from bigdl_tpu_torch.utils.table import Table
 
-ATTENTION_IMPLS = ("auto", "flash", "full")
+ATTENTION_IMPLS = ("auto", "ring", "flash", "full")
 
 
 def rope_rotate(x: torch.Tensor, positions: torch.Tensor,
@@ -109,6 +113,11 @@ class MultiHeadAttention(TensorModule):
                                  "causal=True")
             if int(window) < 1:
                 raise ValueError(f"window must be >= 1, got {window!r}")
+            if attention_impl == "ring":
+                raise ValueError(
+                    "window is served by the masked single-device path; "
+                    "it cannot honor attention_impl='ring' (sequence-"
+                    "parallel banded attention is not implemented)")
         if attention_impl not in ATTENTION_IMPLS:
             raise ValueError(f"attention_impl must be one of "
                              f"{ATTENTION_IMPLS}, got {attention_impl!r}")
@@ -259,8 +268,23 @@ class MultiHeadAttention(TensorModule):
         return (q, kv[:, :, 0].transpose(1, 2), kv[:, :, 1].transpose(1, 2))
 
     def _attend(self, q, k, v):
-        if self.attention_impl == "full":
+        impl = self.attention_impl
+        if impl == "full":
             return full_attention(q, k, v, causal=self.causal)
+        if impl in ("auto", "ring"):
+            from bigdl_tpu_torch.utils.engine import Engine
+            mesh = Engine.mesh_if_up()
+            if mesh is not None and Engine.SEQ_AXIS in mesh.axis_names:
+                from bigdl_tpu_torch.parallel.ring_attention import (
+                    ring_attention,
+                )
+                return ring_attention(q, k, v, mesh=mesh,
+                                      seq_axis=Engine.SEQ_AXIS,
+                                      causal=self.causal)
+            if impl == "ring":
+                raise RuntimeError(
+                    "attention_impl='ring' needs an Engine mesh with a "
+                    f"'{Engine.SEQ_AXIS}' axis")
         return flash_attention(q, k, v, self.causal)
 
     def run(self, input, state=None):

@@ -30,6 +30,7 @@ import torch.nn.functional as F
 from torch.func import functional_call
 
 from bigdl_tpu_torch.nn.abstractnn import RecordsInit, evaluating
+from bigdl_tpu_torch.parallel.collectives import global_mean
 from bigdl_tpu_torch.utils.table import Table
 
 
@@ -101,7 +102,8 @@ class ClassNLLCriterion(AbstractCriterion):
         if self.weights is not None:
             w = self.weights.on(picked.device)[idx]
             loss = -(picked * w)
-            return loss.sum() / w.sum() if self.size_average else loss.sum()
+            return (global_mean(loss.sum(), w.sum()) if self.size_average
+                    else loss.sum())
         return _reduce(-picked, self.size_average)
 
 
@@ -608,8 +610,9 @@ class SoftmaxWithCriterion(AbstractCriterion):
             valid = picked.shape[0]
         total = picked.sum()
         if self.normalize_mode == "valid":
-            return total / (valid.clamp(min=1.0) if isinstance(
-                valid, torch.Tensor) else max(valid, 1.0))
+            if isinstance(valid, torch.Tensor):
+                return global_mean(total, valid, min_count=1.0)
+            return total / max(valid, 1.0)
         if self.normalize_mode == "full":
             return total / picked.shape[0]
         if self.normalize_mode == "batch_size":
@@ -662,7 +665,7 @@ class TimeDistributedMaskCriterion(AbstractCriterion):
         idx = raw.long() - (1 if self.one_based else 0)
         idx = torch.where(keep, idx, torch.zeros_like(idx))
         picked = -logp.gather(1, idx[:, None])[:, 0]
-        return (picked * mask).sum() / mask.sum().clamp(min=1.0)
+        return global_mean((picked * mask).sum(), mask.sum(), min_count=1.0)
 
 
 class SmoothL1CriterionWithWeights(AbstractCriterion):

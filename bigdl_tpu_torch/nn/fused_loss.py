@@ -37,6 +37,7 @@ import torch
 from bigdl_tpu_torch.nn.abstractnn import TensorModule
 from bigdl_tpu_torch.nn.criterion import AbstractCriterion
 from bigdl_tpu_torch.nn.initialization import InitializationMethod, Xavier
+from bigdl_tpu_torch.parallel.collectives import global_mean
 from bigdl_tpu_torch.utils.table import Table
 
 _NEG = -1e30   # the running max before any chunk: exp(_NEG - m) is 0
@@ -185,8 +186,8 @@ class ChunkedSoftmaxCrossEntropy(AbstractCriterion):
             t = t - 1
         losses = chunked_softmax_xent(hidden.reshape(-1, hidden.shape[-1]),
                                       weight, bias, t, self.chunk_size)
-        n_valid = ((t >= 0) & (t < weight.shape[0])).sum().clamp(min=1)
-        return losses.sum() / n_valid
+        n_valid = ((t >= 0) & (t < weight.shape[0])).sum()
+        return global_mean(losses.sum(), n_valid, min_count=1)
 
     def __repr__(self):
         return f"ChunkedSoftmaxCrossEntropy(chunk={self.chunk_size})"

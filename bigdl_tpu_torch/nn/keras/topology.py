@@ -7,8 +7,9 @@ validation methods; ``fit`` runs the port's ``LocalOptimizer`` (numpy in:
 one ``Sample`` a row, batched by ``SampleToMiniBatch``), ``evaluate`` its
 ``Evaluator`` and ``predict`` its ``Predictor``. A model lives on its
 ``device`` (None: the card), where its module is moved at the first of
-these calls. ``fit(..., distributed=True)`` raises: ``DistriOptimizer``
-waits for ROADMAP Queue A.6.
+these calls. ``fit(..., distributed=True)`` trains through
+``DistriOptimizer`` over the Engine mesh (one process a rank), on this
+rank's device when ``device`` is None, as JAX's does.
 """
 
 from __future__ import annotations
@@ -218,23 +219,25 @@ class KerasModel:
 
     def fit(self, x, y=None, batch_size: int = 32, nb_epoch: int = 10,
             validation_data=None, distributed: bool = False) -> "KerasModel":
-        if distributed:
-            raise NotImplementedError(
-                "fit(distributed=True) is not supported by the PyTorch port "
-                "yet: ROADMAP Queue A.6 (DistriOptimizer)")
         if self._criterion is None:
             raise RuntimeError("call compile(optimizer, loss) before fit")
         from bigdl_tpu_torch.dataset import DataSet
         from bigdl_tpu_torch.dataset.sample import SampleToMiniBatch
         from bigdl_tpu_torch.optim import LocalOptimizer, Trigger
+        from bigdl_tpu_torch.optim.distri_optimizer import DistriOptimizer
         self._check_input(x if isinstance(x, np.ndarray) else None)
+        if distributed and self.device is None:
+            from bigdl_tpu_torch.utils.engine import Engine
+            self.device = Engine.device()
         if isinstance(x, np.ndarray) or isinstance(x, (list, tuple)):
-            dataset = DataSet.array(self._to_samples(x, y)) \
+            dataset = DataSet.array(self._to_samples(x, y),
+                                    distributed=distributed) \
                 >> SampleToMiniBatch(batch_size)
         else:
             dataset = x  # already a DataSet of MiniBatches
-        opt = (LocalOptimizer(self._placed(), dataset, self._criterion,
-                              device=self.device)
+        cls = DistriOptimizer if distributed else LocalOptimizer
+        opt = (cls(self._placed(), dataset, self._criterion,
+                   device=self.device)
                .set_optim_method(self._optim_method)
                .set_end_when(Trigger.max_epoch(nb_epoch)))
         if validation_data is not None:

@@ -658,6 +658,36 @@ def collecting_penalties():
         _PENALTIES.sink = prev
 
 
+_AUX = threading.local()
+
+
+@contextlib.contextmanager
+def collecting_aux_losses():
+    """Collect, into the yielded list, the auxiliary losses that layers
+    declare in the forward run inside the block (JAX's ``"aux_loss"``
+    state leaves, MoE's load balance): the trainer adds them scaled by
+    ``set_aux_loss_weight``."""
+    prev = getattr(_AUX, "sink", None)
+    _AUX.sink = sink = []
+    try:
+        yield sink
+    finally:
+        _AUX.sink = prev
+
+
+def declare_aux_loss(t: torch.Tensor) -> None:
+    sink = getattr(_AUX, "sink", None)
+    if sink is not None:
+        sink.append(t)
+
+
+def declare_penalty(t: torch.Tensor) -> None:
+    """A full-strength loss term of a layer (JAX's ``"penalty"`` leaf)."""
+    sink = getattr(_PENALTIES, "sink", None)
+    if sink is not None:
+        sink.append(t)
+
+
 class _Penalty(TensorModule):
     """The identity forward with a loss term of its own, an fp32 scalar:
     the ``"penalty"`` leaf of the returned state when a state is passed
@@ -672,7 +702,9 @@ class _Penalty(TensorModule):
         pen = self._term(input.float())
         sink = getattr(_PENALTIES, "sink", None)
         if sink is not None:
-            sink.append(pen)
+            # a sum over this rank's samples, under a data-parallel step
+            from bigdl_tpu_torch.parallel.collectives import scale_sample_sum
+            sink.append(scale_sample_sum(pen))
         return input, (None if state is None else dict(state, penalty=pen))
 
 

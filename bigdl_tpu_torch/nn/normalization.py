@@ -231,19 +231,39 @@ def dropout_generators(model: torch.nn.Module) -> list:
     return gens
 
 
+def _group_mean(t: torch.Tensor, group) -> torch.Tensor:
+    """The mean of per-rank means over ``group`` (equal sample counts)."""
+    if group is None:
+        return t
+    from bigdl_tpu_torch.parallel import collectives as C
+    return C.all_reduce_(t.clone(), group) / C.size(group)
+
+
 class _BatchNormTrain(torch.autograd.Function):
     """Training-mode batch norm over ``axes`` in fp32: returns the output
-    in x's dtype and the batch mean and (biased) variance."""
+    in x's dtype and the batch mean and (biased) variance. With a
+    data-parallel ``group`` the moments, and the backward's two channel
+    sums, are those of the global batch (JAX's, whose batch axis GSPMD
+    reduces across the mesh): the raw moments ``(E[x], E[x²])`` averaged
+    over the ranks, exact for equal per-rank counts."""
 
     @staticmethod
-    def forward(ctx, x, weight, bias, axes, shape, eps, two_pass):
+    def forward(ctx, x, weight, bias, axes, shape, eps, two_pass, group):
         x32 = x.float()
-        mean = x32.mean(axes)
-        if two_pass:
+        mean_l = x32.mean(axes)
+        mean = _group_mean(mean_l, group)
+        if two_pass and group is None:
             var = x32.var(axes, correction=0)
             var_grad = torch.ones_like(var)
         else:
-            raw = x32.square().mean(axes) - mean.square()
+            if group is None:
+                raw = x32.square().mean(axes) - mean.square()
+            else:
+                # the raw second moment averaged (JAX's two-pass variant
+                # rebuilds it from the centred one)
+                mean2 = (x32.var(axes, correction=0) + mean_l.square()
+                         if two_pass else x32.square().mean(axes))
+                raw = _group_mean(mean2, group) - mean.square()
             var = raw.clamp(min=0.0)
             # d max(v, 0)/dv as JAX takes it: 1 above, 0.5 at the tie
             var_grad = (raw > 0).float() + 0.5 * (raw == 0).float()
@@ -253,7 +273,7 @@ class _BatchNormTrain(torch.autograd.Function):
             out = out * weight.float().reshape(shape) \
                 + bias.float().reshape(shape)
         ctx.save_for_backward(x, weight, mean, inv, var_grad)
-        ctx.axes, ctx.shape = axes, shape
+        ctx.axes, ctx.shape, ctx.group = axes, shape, group
         ctx.mark_non_differentiable(mean, var)
         return out.to(x.dtype), mean, var
 
@@ -273,11 +293,16 @@ class _BatchNormTrain(torch.autograd.Function):
             g = g * weight.float().reshape(shape)
         dx = None
         if ctx.needs_input_grad[0]:
-            gm = g.sum(axes) / n
-            gx = (g * xhat).sum(axes) * var_grad / n
+            if ctx.group is None:
+                gm = g.sum(axes) / n
+                gx = (g * xhat).sum(axes) * var_grad / n
+            else:
+                gm = _group_mean(g.sum(axes) / n, ctx.group)
+                gx = _group_mean((g * xhat).sum(axes) / n,
+                                 ctx.group) * var_grad
             dx = ((g - gm.reshape(shape) - xhat * gx.reshape(shape))
                   * inv.reshape(shape)).to(x.dtype)
-        return dx, dweight, dbias, None, None, None, None
+        return dx, dweight, dbias, None, None, None, None, None
 
 
 class BatchNormalization(TensorModule):
@@ -293,12 +318,11 @@ class BatchNormalization(TensorModule):
                  init_weight: Optional[InitializationMethod] = None,
                  init_bias: Optional[InitializationMethod] = None,
                  sync: bool = False,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 sync_axis: str = "data"):
         super().__init__()
-        if sync:
-            raise NotImplementedError(
-                "BatchNormalization(sync=True) needs the data-parallel "
-                "trainer: ROADMAP Queue A.6 (optim/distri_optimizer.py)")
+        self.sync = bool(sync)
+        self.sync_axis = sync_axis
         self.n_output = n_output
         self.eps = eps
         self.momentum = momentum
@@ -324,11 +348,22 @@ class BatchNormalization(TensorModule):
         shape = tuple(self.n_output if a == fa else 1
                       for a in range(input.dim()))
         if self.training:
+            from bigdl_tpu_torch.parallel.collectives import data_group, size
+            group = data_group()
+            if self.sync and group is None:
+                # JAX's pmean over an axis name no program binds
+                raise NameError(
+                    f"BatchNormalization(sync=True): unbound axis name: "
+                    f"{self.sync_axis} (sync=True needs a data-parallel "
+                    f"step, DistriOptimizer)")
             out, mean, var = _BatchNormTrain.apply(
                 input, self.weight, self.bias, axes, shape, self.eps,
-                os.environ.get("BIGDL_BN_TWO_PASS", "0") == "1")
+                os.environ.get("BIGDL_BN_TWO_PASS", "0") == "1", group)
+            n = input.numel() // self.n_output
+            if group is not None:
+                n *= size(group)
             if not recomputing():
-                self._update_running(mean, var, input.numel() // self.n_output)
+                self._update_running(mean, var, n)
             return out, state
         x32 = input.float()
         out = (x32 - self.running_mean.reshape(shape)) * torch.rsqrt(

@@ -1,5 +1,8 @@
 """Training of the port, named as in ``bigdl_tpu.optim``."""
 
+from bigdl_tpu_torch.optim.distri_optimizer import (
+    DistriOptimizer, ParallelOptimizer,
+)
 from bigdl_tpu_torch.optim.evaluator import Evaluator, Predictor
 from bigdl_tpu_torch.optim.optim_method import (
     LBFGS, SGD, Adadelta, Adagrad, Adam, Adamax, AdamW,
@@ -27,11 +30,13 @@ __all__ = ["AccuracyResult", "HitRatio", "Loss", "LossResult", "MAE",
            "Top5Accuracy", "TopKAccuracy", "TreeNNAccuracy",
            "ValidationMethod", "ValidationResult",
            "Adadelta", "Adagrad", "Adam", "AdamW", "Adamax",
-           "CompositeOptimMethod", "Default", "Evaluator", "Exponential",
+           "CompositeOptimMethod", "Default", "DistriOptimizer",
+           "Evaluator", "Exponential",
            "Ftrl",
            "L1L2Regularizer", "L1Regularizer", "L2Regularizer", "LBFGS",
            "LarsSGD", "LearningRateSchedule", "LocalOptimizer", "MultiStep",
            "NaturalExp", "NonFiniteLossError", "OptimMethod", "Optimizer",
+           "ParallelOptimizer",
            "Plateau", "Poly", "Predictor", "RMSprop", "Regularizer", "SGD",
            "SequentialSchedule", "Step", "Trigger", "TrainingPreempted",
            "Warmup", "decayed_lr"]

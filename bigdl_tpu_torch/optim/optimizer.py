@@ -160,12 +160,26 @@ other parameters, clips both together and runs
 rows and their slot rows); slots ``{"dense", "embed"}`` as JAX's. One
 program, as the dense step; fused windows replay it.
 
-Not ported yet (ROADMAP Queue A): the auxiliary loss and the orbax and
-elastic checkpoint backends.
+**Auxiliary losses** (``set_aux_loss_weight`` / ``BIGDL_AUX_LOSS_WEIGHT``,
+default 0.01, JAX's ``:205-209``): the ``aux_loss`` a layer declares in
+the forward (MoE's load balance, ``nn.misc.collecting_aux_losses``) is
+added to the loss at that weight; the leaves of
+``OBSERVABLE_STATE_LEAVES`` (MoE's routing health) go to the train
+summary as ``State/<path>``.
+
+**Hooks of the data-parallel trainer** (``optim/distri_optimizer.py``):
+the step runs its forward and backward inside ``_step_context`` and hands
+the gradients to ``_sync_grads``, the global norm's partial sums to
+``_norm_sq``, the update to ``_apply_update`` and the numerics flag to
+``_agree``; this trainer's are the single-device identities.
+
+Not ported yet (ROADMAP Queue A): the orbax and elastic checkpoint
+backends.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import itertools
 import logging
@@ -195,7 +209,7 @@ from bigdl_tpu_torch.dataset.profiling import (
 )
 from bigdl_tpu_torch.dataset.sample import SampleToMiniBatch
 from bigdl_tpu_torch.nn.criterion import AbstractCriterion
-from bigdl_tpu_torch.nn.misc import collecting_penalties
+from bigdl_tpu_torch.nn.misc import collecting_aux_losses, collecting_penalties
 from bigdl_tpu_torch.nn.normalization import (
     checkpoint_contexts, dropout_generators,
 )
@@ -209,6 +223,7 @@ from bigdl_tpu_torch.optim.optim_method import (
     SGD, CompositeOptimMethod, OptimMethod,
 )
 from bigdl_tpu_torch.optim.trigger import Trigger
+from bigdl_tpu_torch.parallel.collectives import scale_replicated
 from bigdl_tpu_torch.utils import faults
 from bigdl_tpu_torch.utils import file as ckpt_file
 from bigdl_tpu_torch.utils.device import require_on, wait_for_stream
@@ -388,11 +403,23 @@ def _remat_mode(mode: str) -> str:
 
 class Optimizer:
     """Trainer front end. ``Optimizer(model, dataset, criterion)`` builds a
-    :class:`LocalOptimizer`, as the JAX factory does for a local dataset.
-    ``device`` is where the model must live: ``None`` means the card."""
+    :class:`LocalOptimizer` for a local dataset and a ``DistriOptimizer``
+    for a distributed one (``DataSet.array(..., distributed=True)``), as
+    the JAX factory does. ``device`` is where the model must live: ``None``
+    means the card."""
+
+    #: module-state leaves written to the train summary as ``State/<path>``
+    OBSERVABLE_STATE_LEAVES = ("aux_loss", "router_z_loss",
+                               "dropped_fraction", "expert_load_max")
 
     def __new__(cls, model=None, dataset=None, criterion=None, **kw):
         if cls is Optimizer:
+            from bigdl_tpu_torch.dataset.dataset import is_distributed
+            if dataset is not None and is_distributed(dataset):
+                from bigdl_tpu_torch.optim.distri_optimizer import (
+                    DistriOptimizer,
+                )
+                return super().__new__(DistriOptimizer)
             return super().__new__(LocalOptimizer)
         return super().__new__(cls)
 
@@ -407,6 +434,9 @@ class Optimizer:
         self.grad_clip_const: Optional[tuple[float, float]] = None
         self.grad_clip_norm: Optional[float] = None
         self.grad_accum: int = 1
+        # the weight of declared auxiliary losses (set_aux_loss_weight)
+        self.aux_loss_weight: float = float(
+            os.environ.get("BIGDL_AUX_LOSS_WEIGHT", "0.01"))
         # rematerialization of the loss (set_remat / BIGDL_REMAT)
         self.remat: str = _remat_mode(os.environ.get("BIGDL_REMAT", "none"))
         # flat-buffer update (set_flat_update / BIGDL_FLAT_UPDATE)
@@ -673,6 +703,12 @@ class Optimizer:
         self.grad_clip_norm = None
         return self
 
+    def set_aux_loss_weight(self, weight: float) -> "Optimizer":
+        """Scale of the ``aux_loss`` terms layers declare (MoE's load
+        balance) in the training loss; 0 trains without them."""
+        self.aux_loss_weight = float(weight)
+        return self
+
     def set_gradient_accumulation(self, n_micro: int) -> "Optimizer":
         """Split every mini-batch into ``n_micro`` strided microbatches
         (microbatch i is rows i::n_micro, as in JAX), one forward/backward
@@ -685,12 +721,54 @@ class Optimizer:
         return self
 
     # ------------------------------------------------------------- step
-    def _clip_grads(self, grads: list) -> list:
+    # hooks of the data-parallel trainer: identities on one device
+    def _flat_update_ok(self) -> bool:
+        """Whether ``set_flat_update`` may apply to this trainer's slots."""
+        return True
+
+    def _grad_scales(self) -> dict:
+        """Each parameter's gradient scale (0: not trained here)."""
+        return self.model.grad_scales()
+
+    def _init_slots(self, method, named: dict, mask) -> dict:
+        return method.init_state_trimmed(named, mask)
+
+    def _ostate_for_io(self) -> dict:
+        """The slots as checkpoints hold them (full leaves)."""
+        return self._ostate
+
+    def _load_ostate(self, tree: dict, mask) -> None:
+        convert.load_jax_ostate(self._method, self._ostate, self.model, tree,
+                                mask)
+
+    def _step_context(self):
+        return contextlib.nullcontext()
+
+    def _sync_grads(self, names: list, grads: list) -> list:
+        """The gradients the update reads, from this rank's."""
+        return grads
+
+    def _sync_loss(self, loss: torch.Tensor) -> torch.Tensor:
+        return loss
+
+    def _norm_sq(self, names: list, grads: list) -> torch.Tensor:
+        """The squared global norm of ``grads`` (as ``_sync_grads`` left
+        them)."""
+        return sum(g.square().sum() for g in grads)
+
+    def _apply_update(self, method, named, grads, ostate, h, mask) -> None:
+        method.update_with_trimmed(named, grads, ostate, h, mask)
+
+    def _agree(self, flag: torch.Tensor) -> torch.Tensor:
+        """A 0/1 flag every rank acts on alike."""
+        return flag
+
+    def _clip_grads(self, grads: list, names: Optional[list] = None) -> list:
         if self.grad_clip_const is not None:
             lo, hi = self.grad_clip_const
             grads = [g.clamp(lo, hi) for g in grads]
         if self.grad_clip_norm is not None:
-            norm = torch.sqrt(sum(g.square().sum() for g in grads))
+            norm = torch.sqrt(self._norm_sq(names, grads))
             scale = (self.grad_clip_norm / (norm + 1e-12)).clamp(max=1.0)
             grads = [g * scale for g in grads]
         return grads
@@ -702,7 +780,7 @@ class Optimizer:
         gradient scale 1; gradient accumulation and mixed precision keep
         the dense path. Memoized on what it depends on; the reason for a
         dense fallback is logged once."""
-        scales = self.model.grad_scales() if scales is None else scales
+        scales = self._grad_scales() if scales is None else scales
         key = (self.sparse_embed, self.optim_method, self.grad_accum,
                Engine.compute_dtype(), tuple(scales.values()))
         if self._sparse_memo is not None and self._sparse_memo[0] == key:
@@ -740,7 +818,7 @@ class Optimizer:
                 logger.warning("flat update skipped: sparse embedding "
                                "updates wrap the method first")
             return SparseEmbeddingUpdate(method, plan)
-        if self.flat_update:
+        if self.flat_update and self._flat_update_ok():
             from bigdl_tpu_torch.kernels.fused_update import (
                 FlatParamUpdate, flat_supported,
             )
@@ -762,7 +840,8 @@ class Optimizer:
         dtype = Engine.compute_dtype()
         mixed = dtype != torch.float32
         params = None
-        with collecting_penalties() as penalties:
+        with collecting_penalties() as penalties, \
+                collecting_aux_losses() as aux:
             if mixed or frozen:
                 params = {n: p.detach() if n in frozen else p
                           for n, p in model.named_parameters()}
@@ -777,8 +856,10 @@ class Optimizer:
         loss = self.criterion.apply(out, target)
         for pen in penalties:
             loss = loss + pen
+        if aux and self.aux_loss_weight:
+            loss = loss + self.aux_loss_weight * sum(aux)
         if model.has_regularizers():
-            loss = loss + model.regularizer_penalty(params)
+            loss = loss + scale_replicated(model.regularizer_penalty(params))
         return loss
 
     def _value_and_grad(self, params: list, inp, target, frozen=frozenset()):
@@ -836,7 +917,7 @@ class Optimizer:
         scales and the trainable mask; creates the optimizer's slots for
         the mask (before any capture)."""
         named = dict(self.model.named_parameters())
-        scales = self.model.grad_scales()
+        scales = self._grad_scales()
         trainable = [scales[n] != 0.0 for n in named]
         mask = None if all(trainable) else trainable
         plan = self._sparse_plan(scales)
@@ -848,7 +929,7 @@ class Optimizer:
                                "start again")
             self._step_program = None
             self._method = self._effective_method(plan)
-            self._ostate = self._method.init_state_trimmed(named, mask)
+            self._ostate = self._init_slots(self._method, named, mask)
             self._ostate_mask = mask
             self._ostate_plan = plan
             self._ostate_version += 1
@@ -867,38 +948,51 @@ class Optimizer:
             if inp is None:
                 raise ValueError("the sparse embedding step needs a batch "
                                  "of its shape to size its row deltas")
-            deltas = plan.zero_deltas(self.model, inp)
+            with self._step_context():
+                deltas = plan.zero_deltas(self.model, inp)
         embed = plan.weight_names() if plan is not None else set()
         train = [n for n in named if n not in frozen and n not in embed]
         method, ostate = self._method, self._ostate
         check = self.check_numerics
 
+        pipe = self._pipeline()
+
         def step(inp, target, h):
-            if plan is None:
-                loss, grads = self._loss_and_grads(
-                    [named[n] for n in train], inp, target, frozen)
-                row_grads = {}
-            else:
-                # the sparse step (JAX's ``_make_step_fn``, ``:773-801``):
-                # the tables' rows enter as the injected zero deltas, whose
-                # gradients are the row gradients
-                plan.inject(self.model, deltas)
-                try:
-                    loss, grads = self._value_and_grad(
-                        [named[n] for n in train] + list(deltas.values()),
-                        inp, target, frozen)
-                    uids = plan.pop_uids(self.model)
-                finally:
-                    plan.clear(self.model)
-                row_grads = dict(zip(deltas, grads[len(train):]))
-                grads = grads[:len(train)]
+            with self._step_context():
+                if pipe is not None:
+                    loss, g = pipe(inp, target)
+                    grads = [g[n] for n in train]
+                    row_grads = {}
+                elif plan is None:
+                    loss, grads = self._loss_and_grads(
+                        [named[n] for n in train], inp, target, frozen)
+                    row_grads = {}
+                else:
+                    # the sparse step (JAX's ``_make_step_fn``, ``:773-801``):
+                    # the tables' rows enter as the injected zero deltas,
+                    # whose gradients are the row gradients
+                    plan.inject(self.model, deltas)
+                    try:
+                        loss, grads = self._value_and_grad(
+                            [named[n] for n in train] + list(deltas.values()),
+                            inp, target, frozen)
+                        uids = plan.pop_uids(self.model)
+                    finally:
+                        plan.clear(self.model)
+                    row_grads = dict(zip(deltas, grads[len(train):]))
+                    grads = grads[:len(train)]
+            names = train + list(row_grads)
+            synced = self._sync_grads(names, grads + list(row_grads.values()))
+            grads, rows = synced[:len(train)], synced[len(train):]
+            loss = self._sync_loss(loss)
             grads = [g if scales[n] == 1.0 else g * scales[n]
                      for n, g in zip(train, grads)]
-            clipped = self._clip_grads(grads + list(row_grads.values()))
+            clipped = self._clip_grads(grads + rows, names)
             grads = dict(zip(train, clipped))
             if plan is None:
-                method.update_with_trimmed(
-                    named, {n: grads.get(n) for n in named}, ostate, h, mask)
+                self._apply_update(method, named,
+                                   {n: grads.get(n) for n in named}, ostate,
+                                   h, mask)
             else:
                 row_grads = dict(zip(row_grads, clipped[len(train):]))
                 method.sparse_apply(named, {n: grads.get(n) for n in named},
@@ -912,9 +1006,16 @@ class Optimizer:
                 ok = torch.stack([t.isfinite().all() for t in
                                   [loss, *grads.values(),
                                    *(named[n] for n in train)]]).all()
-            return torch.stack([loss, (~ok).to(loss.dtype)])
+                bad = self._agree((~ok).to(loss.dtype))
+            return torch.stack([loss, bad])
 
         return step
+
+    def _pipeline(self):
+        """The pipelined step ``(inp, target) -> (loss, grads by name)`` of
+        a root ``GPipe`` on a pipe mesh, or None (the data-parallel
+        trainer's)."""
+        return None
 
     def _program_for(self, inp, target) -> Program:
         """The step program for a batch like ``(inp, target)``, captured
@@ -1177,6 +1278,14 @@ class Optimizer:
                 it)
         if self.throughput is not None and fires("Throughput"):
             summary.add_scalar("Throughput", self.throughput, it)
+        if fires("State"):
+            # the observable module-state leaves (MoE's routing health), as
+            # the window's last step left them
+            for name, buf in self.model.named_buffers():
+                leaf = name.rpartition(".")[2]
+                if leaf in self.OBSERVABLE_STATE_LEAVES and buf.dim() == 0:
+                    summary.add_scalar("State/" + name.replace(".", "/"),
+                                       float(buf), it)
 
     # ------------------------------------------------------------- feed
     def _setup_feed(self, device) -> None:
@@ -1687,8 +1796,8 @@ class Optimizer:
             "params": convert.nest(model, named),
             "mstate": convert.nest(model, convert.module_state(model),
                                    "state"),
-            "ostate": convert.ostate_tree(self._method, self._ostate, model,
-                                          mask),
+            "ostate": convert.ostate_tree(self._method,
+                                          self._ostate_for_io(), model, mask),
         }
         on_card = []
 
@@ -1878,8 +1987,7 @@ class Optimizer:
         _, _, mask = self._prepare_step()
         convert.load_jax_params(model, payload["params"])
         convert.load_jax_state(model, payload["mstate"])
-        convert.load_jax_ostate(self._method, self._ostate, model,
-                                payload["ostate"], mask)
+        self._load_ostate(payload["ostate"], mask)
         self.state = dict(payload["state"])
         sched = self._schedule()
         if getattr(sched, "stateful", False) and "sched_state" in payload:

@@ -40,9 +40,17 @@ The capacity U of a table is the flattened id count of its input in a
 batch, fixed by the batch's shape: :meth:`SparsePlan.zero_deltas` finds it
 by one eval-mode forward when the trainer builds a step program.
 
-Row-sharding a table over a device mesh and JAX's placement rules
-(``embedding_parallel_rules``, ``model_embedding_rules``) wait for ROADMAP
-Queue A.6; ``axis`` is kept for them.
+Over a mesh (``bigdl_tpu/parallel/embedding.py:183-200``): JAX's
+placement rules ``embedding_parallel_rules`` and ``model_embedding_rules``
+are ``TPRules`` that ``DistriOptimizer.set_tensor_parallel`` applies: each
+rank of the ``model`` slice keeps its block of the table's rows and looks
+ids up by a masked local gather summed over the slice
+(``parallel/tensor_parallel.py``). JAX's data-sharded ids
+(``BIGDL_EMBED_SHARD``) are what a port rank holds anyway: its block of
+the batch. Under a data-parallel step the sparse update dedups the ids of
+the whole global batch (gathered over the data slice), so every rank
+steps the same rows, as JAX's one program does; it keeps JAX's
+eligibility (``allreduce`` without tensor parallelism).
 """
 
 from __future__ import annotations
@@ -63,6 +71,20 @@ logger = logging.getLogger("bigdl_tpu_torch.parallel")
 
 _DELTA_KEY = "delta"   # the step's zero (U, D) rows, set by SparsePlan.inject
 _UIDS_KEY = "uids"     # the batch's unique ids, left by the forward
+
+
+def _dedup_global(idx: torch.Tensor, n_rows: int):
+    """:func:`dedup_ids` of the ids of the whole global batch under a
+    data-parallel step (gathered over the data slice), with this rank's
+    part of the inverse map; of ``idx`` alone outside one."""
+    from bigdl_tpu_torch.parallel import collectives as C
+    group = C.data_group()
+    if group is None:
+        return dedup_ids(idx, n_rows)
+    flat = idx.reshape(-1)
+    uids, inv = dedup_ids(C.all_gather_cat(flat, group, 0), n_rows)
+    r, m = C.index(group), flat.numel()
+    return uids, inv[r * m:(r + 1) * m]
 
 
 def dedup_ids(flat_ids: torch.Tensor, n_rows: int):
@@ -154,11 +176,13 @@ class ShardedEmbedding(Container):
 
     def run(self, input, state=None):
         t = self.table
+        if hasattr(t, "tp_range"):      # vocab-parallel over a model slice
+            return t.run(input, None)[0], state
         idx = t._ids(input)
         shape = idx.shape + (t.n_output,)
         last = t.n_index - 1
         if self._sparse is not None:
-            uids, inv = dedup_ids(idx, t.n_index)
+            uids, inv = _dedup_global(idx, t.n_index)
             # the sentinel's rows read the last row and reach no position
             rows = F.embedding(uids.clamp(max=last), t.weight.detach())
             delta = self._sparse.get(_DELTA_KEY)
@@ -392,3 +416,31 @@ def _flat_slots(slots: dict) -> list:
 from bigdl_tpu_torch.utils.serializer import register as _register  # noqa: E402
 
 _register(ShardedEmbedding)
+
+
+# --------------------------------------------------------------- placement
+def embedding_parallel_rules(prefix: str = "", axis: str = "model",
+                             rules=None):
+    """TPRules placing every ``.../table/weight`` under ``prefix``
+    row-split on ``axis`` (the embedding analog of
+    ``moe.expert_parallel_rules``)."""
+    import re
+    from bigdl_tpu_torch.parallel.sharding import P
+    from bigdl_tpu_torch.parallel.tensor_parallel import TPRules
+    r = rules if rules is not None else TPRules()
+    pre = f"(^|/){re.escape(prefix)}/" if prefix else "(^|/)"
+    r.add(f"{pre}table/weight$", P(axis, None))
+    return r
+
+
+def model_embedding_rules(model, rules=None):
+    """Exact-path TPRules for every :class:`ShardedEmbedding` of
+    ``model``, each on its own configured axis."""
+    import re
+    from bigdl_tpu_torch.parallel.sharding import P
+    from bigdl_tpu_torch.parallel.tensor_parallel import TPRules
+    r = rules if rules is not None else TPRules()
+    for path, mod in find_sharded_embeddings(model):
+        leaf = "/".join(path + ("table", "weight"))
+        r.add(f"^{re.escape(leaf)}$", P(mod.axis, None))
+    return r

@@ -81,6 +81,9 @@ class Program:
         self.inputs = tuple(inputs)
         self.device = torch.device(device)
         self.replays = 0
+        # run eagerly on the card too: a program whose collectives cannot
+        # be captured (gloo groups, ``optim/distri_optimizer.py``)
+        self.eager = False
         self._fn = fn
         self._pool = pool
         self._graph = None
@@ -92,7 +95,7 @@ class Program:
         return self._graph is not None
 
     def __call__(self):
-        if self.device.type != "cuda":
+        if self.device.type != "cuda" or self.eager:
             return self._fn(*self.inputs)
         if self._graph is None:
             return self._warm_up_and_capture()

@@ -8785,6 +8785,234 @@ def images_path(kernels, card, repo: Path) -> dict:
     return out
 
 
+# ----------------------------------------------------------------- phase 21
+DISTRI_STEPS = 6                 # a few steps a sync mode (the capture first)
+DISTRI_MODES = ("allreduce", "zero1", "fsdp")
+# bigdl_tpu/dryrun.py:14's entry model: TransformerLM(1024, 256, 4, 2, 256)
+DRYRUN_LM = dict(vocab=1024, embed=256, heads=4, layers=2, max_len=256)
+COLLECTIVE_KINDS = (("collectives", ("nccl",)),) + KERNEL_KINDS
+
+
+def distri_lm_data(vocab, seq, batch, steps, seed):
+    from bigdl_tpu_torch.dataset import (
+        DataSet, Sample, SampleToMiniBatch, ptb_windows, synthetic_ptb,
+    )
+    from bigdl_tpu_torch.utils.random_generator import RandomGenerator
+    RandomGenerator.set_seed(seed)
+    ids = synthetic_ptb(batch * steps * seq + 1, vocab_size=vocab)
+    xs, ys = ptb_windows(ids, seq)
+    return (DataSet.array((Sample(x, y) for x, y in zip(xs, ys)),
+                          distributed=True) >> SampleToMiniBatch(batch))
+
+
+def distri_lm_run(TransformerLM, lm_criterion, kernels, card, widths, seq,
+                  batch, sync, profile=False):
+    """``steps`` Adam steps of a TransformerLM of ``widths`` (vocab,
+    embed, heads, layers) by ``DistriOptimizer(parameter_sync=sync)`` (or
+    ``LocalOptimizer`` for ``sync=None``) over the one-rank NCCL mesh:
+    losses, step ms (median after the capture), launches, and the final
+    parameters."""
+    from bigdl_tpu_torch.optim import Adam, LocalOptimizer, Trigger
+    from bigdl_tpu_torch.optim.distri_optimizer import DistriOptimizer
+    vocab, embed, heads, layers = widths
+    lm = TransformerLM(vocab, embed, heads, layers, seq,
+                       generator=torch.Generator().manual_seed(SEED + 21),
+                       device=DEVICE)
+    data = distri_lm_data(vocab, seq, batch, DISTRI_STEPS, SEED + 21)
+    data.shuffle = lambda: None
+    if sync is None:
+        opt = LocalOptimizer(lm, data, lm_criterion(),
+                             device=None if DEVICE == "cuda" else DEVICE)
+    else:
+        opt = DistriOptimizer(lm, data, lm_criterion(), parameter_sync=sync)
+    opt.set_optim_method(Adam(learningrate=1e-3)) \
+        .set_end_when(Trigger.max_iteration(DISTRI_STEPS))
+    losses, times = [], []
+    run_steps = opt._run_steps
+
+    def timed(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = run_steps(steps)      # the loss fetch waits for the step
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.extend(out)
+        return out
+
+    opt._run_steps = timed
+    before = kernels.launch_counts()
+    opt.optimize()
+    counts = {k: v - before[k] for k, v in kernels.launch_counts().items()}
+    opt._run_steps = run_steps
+    prog = opt._step_program
+    out = {"losses": losses, "step_ms": statistics.median(times[1:]),
+           "first_step_ms": times[0], "launches": counts,
+           "captured": bool(prog.captured), "replays": prog.replays,
+           "step_mode": getattr(opt, "step_mode", "captured")}
+    params = {n: p.detach().clone() for n, p in lm.named_parameters()}
+    if profile:     # one more (replayed) step, after the parameters' copy
+        batch0 = next(iter(data.data(train=False)))
+        out["profile"] = profile_step(opt, batch0, card, COLLECTIVE_KINDS)
+    del opt, lm
+    release()
+    return out, params
+
+
+def distri_lm_modes(TransformerLM, lm_criterion, kernels, card, widths, seq,
+                    batch, name):
+    """One model in every sync mode against LocalOptimizer on the same
+    seed and batches: losses and parameters bitwise (at world 1 every
+    collective is a copy and every scale a 1), the step captured and
+    replayed, the LM kernels launched inside it."""
+    local, lparams = distri_lm_run(TransformerLM, lm_criterion, kernels,
+                                   card, widths, seq, batch, None)
+    out = {"local": {k: local[k] for k in ("losses", "step_ms",
+                                           "first_step_ms")}}
+    for sync in DISTRI_MODES:
+        run, params = distri_lm_run(TransformerLM, lm_criterion, kernels,
+                                    card, widths, seq, batch, sync,
+                                    profile=(sync == "allreduce"))
+        same = run["losses"] == local["losses"] and all(
+            torch.equal(params[n], p) for n, p in lparams.items())
+        log(f"  {name} {sync}: step {run['step_ms']:.2f} ms against "
+            f"LocalOptimizer's {local['step_ms']:.2f} ms; losses "
+            f"{[round(v, 4) for v in run['losses']]}; bitwise equal to "
+            f"LocalOptimizer: {same}; {run['step_mode']}, captured "
+            f"{run['captured']}, {run['replays']} replays; launches "
+            f"{run['launches']} [{card}]")
+        if not same:
+            raise CheckFailed(f"{name} {sync}: DistriOptimizer at world 1 "
+                              f"departs from LocalOptimizer: "
+                              f"{run['losses']} vs {local['losses']}")
+        if not (run["captured"] and run["replays"] == DISTRI_STEPS - 1
+                and run["step_mode"] == "captured"):
+            raise CheckFailed(f"{name} {sync}: the step was not captured "
+                              f"and replayed ({run['step_mode']})")
+        for k in ("layer_norm_fwd", "layer_norm_bwd", "flash_attention_fwd",
+                  "flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
+            if run["launches"][k] == 0:
+                raise CheckFailed(f"{name} {sync}: the step never "
+                                  f"launched {k}")
+        del params
+        out[sync] = run
+    return out
+
+
+def distributed_path(TransformerLM, lm_criterion, kernels, card,
+                     Engine) -> dict:
+    """Phase 21: the distributed trainer. (a) World 1 on NCCL: the
+    TransformerLM main ``--distributed`` at its default widths against its
+    local run, then the main path's LM at full width and the dryrun's
+    entry LM trained by DistriOptimizer in allreduce, zero1 and fsdp, each
+    against LocalOptimizer bitwise, its step captured with the
+    collectives inside. (b) Several ranks sharing the one card over gloo:
+    ``dryrun_multichip(2)`` and ``(4)``, every leg; the 2-rank run also on
+    the host's CPU, the losses compared."""
+    from bigdl_tpu_torch import dryrun
+    from bigdl_tpu_torch.models.transformerlm import train as lm_main
+    from bigdl_tpu_torch.utils.random_generator import RandomGenerator
+    t0 = time.perf_counter()
+    out = {"card": card}
+    Engine.init(backend="nccl")
+    try:
+        mesh = Engine.mesh()
+        log(f"  one-rank NCCL mesh: {mesh}, device {Engine.device()}")
+        # the phase's path: DistriOptimizer's runs (the LocalOptimizer runs
+        # they are held against are left out)
+        launches = {k: 0 for k in kernels.launch_counts()}
+        main_runs = {}
+        for flag in ([], ["--distributed"]):
+            seen = []
+            from bigdl_tpu_torch.optim.optimizer import Optimizer
+            run_steps = Optimizer._run_steps
+
+            def recording(self, batches, _seen=seen, _run=run_steps):
+                got = _run(self, batches)
+                _seen.extend(got)
+                return got
+
+            Optimizer._run_steps = recording
+            RandomGenerator.set_seed(SEED)
+            torch.manual_seed(SEED)
+            before = kernels.launch_counts()
+            try:
+                loss = lm_main.main(flag)
+            finally:
+                Optimizer._run_steps = run_steps
+            if flag:
+                for k, v in kernels.launch_counts().items():
+                    launches[k] += v - before[k]
+            main_runs["distributed" if flag else "local"] = {
+                "losses": seen, "final_loss": loss}
+        same = main_runs["distributed"]["losses"] == \
+            main_runs["local"]["losses"]
+        log(f"  the TransformerLM main at its defaults: --distributed losses "
+            f"{[round(v, 4) for v in main_runs['distributed']['losses']]}, "
+            f"bitwise the local run's: {same} [{card}]")
+        if not same or not np.isfinite(main_runs["distributed"]["losses"]
+                                       ).all():
+            raise CheckFailed("the TransformerLM main --distributed departs "
+                              "from its local run")
+        out["main"] = main_runs
+        out["full_width"] = distri_lm_modes(
+            TransformerLM, lm_criterion, kernels, card,
+            (VOCAB, EMBED, HEADS, LAYERS), TRAIN_LEN, TRAIN_BATCH,
+            f"TransformerLM({VOCAB}, {EMBED}, {HEADS}, {LAYERS}) at "
+            f"{TRAIN_BATCH} x {TRAIN_LEN}")
+        d = DRYRUN_LM
+        out["dryrun_lm"] = distri_lm_modes(
+            TransformerLM, lm_criterion, kernels, card,
+            (d["vocab"], d["embed"], d["heads"], d["layers"]), d["max_len"],
+            TRAIN_BATCH, f"TransformerLM({d['vocab']}, {d['embed']}, "
+            f"{d['heads']}, {d['layers']}, {d['max_len']}) at "
+            f"{TRAIN_BATCH} x {d['max_len']}")
+        for part in (out["full_width"], out["dryrun_lm"]):
+            for sync in DISTRI_MODES:
+                for k, v in part[sync]["launches"].items():
+                    launches[k] += v
+        out["launches"] = launches
+    finally:
+        Engine.shutdown_distributed()
+        Engine.reset()
+    # (b) several ranks on the one card, over gloo (NCCL takes one rank a
+    # device); the CUDA tensors staged through the host by one rule
+    # (parallel/collectives._staged); the pp leg's toy blocks (head dim 8,
+    # below the flash kernel's 32) attend through full_attention. The ranks
+    # inherit TF32 off from the environment (this process sets it through
+    # torch.backends, which a spawned rank does not read)
+    os.environ["NVIDIA_TF32_OVERRIDE"] = "0"
+    multi = {}
+    for n in (2, 4):
+        t1 = time.perf_counter()
+        got = dryrun.dryrun_multichip(n, backend="gloo")
+        multi[n] = {"losses": got["losses"], "step_modes": got["step_modes"],
+                    "wall_s": time.perf_counter() - t1}
+        bad = {k: v for k, v in got["losses"].items()
+               if not np.isfinite(v)}
+        if bad:
+            raise CheckFailed(f"dryrun_multichip({n}) on the card: "
+                              f"non-finite {bad}")
+        log(f"  dryrun_multichip({n}), {n} ranks sharing {DEVICE}:0 over "
+            f"gloo: {got['losses']}; {multi[n]['wall_s']:.1f} s [{card}]")
+    t1 = time.perf_counter()
+    host = dryrun.dryrun_multichip(2, backend="cpu")
+    rel = {k: abs(multi[2]["losses"][k] - v) / max(abs(v), 1e-6)
+           for k, v in host["losses"].items()}
+    worst = max(rel, key=rel.get)
+    log(f"  dryrun_multichip(2) on the card against the host's CPU "
+        f"({time.perf_counter() - t1:.1f} s): worst relative loss gap "
+        f"{rel[worst]:.2e} ({worst}; TF32 off, the card's kernels against "
+        f"the plain versions; limit 1e-3) [{card}]")
+    if rel[worst] > 1e-3:
+        raise CheckFailed(f"dryrun_multichip(2) on the card departs from "
+                          f"the CPU run: {worst} {rel[worst]:.3e}")
+    out["multi_rank"] = {str(k): v for k, v in multi.items()}
+    out["multi_rank"]["cpu_2"] = host["losses"]
+    out["multi_rank"]["card_vs_cpu_worst_rel"] = rel[worst]
+    out["wall_s"] = time.perf_counter() - t0
+    log(f"  phase 21 took {out['wall_s']:.1f} s [{card}]")
+    return out
+
+
 @contextlib.contextmanager
 def cudnn_deterministic():
     was = torch.backends.cudnn.deterministic
@@ -8881,6 +9109,13 @@ def main() -> int:
         kernels.reset_launch_counts()
         detection = detection_path(kernels, card, Program)
         print(json.dumps({"detection": detection}), flush=True)
+        return 0
+    if "--distributed-only" in sys.argv:
+        log("phase 21 only")
+        distributed = distributed_path(TransformerLM, lm_criterion, kernels,
+                                       card, Engine)
+        print(json.dumps({"distributed": distributed}), flush=True)
+        print(f"card: {card}", flush=True)
         return 0
     if "--images-only" in sys.argv:
         log("phase 20 only")
@@ -9127,6 +9362,13 @@ def main() -> int:
     kernels.reset_launch_counts()          # the phase's path: from here ...
     images = images_path(kernels, card, root)    # ... to its save and load
 
+    log("phase 21: the distributed trainer (DistriOptimizer in allreduce, "
+        "zero1 and fsdp on a one-rank NCCL mesh, the LM captured with its "
+        "collectives; dryrun_multichip(2) and (4) with the ranks sharing the "
+        "card over gloo)")
+    distributed = distributed_path(TransformerLM, lm_criterion, kernels,
+                                   card, Engine)
+
     log("phase 10: the kernel table")
 
     # each kernel's row: its own slice's path (serving for the forward
@@ -9193,7 +9435,8 @@ def main() -> int:
                  "recsys": recsys["launches"][k],
                  "quantized": quantized["launches"][k],
                  "detection": detection["launches"][k],
-                 "images": images["launches"][k]}
+                 "images": images["launches"][k],
+                 "distributed": distributed["launches"][k]}
              for k in launches}
 
     def s2s_flash(rows, name):
@@ -9385,7 +9628,8 @@ def main() -> int:
         "finetune": finetune, "tail": tail, "recsys": recsys,
         "quantized": quantized,
         "detection": {k: v for k, v in detection.items()
-                      if k != "nms_rows"}, "images": images}
+                      if k != "nms_rows"}, "images": images,
+        "distributed": distributed}
     print(json.dumps(table), flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -93,7 +93,9 @@ def test_cached_write_clamps_like_dynamic_update_slice():
 
 
 def test_constructor_rejects_unported_options():
-    with pytest.raises(ValueError):
-        tnn.MultiHeadAttention(E, H, attention_impl="ring")
+    # ring attention is ported; a window still refuses it, as in JAX
+    with pytest.raises(ValueError, match="ring"):
+        tnn.MultiHeadAttention(E, H, causal=True, window=4,
+                               attention_impl="ring")
     with pytest.raises(ValueError):
         tnn.MultiHeadAttention(E, 5)

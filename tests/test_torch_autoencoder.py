@@ -142,9 +142,9 @@ def test_main_has_jax_flags_and_refuses_the_unported():
         if a.dest in ("help", "distributed"):
             continue
         assert ours[a.dest] == a.default, a.dest
-    assert "--folder" not in main.UNPORTED_FLAGS
-    with pytest.raises(SystemExit, match="Queue A.6"):
-        main.main(["--distributed"])
+    # --distributed is ported (DistriOptimizer): nothing is refused
+    assert not hasattr(main, "UNPORTED_FLAGS")
+    assert main.build_parser().parse_args(["--distributed"]).distributed
 
 
 def test_main_needs_the_card_by_default(monkeypatch):

@@ -388,8 +388,7 @@ def test_vision_mains_take_checkpoint_and_summary_dir(name, args, tmp_path):
     (train and validation summaries under the model's name)."""
     import importlib
     main = importlib.import_module(f"bigdl_tpu_torch.models.{name}.train")
-    assert "--checkpoint" not in main.UNPORTED_FLAGS
-    assert "--summary-dir" not in main.UNPORTED_FLAGS
+    assert not hasattr(main, "UNPORTED_FLAGS")
     opt = main.main(["--device", "cpu", "--max-epoch", "1", "--checkpoint",
                      str(tmp_path / "ck"), "--summary-dir",
                      str(tmp_path / "tb"), *args])

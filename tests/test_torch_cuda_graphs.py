@@ -258,6 +258,54 @@ def test_fused_training_window_equals_eager_steps(cuda, dtype, variant):
         counts["flash_attention_bwd_dkv"] == 8 * calls * LAYERS
 
 
+@pytest.mark.parametrize("sync", ["allreduce", "zero1", "fsdp"])
+def test_distributed_step_at_world_1_is_captured_and_equals_local(cuda,
+                                                                  sync):
+    """DistriOptimizer over a one-rank NCCL group: its step (the
+    collectives inside) is captured once and replayed, and 4 steps give
+    LocalOptimizer's losses and parameters bit for bit."""
+    from bigdl_tpu_torch.optim.distri_optimizer import DistriOptimizer
+    batches = _batches(4)
+
+    def run(cls, **kw):
+        ds = DataSet.array(batches)
+        ds.shuffle = lambda: None
+        lm = _lm()
+        opt = (cls(lm, ds, lm_criterion(), **kw)
+               .set_optim_method(Adam(learningrate=1e-3))
+               .set_end_when(Trigger.max_iteration(4)))
+        losses = []
+        run_steps = opt._run_steps
+
+        def recorded(steps):
+            out = run_steps(steps)
+            losses.extend(out)
+            return out
+
+        opt._run_steps = recorded
+        opt.optimize()
+        return opt, losses, {n: p.detach().clone()
+                             for n, p in lm.named_parameters()}
+
+    Engine.init(backend="nccl")
+    try:
+        before = kernels.launch_counts()
+        dopt, dlosses, dparams = run(DistriOptimizer, parameter_sync=sync)
+        counts = {k: v - before[k] for k, v in kernels.launch_counts().items()}
+        lopt, llosses, lparams = run(LocalOptimizer)
+    finally:
+        Engine.shutdown_distributed()
+        Engine.reset()
+    assert dopt.step_mode == "captured"
+    assert dopt._step_program.captured and dopt._step_program.replays == 3
+    assert dlosses == llosses
+    for n, p in lparams.items():
+        assert torch.equal(dparams[n], p), n
+    for name in ("layer_norm_fwd", "layer_norm_bwd", "flash_attention_fwd",
+                 "flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
+        assert counts[name] > 0, name
+
+
 def test_step_is_captured_again_when_the_frozen_mask_changes(cuda):
     lm = _lm()
     opt = LocalOptimizer(lm, DataSet.array([]), lm_criterion()) \

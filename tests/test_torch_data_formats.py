@@ -350,12 +350,16 @@ def test_refusals_name_their_roadmap_items(tmp_path):
     # the image decoder is the default of both record sources, as in JAX
     assert DataSet.record_files([p]).decoder is recordio.image_record_decoder
     assert DataSet.stream_shards([p]).decoder is recordio.image_record_decoder
-    with pytest.raises(NotImplementedError, match="A.6"):
-        DataSet.stream_shards([p], decoder=_decoder(Sample), distributed=True)
-    with pytest.raises(NotImplementedError, match="A.6"):
-        recordio.RecordFileDataSet([p], _decoder(Sample), distributed=True)
-    with pytest.raises(NotImplementedError, match="A.6"):
-        _stream(streaming, [p], Sample).shard(0, 2)
+    # distributed=True and shard() are ported: the marker the factory
+    # reads, and JAX's strided per-host slice of the shards
+    from bigdl_tpu_torch.dataset.dataset import is_distributed
+    assert is_distributed(DataSet.stream_shards(
+        [p], decoder=_decoder(Sample), distributed=True))
+    assert is_distributed(recordio.RecordFileDataSet(
+        [p], _decoder(Sample), distributed=True))
+    assert _stream(streaming, [p], Sample).shard(0, 2).paths == [p]
+    with pytest.raises(ValueError, match="got no shards"):
+        _stream(streaming, [p], Sample).shard(1, 2)
     with pytest.raises(TypeError, match="not cacheable"):
         sample_cache.encode_record(type("ImageFeature", (), {})())
     assert recordio.encode_image_record(7, b"ab") == \

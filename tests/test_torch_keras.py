@@ -410,8 +410,17 @@ def test_fit_refuses_distributed_and_needs_compile():
     with pytest.raises(RuntimeError, match="compile"):
         m.fit(x, y)
     m.compile("sgd", "mse")
-    with pytest.raises(NotImplementedError, match="Queue A.6"):
-        m.fit(x, y, distributed=True)
+    # fit(distributed=True) trains through DistriOptimizer: world 1 here
+    from bigdl_tpu_torch.optim.distri_optimizer import DistriOptimizer
+    from bigdl_tpu_torch.utils.engine import Engine
+    Engine.init(backend="cpu")
+    try:
+        m.fit(x, np.zeros((4, 2), np.float32), batch_size=4, nb_epoch=1,
+              distributed=True)
+        assert isinstance(m._last_optimizer, DistriOptimizer)
+        assert np.isfinite(m._last_optimizer.state["loss"])
+    finally:
+        Engine.reset()
     with pytest.raises(ValueError, match="first layer must declare"):
         K.Sequential().add(K.Dense(2))
 

@@ -664,8 +664,9 @@ def test_mains_have_jax_flags_and_refuse_distributed(main, jmain):
             continue
         assert ours[a.dest] == a.default, a.dest
     assert ours["device"] == "cuda"
-    with pytest.raises(SystemExit, match="Queue A.6"):
-        main.main(["--distributed"])
+    # --distributed is ported (DistriOptimizer)
+    assert not hasattr(main, "UNPORTED_FLAGS")
+    assert ours["distributed"] is False
 
 
 @pytest.mark.parametrize("extra", [["--sharded"], ["--hash-buckets", "4096"]],
@@ -716,9 +717,13 @@ def test_exports_follow_jax():
     for name in ("HashBucketEmbedding", "SparseLinear", "SparseEmbeddingSum",
                  "DenseToSparse", "SparseJoinTable", "LookupTableSparse"):
         assert name in nn.__all__ and hasattr(jnn, name)
-    assert sorted(set(jparallel.embedding.__dict__) & {
-        "ShardedEmbedding", "SparseEmbeddingUpdate", "build_sparse_plan",
-        "dedup_ids", "find_sharded_embeddings"}) == sorted(
-        n for n in parallel.__all__ if n != "full_attention")
+    # the port's parallel package exports everything JAX's does
+    jexports = {n for n in dir(jparallel) if not n.startswith("_")} - {
+        "embedding", "moe", "pipeline", "ring_attention", "sharding",
+        "tensor_parallel"}
+    assert {"ShardedEmbedding", "SparseEmbeddingUpdate", "build_sparse_plan",
+            "dedup_ids", "find_sharded_embeddings"} <= jexports
+    assert jexports <= set(parallel.__all__), sorted(
+        jexports - set(parallel.__all__))
     assert ncf.__all__ == ["NeuralCF"] and widedeep.__all__ == [
         "WideAndDeep"]

@@ -412,14 +412,15 @@ def test_lm_main_trains_on_a_corpus_file(tmp_path, capsys):
                          "--num-heads", "2", "--num-layers", "1",
                          "--vocab-size", "16", "--max-iteration", "1"])
     assert np.isfinite(loss) and "final loss:" in capsys.readouterr().out
-    assert "--folder" not in lm_main.UNPORTED_FLAGS
+    assert not hasattr(lm_main, "UNPORTED_FLAGS")
 
 
 @pytest.mark.parametrize("main", [rnn_main, tree_main, tc_main],
                          ids=["rnn", "treelstm", "textclassifier"])
 def test_text_mains_refuse_distributed_and_need_the_card(main, monkeypatch):
-    with pytest.raises(SystemExit, match="Queue A.6"):
-        main.main(["--distributed"])
+    # --distributed is ported (DistriOptimizer): nothing is refused
+    assert not hasattr(main, "UNPORTED_FLAGS")
+    assert main.build_parser().parse_args(["--distributed"]).distributed
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         main.main(["--max-epoch", "1"])

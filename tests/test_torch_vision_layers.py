@@ -375,13 +375,15 @@ def test_batch_norm_constant_channel_and_sync():
     the gradient through the clamp as JAX takes it) and the channel is
     normalised by 1/sqrt(eps) = 316, which magnifies the summation-order
     differences of its input gradient 316 times: held to 1e-3 relative.
-    sync=True is Queue A.6."""
+    sync=True outside a data-parallel step raises, as JAX's pmean over
+    an unbound axis does."""
     jm, tm = _bn_pair("SpatialBatchNormalization", 2, 17)
     x = _image((2, 2, 3, 3), seed=18)
     x[:, 1] = 0.75
     _compare(jm, tm, x, training=True, rtol=1e-3)
-    with pytest.raises(NotImplementedError, match="A.6"):
-        tnn.SpatialBatchNormalization(4, sync=True)
+    with pytest.raises(NameError, match="unbound axis name"):
+        tnn.SpatialBatchNormalization(4, sync=True).train()(
+            torch.ones(2, 4, 3, 3))
 
 
 # ---------------------------------------------- conv-BN fusion and folding
