@@ -231,7 +231,8 @@ def _jax_flat_order(tree: dict) -> list:
 
 
 def ostate_host_layout(method, tree: dict) -> dict:
-    """Host arrays of :func:`ostate_tree` in the file's layout: unchanged,
+    """Arrays of :func:`ostate_tree` (host arrays or tensors) in the file's
+    layout: unchanged,
     except under the flat update, whose per-parameter slots become JAX's
     one vector a dtype (``{"float32": vector}``) in JAX's leaf order."""
     if not _flat_update(method):
@@ -244,9 +245,14 @@ def ostate_host_layout(method, tree: dict) -> dict:
         leaves = _leaves(v)
         groups: dict = {}
         for path in _jax_flat_order(v):
-            a = np.asarray(leaves[path])
-            groups.setdefault(str(a.dtype), []).append(a.reshape(-1))
-        out[k] = {d: np.concatenate(parts) for d, parts in groups.items()}
+            a = leaves[path]
+            if not isinstance(a, torch.Tensor):
+                a = np.asarray(a)
+            d = str(a.dtype).replace("torch.", "")
+            groups.setdefault(d, []).append(a.reshape(-1))
+        out[k] = {d: (torch.cat(parts) if isinstance(parts[0], torch.Tensor)
+                      else np.concatenate(parts))
+                  for d, parts in groups.items()}
     return out
 
 

@@ -107,15 +107,18 @@ def to_samples(images: np.ndarray, labels: np.ndarray) -> list:
 
 
 def train_val_sets(folder: Optional[str], batch_size: int,
-                   synthetic_size: int = 1024):
+                   distributed: bool = False, synthetic_size: int = 1024):
     """Normalised train and validation MiniBatch datasets, the pipeline of
-    the CIFAR training mains (ResNet, VGG)."""
+    the CIFAR training mains (ResNet, VGG); ``distributed`` marks both for
+    ``DistriOptimizer``, as JAX's does."""
     imgs, labels = load_cifar10(folder, "train",
                                 synthetic_size=synthetic_size)
     timgs, tlabels = load_cifar10(folder, "test",
                                   synthetic_size=max(synthetic_size // 4, 256))
-    train_set = (DataSet.array(to_samples(normalize(imgs), labels))
+    train_set = (DataSet.array(to_samples(normalize(imgs), labels),
+                               distributed=distributed)
                  >> SampleToMiniBatch(batch_size))
-    test_set = (DataSet.array(to_samples(normalize(timgs), tlabels))
+    test_set = (DataSet.array(to_samples(normalize(timgs), tlabels),
+                              distributed=distributed)
                 >> SampleToMiniBatch(batch_size))
     return train_set, test_set

@@ -19,7 +19,7 @@ import sys
 import torch
 
 from bigdl_tpu_torch.models.mains import (
-    add_distributed_flag, distributed_setup, trainer,
+    add_distributed_flag, distributed_setup, seed_as_jax, trainer,
 )
 
 
@@ -42,6 +42,7 @@ def main(argv=None):
     """Train; returns the ``LocalOptimizer``."""
     argv = sys.argv[1:] if argv is None else list(argv)
     args = build_parser().parse_args(argv)
+    seed_as_jax()
     distributed_setup(args)
 
     import numpy as np
@@ -51,9 +52,7 @@ def main(argv=None):
     from bigdl_tpu_torch.dataset.mnist import load_mnist
     from bigdl_tpu_torch.models.autoencoder import Autoencoder
     from bigdl_tpu_torch.optim import Adam, Trigger
-    from bigdl_tpu_torch.utils.random_generator import RandomGenerator
 
-    RandomGenerator.set_seed(0)
     imgs, _ = load_mnist(args.folder, "train",
                          synthetic_size=args.synthetic_size)
     flat = (imgs.astype(np.float32) / 255.0).reshape(len(imgs), -1)

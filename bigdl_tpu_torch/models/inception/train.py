@@ -24,7 +24,7 @@ import numpy as np
 import torch
 
 from bigdl_tpu_torch.models.mains import (
-    add_distributed_flag, distributed_setup, trainer,
+    add_distributed_flag, distributed_setup, seed_as_jax, trainer,
 )
 
 
@@ -70,6 +70,7 @@ def main(argv=None):
     """Train; returns the ``LocalOptimizer``."""
     argv = sys.argv[1:] if argv is None else list(argv)
     args = build_parser().parse_args(argv)
+    seed_as_jax()
     distributed_setup(args)
 
     from bigdl_tpu_torch import nn
@@ -80,20 +81,17 @@ def main(argv=None):
     )
     from bigdl_tpu_torch.optim import SGD, Trigger
     from bigdl_tpu_torch.utils.device import resolve_device
-    from bigdl_tpu_torch.utils.random_generator import RandomGenerator
 
-    RandomGenerator.set_seed(0)
     if args.folder is not None:
         # an ImageNet-layout folder through the streaming pipeline
         from bigdl_tpu_torch.models.imagenet_data import imagenet_sets
-        from bigdl_tpu_torch.utils.engine import Engine
-        if not Engine.is_initialized():
-            Engine.init()
         train_set, _ = imagenet_sets(args.folder, args.batch_size,
-                                     crop=args.image_size)
+                                     crop=args.image_size,
+                                     distributed=args.distributed)
     else:
         train_set = (DataSet.array(synthetic_set(
-            args.synthetic_size, args.image_size, args.classes))
+            args.synthetic_size, args.image_size, args.classes),
+            distributed=args.distributed)
             >> SampleToMiniBatch(args.batch_size))
     dev = resolve_device(args.device)
     g = torch.Generator().manual_seed(0)

@@ -21,7 +21,7 @@ import sys
 import torch
 
 from bigdl_tpu_torch.models.mains import (
-    add_distributed_flag, distributed_setup, trainer,
+    add_distributed_flag, distributed_setup, seed_as_jax, trainer,
 )
 
 
@@ -52,6 +52,7 @@ def main(argv=None):
     """Train; returns the ``LocalOptimizer``."""
     argv = sys.argv[1:] if argv is None else list(argv)
     args = build_parser().parse_args(argv)
+    seed_as_jax()
     distributed_setup(args)
 
     from bigdl_tpu_torch import nn
@@ -60,15 +61,13 @@ def main(argv=None):
     from bigdl_tpu_torch.models.lenet import LeNet5
     from bigdl_tpu_torch.optim import SGD, Trigger
     from bigdl_tpu_torch.optim.validation import Top1Accuracy
-    from bigdl_tpu_torch.utils.random_generator import RandomGenerator
 
-    RandomGenerator.set_seed(0)
     train = to_samples(*load_mnist(args.folder, "train",
                                    synthetic_size=args.synthetic_size))
     test = to_samples(*load_mnist(
         args.folder, "test", synthetic_size=max(args.synthetic_size // 4, 256)))
     train_set = DataSet.array(train, distributed=args.distributed) >> SampleToMiniBatch(args.batch_size)
-    test_set = DataSet.array(test) >> SampleToMiniBatch(args.batch_size)
+    test_set = DataSet.array(test, distributed=args.distributed) >> SampleToMiniBatch(args.batch_size)
     if args.model_snapshot:
         model = nn.AbstractModule.load(args.model_snapshot, args.device)
     else:

@@ -22,7 +22,7 @@ import numpy as np
 import torch
 
 from bigdl_tpu_torch.models.mains import (
-    add_distributed_flag, distributed_setup, trainer,
+    add_distributed_flag, distributed_setup, seed_as_jax, trainer,
 )
 
 
@@ -129,6 +129,7 @@ def main(argv=None):
     """Train and evaluate; returns ``(hit_ratio, ndcg)``."""
     argv = sys.argv[1:] if argv is None else list(argv)
     args = build_parser().parse_args(argv)
+    seed_as_jax(always=True)
     distributed_setup(args)
 
     from bigdl_tpu_torch import nn
@@ -138,9 +139,7 @@ def main(argv=None):
         NDCG, SGD, Adam, HitRatio, Trigger,
     )
     from bigdl_tpu_torch.optim.evaluator import run_device_eval
-    from bigdl_tpu_torch.utils.random_generator import RandomGenerator
 
-    RandomGenerator.set_seed(0)
     users, pos_items, _, _ = synthetic_interactions(
         args.user_count, args.item_count, args.interactions)
     train_mask, eval_pairs = holdout_split(users)

@@ -26,7 +26,7 @@ import sys
 import torch
 
 from bigdl_tpu_torch.models.mains import (
-    add_distributed_flag, distributed_setup, trainer,
+    add_distributed_flag, distributed_setup, seed_as_jax, trainer,
 )
 
 
@@ -60,6 +60,7 @@ def main(argv=None):
     loss and the validation scores)."""
     argv = sys.argv[1:] if argv is None else list(argv)
     args = build_parser().parse_args(argv)
+    seed_as_jax()
     distributed_setup(args)
 
     from bigdl_tpu_torch import nn
@@ -67,20 +68,16 @@ def main(argv=None):
     from bigdl_tpu_torch.models.resnet import ResNet
     from bigdl_tpu_torch.optim import SGD, Trigger
     from bigdl_tpu_torch.optim.validation import Top1Accuracy
-    from bigdl_tpu_torch.utils.engine import Engine
-    from bigdl_tpu_torch.utils.random_generator import RandomGenerator
 
-    RandomGenerator.set_seed(0)
-    if not Engine.is_initialized():
-        Engine.init()
     if args.dataset == "ImageNet":
         from bigdl_tpu_torch.models.imagenet_data import imagenet_sets
         train_set, test_set = imagenet_sets(
-            args.folder, args.batch_size,
+            args.folder, args.batch_size, distributed=args.distributed,
             synthetic_per_class=max(args.synthetic_size // 4, 8))
     else:
         train_set, test_set = cifar.train_val_sets(
-            args.folder, args.batch_size, synthetic_size=args.synthetic_size)
+            args.folder, args.batch_size, distributed=args.distributed,
+            synthetic_size=args.synthetic_size)
     opt = {"depth": args.depth, "dataSet": args.dataset}
     if args.shortcut_type:
         opt["shortcutType"] = args.shortcut_type

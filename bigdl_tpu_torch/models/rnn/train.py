@@ -26,7 +26,7 @@ import numpy as np
 import torch
 
 from bigdl_tpu_torch.models.mains import (
-    add_distributed_flag, distributed_setup, trainer,
+    add_distributed_flag, distributed_setup, seed_as_jax, trainer,
 )
 
 
@@ -82,6 +82,7 @@ def main(argv=None):
     words and the search's seconds, with ``--generate``)."""
     argv = sys.argv[1:] if argv is None else list(argv)
     args = build_parser().parse_args(argv)
+    seed_as_jax()
     distributed_setup(args)
 
     from bigdl_tpu_torch import nn
@@ -91,9 +92,7 @@ def main(argv=None):
     from bigdl_tpu_torch.models.rnn import PTBModel
     from bigdl_tpu_torch.optim import SGD, Trigger
     from bigdl_tpu_torch.optim.validation import Loss
-    from bigdl_tpu_torch.utils.random_generator import RandomGenerator
 
-    RandomGenerator.set_seed(0)
     ids, dictionary = load_ptb(args.folder, "train",
                                vocab_size=args.vocab_size)
     vids, _ = load_ptb(args.folder, "valid", dictionary=dictionary)
@@ -103,7 +102,8 @@ def main(argv=None):
     train_set = (DataSet.array([Sample(x, y) for x, y in zip(xs, ys)],
                                distributed=args.distributed)
                  >> SampleToMiniBatch(args.batch_size))
-    val_set = (DataSet.array([Sample(x, y) for x, y in zip(vxs, vys)])
+    val_set = (DataSet.array([Sample(x, y) for x, y in zip(vxs, vys)],
+                             distributed=args.distributed)
                >> SampleToMiniBatch(args.batch_size))
     criterion = nn.TimeDistributedCriterion(nn.ClassNLLCriterion(),
                                             size_average=True)

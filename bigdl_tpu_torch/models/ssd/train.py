@@ -20,7 +20,7 @@ import numpy as np
 import torch
 
 from bigdl_tpu_torch.models.mains import (
-    add_distributed_flag, distributed_setup, trainer,
+    add_distributed_flag, distributed_setup, seed_as_jax, trainer,
 )
 
 
@@ -62,15 +62,14 @@ def main(argv=None):
     """Train; returns the held-out mean IoU."""
     argv = sys.argv[1:] if argv is None else list(argv)
     args = build_parser().parse_args(argv)
+    seed_as_jax()
     distributed_setup(args)
 
     from bigdl_tpu_torch import nn
     from bigdl_tpu_torch.dataset import DataSet, SampleToMiniBatch
     from bigdl_tpu_torch.models.ssd import SSD, detector
     from bigdl_tpu_torch.optim import Adam, Trigger
-    from bigdl_tpu_torch.utils.random_generator import RandomGenerator
 
-    RandomGenerator.set_seed(1)
     rng = np.random.RandomState(0)
     n_cls = 3   # bg + bright + dim
     train = make_dataset(args.n_train, args.img_size, rng)

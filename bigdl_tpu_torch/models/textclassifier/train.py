@@ -21,7 +21,7 @@ import numpy as np
 import torch
 
 from bigdl_tpu_torch.models.mains import (
-    add_distributed_flag, distributed_setup, trainer,
+    add_distributed_flag, distributed_setup, seed_as_jax, trainer,
 )
 
 
@@ -77,6 +77,7 @@ def main(argv=None):
     """Train; returns the ``LocalOptimizer``."""
     argv = sys.argv[1:] if argv is None else list(argv)
     args = build_parser().parse_args(argv)
+    seed_as_jax(always=True)
     distributed_setup(args)
 
     from bigdl_tpu_torch import nn
@@ -86,9 +87,7 @@ def main(argv=None):
     from bigdl_tpu_torch.models.textclassifier import TextClassifier
     from bigdl_tpu_torch.optim import Adam, Trigger
     from bigdl_tpu_torch.optim.validation import Top1Accuracy
-    from bigdl_tpu_torch.utils.random_generator import RandomGenerator
 
-    RandomGenerator.set_seed(0)
     texts, labels = synthetic_corpus(args.sentences, args.classes)
     tok = SentenceTokenizer()
     dictionary = Dictionary((t for text in texts for t in tok.tokens(text)),

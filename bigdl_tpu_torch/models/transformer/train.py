@@ -24,7 +24,7 @@ import numpy as np
 import torch
 
 from bigdl_tpu_torch.models.mains import (
-    add_distributed_flag, distributed_setup, trainer,
+    add_distributed_flag, distributed_setup, seed_as_jax, trainer,
 )
 
 
@@ -131,6 +131,7 @@ def criterion():
 def main(argv=None) -> float:
     argv = sys.argv[1:] if argv is None else list(argv)
     args = build_parser().parse_args(argv)
+    seed_as_jax()
     distributed_setup(args)
 
     from bigdl_tpu_torch.dataset import DataSet, SampleToMiniBatch

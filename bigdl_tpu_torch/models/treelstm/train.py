@@ -22,7 +22,7 @@ import numpy as np
 import torch
 
 from bigdl_tpu_torch.models.mains import (
-    add_distributed_flag, distributed_setup, trainer,
+    add_distributed_flag, distributed_setup, seed_as_jax, trainer,
 )
 
 
@@ -123,15 +123,14 @@ def main(argv=None):
     """Train; returns the ``LocalOptimizer``."""
     argv = sys.argv[1:] if argv is None else list(argv)
     args = build_parser().parse_args(argv)
+    seed_as_jax(always=True)
     distributed_setup(args)
 
     from bigdl_tpu_torch import nn
     from bigdl_tpu_torch.dataset import DataSet, SampleToMiniBatch
     from bigdl_tpu_torch.optim import Adam, Trigger
     from bigdl_tpu_torch.optim.validation import TreeNNAccuracy
-    from bigdl_tpu_torch.utils.random_generator import RandomGenerator
 
-    RandomGenerator.set_seed(0)
     samples = synthetic_trees(args.trees, args.leaves, args.vocab_size)
     split = int(0.9 * len(samples))
     train = DataSet.array(samples[:split],

@@ -19,7 +19,7 @@ import sys
 import torch
 
 from bigdl_tpu_torch.models.mains import (
-    add_distributed_flag, distributed_setup, trainer,
+    add_distributed_flag, distributed_setup, seed_as_jax, trainer,
 )
 
 
@@ -47,6 +47,7 @@ def main(argv=None):
     """Train; returns the ``LocalOptimizer``."""
     argv = sys.argv[1:] if argv is None else list(argv)
     args = build_parser().parse_args(argv)
+    seed_as_jax()
     distributed_setup(args)
 
     from bigdl_tpu_torch import nn
@@ -55,11 +56,10 @@ def main(argv=None):
     from bigdl_tpu_torch.optim import SGD, Trigger
     from bigdl_tpu_torch.optim.validation import Top1Accuracy
     from bigdl_tpu_torch.utils.device import resolve_device
-    from bigdl_tpu_torch.utils.random_generator import RandomGenerator
 
-    RandomGenerator.set_seed(0)
     train_set, test_set = cifar.train_val_sets(
-        args.folder, args.batch_size, synthetic_size=args.synthetic_size)
+        args.folder, args.batch_size, distributed=args.distributed,
+        synthetic_size=args.synthetic_size)
     dev = resolve_device(args.device)
     # the dropout masks' generator, on the card for a captured step
     dropout_gen = torch.Generator(device=dev).manual_seed(0)

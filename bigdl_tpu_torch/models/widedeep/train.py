@@ -19,7 +19,7 @@ import numpy as np
 import torch
 
 from bigdl_tpu_torch.models.mains import (
-    add_distributed_flag, distributed_setup, trainer,
+    add_distributed_flag, distributed_setup, seed_as_jax, trainer,
 )
 
 
@@ -65,6 +65,7 @@ def main(argv=None):
     """Train; returns the held-out Top1Accuracy."""
     argv = sys.argv[1:] if argv is None else list(argv)
     args = build_parser().parse_args(argv)
+    seed_as_jax(always=True)
     distributed_setup(args)
 
     from bigdl_tpu_torch import nn
@@ -73,9 +74,7 @@ def main(argv=None):
     from bigdl_tpu_torch.optim import (
         Adam, Top1Accuracy, Trigger,
     )
-    from bigdl_tpu_torch.utils.random_generator import RandomGenerator
 
-    RandomGenerator.set_seed(0)
     samples = synthetic_tabular(args.examples, args.wide_features,
                                 args.deep_vocab, args.dense_dim,
                                 args.wide_k, args.deep_k)

@@ -25,11 +25,24 @@ keeps the low 32 bits after each product: the same bucket for every id in
 The lookup is split into ``_ids`` (ids to 0-based rows), ``_renorm_rows``
 and ``_mask_padding`` so that ``parallel/embedding.ShardedEmbedding`` runs
 the same arithmetic on its deduplicated rows.
+
+``BIGDL_CHECK_IDS=1`` guards the ids (JAX's ``:45-63``, ``:98-110``): an id
+outside ``[0, n_index)`` after the base adjustment raises JAX's
+``IndexError`` naming the table's size and the ids' span. Inside
+:func:`checkify_ids_scope` (the trainer's checked step,
+``set_check_numerics``) the guard reads nothing back: it records a device
+flag with the ids' span (:func:`ids_flags`), which the trainer fetches with
+the step's loss and raises on after the step (the ids clamped into the
+table meanwhile, as JAX's gather clamps); a captured program outside
+that scope is not checked, as JAX's traced guard outside checkify is not.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
+import os
+import threading
 from typing import Optional
 
 import torch
@@ -39,6 +52,62 @@ from bigdl_tpu_torch.nn.abstractnn import TensorModule
 from bigdl_tpu_torch.nn.initialization import InitializationMethod, RandomNormal
 
 _MASK32 = 0xFFFFFFFF
+
+_IDS_CHECK_SCOPE = threading.local()
+
+
+@contextlib.contextmanager
+def checkify_ids_scope():
+    """While active (per thread), the ``BIGDL_CHECK_IDS=1`` guard records a
+    device flag a lookup instead of reading the ids back; yields the list
+    the flags go to (``(table, bad, min, max)``, tensors on the ids'
+    device)."""
+    prev = getattr(_IDS_CHECK_SCOPE, "active", None)
+    _IDS_CHECK_SCOPE.active = flags = []
+    try:
+        yield flags
+    finally:
+        _IDS_CHECK_SCOPE.active = prev
+
+
+def _ids_scope_active() -> bool:
+    return getattr(_IDS_CHECK_SCOPE, "active", None) is not None
+
+
+def check_ids_enabled() -> bool:
+    return os.environ.get("BIGDL_CHECK_IDS", "0") == "1"
+
+
+def ids_error(table: str, n_index: int, mn: int, mx: int) -> IndexError:
+    """JAX's eager out-of-range error."""
+    return IndexError(
+        f"{table}: ids out of range — after base adjustment indices "
+        f"span [{mn}, {mx}] but the table has {n_index} rows (valid range "
+        f"[0, {n_index})). A jitted gather would silently clamp these "
+        "(BIGDL_CHECK_IDS=1 caught it).")
+
+
+def ids_flags(flags: list, like: torch.Tensor) -> torch.Tensor:
+    """The recorded flags of a checked step as one fp32 vector ``[bad,
+    which, min, max]``: ``which`` the position in ``flags`` of the first
+    lookup whose ids were out of range (zeros when none was), without a
+    host read."""
+    out = torch.zeros(4, dtype=torch.float32, device=like.device)
+    for k in reversed(range(len(flags))):
+        _, _, bad, mn, mx = flags[k]
+        row = torch.stack([bad.float(), torch.full_like(
+            mn, k, dtype=torch.float32), mn.float(), mx.float()])
+        out = torch.where(bad, row, out)
+    return out
+
+
+def ids_check_error(flags: list, vec) -> IndexError:
+    """JAX's error of the checked step (its ``checkify`` message) from a
+    fetched :func:`ids_flags` vector."""
+    table, n, _, _, _ = flags[int(vec[1])]
+    return IndexError(
+        f"{table}: id out of range [0, {n}) after base adjustment "
+        f"(min={int(vec[2])}, max={int(vec[3])})")
 
 
 class LookupTable(TensorModule):
@@ -63,9 +132,31 @@ class LookupTable(TensorModule):
             generator=generator))
 
     def _ids(self, input) -> torch.Tensor:
-        """Raw ids -> 0-based int64 row indices."""
+        """Raw ids -> 0-based int64 row indices (guarded when enabled)."""
         idx = input.long()
-        return idx if self.zero_based else idx - 1
+        idx = idx if self.zero_based else idx - 1
+        if check_ids_enabled():
+            idx = self._guard_ids(idx)
+        return idx
+
+    def _guard_ids(self, idx: torch.Tensor) -> torch.Tensor:
+        """``idx`` checked: raises eagerly; inside the checked step records
+        the flag and clamps the ids into the table (JAX's gather clamps), so
+        the step completes and the trainer raises after it."""
+        if idx.numel() == 0:
+            return idx
+        if _ids_scope_active():
+            mn, mx = idx.min(), idx.max()
+            _IDS_CHECK_SCOPE.active.append(
+                (repr(self), self.n_index, (mn < 0) | (mx >= self.n_index),
+                 mn, mx))
+            return idx.clamp(0, self.n_index - 1)
+        if idx.is_cuda and torch.cuda.is_current_stream_capturing():
+            return idx
+        mn, mx = int(idx.min()), int(idx.max())
+        if mn < 0 or mx >= self.n_index:
+            raise ids_error(repr(self), self.n_index, mn, mx)
+        return idx
 
     def _pad_index(self) -> Optional[int]:
         """The padding row as a 0-based index, or None when masking is

@@ -27,13 +27,64 @@ Frozen parameters (``freeze()``, gradient scale 0) carry no slots:
 ``init_state_trimmed`` and ``update_with_trimmed`` show the method 0-size
 stand-ins for them, as JAX does, so every slot of a frozen leaf is empty
 and its parameter is never written.
+
+Under ZeRO (``DistriOptimizer``'s ``zero1`` and ``fsdp``) a rank updates
+row blocks of the split leaves. An elementwise method needs nothing more;
+LarsSGD's per-leaf norms and LBFGS's dot products are sums over whole
+leaves, which the trainer completes through :func:`block_reductions`: each
+rank sums its blocks (and, on one rank of the slice, the leaves that are
+not split) and the partial sums are added over the data slice, as GSPMD's
+partitioned update of JAX's reductions does.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import torch
+
+
+class BlockReductions:
+    """The reductions of an update that sees row blocks: ``blocks`` the
+    ``data_ptr`` of every parameter block split over the slice, ``reduce``
+    the sum of a tensor over the slice (in place, returned), ``first``
+    whether this rank adds the terms of the leaves that are not split."""
+
+    def __init__(self, blocks, reduce, first: bool):
+        self.blocks = frozenset(blocks)
+        self.reduce = reduce
+        self.first = first
+
+    def split(self, t: torch.Tensor) -> bool:
+        return t.numel() > 0 and t.data_ptr() in self.blocks
+
+    def leaf_sum(self, partial: torch.Tensor, p: torch.Tensor):
+        """A leaf's sum from this rank's part of it."""
+        return self.reduce(partial) if self.split(p) else partial
+
+    def weights(self, params) -> torch.Tensor:
+        """One weight an element of the flat vector of ``params``: 1 on a
+        split block, ``first`` on a whole leaf."""
+        ps = [p for p in params]
+        return torch.cat([
+            torch.full((p.numel(),),
+                       1.0 if self.split(p) or self.first else 0.0,
+                       dtype=p.dtype, device=p.device) for p in ps])
+
+
+_BLOCKS: Optional[BlockReductions] = None
+
+
+@contextlib.contextmanager
+def block_reductions(blocks: Optional[BlockReductions]):
+    """Run the updates of the block in ``blocks``' reductions."""
+    global _BLOCKS
+    prev, _BLOCKS = _BLOCKS, blocks
+    try:
+        yield
+    finally:
+        _BLOCKS = prev
 
 
 def decayed_lr(learningrate: float, learningrate_decay: float,
@@ -519,9 +570,14 @@ class LarsSGD(OptimMethod):
         clr = h[0]
         wd, mu, trust, eps = (self.weightdecay, self.momentum, self.trust,
                               self.epsilon)
+        blocks = _BLOCKS
         with torch.no_grad():
             for p, g, v in zip(leaves(params), leaves(grads), state["v"]):
-                w_norm, g_norm = p.norm(), g.norm()
+                if blocks is None:
+                    w_norm, g_norm = p.norm(), g.norm()
+                else:
+                    w_norm = blocks.leaf_sum(p.square().sum(), p).sqrt()
+                    g_norm = blocks.leaf_sum(g.square().sum(), p).sqrt()
                 local = torch.where(
                     (w_norm > 0) & (g_norm > 0),
                     trust * w_norm / (g_norm + wd * w_norm + eps),
@@ -570,8 +626,18 @@ class LBFGS(OptimMethod):
 
     def update_with(self, params, grads, state, h):
         m, eps = self.history, self.epsilon
+        blocks = _BLOCKS
         with torch.no_grad():
             flat, g = self._flat(params), self._flat(grads)
+            if blocks is None:
+                dot = torch.dot
+                l1 = g.abs().sum()
+            else:
+                w = blocks.weights(leaves(params))
+
+                def dot(a, b):
+                    return blocks.reduce(torch.dot(a * w, b))
+                l1 = blocks.reduce((g.abs() * w).sum())
             S, Y, rho = state["s"], state["y"], state["rho"]
             pos, hist_len, count = (state["pos"], state["hist_len"],
                                     state["count"])
@@ -583,7 +649,7 @@ class LBFGS(OptimMethod):
             # push last iteration's (s, y) pair if it passes the curvature
             # condition
             s_vec, y_vec = flat - state["prev_flat"], g - state["prev_grad"]
-            ys = torch.dot(s_vec, y_vec)
+            ys = dot(s_vec, y_vec)
             accept = (count > 0) & (ys > eps)
             at = pos.reshape(1)
             S.index_copy_(0, at, torch.where(accept, s_vec, row(S, pos))[None])
@@ -599,25 +665,25 @@ class LBFGS(OptimMethod):
             for i in range(m):
                 j = (newest - i) % m
                 a = torch.where(i < hist_len,
-                                row(rho, j) * torch.dot(row(S, j), q), zero)
+                                row(rho, j) * dot(row(S, j), q), zero)
                 q -= a * row(Y, j)
                 alphas.append(a)
             y_new = row(Y, newest)
             gamma = torch.where(
                 hist_len > 0,
-                1.0 / (row(rho, newest) * torch.dot(y_new, y_new)
+                1.0 / (row(rho, newest) * dot(y_new, y_new)
                        ).clamp(min=eps),
                 zero + 1.0)
             r = gamma * q
             for k in reversed(range(m)):
                 j = (newest - k) % m
                 b = torch.where(k < hist_len,
-                                row(rho, j) * torch.dot(row(Y, j), r), zero)
+                                row(rho, j) * dot(row(Y, j), r), zero)
                 r = r + torch.where(k < hist_len, alphas[k] - b, zero) \
                     * row(S, j)
             lr = torch.where(
                 count == 0,
-                (1.0 / g.abs().sum().clamp(min=eps)).clamp(max=1.0)
+                (1.0 / l1.clamp(min=eps)).clamp(max=1.0)
                 * self.learningrate,
                 zero + self.learningrate)
             state["prev_flat"].copy_(flat)
@@ -688,6 +754,7 @@ class CompositeOptimMethod(OptimMethod):
 
 
 __all__ = ["Adadelta", "Adagrad", "Adam", "AdamW", "Adamax",
-           "CompositeOptimMethod", "Ftrl", "LBFGS", "LarsSGD", "OptimMethod",
-           "RMSprop", "SGD", "decayed_lr", "hyper_tensor", "keystr",
+           "BlockReductions", "CompositeOptimMethod", "Ftrl", "LBFGS", "LarsSGD", "OptimMethod",
+           "RMSprop", "SGD", "block_reductions", "decayed_lr",
+           "hyper_tensor", "keystr",
            "leaf_names", "leaves"]

@@ -173,8 +173,12 @@ the gradients to ``_sync_grads``, the global norm's partial sums to
 ``_norm_sq``, the update to ``_apply_update`` and the numerics flag to
 ``_agree``; this trainer's are the single-device identities.
 
-Not ported yet (ROADMAP Queue A): the orbax and elastic checkpoint
-backends.
+**Checkpoints** (``set_checkpoint``): the "pickle" backend writes one
+file a version (every leaf whole, JAX's payload); the "elastic" backend
+(``BIGDL_CKPT_SHARDED=1``, ``utils/elastic_ckpt.py``) writes a directory a
+version in which each rank persists only the blocks it owns, commits a
+manifest last, and resumes on another mesh, with JAX's files both ways.
+JAX's "orbax" backend is its library's and is not ported.
 """
 
 from __future__ import annotations
@@ -209,6 +213,9 @@ from bigdl_tpu_torch.dataset.profiling import (
 )
 from bigdl_tpu_torch.dataset.sample import SampleToMiniBatch
 from bigdl_tpu_torch.nn.criterion import AbstractCriterion
+from bigdl_tpu_torch.nn.embedding import (
+    check_ids_enabled, checkify_ids_scope, ids_check_error, ids_flags,
+)
 from bigdl_tpu_torch.nn.misc import collecting_aux_losses, collecting_penalties
 from bigdl_tpu_torch.nn.normalization import (
     checkpoint_contexts, dropout_generators,
@@ -614,9 +621,12 @@ class Optimizer:
     def set_checkpoint(self, path: str, trigger: Trigger,
                        backend: Optional[str] = None) -> "Optimizer":
         """Write a checkpoint under ``path`` whenever ``trigger`` fires.
-        ``backend``: "pickle" (one file, written on a background thread;
-        None resolves to it). JAX's "orbax" and "elastic" backends are not
-        ported (``BIGDL_CKPT_SHARDED=1`` asks for "elastic")."""
+        ``backend``: "pickle" (one file a version, written on a background
+        thread) or "elastic" (a directory a version, each rank's blocks in
+        a shard file and a manifest committed last: ``utils/elastic_ckpt``,
+        resumable on another mesh); None resolves from
+        ``BIGDL_CKPT_SHARDED=1`` to elastic, else pickle. JAX's "orbax"
+        backend writes through its own library and is not ported."""
         if backend is None:
             backend = ("elastic"
                        if os.environ.get("BIGDL_CKPT_SHARDED", "0") == "1"
@@ -625,12 +635,7 @@ class Optimizer:
             raise NotImplementedError(
                 "checkpoint backend 'orbax' writes through JAX's "
                 "orbax-checkpoint library and is not ported; use 'pickle'")
-        if backend == "elastic":
-            raise NotImplementedError(
-                "checkpoint backend 'elastic' (or BIGDL_CKPT_SHARDED=1) "
-                "shards a mesh's state and waits for ROADMAP Queue A.6; "
-                "use 'pickle'")
-        if backend != "pickle":
+        if backend not in ("pickle", "elastic"):
             raise ValueError("checkpoint backend must be 'pickle', 'orbax' "
                              "or 'elastic'")
         self.checkpoint_path, self.checkpoint_trigger = path, trigger
@@ -954,11 +959,15 @@ class Optimizer:
         train = [n for n in named if n not in frozen and n not in embed]
         method, ostate = self._method, self._ostate
         check = self.check_numerics
+        check_ids = check and check_ids_enabled()
+        self._ids_flags = []
 
         pipe = self._pipeline()
 
         def step(inp, target, h):
-            with self._step_context():
+            with self._step_context(), (
+                    checkify_ids_scope() if check_ids
+                    else contextlib.nullcontext()) as flags:
                 if pipe is not None:
                     loss, g = pipe(inp, target)
                     grads = [g[n] for n in train]
@@ -981,6 +990,9 @@ class Optimizer:
                         plan.clear(self.model)
                     row_grads = dict(zip(deltas, grads[len(train):]))
                     grads = grads[:len(train)]
+            if check_ids:
+                # the lookups of this trace (a replay reads the same ones)
+                self._ids_flags = list(flags)
             names = train + list(row_grads)
             synced = self._sync_grads(names, grads + list(row_grads.values()))
             grads, rows = synced[:len(train)], synced[len(train):]
@@ -1007,6 +1019,10 @@ class Optimizer:
                                   [loss, *grads.values(),
                                    *(named[n] for n in train)]]).all()
                 bad = self._agree((~ok).to(loss.dtype))
+                if check_ids:
+                    ids = ids_flags(self._ids_flags, loss)
+                    ids[0] = self._agree(ids[:1].clone())[0]
+                    return torch.cat([torch.stack([loss, bad]), ids])
             return torch.stack([loss, bad])
 
         return step
@@ -1024,6 +1040,7 @@ class Optimizer:
         key = ("train_step", Engine.compute_dtype(),
                tuple(scales.values()), self._method, self._ostate_version,
                self.check_numerics,
+               self.check_numerics and check_ids_enabled(),
                self.criterion, self.remat, self.grad_accum,
                self.grad_clip_const, self.grad_clip_norm,
                _signature(inp), _signature(target),
@@ -1060,7 +1077,8 @@ class Optimizer:
         # starting state: kept on the device
         before = ([t.detach().clone() for t in self._live_tensors()]
                   if check else None)
-        out = torch.empty((n, 2) if check else n, dtype=torch.float32,
+        width = 6 if check and check_ids_enabled() else 2
+        out = torch.empty((n, width) if check else n, dtype=torch.float32,
                           device=s_h.device)
         for k, (inp, target) in enumerate(batches):
             _copy_into(s_inp, inp)
@@ -1072,6 +1090,10 @@ class Optimizer:
             vals = out.tolist()
         self.state["neval"] = start + n
         if check:
+            for v in vals:
+                if width > 2 and v[2]:
+                    # BIGDL_CHECK_IDS: an id out of range in this window
+                    raise ids_check_error(self._ids_flags, v[2:])
             flags = [v[1] for v in vals]
             vals = [v[0] for v in vals]
             if any(flags):
@@ -1581,6 +1603,9 @@ class Optimizer:
                     records, window_t0 = 0, now
                     self._maybe_stop_profiler()
                     self._fire_triggers(boundary=False)
+                    for it in range(first, first + n):
+                        faults.fault_point(faults.SITE_STALL, index=it)
+                        faults.fault_point(faults.SITE_HOST_DOWN, index=it)
                     fired = [faults.fault_point(faults.SITE_SIGTERM, index=it)
                              for it in range(first, first + n)]
                     if any(a is not None for a in fired) \
@@ -1778,6 +1803,9 @@ class Optimizer:
         if self.checkpoint_path is None \
                 or not os.path.isdir(self.checkpoint_path):
             return False
+        if self.checkpoint_backend == "elastic":
+            from bigdl_tpu_torch.utils import elastic_ckpt
+            return bool(elastic_ckpt.complete_versions(self.checkpoint_path))
         return any(_ckpt_version(p) is not None
                    for p in os.listdir(self.checkpoint_path))
 
@@ -1785,20 +1813,25 @@ class Optimizer:
         tag = "" if self.overwrite_checkpoint else f".{state['neval']}"
         return os.path.join(self.checkpoint_path, f"checkpoint{tag}.pkl")
 
-    def _snapshot(self) -> dict:
-        """``params``, ``mstate`` and ``ostate`` as host numpy arrays in
-        JAX's layout. Device tensors are copied into pinned buffers after
-        the work already queued (the window's last replay) and the stream
-        is synchronised once; CPU tensors are cloned."""
+    def _jax_trees(self) -> dict:
+        """``params``, ``mstate`` and ``ostate`` in JAX's layout, each leaf
+        the live tensor (or a view of it) whole; SGD's ``clr`` a float."""
         named, _, mask = self._prepare_step()
         model = self.model
-        trees = {
+        return {
             "params": convert.nest(model, named),
             "mstate": convert.nest(model, convert.module_state(model),
                                    "state"),
             "ostate": convert.ostate_tree(self._method,
                                           self._ostate_for_io(), model, mask),
         }
+
+    def _snapshot(self) -> dict:
+        """``params``, ``mstate`` and ``ostate`` as host numpy arrays in
+        JAX's layout. Device tensors are copied into pinned buffers after
+        the work already queued (the window's last replay) and the stream
+        is synchronised once; CPU tensors are cloned."""
+        trees = self._jax_trees()
         on_card = []
 
         def host(t):
@@ -1836,6 +1869,8 @@ class Optimizer:
             if neval_next is None:
                 neval_next = state["neval"] + \
                     (0 if state.get("epoch_finished") else 1)
+            if self.checkpoint_backend == "elastic":
+                return self._save_checkpoint_elastic(neval_next)
             with trace.span("ckpt/snapshot"):
                 payload = self._snapshot()
             payload["state"] = dict(state)
@@ -1854,6 +1889,90 @@ class Optimizer:
         finally:
             obs_registry.histogram("ckpt/stall_ms").observe(
                 (time.perf_counter() - t0) * 1e3)
+
+    # ------------------------------------------------ elastic checkpoints
+    def _process_index_count(self) -> tuple:
+        """(this process's rank, the ranks) of the checkpoint's fleet."""
+        return 0, 1
+
+    def _elastic_mesh(self):
+        return Engine.mesh_if_up()
+
+    def _claims_barrier(self):
+        """What the version agreement waits on before it removes its claim
+        (the data-parallel trainer's collective barrier)."""
+        return None
+
+    def _elastic_tree(self) -> dict:
+        """The tree an elastic save persists: :meth:`_jax_trees`, its leaves
+        whole tensors or ``elastic_ckpt.PlacedLeaf`` blocks."""
+        trees = self._jax_trees()
+        trees["ostate"] = convert.ostate_host_layout(self._method,
+                                                     trees["ostate"])
+        return trees
+
+    def _save_checkpoint_elastic(self, neval_next: int) -> None:
+        """Each rank's share of an elastic version (JAX's
+        ``_save_checkpoint_elastic``): the loop thread's work is the
+        device-to-host snapshot of the blocks this rank owns; the shard
+        write and, on rank 0, the manifest's coverage wait run on the writer
+        thread, behind the next window when ``BIGDL_CKPT_ASYNC`` is on (the
+        default). The join first is the hard barrier: one write in flight
+        at a time."""
+        from bigdl_tpu_torch.utils import elastic_ckpt
+
+        state = self.state
+        self._join_checkpoint_writer()
+        faults.fault_point(faults.SITE_CKPT_D2H)
+        pidx, pcount = self._process_index_count()
+        with trace.span("ckpt/d2h"):
+            skeleton, leaves, blocks = elastic_ckpt.snapshot_tree(
+                self._elastic_tree(), process_index=pidx)
+        meta = {"state": dict(state), "resume": self._resume_info(neval_next)}
+        sched = self._schedule()
+        if getattr(sched, "stateful", False):
+            meta["sched_state"] = sched.state_dict()
+        minfo = elastic_ckpt.mesh_info(self._elastic_mesh(), pcount)
+        # taken now: the writer runs behind the next window
+        version = int(state["neval"])
+        dirpath = os.path.join(self.checkpoint_path,
+                               elastic_ckpt.version_dirname(version))
+        timeout = float(os.environ.get("BIGDL_CKPT_SYNC_TIMEOUT", "60"))
+
+        def write():
+            try:
+                action = faults.check_fault(faults.SITE_CKPT_ASYNC)
+                if action == "stall":
+                    faults.stall_sleep(float(
+                        os.environ.get("BIGDL_FAULT_STALL_S", "2")))
+                elif action == "error":
+                    raise faults.FaultError(
+                        "injected elastic checkpoint write failure")
+                t1 = time.perf_counter()
+                with trace.span("ckpt/elastic_write", {"dir": dirpath}):
+                    nbytes = elastic_ckpt.write_shard(dirpath, pidx, blocks)
+                    if action == "torn":
+                        # shards durable, manifest never: the version stays
+                        # invisible to every loader
+                        logger.warning("fault plan: elastic manifest "
+                                       "withheld at %s", dirpath)
+                        return
+                    if pidx == 0 and elastic_ckpt.commit_manifest(
+                            dirpath, skeleton, leaves, minfo, meta,
+                            timeout=timeout):
+                        self._prune_old_checkpoints()
+                        self._publish_to_registry(version)
+                obs_registry.histogram("ckpt/async_write_ms").observe(
+                    (time.perf_counter() - t1) * 1e3)
+                obs_registry.counter("ckpt/bytes").inc(nbytes)
+            except BaseException as e:  # noqa: BLE001 — raised at the join
+                self._ckpt_error = e
+
+        self._ckpt_thread = threading.Thread(
+            target=write, name="bigdl-ckpt-writer", daemon=False)
+        self._ckpt_thread.start()
+        if os.environ.get("BIGDL_CKPT_ASYNC", "1") == "0":
+            self._join_checkpoint_writer()
 
     def _write_checkpoint(self, payload: dict, path: str) -> None:
         """The writer thread's body; a failure waits for the next join."""
@@ -1893,15 +2012,20 @@ class Optimizer:
         except BaseException as e:  # noqa: BLE001 — raised at the next join
             self._ckpt_error = e
 
-    def _publish_to_registry(self, version: int, params) -> None:
+    def _publish_to_registry(self, version: int, params=None) -> None:
         """Hand a written version's params to the model registry, on the
-        writer thread. Registry trouble is logged and dropped: it never
-        sets ``_ckpt_error`` or otherwise reaches the loop thread."""
+        writer thread; an elastic version (``params`` None) is assembled
+        from its files, what a resume loads. Registry trouble is logged and
+        dropped: it never sets ``_ckpt_error`` or otherwise reaches the loop
+        thread."""
         reg = self.model_registry
         if reg is None:
             return
         try:
-            if version not in reg.versions():
+            if params is None:
+                reg.register_from_elastic(self.checkpoint_path, version,
+                                          meta={"source": "elastic"})
+            elif version not in reg.versions():
                 reg.publish(params, version=version,
                             meta={"source": self.checkpoint_backend,
                                   "neval": version})
@@ -1912,8 +2036,20 @@ class Optimizer:
     def _prune_old_checkpoints(self) -> None:
         """Keep the newest ``BIGDL_CKPT_KEEP`` versions (0 keeps all), with
         their quarantined ``*.corrupt`` files; on the writer thread, after
-        the new version is on disk."""
+        the new version is on disk. Elastic versions count once complete: a
+        directory without a manifest is a write in flight."""
         keep = self.ckpt_keep
+        if self.checkpoint_backend == "elastic":
+            if keep <= 0 and self.overwrite_checkpoint:
+                keep = 1      # rolling: the newest complete version only
+            if keep <= 0:
+                return
+            from bigdl_tpu_torch.utils import elastic_ckpt
+            complete = elastic_ckpt.complete_versions(self.checkpoint_path)
+            for v in complete[:-keep]:
+                elastic_ckpt.remove_version(
+                    self.checkpoint_path, elastic_ckpt.version_dirname(v))
+            return
         if keep <= 0 or self.overwrite_checkpoint:
             return
         versioned = sorted(
@@ -1948,6 +2084,8 @@ class Optimizer:
         ``<name>.corrupt`` and the one before it tried. The tensors are
         copied into the live parameters, buffers and slots."""
         self._join_checkpoint_writer()
+        if self.checkpoint_backend == "elastic":
+            return self._load_latest_checkpoint_elastic()
         cand = sorted((p for p in os.listdir(self.checkpoint_path)
                        if _ckpt_version(p) is not None), key=_ckpt_version)
         if not cand:
@@ -1977,6 +2115,87 @@ class Optimizer:
         self._restore(payload)
         logger.info("resumed from checkpoint %s at iter %d", name,
                     self.state.get("neval", 0))
+
+    def _load_latest_checkpoint_elastic(self) -> None:
+        """JAX's elastic resume: (1) the ranks agree on the version
+        (``agree_version``: the newest every rank sees); (2) partial
+        versions are quarantined (``ckpt_fallback``); (3) the leaves are
+        assembled whole from the shard files, bitwise what was saved, a
+        corrupt version quarantined and the one before it tried; (4) on a
+        changed topology an ``elastic_resume`` event records the move
+        (``BIGDL_ELASTIC_RESUME=0`` makes it an error) and each leaf is
+        copied into this trainer's layout of it (:meth:`_restore`)."""
+        from bigdl_tpu_torch.utils import elastic_ckpt
+
+        path = self.checkpoint_path
+        pidx, pcount = self._process_index_count()
+        timeout = float(os.environ.get("BIGDL_CKPT_SYNC_TIMEOUT", "60"))
+        agreed = elastic_ckpt.agree_version(path, pidx, pcount,
+                                            timeout=timeout,
+                                            barrier=self._claims_barrier())
+        if agreed is None:
+            raise RuntimeError(
+                f"no elastic checkpoint found under {path} (no complete "
+                f"version visible to every process)")
+        for dirname in elastic_ckpt.partial_versions(path):
+            full = os.path.join(path, dirname)
+            try:
+                q = elastic_ckpt.quarantine(path, dirname)
+            except OSError:
+                q = "<unremovable>"
+            events.record("ckpt_fallback", path=full,
+                          reason="partial version (no manifest)")
+            logger.error("partial elastic checkpoint %s quarantined as %s "
+                         "(writer died before manifest commit)", full, q)
+        tree = manifest = None
+        version = agreed
+        for v in sorted((v for v in elastic_ckpt.complete_versions(path)
+                         if v <= agreed), reverse=True):
+            dirpath = os.path.join(path, elastic_ckpt.version_dirname(v))
+            try:
+                tree, _, manifest = elastic_ckpt.assemble(dirpath)
+                version = v
+                break
+            except CheckpointCorruptError as e:
+                try:
+                    q = elastic_ckpt.quarantine(
+                        path, elastic_ckpt.version_dirname(v))
+                except OSError:
+                    q = "<unremovable>"
+                events.record("ckpt_fallback", path=dirpath, reason=str(e))
+                logger.error("corrupt elastic checkpoint %s quarantined as "
+                             "%s (%s); falling back to the previous version",
+                             dirpath, q, e)
+        if tree is None:
+            raise RuntimeError(
+                f"no loadable elastic checkpoint under {path} (every "
+                f"candidate failed integrity/coverage checks and was "
+                f"quarantined)")
+        saved = manifest.get("mesh") or {}
+        now = elastic_ckpt.mesh_info(self._elastic_mesh(), pcount)
+        if (saved.get("shape") != now.get("shape")
+                or saved.get("axes") != now.get("axes")
+                or saved.get("process_count") != now.get("process_count")):
+            if os.environ.get("BIGDL_ELASTIC_RESUME", "1") == "0":
+                raise RuntimeError(
+                    f"elastic checkpoint {path}/elastic.{version} was saved "
+                    f"on topology {saved} but the current topology is {now} "
+                    f"— topology-portable resume is disabled "
+                    f"(BIGDL_ELASTIC_RESUME=0)")
+            events.record("elastic_resume", version=int(version),
+                          saved_mesh=saved, new_mesh=now)
+            logger.warning(
+                "elastic resume across topologies: saved on %s, resuming on "
+                "%s — leaves re-placed under the new mesh's rules",
+                saved, now)
+        meta = manifest["meta"]
+        self._restore({"params": tree["params"], "mstate": tree["mstate"],
+                       "ostate": tree["ostate"], "state": meta["state"],
+                       "resume": meta.get("resume"),
+                       **({"sched_state": meta["sched_state"]}
+                          if "sched_state" in meta else {})})
+        logger.info("resumed from elastic checkpoint version %d at iter %d",
+                    version, self.state.get("neval", 0))
 
     def _restore(self, payload: dict) -> None:
         """Copy a payload (this package's or JAX's) into the live tensors:

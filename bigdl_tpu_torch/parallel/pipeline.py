@@ -32,7 +32,9 @@ their gradients are bitwise equal. Sends are non-blocking (``isend``,
 waited at the step's end), so the 1F1B interleave cannot deadlock. The
 loss is broadcast from the last stage; the gradients of a rank are those
 of its own stage's parameters (the trainer averages them over ``data``).
-Mixed precision is refused here (JAX casts each stage's flat row).
+Under a mixed-precision compute dtype each stage runs on its parameters
+and input cast to that dtype and hands fp32 on (JAX casts each stage's
+flat row the same way).
 """
 
 from __future__ import annotations
@@ -248,18 +250,32 @@ class GPipe(Container):
         """One pipelined forward and backward of the batch ``(x, y)`` under
         ``self.schedule``: returns ``(loss, grads)``, the loss broadcast to
         every rank of the slice and ``grads`` by parameter path (with
-        ``prefix``) for this rank's stage."""
+        ``prefix``) for this rank's stage. Under a mixed-precision compute
+        dtype (``Engine``), as in JAX (``bigdl_tpu/parallel/pipeline.py:
+        448-462``), a stage runs on its parameters and its floating input
+        cast to that dtype, its output returns to fp32 (the wires and the
+        criterion are fp32), and the casts' backward gives fp32 gradients
+        of the masters."""
         from bigdl_tpu_torch.utils.engine import Engine
-        if Engine.compute_dtype() != torch.float32:
-            raise NotImplementedError(
-                "GPipe training under a mixed-precision compute dtype is not "
-                "ported; train the pipeline in float32")
+        dtype = Engine.compute_dtype()
         mesh = self.pipe_mesh()
         group = mesh.group(self.axis_name)
         r, s, m = mesh.index(self.axis_name), self.n_stages, \
             self.n_microbatches
         stage = self[r]
         params = [p for p in stage.parameters()]
+        if dtype != torch.float32:
+            from torch.func import functional_call
+
+            from bigdl_tpu_torch.nn.precision import cast_floating
+
+            def run(inp):
+                cast = cast_floating(dict(stage.named_parameters()), dtype)
+                out = functional_call(stage, cast,
+                                      (cast_floating(inp, dtype),))
+                return cast_floating(out, torch.float32)
+        else:
+            run = stage
         names = [f"{prefix}{r}.{n}" for n, _ in stage.named_parameters()]
         mx, my = self._micro(x), self._micro(y)
         averages = bool(getattr(criterion, "size_average", True))
@@ -290,16 +306,16 @@ class GPipe(Container):
                     out = None
                     if r < s - 1:
                         with torch.no_grad():
-                            _send_act(stage(inp), r + 1, group, pending)
+                            _send_act(run(inp), r + 1, group, pending)
                 else:
-                    out = stage(inp)
+                    out = run(inp)
                     if r < s - 1:
                         _send_act(out.detach(), r + 1, group, pending)
                 stash[mb] = (inp, out)
             else:
                 inp, out = stash.pop(mb)
                 if out is None:
-                    out = stage(inp)
+                    out = run(inp)
                 wrt = params + ([inp] if inp.requires_grad else [])
                 if r == s - 1:
                     loss = criterion.apply(out, my[mb]) * scale

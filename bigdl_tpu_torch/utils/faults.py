@@ -16,6 +16,20 @@ site                      where it fires
 ``ckpt_write``            the background checkpoint writer: ``torn`` leaves a
                           half-written final file, ``error`` fails the write,
                           ``kill`` SIGKILLs the process mid-write
+``ckpt_d2h``              the elastic checkpoint's device-to-host snapshot,
+                          on the loop thread (``error``: nothing durable
+                          yet, so the failure surfaces)
+``ckpt_async``            the elastic checkpoint's writer thread: ``torn``
+                          writes the shards and withholds the manifest (a
+                          crash between snapshot and commit), ``stall``
+                          delays the write ``BIGDL_FAULT_STALL_S`` seconds,
+                          ``error`` fails it
+``stall``                 the trainer's step boundary: sleeps
+                          ``BIGDL_FAULT_STALL_S`` seconds at iteration N
+                          (matched by ``index``)
+``host_down``             the trainer's step boundary: SIGKILLs the process
+                          at iteration N (matched by ``index``), a host lost
+                          mid-epoch
 ``decode``                a record decode of an on-disk source
                           (``dataset/recordio.py``, ``dataset/streaming.py``):
                           ``error`` fails that record, and the corrupt-sample
@@ -67,18 +81,20 @@ site                      where it fires
                           attempt: ``error`` spends one unit of its budget
 ========================  ====================================================
 
-The spool, profilez and host sites of the JAX module come with the
-modules that run them (ROADMAP Queue A.6); naming one in a plan raises
-``ValueError`` here.
+The spool and profilez sites of the JAX module come with the modules that
+run them (ROADMAP Queue A.6, item 4); naming one in a plan raises
+``ValueError`` saying so.
 
 A plan is a ``;``-separated list of entries ``site@N`` or ``site@N=action``,
 the same syntax as the JAX package's, so one plan string means the same in
 both. ``N`` is 1-based: the training iteration for the index-matched sites
-(``nonfinite_loss``, ``sigterm``), else the Nth hit of the site in this
+(``nonfinite_loss``, ``sigterm``, ``stall``, ``host_down``), else the Nth
+hit of the site in this
 process. Each entry fires once. Actions default per site as in JAX
 (``nan`` for nonfinite_loss, ``sigterm`` for sigterm, ``torn`` for
 ckpt_write, ``death`` for transform_worker, serve_thread and replica_down,
-``stall`` for serve_stall, ``error`` for the rest).
+``stall`` for serve_stall and stall, ``kill`` for host_down, ``torn`` for
+ckpt_async, ``error`` for the rest).
 
 Activate a plan with the :func:`inject_faults` context manager (in-process
 tests) or the ``BIGDL_FAULT_PLAN`` environment variable (parsed once per
@@ -119,10 +135,19 @@ SITE_PROMOTE_SWAP = "promote_swap"
 SITE_PROMOTE_ROLLBACK = "promote_rollback"
 SITE_CACHE_READ = "cache_read"
 SITE_CACHE_WRITE = "cache_write"
+SITE_CKPT_D2H = "ckpt_d2h"
+SITE_CKPT_ASYNC = "ckpt_async"
+SITE_STALL = "stall"
+SITE_HOST_DOWN = "host_down"
+
+#: the JAX module's sites whose modules are not ported yet
+_NOT_PORTED = {"obs_spool_write": "the cluster spool (obs/cluster.py)",
+               "profilez_capture": "the endpoint's /profilez"}
 
 #: sites whose plan entries match the caller-supplied ``index`` (training
 #: iteration) instead of the site's hit counter
-_INDEX_MATCHED = frozenset({SITE_NONFINITE_LOSS, SITE_SIGTERM})
+_INDEX_MATCHED = frozenset({SITE_NONFINITE_LOSS, SITE_SIGTERM, SITE_STALL,
+                            SITE_HOST_DOWN})
 
 _DEFAULT_ACTION = {
     SITE_NONFINITE_LOSS: "nan",
@@ -144,6 +169,10 @@ _DEFAULT_ACTION = {
     SITE_PROMOTE_ROLLBACK: "error",
     SITE_CACHE_READ: "error",
     SITE_CACHE_WRITE: "error",
+    SITE_CKPT_D2H: "error",
+    SITE_CKPT_ASYNC: "torn",
+    SITE_STALL: "stall",
+    SITE_HOST_DOWN: "kill",
 }
 
 _KNOWN_ACTIONS = frozenset({"error", "death", "nan", "sigterm", "torn",
@@ -225,6 +254,10 @@ def parse_plan(spec: str) -> FaultPlan:
                 f"'site@N' or 'site@N=action'")
         site, _, tail = raw.partition("@")
         site = site.strip()
+        if site in _NOT_PORTED:
+            raise ValueError(
+                f"fault site {site!r} belongs to {_NOT_PORTED[site]}, which "
+                f"is not ported yet (ROADMAP Queue A.6, item 4)")
         if site not in _DEFAULT_ACTION:
             raise ValueError(
                 f"unknown fault site {site!r}; known sites: "

@@ -7,7 +7,10 @@ and a CRC32 footer verified on load. A torn or bit-rotten file raises
 error; footer-less and plain pickles still load. A payload that names a
 module only the JAX package can unpickle (``jax``, ``jaxlib``,
 ``bigdl_tpu``) raises :class:`ForeignObjectError` naming it: the port never
-imports JAX to read a file. Writes are atomic and
+imports JAX to read a file. The one exception is the elastic manifest's
+leaf marker, ``bigdl_tpu.utils.elastic_ckpt._LeafRef``, which is read as
+the port's own class of that name (``utils/elastic_ckpt.py``), by name and
+without an import. Writes are atomic and
 durable: the payload is written to ``<path>.tmp`` and fsynced, renamed over
 ``path``, and the directory fsynced after the rename.
 """
@@ -44,8 +47,18 @@ class ForeignObjectError(RuntimeError):
 _FOREIGN = ("jax", "jaxlib", "bigdl_tpu")
 
 
+#: JAX's names of classes the port has a copy of: (module, name) -> the
+#: port's module holding the class of that name
+_MAPPED = {("bigdl_tpu.utils.elastic_ckpt", "_LeafRef"):
+           "bigdl_tpu_torch.utils.elastic_ckpt"}
+
+
 class _Unpickler(pickle.Unpickler):
     def find_class(self, module, name):
+        mapped = _MAPPED.get((module, name))
+        if mapped is not None:
+            import importlib
+            return getattr(importlib.import_module(mapped), name)
         if module.split(".")[0] in _FOREIGN:
             raise ForeignObjectError(
                 f"the payload holds {module}.{name}, which only the JAX "
@@ -53,10 +66,16 @@ class _Unpickler(pickle.Unpickler):
         return super().find_class(module, name)
 
 
-def dumps(obj) -> bytes:
+def dumps(obj, pickler=None) -> bytes:
     """Serialize ``obj`` to the on-disk format: header + pickle + CRC
-    footer."""
-    payload = pickle.dumps(obj)
+    footer. ``pickler`` is a ``pickle.Pickler`` class to use instead of
+    the default one."""
+    if pickler is None:
+        payload = pickle.dumps(obj)
+    else:
+        buf = io.BytesIO()
+        pickler(buf).dump(obj)
+        payload = buf.getvalue()
     return MAGIC + payload + _FOOTER.pack(_CRC_TAG, zlib.crc32(payload))
 
 

@@ -29,9 +29,9 @@ surviving artifact names.
 
 The trainer publishes each checkpoint it writes
 (``Optimizer.set_model_registry`` / ``BIGDL_REGISTRY_DIR``), on its writer
-thread; a registry failure is logged, never raised into training. JAX's
-``register_from_elastic`` reads the elastic checkpoint backend, which waits
-for ROADMAP Queue A.6: it raises naming it.
+thread; a registry failure is logged, never raised into training. An
+elastic version is published by ``register_from_elastic``, which
+assembles its ``params`` from the version's files (what a resume loads).
 """
 
 from __future__ import annotations
@@ -217,12 +217,34 @@ class ModelRegistry:
     def register_from_elastic(self, ckpt_path: str,
                               version: Optional[int] = None,
                               meta: Optional[dict] = None) -> Optional[int]:
-        """JAX's publication of a manifest-committed elastic checkpoint:
-        the elastic backend waits for ROADMAP Queue A.6."""
-        raise NotImplementedError(
-            "register_from_elastic reads the elastic checkpoint backend, "
-            "which waits for ROADMAP Queue A.6; publish a params tree with "
-            "publish()")
+        """Assemble a manifest-committed elastic checkpoint version
+        (``utils/elastic_ckpt.py``) and publish its ``params`` subtree.
+        ``version=None`` takes the newest complete one; returns the registry
+        version, or None when there is nothing new to publish."""
+        from bigdl_tpu_torch.utils import elastic_ckpt
+        have = elastic_ckpt.complete_versions(ckpt_path)
+        if not have:
+            return None
+        if version is None:
+            version = have[-1]
+        if version not in have:
+            raise ValueError(
+                f"elastic version {version} not manifest-complete "
+                f"in {ckpt_path}")
+        with self._lock:
+            if os.path.exists(os.path.join(self._dir(version), ARTIFACT)):
+                return None  # already registered
+            dirpath = os.path.join(ckpt_path,
+                                   elastic_ckpt.version_dirname(version))
+            tree, _spec, manifest = elastic_ckpt.assemble(dirpath)
+            params = tree.get("params")
+            if params is None:
+                raise CheckpointCorruptError(
+                    dirpath, "elastic checkpoint has no 'params' subtree")
+            m = {"source": "elastic", "ckpt_dir": dirpath,
+                 "neval": (manifest.get("meta") or {}).get("neval")}
+            m.update(meta or {})
+            return self.publish(params, version=version, meta=m)
 
     # -------------------------------------------------------------- status
     def status(self, version: int) -> dict:

@@ -83,7 +83,8 @@ an NVIDIA H100 and the CUDA toolkit. It builds the port's CUDA kernels from
    one ``SequenceBeamSearch`` (beam 3, decode 32, a 128-token seed; the
    flash forward at (3·8, 160, 64)) against ``beam_generate``;
 8. runs the vision path at full width, NHWC, with cuDNN's deterministic
-   algorithms (autotuned in each program's eager warm-up): ``ImageNormalize
+   algorithms (autotuned in each bf16 program's eager warm-up, cuDNN's
+   heuristic choice for the one-step check and fp32): ``ImageNormalize
    -> ResNet(1000, depth 50, ImageNet, conv1SpaceToDepth)``, the JAX bench's
    resnet50 leg; one (2, 224, 224, 3) uint8 step's loss, gradients and
    running statistics on the card against the CPU in fp32 and bf16 (the
@@ -463,8 +464,36 @@ class CheckFailed(Exception):
     pass
 
 
+_START = time.perf_counter()
+
+
 def log(msg: str) -> None:
+    if msg.startswith("phase "):       # a phase's header: when it began
+        msg += f" [{time.perf_counter() - _START:.1f} s into the run]"
     print(msg, flush=True)
+
+
+_WORK: list = []
+
+
+def work_root() -> Path:
+    """Where the phases write checkpoints, records and image folders: a
+    directory of this run under /dev/shm when that has 16 GiB free (the
+    phases measure the loop's stalls and the writers, not a disk), else
+    under the checkout's build/. Removed when the script exits."""
+    if not _WORK:
+        import atexit
+        import shutil
+        import tempfile
+        shm = "/dev/shm"
+        base = (shm if os.path.isdir(shm) and os.access(shm, os.W_OK)
+                and shutil.disk_usage(shm).free > 16 << 30 else
+                Path(__file__).resolve().parent / "build")
+        Path(base).mkdir(parents=True, exist_ok=True)
+        _WORK.append(Path(tempfile.mkdtemp(prefix="bigdl-smoke-",
+                                           dir=base)))
+        atexit.register(shutil.rmtree, _WORK[0], True)
+    return _WORK[0]
 
 
 def card_line() -> str:
@@ -2620,7 +2649,11 @@ def run_main(main, argv, card, batch, unit="images", keep=False,
 
 def vision_path(kernels, card, Engine):
     """Phase 8: the vision path at full width, NHWC, cuDNN with its
-    deterministic algorithms (autotuned in each program's eager warm-up)."""
+    deterministic algorithms: autotuned in each program's eager warm-up
+    for the bf16 runs; the one-step check and the fp32 run under cuDNN's
+    heuristic choice (``cudnn.benchmark`` off, the package's default):
+    autotuning the fp32 convolutions with TF32 off takes over a minute of
+    that run's first window on an H100."""
     from bigdl_tpu_torch.models.lenet import train as lenet_main
     from bigdl_tpu_torch.models.vgg import train as vgg_main
     from bigdl_tpu_torch.nn import layout
@@ -2628,11 +2661,12 @@ def vision_path(kernels, card, Engine):
     cudnn = (torch.backends.cudnn.deterministic,
              torch.backends.cudnn.benchmark)
     torch.backends.cudnn.deterministic = True
-    torch.backends.cudnn.benchmark = True
+    torch.backends.cudnn.benchmark = False
     layout.set_image_format("NHWC")
     try:
         step_check = check_resnet_step(layout, Engine)
         data = vision_batches(TRAIN_STEPS, SEED + 12)
+        torch.backends.cudnn.benchmark = True
         Engine.init(compute_dtype=torch.bfloat16)
         try:
             run16, trained = train_vision(data, kernels, card, bf16=True,
@@ -2642,11 +2676,13 @@ def vision_path(kernels, card, Engine):
                                           profile=False)
         finally:
             Engine.reset()
+        torch.backends.cudnn.benchmark = False
         run32, _ = train_vision(data, kernels, card, profile=True)
         drift = [abs(a - b) / abs(b) for a, b in
                  zip(run16["losses"], run32["losses"])]
         log(f"  bf16 against fp32 at batch {VISION_BATCH}: step "
-            f"{run16['step_ms']:.2f} against {run32['step_ms']:.2f} ms "
+            f"{run16['step_ms']:.2f} (autotuned) against "
+            f"{run32['step_ms']:.2f} ms (cuDNN's heuristic algorithms) "
             f"({run32['step_ms'] / run16['step_ms']:.2f}x); first loss "
             f"within {drift[0]:.2e} relative (limit {VISION_DRIFT[0]}), all "
             f"within {max(drift):.2e} (limit {VISION_DRIFT[1]}) [{card}]")
@@ -3213,12 +3249,8 @@ ROBUST_PROFILE = (13, 3)             # set_profile's first iteration, count
 
 
 def robust_dir(name: str) -> Path:
-    """A fresh checkpoint directory under the checkout's build/."""
-    import shutil
-    d = Path(__file__).resolve().parent / "build" / "phase11" / name
-    shutil.rmtree(d, ignore_errors=True)
-    d.mkdir(parents=True)
-    return d
+    """A fresh checkpoint directory of phase 11."""
+    return phase_dir(name, "phase11")
 
 
 def instrument(opt) -> dict:
@@ -3566,10 +3598,12 @@ def robust_vision(card, Engine):
         release()
         return rec, state, stopped
 
+    # cuDNN's heuristic choice of its deterministic algorithms (the
+    # package's default): the same in every run, with no autotuning
     cudnn = (torch.backends.cudnn.deterministic,
              torch.backends.cudnn.benchmark)
     torch.backends.cudnn.deterministic = True
-    torch.backends.cudnn.benchmark = True
+    torch.backends.cudnn.benchmark = False
     layout.set_image_format("NHWC")
     Engine.init(compute_dtype=torch.bfloat16)
     try:
@@ -3614,7 +3648,7 @@ def robustness(TransformerLM, lm_criterion, card, Engine):
     finally:
         Engine.reset()
     out["resnet50"] = robust_vision(card, Engine)
-    shutil.rmtree(Path(__file__).resolve().parent / "build" / "phase11",
+    shutil.rmtree(work_root() / "phase11",
                   ignore_errors=True)
     out["wall_s"] = time.perf_counter() - t0
     log(f"  phase 11 took {out['wall_s']:.1f} s [{card}]")
@@ -3757,10 +3791,13 @@ INCEPTION_KINDS = (
 LRN_SHAPES = ((VISION_BATCH, 56, 56, 64), (VISION_BATCH, 56, 56, 192))
 
 
-def phase_dir(name: str, phase: str = "phase12") -> Path:
-    """A fresh directory under the checkout's build/<phase>/."""
+def phase_dir(name: str, phase: str = "phase12", disk: bool = False
+              ) -> Path:
+    """A fresh directory ``<phase>/<name>`` under :func:`work_root`, or
+    with ``disk`` under the checkout's build/."""
     import shutil
-    d = Path(__file__).resolve().parent / "build" / phase / name
+    d = (Path(__file__).resolve().parent / "build" if disk
+         else work_root()) / phase / name
     shutil.rmtree(d, ignore_errors=True)
     d.mkdir(parents=True)
     return d
@@ -4152,7 +4189,7 @@ def feed_path(TransformerLM, lm_criterion, kernels, card, Engine):
     for name, n in out["launches"].items():
         if n == 0 and name != "nms_sweep":
             raise CheckFailed(f"phase 12's LM path never launched {name}")
-    shutil.rmtree(Path(__file__).resolve().parent / "build" / "phase12",
+    shutil.rmtree(work_root() / "phase12",
                   ignore_errors=True)
     t1 = time.perf_counter()
     out["inception"] = inception_path(kernels, card, Engine)
@@ -4794,12 +4831,8 @@ def forward_greedy(lm, prefix, n: int) -> np.ndarray:
 
 
 def stack_dir(name: str) -> Path:
-    """A fresh directory under the checkout's build/."""
-    import shutil
-    d = Path(__file__).resolve().parent / "build" / "phase14" / name
-    shutil.rmtree(d, ignore_errors=True)
-    d.mkdir(parents=True)
-    return d
+    """A fresh directory under the checkout's build/phase14/."""
+    return phase_dir(name, "phase14", disk=True)
 
 
 def lm_tree(lm) -> dict:
@@ -5854,7 +5887,8 @@ def lora_serving(TransformerLM, lm_criterion, nn, kernels, card,
             launches[k] = launches.get(k, 0) + n
         return results, wall
 
-    reg = ModelRegistry(str(phase_dir("registry", "phase15")), keep=8)
+    reg = ModelRegistry(str(phase_dir("registry", "phase15", disk=True)),
+                        keep=8)
     lm, n_adapted = served_lm()
     v_base = reg.publish(lm_tree(lm), meta={"source": "adapted base"})
     tuned, _ = served_lm()
@@ -8358,7 +8392,8 @@ def detection_path(kernels, card, Program) -> dict:
     import shutil
     import tempfile
     t0 = time.perf_counter()
-    root = Path(tempfile.mkdtemp(prefix="bigdl-phase19-"))
+    root = Path(tempfile.mkdtemp(prefix="bigdl-phase19-",
+                                 dir=work_root()))
     out = {}
     try:
         with nms_checked() as checked:
@@ -8420,7 +8455,7 @@ def nms_row(detection: dict, paths: dict, src: str) -> dict:
 IMG_CLASSES, IMG_PER_CLASS, IMG_SIDE, IMG_BATCH = 4, 256, 280, 256
 RESNET_IMG_ARGV = ["--dataset", "ImageNet", "--depth", "50", "--classes",
                    "1000"]
-IMG_EPOCHS = 2
+IMG_EPOCHS = 1
 CIFAR_PER_FILE, MNIST_TRAIN, MNIST_TEST, SMALL_BATCH = 1024, 6144, 1024, 128
 DECODE_REPS = 200          # decodes a rate, one thread (the pool: x threads)
 
@@ -8673,7 +8708,8 @@ def images_path(kernels, card, repo: Path) -> dict:
 
     t_phase = time.perf_counter()
     fixtures = repo / "tests" / "torch_image_fixtures"
-    root = Path(tempfile.mkdtemp(prefix="bigdl-phase20-"))
+    root = Path(tempfile.mkdtemp(prefix="bigdl-phase20-",
+                                 dir=work_root()))
     out = {}
     try:
         Path(codec._SO).unlink(missing_ok=True)    # time a build
@@ -8912,6 +8948,20 @@ def distributed_path(TransformerLM, lm_criterion, kernels, card,
     from bigdl_tpu_torch.utils.random_generator import RandomGenerator
     t0 = time.perf_counter()
     out = {"card": card}
+    # the 2-rank dry run on the host's CPU, for comparison, runs beside
+    # the card's work (its ranks are processes of their own)
+    host: dict = {}
+
+    def on_host():
+        t = time.perf_counter()
+        try:
+            host.update(dryrun.dryrun_multichip(2, backend="cpu"))
+        except BaseException as e:  # noqa: BLE001 — raised at the join
+            host["error"] = e
+        host["wall_s"] = time.perf_counter() - t
+
+    beside = threading.Thread(target=on_host, name="phase21-host-dryrun")
+    beside.start()
     Engine.init(backend="nccl")
     try:
         mesh = Engine.mesh()
@@ -8993,13 +9043,15 @@ def distributed_path(TransformerLM, lm_criterion, kernels, card,
                               f"non-finite {bad}")
         log(f"  dryrun_multichip({n}), {n} ranks sharing {DEVICE}:0 over "
             f"gloo: {got['losses']}; {multi[n]['wall_s']:.1f} s [{card}]")
-    t1 = time.perf_counter()
-    host = dryrun.dryrun_multichip(2, backend="cpu")
+    beside.join()
+    if "error" in host:
+        raise host["error"]
     rel = {k: abs(multi[2]["losses"][k] - v) / max(abs(v), 1e-6)
            for k, v in host["losses"].items()}
     worst = max(rel, key=rel.get)
     log(f"  dryrun_multichip(2) on the card against the host's CPU "
-        f"({time.perf_counter() - t1:.1f} s): worst relative loss gap "
+        f"({host['wall_s']:.1f} s, beside the card's runs): worst relative "
+        f"loss gap "
         f"{rel[worst]:.2e} ({worst}; TF32 off, the card's kernels against "
         f"the plain versions; limit 1e-3) [{card}]")
     if rel[worst] > 1e-3:
@@ -9010,6 +9062,538 @@ def distributed_path(TransformerLM, lm_criterion, kernels, card,
     out["multi_rank"]["card_vs_cpu_worst_rel"] = rel[worst]
     out["wall_s"] = time.perf_counter() - t0
     log(f"  phase 21 took {out['wall_s']:.1f} s [{card}]")
+    return out
+
+
+# ----------------------------------------------------------------- phase 22
+ELASTIC_STEPS = 6                # Adam steps of a run (saves every 2)
+ELASTIC_TP_TOL = 1e-4            # a TP run resumed without TP, fp32
+# bf16 GPipe against its fp32 twin, the worst step's loss (relative): the
+# card read 4.43e-05; the losses fall 0.7% over the 4 steps, so a stage
+# that does not update is off by ~3e-3 or more
+ELASTIC_BF16_TOL = 1e-3
+ELASTIC_GPIPE_KERNELS = ("layer_norm_fwd", "layer_norm_bwd",
+                         "flash_attention_fwd", "flash_attention_bwd_dq",
+                         "flash_attention_bwd_dkv")
+
+
+def elastic_lm(TransformerLM, device, seed=SEED + 22):
+    return TransformerLM(VOCAB, EMBED, HEADS, LAYERS, TRAIN_LEN,
+                         generator=torch.Generator().manual_seed(seed),
+                         device=device)
+
+
+def elastic_opt(model, lm_criterion, sync, ck, steps, backend="elastic",
+                rules=None, batch=TRAIN_BATCH, every=2):
+    """DistriOptimizer over phase 21's LM data (Adam, ``steps`` steps, the
+    order fixed), with a checkpoint every ``every`` iterations under
+    ``ck`` (a resume passes a trigger that never fires in its run)."""
+    from bigdl_tpu_torch.optim import Adam, Trigger
+    from bigdl_tpu_torch.optim.distri_optimizer import DistriOptimizer
+    data = distri_lm_data(VOCAB, TRAIN_LEN, batch, ELASTIC_STEPS + 2,
+                          SEED + 22)
+    data.shuffle = lambda: None
+    opt = (DistriOptimizer(model, data, lm_criterion(), parameter_sync=sync)
+           .set_optim_method(Adam(learningrate=1e-3))
+           .set_end_when(Trigger.max_iteration(steps)))
+    if rules is not None:
+        opt.set_tensor_parallel(rules)
+    if ck is not None:
+        opt.set_checkpoint(str(ck), Trigger.several_iteration(every),
+                           backend=backend)
+    return opt
+
+
+def recorded(opt) -> list:
+    seen = []
+    run = opt._run_steps
+
+    def rec(batches):
+        out = run(batches)
+        seen.extend(out)
+        return out
+    opt._run_steps = rec
+    return seen
+
+
+def ckpt_hists() -> dict:
+    """The checkpoint histograms since the registry's reset, with each
+    save's value in order (``each``)."""
+    from bigdl_tpu_torch.obs.registry import registry
+    h = registry.snapshot()["histograms"]
+    return {k: dict(h.get(k, {}),
+                    each=[round(v, 2) for v in registry.histogram(k)._window])
+            for k in ("ckpt/stall_ms", "ckpt/async_write_ms")}
+
+
+def lm_tp_rules():
+    """Megatron's split of every block's MLP (up column-, down
+    row-parallel) over ``model``."""
+    from bigdl_tpu_torch.parallel import megatron_mlp_rules
+    return megatron_mlp_rules(r"[0-9]+/1/0/1/1/0", r"[0-9]+/1/0/1/3/0")
+
+
+def elastic_world1(TransformerLM, lm_criterion, kernels, card, tmp,
+                   Engine) -> dict:
+    """(a) One-rank NCCL mesh: zero1 and fsdp in fp32 and bf16, elastic
+    saves every 2 steps with the step captured; a resume from version 4
+    continues bitwise; the pickle backend's stalls beside."""
+    import shutil
+    from bigdl_tpu_torch.obs.registry import registry
+    from bigdl_tpu_torch.utils import elastic_ckpt
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        Engine.init(backend="nccl", compute_dtype=dtype)
+        try:
+            for sync in ("zero1", "fsdp"):
+                for backend in (("elastic", "pickle")
+                                if sync == "zero1" and dtype == torch.float32
+                                else ("elastic",)):
+                    t1 = time.perf_counter()
+                    ck = tmp / f"{sync}-{dtype}-{backend}"
+                    registry.reset()
+                    lm = elastic_lm(TransformerLM, DEVICE)
+                    opt = elastic_opt(lm, lm_criterion, sync, ck,
+                                      ELASTIC_STEPS, backend)
+                    losses = recorded(opt)
+                    before = kernels.launch_counts()
+                    opt.optimize()
+                    opt._join_checkpoint_writer()
+                    counts = {k: v - before[k] for k, v in
+                              kernels.launch_counts().items()}
+                    prog = opt._step_program
+                    hists = ckpt_hists()
+                    key = f"{backend}/{sync}/{str(dtype)[6:]}"
+                    run = {"losses": losses, "launches": counts,
+                           "captured": bool(prog.captured),
+                           "replays": prog.replays,
+                           "stall_ms": hists["ckpt/stall_ms"],
+                           "write_ms": hists["ckpt/async_write_ms"]}
+                    final = {n: p.detach().clone()
+                             for n, p in lm.named_parameters()}
+                    del opt, lm
+                    release()
+                    if not run["captured"]:
+                        raise CheckFailed(f"phase 22 {key}: the step was "
+                                          f"not captured")
+                    if backend == "elastic":
+                        if elastic_ckpt.complete_versions(str(ck)) != \
+                                [2, 4, 6]:
+                            raise CheckFailed(f"phase 22 {key}: versions "
+                                              f"{elastic_ckpt.complete_versions(str(ck))}")
+                        shutil.rmtree(ck / "elastic.6")
+                        lm = elastic_lm(TransformerLM, DEVICE, seed=7)
+                        opt = elastic_opt(lm, lm_criterion, sync, ck,
+                                          ELASTIC_STEPS, backend, every=100)
+                        again = recorded(opt)
+                        opt.optimize(resume="auto")
+                        opt._join_checkpoint_writer()
+                        same = again == losses[4:] and all(
+                            torch.equal(p, final[n])
+                            for n, p in lm.named_parameters())
+                        run["resume_bitwise"] = same
+                        del opt, lm
+                        release()
+                        if not same:
+                            raise CheckFailed(
+                                f"phase 22 {key}: the resume from version "
+                                f"4 departs: {again} vs {losses[4:]}")
+                    shutil.rmtree(ck, ignore_errors=True)
+                    del final
+                    run["wall_s"] = time.perf_counter() - t1
+                    log(f"  (a) {key}: losses "
+                        f"{[round(v, 4) for v in losses]}; each save's "
+                        f"stall ms {run['stall_ms']['each']} (the first the "
+                        f"snapshot alone, the others also the hard barrier: "
+                        f"the previous write), writer ms "
+                        f"{run['write_ms']['each']}; captured, "
+                        f"{run['replays']} replays; resumed bitwise: "
+                        f"{run.get('resume_bitwise', '-')}; launches "
+                        f"{run['launches']}; {run['wall_s']:.1f} s [{card}]")
+                    out[key] = run
+        finally:
+            Engine.shutdown_distributed()
+            Engine.reset()
+    return out
+
+
+def elastic_ranks(tmp: str) -> dict:
+    """(b), (d), (e) on 2 gloo ranks sharing cuda:0: a tensor-parallel
+    LM's elastic versions; each sync mode's memory; bf16 GPipe."""
+    import torch.distributed as dist
+    from bigdl_tpu_torch import kernels, nn
+    from bigdl_tpu_torch.models.transformerlm import (
+        TransformerLM, lm_criterion,
+    )
+    from bigdl_tpu_torch.utils.engine import Engine
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rank, out = dist.get_rank(), {}
+    dev = Engine.device()
+    # (b) TP on (1, 2), zero1, versions 2, 4, 6
+    Engine.reset()
+    Engine.init(backend="gloo", mesh_shape=(1, 2),
+                mesh_axes=("data", "model"))
+    lm = elastic_lm(TransformerLM, str(dev))
+    opt = elastic_opt(lm, lm_criterion, "zero1", Path(tmp) / "tp",
+                      ELASTIC_STEPS, rules=lm_tp_rules())
+    out["tp_losses"] = recorded(opt)
+    opt.optimize()
+    opt._join_checkpoint_writer()
+    dist.barrier()
+    out["tp_split"] = len(opt._tp_split)
+    del opt, lm
+    release()
+    # (d) each sync mode at data 2: peak and resident bytes
+    Engine.reset()
+    Engine.init(backend="gloo", mesh_shape=(2,), mesh_axes=("data",))
+    for sync in ("allreduce", "zero1", "fsdp"):
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        lm = elastic_lm(TransformerLM, str(dev))
+        opt = elastic_opt(lm, lm_criterion, sync, None, 1)
+        resident = []
+        run = opt._run_steps
+
+        def held(batches, run=run):
+            r = run(batches)
+            torch.cuda.synchronize()
+            resident.append(torch.cuda.memory_allocated() - base)
+            return r
+        opt._run_steps = held
+        opt.optimize()
+        out[f"mem/{sync}"] = {
+            "peak": torch.cuda.max_memory_allocated() - base,
+            "resident_between_steps": resident[-1],
+            "loss": opt.state["loss"]}
+        del opt, lm
+        release()
+    # (e) bf16 GPipe: the LM's blocks as 2 stages on a pipe mesh of 2
+    from bigdl_tpu_torch.optim import Adam, Trigger
+    from bigdl_tpu_torch.optim.distri_optimizer import DistriOptimizer
+    from bigdl_tpu_torch.parallel import GPipe
+    for dtype in (torch.float32, torch.bfloat16):
+        Engine.reset()
+        Engine.init(backend="gloo", mesh_shape=(1, 2),
+                    mesh_axes=("data", "pipe"), compute_dtype=dtype)
+        lm = elastic_lm(TransformerLM, str(dev))
+        kids = list(lm.children())
+        half = 2 + LAYERS // 2
+        stages = [nn.Sequential(), nn.Sequential()]
+        for i, k in enumerate(kids):
+            stages[0 if i < half else 1].add(k)
+        pipe = GPipe(stages=stages, n_microbatches=2)
+        data = distri_lm_data(VOCAB, TRAIN_LEN, TRAIN_BATCH, 6, SEED + 22)
+        data.shuffle = lambda: None
+        opt = (DistriOptimizer(pipe, data, lm_criterion())
+               .set_optim_method(Adam(learningrate=1e-3))
+               .set_end_when(Trigger.max_iteration(4)))
+        losses = recorded(opt)
+        kernels.reset_launch_counts()
+        opt.optimize()
+        out[f"gpipe/{str(dtype)[6:]}"] = {
+            "losses": losses,
+            "launches": kernels.launch_counts(),
+            "by_dtype": kernels.launch_counts_by_dtype()}
+        del opt, lm, pipe
+        release()
+    Engine.reset()
+    out["rank"] = rank
+    return out
+
+
+def elastic_drill_worker(argv: list) -> int:
+    """The host-loss drill's process (``--elastic-drill-worker PORT RANK
+    OUT``): ``drill`` (2 gloo ranks sharing the card, zero1, the full-width
+    LM, elastic saves every 2 steps; rank 1 killed by ``host_down@3``;
+    rank 0 watches its peer and re-executes itself) or ``resume`` (world 1
+    on NCCL from the newest complete version, to iteration 6)."""
+    port, rank, out_file = argv[0], int(argv[1]), argv[2]
+    here = Path(__file__).resolve().parent
+    sys.path.insert(0, str(here))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from bigdl_tpu_torch.kernels import _cuda
+    from bigdl_tpu_torch.models.transformerlm import (
+        TransformerLM, lm_criterion,
+    )
+    from bigdl_tpu_torch.utils import elastic_ckpt
+    from bigdl_tpu_torch.utils.engine import Engine
+    from bigdl_tpu_torch.utils.robustness import events
+    _cuda.library()
+    ck = os.environ["BIGDL_DRILL_DIR"]
+    if os.environ.get("BIGDL_DRILL_MODE") == "resume":
+        Engine.init(backend="nccl")
+        snap = events.snapshot()
+        lm = elastic_lm(TransformerLM, DEVICE, seed=7)
+        opt = elastic_opt(lm, lm_criterion, "zero1", ck, ELASTIC_STEPS,
+                          every=100)
+        versions = elastic_ckpt.complete_versions(ck)
+        opt._load_latest_checkpoint()
+        resumed_from = int(opt.state["neval"])
+        losses = recorded(opt)
+        opt.optimize(resume="auto")
+        opt._join_checkpoint_writer()
+        with open(out_file, "w") as f:
+            json.dump({"mode": "resume", "versions": versions,
+                       "resumed_from": resumed_from, "losses": losses,
+                       "elastic_resume": events.deltas(snap).get(
+                           "elastic_resume", 0),
+                       "world": Engine.mesh().size}, f)
+        Engine.shutdown_distributed()
+        return 0
+    Engine.init(backend="gloo", coordinator_address=f"localhost:{port}",
+                process_id=rank, node_number=2)
+    if rank == 0:
+        peer = int(os.environ["BIGDL_DRILL_PEER"])
+
+        def watch():
+            while True:
+                try:
+                    os.kill(peer, 0)
+                except OSError:
+                    env = dict(os.environ, BIGDL_DRILL_MODE="resume")
+                    env.pop("BIGDL_FAULT_PLAN", None)
+                    os.execve(sys.executable, [sys.executable,
+                                               str(here / "chip_smoke.py"),
+                                               "--elastic-drill-worker",
+                                               *argv], env)
+                time.sleep(0.05)
+        threading.Thread(target=watch, daemon=True).start()
+    lm = elastic_lm(TransformerLM, str(Engine.device()))
+    opt = elastic_opt(lm, lm_criterion, "zero1", ck, ELASTIC_STEPS)
+    try:
+        opt.optimize()
+    except RuntimeError:
+        if rank == 0:
+            time.sleep(120)       # the watcher re-executes this process
+        raise
+    return 0
+
+
+def elastic_drill_start(tmp: Path) -> dict:
+    """(c) The host-loss drill's two ranks started (they run beside the
+    rest of the phase; :func:`elastic_drill_finish` waits for them)."""
+    import socket
+    me = str(Path(__file__).resolve())
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    ck = tmp / "drill"
+    env = dict(os.environ, BIGDL_DRILL_DIR=str(ck), BIGDL_CKPT_ASYNC="0",
+               BIGDL_CKPT_SYNC_TIMEOUT="20", BIGDL_INIT_TIMEOUT="120",
+               BIGDL_FAILURE_RETRY_TIMES="0", NVIDIA_TF32_OVERRIDE="0")
+    outs = [str(tmp / f"drill{r}.json") for r in (0, 1)]
+    logs = [open(tmp / f"drill{r}.log", "w") for r in (0, 1)]
+    t0 = time.perf_counter()
+    p1 = subprocess.Popen([sys.executable, me, "--elastic-drill-worker",
+                           str(port), "1", outs[1]],
+                          env=dict(env, BIGDL_FAULT_PLAN="host_down@3"),
+                          stdout=logs[1], stderr=subprocess.STDOUT)
+    p0 = subprocess.Popen([sys.executable, me, "--elastic-drill-worker",
+                           str(port), "0", outs[0]],
+                          env=dict(env, BIGDL_DRILL_PEER=str(p1.pid)),
+                          stdout=logs[0], stderr=subprocess.STDOUT)
+    for f in logs:
+        f.close()
+    return {"p0": p0, "p1": p1, "outs": outs, "ck": ck, "t0": t0}
+
+
+def elastic_drill_finish(drill: dict, TransformerLM, lm_criterion, card,
+                         tmp: Path, Engine) -> dict:
+    """(c) The drill's outcome, and a fresh resume (in this process, at
+    world 1 on NCCL) from the version the survivor resumed from."""
+    import shutil
+    from bigdl_tpu_torch.utils import elastic_ckpt
+    p0, p1, outs, ck, t0 = (drill[k] for k in ("p0", "p1", "outs", "ck",
+                                               "t0"))
+    try:
+        p1.wait(timeout=300)
+        p0.wait(timeout=300)
+    except subprocess.TimeoutExpired:
+        raise CheckFailed("phase 22 (c): the host-loss drill timed out")
+    if p1.returncode != -9 or p0.returncode != 0:
+        tail = (tmp / "drill0.log").read_text()[-3000:]
+        raise CheckFailed(f"phase 22 (c): rank 1 exited {p1.returncode}, "
+                          f"the survivor {p0.returncode}:\n{tail}")
+    res = json.load(open(outs[0]))
+    version = res["versions"][-1]
+    if not (res["world"] == 1 and res["elastic_resume"] >= 1
+            and res["resumed_from"] == version + 1):
+        raise CheckFailed(f"phase 22 (c): the survivor's resume {res}")
+    ck2 = tmp / "drill-replay"
+    shutil.copytree(ck, ck2)
+    for name in os.listdir(ck2):
+        v = elastic_ckpt.version_of(name)
+        if v is None or v > version:
+            shutil.rmtree(ck2 / name, ignore_errors=True)
+    Engine.init(backend="nccl")
+    try:
+        lm = elastic_lm(TransformerLM, DEVICE, seed=7)
+        opt = elastic_opt(lm, lm_criterion, "zero1", ck2, ELASTIC_STEPS,
+                          every=100)
+        replay = {"losses": recorded(opt)}
+        opt.optimize(resume="auto")
+        del opt, lm
+        release()
+    finally:
+        Engine.shutdown_distributed()
+        Engine.reset()
+    same = replay["losses"] == res["losses"]
+    log(f"  (c) host_down@3 killed rank 1 (exit -9); the survivor "
+        f"re-executed at world 1 on NCCL and resumed from version {version} "
+        f"(iteration {res['resumed_from']}): losses "
+        f"{[round(v, 4) for v in res['losses']]}; a fresh resume from that "
+        f"version gives the same losses: {same}; "
+        f"{time.perf_counter() - t0:.1f} s [{card}]")
+    if not same:
+        raise CheckFailed("phase 22 (c): the replay departs from the "
+                          "survivor's losses")
+    return {"survivor": res, "replay_losses": replay["losses"],
+            "wall_s": time.perf_counter() - t0}
+
+
+def elastic_path(TransformerLM, lm_criterion, kernels, card,
+                 Engine) -> dict:
+    """Phase 22: the elastic checkpoint and the trainer's new
+    configurations at full width (phase 6's LM, 16 x 512, Adam)."""
+    import shutil
+    import tempfile
+    from bigdl_tpu_torch import dryrun
+    from bigdl_tpu_torch.utils import elastic_ckpt
+    t0 = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix="bigdl-phase22-", dir=work_root()))
+    log(f"  checkpoints under {tmp} [{card}]")
+    launches = {k: 0 for k in kernels.launch_counts()}
+    drill = None
+    try:
+        # the processes of (b)-(e) run beside (a): their ranks stage through
+        # the host and leave the card mostly idle (the ranks inherit TF32
+        # off from the environment)
+        os.environ["NVIDIA_TF32_OVERRIDE"] = "0"
+        drill = elastic_drill_start(tmp)
+        box: dict = {}
+
+        def spawn_ranks():
+            t1 = time.perf_counter()
+            try:
+                box["ranks"] = dryrun.spawn(elastic_ranks, 2, (str(tmp),),
+                                            backend="gloo", timeout=600,
+                                            workdir=str(tmp))
+            except BaseException as e:  # noqa: BLE001 — raised below
+                box["error"] = e
+            box["s"] = time.perf_counter() - t1
+
+        beside = threading.Thread(target=spawn_ranks, daemon=True)
+        beside.start()
+        out = {"world1": elastic_world1(TransformerLM, lm_criterion, kernels,
+                                        card, tmp, Engine)}
+        for run in out["world1"].values():
+            for k, v in run["launches"].items():
+                launches[k] += v
+        beside.join()
+        if "error" in box:
+            raise box["error"]
+        ranks = box["ranks"]
+        log(f"  (b), (d), (e) on 2 gloo ranks (beside (a)): {box['s']:.1f} "
+            f"s [{card}]")
+        r0 = ranks[0]
+        # (b) the TP versions resumed at world 1 on NCCL without TP
+        ck = tmp / "tp"
+        if elastic_ckpt.complete_versions(str(ck)) != [2, 4, 6]:
+            raise CheckFailed(f"phase 22 (b): TP versions "
+                              f"{elastic_ckpt.complete_versions(str(ck))}")
+        shutil.rmtree(ck / "elastic.6")
+        saved, _, man = elastic_ckpt.assemble(str(ck / "elastic.4"))
+        Engine.init(backend="nccl")
+        try:
+            lm = elastic_lm(TransformerLM, DEVICE, seed=7)
+            opt = elastic_opt(lm, lm_criterion, "zero1", ck, ELASTIC_STEPS,
+                              every=100)
+            opt._load_latest_checkpoint()
+            from bigdl_tpu_torch import convert
+            flat = convert.flatten_tree(saved["params"])
+            bitwise = all(np.array_equal(p.detach().cpu().numpy(), flat[n])
+                          for n, p in lm.named_parameters())
+            cont = recorded(opt)
+            before = kernels.launch_counts()
+            opt.optimize(resume="auto")
+            for k, v in kernels.launch_counts().items():
+                launches[k] += v - before[k]
+            del opt, lm
+            release()
+        finally:
+            Engine.shutdown_distributed()
+            Engine.reset()
+        ref = r0["tp_losses"][4:]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(cont, ref))
+        log(f"  (b) TransformerLM with {r0['tp_split']} leaves split over "
+            f"`model` on a (1, 2) gloo mesh sharing the card, zero1, "
+            f"versions 2, 4, 6 (manifest mesh {man['mesh']}); version 4 "
+            f"resumed at world 1 on NCCL without TP: leaves bitwise "
+            f"{bitwise}, continued losses {[round(v, 5) for v in cont]} "
+            f"against the TP run's {[round(v, 5) for v in ref]}, worst "
+            f"relative {rel:.2e} (limit {ELASTIC_TP_TOL}) [{card}]")
+        if not bitwise or rel > ELASTIC_TP_TOL:
+            raise CheckFailed("phase 22 (b): the TP version's resume "
+                              "departs")
+        out["tp"] = {"losses": r0["tp_losses"], "continued": cont,
+                     "worst_rel": rel, "bitwise": bitwise}
+        out["drill"] = elastic_drill_finish(drill, TransformerLM,
+                                            lm_criterion, card, tmp, Engine)
+        # (d) memory
+        mem = {s: [r[f"mem/{s}"] for r in ranks]
+               for s in ("allreduce", "zero1", "fsdp")}
+        for s, m in mem.items():
+            log(f"  (d) {s} at data 2 over gloo: each rank's "
+                f"max_memory_allocated {[x['peak'] for x in m]} bytes, "
+                f"resident between steps "
+                f"{[x['resident_between_steps'] for x in m]} [{card}]")
+        if not all(f["peak"] < z["peak"]
+                   for f, z in zip(mem["fsdp"], mem["zero1"])):
+            raise CheckFailed("phase 22 (d): fsdp's peak is not below "
+                              "zero1's")
+        out["memory"] = mem
+        # (e) bf16 GPipe
+        g16, g32 = r0["gpipe/bfloat16"], r0["gpipe/float32"]
+        rel = max(abs(a - b) / abs(b)
+                  for a, b in zip(g16["losses"], g32["losses"]))
+        by16 = [{k: r["gpipe/bfloat16"]["by_dtype"][k]
+                 for k in ELASTIC_GPIPE_KERNELS} for r in ranks]
+        log(f"  (e) GPipe of the LM's blocks on 2 gloo ranks (pipe 2), 4 "
+            f"steps: bf16 losses {[round(v, 4) for v in g16['losses']]} "
+            f"against fp32 {[round(v, 4) for v in g32['losses']]}, worst "
+            f"relative {rel:.2e} (limit {ELASTIC_BF16_TOL}); the bf16 "
+            f"run's launches by dtype, each rank {by16} [{card}]")
+        if rel > ELASTIC_BF16_TOL or not all(
+                np.isfinite(g16["losses"])):
+            raise CheckFailed("phase 22 (e): bf16 GPipe departs from fp32")
+        # each rank's stage launched every LM kernel, each launch in the
+        # run's dtype (LayerNorm's x and gamma both)
+        for r in ranks:
+            for want in ("bfloat16", "float32"):
+                by = r[f"gpipe/{want}"]["by_dtype"]
+                for k in ELASTIC_GPIPE_KERNELS:
+                    if not by[k] or any(set(key.split("/")) != {want}
+                                        for key in by[k]):
+                        raise CheckFailed(
+                            f"phase 22 (e): rank {r['rank']}'s {want} "
+                            f"GPipe launched {k} as {by[k]}")
+        out["gpipe"] = {"bf16": g16, "fp32": g32, "worst_rel": rel}
+        for r in ranks:
+            for k in launches:
+                launches[k] += r["gpipe/bfloat16"]["launches"].get(k, 0) \
+                    + r["gpipe/float32"]["launches"].get(k, 0)
+    finally:
+        for p in ((drill["p0"], drill["p1"]) if drill else ()):
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["launches"] = launches
+    out["wall_s"] = time.perf_counter() - t0
+    log(f"  phase 22 launches {launches}; took {out['wall_s']:.1f} s "
+        f"[{card}]")
     return out
 
 
@@ -9028,6 +9612,9 @@ def main() -> int:
         print("chip_smoke: CUDA is not available; this script runs on the "
               "GPU only", file=sys.stderr)
         return 2
+    if "--elastic-drill-worker" in sys.argv:
+        i = sys.argv.index("--elastic-drill-worker")
+        return elastic_drill_worker(sys.argv[i + 1:i + 4])
     here = Path(__file__).resolve().parent
     # --root DIR: the package of another checkout (the --lm-feed-ab mode's
     # comparison with an earlier commit)
@@ -9115,6 +9702,13 @@ def main() -> int:
         distributed = distributed_path(TransformerLM, lm_criterion, kernels,
                                        card, Engine)
         print(json.dumps({"distributed": distributed}), flush=True)
+        print(f"card: {card}", flush=True)
+        return 0
+    if "--elastic-only" in sys.argv:
+        log("phase 22 only")
+        elastic = elastic_path(TransformerLM, lm_criterion, kernels, card,
+                               Engine)
+        print(json.dumps({"elastic": elastic}), flush=True)
         print(f"card: {card}", flush=True)
         return 0
     if "--images-only" in sys.argv:
@@ -9369,6 +9963,12 @@ def main() -> int:
     distributed = distributed_path(TransformerLM, lm_criterion, kernels,
                                    card, Engine)
 
+    log("phase 22: the elastic checkpoint (zero1 and fsdp saves at world 1 "
+        "on NCCL, a tensor-parallel version resumed without TP, the "
+        "host-loss drill), fsdp's memory and bf16 GPipe, full width")
+    elastic = elastic_path(TransformerLM, lm_criterion, kernels, card,
+                           Engine)
+
     log("phase 10: the kernel table")
 
     # each kernel's row: its own slice's path (serving for the forward
@@ -9436,7 +10036,8 @@ def main() -> int:
                  "quantized": quantized["launches"][k],
                  "detection": detection["launches"][k],
                  "images": images["launches"][k],
-                 "distributed": distributed["launches"][k]}
+                 "distributed": distributed["launches"][k],
+                 "elastic": elastic["launches"][k]}
              for k in launches}
 
     def s2s_flash(rows, name):
@@ -9629,7 +10230,7 @@ def main() -> int:
         "quantized": quantized,
         "detection": {k: v for k, v in detection.items()
                       if k != "nms_rows"}, "images": images,
-        "distributed": distributed}
+        "distributed": distributed, "elastic": elastic}
     print(json.dumps(table), flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"ok": True, "device": {

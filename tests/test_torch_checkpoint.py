@@ -369,12 +369,16 @@ def test_unported_backends_raise(tmp_path, monkeypatch):
     with pytest.raises(NotImplementedError, match="orbax"):
         opt.set_checkpoint(str(tmp_path), toptim.Trigger.every_epoch(),
                            backend="orbax")
-    with pytest.raises(NotImplementedError, match="A.6"):
-        opt.set_checkpoint(str(tmp_path), toptim.Trigger.every_epoch(),
-                           backend="elastic")
+    # the elastic backend is ported: asked for by name or by the variable
+    opt.set_checkpoint(str(tmp_path), toptim.Trigger.every_epoch(),
+                       backend="elastic")
+    assert opt.checkpoint_backend == "elastic"
     monkeypatch.setenv("BIGDL_CKPT_SHARDED", "1")
-    with pytest.raises(NotImplementedError, match="A.6"):
-        opt.set_checkpoint(str(tmp_path), toptim.Trigger.every_epoch())
+    opt.set_checkpoint(str(tmp_path), toptim.Trigger.every_epoch())
+    assert opt.checkpoint_backend == "elastic"
+    with pytest.raises(ValueError):
+        opt.set_checkpoint(str(tmp_path), toptim.Trigger.every_epoch(),
+                           backend="zarr")
 
 
 @pytest.mark.parametrize("name,args", [

@@ -860,3 +860,96 @@ def test_quantized_lm_decode_programs_capture(cuda, mode):
     progs = eng._programs._programs
     assert stats["compiled_programs"] >= 2
     assert all(pr.captured for pr in progs.values())
+
+
+def test_elastic_fsdp_step_gathers_a_layer_at_a_time_captured(cuda):
+    """fsdp at world 1 on NCCL holds its blocks between steps and gathers
+    each layer's weights around its run: the step is still one captured
+    program, and 4 steps are LocalOptimizer's bit for bit."""
+    from bigdl_tpu_torch.optim.distri_optimizer import DistriOptimizer
+    batches = _batches(4)
+
+    def run(cls, **kw):
+        ds = DataSet.array(batches)
+        ds.shuffle = lambda: None
+        lm = _lm()
+        opt = (cls(lm, ds, lm_criterion(), **kw)
+               .set_optim_method(Adam(learningrate=1e-3))
+               .set_end_when(Trigger.max_iteration(4)))
+        losses, peaks = [], []
+        run_steps = opt._run_steps
+
+        def recorded(steps):
+            out = run_steps(steps)
+            losses.extend(out)
+            if hasattr(opt, "fsdp_bytes"):
+                peaks.append(opt.fsdp_bytes()["gathered_peak"])
+            return out
+
+        opt._run_steps = recorded
+        opt.optimize()
+        return opt, losses, peaks, {n: p.detach().clone()
+                                    for n, p in lm.named_parameters()}
+
+    Engine.init(backend="nccl")
+    try:
+        dopt, dlosses, peaks, dparams = run(DistriOptimizer,
+                                            parameter_sync="fsdp")
+        _, llosses, _, lparams = run(LocalOptimizer)
+    finally:
+        Engine.shutdown_distributed()
+        Engine.reset()
+    assert dopt._step_program.captured and dopt._step_program.replays == 3
+    assert 0 < max(peaks) < sum(p.numel() * 4 for p in lparams.values())
+    assert dlosses == llosses
+    for n, p in lparams.items():
+        assert torch.equal(dparams[n], p), n
+
+
+def test_elastic_save_under_a_captured_step_resumes_bitwise(cuda, tmp_path):
+    """zero1 at world 1 on NCCL with elastic saves every 2 steps of a
+    captured step: versions 2 and 4 commit, and a resume from version 2
+    takes steps 3 and 4 bit for bit."""
+    from bigdl_tpu_torch.optim.distri_optimizer import DistriOptimizer
+    from bigdl_tpu_torch.utils import elastic_ckpt
+    import shutil
+    batches = _batches(4)
+
+    def run(n, seed=0):
+        ds = DataSet.array(batches)
+        ds.shuffle = lambda: None
+        torch.manual_seed(seed)
+        lm = _lm()
+        opt = (DistriOptimizer(lm, ds, lm_criterion(),
+                               parameter_sync="zero1")
+               .set_optim_method(Adam(learningrate=1e-3))
+               .set_end_when(Trigger.max_iteration(n)))
+        opt.set_checkpoint(str(tmp_path), Trigger.several_iteration(2),
+                           backend="elastic")
+        losses = []
+        run_steps = opt._run_steps
+
+        def recorded(steps):
+            out = run_steps(steps)
+            losses.extend(out)
+            return out
+
+        opt._run_steps = recorded
+        opt.optimize(resume="auto")
+        opt._join_checkpoint_writer()
+        return opt, losses, {n: p.detach().clone()
+                             for n, p in lm.named_parameters()}
+
+    Engine.init(backend="nccl")
+    try:
+        opt, losses, params = run(4)
+        assert opt._step_program.captured
+        assert elastic_ckpt.complete_versions(str(tmp_path)) == [2, 4]
+        shutil.rmtree(tmp_path / "elastic.4")
+        _, again, params2 = run(4, seed=1)
+    finally:
+        Engine.shutdown_distributed()
+        Engine.reset()
+    assert again == losses[2:]
+    for n, p in params.items():
+        assert torch.equal(params2[n], p), n

@@ -10,9 +10,9 @@ itself). Both start from the same weights: JAX's main builds its model
 first (and stops there), and the port's main builds its own, into which
 JAX's weights and state are loaded (``convert``); then each package's
 main trains, dropout off in both (each package draws its masks from its
-own generator). JAX's RNG takes the seed the port's main sets
-(``BIGDL_SEED`` too, for the JAX mains that call ``Engine.init``
-themselves), so both shuffle alike.
+own generator). Both packages' mains seed their shuffles alike
+(``BIGDL_SEED`` through ``Engine.init``, 0 in the LM main), so no seed is
+aligned here.
 
 Every iteration's loss agrees within 1e-5 relative (fp32, reductions
 ordered unlike XLA's), the two ranks report the same losses, and, as an
@@ -21,7 +21,6 @@ gives the same losses as its distributed one.
 """
 
 import importlib
-import os
 
 import numpy as np
 import pytest
@@ -46,11 +45,6 @@ CTORS = {
     "vgg": ("vgg", "VggForCifar10"),
     "widedeep": ("widedeep", "WideAndDeep"),
 }
-
-#: the RNG seed each port main trains under: its own ``set_seed`` (0), or
-#: the one ``run_mains`` sets before a main that sets none
-SEEDS = {name: 1 if name in ("ssd", "transformer") else 0
-         for name in CTORS}
 
 RTOL = 1e-5
 
@@ -85,27 +79,17 @@ class _JaxMain:
 
     def _run(self, build):
         from bigdl_tpu.utils.engine import Engine
-        from bigdl_tpu.utils.random_generator import RandomGenerator
-        seed = SEEDS[self.name]
         init = Engine.init.__func__
         ctor = getattr(self.pkg, self.ctor)
-        env = os.environ.get("BIGDL_SEED")
-        os.environ["BIGDL_SEED"] = str(seed)
         Engine.init = classmethod(
             lambda cls, *a, **k: init(cls, *a, **{"core_number": 2, **k}))
         setattr(self.pkg, self.ctor, build)
         try:
             Engine.reset()
-            Engine.init(seed=seed)
-            RandomGenerator.set_seed(seed)
             self.main.main(self.argv)
         finally:
             setattr(self.pkg, self.ctor, ctor)
             Engine.init = classmethod(init)
-            if env is None:
-                del os.environ["BIGDL_SEED"]
-            else:
-                os.environ["BIGDL_SEED"] = env
             Engine.reset()
 
     def build(self) -> dict:

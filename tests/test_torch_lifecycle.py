@@ -140,8 +140,8 @@ def test_lora_artifact_resolves_as_data(tmp_path):
     tree = reg.resolve_params(vl)
     np.testing.assert_array_equal(tree["attn"]["lora_b"], delta["attn/lora_b"])
     np.testing.assert_array_equal(tree["attn"]["weight"], np.eye(4))
-    with pytest.raises(NotImplementedError, match="A.6"):
-        reg.register_from_elastic(str(tmp_path / "ckpt"))
+    # no elastic version under the path: nothing to publish, as in JAX
+    assert reg.register_from_elastic(str(tmp_path / "ckpt")) is None
 
 
 def test_a_version_crosses_packages_and_serves_the_same_tokens(pair,

@@ -406,3 +406,326 @@ def run_mains(distributed: bool, names=None, models=None) -> dict:
         Optimizer._run_steps = run_steps
         torch.set_num_threads(threads)
     return out
+
+
+# --------------------------------------------------- elastic checkpoints
+def mlp():
+    """The elastic tests' model (JAX's ``tests/test_elastic.py``), its
+    initial weights seeded."""
+    from bigdl_tpu_torch import nn
+    torch.manual_seed(5)
+    return (nn.Sequential().add(nn.Linear(8, 16)).add(nn.ReLU())
+            .add(nn.Linear(16, 3)).add(nn.LogSoftMax()))
+
+
+def record_losses(opt) -> list:
+    """Every step's loss of ``opt`` from now on, appended to the list."""
+    seen: list = []
+    run = opt._run_steps
+
+    def recording(batches):
+        losses = run(batches)
+        seen.extend(losses)
+        return losses
+    opt._run_steps = recording
+    return seen
+
+
+def elastic_opt(samples, ck=None, every=2, n_iter=4, sync="zero1",
+                method=None, rules=None, model=None, backend="elastic",
+                batch=16):
+    """A DistriOptimizer over ``samples`` (the mesh is the Engine's) with
+    an elastic (or pickle) checkpoint every ``every`` iterations."""
+    from bigdl_tpu_torch import nn
+    from bigdl_tpu_torch.dataset import DataSet
+    from bigdl_tpu_torch.dataset.sample import Sample, SampleToMiniBatch
+    from bigdl_tpu_torch.optim import SGD, Trigger
+    from bigdl_tpu_torch.optim.distri_optimizer import DistriOptimizer
+    from bigdl_tpu_torch.utils.random_generator import RandomGenerator
+    RandomGenerator.set_seed(5)
+    data = DataSet.array([Sample(x, y) for x, y in samples],
+                         distributed=True) >> SampleToMiniBatch(batch)
+    opt = (DistriOptimizer(model if model is not None else mlp(), data,
+                           nn.ClassNLLCriterion(), parameter_sync=sync)
+           .set_optim_method(method or SGD(learningrate=0.1, momentum=0.9,
+                                           dampening=0.0))
+           .set_end_when(Trigger.max_iteration(n_iter)))
+    if rules is not None:
+        opt.set_tensor_parallel(rules)
+    if ck is not None:
+        opt.set_checkpoint(ck, Trigger.several_iteration(every),
+                           backend=backend)
+    return opt
+
+
+def _params_of(opt) -> dict:
+    from bigdl_tpu_torch.dryrun import full_params
+    return {n: _np(p).copy() for n, p in full_params(opt).items()}
+
+
+def _resume(samples, ck, n_iter, init=None, **kw) -> dict:
+    """Resume the elastic run under ``ck`` on the Engine's mesh: the
+    restored parameters (before training), the continued losses."""
+    from bigdl_tpu_torch import convert
+    from bigdl_tpu_torch.utils.robustness import events
+    opt = elastic_opt(samples, ck, every=100, n_iter=n_iter, **kw)
+    if init is not None:
+        convert.load_jax_params(opt.model, init)
+    snap = events.snapshot()
+    opt._load_latest_checkpoint()
+    restored = _params_of(opt)
+    losses = record_losses(opt)
+    opt.optimize(resume="auto")
+    return {"restored": restored, "losses": losses,
+            "events": events.deltas(snap)}
+
+
+def elastic_file(spec: dict) -> dict:
+    """Everything ``test_torch_elastic.py`` runs over 4 ranks."""
+    import torch.distributed as dist
+    from bigdl_tpu_torch.optim import SGD
+    from bigdl_tpu_torch.parallel import megatron_mlp_rules
+    from bigdl_tpu_torch.utils.engine import Engine
+    samples, out = spec["samples"], {}
+    rank = dist.get_rank()
+    # JAX's (2, 4) zero1 version 4, resumed at 4 ranks (data only)
+    Engine.reset()
+    Engine.init(backend="cpu", mesh_shape=(4,), mesh_axes=("data",))
+    out["jax_at_4"] = _resume(samples, spec["jax_ck"][4], 8)
+    # the port's tensor-parallel zero1 run on (2, 2), elastic saves
+    rules = megatron_mlp_rules("0", "2")
+    Engine.reset()
+    Engine.init(backend="cpu", mesh_shape=(2, 2),
+                mesh_axes=("data", "model"))
+    opt = elastic_opt(samples, spec["tp_ck"], rules=rules)
+    opt.optimize()
+    opt._join_checkpoint_writer()
+    dist.barrier()
+    out["tp_params"] = _params_of(opt)
+    # ... and the same run through the pickle backend (rank 0 gathers)
+    opt = elastic_opt(samples, spec["tp_pickle"], rules=rules,
+                      backend="pickle", every=4)
+    opt.optimize()
+    opt._join_checkpoint_writer()
+    dist.barrier()
+    # the uninterrupted TP run: the continued losses' reference
+    opt = elastic_opt(samples, None, n_iter=8, rules=rules)
+    out["tp_ref"] = record_losses(opt)
+    opt.optimize()
+    # the TP version resumed on a mesh without "model" (zero1 over 4)
+    Engine.reset()
+    Engine.init(backend="cpu", mesh_shape=(4,), mesh_axes=("data",))
+    out["tp_at_4"] = _resume(samples, spec["tp_ck"], 8)
+    # a pipelined model (2 stages x data 2), elastic and pickle
+    from bigdl_tpu_torch import convert
+    from bigdl_tpu_torch.dryrun import leg_model
+    Engine.reset()
+    Engine.init(backend="cpu", mesh_shape=(2, 2), mesh_axes=("data",
+                                                             "pipe"))
+    for backend, ck in (("elastic", spec["pp_ck"]),
+                        ("pickle", spec["pp_pickle"])):
+        m = leg_model("pp", 2)
+        convert.load_jax_params(m, spec["pp_init"])
+        init = {n: _np(p).copy() for n, p in m.named_parameters()}
+        from bigdl_tpu_torch import nn
+        opt = elastic_opt(spec["pp_samples"], ck, every=2, n_iter=2,
+                          sync="allreduce", model=m, backend=backend,
+                          batch=8)
+        opt.criterion = nn.TimeDistributedCriterion(nn.ClassNLLCriterion(),
+                                                    size_average=True)
+        opt.optimize()
+        opt._join_checkpoint_writer()
+        dist.barrier()
+    m = leg_model("pp", 2)
+    convert.load_jax_params(m, spec["pp_init"])
+    opt = elastic_opt(spec["pp_samples"], None, n_iter=4, sync="allreduce",
+                      model=m, batch=8)
+    opt.criterion = nn.TimeDistributedCriterion(nn.ClassNLLCriterion(),
+                                                size_average=True)
+    out["pp_ref"] = record_losses(opt)
+    opt.optimize()
+    out["rank"] = rank
+    return out
+
+
+def elastic_two(spec: dict) -> dict:
+    """``test_torch_elastic.py``'s 2-rank resumes: JAX's (2, 4) version
+    and the port's TP version at data 2."""
+    from bigdl_tpu_torch.utils.engine import Engine
+    Engine.reset()
+    Engine.init(backend="cpu", mesh_shape=(2,), mesh_axes=("data",))
+    return {"jax_at_2": _resume(spec["samples"], spec["jax_ck"][2], 8)}
+
+
+# ------------------------------------------------------ the host-loss drill
+def _watch_peer(peer_pid: int, argv: list) -> None:
+    """Poll the peer; when it is gone, re-execute this process in the
+    survivor's mode (a real elastic controller restarts the trainer on the
+    shrunk topology; the dead peer leaves the process group unusable)."""
+    import os
+    import sys
+    import time
+    env = dict(os.environ, BIGDL_DRILL_MODE="drill_resume")
+    env.pop("BIGDL_FAULT_PLAN", None)
+    while True:
+        try:
+            os.kill(peer_pid, 0)
+        except OSError:
+            sys.stderr.write(f"peer {peer_pid} is gone: re-executing for "
+                             f"the world-1 elastic resume\n")
+            sys.stderr.flush()
+            os.execve(sys.executable,
+                      [sys.executable, os.path.abspath(__file__)] + argv,
+                      env)
+        time.sleep(0.05)
+
+
+def _drill_samples():
+    rng = np.random.default_rng(0)
+    return [(rng.normal(size=(8,)).astype(np.float32),
+             np.int32(rng.integers(0, 3))) for _ in range(64)]
+
+
+def drill_main(argv: list) -> None:
+    """The host-loss drill's process: ``drill`` (2 gloo ranks, zero1,
+    elastic saves every 2 iterations; ``host_down`` kills rank 1 by the
+    environment's fault plan; rank 0 watches its peer) or
+    ``drill_resume`` (world 1: the restored leaves checked bitwise against
+    the newest complete version, then trained to the end). Writes a JSON
+    result to ``argv[2]``."""
+    import json
+    import os
+    import threading
+    port, rank, out_file = argv[0], int(argv[1]), argv[2]
+    mode = os.environ.get("BIGDL_DRILL_MODE", "drill")
+    torch.set_num_threads(1)
+    from bigdl_tpu_torch.utils import elastic_ckpt
+    from bigdl_tpu_torch.utils.engine import Engine
+    from bigdl_tpu_torch.utils.robustness import events
+    ck, iters = os.environ["BIGDL_DRILL_DIR"], 8
+    if mode == "drill_resume":
+        Engine.init(backend="cpu")
+        snap = events.snapshot()
+        opt = elastic_opt(_drill_samples(), ck, n_iter=iters)
+        versions = elastic_ckpt.complete_versions(ck)
+        saved, _, _ = elastic_ckpt.assemble(os.path.join(
+            ck, elastic_ckpt.version_dirname(versions[-1])))
+        opt._load_latest_checkpoint()
+        from bigdl_tpu_torch import convert
+        flat = convert.flatten_tree(saved["params"])
+        bitwise = all(np.array_equal(_np(p), flat[n])
+                      for n, p in opt.model.named_parameters())
+        resumed_from = int(opt.state["neval"])
+        losses = record_losses(opt)
+        opt.optimize(resume="auto")
+        deltas = events.deltas(snap)
+        with open(out_file, "w") as f:
+            json.dump({"mode": mode, "resumed_from": resumed_from,
+                       "bitwise_equal": bool(bitwise), "losses": losses,
+                       "neval": int(opt.state["neval"]),
+                       "versions_seen": versions,
+                       "elastic_resume_events":
+                           int(deltas.get("elastic_resume", 0)),
+                       "world": Engine.mesh().size}, f)
+        return
+    Engine.init(backend="cpu", coordinator_address=f"localhost:{port}",
+                process_id=rank, node_number=2)
+    if rank == 0:
+        threading.Thread(target=_watch_peer,
+                         args=(int(os.environ["BIGDL_DRILL_PEER"]), argv),
+                         daemon=True).start()
+    opt = elastic_opt(_drill_samples(), ck, n_iter=iters)
+    try:
+        opt.optimize()
+    except RuntimeError:
+        if rank == 0:
+            # gloo saw the peer go first: the watcher re-executes this
+            # process once the peer is gone for good
+            import time
+            time.sleep(60)
+        raise
+    with open(out_file, "w") as f:
+        json.dump({"mode": mode, "completed": True}, f)
+
+
+# ------------------------------------------ the trainer's configurations
+def configs_file(spec: dict) -> dict:
+    """Everything ``test_torch_distributed_configs.py`` runs over 4
+    ranks: LarsSGD and LBFGS under zero1 and fsdp at data 4 and 2, fsdp's
+    bytes, bf16 GPipe."""
+    from bigdl_tpu_torch import convert
+    from bigdl_tpu_torch.optim.optim_method import LBFGS, LarsSGD
+    from bigdl_tpu_torch.utils.engine import Engine
+    out = {}
+    for d in (4, 2):
+        Engine.reset()
+        Engine.init(backend="cpu", mesh_shape=(d, 4 // d),
+                    mesh_axes=("data", "model"))
+        for name in ("lars", "lbfgs"):
+            for sync in ("zero1", "fsdp"):
+                method = (LarsSGD(learningrate=0.1, weightdecay=1e-3)
+                          if name == "lars" else
+                          LBFGS(history=4, learningrate=0.5))
+                m = mlp()
+                convert.load_jax_params(m, spec["init"])
+                opt = elastic_opt(spec["samples"], None, n_iter=3,
+                                  sync=sync, method=method, model=m)
+                losses = record_losses(opt)
+                seen = []
+                if sync == "fsdp":
+                    run = opt._run_steps
+
+                    def with_bytes(batches, run=run, opt=opt, seen=seen):
+                        r = run(batches)
+                        seen.append(opt.fsdp_bytes())
+                        return r
+                    opt._run_steps = with_bytes
+                opt.optimize()
+                out[f"{name}/{sync}/{d}"] = {
+                    "losses": list(losses), "bytes": seen,
+                    "params": {n: _np(p).copy()
+                               for n, p in m.named_parameters()}}
+    # bf16 GPipe (the LM leg's 2 stages on data 2 x pipe 2) and its fp32
+    # twin
+    from bigdl_tpu_torch import nn
+    from bigdl_tpu_torch.dryrun import leg_model
+    from bigdl_tpu_torch.optim import SGD
+    for dtype in (torch.bfloat16, torch.float32):
+        Engine.reset()
+        Engine.init(backend="cpu", mesh_shape=(2, 2),
+                    mesh_axes=("data", "pipe"), compute_dtype=dtype)
+        m = leg_model("pp", 2)
+        convert.load_jax_params(m, spec["pp_init"])
+        init = {n: _np(p).copy() for n, p in m.named_parameters()}
+        opt = elastic_opt(spec["pp_samples"], None, n_iter=2,
+                          sync="allreduce", model=m, batch=8,
+                          method=SGD(learningrate=0.05, momentum=0.9,
+                                     dampening=0.0))
+        opt.criterion = nn.TimeDistributedCriterion(nn.ClassNLLCriterion(),
+                                                    size_average=True)
+        losses = record_losses(opt)
+        # the dtypes this rank's stage computed in: each module that holds
+        # parameters, by its output (containers call ``run``, not hooks)
+        computed = set()
+        for mod in m.modules():
+            if any(True for _ in mod.parameters(recurse=False)):
+                def run(x, state=None, _run=mod.run):
+                    y, s = _run(x, state)
+                    computed.add(str(y.dtype))
+                    return y, s
+                mod.run = run
+        opt.optimize()
+        out[f"gpipe/{dtype}"] = {
+            "loss": losses[-1], "losses": list(losses),
+            "computed": sorted(computed), "init": init,
+            "params": {n: _np(p).copy() for n, p in m.named_parameters()}}
+    Engine.reset()
+    return out
+
+
+if __name__ == "__main__":
+    import sys
+    sys.path.insert(0, __import__("os").path.dirname(
+        __import__("os").path.dirname(__import__("os").path.abspath(
+            __file__))))
+    drill_main(sys.argv[1:])
