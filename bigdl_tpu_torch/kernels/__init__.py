@@ -7,7 +7,8 @@
 | ``flash_attention_fwd`` | ``bigdl_tpu/kernels/flash_attention.py:54`` | ``csrc/flash_attention.cu`` |
 | ``flash_attention_bwd_dq`` | ``bigdl_tpu/kernels/flash_attention.py:132`` | ``csrc/flash_attention_bwd.cu`` |
 | ``flash_attention_bwd_dkv`` | ``bigdl_tpu/kernels/flash_attention.py:199`` | ``csrc/flash_attention_bwd.cu`` |
-| ``nms_sweep`` | none: the greedy pass of ``bigdl_tpu/nn/detection.py:56`` (``nms_mask``'s ``fori_loop``) | ``csrc/nms.cu`` |
+| ``nms_mask_words`` | none: ``pairwise_iou`` of ``bigdl_tpu/nn/detection.py:56`` (``nms_mask``), as 64-bit suppression words of the alive pairs, never a (rows, K, K) IoU tensor | ``csrc/nms.cu`` |
+| ``nms_sweep`` | none: the greedy pass of ``bigdl_tpu/nn/detection.py:56`` (``nms_mask``'s ``fori_loop``), over the words, one warp a row | ``csrc/nms.cu`` |
 
 ``conv_bn.py`` (``FusedConvBNReLU``) is JAX's XLA-level conv-BN fusion,
 ported as a torch module, not a kernel.
@@ -34,11 +35,14 @@ from bigdl_tpu_torch.kernels.layernorm import (
     layer_norm_bwd_cuda, layer_norm_cuda, layer_norm_reference,
 )
 from bigdl_tpu_torch.kernels.nms import (
-    nms_sweep, nms_sweep_cuda, nms_sweep_reference,
+    nms_keep, nms_keep_cuda, nms_keep_reference, nms_mask_words_cuda,
+    nms_mask_words_reference, nms_sweep_reference, nms_sweep_words_cuda,
+    nms_sweep_words_reference,
 )
 
 _COUNTERS = (_layernorm.launches, _layernorm.bwd_launches, _flash.launches,
-             _flash.bwd_dq_launches, _flash.bwd_dkv_launches, _nms.launches)
+             _flash.bwd_dq_launches, _flash.bwd_dkv_launches,
+             _nms.mask_launches, _nms.launches)
 
 
 def launch_counts() -> dict:
@@ -74,6 +78,8 @@ __all__ = [
     "launch_counts", "launch_counts_by_dtype", "launch_counts_by_variant",
     "layer_norm_backward",
     "layer_norm_bwd_cuda",
-    "layer_norm_cuda", "layer_norm_reference", "nms_sweep", "nms_sweep_cuda",
-    "nms_sweep_reference", "reset_launch_counts",
+    "layer_norm_cuda", "layer_norm_reference", "nms_keep", "nms_keep_cuda",
+    "nms_keep_reference", "nms_mask_words_cuda", "nms_mask_words_reference",
+    "nms_sweep_reference", "nms_sweep_words_cuda",
+    "nms_sweep_words_reference", "reset_launch_counts",
 ]

@@ -160,8 +160,10 @@ class KernelLibrary:
         lib.bigdl_flash_attn_bwd_plan.argtypes = \
             [ll, i, i, i, i] + [ctypes.POINTER(i)] * 3
         lib.bigdl_flash_attn_bwd_plan.restype = i
-        lib.bigdl_nms_sweep.argtypes = [p, p, p, ll, i, f, p]
-        lib.bigdl_nms_sweep.restype = i
+        lib.bigdl_nms_mask_words.argtypes = [p, p, p, ll, i, f, p]
+        lib.bigdl_nms_mask_words.restype = i
+        lib.bigdl_nms_sweep_words.argtypes = [p, p, p, ll, i, p]
+        lib.bigdl_nms_sweep_words.restype = i
         lib.bigdl_cuda_error_string.argtypes = [i]
         lib.bigdl_cuda_error_string.restype = ctypes.c_char_p
         lib.bigdl_empty_launch.argtypes = [p]

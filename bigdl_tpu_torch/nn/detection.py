@@ -15,8 +15,10 @@ chain can be captured into one CUDA graph.
   (``torch.nonzero`` reads the count on the host).
 - ``jax.vmap`` over classes and images is a batch dimension written out:
   :func:`nms_mask` takes leading batch dimensions, so all of a call's rows
-  (every class of every image) go to one launch of the greedy sweep
-  (``kernels/nms.py``, ``csrc/nms.cu``).
+  (every class of every image) go to one launch of each NMS kernel
+  (``kernels/nms.py``, ``csrc/nms.cu``). ``pairwise_iou`` is defined
+  beside those kernels, whose suppression words compute it op by op, and
+  is imported here.
 - ``-inf`` padding and ``isfinite`` masks pass through unchanged.
 """
 
@@ -28,6 +30,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from bigdl_tpu_torch.kernels.nms import nms_keep, pairwise_iou
 from bigdl_tpu_torch.nn import layout
 from bigdl_tpu_torch.nn.abstractnn import AbstractModule
 from bigdl_tpu_torch.nn.criterion import _OnDevice
@@ -56,22 +59,6 @@ def _unregistered(owner: torch.nn.Module, name: str, value) -> None:
 
 # --------------------------------------------------------------------- utils
 
-def pairwise_iou(boxes_a: torch.Tensor, boxes_b: torch.Tensor) -> torch.Tensor:
-    """IoU matrix of corner-form boxes: (..., A, 4) × (..., B, 4) →
-    (..., A, B), JAX's arithmetic element by element."""
-    ax1, ay1, ax2, ay2 = (v[..., :, None] for v in boxes_a.unbind(-1))
-    bx1, by1, bx2, by2 = (v[..., None, :] for v in boxes_b.unbind(-1))
-    ix1 = torch.maximum(ax1, bx1)
-    iy1 = torch.maximum(ay1, by1)
-    ix2 = torch.minimum(ax2, bx2)
-    iy2 = torch.minimum(ay2, by2)
-    inter = (ix2 - ix1).clamp(min=0) * (iy2 - iy1).clamp(min=0)
-    area_a = (ax2 - ax1).clamp(min=0) * (ay2 - ay1).clamp(min=0)
-    area_b = (bx2 - bx1).clamp(min=0) * (by2 - by1).clamp(min=0)
-    union = area_a + area_b - inter
-    return torch.where(union > 0, inter / union, torch.zeros_like(inter))
-
-
 def _gather_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """``x[..., idx, :]`` per batch row: x (..., K, D), idx (..., M)."""
     return x.gather(-2, idx[..., None].expand(*idx.shape, x.shape[-1]))
@@ -92,19 +79,18 @@ def nms_mask(boxes: torch.Tensor, scores: torch.Tensor, iou_threshold: float,
     dimensions, every row one list. Returns ``(order, keep)``: ``order``
     (..., K) the score-descending candidate indices (``jnp.argsort(-s)``:
     stable) and ``keep`` (..., K) bool aligned with it. ``valid`` masks
-    padding candidates out before sorting. One launch of the sweep kernel
-    for all rows on the card.
+    padding candidates out before sorting. On the card, the sorted boxes
+    go to the NMS kernels (``kernels.nms.nms_keep``: the suppression words,
+    then the sweep; two launches for all rows, no (..., K, K) IoU tensor).
     """
-    from bigdl_tpu_torch.kernels.nms import nms_sweep
     if valid is not None:
         scores = torch.where(valid, scores, torch.full_like(scores, -math.inf))
     order = torch.sort(-scores, dim=-1, stable=True).indices
     sb = _gather_rows(boxes, order)
-    iou = pairwise_iou(sb, sb)
     alive = torch.isfinite(scores.gather(-1, order))
     lead, k = order.shape[:-1], order.shape[-1]
-    keep = nms_sweep(iou.reshape(-1, k, k).float(), alive.reshape(-1, k),
-                     float(iou_threshold))
+    keep = nms_keep(sb.reshape(-1, k, 4), alive.reshape(-1, k),
+                    float(iou_threshold))
     return order, keep.reshape(*lead, k)
 
 

@@ -35,9 +35,11 @@ import logging
 import math
 import os
 import time
+import warnings
 from typing import Optional
 
 import numpy as np
+import torch
 
 from bigdl_tpu_torch import convert
 from bigdl_tpu_torch.obs import exporter as obs_exporter
@@ -52,6 +54,27 @@ logger = logging.getLogger("bigdl_tpu_torch.lifecycle")
 
 def _env_float(name: str, default: float) -> float:
     return float(os.environ.get(name, default))
+
+
+def _on_device(params, device):
+    """``params`` with every leaf copied to ``device`` when that is a card,
+    on the calling thread (the copies release the GIL). The engine's loop
+    then swaps in device copies: the host leaves of a version (about 200 MB
+    for the full-width LM) copied on the loop held it past its watchdog's
+    limit."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return params
+
+    def leaf(a):
+        if isinstance(a, torch.Tensor):
+            return a.to(device)
+        with warnings.catch_warnings():
+            # a loaded version's arrays are read-only views of the file's
+            # bytes, and they are only read here
+            warnings.simplefilter("ignore", UserWarning)
+            return torch.from_numpy(np.asarray(a)).to(device)
+    return convert.map_tree(leaf, params)
 
 
 class PromotionCriterion:
@@ -210,10 +233,10 @@ class PromotionController:
         model = self.eval_model
         saved = convert.nest(model, {n: p.detach().clone()
                                      for n, p in model.named_parameters()})
+        device = next(model.parameters()).device
         try:
-            convert.load_jax_params(model, params)
-            pairs = Evaluator(
-                model, device=next(model.parameters()).device).test(
+            convert.load_jax_params(model, _on_device(params, device))
+            pairs = Evaluator(model, device=device).test(
                 self.eval_dataset, self.eval_methods,
                 batch_size=self.eval_batch_size)
             value, _count = pairs[0][0].result()
@@ -268,7 +291,8 @@ class PromotionController:
                 return PromotionResult(version, False, reason, metric)
         else:
             reason = "gate bypassed"
-        params = self.registry.resolve_params(version)
+        params = _on_device(self.registry.resolve_params(version),
+                            self.engine.device)
         prev = (self._served_version, self.engine.params_snapshot,
                 self._served_metric)
         swap = self._swap(params, version)

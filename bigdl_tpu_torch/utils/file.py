@@ -82,32 +82,66 @@ def dumps(obj, pickler=None) -> bytes:
 def loads(data: bytes, path: str = "<bytes>"):
     """Inverse of :func:`dumps`, with integrity verification. Accepts the
     footer-less V1 layout and plain pickles for back-compat."""
-    if data.startswith(MAGIC):
-        body = data[len(MAGIC):]
-        if len(body) >= _FOOTER.size \
-                and body[-_FOOTER.size:-_FOOTER.size + len(_CRC_TAG)] == _CRC_TAG:
-            payload = body[:-_FOOTER.size]
-            expected = _FOOTER.unpack(body[-_FOOTER.size:])[1]
-            actual = zlib.crc32(payload)
-            if actual != expected:
-                raise CheckpointCorruptError(
-                    path,
-                    f"{path}: CRC mismatch (expected {expected:#010x}, got "
-                    f"{actual:#010x}) — the file is corrupt")
-        else:
-            payload = body  # pre-CRC writer: header but no footer
-    else:
-        payload = data  # plain pickle fallback (files from other tools)
+    return _read(io.BytesIO(data), len(data), path)
+
+
+#: bytes the CRC pass reads at a time into its one buffer
+_CRC_CHUNK = 8 << 20
+
+
+def _read(f, size: int, path: str):
+    """Verify and unpickle the file-like ``f`` of ``size`` bytes.
+
+    No step holds the GIL for long, so a thread that loads a version
+    beside a serving engine's loop does not stall the loop: the CRC is
+    taken over chunks read into one buffer (``readinto`` and ``crc32``
+    release the GIL for a file), and the pickle is read from ``f`` itself,
+    each array's bytes straight into their object. Slicing the whole
+    payload out of one ``bytes`` object instead made two copies of it and
+    a third array by array, each holding the GIL throughout: a serving
+    engine's loop beside the load of a 200 MB LM version went up to a
+    quarter of a second without a tick."""
+    head = f.read(len(MAGIC))
+    start, end = 0, size
+    if head == MAGIC:
+        start = len(MAGIC)
+        if size - start >= _FOOTER.size:
+            f.seek(size - _FOOTER.size)
+            tag, expected = _FOOTER.unpack(f.read(_FOOTER.size))
+            if tag == _CRC_TAG:
+                end = size - _FOOTER.size
+                actual = _crc(f, start, end)
+                if actual != expected:
+                    raise CheckpointCorruptError(
+                        path,
+                        f"{path}: CRC mismatch (expected {expected:#010x}, "
+                        f"got {actual:#010x}) — the file is corrupt")
+        # else a pre-CRC writer: header but no footer
+    f.seek(start)
     try:
-        return _Unpickler(io.BytesIO(payload)).load()
+        return _Unpickler(f).load()
     except (EOFError, pickle.UnpicklingError, IndexError) as e:
         # a CRC-verified payload that still fails to unpickle means the file
         # was TRUNCATED before the footer existed (torn write without rename
         # protection) or written torn by a crashed process
         raise CheckpointCorruptError(
             path,
-            f"{path}: truncated or torn payload ({len(payload)} bytes "
+            f"{path}: truncated or torn payload ({end - start} bytes "
             f"present; unpickling failed: {e})") from e
+
+
+def _crc(f, start: int, end: int) -> int:
+    """crc32 of ``f``'s bytes ``[start, end)``."""
+    buf = memoryview(bytearray(min(_CRC_CHUNK, end - start)))
+    f.seek(start)
+    crc, left = 0, end - start
+    while left:
+        n = f.readinto(buf[:min(left, len(buf))])
+        if not n:
+            break
+        crc = zlib.crc32(buf[:n], crc)
+        left -= n
+    return crc
 
 
 def _fsync_dir(d: str) -> None:
@@ -154,5 +188,4 @@ def save(obj, path: str, overwrite: bool = True) -> None:
 
 def load(path: str):
     with open(path, "rb") as f:
-        data = f.read()
-    return loads(data, path)
+        return _read(f, os.fstat(f.fileno()).st_size, path)

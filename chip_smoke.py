@@ -67,8 +67,8 @@ an NVIDIA H100 and the CUDA toolkit. It builds the port's CUDA kernels from
    step time and tokens/s beside the fp32 ones, then 17 bf16 steps with
    the flat update and 17 with every block under ``Remat`` (their step
    times; remat's losses within 1e-4 relative of the plain run's);
-7. runs the llama-style path at full width, ``TransformerLM(32000, 512,
-   8, 6)`` with 2 KV heads, RoPE, RMSNorm, SwiGLU and the fused head
+7. runs the llama-style path at full width, depth cut to 3 layers,
+   ``TransformerLM(32000, 512, 8, 3)`` with 2 KV heads, RoPE, RMSNorm, SwiGLU and the fused head
    (``lm_criterion(fused_head=True)``, chunks of 8192): one (2, 256) step
    of a 2-layer, 8192-token llama model on the card against the CPU plain
    model in fp32 (loss 1e-4, gradients 1e-3) and bf16 (1e-2, 5e-2); 17
@@ -329,8 +329,11 @@ at step 4 of epoch 2 resumed onto the same batches bitwise; the trained
 SSD's detections on 32 images against the CPU's head; the SSD main at
 its defaults, held-out IoU > 0.3; Mask R-CNN at COCO test widths, eager
 and replayed bitwise, against the CPU's detections; every eager NMS
-launch held against the plain sweep). The kernel table has the NMS
-kernel's row (``nms_sweep``) at the path's three shapes. Phase 20
+call's words and keep bits held against the plain versions). The kernel
+table has the NMS kernels' rows (``nms_mask_words``, ``nms_sweep``) at the
+path's shapes, ``nms_keep`` (both) beside its bound (the IoUs this
+data needs: ``nms_pairs``), the old path's plain version, the card's
+``pairwise_iou`` alone and ``nms_keep``'s peak device memory. Phase 20
 (``paths.images``, all 0: no ported kernel lies on it) builds the host
 image codec with ``g++``, decodes every fixture of
 ``tests/torch_image_fixtures/`` against the SHA-256 of PIL's decode
@@ -434,6 +437,10 @@ DRAFT_WIDTH = (256, 4, 2)            # embed, heads, layers
 # JAX training main's options (bigdl_tpu/models/transformerlm/train.py)
 LLAMA = dict(num_kv_heads=2, position="rope", norm="rms", mlp_kind="swiglu",
              fused_head=True)
+# its depth, cut from the leg's 6 for the full run's time limit (its solo
+# greedy_generate references step every prompt a position at a time:
+# 66 s of the phase at 6 layers)
+LLAMA_LAYERS = 3
 BEAM, BEAM_SEED, BEAM_DECODE = 3, 128, 32
 BEAM_SHAPE = (BEAM, HEADS, BEAM_SEED + BEAM_DECODE, 64)
 HEAD_CHUNK = 8192                                # lm_criterion's default
@@ -442,6 +449,12 @@ PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}   # fp32 non-tensor, bf16
 TF32_FLOPS = 495e12                             # tensor cores, dense
 SM_CLOCK_HZ = 1.98e9                            # H100 SXM boost clock
 L2_BYTES = 50e6                                 # H100 SXM L2 cache
+# fp32 lanes: 132 SMs x 128 lanes at the boost clock, an FMA one operation
+# (PEAK_FLOPS counts it as two): the rate of the NMS words' IoU arithmetic
+FP32_OPS = 132 * 128 * SM_CLOCK_HZ
+NMS_IOU_OPS = 13           # pairwise_iou's fp32 operations a pair
+# the detection path's kernels: every other path launches neither
+NMS_KERNELS = ("nms_mask_words", "nms_sweep")
 # phase 15: LoRA fine-tuning and serving of the full-width LM, and the
 # seq2seq Transformer
 LORA_RANK = 8                      # adapters of every attention and Linear
@@ -1680,19 +1693,20 @@ def train(TransformerLM, lm_criterion, kernels, card, bf16=False,
     log(f"  launches on the training path ({what}): {by_dtype} "
         f"({ {k: v / TRAIN_ITERS for k, v in counts.items()} } a step)")
     for name, n in counts.items():
-        if n == 0 and name != "nms_sweep" and not (
+        if n == 0 and name not in NMS_KERNELS and not (
                 llama and name.startswith("layer_norm")):
             raise CheckFailed(f"the training path never launched {name}")
     # LN: two a block, one final (none with RMSNorm); under remat a block's
     # forward kernels run again when its backward recomputes it
     runs = 2 if remat else 1
     norms = 0 if llama else 1
-    ln_per_run = (2 * LAYERS + 1) * TRAIN_ITERS * norms
-    ln_fwd = (2 * LAYERS * runs + 1) * TRAIN_ITERS * norms
-    flash_fwd = LAYERS * runs * TRAIN_ITERS
+    layers = LLAMA_LAYERS if llama else LAYERS
+    ln_per_run = (2 * layers + 1) * TRAIN_ITERS * norms
+    ln_fwd = (2 * layers * runs + 1) * TRAIN_ITERS * norms
+    flash_fwd = layers * runs * TRAIN_ITERS
     if (counts["layer_norm_fwd"] != ln_fwd
-            or counts["flash_attention_bwd_dq"] != LAYERS * TRAIN_ITERS
-            or counts["flash_attention_bwd_dkv"] != LAYERS * TRAIN_ITERS
+            or counts["flash_attention_bwd_dq"] != layers * TRAIN_ITERS
+            or counts["flash_attention_bwd_dkv"] != layers * TRAIN_ITERS
             or counts["layer_norm_bwd"] != ln_per_run
             or counts["flash_attention_fwd"] != flash_fwd or plain_calls):
         raise CheckFailed(f"the training path ({what}) launched "
@@ -1765,9 +1779,10 @@ def compare_eager(what, losses, lm, counts, ref, bf16,
 # ---------------------------------------------------------------- phase 7
 def build_llama_lm(TransformerLM, attention_impl, device, remat=False,
                    max_len=TRAIN_LEN, dropout=0.0):
-    """The llama-style model at full width: ``TransformerLM(32000, 512, 8,
-    6)`` with 2 KV heads, RoPE, RMSNorm, SwiGLU and the fused head."""
-    return TransformerLM(VOCAB, EMBED, HEADS, LAYERS, max_len,
+    """The llama-style model at full width, its depth cut:
+    ``TransformerLM(32000, 512, 8, LLAMA_LAYERS)`` with 2 KV heads, RoPE,
+    RMSNorm, SwiGLU and the fused head."""
+    return TransformerLM(VOCAB, EMBED, HEADS, LLAMA_LAYERS, max_len,
                          dropout=dropout, remat=remat,
                          attention_impl=attention_impl,
                          generator=torch.Generator().manual_seed(SEED + 8),
@@ -2019,10 +2034,10 @@ def llama_path(TransformerLM, lm_criterion, nn, kernels, card,
         f"{engine_cache / 1e6:.1f} MB ({LLAMA['num_kv_heads']} KV heads; "
         f"{mha_cache / 1e6:.1f} MB with {HEADS}); launches {launches} "
         f"(full forward {fwd_counts})")
-    if launches["flash_attention_fwd"] != LAYERS * (1 + BEAM_DECODE):
+    if launches["flash_attention_fwd"] != LLAMA_LAYERS * (1 + BEAM_DECODE):
         raise CheckFailed(f"the llama serving path launched the flash "
                           f"forward {launches['flash_attention_fwd']} times, "
-                          f"not {LAYERS * (1 + BEAM_DECODE)}")
+                          f"not {LLAMA_LAYERS * (1 + BEAM_DECODE)}")
     del lm
     torch.cuda.empty_cache()
     beam_counts = {k: launches[k] - serve_counts[k] for k in launches}
@@ -4187,7 +4202,7 @@ def feed_path(TransformerLM, lm_criterion, kernels, card, Engine):
     out["launches"] = kernels.launch_counts()   # ... to here
     log(f"  launches on the feed's LM path: {out['launches']}")
     for name, n in out["launches"].items():
-        if n == 0 and name != "nms_sweep":
+        if n == 0 and name not in NMS_KERNELS:
             raise CheckFailed(f"phase 12's LM path never launched {name}")
     shutil.rmtree(work_root() / "phase12",
                   ignore_errors=True)
@@ -4793,7 +4808,7 @@ def stack_launches(total: dict) -> dict:
     if engines["layer_norm_fwd"] <= 0 or min(engines.values()) < 0:
         raise CheckFailed(f"phase 14's engines launched {engines}")
     idle = [k for k, n in parts["trainer"].items()
-            if n == 0 and k != "nms_sweep"]
+            if n == 0 and k not in NMS_KERNELS]
     if idle:
         raise CheckFailed(f"phase 14's trainer never launched {idle}")
     return dict(parts, path=path, engines=engines)
@@ -5809,7 +5824,7 @@ def lora_training(TransformerLM, lm_criterion, nn, kernels, card, Engine,
             if bf16:
                 Engine.reset()
         idle = [k for k, n in run["launches"].items()
-                if n == 0 and k != "nms_sweep"]
+                if n == 0 and k not in NMS_KERNELS]
         if idle:
             raise CheckFailed(f"the LoRA path ({key}) never launched {idle}")
         for k, n in run["launches"].items():
@@ -6124,7 +6139,7 @@ def seq2seq_path(kernels, card, Engine):
                 variants.setdefault(name, {})
                 variants[name][v] = variants[name].get(v, 0) + n
         idle = [k for k, n in run["launches"].items()
-                if n == 0 and k != "nms_sweep"]
+                if n == 0 and k not in NMS_KERNELS]
         if idle:
             raise CheckFailed(f"the seq2seq path ({key}) never launched "
                               f"{idle}")
@@ -8238,8 +8253,8 @@ def ssd_main_run(card) -> dict:
 def maskrcnn_run(kernels, Program, card) -> dict:
     """Mask R-CNN at Detectron's R-50-FPN test settings on one seeded image,
     fp32: eager and as a captured program (replay bitwise eager), its
-    detections against the CPU's under the margin rule, 4 NMS launches an
-    image."""
+    detections against the CPU's under the margin rule, 4 launches of each
+    NMS kernel an image."""
     from bigdl_tpu_torch.models.maskrcnn import MaskRCNN
 
     def build(device, gain=1.0):
@@ -8275,9 +8290,9 @@ def maskrcnn_run(kernels, Program, card) -> dict:
     x = img.to(DEVICE)
     fn(x)
     sync()
-    before = kernels.launch_counts()["nms_sweep"]
+    before = kernels.launch_counts()
     eager = fn(x)
-    n_nms = kernels.launch_counts()["nms_sweep"] - before
+    n_nms = {k: kernels.launch_counts()[k] - before[k] for k in NMS_KERNELS}
     with nms_unchecked():
         eager_ms = time_ms(lambda: fn(x), 2, 3)[0] \
             if DEVICE != "cpu" else None
@@ -8292,9 +8307,9 @@ def maskrcnn_run(kernels, Program, card) -> dict:
         if not (prog.captured and out["replay_bitwise"]):
             raise CheckFailed("the Mask R-CNN replay differs from its eager "
                               "run")
-        if n_nms != 4:
-            raise CheckFailed(f"Mask R-CNN launched the NMS kernel {n_nms} "
-                              f"times an image, not 4")
+        if set(n_nms.values()) != {4}:
+            raise CheckFailed(f"Mask R-CNN launched the NMS kernels {n_nms} "
+                              f"times an image, not 4 each")
         del prog
     ref = build("cpu", gain)
     with torch.no_grad():
@@ -8328,59 +8343,160 @@ def nms_unchecked():
 
 @contextlib.contextmanager
 def nms_checked():
-    """Hold every eager launch of the NMS kernel against its plain version
-    on the same inputs (keep bits equal), and keep the last inputs of each
-    shape for the kernel's timing; launches inside a capture are left to
-    the replay checks."""
+    """Hold every eager ``nms_keep`` call on the card against the plain
+    versions on the same inputs (the words bitwise, then the sweep's keep
+    bits), and keep the last inputs of each shape for the kernels' timing;
+    calls inside a capture are left to the replay checks."""
     import importlib
     mod = importlib.import_module("bigdl_tpu_torch.kernels.nms")
-    launch = mod.nms_sweep_cuda
+    launch = mod.nms_keep_cuda
     stats = {"checked": 0, "rows": 0, "inputs": {}}
 
-    def checked(iou, alive, thr):
-        keep = launch(iou, alive, thr)
-        if not (_NMS_CHECKS["paused"]
-                or torch.cuda.is_current_stream_capturing()):
-            want = mod.nms_sweep_reference(iou, alive, thr)
-            if not torch.equal(keep, want):
-                raise CheckFailed(f"the NMS kernel's keep bits differ from "
-                                  f"the plain version's at "
-                                  f"{tuple(iou.shape)}")
-            stats["checked"] += 1
-            stats["rows"] += iou.shape[0]
-            stats["inputs"][tuple(iou.shape[:2])] = (iou.clone(),
-                                                     alive.clone(), thr)
+    def checked(boxes, alive, thr):
+        if _NMS_CHECKS["paused"] or torch.cuda.is_current_stream_capturing():
+            return launch(boxes, alive, thr)
+        words = mod.nms_mask_words_cuda(boxes, alive, thr)
+        keep = mod.nms_sweep_words_cuda(words, alive)
+        if not torch.equal(words, mod.nms_mask_words_reference(boxes, alive,
+                                                               thr)):
+            raise CheckFailed(f"the NMS words differ from the plain "
+                              f"version's at {tuple(boxes.shape)}")
+        if not torch.equal(keep, mod.nms_sweep_words_reference(words,
+                                                               alive)):
+            raise CheckFailed(f"the NMS sweep's keep bits differ from the "
+                              f"plain version's at {tuple(boxes.shape)}")
+        stats["checked"] += 1
+        stats["rows"] += boxes.shape[0]
+        stats["inputs"][tuple(boxes.shape[:2])] = (boxes.clone(),
+                                                   alive.clone(), thr)
         return keep
 
-    mod.nms_sweep_cuda = checked
+    mod.nms_keep_cuda = checked
     try:
         yield stats
     finally:
-        mod.nms_sweep_cuda = launch
+        mod.nms_keep_cuda = launch
+
+
+def nms_pairs(boxes, alive, keep, thr) -> tuple:
+    """The IoUs this data needs: the words hold one for every pair of alive
+    candidates; the greedy pass needs, for each alive candidate i, one
+    against each kept j < i up to the first that removes it (all of them
+    where i is kept)."""
+    from bigdl_tpu_torch.kernels.nms import pairwise_iou
+    n = alive.sum(1).double()
+    alive_pairs = float((n * (n - 1) / 2).sum())
+    k = alive.shape[1]
+    idx = torch.arange(k, device=alive.device)
+    sup = (pairwise_iou(boxes, boxes).float() > thr) & keep[:, :, None] \
+        & (idx[:, None] < idx[None, :])                  # (rows, j, i)
+    upto = torch.cumsum(keep.long(), 1)                  # kept j <= this j
+    first = torch.where(sup.any(1), sup.int().argmax(1),
+                        torch.clamp(idx - 1, min=0)[None])
+    need = torch.where(sup.any(1) | (idx > 0)[None],
+                       upto.gather(1, first), torch.zeros_like(upto))
+    return alive_pairs, float((need * alive).sum())
+
+
+def nms_bounds(boxes, alive, words, keep, thr) -> dict:
+    """Least times on the card (ms, by) for the NMS work of these inputs:
+    the words (the boxes and alive flags read and the words written, or
+    the IoU arithmetic of every pair of alive candidates at NMS_IOU_OPS
+    fp32 operations on FP32_OPS), the sweep (the alive flags read, the keep
+    flags written, and the words a kept candidate's row holds from its own
+    block on, what the greedy pass must read of this data) and the whole
+    function, sorted boxes to keep flags (boxes, alive and keep flags, or
+    the IoUs the greedy pass needs of this data, ``nms_pairs``)."""
+    rows, k = alive.shape
+    w = words.shape[-1]
+    alive_pairs, greedy_pairs = nms_pairs(boxes, alive, keep, thr)
+    flags = 2 * rows * k
+    blocks = torch.arange(k, device=keep.device) // 64
+    read = float(((w - blocks) * keep).sum()) * 8
+
+    def ops_ms(pairs):
+        return pairs * NMS_IOU_OPS / FP32_OPS * 1e3
+
+    def larger(nbytes, t_ops):
+        t = nbytes / HBM_BYTES_PER_S * 1e3
+        return (t, "bytes") if t >= t_ops else (t_ops, "operations")
+    return {"words": larger(boxes.numel() * 4 + rows * k + words.numel() * 8,
+                            ops_ms(alive_pairs)),
+            "sweep": larger(flags + read, 0.0),
+            "keep": larger(boxes.numel() * 4 + flags, ops_ms(greedy_pairs)),
+            "alive_pairs": alive_pairs, "greedy_pairs": greedy_pairs,
+            "all_pairs": rows * k * (k - 1) / 2}
+
+
+def peak_mib(fn) -> float:
+    """Device memory one call of ``fn`` allocates at its peak, beyond what
+    was allocated before it (MiB)."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    del out
+    return (torch.cuda.max_memory_allocated() - base) / 2**20
 
 
 def nms_rows(kernels, inputs: dict, card) -> list:
-    """The NMS kernel at the path's shapes, on the path's own inputs: its
-    time beside the plain version's and its bytes bound (the alive flags
-    read, the keep flags written, and the IoU entries the sweep reads: row
-    j past the diagonal for each kept j). No PyTorch call computes the
-    greedy sweep (``library_ms`` null)."""
+    """The NMS kernels at the path's shapes, on the path's own inputs: the
+    words, the sweep and ``nms_keep`` (both) each beside its bound and its
+    plain version; the old path's plain version (the IoU tensor and its
+    sweep), the card's ``pairwise_iou`` alone (``iou_ms``, what the old
+    path formed before its sweep) and ``nms_keep``'s peak device memory.
+    No PyTorch call computes the greedy sweep (``library_ms`` null)."""
+    from bigdl_tpu_torch.kernels.nms import pairwise_iou
     rows = []
-    for (r, k), (iou, alive, thr) in sorted(inputs.items()):
-        keep = kernels.nms_sweep_cuda(iou, alive, thr)
-        want = kernels.nms_sweep_reference(iou, alive, thr)
-        j = torch.arange(k, device=keep.device)
-        read = float(((k - 1 - j) * keep).sum()) * 4
-        b, by = bound_ms(2 * r * k + read, 0.0, "float32")
-        ms = time_ms(lambda: kernels.nms_sweep_cuda(iou, alive, thr), 5, 3)[0]
-        plain = time_ms(lambda: kernels.nms_sweep_reference(iou, alive, thr),
-                        1, 3)[0]
-        row = {"rows": r, "k": k, "ms": ms, "plain_ms": plain,
-               "bound_ms": b, "bound_by": by, "library_ms": None,
-               "max_abs_err": float((keep != want).sum()),
-               "kept": int(keep.sum())}
-        log(f"  nms_sweep ({r}, {k}): {ms:.4f} ms, plain {plain:.3f} ms, "
-            f"bound {b:.5f} ms ({by}), {row['kept']} kept [{card}]")
+    for (r, k), (boxes, alive, thr) in sorted(inputs.items()):
+        words = kernels.nms_mask_words_cuda(boxes, alive, thr)
+        keep = kernels.nms_sweep_words_cuda(words, alive)
+        want = kernels.nms_keep_reference(boxes, alive, thr)
+        bad = int((words != kernels.nms_mask_words_reference(
+            boxes, alive, thr)).sum()) + int((keep != want).sum())
+        if bad:
+            raise CheckFailed(f"the NMS kernels at ({r}, {k}): {bad} words "
+                              f"and keep flags differ from the plain "
+                              f"versions'")
+        bounds = nms_bounds(boxes, alive, words, keep, thr)
+        t = {"words_ms": lambda: kernels.nms_mask_words_cuda(boxes, alive,
+                                                             thr),
+             "sweep_ms": lambda: kernels.nms_sweep_words_cuda(words, alive),
+             "ms": lambda: kernels.nms_keep_cuda(boxes, alive, thr),
+             "iou_ms": lambda: pairwise_iou(boxes, boxes).float()}
+        row = {"rows": r, "k": k, **{n: time_ms(f, 5, 3)[0]
+                                     for n, f in t.items()}}
+        plain = {"words_plain_ms": lambda: kernels.nms_mask_words_reference(
+                     boxes, alive, thr),
+                 "sweep_plain_ms": lambda: kernels.nms_sweep_words_reference(
+                     words, alive),
+                 "plain_ms": lambda: kernels.nms_keep_reference(boxes, alive,
+                                                                thr)}
+        row.update({n: time_ms(f, 1, 3)[0] for n, f in plain.items()})
+        row.update({"bound_ms": bounds["keep"][0],
+                    "bound_by": bounds["keep"][1],
+                    "words_bound_ms": bounds["words"][0],
+                    "words_bound_by": bounds["words"][1],
+                    "sweep_bound_ms": bounds["sweep"][0],
+                    "sweep_bound_by": bounds["sweep"][1],
+                    **{n: bounds[n] for n in ("alive_pairs", "greedy_pairs",
+                                              "all_pairs")},
+                    "peak_mib": peak_mib(
+                        lambda: kernels.nms_keep_cuda(boxes, alive, thr)),
+                    "library_ms": None, "max_abs_err": float(bad),
+                    "kept": int(keep.sum()), "alive": int(alive.sum())})
+        log(f"  nms_keep ({r}, {k}): {row['ms']:.4f} ms (words "
+            f"{row['words_ms']:.4f}, sweep {row['sweep_ms']:.4f}), bound "
+            f"{row['bound_ms']:.5f} ms ({row['bound_by']}; words "
+            f"{row['words_bound_ms']:.5f} {row['words_bound_by']}, sweep "
+            f"{row['sweep_bound_ms']:.5f}); IoUs needed {row['greedy_pairs']:.0f}"
+            f" (greedy), {row['alive_pairs']:.0f} (alive pairs) of "
+            f"{row['all_pairs']:.0f}; plain {row['plain_ms']:.3f} ms (words "
+            f"{row['words_plain_ms']:.3f}, sweep {row['sweep_plain_ms']:.3f})"
+            f"; the card's pairwise_iou alone {row['iou_ms']:.4f} ms; peak "
+            f"{row['peak_mib']:.3f} MiB; {row['kept']} kept of "
+            f"{row['alive']} alive [{card}]")
         rows.append(row)
     return rows
 
@@ -8406,11 +8522,14 @@ def detection_path(kernels, card, Program) -> dict:
             out["maskrcnn"] = maskrcnn_run(kernels, Program, card)
             out["launches"] = kernels.launch_counts()
         out["nms_checked"] = {k: checked[k] for k in ("checked", "rows")}
-        log(f"  every eager NMS launch held against the plain version: "
-            f"{out['nms_checked']}; launches {out['launches']}")
-        if DEVICE != "cpu" and out["launches"]["nms_sweep"] == 0:
-            raise CheckFailed("phase 19 never launched the NMS kernel")
-        lm = {k: n for k, n in out["launches"].items() if k != "nms_sweep"}
+        log(f"  every eager NMS call's words and keep bits held against the "
+            f"plain versions: {out['nms_checked']}; launches "
+            f"{out['launches']}")
+        idle = [k for k in NMS_KERNELS if out["launches"][k] == 0]
+        if DEVICE != "cpu" and idle:
+            raise CheckFailed(f"phase 19 never launched {idle}")
+        lm = {k: n for k, n in out["launches"].items()
+              if k not in NMS_KERNELS}
         if any(lm.values()):
             raise CheckFailed(f"phase 19 launched the LM kernels {lm}")
         out["nms_rows"] = nms_rows(kernels, checked["inputs"], card) \
@@ -8424,26 +8543,44 @@ def detection_path(kernels, card, Program) -> dict:
     return out
 
 
-def nms_row(detection: dict, paths: dict, src: str) -> dict:
-    """The NMS kernel's row of the kernel table: the SSD serving shape
-    (640 rows of K = 400) as its main instance, every path shape beside."""
+def nms_table_rows(detection: dict, paths: dict, src: str) -> list:
+    """The NMS kernels' rows of the kernel table: the SSD serving shape
+    (640 rows of K = 400) as their main instance, every path shape beside
+    (``nms_keep``, both launches, in the sweep's row)."""
     rows = detection["nms_rows"]
-    main_row = next(r for r in rows if r["k"] == 400)
-    return {"name": "nms_sweep", "route": "cuda", "source": src + "nms.cu",
-            "replaces": "none: the greedy pass of bigdl_tpu/nn/detection.py:"
-                        "56 (nms_mask's lax.fori_loop), no Pallas kernel",
-            "launches": detection["launches"]["nms_sweep"],
-            "shape": [main_row["rows"], main_row["k"], main_row["k"]],
-            "dtype": "float32", "max_abs_err": main_row["max_abs_err"],
-            "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
-            "bound_ms": main_row["bound_ms"],
-            "bound_by": main_row["bound_by"], "library_ms": None,
-            "shapes": rows, "paths": paths,
-            "checked_launches": detection["nms_checked"],
-            "design": "one CTA a row, the keep flags in shared memory; K "
-                      "sequential steps, each a block-wide barrier when its "
-                      "candidate is kept, reading row j of the IoU matrix "
-                      "past the diagonal"}
+    main = next(r for r in rows if r["k"] == 400)
+    common = {"route": "cuda", "source": src + "nms.cu",
+              "shape": [main["rows"], main["k"], 4], "dtype": "float32",
+              "max_abs_err": main["max_abs_err"], "library_ms": None,
+              "checked_calls": detection["nms_checked"]}
+    return [
+        dict(common, name="nms_mask_words",
+             replaces="none: pairwise_iou and the suppression test of "
+                      "bigdl_tpu/nn/detection.py:56 (nms_mask), no Pallas "
+                      "kernel",
+             launches=detection["launches"]["nms_mask_words"],
+             ms=main["words_ms"], plain_ms=main["words_plain_ms"],
+             bound_ms=main["words_bound_ms"],
+             bound_by=main["words_bound_by"],
+             paths=paths["nms_mask_words"],
+             design="CTAs over (row, 64-block of j, 64-block of i >= j's), "
+                    "64 threads; the alive i boxes and areas in shared "
+                    "memory; thread j writes one 64-bit word of IoU > thr "
+                    "bits of alive pairs, each IoU step a separately "
+                    "rounded fp32 op; dead candidates' IoUs never computed"),
+        dict(common, name="nms_sweep",
+             replaces="none: the greedy pass of bigdl_tpu/nn/detection.py:"
+                      "56 (nms_mask's lax.fori_loop), no Pallas kernel",
+             launches=detection["launches"]["nms_sweep"],
+             ms=main["sweep_ms"], plain_ms=main["sweep_plain_ms"],
+             bound_ms=main["sweep_bound_ms"],
+             bound_by=main["sweep_bound_by"],
+             paths=paths["nms_sweep"], shapes=rows,
+             design="one warp a row, the removed bits in shared memory; "
+                    "a 64-block's candidates resolved in registers from "
+                    "their diagonal words, then the kept rows' later words "
+                    "ORed across lanes; W block steps, no block barrier"),
+    ]
 
 
 # ----------------------------------------------------------------- phase 20
@@ -9396,6 +9533,10 @@ def elastic_drill_start(tmp: Path) -> dict:
                           stdout=logs[0], stderr=subprocess.STDOUT)
     for f in logs:
         f.close()
+    # reap rank 1 the moment host_down kills it: until its parent waits, it
+    # is a zombie, os.kill(pid, 0) still finds it, and the survivor's
+    # watcher would not re-execute before elastic_drill_finish waits
+    threading.Thread(target=p1.wait, daemon=True).start()
     return {"p0": p0, "p1": p1, "outs": outs, "ck": ck, "t0": t0}
 
 
@@ -9887,7 +10028,7 @@ def main() -> int:
     robust_counts = kernels.launch_counts()    # ... to here
     log(f"  launches: {robust_counts}")
     for name, n in robust_counts.items():
-        if n == 0 and name != "nms_sweep":
+        if n == 0 and name not in NMS_KERNELS:
             raise CheckFailed(f"phase 11 never launched {name}")
     robust["launches"] = robust_counts
 
@@ -10191,7 +10332,7 @@ def main() -> int:
          "seq2seq": s2s_flash(bwd_rows, "flash_attention_bwd_dkv"),
          "design": design_of("flash_bwd_dkv_kernel", bwd["plans"][1],
                              bwd_summary)},
-        nms_row(detection, paths["nms_sweep"], src),
+        *nms_table_rows(detection, paths, src),
     ], "serving": {"programs": programs, "first_round": cold,
                    "second_round": warm,
                    "decode_step_eager": eager_step,

@@ -605,7 +605,8 @@ def test_lora_step_replays_equal_eager(cuda, dtype):
     for (name, p), q in zip(lm.named_parameters(), ref.parameters()):
         assert torch.equal(p, q), name
         assert torch.equal(p, base[name]) == (scales[name] == 0.0), name
-    assert all(n > 0 for k, n in counts.items() if k != "nms_sweep"), counts
+    assert all(n > 0 for k, n in counts.items()
+               if k not in ("nms_mask_words", "nms_sweep")), counts
 
 
 def _seq2seq(gen_seed=0):
@@ -803,11 +804,16 @@ def test_detection_ssd_step_replays_equal_eager(cuda):
         assert torch.equal(p, q), name
 
 
+def _nms_counts() -> tuple:
+    counts = kernels.launch_counts()
+    return counts["nms_mask_words"], counts["nms_sweep"]
+
+
 def test_detection_maskrcnn_forward_captures_and_replays_bitwise(cuda):
-    """Mask R-CNN's whole forward (the RPN's three NMS launches, the class
-    rows' one launch, the poolers) runs with no host sync and captures as
-    one program whose replay on a new image equals its eager run, with
-    four NMS launches an image."""
+    """Mask R-CNN's whole forward (the RPN's three NMS calls, the class
+    rows' one, the poolers) runs with no host sync and captures as one
+    program whose replay on a new image equals its eager run, with four
+    launches of each NMS kernel an image."""
     from bigdl_tpu_torch.models.maskrcnn import MaskRCNN
     model = MaskRCNN(5, image_size=(64, 64), out_channels=8,
                      post_nms_topn=30, max_per_image=10,
@@ -823,18 +829,18 @@ def test_detection_maskrcnn_forward_captures_and_replays_bitwise(cuda):
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
-        before = kernels.launch_counts()["nms_sweep"]
+        before = _nms_counts()
         fn(x)
-        assert kernels.launch_counts()["nms_sweep"] == before + 4
+        assert _nms_counts() == tuple(n + 4 for n in before)
     finally:
         torch.cuda.set_sync_debug_mode("default")
     prog = Program(("maskrcnn",), fn, (x.clone(),), "cuda")
     prog()
     new = torch.randn(1, 3, 64, 64, device="cuda")
     prog.inputs[0].copy_(new)
-    before = kernels.launch_counts()["nms_sweep"]
+    before = _nms_counts()
     got = [t.clone() for t in prog()]
-    assert prog.captured and kernels.launch_counts()["nms_sweep"] == before + 4
+    assert prog.captured and _nms_counts() == tuple(n + 4 for n in before)
     for g, w in zip(got, fn(new)):
         assert torch.equal(g, w)
 

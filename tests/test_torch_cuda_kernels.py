@@ -679,38 +679,82 @@ def test_flat_update_on_the_card_is_bitwise_the_per_leaf_update(cuda,
 
 
 def _nms_inputs(g, rows, k, ties=False, dead_rows=()):
-    """Score-sorted IoU matrices of random boxes, as ``nn.nms_mask`` builds
-    them, and their alive flags (some candidates dead, whole rows dead)."""
-    from bigdl_tpu_torch.nn.detection import pairwise_iou
+    """Score-sorted boxes as ``nn.nms_mask`` hands them to the kernels,
+    and their alive flags: random boxes (duplicates of their neighbours
+    with ``ties``), every fifth candidate degenerate (zero area, inverted,
+    +-inf or NaN coordinates), some candidates dead and whole rows dead."""
     xy = torch.rand(rows, k, 2, generator=g, device="cuda") * 0.8
     wh = 0.02 + 0.2 * torch.rand(rows, k, 2, generator=g, device="cuda")
     boxes = torch.cat([xy, xy + wh], -1)
+    bad = torch.tensor([[0.3, 0.3, 0.3, 0.5], [0.5, 0.5, 0.4, 0.4],
+                        [0.1, 0.1, float("inf"), 0.3],
+                        [-float("inf"), 0.1, 0.2, 0.2],
+                        [float("nan"), 0.1, 0.2, 0.2],
+                        [0.1, 0.1, 0.2, float("nan")]], device="cuda")
+    idx = torch.arange(0, k, 5, device="cuda")
+    boxes[:, idx] = bad[idx % len(bad)]
     scores = torch.rand(rows, k, generator=g, device="cuda")
     if ties:
         scores = torch.round(scores * 8) / 8
+        boxes[:, 1::2] = boxes[:, 0:k - 1:2]
     alive = torch.rand(rows, k, generator=g, device="cuda") > 0.2
     for r in dead_rows:
         alive[r] = False
     order = torch.sort(-scores, dim=-1, stable=True).indices
     sb = boxes.gather(1, order[..., None].expand(rows, k, 4))
-    return pairwise_iou(sb, sb).contiguous(), alive.gather(1, order)
+    return sb.contiguous(), alive.gather(1, order)
 
 
 @pytest.mark.parametrize("rows,k", [(640, 400), (80, 999), (1, 1333),
                                     (3, 1)])
 @pytest.mark.parametrize("ties", [False, True])
 def test_nms_sweep_matches_plain(cuda, rows, k, ties):
+    """Each launch against its plain version on the same inputs: the
+    suppression words bitwise, then the sweep's keep bits (also over words
+    that hold the dead candidates' bits, which the sweep never reads), and
+    the two together against the IoU sweep."""
     g = torch.Generator(device=cuda).manual_seed(rows * 7 + k)
     dead = (0,) if rows > 1 else ()
-    iou, alive = _nms_inputs(g, rows, k, ties, dead_rows=dead)
-    before = kernels.launch_counts()["nms_sweep"]
-    got = kernels.nms_sweep(iou, alive, 0.45)
-    assert kernels.launch_counts()["nms_sweep"] == before + 1
-    want = kernels.nms_sweep_reference(iou, alive, 0.45)
-    assert got.dtype == torch.bool and torch.equal(got, want)
-    assert not dead or not got[0].any()
+    boxes, alive = _nms_inputs(g, rows, k, ties, dead_rows=dead)
+    every = torch.ones_like(alive)
+    counts = kernels.launch_counts()
+    for a in (alive, every):
+        words = kernels.nms_mask_words_cuda(boxes, a, 0.45)
+        want_words = kernels.nms_mask_words_reference(boxes, a, 0.45)
+        assert words.dtype == torch.int64 and torch.equal(words, want_words)
+        got = kernels.nms_sweep_words_cuda(want_words, alive)
+        want = kernels.nms_sweep_words_reference(want_words, alive)
+        assert got.dtype == torch.bool and torch.equal(got, want)
+    keep = kernels.nms_keep(boxes, alive, 0.45)
+    after = kernels.launch_counts()
+    assert after["nms_mask_words"] == counts["nms_mask_words"] + 3
+    assert after["nms_sweep"] == counts["nms_sweep"] + 3
+    assert torch.equal(keep, kernels.nms_keep_reference(boxes, alive, 0.45))
+    assert torch.equal(keep, want)
+    assert not dead or not keep[0].any()
     if k > 1:
-        assert 0 < int(got.sum()) < int(alive.sum())
+        assert 0 < int(keep.sum()) < int(alive.sum())
+
+
+@pytest.mark.parametrize("thr", [0.5, 0.45, 0.7, 1 / 3, 0.0, -0.1,
+                                 "below 0.5", "above 0.5"])
+def test_nms_words_at_exact_ious(cuda, thr):
+    """Boxes on a small integer grid meet many IoUs exactly at or one ulp
+    from the threshold (1/2, 1/3, 0): the kernel decides them without the
+    division only where two FMAs' signs do, so its words must still equal
+    the plain version's bit for bit."""
+    if isinstance(thr, str):
+        half = torch.tensor(0.5)
+        thr = float(torch.nextafter(half, torch.tensor(
+            0.0 if thr.startswith("below") else 1.0)))
+    g = torch.Generator(device=cuda).manual_seed(11)
+    xy = torch.randint(0, 4, (3, 200, 2), generator=g, device="cuda")
+    wh = torch.randint(0, 3, (3, 200, 2), generator=g, device="cuda")
+    boxes = torch.cat([xy, xy + wh], -1).float()
+    alive = torch.ones(3, 200, dtype=torch.bool, device="cuda")
+    words = kernels.nms_mask_words_cuda(boxes, alive, thr)
+    assert torch.equal(words,
+                       kernels.nms_mask_words_reference(boxes, alive, thr))
 
 
 def test_nms_through_nms_mask_on_the_card(cuda):
@@ -719,8 +763,31 @@ def test_nms_through_nms_mask_on_the_card(cuda):
     xy = torch.rand(4, 3, 50, 2, generator=g, device="cuda")
     boxes = torch.cat([xy, xy + 0.2], -1)
     scores = torch.rand(4, 3, 50, generator=g, device="cuda")
-    before = kernels.launch_counts()["nms_sweep"]
+    counts = kernels.launch_counts()
     order, keep = nn.nms_mask(boxes, scores, 0.5)
-    assert kernels.launch_counts()["nms_sweep"] == before + 1
+    after = kernels.launch_counts()
+    assert after["nms_mask_words"] == counts["nms_mask_words"] + 1
+    assert after["nms_sweep"] == counts["nms_sweep"] + 1
     o_cpu, k_cpu = nn.nms_mask(boxes.cpu(), scores.cpu(), 0.5)
     assert torch.equal(order.cpu(), o_cpu) and torch.equal(keep.cpu(), k_cpu)
+    with pytest.raises(ValueError, match="float32 boxes"):
+        nn.nms_mask(boxes.bfloat16(), scores, 0.5)
+
+
+def test_nms_mask_never_forms_the_iou_tensor(cuda):
+    """One ``nms_mask`` call at Mask R-CNN's class rows (80, 999) peaks
+    below 64 MB of device memory: the (80, 999, 999) fp32 IoU tensor alone
+    would be 319 MB; the words are 10.2 MB."""
+    from bigdl_tpu_torch import nn
+    g = torch.Generator(device=cuda).manual_seed(9)
+    boxes, _ = _nms_inputs(g, 80, 999)
+    scores = torch.rand(80, 999, generator=g, device="cuda")
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    order, keep = nn.nms_mask(boxes, scores, 0.5)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    print(f"peak of one nms_mask at (80, 999): {peak / 2**20:.2f} MiB")
+    assert peak < 64 * 2**20, peak
+    assert int(keep.sum()) > 0

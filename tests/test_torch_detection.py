@@ -3,8 +3,10 @@
 - the box functions (``pairwise_iou``, ``decode_ssd``/``encode_ssd``,
   ``decode_rcnn``, the base anchors) within 1e-6;
 - ``nms_mask``: order and keep bits equal to JAX's, with tied scores,
-  invalid candidates and a batch of rows; the sweep's plain version run
-  through the wrapper;
+  invalid candidates and a batch of rows; the NMS kernels' plain versions
+  (the suppression words and their sweep) equal to the IoU sweep and to
+  JAX's keep bits at ragged K, with ties, dead rows and degenerate boxes,
+  and the wrappers' refusals;
 - ``NormalizeScale``, ``PriorBox``, ``Anchor``, ``Proposal``,
   ``DetectionOutputSSD``, ``RoiPooling``/``RoiAlign`` (avg and max),
   ``FPN``, ``Pooler``, ``BoxHead``, ``MaskHead``, ``RegionProposal`` and
@@ -135,14 +137,106 @@ def test_nms_mask_matches_jax(ties, invalid):
 
 
 def test_nms_sweep_wrapper_refuses_bad_input():
-    iou = torch.zeros(2, 5, 5)
-    with pytest.raises(ValueError, match="bool alive"):
-        knms.nms_sweep(iou, torch.zeros(2, 5), 0.5)
-    with pytest.raises(ValueError, match=r"\(rows, K, K\)"):
-        knms.nms_sweep(iou[:, :, :4], torch.zeros(2, 5, dtype=torch.bool),
-                       0.5)
+    """``nms_keep``, ``nms_keep_cuda`` and the two word launches refuse a
+    bad shape or dtype by name, and a CPU tensor given to a CUDA entry."""
+    boxes = torch.zeros(2, 5, 4)
+    alive = torch.zeros(2, 5, dtype=torch.bool)
+    words = torch.zeros(2, 5, 1, dtype=torch.int64)
+    for fn in (knms.nms_keep, knms.nms_keep_cuda):
+        with pytest.raises(ValueError, match=r"boxes \(rows, K, 4\)"):
+            fn(boxes[..., :3], alive, 0.5)
+        with pytest.raises(ValueError, match="bool alive"):
+            fn(boxes, torch.zeros(2, 5), 0.5)
+        with pytest.raises(ValueError, match=r"alive \(rows, K\)"):
+            fn(boxes, alive[:, :4], 0.5)
+        with pytest.raises(ValueError, match="float32 boxes"):
+            fn(boxes.to(torch.int32), alive, 0.5)
     with pytest.raises(ValueError, match="CUDA tensors"):
-        knms.nms_sweep_cuda(iou, torch.zeros(2, 5, dtype=torch.bool), 0.5)
+        knms.nms_keep_cuda(boxes, alive, 0.5)
+    with pytest.raises(ValueError, match=r"boxes \(rows, K, 4\)"):
+        knms.nms_mask_words_cuda(boxes[0], alive, 0.5)
+    with pytest.raises(ValueError, match="float32 boxes"):
+        knms.nms_mask_words_cuda(boxes.double(), alive, 0.5)
+    with pytest.raises(ValueError, match="at most 32768"):
+        knms.nms_mask_words_cuda(torch.zeros(1, 32769, 4),
+                                 torch.zeros(1, 32769, dtype=torch.bool), 0.5)
+    with pytest.raises(ValueError, match="bool alive"):
+        knms.nms_mask_words_cuda(boxes, alive.float(), 0.5)
+    with pytest.raises(ValueError, match=r"alive \(rows, K\)"):
+        knms.nms_mask_words_cuda(boxes, alive[:1], 0.5)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        knms.nms_mask_words_cuda(boxes, alive, 0.5)
+    with pytest.raises(ValueError, match=r"ceil\(K/64\)"):
+        knms.nms_sweep_words_cuda(torch.zeros(2, 5, 2, dtype=torch.int64),
+                                  alive)
+    with pytest.raises(ValueError, match=r"ceil\(K/64\)"):
+        knms.nms_sweep_words_cuda(words[0], alive)
+    with pytest.raises(ValueError, match="int64 words"):
+        knms.nms_sweep_words_cuda(words.int(), alive)
+    with pytest.raises(ValueError, match="bool alive"):
+        knms.nms_sweep_words_cuda(words, alive.float())
+    with pytest.raises(ValueError, match=r"alive \(rows, K\)"):
+        knms.nms_sweep_words_cuda(words, alive[:1])
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        knms.nms_sweep_words_cuda(words, alive)
+
+
+def _nms_rows(k, seed):
+    """Three score-sorted rows of K boxes: one with duplicate boxes, tied
+    scores and a pair at IoU exactly 0.5; one of degenerate boxes (zero
+    area, inverted, +-inf and NaN coordinates); one dead (every score
+    -inf). Scores never increase along a row, +inf first and -inf last,
+    so JAX's stable argsort leaves every row in place; a candidate is alive
+    iff its score is finite."""
+    r = np.random.default_rng(seed)
+    boxes = np.stack([_boxes(seed + i, k, scale=8.0) for i in range(3)])
+    tied = np.sort(np.round(r.uniform(0, 1, (3, k)) * 4) / 4, -1)[:, ::-1]
+    scores = tied.astype(np.float32).copy()
+    b = boxes[0]
+    b[1::3] = b[0::3][:len(b[1::3])]                 # duplicates: IoU 1
+    if k > 5:
+        b[4] = [0, 0, 2, 1]                          # IoU(4, 5) = 0.5
+        b[5] = [0, 0, 1, 1]
+    d = boxes[1]
+    bad = [[1, 1, 1, 3], [3, 3, 2, 2], [0, 0, np.inf, 2],
+           [-np.inf, 0, 1, 1], [np.nan, 0, 1, 1], [0, 0, 1, np.nan],
+           [-np.inf, -np.inf, np.inf, np.inf], [2, 2, 2, 2]]
+    for i in range(0, k, 2):
+        d[i] = bad[(i // 2) % len(bad)]
+    scores[1, 0] = np.inf
+    scores[1, k - k // 4:] = -np.inf
+    scores[2] = -np.inf
+    return boxes.astype(np.float32), scores
+
+
+@pytest.mark.parametrize("k", [1, 63, 64, 65, 130])
+def test_nms_words_sweep_matches_iou_sweep_and_jax(k):
+    boxes, scores = _nms_rows(k, 40 + k)
+    thr = 0.5
+    jo, jk = jax.jit(jax.vmap(jdet.nms_mask, in_axes=(0, 0, None)))(
+        boxes, scores, thr)
+    np.testing.assert_array_equal(np.asarray(jo),
+                                  np.broadcast_to(np.arange(k), (3, k)))
+    b, alive = _t(boxes), torch.isfinite(_t(scores))
+    words = knms.nms_mask_words_reference(b, alive, thr)
+    assert words.shape == (3, k, -(-k // 64)) and words.dtype == torch.int64
+    got = knms.nms_sweep_words_reference(words, alive)
+    want = knms.nms_sweep_reference(tdet.pairwise_iou(b, b), alive, thr)
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+    # a dead candidate's bits are never set, and never read by the sweep
+    assert not words[2].any()
+    every = knms.nms_mask_words_reference(b, torch.ones_like(alive), thr)
+    assert torch.equal(words, every & words)
+    np.testing.assert_array_equal(
+        knms.nms_sweep_words_reference(every, alive).numpy(), got.numpy())
+    np.testing.assert_array_equal(got.numpy(), np.asarray(jk))
+    np.testing.assert_array_equal(knms.nms_keep(b, alive, thr).numpy(),
+                                  np.asarray(jk))
+    assert not got[2].any()
+    if k > 5:
+        assert float(tdet.pairwise_iou(b[0, 4:5], b[0, 5:6])) == 0.5
+        assert not int(every[0, 4, 0]) >> 5 & 1      # 0.5 is not > 0.5
+        assert 0 < int(got[0].sum()) < k
 
 
 def test_normalize_prior_anchor_match_jax():
